@@ -1,0 +1,89 @@
+"""Headline benchmark of the port: fv4 F-cycle DOF/s on a CUDA device.
+
+    python -m hpgmg_tpu_torch.bench [--n 512] [--dtype float32] ...
+
+Prints ONE JSON line with the keys of the JAX package's ``bench.py``
+(metric, value, unit, vs_baseline, n, dtype, smoother, bottom,
+rel_residual, seconds_per_solve, richardson_order, warnings,
+bicgstab_dof_per_s, bicgstab_vs_baseline) plus ``device``, the name of the
+device that ran it. The baseline is the reference's published FV
+4th-order F-cycle throughput, 2.781e8 DOF/s (BASELINE.md).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import torch
+
+from hpgmg_tpu_torch.bench.driver import device_name, run_benchmark
+from hpgmg_tpu_torch.core.config import BottomSolver, Smoother, SolverConfig
+
+BASELINE_DOF_S = 2.781e8
+
+_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m hpgmg_tpu_torch.bench")
+    ap.add_argument("--n", type=int, default=512)
+    ap.add_argument("--dtype", choices=sorted(_DTYPES), default="float32")
+    ap.add_argument("--bottom", choices=["direct", "bicgstab"], default="direct")
+    ap.add_argument("--min-coarse-dim", type=int, default=8)
+    ap.add_argument("--dynamic-range", type=int, default=3)
+    ap.add_argument("--min-seconds", type=float, default=2.0)
+    ap.add_argument("--no-bicgstab", action="store_true",
+                    help="skip the BiCGStab-bottom companion run")
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args(argv)
+
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        print("no CUDA device available", file=sys.stderr)
+        return 1
+
+    def cfg_for(bottom):
+        return SolverConfig(op="fv4", a=0.0, b=1.0, smoother=Smoother.GSRB,
+                            bottom=bottom, min_coarse_dim=args.min_coarse_dim,
+                            dtype=_DTYPES[args.dtype])
+
+    res = run_benchmark(args.n, cfg_for(BottomSolver(args.bottom)), device,
+                        min_solve_seconds=args.min_seconds,
+                        dynamic_range=args.dynamic_range, verbose=False)
+    out = {
+        "metric": f"fv4_fcycle_dof_per_s_n{args.n}",
+        "value": res.dof_per_second,
+        "unit": "DOF/s",
+        "vs_baseline": res.dof_per_second / BASELINE_DOF_S,
+        "n": args.n,
+        "dtype": args.dtype,
+        "smoother": "gsrb",
+        "bottom": args.bottom,
+        "rel_residual": res.rel_residual,
+        "seconds_per_solve": res.seconds_per_solve,
+        "device": device_name(device),
+    }
+    warnings = []
+    if res.richardson_order is not None:
+        out["richardson_order"] = res.richardson_order
+        if res.richardson_order < 3.0:
+            warnings.append(f"richardson_order {res.richardson_order:.3f} < 3.0: "
+                            "4th-order operator regression")
+    if res.rel_residual > 1e-3:
+        warnings.append(f"rel_residual {res.rel_residual:.3e} > 1e-3: F-cycle "
+                        "failed to reach the discretization-error regime")
+    if warnings:
+        out["warnings"] = warnings
+    if not args.no_bicgstab:
+        res_b = run_benchmark(args.n, cfg_for(BottomSolver.BICGSTAB), device,
+                              min_solve_seconds=args.min_seconds, verbose=False)
+        out["bicgstab_dof_per_s"] = res_b.dof_per_second
+        out["bicgstab_vs_baseline"] = res_b.dof_per_second / BASELINE_DOF_S
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

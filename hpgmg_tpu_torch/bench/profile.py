@@ -1,0 +1,219 @@
+"""Where the time of the port's F-cycle goes, on one CUDA device.
+
+    python -m hpgmg_tpu_torch.bench.profile [--n 512] [--dtype float32]
+        [--solves 5] [--ab] [--json PATH]
+
+On the benchmark's problem and hierarchy (``bench/driver.py:build``), after
+a warm-up solve:
+
+1. the chain of ``--solves`` data-dependent F-cycles (the driver's
+   protocol) timed with CUDA events, without and then under
+   ``torch.profiler``: wall ms per solve both ways (their ratio is the
+   profiler's overhead), the device time per kernel name summed over the
+   profiled chain, and the idle share of that same chain,
+   1 - (summed kernel time) / (its wall time) (one stream, so kernels do
+   not overlap);
+2. per level, one V-cycle from that level: device ms (CUDA events) and
+   host enqueue ms (the host clock around the call, no sync);
+3. with ``--ab``: phase 2 again with the fused kernels off (K1 half-sweeps
+   on every level, no K4 tail); one smoother call per level above the
+   tail through K2 and through K1 half-sweeps (what sets
+   ``stencils.GSRB2_MAX_DIM``); and the chain's ms per solve with the
+   shipped schedule and with the fused kernels off. Each A/B runs in turns
+   on, off, off, on.
+
+Prints one line per number; ``--json`` also writes them to a file.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import time
+
+import torch
+from torch.autograd import DeviceType
+
+from hpgmg_tpu_torch.bench.driver import build
+from hpgmg_tpu_torch.core.config import BottomSolver, Smoother, SolverConfig
+from hpgmg_tpu_torch.kernels import stencils, tail
+from hpgmg_tpu_torch.ops.base import get_suite
+from hpgmg_tpu_torch.ops.transfer import restrict_cell
+from hpgmg_tpu_torch.solve.mg import fmg_solve, vcycle
+
+
+def _chain(op, hier, f, cfg, num: int):
+    dep = torch.zeros((), dtype=f.dtype, device=f.device)
+    for _ in range(num):
+        _, nr, _ = fmg_solve(op, hier, f + dep, cfg)
+        dep = 0.0 * nr
+
+
+def _events_ms(fn) -> float:
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def _self_device_us(evt) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, attr):
+            return float(getattr(evt, attr))
+    return 0.0
+
+
+def profile_chain(op, hier, f, cfg, solves: int) -> dict:
+    """Phase 1: the chain with and without the profiler, per-kernel device
+    time and the idle share of the profiled chain."""
+    from torch.profiler import ProfilerActivity, profile
+
+    plain_ms = _events_ms(lambda: _chain(op, hier, f, cfg, solves)) / solves
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_ms = _events_ms(lambda: _chain(op, hier, f, cfg, solves)) / solves
+    rows = []
+    for evt in prof.key_averages():
+        us = _self_device_us(evt)
+        # kernels only: the rows of aten ops repeat their kernels' time
+        if us > 0 and getattr(evt, "device_type", None) == DeviceType.CUDA:
+            rows.append((evt.key, us / 1000.0 / solves, evt.count / solves))
+    rows.sort(key=lambda r: -r[1])
+    busy = sum(r[1] for r in rows)
+    return {"ms_per_solve": plain_ms, "ms_per_solve_profiled": prof_ms,
+            "device_ms_per_solve": busy, "idle_share": 1.0 - busy / prof_ms,
+            "kernels": [{"name": k, "ms_per_solve": ms, "calls_per_solve": c}
+                        for k, ms, c in rows]}
+
+
+def per_level(op, hier, f, cfg) -> list:
+    """Phase 2: one V-cycle from each level (zero start), device ms and host
+    enqueue ms."""
+    rhs = [f]
+    for _ in range(len(hier.levels) - 1):
+        rhs.append(restrict_cell(rhs[-1]))
+    out = []
+    for lev, lv in enumerate(hier.levels):
+        def run():
+            return vcycle(op, hier.levels, lev, torch.zeros_like(rhs[lev]),
+                          rhs[lev], cfg)
+
+        run()
+        device_ms = _events_ms(run)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        host_ms = (time.perf_counter() - t0) * 1000.0
+        torch.cuda.synchronize()
+        out.append({"dim": lv.dim, "device_ms": device_ms, "host_enqueue_ms": host_ms})
+    return out
+
+
+@contextlib.contextmanager
+def schedule(gsrb2_max_dim: int, tail_fuse: bool):
+    """Set the levels K2 smooths (``stencils.GSRB2_MAX_DIM``) and whether
+    the tail goes through K4 for the duration."""
+    old = (stencils.GSRB2_MAX_DIM, tail.TAIL_FUSE)
+    stencils.GSRB2_MAX_DIM, tail.TAIL_FUSE = gsrb2_max_dim, tail_fuse
+    try:
+        yield
+    finally:
+        stencils.GSRB2_MAX_DIM, tail.TAIL_FUSE = old
+
+
+def fused(on: bool):
+    """The shipped schedule (on) or K1 half-sweeps and no tail (off)."""
+    return schedule(stencils.GSRB2_MAX_DIM if on else 0, on)
+
+
+def smooth_ab(op, hier, f, cfg, reps: int = 5) -> list:
+    """Phase 3: one smoother call (6 half-sweeps) per level through K2 and
+    through K1 half-sweeps, device ms per call, in turns K2/K1/K1/K2, from
+    a smoothed iterate."""
+    nsweeps = 2 * cfg.resolved_num_smooths(op)
+    rhs = f
+    out = []
+    for lv in hier.levels:
+        if tail.use_tail(op, cfg, hier.levels, lv.depth) or lv is hier.levels[-1]:
+            break
+        x = op.gsrb_smooth(lv, torch.zeros_like(rhs), rhs, cfg, nsweeps)
+        row = {"dim": lv.dim, "k2_ms": [], "k1_ms": []}
+        for k2 in (True, False, False, True):
+            with schedule(lv.dim if k2 else 0, True):
+                op.gsrb_smooth(lv, x, rhs, cfg, nsweeps)
+                ms = _events_ms(lambda: [op.gsrb_smooth(lv, x, rhs, cfg, nsweeps)
+                                         for _ in range(reps)]) / reps
+            row["k2_ms" if k2 else "k1_ms"].append(ms)
+        out.append(row)
+        rhs = restrict_cell(rhs)
+    return out
+
+
+def fused_ab(op, hier, f, cfg, solves: int) -> list:
+    """Phase 3: ms per solve with K2/K4 on and off, in turns on/off/off/on."""
+    out = []
+    for on in (True, False, False, True):
+        with fused(on):
+            _chain(op, hier, f, cfg, 1)
+            ms = _events_ms(lambda: _chain(op, hier, f, cfg, solves)) / solves
+        out.append({"fused": on, "ms_per_solve": ms})
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--n", type=int, default=512)
+    ap.add_argument("--dtype", choices=("float32", "float64"), default="float32")
+    ap.add_argument("--solves", type=int, default=5)
+    ap.add_argument("--ab", action="store_true")
+    ap.add_argument("--json", default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("bench.profile needs a CUDA device")
+
+    cfg = SolverConfig(op="fv4", a=0.0, b=1.0, smoother=Smoother.GSRB,
+                       bottom=BottomSolver.DIRECT, min_coarse_dim=8,
+                       dtype=getattr(torch, args.dtype))
+    op = get_suite("fv4")
+    hier, f = build(args.n, cfg, torch.device("cuda"))
+    fmg_solve(op, hier, f, cfg)  # warm-up
+    res = {"n": args.n, "dtype": args.dtype, "solves": args.solves,
+           "device": torch.cuda.get_device_name(0)}
+    res["chain"] = profile_chain(op, hier, f, cfg, args.solves)
+    c = res["chain"]
+    print(f"F-cycle {args.n}^3 {args.dtype}: {c['ms_per_solve']:.4f} ms/solve, "
+          f"{c['ms_per_solve_profiled']:.4f} under the profiler; device "
+          f"{c['device_ms_per_solve']:.4f} ms/solve; idle share {c['idle_share']:.4f}")
+    for k in c["kernels"][:20]:
+        print(f"  {k['ms_per_solve']:9.4f} ms/solve {k['calls_per_solve']:8.1f} "
+              f"calls/solve  {k['name'][:90]}")
+    res["levels"] = per_level(op, hier, f, cfg)
+    for row in res["levels"]:
+        print(f"  V-cycle from {row['dim']:4d}^3: device {row['device_ms']:.4f} ms, "
+              f"host enqueue {row['host_enqueue_ms']:.4f} ms")
+    if args.ab:
+        with fused(False):
+            res["levels_unfused"] = per_level(op, hier, f, cfg)
+        for row in res["levels_unfused"]:
+            print(f"  V-cycle from {row['dim']:4d}^3, K2/K4 off: device "
+                  f"{row['device_ms']:.4f} ms, host enqueue {row['host_enqueue_ms']:.4f} ms")
+        res["smooth_ab"] = smooth_ab(op, hier, f, cfg)
+        for row in res["smooth_ab"]:
+            print(f"  smoother {row['dim']:4d}^3: K2 {row['k2_ms']} ms, "
+                  f"K1 half-sweeps {row['k1_ms']} ms")
+        res["fused_ab"] = fused_ab(op, hier, f, cfg, args.solves)
+        for row in res["fused_ab"]:
+            print(f"  fused K2/K4 {'on ' if row['fused'] else 'off'}: "
+                  f"{row['ms_per_solve']:.4f} ms/solve")
+    if args.json:
+        with open(args.json, "w") as fh:
+            json.dump(res, fh, indent=1)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

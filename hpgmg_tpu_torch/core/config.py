@@ -1,0 +1,102 @@
+"""Runtime solver configuration (counterpart of hpgmg_tpu/core/config.py).
+
+One frozen dataclass selects operator, smoother, bottom solver and cycle.
+There is no kernel switch: the port dispatches on the device of the
+tensors it is given (CUDA tensors launch the hand-written kernels, CPU
+tensors take their plain PyTorch versions).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Optional
+
+import torch
+
+
+class BC(enum.Enum):
+    """Boundary condition (reference: level.h:24-25)."""
+
+    DIRICHLET = "dirichlet"  # homogeneous Dirichlet (u = 0 on the boundary)
+    PERIODIC = "periodic"  # not ported yet: ghost fills raise
+
+
+class Smoother(enum.Enum):
+    GSRB = "gsrb"  # red-black Gauss-Seidel, GSRB_FP masked variant
+    CHEBYSHEV = "chebyshev"  # not ported yet
+    JACOBI = "jacobi"  # not ported yet
+    L1JACOBI = "l1jacobi"  # not ported yet
+    SYMGS = "symgs"  # not ported yet
+
+
+class BottomSolver(enum.Enum):
+    BICGSTAB = "bicgstab"  # Saad Alg 7.7 with diagonal preconditioning
+    CG = "cg"  # not ported yet
+    CABICGSTAB = "cabicgstab"  # not ported yet
+    CACG = "cacg"  # not ported yet
+    SMOOTH = "smooth"  # not ported yet
+    # dense inverse of the coarsest operator, built at hierarchy build
+    # time: every bottom solve is one small matvec
+    DIRECT = "direct"
+
+
+class CycleType(enum.Enum):
+    V = "V"
+    F = "F"
+
+
+# GSRB smooths per pre/post smooth call; the fv4 suite overrides GSRB to 3
+# (operators.fv4.c smoother wiring)
+_DEFAULT_NUM_SMOOTHS = {
+    Smoother.GSRB: 2,
+    Smoother.CHEBYSHEV: 1,
+    Smoother.JACOBI: 6,
+    Smoother.L1JACOBI: 8,
+    Smoother.SYMGS: 2,
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverConfig:
+    """Static configuration of one multigrid solve.
+
+    a, b: coefficients of ``a*alpha*u - b*div(beta grad u) = f``;
+    ``helmholtz=False`` drops the ``a*alpha`` term (pure Poisson).
+    dtype: the solve dtype (torch.float32 or torch.float64); every tensor
+    the solver creates takes it explicitly.
+    """
+
+    op: str = "fv4"
+    bc: BC = BC.DIRICHLET
+    helmholtz: bool = False
+    a: float = 1.0
+    b: float = 1.0
+
+    smoother: Smoother = Smoother.GSRB
+    # None => the operator suite's default (GSRB: 3 smooths for fv4)
+    num_smooths: Optional[int] = None
+
+    bottom: BottomSolver = BottomSolver.DIRECT
+    bottom_rtol: float = 1e-3  # MG_DEFAULT_BOTTOM_NORM (mg.h:18-19)
+    bottom_max_iters: int = 200  # jMax in bicgstab.c:26
+
+    cycle: CycleType = CycleType.F
+    max_vcycles: int = 20  # MGSolve cap (mg.c:1176)
+    rtol: float = 1e-10
+
+    min_coarse_dim: int = 2  # coarsen while dims even and > this
+    dtype: torch.dtype = torch.float32
+
+    def resolved_num_smooths(self, suite=None) -> int:
+        if self.num_smooths is not None:
+            return self.num_smooths
+        if suite is not None and self.smoother == Smoother.GSRB:
+            return getattr(suite, "gsrb_num_smooths",
+                           _DEFAULT_NUM_SMOOTHS[self.smoother])
+        return _DEFAULT_NUM_SMOOTHS[self.smoother]
+
+    def __post_init__(self):
+        if self.dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"solve dtype must be float32 or float64, "
+                             f"got {self.dtype}")

@@ -1,0 +1,46 @@
+"""Carry a hierarchy built elsewhere (numpy copies of the JAX package's
+level fields) into the port's ``Hierarchy``.
+
+Each level is a mapping with ``dim``, ``h``, ``depth`` and numpy arrays for
+the fields it has: ``beta_i/j/k`` (tangentially extended, as the JAX
+``rebuild_operator`` leaves them), ``alpha``, ``dinv``, ``kdinv`` (a pair),
+``lambda_max`` and ``bottom_ainv``. Arrays are copied (``torch.tensor``),
+not shared: a zero-copy DLPack export of a JAX CPU array fails with
+"Cannot export readonly array". Where a level has ``dinv`` but no
+``kdinv`` (the JAX package attaches it only to its kernel levels), the
+parity-folded pair is rebuilt from ``dinv``.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Mapping, Sequence
+
+import numpy as np
+import torch
+
+from hpgmg_tpu_torch.core.config import SolverConfig
+from hpgmg_tpu_torch.core.hierarchy import Hierarchy
+from hpgmg_tpu_torch.core.level import Level, rb_mask
+
+_FIELDS = ("beta_i", "beta_j", "beta_k", "alpha", "dinv", "lambda_max",
+           "bottom_ainv")
+
+
+def hierarchy_from_numpy(levels: Sequence[Mapping[str, Any]],
+                         cfg: SolverConfig, device) -> Hierarchy:
+    device = torch.device(device)
+
+    def tensor(a):
+        return torch.tensor(np.asarray(a), dtype=cfg.dtype, device=device)
+
+    out = []
+    for lv in levels:
+        kw = {f: tensor(lv[f]) for f in _FIELDS if lv.get(f) is not None}
+        n = int(lv["dim"])
+        if lv.get("kdinv") is not None:
+            kw["kdinv"] = tuple(tensor(k) for k in lv["kdinv"])
+        elif "dinv" in kw:
+            kw["kdinv"] = tuple(rb_mask(n, p, cfg.dtype, device) * kw["dinv"]
+                                for p in (0, 1))
+        out.append(Level(dim=n, h=float(lv["h"]), depth=int(lv["depth"]), **kw))
+    return Hierarchy(levels=out)

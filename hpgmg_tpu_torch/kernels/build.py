@@ -1,0 +1,115 @@
+"""Build the CUDA kernels under ``csrc/`` with nvcc and load them with ctypes.
+
+All ``csrc/*.cu`` sources (and the ``csrc/*.cuh`` header they share)
+compile into ONE shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds). The library is
+built at first use into ``kernels/_build/`` (listed in .gitignore), named by
+a hash of the sources and the flags, so an edited source rebuilds and an
+unchanged one loads the existing file. Nothing here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_D = ctypes.c_double
+
+# C entry points: name -> argtypes (every pointer and the stream as
+# c_void_p, or ctypes would cut them to 32-bit ints). All return the
+# cudaError_t of the launch as an int.
+_SIGNATURES = {
+    # (x, out, m, stream): x is (2m)^3, out m^3
+    "hpgmg_restrict_cell_f32": (_P, _P, _I, _P),
+    "hpgmg_restrict_cell_f64": (_P, _P, _I, _P),
+    # (x, xp, n, stream): xp is (n+4)^3, x with its ghost shell
+    "hpgmg_fv4_ghost_fill_f32": (_P, _P, _I, _P),
+    "hpgmg_fv4_ghost_fill_f64": (_P, _P, _I, _P),
+    # (xp, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out, n, mode, scale,
+    #  a_coef, stream)
+    "hpgmg_fv4_stencil_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _D, _D,
+                              _P),
+    "hpgmg_fv4_stencil_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _D, _D,
+                              _P),
+    # (x, beta_i, beta_j, beta_k, alpha, rhs, kdinv0, kdinv1, xp, yp, out, n,
+    #  scale, a_coef, stream); xp, yp are (n+4)^3 scratch buffers
+    "hpgmg_fv4_gsrb2_f32": (_P,) * 11 + (_I, _D, _D, _P),
+    "hpgmg_fv4_gsrb2_f64": (_P,) * 11 + (_I, _D, _D, _P),
+    # (ptrs, dims, scales, nlev, nsweeps, a_coef, x_in | u_bot, xp, tmp,
+    #  stream); ptrs is a host array of 9 device pointers per level
+    "hpgmg_tail_down_f32": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P),
+    "hpgmg_tail_down_f64": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P),
+    "hpgmg_tail_up_f32": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P),
+    "hpgmg_tail_up_f64": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P),
+}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built "
+                           "(set CUDA_HOME or put nvcc on PATH)")
+    return path
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted([*_sources(), *CSRC.glob("*.cuh")]):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"hpgmg_kernels-{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile the library unless a build of these exact sources exists.
+    The compiler's output (with ptxas register/spill counts) is kept
+    beside it as ``<library>.log``."""
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in _sources()]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call), with every entry
+    point's argtypes and restype declared."""
+    lib = ctypes.CDLL(str(build()))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    return lib

@@ -1,0 +1,137 @@
+"""The port's CUDA kernels on a card: K1's ghost pass and each K1 mode, K2,
+K3 and K4's two halves against their plain versions on the same CUDA
+tensors, and a small F-cycle through the kernels against the same F-cycle
+on the CPU. max|kernel - plain| /
+max|plain| <= 1e-12 in float64, 1e-5 in float32 (the kernel sums the
+stencil in another order than the plain version).
+
+Marked ``cuda``: without a CUDA device (and nvcc) every test skips. On a
+card: python -m pytest tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hpgmg_tpu_torch.core.config import BottomSolver, SolverConfig
+from hpgmg_tpu_torch.core.level import Level, rb_mask
+from hpgmg_tpu_torch.kernels import restrict as R
+from hpgmg_tpu_torch.kernels import stencils as S
+from hpgmg_tpu_torch.kernels import tail as T
+from hpgmg_tpu_torch.ops.bc_fv import ghost_fill_fv
+from hpgmg_tpu_torch.ops.base import get_suite
+from hpgmg_tpu_torch.problems.fv import init_problem_fv
+from hpgmg_tpu_torch.core.hierarchy import build_hierarchy
+from hpgmg_tpu_torch.solve.mg import fmg_solve
+
+pytestmark = pytest.mark.cuda
+TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc")
+    return torch.device("cuda")
+
+
+def relerr(out, ref) -> float:
+    return ((out - ref).abs().max() / ref.abs().max()).item()
+
+
+def _level(n, dtype, dev, rng):
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    beta = [t(1.0 + 0.25 * rng.random(s)) for s in
+            ((n + 1, n + 2, n + 2), (n + 2, n + 1, n + 2), (n + 2, n + 2, n + 1))]
+    dinv = t((0.5 + rng.random((n, n, n))) / (8.0 * n * n))  # ~ h^2/8
+    return Level(dim=n, h=1.0 / n, depth=0, beta_i=beta[0], beta_j=beta[1],
+                 beta_k=beta[2], alpha=t(rng.random((n, n, n))), dinv=dinv,
+                 kdinv=tuple(rb_mask(n, p, dtype, dev) * dinv for p in (0, 1)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [8, 48])
+def test_k1_modes_match_plain(dev, n, dtype):
+    rng = np.random.default_rng(n)
+    lv = _level(n, dtype, dev, rng)
+    x, rhs = (torch.tensor(a, dtype=dtype, device=dev)
+              for a in rng.standard_normal((2, n, n, n)))
+    poisson = SolverConfig(a=0.0, dtype=dtype)
+    helm = SolverConfig(a=1.5, helmholtz=True, dtype=dtype)
+    cases = [("apply", poisson, {}), ("residual", poisson, {"rhs": rhs}),
+             ("gsrb", poisson, {"rhs": rhs, "kdinv": lv.kdinv[0]}),
+             ("gsrb", poisson, {"rhs": rhs, "kdinv": lv.kdinv[1]}),
+             ("fres", poisson, {"rhs": rhs}), ("apply", helm, {})]
+    launches = S.fv4_stencil_cuda.launches
+    ghost = S.fv4_ghost_fill_cuda.launches
+    for mode, cfg, kw in cases:
+        out = S.fv4_stencil(lv, x, cfg, mode, **kw)
+        assert out.is_cuda
+        assert relerr(out, S.fv4_stencil_plain(lv, x, cfg, mode, **kw)) <= TOL[dtype]
+    assert S.fv4_stencil_cuda.launches == launches + len(cases)
+    assert S.fv4_ghost_fill_cuda.launches == ghost + len(cases)
+    assert relerr(S.fv4_ghost_fill_cuda(x),
+                  ghost_fill_fv(x, poisson.bc, order=4, radius=2)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [8, 48, 256])
+def test_k2_matches_plain(dev, n, dtype):
+    rng = np.random.default_rng(n + 1)
+    lv = _level(n, dtype, dev, rng)
+    x, rhs = (torch.tensor(a, dtype=dtype, device=dev)
+              for a in rng.standard_normal((2, n, n, n)))
+    for cfg in (SolverConfig(a=0.0, dtype=dtype),
+                SolverConfig(a=1.5, helmholtz=True, dtype=dtype)):
+        launches = S.fv4_gsrb2_cuda.launches
+        out = S.fv4_gsrb2(lv, x, rhs, cfg)
+        assert S.fv4_gsrb2_cuda.launches == launches + 1
+        assert relerr(out, S.fv4_gsrb2_plain(lv, x, rhs, cfg)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dims", [(32, 16), (16,)])
+def test_k4_matches_plain(dev, dims, dtype):
+    rng = np.random.default_rng(dims[0])
+    tail = [_level(d, dtype, dev, rng) for d in dims]
+    cfg = SolverConfig(a=0.0, dtype=dtype)
+    e, rhs = (torch.tensor(a, dtype=dtype, device=dev)
+              for a in rng.standard_normal((2,) + tail[0].shape))
+    es, rhss = T.tail_down(tail, e, rhs, cfg, 6)
+    es_p, rhss_p = T.tail_down_plain(tail, e, rhs, cfg, 6)
+    for got, want in zip(es + rhss, es_p + rhss_p):
+        assert relerr(got, want) <= TOL[dtype]
+    d = dims[-1] // 2
+    u_bot = torch.tensor(rng.standard_normal((d, d, d)), dtype=dtype, device=dev)
+    up = T.tail_up(tail, es_p, [rhs] + rhss_p[:-1], u_bot, cfg, 6)
+    want = T.tail_up_plain(tail, es_p, [rhs] + rhss_p[:-1], u_bot, cfg, 6)
+    assert relerr(up, want) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [2, 16, 64])
+def test_k3_matches_plain(dev, n, dtype):
+    x = torch.tensor(np.random.default_rng(n).standard_normal((n, n, n)),
+                     dtype=dtype, device=dev)
+    launches = R.restrict_cell_cuda.launches
+    out = R.restrict_cell(x)
+    assert R.restrict_cell_cuda.launches == launches + 1
+    assert relerr(out, R.restrict_cell_plain(x)) <= TOL[dtype]
+
+
+def test_fcycle_through_kernels_matches_cpu(dev):
+    """64^3: K2 smooths and K1 restricts the 64^3 level, K4 runs the
+    32-16 tail, the DIRECT bottom is 8^3."""
+    cfg = SolverConfig(op="fv4", a=0.0, dtype=torch.float64,
+                       bottom=BottomSolver.DIRECT, min_coarse_dim=8)
+    sols = []
+    for device in (dev, torch.device("cpu")):
+        prob = init_problem_fv(64, torch.float64, device)
+        hier = build_hierarchy(prob.beta_i, prob.beta_j, prob.beta_k, cfg)
+        u, nr, nf = fmg_solve(get_suite("fv4"), hier, prob.f, cfg)
+        sols.append((u.cpu(), float(nr) / float(nf)))
+    (ug, rg), (uc, rc) = sols
+    assert relerr(ug, uc) <= 1e-10
+    assert abs(rg - rc) <= 1e-6 * rc
