@@ -1,6 +1,7 @@
-"""Headline benchmark of the port: fv4 F-cycle DOF/s on a CUDA device.
+"""Headline benchmark of the port: F-cycle DOF/s on a CUDA device, fv4 by
+default, or another suite with ``--op fv7pt | fv2 | 27pt``.
 
-    python -m hpgmg_tpu_torch.bench [--n 512] [--dtype float32] ...
+    python -m hpgmg_tpu_torch.bench [--n 512] [--op fv4] [--problem p6] ...
 
 Prints ONE JSON line with the keys of the JAX package's ``bench.py``
 (metric, value, unit, vs_baseline, n, dtype, smoother, bottom,
@@ -18,17 +19,25 @@ import sys
 
 import torch
 
-from hpgmg_tpu_torch.bench.driver import device_name, run_benchmark
-from hpgmg_tpu_torch.core.config import BottomSolver, Smoother, SolverConfig
+from hpgmg_tpu_torch.bench.driver import PROBLEMS, device_name, run_benchmark
+from hpgmg_tpu_torch.core.config import OPS, BottomSolver, Smoother, SolverConfig
 
 BASELINE_DOF_S = 2.781e8
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+# per suite: its discretization order (a Richardson order more than one
+# below it is flagged) and the rel_residual one F-cycle should reach
+_LIMITS = {"fv4": (4.0, 1e-3), "fv7pt": (2.0, 1e-2), "fv2": (2.0, 1e-2),
+           "27pt": (2.0, 1e-2)}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m hpgmg_tpu_torch.bench")
     ap.add_argument("--n", type=int, default=512)
+    ap.add_argument("--op", choices=OPS, default="fv4")
+    ap.add_argument("--problem", choices=PROBLEMS, default=None,
+                    help="problem override (default: fv for fv2/fv4, p6 for "
+                         "fv7pt/27pt)")
     ap.add_argument("--dtype", choices=sorted(_DTYPES), default="float32")
     ap.add_argument("--bottom", choices=["direct", "bicgstab"], default="direct")
     ap.add_argument("--min-coarse-dim", type=int, default=8)
@@ -45,15 +54,16 @@ def main(argv=None) -> int:
         return 1
 
     def cfg_for(bottom):
-        return SolverConfig(op="fv4", a=0.0, b=1.0, smoother=Smoother.GSRB,
+        return SolverConfig(op=args.op, a=0.0, b=1.0, smoother=Smoother.GSRB,
                             bottom=bottom, min_coarse_dim=args.min_coarse_dim,
                             dtype=_DTYPES[args.dtype])
 
     res = run_benchmark(args.n, cfg_for(BottomSolver(args.bottom)), device,
                         min_solve_seconds=args.min_seconds,
-                        dynamic_range=args.dynamic_range, verbose=False)
+                        dynamic_range=args.dynamic_range, verbose=False,
+                        problem=args.problem)
     out = {
-        "metric": f"fv4_fcycle_dof_per_s_n{args.n}",
+        "metric": f"{args.op}_fcycle_dof_per_s_n{args.n}",
         "value": res.dof_per_second,
         "unit": "DOF/s",
         "vs_baseline": res.dof_per_second / BASELINE_DOF_S,
@@ -66,19 +76,21 @@ def main(argv=None) -> int:
         "device": device_name(device),
     }
     warnings = []
+    want, rel_limit = _LIMITS[args.op]
     if res.richardson_order is not None:
         out["richardson_order"] = res.richardson_order
-        if res.richardson_order < 3.0:
-            warnings.append(f"richardson_order {res.richardson_order:.3f} < 3.0: "
-                            "4th-order operator regression")
-    if res.rel_residual > 1e-3:
-        warnings.append(f"rel_residual {res.rel_residual:.3e} > 1e-3: F-cycle "
-                        "failed to reach the discretization-error regime")
+        if res.richardson_order < want - 1.0:
+            warnings.append(f"richardson_order {res.richardson_order:.3f} < "
+                            f"{want - 1.0}: order-{want:g} operator regression")
+    if res.rel_residual > rel_limit:
+        warnings.append(f"rel_residual {res.rel_residual:.3e} > {rel_limit:g}: "
+                        "F-cycle failed to reach the discretization-error regime")
     if warnings:
         out["warnings"] = warnings
     if not args.no_bicgstab:
         res_b = run_benchmark(args.n, cfg_for(BottomSolver.BICGSTAB), device,
-                              min_solve_seconds=args.min_seconds, verbose=False)
+                              min_solve_seconds=args.min_seconds, verbose=False,
+                              problem=args.problem)
         out["bicgstab_dof_per_s"] = res_b.dof_per_second
         out["bicgstab_vs_baseline"] = res_b.dof_per_second / BASELINE_DOF_S
     print(json.dumps(out))

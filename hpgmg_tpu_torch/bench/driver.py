@@ -7,22 +7,34 @@ previous one, so no solve can start before the last finished), reporting
 DOF/s = n^3 * solves / seconds. On a CUDA device the chain is timed with
 CUDA events; on the CPU with the host clock, and the result names the
 device it ran on. ``dynamic_range=3`` also solves at 2h and 4h for the
-Richardson order (hpgmg-fv.c:320-329).
+Richardson order (hpgmg-fv.c:320-329). ``run_test_error`` is the
+TEST_ERROR mode: errors against a pointwise problem's analytic solution.
+
+Problems per suite (hpgmg_tpu/bench/driver.py:_build_problem): fv2 and fv4
+take the cell-averaged problem of ``problems/fv.py``, fv7pt and 27pt the
+pointwise p6; ``problem`` overrides with fv, p4, p6 or sine.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Optional
 
 import torch
 
+from hpgmg_tpu_torch.core import blas
 from hpgmg_tpu_torch.core.config import CycleType, SolverConfig
 from hpgmg_tpu_torch.core.hierarchy import build_hierarchy, slim_hierarchy
 from hpgmg_tpu_torch.ops.base import get_suite
 from hpgmg_tpu_torch.problems.fv import init_problem_fv
+from hpgmg_tpu_torch.problems.p4 import init_problem_p4
+from hpgmg_tpu_torch.problems.p6 import init_problem_p6
+from hpgmg_tpu_torch.problems.sine import init_problem_sine
 from hpgmg_tpu_torch.solve.mg import fmg_solve, mg_solve_fixed, richardson_error
+
+PROBLEMS = ("fv", "p4", "p6", "sine")
 
 
 @dataclasses.dataclass
@@ -43,14 +55,60 @@ def device_name(device: torch.device) -> str:
     return device.type
 
 
-def build(n: int, cfg: SolverConfig, device: torch.device):
-    """The fv4 benchmark problem's slimmed hierarchy and rhs on ``device``."""
-    if cfg.op != "fv4":
-        raise NotImplementedError(f"operator {cfg.op!r} is not ported yet")
-    prob = init_problem_fv(n, dtype=cfg.dtype, device=device)
+def build_problem(n: int, cfg: SolverConfig, device: torch.device,
+                  problem: Optional[str] = None):
+    """The suite's problem at n^3 on ``device``: fv for fv2/fv4, p6 for
+    fv7pt/27pt, unless ``problem`` names one of ``PROBLEMS``. The pointwise
+    problems (p4, p6, sine) carry ``u_true``."""
+    if problem is None:
+        problem = "fv" if cfg.op in ("fv2", "fv4") else "p6"
+    if problem == "fv":
+        return init_problem_fv(n, dtype=cfg.dtype, device=device)
+    kw = dict(a=cfg.a, b=cfg.b, helmholtz=cfg.helmholtz)
+    if problem == "sine":
+        return init_problem_sine(n, cfg.dtype, device, **kw)
+    if problem == "p4":
+        return init_problem_p4(n, cfg.dtype, device, **kw)
+    if problem == "p6":
+        return init_problem_p6(n, cfg.dtype, device, **kw)
+    raise ValueError(f"unknown problem {problem!r}; have {PROBLEMS}")
+
+
+def build(n: int, cfg: SolverConfig, device: torch.device,
+          problem: Optional[str] = None):
+    """The benchmark problem's slimmed hierarchy and rhs on ``device``."""
+    prob = build_problem(n, cfg, device, problem)
     hier = build_hierarchy(prob.beta_i, prob.beta_j, prob.beta_k, cfg,
                            alpha=prob.alpha if cfg.helmholtz else None)
     return slim_hierarchy(hier, cfg), prob.f
+
+
+def run_test_error(n: int, cfg: SolverConfig, device="cuda",
+                   problem: str = "p6", levels: int = 3,
+                   verbose: bool = True):
+    """TEST_ERROR mode (hpgmg-fv.c:317-348): one F-cycle at h, 2h, 4h of a
+    pointwise problem with an analytic solution (p4, p6, sine), and the
+    error against it. Returns [(n, max_err, l2_err), ...] fine to coarse."""
+    device = torch.device(device)
+    op = get_suite(cfg.op)
+    rows = []
+    for lev in range(levels):
+        nl = n >> lev
+        prob = build_problem(nl, cfg, device, problem)
+        hier = build_hierarchy(prob.beta_i, prob.beta_j, prob.beta_k, cfg,
+                               alpha=prob.alpha if cfg.helmholtz else None)
+        u, _, _ = fmg_solve(op, hier, prob.f, cfg)
+        e = u - prob.u_true
+        rows.append((nl, float(blas.norm(e)), float(torch.sqrt(blas.mean(e * e)))))
+        if verbose:
+            print(f"  h={1.0 / nl:.6e}  {nl}^3  error_max={rows[-1][1]:.6e}  "
+                  f"error_L2={rows[-1][2]:.6e}")
+    if verbose and len(rows) >= 2:
+        orders = [math.log2(rows[i + 1][1] / rows[i][1])
+                  for i in range(len(rows) - 1)]
+        print("  observed order (max-norm): "
+              + ", ".join(f"{o:.2f}" for o in orders))
+    return rows
 
 
 def _elapsed(device: torch.device, fn) -> float:
@@ -72,11 +130,11 @@ def _elapsed(device: torch.device, fn) -> float:
 
 def run_benchmark(n: int, cfg: SolverConfig, device="cuda",
                   min_solve_seconds: float = 1.0, max_solves: int = 100,
-                  dynamic_range: int = 1,
-                  verbose: bool = True) -> BenchResult:
+                  dynamic_range: int = 1, verbose: bool = True,
+                  problem: Optional[str] = None) -> BenchResult:
     device = torch.device(device)
     op = get_suite(cfg.op)
-    hier, f = build(n, cfg, device)
+    hier, f = build(n, cfg, device, problem)
 
     def one_solve(rhs):
         """One benchmark solve: an F-cycle, or under CycleType.V eleven
@@ -108,7 +166,7 @@ def run_benchmark(n: int, cfg: SolverConfig, device="cuda",
         # Richardson: solve at 2h and 4h, compare restrictions (mg.c:1113)
         sols = [u]
         for k in (2, 4):
-            hk, fk = build(n // k, cfg, device)
+            hk, fk = build(n // k, cfg, device, problem)
             sols.append(fmg_solve(op, hk, fk, cfg)[0])
             del hk, fk
         order = float(richardson_error(op, *sols)[1])

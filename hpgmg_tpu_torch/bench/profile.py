@@ -1,10 +1,10 @@
 """Where the time of the port's F-cycle goes, on one CUDA device.
 
-    python -m hpgmg_tpu_torch.bench.profile [--n 512] [--dtype float32]
-        [--solves 5] [--ab] [--json PATH]
+    python -m hpgmg_tpu_torch.bench.profile [--n 512] [--op fv4]
+        [--dtype float32] [--solves 5] [--ab] [--json PATH]
 
-On the benchmark's problem and hierarchy (``bench/driver.py:build``), after
-a warm-up solve:
+On the benchmark's problem and hierarchy of the suite ``--op``
+(``bench/driver.py:build``), after a warm-up solve:
 
 1. the chain of ``--solves`` data-dependent F-cycles (the driver's
    protocol) timed with CUDA events, without and then under
@@ -15,12 +15,13 @@ a warm-up solve:
    not overlap);
 2. per level, one V-cycle from that level: device ms (CUDA events) and
    host enqueue ms (the host clock around the call, no sync);
-3. with ``--ab``: phase 2 again with the fused kernels off (K1 half-sweeps
+3. with ``--ab``: phase 2 again with the fused kernels off (half-sweeps
    on every level, no K4 tail); one smoother call per level above the
-   tail through K2 and through K1 half-sweeps (what sets
-   ``stencils.GSRB2_MAX_DIM``); and the chain's ms per solve with the
-   shipped schedule and with the fused kernels off. Each A/B runs in turns
-   on, off, off, on.
+   tail through the fused full sweeps (K2 for fv4, K6 for the radius-1
+   suites) and through half-sweeps (K1, K5) (what sets
+   ``stencils.GSRB2_MAX_DIM`` and ``stencils_r1.GSRB2_MAX_DIM``); and the
+   chain's ms per solve with the shipped schedule and with the fused
+   kernels off. Each A/B runs in turns on, off, off, on.
 
 Prints one line per number; ``--json`` also writes them to a file.
 """
@@ -36,8 +37,8 @@ import torch
 from torch.autograd import DeviceType
 
 from hpgmg_tpu_torch.bench.driver import build
-from hpgmg_tpu_torch.core.config import BottomSolver, Smoother, SolverConfig
-from hpgmg_tpu_torch.kernels import stencils, tail
+from hpgmg_tpu_torch.core.config import OPS, BottomSolver, Smoother, SolverConfig
+from hpgmg_tpu_torch.kernels import stencils, stencils_r1, tail
 from hpgmg_tpu_torch.ops.base import get_suite
 from hpgmg_tpu_torch.ops.transfer import restrict_cell
 from hpgmg_tpu_torch.solve.mg import fmg_solve, vcycle
@@ -114,26 +115,31 @@ def per_level(op, hier, f, cfg) -> list:
 
 
 @contextlib.contextmanager
-def schedule(gsrb2_max_dim: int, tail_fuse: bool):
-    """Set the levels K2 smooths (``stencils.GSRB2_MAX_DIM``) and whether
-    the tail goes through K4 for the duration."""
-    old = (stencils.GSRB2_MAX_DIM, tail.TAIL_FUSE)
-    stencils.GSRB2_MAX_DIM, tail.TAIL_FUSE = gsrb2_max_dim, tail_fuse
+def schedule(gsrb2_max_dim, tail_fuse: bool):
+    """Set the levels the fused full sweeps smooth (K2's
+    ``stencils.GSRB2_MAX_DIM`` and K6's ``stencils_r1.GSRB2_MAX_DIM``;
+    None keeps both) and whether the tail goes through K4, for the
+    duration."""
+    old = (stencils.GSRB2_MAX_DIM, stencils_r1.GSRB2_MAX_DIM, tail.TAIL_FUSE)
+    if gsrb2_max_dim is not None:
+        stencils.GSRB2_MAX_DIM = stencils_r1.GSRB2_MAX_DIM = gsrb2_max_dim
+    tail.TAIL_FUSE = tail_fuse
     try:
         yield
     finally:
-        stencils.GSRB2_MAX_DIM, tail.TAIL_FUSE = old
+        stencils.GSRB2_MAX_DIM, stencils_r1.GSRB2_MAX_DIM, tail.TAIL_FUSE = old
 
 
 def fused(on: bool):
-    """The shipped schedule (on) or K1 half-sweeps and no tail (off)."""
-    return schedule(stencils.GSRB2_MAX_DIM if on else 0, on)
+    """The shipped schedule (on) or half-sweeps and no tail (off)."""
+    return schedule(None if on else 0, on)
 
 
 def smooth_ab(op, hier, f, cfg, reps: int = 5) -> list:
-    """Phase 3: one smoother call (6 half-sweeps) per level through K2 and
-    through K1 half-sweeps, device ms per call, in turns K2/K1/K1/K2, from
-    a smoothed iterate."""
+    """Phase 3: one smoother call (2 * num_smooths half-sweeps) per level
+    through the fused full sweeps (K2, K6) and through half-sweeps (K1,
+    K5), device ms per call, in turns fused/half/half/fused, from a
+    smoothed iterate."""
     nsweeps = 2 * cfg.resolved_num_smooths(op)
     rhs = f
     out = []
@@ -141,13 +147,13 @@ def smooth_ab(op, hier, f, cfg, reps: int = 5) -> list:
         if tail.use_tail(op, cfg, hier.levels, lv.depth) or lv is hier.levels[-1]:
             break
         x = op.gsrb_smooth(lv, torch.zeros_like(rhs), rhs, cfg, nsweeps)
-        row = {"dim": lv.dim, "k2_ms": [], "k1_ms": []}
+        row = {"dim": lv.dim, "fused_ms": [], "half_ms": []}
         for k2 in (True, False, False, True):
             with schedule(lv.dim if k2 else 0, True):
                 op.gsrb_smooth(lv, x, rhs, cfg, nsweeps)
                 ms = _events_ms(lambda: [op.gsrb_smooth(lv, x, rhs, cfg, nsweeps)
                                          for _ in range(reps)]) / reps
-            row["k2_ms" if k2 else "k1_ms"].append(ms)
+            row["fused_ms" if k2 else "half_ms"].append(ms)
         out.append(row)
         rhs = restrict_cell(rhs)
     return out
@@ -167,6 +173,7 @@ def fused_ab(op, hier, f, cfg, solves: int) -> list:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=512)
+    ap.add_argument("--op", choices=OPS, default="fv4")
     ap.add_argument("--dtype", choices=("float32", "float64"), default="float32")
     ap.add_argument("--solves", type=int, default=5)
     ap.add_argument("--ab", action="store_true")
@@ -175,17 +182,17 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("bench.profile needs a CUDA device")
 
-    cfg = SolverConfig(op="fv4", a=0.0, b=1.0, smoother=Smoother.GSRB,
+    cfg = SolverConfig(op=args.op, a=0.0, b=1.0, smoother=Smoother.GSRB,
                        bottom=BottomSolver.DIRECT, min_coarse_dim=8,
                        dtype=getattr(torch, args.dtype))
-    op = get_suite("fv4")
+    op = get_suite(args.op)
     hier, f = build(args.n, cfg, torch.device("cuda"))
     fmg_solve(op, hier, f, cfg)  # warm-up
-    res = {"n": args.n, "dtype": args.dtype, "solves": args.solves,
+    res = {"n": args.n, "op": args.op, "dtype": args.dtype, "solves": args.solves,
            "device": torch.cuda.get_device_name(0)}
     res["chain"] = profile_chain(op, hier, f, cfg, args.solves)
     c = res["chain"]
-    print(f"F-cycle {args.n}^3 {args.dtype}: {c['ms_per_solve']:.4f} ms/solve, "
+    print(f"{args.op} F-cycle {args.n}^3 {args.dtype}: {c['ms_per_solve']:.4f} ms/solve, "
           f"{c['ms_per_solve_profiled']:.4f} under the profiler; device "
           f"{c['device_ms_per_solve']:.4f} ms/solve; idle share {c['idle_share']:.4f}")
     for k in c["kernels"][:20]:
@@ -199,15 +206,15 @@ def main(argv=None) -> int:
         with fused(False):
             res["levels_unfused"] = per_level(op, hier, f, cfg)
         for row in res["levels_unfused"]:
-            print(f"  V-cycle from {row['dim']:4d}^3, K2/K4 off: device "
+            print(f"  V-cycle from {row['dim']:4d}^3, fused sweeps/K4 off: device "
                   f"{row['device_ms']:.4f} ms, host enqueue {row['host_enqueue_ms']:.4f} ms")
         res["smooth_ab"] = smooth_ab(op, hier, f, cfg)
         for row in res["smooth_ab"]:
-            print(f"  smoother {row['dim']:4d}^3: K2 {row['k2_ms']} ms, "
-                  f"K1 half-sweeps {row['k1_ms']} ms")
+            print(f"  smoother {row['dim']:4d}^3: fused sweeps {row['fused_ms']} ms, "
+                  f"half-sweeps {row['half_ms']} ms")
         res["fused_ab"] = fused_ab(op, hier, f, cfg, args.solves)
         for row in res["fused_ab"]:
-            print(f"  fused K2/K4 {'on ' if row['fused'] else 'off'}: "
+            print(f"  fused sweeps/K4 {'on ' if row['fused'] else 'off'}: "
                   f"{row['ms_per_solve']:.4f} ms/solve")
     if args.json:
         with open(args.json, "w") as fh:

@@ -41,13 +41,16 @@ class BottomSolver(enum.Enum):
     DIRECT = "direct"
 
 
+OPS = ("fv7pt", "fv2", "fv4", "27pt")
+
+
 class CycleType(enum.Enum):
     V = "V"
     F = "F"
 
 
-# GSRB smooths per pre/post smooth call; the fv4 suite overrides GSRB to 3
-# (operators.fv4.c smoother wiring)
+# GSRB smooths per pre/post smooth call; the fv2 and fv4 suites override
+# GSRB to 3 (operators.fv2.c:132, operators.fv4.c smoother wiring)
 _DEFAULT_NUM_SMOOTHS = {
     Smoother.GSRB: 2,
     Smoother.CHEBYSHEV: 1,
@@ -67,14 +70,14 @@ class SolverConfig:
     the solver creates takes it explicitly.
     """
 
-    op: str = "fv4"
+    op: str = "fv4"  # operator suite: fv7pt | fv2 | fv4 | 27pt
     bc: BC = BC.DIRICHLET
     helmholtz: bool = False
     a: float = 1.0
     b: float = 1.0
 
     smoother: Smoother = Smoother.GSRB
-    # None => the operator suite's default (GSRB: 3 smooths for fv4)
+    # None => the operator suite's default (GSRB: 2 smooths, 3 for fv2/fv4)
     num_smooths: Optional[int] = None
 
     bottom: BottomSolver = BottomSolver.DIRECT
@@ -97,6 +100,8 @@ class SolverConfig:
         return _DEFAULT_NUM_SMOOTHS[self.smoother]
 
     def __post_init__(self):
+        if self.op not in OPS:
+            raise ValueError(f"unknown operator suite {self.op!r}; have {OPS}")
         if self.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"solve dtype must be float32 or float64, "
                              f"got {self.dtype}")

@@ -4,8 +4,10 @@ hpgmg_tpu/core/hierarchy.py; MGBuild, mg.c:842-1108).
 The ladder is the list of level dims. Coefficients are restricted level to
 level (cell restriction for alpha, face restriction for the betas), then
 the suite's ``rebuild_operator`` derives Dinv / L1inv / lambda_max per
-level. With the DIRECT bottom, the coarsest operator is assembled from
-identity probes (each one a K1 apply on CUDA) and inverted densely.
+level (fv4 extends its betas tangentially there; the radius-1 suites keep
+the face arrays as restricted). With the DIRECT bottom, the coarsest
+operator is assembled from identity probes (each one a K1 or K5 apply on
+CUDA) and inverted densely.
 """
 
 from __future__ import annotations

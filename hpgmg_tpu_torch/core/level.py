@@ -4,10 +4,12 @@ Each level is one dense array per field. Ghost zones are never stored:
 the stencil synthesizes its boundary ghosts from the interior (in-kernel
 on CUDA, by a separable extension in the plain version).
 
-The face coefficients are stored *tangentially extended* by one ghost
-layer, as ``FV4.rebuild_operator`` leaves them: ``beta_i`` is
-(n+1, n+2, n+2), ``beta_j`` (n+2, n+1, n+2), ``beta_k`` (n+2, n+2, n+1).
-Before the rebuild they are plain face arrays: ``beta_i`` (n+1, n, n).
+The face coefficients are plain face arrays, ``beta_i`` (n+1, n, n),
+``beta_j`` (n, n+1, n), ``beta_k`` (n, n, n+1), as the radius-1 suites
+(fv7pt, fv2, 27pt) keep them. The fv4 suite stores them *tangentially
+extended* by one ghost layer, as ``FV4.rebuild_operator`` leaves them:
+``beta_i`` (n+1, n+2, n+2), ``beta_j`` (n+2, n+1, n+2), ``beta_k``
+(n+2, n+2, n+1).
 """
 
 from __future__ import annotations

@@ -2,13 +2,16 @@
 level fields) into the port's ``Hierarchy``.
 
 Each level is a mapping with ``dim``, ``h``, ``depth`` and numpy arrays for
-the fields it has: ``beta_i/j/k`` (tangentially extended, as the JAX
-``rebuild_operator`` leaves them), ``alpha``, ``dinv``, ``kdinv`` (a pair),
-``lambda_max`` and ``bottom_ainv``. Arrays are copied (``torch.tensor``),
+the fields it has: ``beta_i/j/k`` as the JAX ``rebuild_operator`` leaves
+them (tangentially extended for fv4, the natural (n+1, n, n) face arrays
+for the radius-1 suites fv7pt, fv2 and 27pt), ``alpha``, ``dinv``,
+``kdinv`` (a pair), ``lambda_max`` and ``bottom_ainv``. Arrays are copied (``torch.tensor``),
 not shared: a zero-copy DLPack export of a JAX CPU array fails with
 "Cannot export readonly array". Where a level has ``dinv`` but no
 ``kdinv`` (the JAX package attaches it only to its kernel levels), the
-parity-folded pair is rebuilt from ``dinv``.
+parity-folded pair is rebuilt from ``dinv``. The JAX package's TPU kernel
+views (``kbi``, ``k2`` and the like) are not carried: the port's kernels
+read the face arrays themselves.
 """
 
 from __future__ import annotations

@@ -1,11 +1,12 @@
 """Build the CUDA kernels under ``csrc/`` with nvcc and load them with ctypes.
 
-All ``csrc/*.cu`` sources (and the ``csrc/*.cuh`` header they share)
-compile into ONE shared library with a plain C
-interface (no PyTorch headers, so a build takes seconds). The library is
-built at first use into ``kernels/_build/`` (listed in .gitignore), named by
-a hash of the sources and the flags, so an edited source rebuilds and an
-unchanged one loads the existing file. Nothing here runs at import time.
+All ``csrc/*.cu`` sources (and the ``csrc/*.cuh`` headers they include)
+compile into ONE shared library with a plain C interface (no PyTorch
+headers, so a build takes seconds): one nvcc per source, all started
+together, each into an object file, then one link. The library is built at
+first use into ``kernels/_build/`` (listed in .gitignore), named by a hash
+of the sources and the flags, so an edited source rebuilds and an unchanged
+one loads the existing file. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -54,6 +55,14 @@ _SIGNATURES = {
     "hpgmg_tail_down_f64": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P),
     "hpgmg_tail_up_f32": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P),
     "hpgmg_tail_up_f64": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P),
+    # (x, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out, n, mode, var7,
+    #  b_h2inv, a_coef, t1, t2, stream)
+    "hpgmg_r1_stencil_f32": (_P,) * 8 + (_I, _I, _I, _D, _D, _D, _D, _P),
+    "hpgmg_r1_stencil_f64": (_P,) * 8 + (_I, _I, _I, _D, _D, _D, _D, _P),
+    # (x, beta_i, beta_j, beta_k, alpha, rhs, kdinv0, kdinv1, out, n, var7,
+    #  b_h2inv, a_coef, t1, t2, stream)
+    "hpgmg_r1_gsrb2_f32": (_P,) * 9 + (_I, _I, _D, _D, _D, _D, _P),
+    "hpgmg_r1_gsrb2_f64": (_P,) * 9 + (_I, _I, _D, _D, _D, _D, _P),
 }
 
 
@@ -83,22 +92,33 @@ def library_path() -> Path:
 
 
 def build() -> Path:
-    """Compile the library unless a build of these exact sources exists.
-    The compiler's output (with ptxas register/spill counts) is kept
-    beside it as ``<library>.log``."""
+    """Compile the library unless a build of these exact sources exists:
+    the sources in parallel (one nvcc each), then one link. The compilers'
+    output (with ptxas register/spill counts) is kept beside the library as
+    ``<library>.log``."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{src.stem}.o" for src in _sources()]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(_sources(), objs)]
+    logs = [p.communicate()[0] for p in procs]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources()]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    link = None
+    if all(p.returncode == 0 for p in procs):
+        link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+    out.with_suffix(".log").write_text("".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if link is None or link.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
+        raise RuntimeError("nvcc failed:\n" + "".join(logs))
     os.replace(tmp, out)
     return out
 

@@ -1,15 +1,18 @@
 """Operator-suite interface and registry (counterpart of
-hpgmg_tpu/ops/base.py). Only the fv4 suite is ported."""
+hpgmg_tpu/ops/base.py): the fv4 suite (``ops/fv4.py``) and the three
+radius-1 suites fv7pt, fv2 and 27pt, which share ``RadiusOneSuite``."""
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 from typing import Callable, Dict
 
 import torch
 
 from hpgmg_tpu_torch.core.config import SolverConfig
-from hpgmg_tpu_torch.core.level import Level
+from hpgmg_tpu_torch.core.level import Level, rb_mask
+from hpgmg_tpu_torch.kernels import stencils_r1
 
 
 class OperatorSuite:
@@ -53,6 +56,60 @@ class OperatorSuite:
         raise NotImplementedError
 
 
+class RadiusOneSuite(OperatorSuite):
+    """The dispatch of the radius-1 suites to K5 and K6 (counterpart of
+    hpgmg_tpu/ops/base.py:RadiusOneKernelMixin). A suite sets
+    ``taps_key`` (its Dirichlet ghost taps, ``stencils_r1.TAPS``) and
+    ``var7`` (False: the 27pt body), and ends its ``rebuild_operator``
+    with ``fold_kdinv``. Every apply, residual, half-sweep and residual
+    restriction is one K5 call, so the black-box probes of the rebuild and
+    the DIRECT bottom's identity probes run through it too; full GSRB
+    sweeps go through K6 where ``stencils_r1.use_gsrb2`` admits the level.
+    The levels keep the natural face arrays (beta_i (n+1, n, n)): the
+    radius-1 flux reads no face outside the domain."""
+
+    taps_key: str = "p1"
+    var7: bool = True
+
+    def _k5(self, level: Level, x, cfg: SolverConfig, mode: str, **kw):
+        return stencils_r1.r1_stencil(level, x, cfg, mode, self.taps_key,
+                                      self.var7, **kw)
+
+    def apply_op(self, level: Level, x, cfg: SolverConfig):
+        return self._k5(level, x, cfg, "apply")
+
+    def residual(self, level: Level, x, rhs, cfg: SolverConfig):
+        return self._k5(level, x, cfg, "residual", rhs=rhs)
+
+    def gsrb_sweep(self, level: Level, x, rhs, cfg: SolverConfig,
+                   parity: int):
+        return self._k5(level, x, cfg, "gsrb", rhs=rhs,
+                        kdinv=level.kdinv[parity & 1])
+
+    def gsrb_smooth(self, level: Level, x, rhs, cfg: SolverConfig,
+                    nsweeps: int):
+        """``nsweeps`` half-sweeps from parity 0: pairs of them as K6's
+        full sweeps where the gate admits the level, else one K5 launch
+        each."""
+        if nsweeps % 2 == 0 and stencils_r1.use_gsrb2(level.dim, self.var7):
+            for _ in range(nsweeps // 2):
+                x = stencils_r1.r1_gsrb2(level, x, rhs, cfg, self.taps_key,
+                                         self.var7)
+            return x
+        return super().gsrb_smooth(level, x, rhs, cfg, nsweeps)
+
+    def restrict_residual(self, level: Level, x, rhs, cfg: SolverConfig):
+        return self._k5(level, x, cfg, "fres", rhs=rhs)
+
+    @staticmethod
+    def fold_kdinv(level: Level) -> Level:
+        """Fold the GSRB parity masks into dinv (the GSRB_FP mask plane,
+        gsrb.c:78-87, moved to build time; hpgmg_tpu/ops/base.py:209-210)."""
+        kdinv = tuple(rb_mask(level.dim, p, level.dtype, level.device)
+                      * level.dinv for p in (0, 1))
+        return dataclasses.replace(level, kdinv=kdinv)
+
+
 _REGISTRY: Dict[str, Callable[[], OperatorSuite]] = {}
 
 
@@ -63,7 +120,12 @@ def register(name: str):
     return deco
 
 
-_SUITE_MODULES = {"fv4": "hpgmg_tpu_torch.ops.fv4"}
+_SUITE_MODULES = {
+    "fv7pt": "hpgmg_tpu_torch.ops.fv7pt",
+    "fv2": "hpgmg_tpu_torch.ops.fv2",
+    "fv4": "hpgmg_tpu_torch.ops.fv4",
+    "27pt": "hpgmg_tpu_torch.ops.const27pt",
+}
 
 
 def get_suite(name: str) -> OperatorSuite:

@@ -21,6 +21,7 @@ import torch
 
 from hpgmg_tpu_torch.core.config import BC
 from hpgmg_tpu_torch.kernels.restrict import restrict_cell  # noqa: F401
+from hpgmg_tpu_torch.ops.bc import _reflect_odd_axis
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -79,11 +80,49 @@ def interp_matrix(m: int, dtype: torch.dtype, device: torch.device, bc: BC,
     return tap(extend(eye, 0, radius), 0)
 
 
-_INTERP: Dict[str, Callable] = {}
+def _interp_axis_2tap(x: torch.Tensor, axis: int, w_c: float,
+                      w_n: float) -> torch.Tensor:
+    """Separable 1D upsample: even child = w_c*c[I] + w_n*c[I-1], odd
+    child = w_c*c[I] + w_n*c[I+1]. ``x`` is ghost-padded by 1 on ``axis``."""
+    n = x.shape[axis]
+    lo, mid, hi = (x.narrow(axis, s, n - 2) for s in range(3))
+    even = w_c * mid + w_n * lo
+    odd = w_c * mid + w_n * hi
+    out = torch.stack([even, odd], dim=axis + 1)
+    shape = list(mid.shape)
+    shape[axis] *= 2
+    return out.reshape(shape)
+
+
+def interp_p0(xc: torch.Tensor, prescale_f: float, xf, bc: BC) -> torch.Tensor:
+    """Piecewise-constant injection: every fine cell copies its coarse
+    parent (interpolation_p0.c)."""
+    Ws = [torch.repeat_interleave(torch.eye(xc.shape[a], dtype=xc.dtype,
+                                            device=xc.device), 2, dim=0)
+          for a in range(3)]
+    up = sep_apply(*Ws, xc)
+    return prescale_f * xf + up if prescale_f != 0.0 else up
+
+
+def interp_p1(xc: torch.Tensor, prescale_f: float, xf, bc: BC) -> torch.Tensor:
+    """Trilinear interpolation (interpolation_p1.c:42-62): the weights
+    {27, 9, 3, 1}/64 are the tensor product of the 1D pair (3/4, 1/4),
+    even children looking backward and odd ones forward, with the
+    apply_BCs_p1 odd reflection at the boundary (interpolation_p1.c:71-72)."""
+    def tap(x, axis):
+        return _interp_axis_2tap(x, axis, 0.75, 0.25)
+
+    Ws = [interp_matrix(xc.shape[a], xc.dtype, xc.device, bc, _reflect_odd_axis,
+                        1, tap) for a in range(3)]
+    up = sep_apply(*Ws, xc)
+    return prescale_f * xf + up if prescale_f != 0.0 else up
+
+
+_INTERP: Dict[str, Callable] = {"p0": interp_p0, "p1": interp_p1}
 
 
 def get_interpolation(name: str) -> Callable:
-    from hpgmg_tpu_torch.ops import transfer_fv  # noqa: F401 registers v2/v4
+    from hpgmg_tpu_torch.ops import transfer_fv  # noqa: F401 registers v2/v4/p2
 
     if name not in _INTERP:
         raise ValueError(f"unknown interpolation {name!r}; have {sorted(_INTERP)}")

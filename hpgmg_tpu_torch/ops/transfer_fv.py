@@ -1,11 +1,13 @@
-"""Volume-averaged interpolations v2 and v4 (counterpart of
-hpgmg_tpu/ops/transfer_fv.py; reference interpolation_v2.c / _v4.c).
+"""Higher-order interpolations: v2, v4 (volume-averaged) and p2
+(cell-centered) (counterpart of hpgmg_tpu/ops/transfer_fv.py; reference
+interpolation_v2.c / _v4.c / _p2.c).
 
 Each first fills the coarse ghosts with its matching BC (v2 with
-apply_BCs_v2, v4 with apply_BCs_v4), then applies a separable 1D stencil
-per axis with mirror-symmetric child pairs:
+apply_BCs_v2, v4 with apply_BCs_v4, p2 with apply_BCs_p2), then applies a
+separable 1D stencil per axis with mirror-symmetric child pairs:
 
 * v2: 3-tap (1/8, 1, -1/8) (interpolation_v2.c:55-57)
+* p2: 3-tap (5/32, 30/32, -3/32) (interpolation_p2.c:91-93)
 * v4: 5-tap (-3/128, 22/128, 1, -22/128, 3/128) (interpolation_v4.c:47-56)
 """
 
@@ -15,6 +17,7 @@ import torch
 
 from hpgmg_tpu_torch.core.config import BC
 from hpgmg_tpu_torch.ops import transfer
+from hpgmg_tpu_torch.ops.bc import _quadratic_fd_axis
 from hpgmg_tpu_torch.ops.bc_fv import _extend_axis_v2, _extend_axis_v4
 from hpgmg_tpu_torch.ops.transfer import interp_matrix, sep_apply
 
@@ -61,6 +64,15 @@ def interp_v2(xc: torch.Tensor, prescale_f: float, xf, bc: BC) -> torch.Tensor:
     return _sep_interp(xc, prescale_f, xf, bc, _extend_axis_v2, 1, tap)
 
 
+def interp_p2(xc: torch.Tensor, prescale_f: float, xf, bc: BC) -> torch.Tensor:
+    """Cell-centered piecewise-quadratic: fine = prescale_f * fine +
+    P(coarse)."""
+    def tap(x, axis):
+        return _interp_axis_3tap(x, axis, 5.0 / 32.0, 30.0 / 32.0, -3.0 / 32.0)
+
+    return _sep_interp(xc, prescale_f, xf, bc, _quadratic_fd_axis, 1, tap)
+
+
 def interp_v4(xc: torch.Tensor, prescale_f: float, xf, bc: BC) -> torch.Tensor:
     """Volume-averaged quartic: fine = prescale_f * fine + P(coarse)."""
     def tap(x, axis):
@@ -70,4 +82,5 @@ def interp_v4(xc: torch.Tensor, prescale_f: float, xf, bc: BC) -> torch.Tensor:
 
 
 transfer._INTERP.setdefault("v2", interp_v2)
+transfer._INTERP.setdefault("p2", interp_p2)
 transfer._INTERP.setdefault("v4", interp_v4)

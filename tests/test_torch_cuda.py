@@ -1,7 +1,8 @@
 """The port's CUDA kernels on a card: K1's ghost pass and each K1 mode, K2,
-K3 and K4's two halves against their plain versions on the same CUDA
-tensors, and a small F-cycle through the kernels against the same F-cycle
-on the CPU. max|kernel - plain| /
+K3, K4's two halves, each K5 mode and K6 (both bodies, all three tap sets)
+against their plain versions on the same CUDA tensors, and small F-cycles
+(fv4, fv7pt, fv2, 27pt) through the kernels against the same F-cycles on
+the CPU. max|kernel - plain| /
 max|plain| <= 1e-12 in float64, 1e-5 in float32 (the kernel sums the
 stencil in another order than the plain version).
 
@@ -13,10 +14,12 @@ import numpy as np
 import pytest
 import torch
 
+from hpgmg_tpu_torch.bench.driver import build
 from hpgmg_tpu_torch.core.config import BottomSolver, SolverConfig
 from hpgmg_tpu_torch.core.level import Level, rb_mask
 from hpgmg_tpu_torch.kernels import restrict as R
 from hpgmg_tpu_torch.kernels import stencils as S
+from hpgmg_tpu_torch.kernels import stencils_r1 as K
 from hpgmg_tpu_torch.kernels import tail as T
 from hpgmg_tpu_torch.ops.bc_fv import ghost_fill_fv
 from hpgmg_tpu_torch.ops.base import get_suite
@@ -131,6 +134,69 @@ def test_fcycle_through_kernels_matches_cpu(dev):
         prob = init_problem_fv(64, torch.float64, device)
         hier = build_hierarchy(prob.beta_i, prob.beta_j, prob.beta_k, cfg)
         u, nr, nf = fmg_solve(get_suite("fv4"), hier, prob.f, cfg)
+        sols.append((u.cpu(), float(nr) / float(nf)))
+    (ug, rg), (uc, rc) = sols
+    assert relerr(ug, uc) <= 1e-10
+    assert abs(rg - rc) <= 1e-6 * rc
+
+
+def _level_r1(n, dtype, dev, rng):
+    """A radius-1 level: natural face arrays, alpha, parity-folded dinv."""
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    beta = [t(1.0 + 0.25 * rng.random(s)) for s in
+            ((n + 1, n, n), (n, n + 1, n), (n, n, n + 1))]
+    dinv = t((0.5 + rng.random((n, n, n))) / (8.0 * n * n))
+    return Level(dim=n, h=1.0 / n, depth=0, beta_i=beta[0], beta_j=beta[1],
+                 beta_k=beta[2], alpha=t(rng.random((n, n, n))), dinv=dinv,
+                 kdinv=tuple(rb_mask(n, p, dtype, dev) * dinv for p in (0, 1)))
+
+
+# (taps, var7, helmholtz): fv7pt, fv2, fv7pt with a*alpha*x, 27pt, 27pt
+# with its constant a*x
+R1_BODIES = [("p1", True, False), ("v2", True, False), ("p1", True, True),
+             ("27pt", False, False), ("27pt", False, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [2, 8, 48])
+def test_k5_k6_match_plain(dev, n, dtype):
+    """Every K5 mode and K6's full sweep, each body and tap set, against
+    the plain versions (n = 2: every cell a boundary cell; 48: partial
+    K6 tiles along k)."""
+    rng = np.random.default_rng(n + 5)
+    lv = _level_r1(n, dtype, dev, rng)
+    x, rhs = (torch.tensor(a, dtype=dtype, device=dev)
+              for a in rng.standard_normal((2, n, n, n)))
+    for taps, var7, helm in R1_BODIES:
+        cfg = SolverConfig(a=1.5 if helm else 0.0, helmholtz=helm, dtype=dtype)
+        cases = [("apply", {}), ("residual", {"rhs": rhs}),
+                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[0]}),
+                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[1]}), ("fres", {"rhs": rhs})]
+        launches = K.r1_stencil_cuda.launches
+        for mode, kw in cases:
+            out = K.r1_stencil(lv, x, cfg, mode, taps, var7, **kw)
+            assert out.is_cuda
+            assert relerr(out, K.r1_stencil_plain(lv, x, cfg, mode, taps, var7,
+                                                  **kw)) <= TOL[dtype]
+        assert K.r1_stencil_cuda.launches == launches + len(cases)
+        launches = K.r1_gsrb2_cuda.launches
+        out = K.r1_gsrb2(lv, x, rhs, cfg, taps, var7)
+        assert K.r1_gsrb2_cuda.launches == launches + 1
+        assert relerr(out, K.r1_gsrb2_plain(lv, x, rhs, cfg, taps, var7)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("op", ["fv7pt", "fv2", "27pt"])
+def test_r1_fcycle_through_kernels_matches_cpu(dev, op):
+    """64^3 f64: K6 or K5 smooths, K5 restricts the residuals and probes
+    the DIRECT bottom (8^3), against the same F-cycle on the CPU."""
+    cfg = SolverConfig(op=op, a=0.0, dtype=torch.float64,
+                       bottom=BottomSolver.DIRECT, min_coarse_dim=8)
+    sols = []
+    for device in (dev, torch.device("cpu")):
+        hier, f = build(64, cfg, device)
+        u, nr, nf = fmg_solve(get_suite(op), hier, f, cfg)
         sols.append((u.cpu(), float(nr) / float(nf)))
     (ug, rg), (uc, rc) = sols
     assert relerr(ug, uc) <= 1e-10

@@ -120,7 +120,7 @@ def test_interp_v2_v4(n, dt):
             assert rel(out, ref(jxc, prescale, jxf, JBC.DIRICHLET)) <= tol
     assert transfer.get_interpolation("v4") is transfer_fv.interp_v4
     with pytest.raises(ValueError):
-        transfer.get_interpolation("p1")
+        transfer.get_interpolation("p3")
 
 
 @pytest.mark.parametrize("dt", ["f64", "f32"])
