@@ -24,21 +24,35 @@ Phases, each printing its result and raising on failure (exit code != 0):
    without its constant a*x) and K6 (full red+black sweep, both bodies,
    all three tap sets) at n in {8, 16, 32, 48, 64, 128, 256}, then their
    times at 64^3, 128^3, 256^3 and 512^3 on the fv7pt and 27pt problems'
-   own levels;
+   own levels; the periodic kernels with the same checks: K7a (the wrap
+   pass, then K1's stencil, every mode) and K7b (K5 with wrapped ghosts,
+   every mode and body) at n in {8, ..., 256}, K4c (the
+   one-launch tail V-cycle over a DIRECT bottom) on the 32-16 and 16
+   ladders, and their times at 512^3 (K4c on the headline's 32-16 tail);
+   K2, K4 and K6 refuse a periodic level;
 4. the headline solve through the port's own entry point: run_benchmark at
    512^3, fv4, GSRB, DIRECT bottom, min_coarse_dim 8, float32,
    dynamic_range 3, with every kernel's launch count reset before it and
    read after it: rel_residual <= 1e-3, Richardson order >= 3.0, every
-   kernel (K1's two passes, K2, K3, K4's two halves) launched, no plain
-   version called; then the BiCGStab-bottom companion;
+   kernel of its path (K1's two passes, K2, K3, and K4c or K4's two
+   halves, as tail.TAIL_ONE_LAUNCH says) launched, no periodic kernel and
+   no plain version; then the BiCGStab-bottom companion, and the headline
+   once more with the other TAIL_ONE_LAUNCH setting (same limits);
 5. the radius-1 suites through the same entry point at 512^3 float32, the
    counts reset before each and read after it: fv7pt (this slice's
    headline), then fv2 and 27pt on shorter timed chains: rel_residual
    <= 1e-2, Richardson order in (1.5, 2.6), K5 and K3 launched (and K6 for
    fv7pt and fv2, whose var7 body it smooths), no plain version called;
 6. float64 verification through the kernels: fv4 at 256^3 with Richardson
-   order >= 3.8; fv7pt at 256^3, fv2 and 27pt at 128^3 with order in
-   (1.8, 2.3).
+   order >= 3.8 (and with the other TAIL_ONE_LAUNCH setting: the same
+   order to 1e-6); fv7pt at 256^3, fv2 and 27pt at 128^3 with order in
+   (1.8, 2.3);
+7. periodic F-cycles (--bc periodic) through the same entry point, float32:
+   fv4 and fv7pt at 512^3, fv2 and 27pt at 256^3, with the limits of their
+   Dirichlet runs, and the fv4 BiCGStab-bottom companion at 512^3
+   (rel_residual <= 1e-3); each launches K7a or K7b and K3, and no
+   Dirichlet ghost pass, K1 or K5 launch, K2, K4, K6 or plain version;
+   then float64 orders: fv4 at 256^3 >= 3.8, fv7pt at 128^3 in (1.8, 2.3).
 
 The line before the last lists the kernels as JSON: for each, its launches
 on its path, its time, its plain version's time, its bound on the card
@@ -67,6 +81,15 @@ HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12  # H100 SXM, published
 # 6 differences, 6 products, 5 adds, the scale; 27pt: 26 adds, 4 products,
 # 3 adds, a*x and the scale) and a gsrb update (sub, mul, add)
 FV4_AX, VAR7_AX, P27_AX, GSRB = 110, 18, 36, 3
+
+
+def mode_flops(ax: int, mode: str, cells: int, extra: int) -> int:
+    """Flops of one stencil call: a gsrb half-sweep updates only the cells
+    of its colour, every other mode adds ``extra`` to the operator at
+    every cell."""
+    if mode == "gsrb":
+        return (ax + GSRB) * cells // 2
+    return (ax + extra) * cells
 
 
 def phase(name):
@@ -160,6 +183,16 @@ def check_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
                       S.fv4_stencil_cuda(lv, x, cfg, mode, **kw),
                       S.fv4_stencil_plain(lv, x, cfg, mode, **kw), tol, worst,
                       "fv4_stencil")
+            # K7a: the wrap pass, then K1's stencil, on the same level
+            check(f"K7a wrap pass  n={n:3d} {dn}", S.fv4_ghost_fill_periodic_cuda(x),
+                  ghost_fill_fv(x, BC.PERIODIC, order=4, radius=2), tol, worst,
+                  "fv4_ghost_fill_periodic")
+            for label, mode, cfg, kw in cases:
+                cfg = dataclasses.replace(cfg, bc=BC.PERIODIC)
+                check(f"K7a {label:11s} n={n:3d} {dn}",
+                      S.fv4_stencil_cuda(lv, x, cfg, mode, **kw),
+                      S.fv4_stencil_plain(lv, x, cfg, mode, **kw), tol, worst,
+                      "fv4_stencil_periodic")
             for label, cfg in (("", poisson), ("+alpha", helm)):
                 check(f"K2 gsrb2{label:6s}  n={n:3d} {dn}",
                       S.fv4_gsrb2_cuda(lv, x, rhs, cfg),
@@ -167,7 +200,22 @@ def check_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
             check(f"K3 restrict    n={n:3d} {dn}", R.restrict_cell_cuda(x),
                   R.restrict_cell_plain(x), tol, worst, "restrict_cell")
             del lv, x, rhs
+    lv8, x8 = random_level(8, torch.float32, dev, rng), torch.zeros((8,) * 3, device=dev)
+    refuses_periodic("K2", lambda cfg: S.fv4_gsrb2_cuda(lv8, x8, x8, cfg))
     check_tail(worst)
+
+
+def refuses_periodic(name: str, launch):
+    """Raise unless ``launch(cfg)`` raises NotImplementedError on a
+    periodic level: the fused kernels read no wrapped ghost."""
+    from hpgmg_tpu_torch.core.config import BC, SolverConfig
+
+    try:
+        launch(SolverConfig(a=0.0, b=1.0, bc=BC.PERIODIC))
+    except NotImplementedError as e:
+        print(f"  {name} refuses a periodic level: {e}")
+        return
+    raise AssertionError(f"{name} launched on a periodic level")
 
 
 def check_tail(worst: dict, ladders=((32, 16), (16,))):
@@ -204,6 +252,24 @@ def check_tail(worst: dict, ladders=((32, 16), (16,))):
                       T.tail_up_cuda(tail, es_p, rhss, u_bot, cfg, 6),
                       T.tail_up_plain(tail, es_p, rhss, u_bot, cfg, 6), tol, worst,
                       "tail_up")
+                # K4c over a DIRECT bottom of a random (well-conditioned) inverse
+                bottom = dataclasses.replace(random_level(d, dtype, dev, rng),
+                                             bottom_ainv=random_ainv(d, dtype, dev, rng))
+                check(f"K4c v           {tag}",
+                      T.tail_v_cuda(tail, bottom, e, rhs, cfg, 6),
+                      T.tail_v_plain(tail, bottom, e, rhs, cfg, 6), tol, worst,
+                      "tail_v")
+    refuses_periodic("K4a", lambda c: T.tail_down_cuda(tail, e, rhs, c, 6))
+    refuses_periodic("K4b", lambda c: T.tail_up_cuda(tail, es_p, rhss, u_bot, c, 6))
+    refuses_periodic("K4c", lambda c: T.tail_v_cuda(tail, bottom, e, rhs, c, 6))
+
+
+def random_ainv(d: int, dtype, device, rng) -> torch.Tensor:
+    """A dense (d^3, d^3) stand-in for a bottom inverse: identity-dominated
+    random entries of the scale of h^2."""
+    m = d ** 3
+    a = np.eye(m) + 0.1 * rng.standard_normal((m, m)) / np.sqrt(m)
+    return torch.tensor(a / (8.0 * d * d), dtype=dtype, device=device)
 
 
 def nbytes(*tensors) -> int:
@@ -281,7 +347,7 @@ def time_kernels(sizes=(64, 128, 512)):
                          ("fres", {"rhs": rhs})):
             out_cells = cells // 8 if mode == "fres" else cells
             work = (nbytes(x, *kw.values()) + betas + 4 * out_cells,
-                    (FV4_AX + (GSRB if mode == "gsrb" else 2)) * cells)
+                    mode_flops(FV4_AX, mode, cells, 2))
             time_pair(f"K1 {mode:8s} {n}^3 f32",
                       lambda: S.fv4_stencil_cuda(lv, x, cfg, mode, **kw),
                       lambda: S.fv4_stencil_plain(lv, x, cfg, mode, **kw),
@@ -289,7 +355,7 @@ def time_kernels(sizes=(64, 128, 512)):
         time_pair(f"K2 gsrb2 {n}^3 f32", lambda: S.fv4_gsrb2_cuda(lv, x, rhs, cfg),
                   lambda: S.fv4_gsrb2_plain(lv, x, rhs, cfg), reps, row, "gsrb2",
                   work=(nbytes(x, rhs, *lv.kdinv, x) + betas,
-                        2 * (FV4_AX + GSRB) * cells))
+                        2 * mode_flops(FV4_AX, "gsrb", cells, 0)))
         time_pair(f"K3 restrict {n}^3 f32", lambda: R.restrict_cell_cuda(x),
                   lambda: R.restrict_cell_plain(x), reps * 4, row, "restrict",
                   work=(4 * (cells + cells // 8), cells),
@@ -304,7 +370,7 @@ def time_kernels(sizes=(64, 128, 512)):
     e, rhs = (torch.randn(tail[0].shape, generator=gen, device=dev) for _ in range(2))
     row = {}
     coefs = sum(nbytes(lv.beta_i, lv.beta_j, lv.beta_k, *lv.kdinv) for lv in tail)
-    sweeps = sum(6 * (FV4_AX + GSRB) * lv.ncells for lv in tail)
+    sweeps = sum(6 * mode_flops(FV4_AX, "gsrb", lv.ncells, 0) for lv in tail)
     es, rs = T.tail_down_plain(tail, e, rhs, cfg, 6)
     time_pair("K4 down 32-16 f32", lambda: T.tail_down_cuda(tail, e, rhs, cfg, 6),
               lambda: T.tail_down_plain(tail, e, rhs, cfg, 6), 50, row, "tail_down",
@@ -317,8 +383,85 @@ def time_kernels(sizes=(64, 128, 512)):
               50, row, "tail_up",
               work=(coefs + nbytes(*es, rhs, rs[0], u_bot, e),
                     sweeps + sum(16 * lv.ncells for lv in tail)))
+    # K4c: the same tail over the headline's 8^3 DIRECT bottom, in one launch
+    bottom = hier.levels[3]
+    m = bottom.ncells
+    time_pair("K4c v 32-16 over 8 f32",
+              lambda: T.tail_v_cuda(tail, bottom, e, rhs, cfg, 6),
+              lambda: T.tail_v_plain(tail, bottom, e, rhs, cfg, 6), 50, row, "tail_v",
+              work=(coefs + nbytes(e, rhs, bottom.bottom_ainv, e),
+                    2 * sweeps + sum((FV4_AX + 2 + 16) * lv.ncells for lv in tail)
+                    + 2 * m * m))
     res["tail"] = row
     return res
+
+
+def time_periodic_kernels(n=512):
+    """Phase 3b, K7a and K7b: kernel vs plain time (float32) at n^3 on the
+    periodic problems' own finest levels (fv4: the fv problem; fv7pt and
+    27pt: p6), each pair checked against F32_TOL; the 27pt apply also
+    against a circular pad and conv3d, its library yardstick. Returns
+    {key: timing}."""
+    from hpgmg_tpu_torch.bench.driver import build_problem
+    from hpgmg_tpu_torch.core.config import BC, SolverConfig
+    from hpgmg_tpu_torch.core.level import Level
+    from hpgmg_tpu_torch.kernels import stencils as S
+    from hpgmg_tpu_torch.kernels import stencils_r1 as K
+    from hpgmg_tpu_torch.ops.base import get_suite
+    from hpgmg_tpu_torch.ops.bc_fv import ghost_fill_fv
+
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((n, n, n), generator=gen, device=dev)
+    cells, row, reps = n ** 3, {}, 5
+    for op, taps, var7 in (("fv4", None, None), ("fv7pt", "p1", True),
+                           ("27pt", "27pt", False)):
+        cfg = SolverConfig(op=op, bc=BC.PERIODIC, a=0.0, b=1.0, dtype=torch.float32)
+        prob = build_problem(n, cfg, dev)
+        lv = get_suite(op).rebuild_operator(
+            Level(dim=n, h=1.0 / n, depth=0, beta_i=prob.beta_i,
+                  beta_j=prob.beta_j, beta_k=prob.beta_k), cfg)
+        rhs = prob.f
+        modes = (("apply", {}), ("residual", {"rhs": rhs}),
+                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[0]}), ("fres", {"rhs": rhs}))
+        if op == "fv4":
+            betas = nbytes(lv.beta_i, lv.beta_j, lv.beta_k)
+            time_pair(f"K7a wrap pass {n}^3 f32", lambda: S.fv4_ghost_fill_periodic_cuda(x),
+                      lambda: ghost_fill_fv(x, BC.PERIODIC, order=4, radius=2),
+                      reps, row, "fv4 wrap", work=(4 * (cells + (n + 4) ** 3), 0))
+            for mode, kw in modes:
+                out_cells = cells // 8 if mode == "fres" else cells
+                time_pair(f"K7a {mode:8s} {n}^3 f32",
+                          lambda: S.fv4_stencil_cuda(lv, x, cfg, mode, **kw),
+                          lambda: S.fv4_stencil_plain(lv, x, cfg, mode, **kw),
+                          reps, row, f"fv4 {mode}",
+                          work=(nbytes(x, *kw.values()) + betas + 4 * out_cells,
+                                mode_flops(FV4_AX, mode, cells, 2)))
+        else:
+            betas = nbytes(lv.beta_i, lv.beta_j, lv.beta_k) if var7 else 0
+            ax = VAR7_AX if var7 else P27_AX
+            body = "var7" if var7 else "27pt"
+            for mode, kw in modes:
+                out_cells = cells // 8 if mode == "fres" else cells
+                library = None
+                if not var7 and mode == "apply":
+                    d = torch.arange(3, device=dev).sub(1).abs()
+                    m = d[:, None, None] + d[None, :, None] + d[None, None, :]
+                    w = torch.tensor([K.C0, K.C1, K.C2, K.C3], device=dev)[m]
+                    w = (-cfg.b * lv.h2inv * w)[None, None]
+                    library = lambda w=w: torch.nn.functional.conv3d(  # noqa: E731
+                        torch.nn.functional.pad(x[None, None], (1,) * 6,
+                                                mode="circular"), w)[0, 0]
+                time_pair(f"K7b {body} {mode:8s} {n}^3 f32",
+                          lambda: K.r1_stencil_cuda(lv, x, cfg, mode, taps, var7, **kw),
+                          lambda: K.r1_stencil_plain(lv, x, cfg, mode, taps, var7, **kw),
+                          reps, row, f"{body} {mode}", library=library,
+                          work=(nbytes(x, *kw.values()) + betas + 4 * out_cells,
+                                mode_flops(ax, mode, cells, 1)))
+        del prob, lv, rhs
+        torch.cuda.empty_cache()
+    return row
 
 
 def random_level_r1(n: int, dtype, device, rng):
@@ -346,9 +489,10 @@ R1_BODIES = (("var7 p1", "p1", True, False), ("var7 v2", "v2", True, False),
 
 
 def check_r1_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
-    """Phase 3a, K5 and K6: every mode of K5 and K6's full sweep, for each
-    body and tap set of R1_BODIES, against their plain versions."""
-    from hpgmg_tpu_torch.core.config import SolverConfig
+    """Phase 3a, K5, K7b and K6: every mode of K5 and of K7b (K5 on a
+    periodic level) and K6's full sweep, for each body and tap set of
+    R1_BODIES, against their plain versions."""
+    from hpgmg_tpu_torch.core.config import BC, SolverConfig
     from hpgmg_tpu_torch.kernels import stencils_r1 as K
 
     dev = torch.device("cuda")
@@ -359,7 +503,7 @@ def check_r1_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
             lv = random_level_r1(n, dtype, dev, rng)
             x, rhs = (torch.tensor(a, dtype=dtype, device=dev)
                       for a in rng.standard_normal((2, n, n, n)))
-            k5 = k6 = 0.0
+            k5 = k6 = k7 = 0.0
             for label, taps, var7, helm in R1_BODIES:
                 cfg = SolverConfig(a=1.5 if helm else 0.0, b=1.0, helmholtz=helm,
                                    dtype=dtype)
@@ -367,21 +511,31 @@ def check_r1_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
                                  ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[0]}),
                                  ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[1]}),
                                  ("fres", {"rhs": rhs})):
-                    rel, _ = relerr(K.r1_stencil_cuda(lv, x, cfg, mode, taps, var7, **kw),
-                                    K.r1_stencil_plain(lv, x, cfg, mode, taps, var7, **kw))
-                    if not rel <= tol:
-                        raise AssertionError(f"K5 {label} {mode} n={n} {dn}: {rel} > {tol}")
-                    k5 = max(k5, rel)
+                    for name, c in (("K5", cfg),
+                                    ("K7b", dataclasses.replace(cfg, bc=BC.PERIODIC))):
+                        rel, _ = relerr(K.r1_stencil_cuda(lv, x, c, mode, taps, var7, **kw),
+                                        K.r1_stencil_plain(lv, x, c, mode, taps, var7, **kw))
+                        if not rel <= tol:
+                            raise AssertionError(f"{name} {label} {mode} n={n} {dn}: "
+                                                 f"{rel} > {tol}")
+                        if name == "K5":
+                            k5 = max(k5, rel)
+                        else:
+                            k7 = max(k7, rel)
                 rel, _ = relerr(K.r1_gsrb2_cuda(lv, x, rhs, cfg, taps, var7),
                                 K.r1_gsrb2_plain(lv, x, rhs, cfg, taps, var7))
                 if not rel <= tol:
                     raise AssertionError(f"K6 {label} n={n} {dn}: {rel} > {tol}")
                 k6 = max(k6, rel)
             print(f"  K5 (5 modes x {len(R1_BODIES)} bodies) n={n:3d} {dn}: worst rel err "
-                  f"{k5:.3e}; K6 ({len(R1_BODIES)} bodies): {k6:.3e}")
+                  f"{k5:.3e}; K7b (the same, periodic): {k7:.3e}; "
+                  f"K6 ({len(R1_BODIES)} bodies): {k6:.3e}")
             worst["r1_stencil"] = max(worst.get("r1_stencil", 0.0), k5)
+            worst["r1_stencil_periodic"] = max(worst.get("r1_stencil_periodic", 0.0), k7)
             worst["r1_gsrb2"] = max(worst.get("r1_gsrb2", 0.0), k6)
             del lv, x, rhs
+    lv8, x8 = random_level_r1(8, torch.float32, dev, rng), torch.zeros((8,) * 3, device=dev)
+    refuses_periodic("K6", lambda c: K.r1_gsrb2_cuda(lv8, x8, x8, c, "p1", True))
 
 
 def time_r1_kernels(sizes=(64, 128, 256, 512)):
@@ -419,7 +573,7 @@ def time_r1_kernels(sizes=(64, 128, 256, 512)):
                              ("fres", {"rhs": rhs})):
                 out_cells = cells // 8 if mode == "fres" else cells
                 work = (nbytes(x, *kw.values()) + betas + 4 * out_cells,
-                        (ax + (GSRB if mode == "gsrb" else 1)) * cells)
+                        mode_flops(ax, mode, cells, 1))
                 library = None
                 if not var7 and mode == "apply":
                     d = torch.arange(3, device=dev).sub(1).abs()
@@ -436,7 +590,8 @@ def time_r1_kernels(sizes=(64, 128, 256, 512)):
                       lambda: K.r1_gsrb2_cuda(lv, x, rhs, cfg, taps, var7),
                       lambda: K.r1_gsrb2_plain(lv, x, rhs, cfg, taps, var7),
                       reps, row, f"{body} gsrb2",
-                      work=(nbytes(x, rhs, *lv.kdinv, x) + betas, 2 * (ax + GSRB) * cells))
+                      work=(nbytes(x, rhs, *lv.kdinv, x) + betas,
+                            2 * mode_flops(ax, "gsrb", cells, 0)))
             del prob, lv, rhs
         res[n] = row
         del x
@@ -445,21 +600,30 @@ def time_r1_kernels(sizes=(64, 128, 256, 512)):
 
 
 def _counters():
-    """(name, wrapper) of every kernel's launch count and every plain
-    version's call count."""
+    """(name, wrapper, attribute) of every kernel's launch count and (name,
+    plain version) of every plain version's call count. The stencil
+    wrappers count their periodic launches (K7a's stencil pass, K7b) apart."""
     from hpgmg_tpu_torch.kernels import restrict as R
     from hpgmg_tpu_torch.kernels import stencils as S
     from hpgmg_tpu_torch.kernels import stencils_r1 as K
     from hpgmg_tpu_torch.kernels import tail as T
 
-    kernels = [("fv4_ghost_fill", S.fv4_ghost_fill_cuda),
-               ("fv4_stencil", S.fv4_stencil_cuda), ("fv4_gsrb2", S.fv4_gsrb2_cuda),
-               ("tail_down", T.tail_down_cuda), ("tail_up", T.tail_up_cuda),
-               ("restrict_cell", R.restrict_cell_cuda),
-               ("r1_stencil", K.r1_stencil_cuda), ("r1_gsrb2", K.r1_gsrb2_cuda)]
+    kernels = [("fv4_ghost_fill", S.fv4_ghost_fill_cuda, "launches"),
+               ("fv4_stencil", S.fv4_stencil_cuda, "launches"),
+               ("fv4_ghost_fill_periodic", S.fv4_ghost_fill_periodic_cuda, "launches"),
+               ("fv4_stencil_periodic", S.fv4_stencil_cuda, "periodic_launches"),
+               ("fv4_gsrb2", S.fv4_gsrb2_cuda, "launches"),
+               ("tail_down", T.tail_down_cuda, "launches"),
+               ("tail_up", T.tail_up_cuda, "launches"),
+               ("tail_v", T.tail_v_cuda, "launches"),
+               ("restrict_cell", R.restrict_cell_cuda, "launches"),
+               ("r1_stencil", K.r1_stencil_cuda, "launches"),
+               ("r1_stencil_periodic", K.r1_stencil_cuda, "periodic_launches"),
+               ("r1_gsrb2", K.r1_gsrb2_cuda, "launches")]
     plains = [("fv4_stencil_plain", S.fv4_stencil_plain),
               ("fv4_gsrb2_plain", S.fv4_gsrb2_plain),
               ("tail_down_plain", T.tail_down_plain), ("tail_up_plain", T.tail_up_plain),
+              ("tail_v_plain", T.tail_v_plain),
               ("restrict_cell_plain", R.restrict_cell_plain),
               ("r1_stencil_plain", K.r1_stencil_plain),
               ("r1_gsrb2_plain", K.r1_gsrb2_plain)]
@@ -468,86 +632,126 @@ def _counters():
 
 def reset_counts():
     kernels, plains = _counters()
-    for _, fn in kernels:
-        fn.launches = 0
+    for _, fn, attr in kernels:
+        setattr(fn, attr, 0)
     for _, fn in plains:
         fn.calls = 0
 
 
 def read_counts():
     kernels, plains = _counters()
-    return ({name: fn.launches for name, fn in kernels},
+    return ({name: getattr(fn, attr) for name, fn, attr in kernels},
             {name: fn.calls for name, fn in plains})
 
 
-def solve_cfg(bottom: str, dtype, op: str = "fv4"):
-    from hpgmg_tpu_torch.core.config import BottomSolver, Smoother, SolverConfig
+def solve_cfg(bottom: str, dtype, op: str = "fv4", bc: str = "dirichlet"):
+    from hpgmg_tpu_torch.core.config import BC, BottomSolver, Smoother, SolverConfig
 
-    return SolverConfig(op=op, a=0.0, b=1.0, smoother=Smoother.GSRB,
+    return SolverConfig(op=op, bc=BC(bc), a=0.0, b=1.0, smoother=Smoother.GSRB,
                         bottom=BottomSolver(bottom), min_coarse_dim=8, dtype=dtype)
 
 
-# the kernels each suite's F-cycle must launch
+# the kernels each suite's F-cycle must launch, per BC
+R1_DIRICHLET = ("r1_stencil", "r1_gsrb2", "restrict_cell")
+R1_PERIODIC = ("r1_stencil_periodic", "restrict_cell")
 PATH_KERNELS = {
-    "fv4": ("fv4_ghost_fill", "fv4_stencil", "fv4_gsrb2", "tail_down", "tail_up",
-            "restrict_cell"),
-    "fv7pt": ("r1_stencil", "r1_gsrb2", "restrict_cell"),
-    "fv2": ("r1_stencil", "r1_gsrb2", "restrict_cell"),
-    "27pt": ("r1_stencil", "restrict_cell"),
+    ("fv4", "dirichlet"): ("fv4_ghost_fill", "fv4_stencil", "fv4_gsrb2", "restrict_cell"),
+    ("fv7pt", "dirichlet"): R1_DIRICHLET,
+    ("fv2", "dirichlet"): R1_DIRICHLET,
+    ("27pt", "dirichlet"): ("r1_stencil", "restrict_cell"),
+    ("fv4", "periodic"): ("fv4_ghost_fill_periodic", "fv4_stencil_periodic",
+                          "restrict_cell"),
+    ("fv7pt", "periodic"): R1_PERIODIC,
+    ("fv2", "periodic"): R1_PERIODIC,
+    ("27pt", "periodic"): R1_PERIODIC,
 }
+# and the kernels a periodic F-cycle must never launch: the Dirichlet ghost
+# synthesis (K1's ghost pass and stencil launches, K5) and the fused kernels
+# that read no periodic ghost (K2, K4, K6)
+DIRICHLET_ONLY = ("fv4_ghost_fill", "fv4_stencil", "fv4_gsrb2", "tail_down",
+                  "tail_up", "tail_v", "r1_stencil", "r1_gsrb2")
+PERIODIC_ONLY = ("fv4_ghost_fill_periodic", "fv4_stencil_periodic",
+                 "r1_stencil_periodic")
+
+
+def path_kernels(op: str, bc: str, bottom: str):
+    """The kernels the F-cycle of ``op`` under ``bc`` must launch: the fv4
+    Dirichlet tail runs through K4c over the DIRECT bottom when
+    tail.TAIL_ONE_LAUNCH says so, else through K4's two halves."""
+    from hpgmg_tpu_torch.kernels import tail as T
+
+    want = PATH_KERNELS[(op, bc)]
+    if (op, bc) == ("fv4", "dirichlet"):
+        one = T.TAIL_ONE_LAUNCH and bottom == "direct"
+        want += ("tail_v",) if one else ("tail_down", "tail_up")
+    return want
 
 
 def headline(op="fv4", n=512, min_solve_seconds=1.0, rel_limit=1e-3,
-             order_range=(3.0, float("inf"))):
-    """Phases 4 and 5: one suite's F-cycle through the port's entry point,
-    with the launch counts reset before it and read after it."""
+             order_range=(3.0, float("inf")), bc="dirichlet", bottom="direct"):
+    """Phases 4, 5 and 7: one suite's F-cycle through the port's entry
+    point, with the launch counts reset before it and read after it."""
     from hpgmg_tpu_torch.bench.driver import run_benchmark
 
+    tag = f"{op} {bc} {bottom}"
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    res = run_benchmark(n, solve_cfg("direct", torch.float32, op), "cuda",
-                        min_solve_seconds=min_solve_seconds, dynamic_range=3)
+    res = run_benchmark(n, solve_cfg(bottom, torch.float32, op, bc), "cuda",
+                        min_solve_seconds=min_solve_seconds,
+                        dynamic_range=3 if order_range is not None else 1)
     counts, plain_calls = read_counts()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"  {op}: DOF/s {res.dof_per_second:.6e}, s/solve {res.seconds_per_solve:.6f}, "
-          f"rel_residual {res.rel_residual:.6e}, order {res.richardson_order:.6f}, "
-          f"peak memory {peak:.3f} GiB")
-    print(f"  launches during the {op} run: {counts}; plain calls: {plain_calls}")
+    order = res.richardson_order
+    print(f"  {tag} {n}^3: DOF/s {res.dof_per_second:.6e}, s/solve "
+          f"{res.seconds_per_solve:.6f}, rel_residual {res.rel_residual:.6e}, order "
+          f"{order if order is None else f'{order:.6f}'}, peak memory {peak:.3f} GiB")
+    print(f"  launches during the {tag} run: {counts}; plain calls: {plain_calls}")
     if not res.rel_residual <= rel_limit:
-        raise AssertionError(f"{op} rel_residual {res.rel_residual} > {rel_limit}")
-    if not order_range[0] < res.richardson_order < order_range[1]:
-        raise AssertionError(f"{op} Richardson order {res.richardson_order} outside "
-                             f"{order_range}")
-    missing = [k for k in PATH_KERNELS[op] if counts[k] <= 0]
+        raise AssertionError(f"{tag} rel_residual {res.rel_residual} > {rel_limit}")
+    if order_range is not None and not order_range[0] < order < order_range[1]:
+        raise AssertionError(f"{tag} Richardson order {order} outside {order_range}")
+    missing = [k for k in path_kernels(op, bc, bottom) if counts[k] <= 0]
     if missing:
-        raise AssertionError(f"{op}: kernels of the path never launched: {missing}")
+        raise AssertionError(f"{tag}: kernels of the path never launched: {missing}")
+    stray = [k for k in (DIRICHLET_ONLY if bc == "periodic" else PERIODIC_ONLY)
+             if counts[k]]
+    if stray:
+        raise AssertionError(f"{tag}: kernels of the other BC launched: {stray}")
     if any(plain_calls.values()):
-        raise AssertionError(f"{op}: a plain version ran on the path: {plain_calls}")
+        raise AssertionError(f"{tag}: a plain version ran on the path: {plain_calls}")
     return res, counts
 
 
-def companion(n=512):
-    from hpgmg_tpu_torch.bench.driver import run_benchmark
-
-    res = run_benchmark(n, solve_cfg("bicgstab", torch.float32), "cuda",
-                        min_solve_seconds=1.0)
-    if not res.rel_residual <= 1e-3:
-        raise AssertionError(f"BiCGStab companion rel_residual {res.rel_residual}")
+def companion(n=512, bc="dirichlet"):
+    """The BiCGStab-bottom companion of the fv4 headline."""
+    res, _ = headline("fv4", n, order_range=None, bc=bc, bottom="bicgstab")
     return res
 
 
 def f64_order(op="fv4", n=256, order_range=(3.8, float("inf")),
-              min_solve_seconds=0.5):
+              min_solve_seconds=0.5, bc="dirichlet"):
     from hpgmg_tpu_torch.bench.driver import run_benchmark
 
-    res = run_benchmark(n, solve_cfg("direct", torch.float64, op), "cuda",
+    res = run_benchmark(n, solve_cfg("direct", torch.float64, op, bc), "cuda",
                         min_solve_seconds=min_solve_seconds, dynamic_range=3)
-    print(f"  {op} f64 {n}^3: rel_residual {res.rel_residual:.6e}, "
+    print(f"  {op} {bc} f64 {n}^3: rel_residual {res.rel_residual:.6e}, "
           f"order {res.richardson_order:.6f}")
     if not order_range[0] < res.richardson_order < order_range[1]:
-        raise AssertionError(f"{op} f64 {n}^3 Richardson order "
+        raise AssertionError(f"{op} {bc} f64 {n}^3 Richardson order "
                              f"{res.richardson_order} outside {order_range}")
     return res
+
+
+def other_tail_setting(fn):
+    """Run ``fn()`` with tail.TAIL_ONE_LAUNCH flipped."""
+    from hpgmg_tpu_torch.kernels import tail as T
+
+    old = T.TAIL_ONE_LAUNCH
+    T.TAIL_ONE_LAUNCH = not old
+    try:
+        return fn()
+    finally:
+        T.TAIL_ONE_LAUNCH = old
 
 
 def main() -> int:
@@ -578,13 +782,20 @@ def main() -> int:
     check_r1_kernels(worst)
     times = time_kernels()
     r1_times = time_r1_kernels()
+    p_times = time_periodic_kernels()
     torch.cuda.empty_cache()
 
-    phase("4 headline fv4 F-cycle 512^3 f32, DIRECT bottom")
+    from hpgmg_tpu_torch.kernels import tail as T
+
+    phase(f"4 headline fv4 F-cycle 512^3 f32, DIRECT bottom "
+          f"(TAIL_ONE_LAUNCH={T.TAIL_ONE_LAUNCH})")
     res, counts = headline()
     torch.cuda.empty_cache()
     phase("4b BiCGStab-bottom companion 512^3 f32")
     res_b = companion()
+    torch.cuda.empty_cache()
+    phase(f"4c the headline with TAIL_ONE_LAUNCH={not T.TAIL_ONE_LAUNCH}")
+    res_alt, counts_alt = other_tail_setting(lambda: headline(min_solve_seconds=0.25))
     torch.cuda.empty_cache()
 
     phase("5 radius-1 F-cycles 512^3 f32, DIRECT bottom: fv7pt, fv2, 27pt")
@@ -596,12 +807,35 @@ def main() -> int:
 
     phase("6 f64 F-cycles through the kernels")
     res64 = f64_order()
+    res64_alt = other_tail_setting(f64_order)
+    if not abs(res64_alt.richardson_order - res64.richardson_order) <= 1e-6:
+        raise AssertionError(f"fv4 f64 order {res64.richardson_order} changes to "
+                             f"{res64_alt.richardson_order} with the other tail setting")
     r1_64 = {op: f64_order(op, n, (1.8, 2.3), 0.25)
              for op, n in (("fv7pt", 256), ("fv2", 128), ("27pt", 128))}
+    torch.cuda.empty_cache()
+
+    phase("7 periodic F-cycles f32, DIRECT bottom: fv4, fv7pt at 512^3; fv2, 27pt "
+          "at 256^3; the fv4 BiCGStab companion; f64 orders")
+    per = {"fv4": headline("fv4", bc="periodic", min_solve_seconds=0.5)}
+    torch.cuda.empty_cache()
+    for op, n, secs in (("fv7pt", 512, 0.5), ("fv2", 256, 0.25), ("27pt", 256, 0.25)):
+        per[op] = headline(op, n, min_solve_seconds=secs, rel_limit=1e-2,
+                           order_range=(1.5, 2.6), bc="periodic")
+        torch.cuda.empty_cache()
+    res_pb = companion(bc="periodic")
+    torch.cuda.empty_cache()
+    # fv4 at 256^3: at 128^3 its f64 order is 3.67, still pre-asymptotic as
+    # the JAX package's own (1.25 at 32^3, 2.86 at 64^3; ROADMAP Queue 3)
+    per64 = {op: f64_order(op, n, rng_, 0.25, bc="periodic")
+             for op, n, rng_ in (("fv4", 256, (3.8, float("inf"))),
+                                 ("fv7pt", 128, (1.8, 2.3)))}
 
     big = times[512]
     # K6 at the largest level it smooths on the path
     gsrb2_n = max((m for m in r1_times if m <= K.GSRB2_MAX_DIM), default=min(r1_times))
+    # K4c launches on the run whose tail setting is on, K4a/K4b on the other
+    c_v, c_du = (counts, counts_alt) if T.TAIL_ONE_LAUNCH else (counts_alt, counts)
     rows = [
         # name, source, replaces, timed pair, launches
         ("fv4_ghost_fill", "fv4_stencil.cu", "hpgmg_tpu/kernels/stencils.py:594",
@@ -611,9 +845,11 @@ def main() -> int:
         ("fv4_gsrb2", "fv4_gsrb2.cu", "hpgmg_tpu/kernels/stencils.py:1726",
          times[64]["gsrb2"], counts["fv4_gsrb2"]),
         ("tail_down", "tail.cu", "hpgmg_tpu/kernels/tail.py:273",
-         times["tail"]["tail_down"], counts["tail_down"]),
+         times["tail"]["tail_down"], c_du["tail_down"]),
         ("tail_up", "tail.cu", "hpgmg_tpu/kernels/tail.py:298",
-         times["tail"]["tail_up"], counts["tail_up"]),
+         times["tail"]["tail_up"], c_du["tail_up"]),
+        ("tail_v", "tail.cu", "hpgmg_tpu/kernels/tail.py:231",
+         times["tail"]["tail_v"], c_v["tail_v"]),
         ("restrict_cell", "restrict.cu", "hpgmg_tpu/kernels/restrict.py:77",
          big["restrict"], counts["restrict_cell"]),
         ("r1_stencil_var7", "r1_stencil.cu", "hpgmg_tpu/kernels/stencils_r1.py:364",
@@ -622,6 +858,17 @@ def main() -> int:
          r1_times[512]["27pt apply"], r1["27pt"][1]["r1_stencil"]),
         ("r1_gsrb2", "r1_gsrb2.cu", "hpgmg_tpu/kernels/stencils_r1.py:783",
          r1_times[gsrb2_n]["var7 gsrb2"], r1["fv7pt"][1]["r1_gsrb2"]),
+        ("fv4_ghost_fill_periodic", "fv4_stencil.cu",
+         "hpgmg_tpu/kernels/stencils.py:1106", p_times["fv4 wrap"],
+         per["fv4"][1]["fv4_ghost_fill_periodic"]),
+        ("fv4_stencil_periodic", "fv4_stencil.cu", "hpgmg_tpu/kernels/stencils.py:1106",
+         p_times["fv4 gsrb"], per["fv4"][1]["fv4_stencil_periodic"]),
+        ("r1_stencil_periodic_var7", "r1_stencil.cu",
+         "hpgmg_tpu/kernels/stencils_r1.py:517", p_times["var7 gsrb"],
+         per["fv7pt"][1]["r1_stencil_periodic"]),
+        ("r1_stencil_periodic_27pt", "r1_stencil.cu",
+         "hpgmg_tpu/kernels/stencils_r1.py:517", p_times["27pt apply"],
+         per["27pt"][1]["r1_stencil_periodic"]),
     ]
     kernels = [{"name": name, "route": "cuda",
                 "source": f"hpgmg_tpu_torch/kernels/csrc/{src}", "replaces": rep,
@@ -632,13 +879,26 @@ def main() -> int:
         "dof_per_s": res.dof_per_second, "rel_residual": res.rel_residual,
         "richardson_order": res.richardson_order,
         "bicgstab_dof_per_s": res_b.dof_per_second,
+        "tail_one_launch": T.TAIL_ONE_LAUNCH,
+        "other_tail_dof_per_s": res_alt.dof_per_second,
+        "other_tail_rel_residual": res_alt.rel_residual,
+        "other_tail_richardson_order": res_alt.richardson_order,
         "f64_256_order": res64.richardson_order,
         "f64_256_dof_per_s": res64.dof_per_second,
+        "f64_256_other_tail_order": res64_alt.richardson_order,
         **{f"{op}_{key}": getattr(r[0], attr) for op, r in r1.items()
            for key, attr in (("dof_per_s", "dof_per_second"),
                              ("rel_residual", "rel_residual"),
                              ("richardson_order", "richardson_order"))},
-        **{f"{op}_f64_{r.n}_order": r.richardson_order for op, r in r1_64.items()}}}))
+        **{f"{op}_f64_{r.n}_order": r.richardson_order for op, r in r1_64.items()},
+        **{f"{op}_periodic_{r[0].n}_{key}": getattr(r[0], attr) for op, r in per.items()
+           for key, attr in (("dof_per_s", "dof_per_second"),
+                             ("rel_residual", "rel_residual"),
+                             ("richardson_order", "richardson_order"))},
+        "fv4_periodic_bicgstab_dof_per_s": res_pb.dof_per_second,
+        "fv4_periodic_bicgstab_rel_residual": res_pb.rel_residual,
+        **{f"{op}_periodic_f64_{r.n}_order": r.richardson_order
+           for op, r in per64.items()}}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

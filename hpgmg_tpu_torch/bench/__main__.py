@@ -1,7 +1,9 @@
 """Headline benchmark of the port: F-cycle DOF/s on a CUDA device, fv4 by
-default, or another suite with ``--op fv7pt | fv2 | 27pt``.
+default, or another suite with ``--op fv7pt | fv2 | 27pt``, with Dirichlet
+or periodic (``--bc periodic``) boundary conditions.
 
-    python -m hpgmg_tpu_torch.bench [--n 512] [--op fv4] [--problem p6] ...
+    python -m hpgmg_tpu_torch.bench [--n 512] [--op fv4] [--bc dirichlet]
+        [--problem p6] ...
 
 Prints ONE JSON line with the keys of the JAX package's ``bench.py``
 (metric, value, unit, vs_baseline, n, dtype, smoother, bottom,
@@ -20,7 +22,7 @@ import sys
 import torch
 
 from hpgmg_tpu_torch.bench.driver import PROBLEMS, device_name, run_benchmark
-from hpgmg_tpu_torch.core.config import OPS, BottomSolver, Smoother, SolverConfig
+from hpgmg_tpu_torch.core.config import OPS, BC, BottomSolver, Smoother, SolverConfig
 
 BASELINE_DOF_S = 2.781e8
 
@@ -35,6 +37,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m hpgmg_tpu_torch.bench")
     ap.add_argument("--n", type=int, default=512)
     ap.add_argument("--op", choices=OPS, default="fv4")
+    ap.add_argument("--bc", choices=[b.value for b in BC], default="dirichlet")
     ap.add_argument("--problem", choices=PROBLEMS, default=None,
                     help="problem override (default: fv for fv2/fv4, p6 for "
                          "fv7pt/27pt)")
@@ -54,8 +57,9 @@ def main(argv=None) -> int:
         return 1
 
     def cfg_for(bottom):
-        return SolverConfig(op=args.op, a=0.0, b=1.0, smoother=Smoother.GSRB,
-                            bottom=bottom, min_coarse_dim=args.min_coarse_dim,
+        return SolverConfig(op=args.op, bc=BC(args.bc), a=0.0, b=1.0,
+                            smoother=Smoother.GSRB, bottom=bottom,
+                            min_coarse_dim=args.min_coarse_dim,
                             dtype=_DTYPES[args.dtype])
 
     res = run_benchmark(args.n, cfg_for(BottomSolver(args.bottom)), device,
@@ -63,7 +67,8 @@ def main(argv=None) -> int:
                         dynamic_range=args.dynamic_range, verbose=False,
                         problem=args.problem)
     out = {
-        "metric": f"{args.op}_fcycle_dof_per_s_n{args.n}",
+        "metric": (f"{args.op}{'_periodic' if args.bc == 'periodic' else ''}"
+                   f"_fcycle_dof_per_s_n{args.n}"),
         "value": res.dof_per_second,
         "unit": "DOF/s",
         "vs_baseline": res.dof_per_second / BASELINE_DOF_S,

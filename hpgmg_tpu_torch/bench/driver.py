@@ -12,7 +12,9 @@ TEST_ERROR mode: errors against a pointwise problem's analytic solution.
 
 Problems per suite (hpgmg_tpu/bench/driver.py:_build_problem): fv2 and fv4
 take the cell-averaged problem of ``problems/fv.py``, fv7pt and 27pt the
-pointwise p6; ``problem`` overrides with fv, p4, p6 or sine.
+pointwise p6; ``problem`` overrides with fv, p4, p6 or sine. Under
+``cfg.bc == BC.PERIODIC`` fv, p4 and p6 take their periodic variants (sine
+satisfies both BCs as it is).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from typing import Optional
 import torch
 
 from hpgmg_tpu_torch.core import blas
-from hpgmg_tpu_torch.core.config import CycleType, SolverConfig
+from hpgmg_tpu_torch.core.config import BC, CycleType, SolverConfig
 from hpgmg_tpu_torch.core.hierarchy import build_hierarchy, slim_hierarchy
 from hpgmg_tpu_torch.ops.base import get_suite
 from hpgmg_tpu_torch.problems.fv import init_problem_fv
@@ -60,17 +62,19 @@ def build_problem(n: int, cfg: SolverConfig, device: torch.device,
     """The suite's problem at n^3 on ``device``: fv for fv2/fv4, p6 for
     fv7pt/27pt, unless ``problem`` names one of ``PROBLEMS``. The pointwise
     problems (p4, p6, sine) carry ``u_true``."""
+    periodic = cfg.bc == BC.PERIODIC
     if problem is None:
         problem = "fv" if cfg.op in ("fv2", "fv4") else "p6"
     if problem == "fv":
-        return init_problem_fv(n, dtype=cfg.dtype, device=device)
+        return init_problem_fv(n, dtype=cfg.dtype, device=device,
+                               periodic=periodic)
     kw = dict(a=cfg.a, b=cfg.b, helmholtz=cfg.helmholtz)
     if problem == "sine":
         return init_problem_sine(n, cfg.dtype, device, **kw)
     if problem == "p4":
-        return init_problem_p4(n, cfg.dtype, device, **kw)
+        return init_problem_p4(n, cfg.dtype, device, periodic=periodic, **kw)
     if problem == "p6":
-        return init_problem_p6(n, cfg.dtype, device, **kw)
+        return init_problem_p6(n, cfg.dtype, device, periodic=periodic, **kw)
     raise ValueError(f"unknown problem {problem!r}; have {PROBLEMS}")
 
 

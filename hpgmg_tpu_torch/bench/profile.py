@@ -1,7 +1,7 @@
 """Where the time of the port's F-cycle goes, on one CUDA device.
 
     python -m hpgmg_tpu_torch.bench.profile [--n 512] [--op fv4]
-        [--dtype float32] [--solves 5] [--ab] [--json PATH]
+        [--bc dirichlet] [--dtype float32] [--solves 5] [--ab] [--json PATH]
 
 On the benchmark's problem and hierarchy of the suite ``--op``
 (``bench/driver.py:build``), after a warm-up solve:
@@ -13,15 +13,20 @@ On the benchmark's problem and hierarchy of the suite ``--op``
    profiled chain, and the idle share of that same chain,
    1 - (summed kernel time) / (its wall time) (one stream, so kernels do
    not overlap);
-2. per level, one V-cycle from that level: device ms (CUDA events) and
-   host enqueue ms (the host clock around the call, no sync);
+2. per level, a V-cycle from that level: device ms (CUDA events) and host
+   enqueue ms (the host clock around the calls, no sync), each the mean of
+   5 V-cycles;
 3. with ``--ab``: phase 2 again with the fused kernels off (half-sweeps
    on every level, no K4 tail); one smoother call per level above the
    tail through the fused full sweeps (K2 for fv4, K6 for the radius-1
    suites) and through half-sweeps (K1, K5) (what sets
    ``stencils.GSRB2_MAX_DIM`` and ``stencils_r1.GSRB2_MAX_DIM``); and the
    chain's ms per solve with the shipped schedule and with the fused
-   kernels off. Each A/B runs in turns on, off, off, on.
+   kernels off; for fv4 also the chain's device (CUDA events) and wall
+   (host clock) ms per solve with K4c, the one-launch tail V-cycle, on and
+   off (what sets ``tail.TAIL_ONE_LAUNCH``). Each A/B runs in turns on,
+   off, off, on. Dirichlet only: under ``--bc periodic`` no level takes a
+   fused kernel.
 
 Prints one line per number; ``--json`` also writes them to a file.
 """
@@ -37,7 +42,7 @@ import torch
 from torch.autograd import DeviceType
 
 from hpgmg_tpu_torch.bench.driver import build
-from hpgmg_tpu_torch.core.config import OPS, BottomSolver, Smoother, SolverConfig
+from hpgmg_tpu_torch.core.config import OPS, BC, BottomSolver, Smoother, SolverConfig
 from hpgmg_tpu_torch.kernels import stencils, stencils_r1, tail
 from hpgmg_tpu_torch.ops.base import get_suite
 from hpgmg_tpu_torch.ops.transfer import restrict_cell
@@ -91,24 +96,26 @@ def profile_chain(op, hier, f, cfg, solves: int) -> dict:
                         for k, ms, c in rows]}
 
 
-def per_level(op, hier, f, cfg) -> list:
-    """Phase 2: one V-cycle from each level (zero start), device ms and host
-    enqueue ms."""
+def per_level(op, hier, f, cfg, reps: int = 5) -> list:
+    """Phase 2: a V-cycle from each level (zero start), device ms (CUDA
+    events around ``reps`` of them, each V-cycle's wall time on the device,
+    launch gaps included) and host enqueue ms, each the mean over ``reps``
+    V-cycles."""
     rhs = [f]
     for _ in range(len(hier.levels) - 1):
         rhs.append(restrict_cell(rhs[-1]))
     out = []
     for lev, lv in enumerate(hier.levels):
         def run():
-            return vcycle(op, hier.levels, lev, torch.zeros_like(rhs[lev]),
-                          rhs[lev], cfg)
+            for _ in range(reps):
+                vcycle(op, hier.levels, lev, torch.zeros_like(rhs[lev]), rhs[lev], cfg)
 
         run()
-        device_ms = _events_ms(run)
+        device_ms = _events_ms(run) / reps
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
-        host_ms = (time.perf_counter() - t0) * 1000.0
+        host_ms = (time.perf_counter() - t0) * 1000.0 / reps
         torch.cuda.synchronize()
         out.append({"dim": lv.dim, "device_ms": device_ms, "host_enqueue_ms": host_ms})
     return out
@@ -170,10 +177,34 @@ def fused_ab(op, hier, f, cfg, solves: int) -> list:
     return out
 
 
+def one_launch_ab(op, hier, f, cfg, solves: int) -> list:
+    """Phase 3: device and wall ms per solve with K4c (``TAIL_ONE_LAUNCH``)
+    on and off, in turns on/off/off/on, and the phase-2 V-cycle times of
+    the tail roots (the levels whose V-cycle K4c runs) each way."""
+    out = []
+    old = tail.TAIL_ONE_LAUNCH
+    try:
+        for on in (True, False, False, True):
+            tail.TAIL_ONE_LAUNCH = on
+            _chain(op, hier, f, cfg, 1)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            device_ms = _events_ms(lambda: _chain(op, hier, f, cfg, solves)) / solves
+            wall_ms = (time.perf_counter() - t0) * 1000.0 / solves
+            roots = [row for lev, row in enumerate(per_level(op, hier, f, cfg))
+                     if tail.use_tail(op, cfg, hier.levels, lev)]
+            out.append({"one_launch": on, "device_ms_per_solve": device_ms,
+                        "wall_ms_per_solve": wall_ms, "tail_roots": roots})
+    finally:
+        tail.TAIL_ONE_LAUNCH = old
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=512)
     ap.add_argument("--op", choices=OPS, default="fv4")
+    ap.add_argument("--bc", choices=[b.value for b in BC], default="dirichlet")
     ap.add_argument("--dtype", choices=("float32", "float64"), default="float32")
     ap.add_argument("--solves", type=int, default=5)
     ap.add_argument("--ab", action="store_true")
@@ -182,17 +213,18 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("bench.profile needs a CUDA device")
 
-    cfg = SolverConfig(op=args.op, a=0.0, b=1.0, smoother=Smoother.GSRB,
-                       bottom=BottomSolver.DIRECT, min_coarse_dim=8,
-                       dtype=getattr(torch, args.dtype))
+    cfg = SolverConfig(op=args.op, bc=BC(args.bc), a=0.0, b=1.0,
+                       smoother=Smoother.GSRB, bottom=BottomSolver.DIRECT,
+                       min_coarse_dim=8, dtype=getattr(torch, args.dtype))
     op = get_suite(args.op)
     hier, f = build(args.n, cfg, torch.device("cuda"))
     fmg_solve(op, hier, f, cfg)  # warm-up
-    res = {"n": args.n, "op": args.op, "dtype": args.dtype, "solves": args.solves,
-           "device": torch.cuda.get_device_name(0)}
+    res = {"n": args.n, "op": args.op, "bc": args.bc, "dtype": args.dtype,
+           "solves": args.solves, "device": torch.cuda.get_device_name(0)}
     res["chain"] = profile_chain(op, hier, f, cfg, args.solves)
     c = res["chain"]
-    print(f"{args.op} F-cycle {args.n}^3 {args.dtype}: {c['ms_per_solve']:.4f} ms/solve, "
+    print(f"{args.op} {args.bc} F-cycle {args.n}^3 {args.dtype}: "
+          f"{c['ms_per_solve']:.4f} ms/solve, "
           f"{c['ms_per_solve_profiled']:.4f} under the profiler; device "
           f"{c['device_ms_per_solve']:.4f} ms/solve; idle share {c['idle_share']:.4f}")
     for k in c["kernels"][:20]:
@@ -202,7 +234,9 @@ def main(argv=None) -> int:
     for row in res["levels"]:
         print(f"  V-cycle from {row['dim']:4d}^3: device {row['device_ms']:.4f} ms, "
               f"host enqueue {row['host_enqueue_ms']:.4f} ms")
-    if args.ab:
+    if args.ab and cfg.bc != BC.DIRICHLET:
+        print("  --ab: periodic levels take no fused kernel (K2, K4, K6); no A/B to run")
+    elif args.ab:
         with fused(False):
             res["levels_unfused"] = per_level(op, hier, f, cfg)
         for row in res["levels_unfused"]:
@@ -216,6 +250,15 @@ def main(argv=None) -> int:
         for row in res["fused_ab"]:
             print(f"  fused sweeps/K4 {'on ' if row['fused'] else 'off'}: "
                   f"{row['ms_per_solve']:.4f} ms/solve")
+        if args.op == "fv4":
+            res["one_launch_ab"] = one_launch_ab(op, hier, f, cfg, args.solves)
+            for row in res["one_launch_ab"]:
+                print(f"  K4c (one-launch tail) {'on ' if row['one_launch'] else 'off'}: "
+                      f"device {row['device_ms_per_solve']:.4f} ms/solve, wall "
+                      f"{row['wall_ms_per_solve']:.4f} ms/solve; V-cycle from "
+                      + ", ".join(f"{r['dim']}^3 device {r['device_ms']:.4f} ms, host "
+                                  f"enqueue {r['host_enqueue_ms']:.4f} ms"
+                                  for r in row["tail_roots"]))
     if args.json:
         with open(args.json, "w") as fh:
             json.dump(res, fh, indent=1)

@@ -19,7 +19,7 @@ class BC(enum.Enum):
     """Boundary condition (reference: level.h:24-25)."""
 
     DIRICHLET = "dirichlet"  # homogeneous Dirichlet (u = 0 on the boundary)
-    PERIODIC = "periodic"  # not ported yet: ghost fills raise
+    PERIODIC = "periodic"  # wrap ghosts; pure Poisson is singular
 
 
 class Smoother(enum.Enum):
@@ -90,6 +90,9 @@ class SolverConfig:
 
     min_coarse_dim: int = 2  # coarsen while dims even and > this
     dtype: torch.dtype = torch.float32
+    # dtype of the dot and mean accumulations (None: the solve dtype);
+    # max-norms are exact in any dtype
+    reduce_dtype: Optional[torch.dtype] = None
 
     def resolved_num_smooths(self, suite=None) -> int:
         if self.num_smooths is not None:
@@ -105,3 +108,6 @@ class SolverConfig:
         if self.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"solve dtype must be float32 or float64, "
                              f"got {self.dtype}")
+        if self.reduce_dtype not in (None, torch.float32, torch.float64):
+            raise ValueError(f"reduce dtype must be None, float32 or float64, "
+                             f"got {self.reduce_dtype}")

@@ -6,8 +6,9 @@ level (cell restriction for alpha, face restriction for the betas), then
 the suite's ``rebuild_operator`` derives Dinv / L1inv / lambda_max per
 level (fv4 extends its betas tangentially there; the radius-1 suites keep
 the face arrays as restricted). With the DIRECT bottom, the coarsest
-operator is assembled from identity probes (each one a K1 or K5 apply on
-CUDA) and inverted densely.
+operator is assembled from identity probes (each one a K1, K5, K7a or K7b
+apply on CUDA) and inverted densely: pseudo-inverted where it is singular
+(periodic pure Poisson, whose null space is the constants).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ from typing import List, Optional
 
 import torch
 
-from hpgmg_tpu_torch.core.config import BottomSolver, Smoother, SolverConfig
+from hpgmg_tpu_torch.core.config import BC, BottomSolver, Smoother, SolverConfig
 from hpgmg_tpu_torch.core.level import Level
 
 
@@ -36,7 +37,11 @@ def level_dims(fine_dim: int, min_coarse_dim: int) -> List[int]:
 
 def direct_bottom_inverse(op, bot: Level, cfg: SolverConfig) -> torch.Tensor:
     """Dense inverse of the bottom operator, assembled column by column
-    from identity probes (apply of e_c forms column c)."""
+    from identity probes (apply of e_c forms column c). The periodic
+    pure-Poisson operator is singular: it gets the pseudo-inverse, with
+    the JAX package's cutoff (``jnp.linalg.pinv``: singular values at or
+    below 10 * m * eps of the largest are dropped; torch's default is
+    m * eps)."""
     m = bot.ncells
     if m > 16 ** 3:
         raise ValueError(
@@ -46,7 +51,12 @@ def direct_bottom_inverse(op, bot: Level, cfg: SolverConfig) -> torch.Tensor:
     cols = torch.empty((m, m), dtype=bot.dtype, device=bot.device)
     for c in range(m):
         cols[c] = op.apply_op(bot, eye[c], cfg).reshape(m)
-    return torch.linalg.inv(cols.t())
+    if cfg.bc == BC.PERIODIC and not cfg.helmholtz:
+        ainv = torch.linalg.pinv(cols.t(), rtol=10.0 * m * torch.finfo(bot.dtype).eps)
+    else:
+        ainv = torch.linalg.inv(cols.t())
+    # row-major, as K4c reads it (CUDA's linalg may return column-major)
+    return ainv.contiguous()
 
 
 def build_hierarchy(beta_i: torch.Tensor, beta_j: torch.Tensor,

@@ -36,9 +36,12 @@ _SIGNATURES = {
     # (x, out, m, stream): x is (2m)^3, out m^3
     "hpgmg_restrict_cell_f32": (_P, _P, _I, _P),
     "hpgmg_restrict_cell_f64": (_P, _P, _I, _P),
-    # (x, xp, n, stream): xp is (n+4)^3, x with its ghost shell
+    # (x, xp, n, stream): xp is (n+4)^3, x with its Dirichlet or periodic
+    # ghost shell
     "hpgmg_fv4_ghost_fill_f32": (_P, _P, _I, _P),
     "hpgmg_fv4_ghost_fill_f64": (_P, _P, _I, _P),
+    "hpgmg_fv4_ghost_fill_periodic_f32": (_P, _P, _I, _P),
+    "hpgmg_fv4_ghost_fill_periodic_f64": (_P, _P, _I, _P),
     # (xp, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out, n, mode, scale,
     #  a_coef, stream)
     "hpgmg_fv4_stencil_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _D, _D,
@@ -55,10 +58,14 @@ _SIGNATURES = {
     "hpgmg_tail_down_f64": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P),
     "hpgmg_tail_up_f32": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P),
     "hpgmg_tail_up_f64": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P),
+    # (ptrs, dims, scales, nlev, nsweeps, a_coef, x_in, ainv, u_bot, xp,
+    #  tmp, stream)
+    "hpgmg_tail_v_f32": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P, _P, _P),
+    "hpgmg_tail_v_f64": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P, _P, _P),
     # (x, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out, n, mode, var7,
-    #  b_h2inv, a_coef, t1, t2, stream)
-    "hpgmg_r1_stencil_f32": (_P,) * 8 + (_I, _I, _I, _D, _D, _D, _D, _P),
-    "hpgmg_r1_stencil_f64": (_P,) * 8 + (_I, _I, _I, _D, _D, _D, _D, _P),
+    #  periodic, b_h2inv, a_coef, t1, t2, stream)
+    "hpgmg_r1_stencil_f32": (_P,) * 8 + (_I, _I, _I, _I, _D, _D, _D, _D, _P),
+    "hpgmg_r1_stencil_f64": (_P,) * 8 + (_I, _I, _I, _I, _D, _D, _D, _D, _P),
     # (x, beta_i, beta_j, beta_k, alpha, rhs, kdinv0, kdinv1, out, n, var7,
     #  b_h2inv, a_coef, t1, t2, stream)
     "hpgmg_r1_gsrb2_f32": (_P,) * 9 + (_I, _I, _D, _D, _D, _D, _P),

@@ -1,6 +1,6 @@
-// K1: the 4th-order variable-coefficient finite-volume operator (fv4,
-// operators.fv4.c:87-114) with quartic volume-averaged Dirichlet ghosts, in
-// four modes:
+// K1 and K7a: the 4th-order variable-coefficient finite-volume operator
+// (fv4, operators.fv4.c:87-114) with quartic volume-averaged Dirichlet
+// ghosts (K1) or periodic ghosts (K7a), in four modes:
 //
 //   apply     out = A x
 //   residual  out = rhs - A x
@@ -19,6 +19,14 @@
 // beta_j (n+2, n+1, n+2), beta_k (n+2, n+2, n+1), indexed exactly as
 // hpgmg_tpu/ops/fv4.py:127-138 slices them.
 //
+// K7a replaces hpgmg_tpu/kernels/stencils.py:fv4_call_ext, the same Pallas
+// body in its ext mode (kperiodic): XLA materialized the i/j wrap ghosts
+// into a j-padded (n+4, n+16, n) block and the kernel wrapped k in lanes.
+// Here the wrap is one pass over the (n+4)^3 buffer, then the same stencil
+// kernel as K1 reads it, with the face coefficients wrapped tangentially at
+// build time (ops/bc_fv.py:extend_beta_tangential); beta_i keeps its n+1
+// faces, face n being face 0 again.
+//
 // Two kernels, each with its own C entry and launch, on one stream:
 //
 // 1. ghost_fill_kernel writes x with a 2-deep ghost shell into the
@@ -29,7 +37,8 @@
 //    operator of the separable i -> j -> k fill (ghost_fill_fv), with a
 //    different rounding order. The stencil reads the radius-2 star and the
 //    (+-1,+-1,0)-type edge ghosts of the mixed terms, so edges are filled
-//    too, not only faces.
+//    too, not only faces. For K7a, wrap_fill_kernel writes the cell at
+//    (i mod n, j mod n, k mod n) instead, edges and corners included.
 // 2. fv4_kernel evaluates the stencil branch-free from xp.
 //
 // The device code they share with K2 (fv4_gsrb2.cu) and K4 (tail.cu) is in
@@ -51,6 +60,8 @@
 // reads per cell overlap the neighbours' and are served by L1/L2. Design:
 // one thread per cell with k fastest, so every load of a warp is coalesced
 // along k.
+// K7a's wrap pass moves x once and xp once (a copy: bound by bandwidth,
+// like K1's ghost pass); its stencil pass is K1's.
 // Plain version: hpgmg_tpu_torch/kernels/stencils.py:fv4_stencil_plain.
 
 #include "fv4_common.cuh"
@@ -74,6 +85,22 @@ __global__ void ghost_fill_kernel(const T* __restrict__ x, T* __restrict__ xp,
     return;
   }
   xp[t] = ghost_value(CellView<T>{x, 0, n}, n, i, j, k);
+}
+
+// The same buffer with periodic ghosts: the cell at each index mod n (one
+// wrap suffices, n >= 4 > the ghost depth of 2).
+template <typename T>
+__global__ void wrap_fill_kernel(const T* __restrict__ x, T* __restrict__ xp,
+                                 int n) {
+  const int np = n + 4;
+  const int kp = blockIdx.x * blockDim.x + threadIdx.x;
+  if (kp >= np) return;
+  const int64_t t = (static_cast<int64_t>(blockIdx.z) * np + blockIdx.y) * np + kp;
+  auto wrap = [n](int idx) { return idx < 0 ? idx + n : (idx >= n ? idx - n : idx); };
+  const int i = wrap(static_cast<int>(blockIdx.z) - 2);
+  const int j = wrap(static_cast<int>(blockIdx.y) - 2);
+  const int k = wrap(kp - 2);
+  xp[t] = x[(static_cast<int64_t>(i) * n + j) * n + k];
 }
 
 // One thread per output cell on a grid3d launch over the output extent:
@@ -122,11 +149,18 @@ Grid3 grid3d(int ext) {
 }
 
 template <typename T>
-int launch_ghost_fill(const void* x, void* xp, int n, void* stream) {
+int launch_ghost_fill(const void* x, void* xp, int n, bool periodic,
+                      void* stream) {
   if (n < 4 || n > 65531) return static_cast<int>(cudaErrorInvalidValue);
   const Grid3 gp = grid3d(n + 4);
-  ghost_fill_kernel<T><<<gp.grid, gp.block, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<T*>(xp), n);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (periodic) {
+    wrap_fill_kernel<T><<<gp.grid, gp.block, 0, s>>>(static_cast<const T*>(x),
+                                                     static_cast<T*>(xp), n);
+  } else {
+    ghost_fill_kernel<T><<<gp.grid, gp.block, 0, s>>>(static_cast<const T*>(x),
+                                                      static_cast<T*>(xp), n);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -161,12 +195,22 @@ int launch_fv4(const void* xp, const void* bie, const void* bje,
 // xp: (n+4)^3 values of the same type, x with its ghost shell
 extern "C" int hpgmg_fv4_ghost_fill_f32(const void* x, void* xp, int n,
                                         void* stream) {
-  return launch_ghost_fill<float>(x, xp, n, stream);
+  return launch_ghost_fill<float>(x, xp, n, false, stream);
 }
 
 extern "C" int hpgmg_fv4_ghost_fill_f64(const void* x, void* xp, int n,
                                         void* stream) {
-  return launch_ghost_fill<double>(x, xp, n, stream);
+  return launch_ghost_fill<double>(x, xp, n, false, stream);
+}
+
+extern "C" int hpgmg_fv4_ghost_fill_periodic_f32(const void* x, void* xp, int n,
+                                                 void* stream) {
+  return launch_ghost_fill<float>(x, xp, n, true, stream);
+}
+
+extern "C" int hpgmg_fv4_ghost_fill_periodic_f64(const void* x, void* xp, int n,
+                                                 void* stream) {
+  return launch_ghost_fill<double>(x, xp, n, true, stream);
 }
 
 // xp: the ghost-filled x written by hpgmg_fv4_ghost_fill_*

@@ -22,6 +22,11 @@
 // several axes (the edges and corners the 27pt body reads) is the tensor
 // product of the per-axis taps, which is what the separable i -> j -> k
 // fills of ops/bc.py and ops/bc_fv.py produce. Needs n >= 2.
+//
+// Periodic ghosts (K7b, R1Args::periodic): a ghost one cell outside is the
+// cell at the opposite face, index mod n on each axis it crosses (edges
+// and corners wrap on each axis), with weight 1. At n = 2 the low and the
+// high ghost of an axis are the same two cells.
 
 #pragma once
 
@@ -48,6 +53,7 @@ struct R1Args {
   T b_h2inv;  // b / h^2
   T a_coef;   // var7: a (with alpha); 27pt: the constant a of a*x
   T t1, t2;   // Dirichlet ghost taps
+  int periodic;  // K7b: ghosts wrap (t1, t2 unused); K5 and K6: 0
 };
 
 template <typename T>
@@ -100,6 +106,15 @@ __device__ __forceinline__ T r1_value(const T* x, int n, T t1, T t2, int i,
   return s;
 }
 
+// x at (i, j, k), each in [-1, n], under periodic BCs: the cell at each
+// index mod n.
+template <typename T>
+__device__ __forceinline__ T r1_wrap_value(const T* x, int n, int i, int j,
+                                           int k) {
+  auto wrap = [n](int idx) { return idx < 0 ? idx + n : (idx >= n ? idx - n : idx); };
+  return ld(x + (static_cast<int64_t>(wrap(i)) * n + wrap(j)) * n + wrap(k));
+}
+
 // --------------------------------------------------------------------------
 // Tiles in shared memory. A block owns a TI x TJ x TK box of cells at
 // (i0, j0, k0) (k fastest) and keeps x on it with an H-cell halo.
@@ -122,8 +137,9 @@ __device__ __forceinline__ bool near_domain(int idx, int n) {
 }
 
 // xs <- x at tile offsets [-H, T+H) on each axis: the cells inside the
-// domain, the ghosts one cell outside it, zeros further out (read only by
-// results at ghost positions, which are discarded).
+// domain, the ghosts one cell outside it (Dirichlet taps or the periodic
+// wrap), zeros further out (read only by results at ghost positions, which
+// are discarded).
 template <typename T, int H, int TI, int TJ, int TK>
 __device__ __forceinline__ void load_tile(const R1Args<T>& p, T* xs, int i0,
                                           int j0, int k0) {
@@ -132,9 +148,10 @@ __device__ __forceinline__ void load_tile(const R1Args<T>& p, T* xs, int i0,
   for (int t = threadIdx.x; t < XSIZE; t += kTileThreads) {
     const int c = t % XK, r = t / XK;
     const int i = i0 + r / XJ - H, j = j0 + r % XJ - H, k = k0 + c - H;
-    xs[t] = near_domain(i, n) && near_domain(j, n) && near_domain(k, n)
-                ? r1_value(p.x, n, p.t1, p.t2, i, j, k)
-                : T(0);
+    xs[t] = !(near_domain(i, n) && near_domain(j, n) && near_domain(k, n))
+                ? T(0)
+                : p.periodic ? r1_wrap_value(p.x, n, i, j, k)
+                             : r1_value(p.x, n, p.t1, p.t2, i, j, k);
   }
 }
 

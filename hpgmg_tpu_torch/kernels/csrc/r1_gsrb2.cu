@@ -140,7 +140,8 @@ int launch_gsrb2(const void* x, const void* beta_i, const void* beta_j,
                     static_cast<const T*>(kdinv0), static_cast<const T*>(kdinv1),
                     static_cast<T*>(out),          n,
                     static_cast<T>(b_h2inv),       static_cast<T>(a_coef),
-                    static_cast<T>(t1),            static_cast<T>(t2)};
+                    static_cast<T>(t1),            static_cast<T>(t2),
+                    0};  // Dirichlet only: the wrapper refuses periodic levels
   const dim3 grid((n + Tile<T>::K - 1) / Tile<T>::K, (n + Tile<T>::J - 1) / Tile<T>::J,
                   (n + Tile<T>::I - 1) / Tile<T>::I);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -1,8 +1,8 @@
-// K5: the radius-1 stencils of the fv7pt, fv2 and 27pt suites (var7: the
-// 7-point variable-coefficient flux, operators.7pt.c:52-76 and
+// K5 and K7b: the radius-1 stencils of the fv7pt, fv2 and 27pt suites
+// (var7: the 7-point variable-coefficient flux, operators.7pt.c:52-76 and
 // operators.fv2.c:55-92; 27pt: the constant-coefficient Mehrstellen
-// stencil, operators.27pt.c:48-92) with 2-tap Dirichlet ghosts, in four
-// modes:
+// stencil, operators.27pt.c:48-92) with 2-tap Dirichlet ghosts (K5) or
+// periodic ghosts (K7b, the `periodic` argument), in four modes:
 //
 //   apply     out = A x
 //   residual  out = rhs - A x
@@ -16,6 +16,11 @@
 // entries). That kernel worked on (bi, bj, n) VMEM tiles and read j-padded,
 // split-k coefficient views built for the TPU's (8, 128) tiling; none of
 // that is carried over: the face coefficients are the natural face arrays.
+// K7b replaces the same body's ext mode, hpgmg_tpu/kernels/stencils_r1.py:
+// r1_call_ext with kperiodic (reached through _r1_call on a periodic
+// level), where XLA materialized the i/j wrap into a j-padded block and the
+// kernel wrapped k in lanes: here the wrapped cells are read while x is
+// loaded into the tile, the rest of the kernel unchanged.
 // No separate ghost pass is needed (K1's fv4 ghosts take 4 taps at two
 // depths and got one): a radius-1 Dirichlet ghost is a 2-tap function of
 // the two cells nearest the face (r1_common.cuh), synthesized while x is
@@ -111,8 +116,8 @@ template <typename T>
 int launch_r1(const void* x, const void* beta_i, const void* beta_j,
               const void* beta_k, const void* alpha, const void* rhs,
               const void* kdinv, void* out, int n, int mode, int var7,
-              double b_h2inv, double a_coef, double t1, double t2,
-              void* stream) {
+              int periodic, double b_h2inv, double a_coef, double t1,
+              double t2, void* stream) {
   if (n < 2 || n > 524280 || mode < kApply || mode > kFres ||
       (mode == kFres && n % 2 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -123,7 +128,8 @@ int launch_r1(const void* x, const void* beta_i, const void* beta_j,
                     static_cast<const T*>(kdinv),  nullptr,
                     static_cast<T*>(out),          n,
                     static_cast<T>(b_h2inv),       static_cast<T>(a_coef),
-                    static_cast<T>(t1),            static_cast<T>(t2)};
+                    static_cast<T>(t1),            static_cast<T>(t2),
+                    periodic != 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(var7 ? launch_body<T, true>(p, mode, s)
                                : launch_body<T, false>(p, mode, s));
@@ -132,25 +138,26 @@ int launch_r1(const void* x, const void* beta_i, const void* beta_j,
 }  // namespace
 
 // var7 != 0: the 7-point body (beta_* read; alpha may be null); else the
-// 27pt body (beta_* and alpha unused, a_coef the constant a)
+// 27pt body (beta_* and alpha unused, a_coef the constant a). periodic != 0:
+// wrapped ghosts (t1, t2 unused)
 extern "C" int hpgmg_r1_stencil_f32(const void* x, const void* beta_i,
                                     const void* beta_j, const void* beta_k,
                                     const void* alpha, const void* rhs,
                                     const void* kdinv, void* out, int n,
-                                    int mode, int var7, double b_h2inv,
-                                    double a_coef, double t1, double t2,
-                                    void* stream) {
+                                    int mode, int var7, int periodic,
+                                    double b_h2inv, double a_coef, double t1,
+                                    double t2, void* stream) {
   return launch_r1<float>(x, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out, n,
-                          mode, var7, b_h2inv, a_coef, t1, t2, stream);
+                          mode, var7, periodic, b_h2inv, a_coef, t1, t2, stream);
 }
 
 extern "C" int hpgmg_r1_stencil_f64(const void* x, const void* beta_i,
                                     const void* beta_j, const void* beta_k,
                                     const void* alpha, const void* rhs,
                                     const void* kdinv, void* out, int n,
-                                    int mode, int var7, double b_h2inv,
-                                    double a_coef, double t1, double t2,
-                                    void* stream) {
+                                    int mode, int var7, int periodic,
+                                    double b_h2inv, double a_coef, double t1,
+                                    double t2, void* stream) {
   return launch_r1<double>(x, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out, n,
-                           mode, var7, b_h2inv, a_coef, t1, t2, stream);
+                           mode, var7, periodic, b_h2inv, a_coef, t1, t2, stream);
 }

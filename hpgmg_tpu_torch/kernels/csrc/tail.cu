@@ -1,22 +1,27 @@
-// K4: the coarse-ladder ("tail") halves of an fv4 V-cycle, each in ONE
-// launch over all the tail levels (dims <= 32 above the bottom):
+// K4: the coarse-ladder ("tail") of an fv4 V-cycle over all the tail
+// levels (dims <= 32 above the bottom), each part in ONE launch:
 //
 //   K4a down, per level from the finest tail level:
 //       x <- nsweeps GSRB half-sweeps from x (x = 0 below the first level)
 //       e[l] <- x;  rhs[l+1] = res[l] <- restrict_cell(rhs[l] - A x)
 //   K4b up, per level from the coarsest tail level, u = the solution below:
 //       x <- e[l] + interp_v2(u);  u = res[l] <- nsweeps half-sweeps from x
+//   K4c v, when the level right below the tail is the DIRECT bottom: K4a's
+//       descent, u_bot = A^-1 res[last] (the dense inverse built with the
+//       hierarchy, a 512 x 512 matvec at 8^3), then K4b's climb, writing
+//       each level's solution over its e[l]
 //
-// (mg.c:1135-1164: the descent and the climb of MGVCycle; the bottom solve
-// between them stays outside). The arithmetic per level is K1's gsrb and
+// (mg.c:1135-1164: the descent and the climb of MGVCycle; K4a and K4b leave
+// the bottom solve between them outside). The arithmetic per level is K1's gsrb and
 // fres modes (fv4_stencil.cu) and the v2 interpolation of
 // ops/transfer_fv.py:interp_v2, whose coarse quadratic Dirichlet ghosts
 // (g = -5/2 c0 + 1/2 c1) and 3-tap children (1/8, 1, -1/8) are computed
 // in the kernel body as per-axis taps, their tensor product being the
 // separable operator.
 //
-// Replaces hpgmg_tpu/kernels/tail.py:_down_kernel (tail_down_call) and
-// _up_kernel (tail_up_call). Those held every tail level whole in VMEM and
+// Replaces hpgmg_tpu/kernels/tail.py:_down_kernel (tail_down_call),
+// _up_kernel (tail_up_call) and _v_kernel (tail_v_call, with its in-kernel
+// DIRECT bottom _bottom_direct). Those held every tail level whole in VMEM and
 // chained the phases in registers, the transfers as per-slice MXU dots.
 // Here one cooperative launch of co-resident blocks runs the phases as
 // grid-stride loops over global memory (a 32^3 level is 128 KiB in f32,
@@ -28,9 +33,13 @@
 // phases (2 per half-sweep, ~14 per level), not bandwidth or flops: the
 // levels are tiny. It replaces ~20 launches per level, each costing more
 // host time than device time. Design: kCoopThreads-thread blocks, as many
-// as are co-resident and the finest level's ghost fill can use.
+// as are co-resident and the finest level's ghost fill can use. K4c's
+// bottom phase gives each row of the inverse to one warp (lanes stride the
+// row, coalesced; a shuffle reduction), grid-stride over the rows, reading
+// the inverse (1 MB in f32) through L2 and not staging it in shared memory;
+// a grid barrier on either side of it.
 // Plain version: hpgmg_tpu_torch/kernels/tail.py:tail_down_plain and
-// tail_up_plain.
+// tail_up_plain and tail_v_plain.
 
 #include "fv4_common.cuh"
 
@@ -60,8 +69,10 @@ struct TailLevel {
 template <typename T>
 struct TailArgs {
   TailLevel<T> lv[kMaxTail];
-  const T* x_in;   // down: the first level's starting iterate
+  const T* x_in;   // down, v: the first level's starting iterate
   const T* u_bot;  // up: the solution below the coarsest tail level
+  const T* ainv;   // v: the bottom's dense inverse, (db^3, db^3) row-major
+  T* u_out;        // v: the bottom solution, db^3
   T* xp;           // (n0+4)^3 scratch
   T* tmp;          // n0^3 scratch
   int nlev;
@@ -92,10 +103,10 @@ __device__ void sweeps(const TailArgs<T>& a, const TailLevel<T>& L,
   }
 }
 
+// The descent: per level, sweeps into e, then the restricted residual into
+// res; ends on a grid barrier.
 template <typename T>
-__global__ void __launch_bounds__(kCoopThreads)
-    tail_down_kernel(const TailArgs<T> a) {
-  cg::grid_group grid = cg::this_grid();
+__device__ void descend(const TailArgs<T>& a, cg::grid_group& grid) {
   const T* start = a.x_in;
   for (int l = 0; l < a.nlev; ++l) {
     const TailLevel<T>& L = a.lv[l];
@@ -108,13 +119,15 @@ __global__ void __launch_bounds__(kCoopThreads)
   }
 }
 
+// The climb from u, the solution below the coarsest level: per level, the
+// interpolation added to e, then sweeps; the level's solution goes to res,
+// or over e (in_place: K4c, whose res holds the next level's rhs).
 template <typename T>
-__global__ void __launch_bounds__(kCoopThreads)
-    tail_up_kernel(const TailArgs<T> a) {
-  cg::grid_group grid = cg::this_grid();
-  const T* u = a.u_bot;
+__device__ void climb(const TailArgs<T>& a, const T* u, bool in_place,
+                      cg::grid_group& grid) {
   for (int l = a.nlev - 1; l >= 0; --l) {
     const TailLevel<T>& L = a.lv[l];
+    T* out = in_place ? L.e : L.res;
     const int n = L.n, dc = n / 2;
     const int64_t total = static_cast<int64_t>(n) * n * n;
     for (int64_t c = gtid(); c < total; c += gstride()) {
@@ -136,19 +149,62 @@ __global__ void __launch_bounds__(kCoopThreads)
           up += wi[x] * wj[y] * sk;
         }
       }
-      L.res[c] = L.e[c] + up;
+      out[c] = L.e[c] + up;
     }
     grid.sync();
-    sweeps(a, L, L.res, L.res, grid);
-    u = L.res;
+    sweeps(a, L, out, out, grid);
+    u = out;
+  }
+}
+
+// u_out = ainv . r, r the coarsest level's restricted residual: one warp per
+// row (kCoopThreads is a multiple of 32, so warps are whole).
+template <typename T>
+__device__ void bottom_phase(const TailArgs<T>& a) {
+  const TailLevel<T>& L = a.lv[a.nlev - 1];
+  const int db = L.n / 2, m = db * db * db, lane = threadIdx.x & 31;
+  const T* r = L.res;
+  for (int64_t row = gtid() >> 5; row < m; row += gstride() >> 5) {
+    const T* arow = a.ainv + row * m;
+    T s = T(0);
+    for (int c = lane; c < m; c += 32) s += arow[c] * r[c];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+    if (lane == 0) a.u_out[row] = s;
   }
 }
 
 template <typename T>
-int launch_tail(bool down, const void* const* ptrs, const int* dims,
+__global__ void __launch_bounds__(kCoopThreads)
+    tail_down_kernel(const TailArgs<T> a) {
+  cg::grid_group grid = cg::this_grid();
+  descend(a, grid);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kCoopThreads)
+    tail_up_kernel(const TailArgs<T> a) {
+  cg::grid_group grid = cg::this_grid();
+  climb(a, a.u_bot, false, grid);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kCoopThreads)
+    tail_v_kernel(const TailArgs<T> a) {
+  cg::grid_group grid = cg::this_grid();
+  descend(a, grid);
+  bottom_phase(a);
+  grid.sync();
+  climb(a, a.u_out, true, grid);
+}
+
+enum class TailKind { kDown, kUp, kV };
+
+template <typename T>
+int launch_tail(TailKind kind, const void* const* ptrs, const int* dims,
                 const double* scales, int nlev, int nsweeps, double a_coef,
-                const void* x_in, const void* u_bot, void* xp, void* tmp,
-                void* stream) {
+                const void* x_in, const void* u_bot, const void* ainv,
+                void* u_out, void* xp, void* tmp, void* stream) {
   if (nlev < 1 || nlev > kMaxTail || nsweeps < 2 || nsweeps % 2 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -170,15 +226,26 @@ int launch_tail(bool down, const void* const* ptrs, const int* dims,
   }
   a.x_in = static_cast<const T*>(x_in);
   a.u_bot = static_cast<const T*>(u_bot);
+  a.ainv = static_cast<const T*>(ainv);
+  a.u_out = static_cast<T*>(u_out);
   a.xp = static_cast<T*>(xp);
   a.tmp = static_cast<T*>(tmp);
   a.nlev = nlev;
   a.nsweeps = nsweeps;
   a.a_coef = static_cast<T>(a_coef);
-  const int64_t work = static_cast<int64_t>(dims[0] + 4) * (dims[0] + 4) * (dims[0] + 4);
+  int64_t work = static_cast<int64_t>(dims[0] + 4) * (dims[0] + 4) * (dims[0] + 4);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = down ? coop_launch(tail_down_kernel<T>, a, work, s)
-                         : coop_launch(tail_up_kernel<T>, a, work, s);
+  cudaError_t err;
+  if (kind == TailKind::kV) {
+    const int64_t db = dims[nlev - 1] / 2, rows = db * db * db;
+    if (ainv == nullptr || u_out == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    if (32 * rows > work) work = 32 * rows;  // a warp per row of the inverse
+    err = coop_launch(tail_v_kernel<T>, a, work, s);
+  } else if (kind == TailKind::kDown) {
+    err = coop_launch(tail_down_kernel<T>, a, work, s);
+  } else {
+    err = coop_launch(tail_up_kernel<T>, a, work, s);
+  }
   if (err == cudaSuccess) err = cudaGetLastError();
   return static_cast<int>(err);
 }
@@ -192,30 +259,54 @@ extern "C" int hpgmg_tail_down_f32(const void* const* ptrs, const int* dims,
                                    const double* scales, int nlev, int nsweeps,
                                    double a_coef, const void* x_in, void* xp,
                                    void* tmp, void* stream) {
-  return launch_tail<float>(true, ptrs, dims, scales, nlev, nsweeps, a_coef,
-                            x_in, nullptr, xp, tmp, stream);
+  return launch_tail<float>(TailKind::kDown, ptrs, dims, scales, nlev, nsweeps,
+                            a_coef, x_in, nullptr, nullptr, nullptr, xp, tmp,
+                            stream);
 }
 
 extern "C" int hpgmg_tail_down_f64(const void* const* ptrs, const int* dims,
                                    const double* scales, int nlev, int nsweeps,
                                    double a_coef, const void* x_in, void* xp,
                                    void* tmp, void* stream) {
-  return launch_tail<double>(true, ptrs, dims, scales, nlev, nsweeps, a_coef,
-                             x_in, nullptr, xp, tmp, stream);
+  return launch_tail<double>(TailKind::kDown, ptrs, dims, scales, nlev, nsweeps,
+                             a_coef, x_in, nullptr, nullptr, nullptr, xp, tmp,
+                             stream);
 }
 
 extern "C" int hpgmg_tail_up_f32(const void* const* ptrs, const int* dims,
                                  const double* scales, int nlev, int nsweeps,
                                  double a_coef, const void* u_bot, void* xp,
                                  void* tmp, void* stream) {
-  return launch_tail<float>(false, ptrs, dims, scales, nlev, nsweeps, a_coef,
-                            nullptr, u_bot, xp, tmp, stream);
+  return launch_tail<float>(TailKind::kUp, ptrs, dims, scales, nlev, nsweeps,
+                            a_coef, nullptr, u_bot, nullptr, nullptr, xp, tmp,
+                            stream);
 }
 
 extern "C" int hpgmg_tail_up_f64(const void* const* ptrs, const int* dims,
                                  const double* scales, int nlev, int nsweeps,
                                  double a_coef, const void* u_bot, void* xp,
                                  void* tmp, void* stream) {
-  return launch_tail<double>(false, ptrs, dims, scales, nlev, nsweeps, a_coef,
-                             nullptr, u_bot, xp, tmp, stream);
+  return launch_tail<double>(TailKind::kUp, ptrs, dims, scales, nlev, nsweeps,
+                             a_coef, nullptr, u_bot, nullptr, nullptr, xp, tmp,
+                             stream);
+}
+
+// K4c: the down entry's operands, plus ainv ((db^3)^2, db = dims[nlev-1]/2)
+// and u_bot (db^3 scratch); the result is the first level's e (ptrs[7]).
+extern "C" int hpgmg_tail_v_f32(const void* const* ptrs, const int* dims,
+                                const double* scales, int nlev, int nsweeps,
+                                double a_coef, const void* x_in,
+                                const void* ainv, void* u_bot, void* xp,
+                                void* tmp, void* stream) {
+  return launch_tail<float>(TailKind::kV, ptrs, dims, scales, nlev, nsweeps,
+                            a_coef, x_in, nullptr, ainv, u_bot, xp, tmp, stream);
+}
+
+extern "C" int hpgmg_tail_v_f64(const void* const* ptrs, const int* dims,
+                                const double* scales, int nlev, int nsweeps,
+                                double a_coef, const void* x_in,
+                                const void* ainv, void* u_bot, void* xp,
+                                void* tmp, void* stream) {
+  return launch_tail<double>(TailKind::kV, ptrs, dims, scales, nlev, nsweeps,
+                             a_coef, x_in, nullptr, ainv, u_bot, xp, tmp, stream);
 }

@@ -1,6 +1,8 @@
-"""K1 and K2: the fv4 stencil in four modes and the fused red+black GSRB
-sweep (counterparts of hpgmg_tpu/kernels/stencils.py:_fv4_kernel, entered
-through fv4_{apply,residual,gsrb_sweep,restrict_residual}_pallas, and
+"""K1, K7a and K2: the fv4 stencil in four modes, with Dirichlet (K1) or
+periodic (K7a) ghosts, and the fused red+black GSRB sweep (counterparts of
+hpgmg_tpu/kernels/stencils.py:_fv4_kernel, entered through _fv4_call for
+Dirichlet levels and through fv4_call_ext for periodic ones, from
+fv4_{apply,residual,gsrb_sweep,restrict_residual}_pallas; and
 _fv4_gsrb2_kernel, entered through fv4_gsrb2_pallas).
 
 Each entry dispatches on the device of ``x``: CUDA tensors launch the
@@ -13,9 +15,14 @@ kernels of ``csrc/``, CPU tensors take the plain version. K1's modes:
 * ``fres``: restrict_cell(rhs - A x), an (n/2)^3 tensor
 
 On CUDA, K1 is two launches: the ghost fill of x into an (n+4)^3 buffer
-(``fv4_ghost_fill_cuda``, counted on its own) and the stencil. K2 is one
-launch per full sweep (``fv4_gsrb2``): the red half-sweep with kdinv[0],
-then the black one with kdinv[1], equal to two K1 gsrb calls.
+(``fv4_ghost_fill_cuda``, counted on its own) and the stencil. K7a is the
+same stencil launch after the periodic wrap fill
+(``fv4_ghost_fill_periodic_cuda``, counted on its own); its face
+coefficients are wrapped tangentially at build time
+(``extend_beta_tangential``). K2 is one launch per full sweep
+(``fv4_gsrb2``): the red half-sweep with kdinv[0], then the black one with
+kdinv[1], equal to two K1 gsrb calls. It takes Dirichlet levels only, as
+the JAX package fuses no periodic sweep (hpgmg_tpu/ops/fv4.py:172-174).
 """
 
 from __future__ import annotations
@@ -46,8 +53,8 @@ def _check(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
     take. ``kdinv`` holds the dinv operands the mode reads."""
     if mode not in MODES:
         raise ValueError(f"unknown fv4 stencil mode {mode!r}")
-    if cfg.bc != BC.DIRICHLET:
-        raise NotImplementedError("the fv4 stencil supports Dirichlet BCs only")
+    if cfg.bc not in (BC.DIRICHLET, BC.PERIODIC):
+        raise NotImplementedError(f"the fv4 stencil does not take {cfg.bc}")
     n = level.dim
     if n < 4 or (mode == "fres" and n % 2):
         raise ValueError(f"fv4 stencil mode {mode!r} cannot take n={n}")
@@ -73,6 +80,13 @@ def _check(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def check_dirichlet(cfg: SolverConfig, what: str):
+    """Raise unless the BC is Dirichlet: the fused kernels (K2, K4, K6)
+    read no periodic ghost from the opposite face."""
+    if cfg.bc != BC.DIRICHLET:
+        raise NotImplementedError(f"{what} takes Dirichlet BCs only, got {cfg.bc}")
 
 
 def _stream(x: torch.Tensor):
@@ -193,6 +207,7 @@ def fv4_gsrb2_plain(level: Level, x: torch.Tensor, rhs: torch.Tensor,
                     cfg: SolverConfig) -> torch.Tensor:
     """The plain version of K2: the red and the black half-sweep of K1's
     plain version, each from a fresh ghost fill."""
+    check_dirichlet(cfg, "the fused fv4 sweep (K2)")
     _check(level, x, cfg, "gsrb", rhs, level.kdinv or (None, None))
     fv4_gsrb2_plain.calls += 1
     x = fv4_stencil_plain(level, x, cfg, "gsrb", rhs=rhs, kdinv=level.kdinv[0])
@@ -206,27 +221,33 @@ fv4_gsrb2_plain.calls = 0
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
-def fv4_ghost_fill_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Launch K1's ghost pass: the (n+4)^3 tensor of x with its 2-deep
-    quartic Dirichlet ghost shell (plain version:
-    ``ops/bc_fv.py:ghost_fill_fv(x, BC.DIRICHLET, 4, 2)``)."""
+def _ghost_pass(x: torch.Tensor, entry: str) -> torch.Tensor:
+    """Launch the ghost pass ``hpgmg_<entry>_{f32,f64}`` of x into a new
+    (n+4)^3 buffer."""
     from hpgmg_tpu_torch.kernels.build import library
 
     if not x.is_cuda:
-        raise ValueError(f"fv4_ghost_fill_cuda wants a CUDA tensor, got {x.device}")
+        raise ValueError(f"{entry} wants a CUDA tensor, got {x.device}")
     n = x.shape[0]
     if (x.dim() != 3 or len(set(x.shape)) != 1 or n < 4 or not x.is_contiguous()
             or x.dtype not in (torch.float32, torch.float64)):
         raise ValueError(f"fv4 ghost fill wants a contiguous float cube, got "
                          f"{tuple(x.shape)} {x.dtype}")
     xp = torch.empty((n + 4,) * 3, dtype=x.dtype, device=x.device)
-    lib = library()
-    fn = (lib.hpgmg_fv4_ghost_fill_f32 if x.dtype == torch.float32
-          else lib.hpgmg_fv4_ghost_fill_f64)
+    dt = "f32" if x.dtype == torch.float32 else "f64"
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), xp.data_ptr(), n, _stream(x))
+        rc = getattr(library(), f"hpgmg_{entry}_{dt}")(x.data_ptr(), xp.data_ptr(),
+                                                       n, _stream(x))
     if rc != 0:
-        raise RuntimeError(f"fv4 ghost fill kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+    return xp
+
+
+def fv4_ghost_fill_cuda(x: torch.Tensor) -> torch.Tensor:
+    """Launch K1's ghost pass: the (n+4)^3 tensor of x with its 2-deep
+    quartic Dirichlet ghost shell (plain version:
+    ``ops/bc_fv.py:ghost_fill_fv(x, BC.DIRICHLET, 4, 2)``)."""
+    xp = _ghost_pass(x, "fv4_ghost_fill")
     fv4_ghost_fill_cuda.launches += 1
     return xp
 
@@ -234,11 +255,25 @@ def fv4_ghost_fill_cuda(x: torch.Tensor) -> torch.Tensor:
 fv4_ghost_fill_cuda.launches = 0
 
 
+def fv4_ghost_fill_periodic_cuda(x: torch.Tensor) -> torch.Tensor:
+    """Launch K7a's ghost pass: the (n+4)^3 tensor of x with its 2-deep
+    periodic shell, edges and corners wrapped on each axis (plain version:
+    ``ops/bc_fv.py:ghost_fill_fv(x, BC.PERIODIC, 4, 2)``)."""
+    xp = _ghost_pass(x, "fv4_ghost_fill_periodic")
+    fv4_ghost_fill_periodic_cuda.launches += 1
+    return xp
+
+
+fv4_ghost_fill_periodic_cuda.launches = 0
+
+
 def fv4_stencil_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
                      mode: str, rhs: Optional[torch.Tensor] = None,
                      kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K1 (ghost pass, then the stencil) on CUDA tensors into a
-    newly allocated output."""
+    """Launch K1 (Dirichlet) or K7a (periodic): the ghost pass of the
+    level's BC, then the stencil, on CUDA tensors into a newly allocated
+    output. The stencil launches of K1 count in ``launches``, those of K7a
+    in ``periodic_launches``."""
     from hpgmg_tpu_torch.kernels.build import library
 
     _check(level, x, cfg, mode, rhs, (kdinv,) if mode == "gsrb" else ())
@@ -246,7 +281,8 @@ def fv4_stencil_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
         raise ValueError(f"fv4_stencil_cuda wants CUDA tensors, got {x.device}")
     n = level.dim
     m = n // 2 if mode == "fres" else n
-    xp = fv4_ghost_fill_cuda(x)
+    periodic = cfg.bc == BC.PERIODIC
+    xp = fv4_ghost_fill_periodic_cuda(x) if periodic else fv4_ghost_fill_cuda(x)
     out = torch.empty((m, m, m), dtype=x.dtype, device=x.device)
     alpha = level.alpha if cfg.helmholtz else None
     lib = library()
@@ -259,11 +295,15 @@ def fv4_stencil_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
                 float(cfg.a), _stream(x))
     if rc != 0:
         raise RuntimeError(f"fv4 stencil kernel launch failed: CUDA error {rc}")
-    fv4_stencil_cuda.launches += 1
+    if periodic:
+        fv4_stencil_cuda.periodic_launches += 1
+    else:
+        fv4_stencil_cuda.launches += 1
     return out
 
 
 fv4_stencil_cuda.launches = 0
+fv4_stencil_cuda.periodic_launches = 0
 
 
 def fv4_gsrb2_cuda(level: Level, x: torch.Tensor, rhs: torch.Tensor,
@@ -271,6 +311,7 @@ def fv4_gsrb2_cuda(level: Level, x: torch.Tensor, rhs: torch.Tensor,
     """Launch K2 (one full red+black sweep) into a newly allocated output."""
     from hpgmg_tpu_torch.kernels.build import library
 
+    check_dirichlet(cfg, "the fused fv4 sweep (K2)")
     _check(level, x, cfg, "gsrb", rhs, level.kdinv or (None, None))
     if not x.is_cuda:
         raise ValueError(f"fv4_gsrb2_cuda wants CUDA tensors, got {x.device}")
@@ -305,8 +346,8 @@ fv4_gsrb2_cuda.launches = 0
 def fv4_stencil(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
                 rhs: Optional[torch.Tensor] = None,
                 kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K1 on ``level``: the CUDA kernels for CUDA tensors, the plain version
-    for CPU tensors."""
+    """K1 (K7a on a periodic level) on ``level``: the CUDA kernels for CUDA
+    tensors, the plain version for CPU tensors."""
     if x.is_cuda:
         return fv4_stencil_cuda(level, x, cfg, mode, rhs, kdinv)
     if x.device.type == "cpu":

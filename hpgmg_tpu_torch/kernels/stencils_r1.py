@@ -1,7 +1,9 @@
-"""K5 and K6: the radius-1 stencil in four modes and the fused red+black
-GSRB sweep of the fv7pt, fv2 and 27pt suites (counterparts of
-hpgmg_tpu/kernels/stencils_r1.py:_r1_kernel, entered through
-r1_{apply,residual,gsrb_sweep,restrict_residual}_pallas, and
+"""K5, K7b and K6: the radius-1 stencil in four modes, with Dirichlet (K5)
+or periodic (K7b) ghosts, and the fused red+black GSRB sweep of the fv7pt,
+fv2 and 27pt suites (counterparts of hpgmg_tpu/kernels/stencils_r1.py:
+_r1_kernel, entered through _r1_call for Dirichlet levels and through
+r1_call_ext for periodic ones, from
+r1_{apply,residual,gsrb_sweep,restrict_residual}_pallas; and
 _r1_gsrb2_kernel, entered through r1_gsrb2_pallas).
 
 Two bodies: ``var7`` (fv7pt, fv2), the 7-point variable-coefficient flux
@@ -9,14 +11,18 @@ on the level's natural face arrays with an optional a*alpha*x term, and
 ``27pt``, the constant-coefficient Mehrstellen stencil plus cfg.a * x (the
 27pt suite always adds it, whatever ``cfg.helmholtz`` says). The Dirichlet
 ghosts are ``t1 * x1 + t2 * x2`` of the two cells nearest the face, per
-suite (``TAPS``), and their tensor product at edges and corners.
+suite (``TAPS``), and their tensor product at edges and corners; the
+periodic ghosts (K7b) are the wrapped cells, on each axis crossed.
 
 Each entry dispatches on the device of ``x``: CUDA tensors launch the
 kernels of ``csrc/`` (``r1_stencil.cu``, ``r1_gsrb2.cu``), CPU tensors take
 the plain version. K5's modes are K1's (kernels/stencils.py): apply,
 residual, gsrb (out of place, ``x + kdinv * (rhs - A x)``) and fres
-(``restrict_cell(rhs - A x)``). K6 is one launch per full sweep, equal to
-two K5 gsrb calls (kdinv[0], then kdinv[1]).
+(``restrict_cell(rhs - A x)``). K7b is K5's launch with its periodic
+flag set. K6 is one launch per full sweep, equal to two K5 gsrb calls
+(kdinv[0], then kdinv[1]); it takes Dirichlet levels only: a periodic
+fused sweep would need the opposite face's red iterate
+(hpgmg_tpu/kernels/stencils_r1.py:196-205).
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import torch
 from hpgmg_tpu_torch.core.config import BC, SolverConfig
 from hpgmg_tpu_torch.core.level import Level
 from hpgmg_tpu_torch.kernels.restrict import restrict_cell_plain
-from hpgmg_tpu_torch.kernels.stencils import MODES, _ptr, _stream
+from hpgmg_tpu_torch.kernels.stencils import MODES, _ptr, _stream, check_dirichlet
 from hpgmg_tpu_torch.ops.bc import ghost_fill_linear, ghost_fill_quadratic_fd
 from hpgmg_tpu_torch.ops.bc_fv import ghost_fill_fv
 
@@ -58,9 +64,11 @@ GSRB2_VAR7_ONLY = True
 GSRB2_MAX_DIM = 256
 
 
-def use_gsrb2(dim: int, var7: bool) -> bool:
-    """Whether full GSRB sweeps on a level of ``dim`` go through K6."""
-    return dim <= GSRB2_MAX_DIM and (var7 or not GSRB2_VAR7_ONLY)
+def use_gsrb2(dim: int, var7: bool, bc: BC) -> bool:
+    """Whether full GSRB sweeps on a level of ``dim`` go through K6: never
+    under periodic BCs."""
+    return (bc == BC.DIRICHLET and dim <= GSRB2_MAX_DIM
+            and (var7 or not GSRB2_VAR7_ONLY))
 
 
 def _check(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
@@ -71,9 +79,8 @@ def _check(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
         raise ValueError(f"unknown radius-1 stencil mode {mode!r}")
     if taps not in TAPS:
         raise ValueError(f"unknown ghost taps {taps!r}; have {sorted(TAPS)}")
-    if cfg.bc != BC.DIRICHLET:
-        raise NotImplementedError("the radius-1 stencil supports Dirichlet "
-                                  "BCs only")
+    if cfg.bc not in (BC.DIRICHLET, BC.PERIODIC):
+        raise NotImplementedError(f"the radius-1 stencil does not take {cfg.bc}")
     n = level.dim
     if n < 2 or (mode == "fres" and n % 2):
         raise ValueError(f"radius-1 stencil mode {mode!r} cannot take n={n}")
@@ -120,7 +127,7 @@ def ghost_fill_taps(x: torch.Tensor, taps: str, bc: BC) -> torch.Tensor:
     """x with one ghost layer, filled the way the suite's XLA path fills
     it: p1 by odd reflection (ops/bc.py), v2 by the quadratic
     volume-averaged extension (ops/bc_fv.py), 27pt by the quadratic
-    cell-centered one (ops/bc.py)."""
+    cell-centered one (ops/bc.py); all three wrap under periodic BCs."""
     if taps == "p1":
         return ghost_fill_linear(x, bc, radius=1)
     if taps == "v2":
@@ -208,6 +215,7 @@ def r1_gsrb2_plain(level: Level, x: torch.Tensor, rhs: torch.Tensor,
                    cfg: SolverConfig, taps: str, var7: bool) -> torch.Tensor:
     """The plain version of K6: K5's plain red half-sweep, then its black
     one, each from a fresh ghost fill."""
+    check_dirichlet(cfg, "the fused radius-1 sweep (K6)")
     _check(level, x, cfg, "gsrb", taps, var7, rhs, level.kdinv or (None, None))
     r1_gsrb2_plain.calls += 1
     x = r1_stencil_plain(level, x, cfg, "gsrb", taps, var7, rhs=rhs,
@@ -233,7 +241,9 @@ def r1_stencil_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
                     mode: str, taps: str, var7: bool,
                     rhs: Optional[torch.Tensor] = None,
                     kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K5 on CUDA tensors into a newly allocated output."""
+    """Launch K5 (K7b on a periodic level) on CUDA tensors into a newly
+    allocated output. K5 launches count in ``launches``, K7b launches in
+    ``periodic_launches``."""
     from hpgmg_tpu_torch.kernels.build import library
 
     _check(level, x, cfg, mode, taps, var7, rhs,
@@ -244,20 +254,26 @@ def r1_stencil_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
     m = n // 2 if mode == "fres" else n
     out = torch.empty((m, m, m), dtype=x.dtype, device=x.device)
     alpha, a_coef = _coefs(level, cfg, var7)
+    periodic = cfg.bc == BC.PERIODIC
     lib = library()
     fn = (lib.hpgmg_r1_stencil_f32 if x.dtype == torch.float32
           else lib.hpgmg_r1_stencil_f64)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), *_betas(level, var7), _ptr(alpha), _ptr(rhs),
                 _ptr(kdinv), out.data_ptr(), n, MODES[mode], int(var7),
-                cfg.b * level.h2inv, a_coef, *TAPS[taps], _stream(x))
+                int(periodic), cfg.b * level.h2inv, a_coef, *TAPS[taps],
+                _stream(x))
     if rc != 0:
         raise RuntimeError(f"radius-1 stencil kernel launch failed: CUDA error {rc}")
-    r1_stencil_cuda.launches += 1
+    if periodic:
+        r1_stencil_cuda.periodic_launches += 1
+    else:
+        r1_stencil_cuda.launches += 1
     return out
 
 
 r1_stencil_cuda.launches = 0
+r1_stencil_cuda.periodic_launches = 0
 
 
 def r1_gsrb2_cuda(level: Level, x: torch.Tensor, rhs: torch.Tensor,
@@ -268,6 +284,7 @@ def r1_gsrb2_cuda(level: Level, x: torch.Tensor, rhs: torch.Tensor,
     ``RadiusOneSuite.fold_kdinv`` builds it."""
     from hpgmg_tpu_torch.kernels.build import library
 
+    check_dirichlet(cfg, "the fused radius-1 sweep (K6)")
     _check(level, x, cfg, "gsrb", taps, var7, rhs, level.kdinv or (None, None))
     if not x.is_cuda:
         raise ValueError(f"r1_gsrb2_cuda wants CUDA tensors, got {x.device}")
@@ -297,8 +314,8 @@ r1_gsrb2_cuda.launches = 0
 def r1_stencil(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
                taps: str, var7: bool, rhs: Optional[torch.Tensor] = None,
                kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K5 on ``level``: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+    """K5 (K7b on a periodic level) on ``level``: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors."""
     if x.is_cuda:
         return r1_stencil_cuda(level, x, cfg, mode, taps, var7, rhs, kdinv)
     if x.device.type == "cpu":

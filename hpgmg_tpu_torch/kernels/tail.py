@@ -1,7 +1,9 @@
-"""K4: the coarse-ladder ("tail") halves of the fv4 V-cycle, each in one
-launch over every tail level (counterpart of hpgmg_tpu/kernels/tail.py:
-_down_kernel, entered through tail_down_call, and _up_kernel, entered
-through tail_up_call).
+"""K4: the coarse-ladder ("tail") of the fv4 V-cycle: its halves, each in
+one launch over every tail level (counterparts of
+hpgmg_tpu/kernels/tail.py:_down_kernel, entered through tail_down_call,
+and _up_kernel, entered through tail_up_call), or the whole V-subtree in
+one launch (K4c, the counterpart of _v_kernel, entered through
+tail_v_call).
 
 The tail is the run of levels with TAIL_MIN_DIM <= dim <= TAIL_MAX_DIM
 starting at a V-cycle's root, never including the bottom level. Below
@@ -14,10 +16,15 @@ or climb in one launch (``csrc/tail.cu``):
   residual that is the next level's rhs (mg.c:1135-1150);
 * ``tail_up``: per level from the coarsest, the v2 interpolation of the
   solution below added to the pre-smoothed iterate, then ``nsweeps``
-  half-sweeps (mg.c:1152-1158).
+  half-sweeps (mg.c:1152-1158);
+* ``tail_v``: ``tail_down``, the DIRECT bottom solve ``bottom_ainv @ r``
+  on the level right below the span, then ``tail_up`` (mg.c:1135-1164
+  whole), when that level is the bottom.
 
-CUDA tensors launch the kernels; CPU tensors take the plain versions, the
-same steps through K1's plain version and ``ops/transfer_fv.py:interp_v2``.
+Dirichlet levels only: the tail kernels synthesize the quartic Dirichlet
+ghosts in the kernel body. CUDA tensors launch the kernels; CPU tensors
+take the plain versions, the same steps through K1's plain version and
+``ops/transfer_fv.py:interp_v2``.
 """
 
 from __future__ import annotations
@@ -29,7 +36,8 @@ import torch
 
 from hpgmg_tpu_torch.core.config import BC, Smoother, SolverConfig
 from hpgmg_tpu_torch.core.level import Level
-from hpgmg_tpu_torch.kernels.stencils import _check, _stream, fv4_stencil_plain
+from hpgmg_tpu_torch.kernels.stencils import (_check, _stream, check_dirichlet,
+                                              fv4_stencil_plain)
 from hpgmg_tpu_torch.ops.transfer_fv import interp_v2
 
 # V-cycles route their tail levels through K4; False keeps the level-by-level
@@ -38,6 +46,15 @@ TAIL_FUSE = True
 TAIL_MAX_DIM = 32  # levels with dim <= this fuse
 TAIL_MIN_DIM = 8   # quartic ghosts need 4 cells, the v2 coarse grid 2
 MAX_TAIL = 6       # levels per launch (csrc/tail.cu:kMaxTail)
+# A tail span right above the DIRECT bottom runs as one K4c launch
+# (tail_v) instead of K4a + the bottom matvec + K4b; False keeps the three.
+# Measured on an H100 (bench/profile.py --ab, fv4 512^3 f32, two runs in
+# turns on/off/off/on): a V-cycle from 16^3 takes 0.122-0.140 against
+# 0.162-0.280 ms on the device and half the host enqueue, from 32^3
+# 0.238-0.255 against 0.244-0.379 ms; the F-cycle chain 76.10-77.28
+# against 76.49-78.51 ms per solve, its 512^3 level setting the pace. The
+# JAX package's default (False) is a TPU one.
+TAIL_ONE_LAUNCH = True
 
 
 def _fusible(lv: Level) -> bool:
@@ -68,6 +85,7 @@ def use_tail(op, cfg: SolverConfig, levels: Sequence[Level], lev: int) -> bool:
 
 def _check_tail(tail: Sequence[Level], cfg: SolverConfig, nsweeps: int,
                 tensors: Sequence[Tuple[str, torch.Tensor, tuple]]):
+    check_dirichlet(cfg, "the tail kernels (K4)")
     if not 1 <= len(tail) <= MAX_TAIL:
         raise ValueError(f"the tail kernels take 1..{MAX_TAIL} levels, got {len(tail)}")
     if nsweeps < 2 or nsweeps % 2:
@@ -145,12 +163,42 @@ def tail_up_plain(tail: Sequence[Level], es, rhss, u_bot, cfg: SolverConfig,
 tail_up_plain.calls = 0
 
 
+def _check_bottom(tail: Sequence[Level], bottom: Level):
+    d = tail[-1].dim // 2
+    a = bottom.bottom_ainv
+    if bottom.dim != d or a is None or tuple(a.shape) != (d ** 3, d ** 3):
+        raise ValueError(f"tail_v wants the {d}^3 bottom level below the span "
+                         f"with its ({d ** 3}, {d ** 3}) bottom_ainv")
+    if a.dtype != tail[0].dtype or a.device != tail[0].device or not a.is_contiguous():
+        raise ValueError(f"bottom_ainv is {a.dtype} on {a.device}; want a contiguous "
+                         f"{tail[0].dtype} tensor on {tail[0].device}")
+
+
+def tail_v_plain(tail: Sequence[Level], bottom: Level, e, rhs,
+                 cfg: SolverConfig, nsweeps: int) -> torch.Tensor:
+    """The plain version of K4c: the plain descent, the DIRECT bottom
+    matvec on ``bottom`` (the level right below the span), the plain
+    climb. Returns the first level's post-smoothed solution."""
+    _check_tail(tail, cfg, nsweeps, [("e", e, tail[0].shape),
+                                     ("rhs", rhs, tail[0].shape)])
+    _check_bottom(tail, bottom)
+    tail_v_plain.calls += 1
+    es, rhss = tail_down_plain(tail, e, rhs, cfg, nsweeps)
+    u_bot = (bottom.bottom_ainv @ rhss[-1].reshape(-1)).reshape(bottom.shape)
+    return tail_up_plain(tail, es, [rhs] + rhss[:-1], u_bot, cfg, nsweeps)
+
+
+tail_v_plain.calls = 0
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
-def _launch(down: bool, tail, cfg, nsweeps, per_level, src):
-    """Call the C entry with ``per_level``: (rhs, e, res) per level."""
+def _launch(kind: str, tail, cfg, nsweeps, per_level, src, extra=()):
+    """Call the C entry ``hpgmg_tail_<kind>`` with ``per_level``: (rhs, e,
+    res) per level, ``src`` the starting iterate or the solution below,
+    ``extra`` the bottom operands of the one-launch V-cycle."""
     from hpgmg_tpu_torch.kernels.build import library
 
     n0, dt, dev = tail[0].dim, tail[0].dtype, tail[0].device
@@ -167,15 +215,14 @@ def _launch(down: bool, tail, cfg, nsweeps, per_level, src):
     c_scales = (ctypes.c_double * nlev)(*[-cfg.b * lv.h2inv for lv in tail])
     xp = torch.empty((n0 + 4,) * 3, dtype=dt, device=dev)
     tmp = torch.empty((n0,) * 3, dtype=dt, device=dev)
-    lib = library()
-    name = f"hpgmg_tail_{'down' if down else 'up'}_{'f32' if dt == torch.float32 else 'f64'}"
+    name = f"hpgmg_tail_{kind}_{'f32' if dt == torch.float32 else 'f64'}"
     with torch.cuda.device(dev):
-        rc = getattr(lib, name)(c_ptrs, c_dims, c_scales, nlev, nsweeps,
-                                float(cfg.a), src.data_ptr(), xp.data_ptr(),
-                                tmp.data_ptr(), _stream(src))
+        rc = getattr(library(), name)(c_ptrs, c_dims, c_scales, nlev, nsweeps,
+                                      float(cfg.a), src.data_ptr(),
+                                      *[t.data_ptr() for t in extra],
+                                      xp.data_ptr(), tmp.data_ptr(), _stream(src))
     if rc != 0:
-        raise RuntimeError(f"tail {'down' if down else 'up'} kernel launch "
-                           f"failed: CUDA error {rc}")
+        raise RuntimeError(f"tail {kind} kernel launch failed: CUDA error {rc}")
 
 
 def tail_down_cuda(tail: Sequence[Level], e, rhs, cfg: SolverConfig,
@@ -188,7 +235,7 @@ def tail_down_cuda(tail: Sequence[Level], e, rhs, cfg: SolverConfig,
     es = [torch.empty(lv.shape, dtype=e.dtype, device=e.device) for lv in tail]
     rhss = [torch.empty((lv.dim // 2,) * 3, dtype=e.dtype, device=e.device)
             for lv in tail]
-    _launch(True, tail, cfg, nsweeps, list(zip([rhs] + rhss[:-1], es, rhss)), e)
+    _launch("down", tail, cfg, nsweeps, list(zip([rhs] + rhss[:-1], es, rhss)), e)
     tail_down_cuda.launches += 1
     return es, rhss
 
@@ -206,12 +253,36 @@ def tail_up_cuda(tail: Sequence[Level], es, rhss, u_bot, cfg: SolverConfig,
         raise ValueError(f"tail_up_cuda wants CUDA tensors, got {u_bot.device}")
     outs = [torch.empty(lv.shape, dtype=u_bot.dtype, device=u_bot.device)
             for lv in tail]
-    _launch(False, tail, cfg, nsweeps, list(zip(rhss, es, outs)), u_bot)
+    _launch("up", tail, cfg, nsweeps, list(zip(rhss, es, outs)), u_bot)
     tail_up_cuda.launches += 1
     return outs[0]
 
 
 tail_up_cuda.launches = 0
+
+
+def tail_v_cuda(tail: Sequence[Level], bottom: Level, e, rhs, cfg: SolverConfig,
+                nsweeps: int) -> torch.Tensor:
+    """Launch K4c (``csrc/tail.cu:tail_v_kernel``): the descent, the bottom
+    matvec and the climb in one cooperative launch. The climb writes each
+    level's solution over its pre-smoothed iterate, so the first level's
+    iterate buffer is the result."""
+    _check_tail(tail, cfg, nsweeps, [("e", e, tail[0].shape),
+                                     ("rhs", rhs, tail[0].shape)])
+    _check_bottom(tail, bottom)
+    if not e.is_cuda:
+        raise ValueError(f"tail_v_cuda wants CUDA tensors, got {e.device}")
+    es = [torch.empty(lv.shape, dtype=e.dtype, device=e.device) for lv in tail]
+    rhss = [torch.empty((lv.dim // 2,) * 3, dtype=e.dtype, device=e.device)
+            for lv in tail]
+    u_bot = torch.empty(bottom.shape, dtype=e.dtype, device=e.device)
+    _launch("v", tail, cfg, nsweeps, list(zip([rhs] + rhss[:-1], es, rhss)), e,
+            extra=(bottom.bottom_ainv, u_bot))
+    tail_v_cuda.launches += 1
+    return es[0]
+
+
+tail_v_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -237,3 +308,14 @@ def tail_up(tail: Sequence[Level], es, rhss, u_bot, cfg: SolverConfig,
     if u_bot.device.type == "cpu":
         return tail_up_plain(tail, es, rhss, u_bot, cfg, nsweeps)
     raise ValueError(f"tail_up has no kernel for device {u_bot.device}")
+
+
+def tail_v(tail: Sequence[Level], bottom: Level, e, rhs, cfg: SolverConfig,
+           nsweeps: int):
+    """K4c, the V-subtree under a tail root over the DIRECT bottom: the CUDA
+    kernel for CUDA tensors, the plain version for CPU tensors."""
+    if e.is_cuda:
+        return tail_v_cuda(tail, bottom, e, rhs, cfg, nsweeps)
+    if e.device.type == "cpu":
+        return tail_v_plain(tail, bottom, e, rhs, cfg, nsweeps)
+    raise ValueError(f"tail_v has no kernel for device {e.device}")

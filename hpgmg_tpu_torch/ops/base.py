@@ -62,9 +62,10 @@ class RadiusOneSuite(OperatorSuite):
     ``taps_key`` (its Dirichlet ghost taps, ``stencils_r1.TAPS``) and
     ``var7`` (False: the 27pt body), and ends its ``rebuild_operator``
     with ``fold_kdinv``. Every apply, residual, half-sweep and residual
-    restriction is one K5 call, so the black-box probes of the rebuild and
-    the DIRECT bottom's identity probes run through it too; full GSRB
-    sweeps go through K6 where ``stencils_r1.use_gsrb2`` admits the level.
+    restriction is one K5 call (K7b on a periodic level), so the black-box
+    probes of the rebuild and the DIRECT bottom's identity probes run
+    through it too; full GSRB sweeps go through K6 where
+    ``stencils_r1.use_gsrb2`` admits the level.
     The levels keep the natural face arrays (beta_i (n+1, n, n)): the
     radius-1 flux reads no face outside the domain."""
 
@@ -89,9 +90,10 @@ class RadiusOneSuite(OperatorSuite):
     def gsrb_smooth(self, level: Level, x, rhs, cfg: SolverConfig,
                     nsweeps: int):
         """``nsweeps`` half-sweeps from parity 0: pairs of them as K6's
-        full sweeps where the gate admits the level, else one K5 launch
-        each."""
-        if nsweeps % 2 == 0 and stencils_r1.use_gsrb2(level.dim, self.var7):
+        full sweeps where the gate admits the level (Dirichlet only), else
+        one K5 (K7b) launch each."""
+        if (nsweeps % 2 == 0
+                and stencils_r1.use_gsrb2(level.dim, self.var7, cfg.bc)):
             for _ in range(nsweeps // 2):
                 x = stencils_r1.r1_gsrb2(level, x, rhs, cfg, self.taps_key,
                                          self.var7)

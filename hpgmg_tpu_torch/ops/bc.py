@@ -1,5 +1,5 @@
-"""Cell-centered Dirichlet ghost fills (counterpart of hpgmg_tpu/ops/bc.py;
-reference operators/boundary_fd.c), for the fv7pt and 27pt suites.
+"""Cell-centered ghost fills (counterpart of hpgmg_tpu/ops/bc.py; reference
+operators/boundary_fd.c), for the fv7pt and 27pt suites.
 
 Each fill is a separable per-axis extension, i then j then k, every pass
 reading the field the previous one extended, so the edge and corner ghosts
@@ -11,7 +11,9 @@ face/edge/corner tables):
 * quadratic (apply_BCs_p2, boundary_fd.c:130-143): g1 = -2 x1 + x2 / 3,
   deeper ghosts zeroed; the linear fill below 2 cells.
 
-Homogeneous Dirichlet only: periodic BCs are not ported yet and raise.
+Periodic BCs wrap instead (exchange_boundary on a periodic domain): the
+ghost m cells below the low face is the cell m cells below the high one,
+on every axis, so edges and corners wrap on each axis they cross.
 """
 
 from __future__ import annotations
@@ -21,9 +23,12 @@ import torch
 from hpgmg_tpu_torch.core.config import BC
 
 
-def _check_bc(bc: BC):
-    if bc == BC.PERIODIC:
-        raise NotImplementedError("periodic BCs are not ported yet")
+def _wrap_axis(x: torch.Tensor, axis: int, radius: int) -> torch.Tensor:
+    """Pad one axis with ``radius`` periodic ghosts."""
+    n = x.shape[axis]
+    lo = x.narrow(axis, n - radius, radius)
+    hi = x.narrow(axis, 0, radius)
+    return torch.cat([lo, x, hi], dim=axis)
 
 
 def _reflect_odd_axis(x: torch.Tensor, axis: int, radius: int) -> torch.Tensor:
@@ -46,10 +51,20 @@ def _quadratic_fd_axis(x: torch.Tensor, axis: int, radius: int) -> torch.Tensor:
     return torch.cat(lo + [x] + hi, dim=axis)
 
 
+def ghost_fill_periodic(x: torch.Tensor, radius: int = 1) -> torch.Tensor:
+    """``radius`` periodic ghost layers on every axis (edges and corners
+    wrap on each axis they cross); every BC family's periodic fill."""
+    for axis in range(3):
+        x = _wrap_axis(x, axis, radius)
+    return x
+
+
 def ghost_fill_linear(x: torch.Tensor, bc: BC, radius: int = 1) -> torch.Tensor:
     """``radius`` ghost layers around a cell-centered field by odd
-    reflection (exchange_boundary + apply_BCs_p1)."""
-    _check_bc(bc)
+    reflection (exchange_boundary + apply_BCs_p1), or by the periodic
+    wrap."""
+    if bc == BC.PERIODIC:
+        return ghost_fill_periodic(x, radius)
     for axis in range(3):
         x = _reflect_odd_axis(x, axis, radius)
     return x
@@ -59,8 +74,10 @@ def ghost_fill_quadratic_fd(x: torch.Tensor, bc: BC,
                             radius: int = 1) -> torch.Tensor:
     """Cell-centered quadratic Dirichlet ghosts (apply_BCs_p2), applied
     i -> j -> k so that edge and corner ghosts are the tensor product of
-    the 1D stencil (boundary_fd.c:144-199)."""
-    _check_bc(bc)
+    the 1D stencil (boundary_fd.c:144-199); the periodic wrap under
+    periodic BCs."""
+    if bc == BC.PERIODIC:
+        return ghost_fill_periodic(x, radius)
     if min(x.shape) < 2:
         return ghost_fill_linear(x, bc, radius)
     for axis in range(3):

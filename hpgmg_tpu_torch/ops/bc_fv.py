@@ -1,5 +1,5 @@
-"""Volume-averaged Dirichlet ghost fills (counterpart of
-hpgmg_tpu/ops/bc_fv.py; reference operators/boundary_fv.c).
+"""Volume-averaged ghost fills (counterpart of hpgmg_tpu/ops/bc_fv.py;
+reference operators/boundary_fv.c).
 
 Each BC is a separable per-axis extension: pass 1 extends i from the
 interior, pass 2 extends j reading the i-extended field (the reference's
@@ -11,8 +11,11 @@ ghost stencils on the first interior cells x1..x4:
 * v4 (2 ghosts): g1 = (-77 x1 + 43 x2 - 17 x3 + 3 x4)/12,
   g2 = (-505 x1 + 335 x2 - 145 x3 + 27 x4)/12; v2 below 4 cells
 
-Also the tangential extrapolation of the face coefficients that the fv4
-mixed-derivative terms read (extrapolate_betas, boundary_fv.c:573-681).
+Periodic BCs wrap every axis instead, whatever the order.
+
+Also the tangential extension of the face coefficients that the fv4
+mixed-derivative terms read: extrapolated (extrapolate_betas,
+boundary_fv.c:573-681), or wrapped under periodic BCs.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from hpgmg_tpu_torch.core.config import BC
+from hpgmg_tpu_torch.ops.bc import _wrap_axis, ghost_fill_periodic
 
 
 def _take(x: torch.Tensor, axis: int, idx: int) -> torch.Tensor:
@@ -77,9 +81,9 @@ _EXTENDERS = {1: _extend_axis_v1, 2: _extend_axis_v2, 4: _extend_axis_v4}
 def ghost_fill_fv(x: torch.Tensor, bc: BC, order: int,
                   radius: int) -> torch.Tensor:
     """Fill ``radius`` ghost layers with the order-``order``
-    volume-averaged Dirichlet extrapolation."""
+    volume-averaged Dirichlet extrapolation, or the periodic wrap."""
     if bc == BC.PERIODIC:
-        raise NotImplementedError("periodic BCs are not ported yet")
+        return ghost_fill_periodic(x, radius)
     ext = _EXTENDERS[order]
     for axis in range(3):
         x = ext(x, axis, radius)
@@ -110,10 +114,10 @@ def extend_beta_tangential(beta: torch.Tensor, face_axis: int,
                            bc: BC) -> torch.Tensor:
     """Extend a face-centered coefficient array by one ghost layer along
     its two tangential axes (the fv4 mixed-derivative terms read beta at
-    j+-1 / k+-1, outside the domain for boundary cells)."""
-    if bc == BC.PERIODIC:
-        raise NotImplementedError("periodic BCs are not ported yet")
+    j+-1 / k+-1, outside the domain for boundary cells): extrapolated, or
+    wrapped under periodic BCs."""
     for axis in range(3):
         if axis != face_axis:
-            beta = _extrapolate_axis(beta, axis)
+            beta = (_wrap_axis(beta, axis, 1) if bc == BC.PERIODIC
+                    else _extrapolate_axis(beta, axis))
     return beta

@@ -10,16 +10,16 @@ with 4 colors per axis, v2 interpolation in V-cycles and v4 in F-cycles,
 GSRB with 3 smooths.
 
 Every apply, residual, half-sweep and residual restriction goes through
-K1 (``kernels/stencils.py:fv4_stencil``, whose plain version is
-``stencil_ax`` there), and every full GSRB sweep on the smaller levels
-through K2 (``fv4_gsrb2``).
+K1, or K7a on a periodic level (``kernels/stencils.py:fv4_stencil``, whose
+plain version is ``stencil_ax`` there), and every full GSRB sweep on the
+smaller Dirichlet levels through K2 (``fv4_gsrb2``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
-from hpgmg_tpu_torch.core.config import SolverConfig
+from hpgmg_tpu_torch.core.config import BC, SolverConfig
 from hpgmg_tpu_torch.core.level import Level, rb_mask
 from hpgmg_tpu_torch.kernels import stencils
 from hpgmg_tpu_torch.kernels.stencils import fv4_gsrb2, fv4_stencil
@@ -49,9 +49,10 @@ class FV4(base.OperatorSuite):
     def gsrb_smooth(self, level: Level, x, rhs, cfg: SolverConfig,
                     nsweeps: int):
         """``nsweeps`` half-sweeps from parity 0: pairs of them as K2's
-        full sweeps on levels up to ``stencils.GSRB2_MAX_DIM``, else one
-        K1 launch each."""
-        if nsweeps % 2 == 0 and level.dim <= stencils.GSRB2_MAX_DIM:
+        full sweeps on Dirichlet levels up to ``stencils.GSRB2_MAX_DIM``,
+        else one K1 (K7a) launch each."""
+        if (cfg.bc == BC.DIRICHLET and nsweeps % 2 == 0
+                and level.dim <= stencils.GSRB2_MAX_DIM):
             for _ in range(nsweeps // 2):
                 x = fv4_gsrb2(level, x, rhs, cfg)
             return x

@@ -22,16 +22,19 @@ import dataclasses
 
 import torch
 
-from hpgmg_tpu_torch.core.config import SolverConfig
+from hpgmg_tpu_torch.core.config import BC, SolverConfig
 from hpgmg_tpu_torch.core.level import Level
 from hpgmg_tpu_torch.ops import base
 
 
-def _valid_masks(n: int, dtype: torch.dtype, device: torch.device):
+def _valid_masks(n: int, bc: BC, dtype: torch.dtype, device: torch.device):
     """Per-axis low/high neighbour-validity factors (operators.7pt.c:158-172):
     a Dirichlet neighbour outside the domain is "invalid"; its linear ghost
     is minus the interior value, which folds into the diagonal as a factor
-    (valid - 2)."""
+    (valid - 2). Under periodic BCs every neighbour is valid."""
+    if bc == BC.PERIODIC:
+        one = torch.ones(n, dtype=dtype, device=device)
+        return one, one
     idx = torch.arange(n, device=device)
     return (idx > 0).to(dtype), (idx < n - 1).to(dtype)
 
@@ -45,7 +48,7 @@ class FV7pt(base.RadiusOneSuite):
 
     def rebuild_operator(self, level: Level, cfg: SolverConfig) -> Level:
         n = level.dim
-        lo, hi = _valid_masks(n, level.dtype, level.device)
+        lo, hi = _valid_masks(n, cfg.bc, level.dtype, level.device)
 
         def along(m, axis):
             return m.reshape([-1 if a == axis else 1 for a in range(3)])

@@ -21,7 +21,7 @@ import torch
 
 from hpgmg_tpu_torch.core.config import BC
 from hpgmg_tpu_torch.kernels.restrict import restrict_cell  # noqa: F401
-from hpgmg_tpu_torch.ops.bc import _reflect_odd_axis
+from hpgmg_tpu_torch.ops.bc import _reflect_odd_axis, _wrap_axis
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -72,12 +72,12 @@ def interp_matrix(m: int, dtype: torch.dtype, device: torch.device, bc: BC,
                   extend, radius: int, tap) -> torch.Tensor:
     """(2m, m) one-axis interpolation matrix: the columns are the responses
     of extend-then-tap to the coarse basis vectors. ``extend(x, axis,
-    radius)`` synthesizes the BC ghosts; ``tap`` applies the child stencil
-    along axis 0."""
-    if bc == BC.PERIODIC:
-        raise NotImplementedError("periodic BCs are not ported yet")
+    radius)`` synthesizes the Dirichlet ghosts (``_wrap_axis`` takes its
+    place under periodic BCs); ``tap`` applies the child stencil along
+    axis 0."""
     eye = torch.eye(m, dtype=dtype, device=device)
-    return tap(extend(eye, 0, radius), 0)
+    ext = _wrap_axis if bc == BC.PERIODIC else extend
+    return tap(ext(eye, 0, radius), 0)
 
 
 def _interp_axis_2tap(x: torch.Tensor, axis: int, w_c: float,

@@ -7,7 +7,10 @@ reference operators/problem.fv.c), used by the fv4 suite:
   Laplacian correction to cell averages.
 
 No analytic solution ships with it: correctness comes from Richardson
-analysis across resolutions (mg.c:1113).
+analysis across resolutions (mg.c:1113). The periodic variant
+(USE_PERIODIC_BC) keeps the same fields, periodic on [0, 1]^3, and removes
+the discrete mean of F so that the rhs is orthogonal to the constant null
+space (hpgmg-fv.c:296-302).
 """
 
 from __future__ import annotations
@@ -51,9 +54,10 @@ class ProblemFV(NamedTuple):
 
 
 def init_problem_fv(n: int, dtype: torch.dtype, device: torch.device,
-                    h: Optional[float] = None) -> ProblemFV:
+                    h: Optional[float] = None,
+                    periodic: bool = False) -> ProblemFV:
     """The problem at n^3 cells, computed in ``dtype`` on ``device``; every
-    field is contiguous."""
+    field is contiguous. ``periodic``: F has its mean subtracted."""
     if h is None:
         h = 1.0 / n
 
@@ -70,10 +74,13 @@ def init_problem_fv(n: int, dtype: torch.dtype, device: torch.device,
     def full(t, shape):
         return t.expand(shape).contiguous()
 
+    f = full(_forcing(xc, yc, zc, h), (n, n, n))
+    if periodic:
+        f = f - torch.mean(f)
     return ProblemFV(
         beta_i=full(_beta(xf, yc, zc, h, 2), (n + 1, n, n)),
         beta_j=full(_beta(xc, yf, zc, h, 2), (n, n + 1, n)),
         beta_k=full(_beta(xc, yc, zf, h, 2), (n, n, n + 1)),
         alpha=torch.ones((n, n, n), dtype=dtype, device=device),
-        f=full(_forcing(xc, yc, zc, h), (n, n, n)),
+        f=f,
     )

@@ -14,14 +14,20 @@ from typing import List, Tuple
 import torch
 
 from hpgmg_tpu_torch.core import blas
-from hpgmg_tpu_torch.core.config import CycleType, SolverConfig
+from hpgmg_tpu_torch.core.config import BC, BottomSolver, CycleType, SolverConfig
 from hpgmg_tpu_torch.core.hierarchy import Hierarchy
 from hpgmg_tpu_torch.core.level import Level
-from hpgmg_tpu_torch.kernels.tail import tail_down, tail_span, tail_up, use_tail
+from hpgmg_tpu_torch.kernels import tail as _tail
+from hpgmg_tpu_torch.kernels.tail import tail_down, tail_span, tail_up, tail_v, use_tail
 from hpgmg_tpu_torch.ops.base import OperatorSuite, get_suite
 from hpgmg_tpu_torch.ops.transfer import get_interpolation, restrict_cell
 from hpgmg_tpu_torch.solve.bottom import bottom_solve
 from hpgmg_tpu_torch.solve.smoothers import smooth
+
+
+def _must_subtract_mean(cfg: SolverConfig) -> bool:
+    """Periodic pure Poisson has the constants as null space (mg.c:1008-1018)."""
+    return cfg.bc == BC.PERIODIC and not cfg.helmholtz
 
 
 def vcycle(op: OperatorSuite, levels: List[Level], lev: int, e, rhs,
@@ -32,7 +38,7 @@ def vcycle(op: OperatorSuite, levels: List[Level], lev: int, e, rhs,
     (dims <= 32 above the bottom) run through K4."""
     level = levels[lev]
     if lev == len(levels) - 1:
-        return bottom_solve(op, level, e, rhs, cfg)
+        return bottom_solve(op, level, e, rhs, cfg, _must_subtract_mean(cfg))
     if use_tail(op, cfg, levels, lev):
         return _tail_vcycle(op, levels, lev, e, rhs, cfg)
     e = smooth(op, level, e, rhs, cfg)
@@ -46,19 +52,28 @@ def vcycle(op: OperatorSuite, levels: List[Level], lev: int, e, rhs,
 def _tail_vcycle(op: OperatorSuite, levels: List[Level], lev: int, e, rhs,
                  cfg: SolverConfig):
     """The V-cycle from a tail root: K4's descent over the tail span, the
-    ordinary recursion below it (the bottom solve), K4's climb."""
+    ordinary recursion below it (the bottom solve), K4's climb; or, with
+    ``tail.TAIL_ONE_LAUNCH`` and the DIRECT bottom right below the span,
+    all three in one launch (K4c, hpgmg_tpu/kernels/tail.py:483-487)."""
     span = tail_span(levels, lev)
     tail = levels[lev:lev + span]
+    below = levels[lev + span]
     nsweeps = 2 * cfg.resolved_num_smooths(op)
+    if (_tail.TAIL_ONE_LAUNCH and lev + span == len(levels) - 1
+            and cfg.bottom == BottomSolver.DIRECT and below.bottom_ainv is not None):
+        return tail_v(tail, below, e, rhs, cfg, nsweeps)
     es, rhss = tail_down(tail, e, rhs, cfg, nsweeps)
     e_below = vcycle(op, levels, lev + span, torch.zeros_like(rhss[-1]),
                      rhss[-1], cfg)
     return tail_up(tail, es, [rhs] + rhss[:-1], e_below, cfg, nsweeps)
 
 
-def _cycle_norm(op, level, u, f, cfg) -> torch.Tensor:
-    """Post-cycle true-residual max norm (mg.c:1208-1213)."""
-    return blas.norm(op.residual(level, u, f, cfg))
+def _cycle_norm(op, level, u, f, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Post-cycle true-residual max norm (mg.c:1208-1213), u made mean-free
+    first where the operator is singular. Returns (u, norm)."""
+    if _must_subtract_mean(cfg):
+        u = u - blas.mean(u, cfg.reduce_dtype)
+    return u, blas.norm(op.residual(level, u, f, cfg))
 
 
 def mg_solve(op: OperatorSuite, hier: Hierarchy, f, cfg: SolverConfig,
@@ -70,8 +85,9 @@ def mg_solve(op: OperatorSuite, hier: Hierarchy, f, cfg: SolverConfig,
     norm_f = float(blas.norm(f))
     history = []
     for v in range(cfg.max_vcycles):
-        u = vcycle(op, levels, 0, u, f, cfg)
-        norm_r = float(_cycle_norm(op, levels[0], u, f, cfg))
+        u, norm_r = _cycle_norm(op, levels[0], vcycle(op, levels, 0, u, f, cfg),
+                                f, cfg)
+        norm_r = float(norm_r)
         rel = norm_r / norm_f if norm_f != 0.0 else norm_r
         history.append(rel)
         if verbose:
@@ -90,8 +106,9 @@ def mg_solve_fixed(op: OperatorSuite, hier: Hierarchy, f, cfg: SolverConfig,
     norm_f = blas.norm(f)
     rels = []
     for _ in range(num_cycles):
-        u = vcycle(op, levels, 0, u, f, cfg)
-        rels.append(_cycle_norm(op, levels[0], u, f, cfg) / norm_f)
+        u, norm_r = _cycle_norm(op, levels[0], vcycle(op, levels, 0, u, f, cfg),
+                                f, cfg)
+        rels.append(norm_r / norm_f)
     return u, torch.stack(rels)
 
 
@@ -100,7 +117,7 @@ def fmg_solve(op: OperatorSuite, hier: Hierarchy, f, cfg: SolverConfig,
     """FMGSolve (mg.c:1237-1344): one F-cycle. Restrict F to every level,
     solve the coarsest, then per level a high-order interpolation and a
     V-cycle up to the finest. Returns (u, norm_r, norm_f), the norms as
-    0-d tensors."""
+    0-d tensors; u is mean-free where the operator is singular."""
     levels = hier.levels
     norm_f = blas.norm(f)
 
@@ -113,13 +130,14 @@ def fmg_solve(op: OperatorSuite, hier: Hierarchy, f, cfg: SolverConfig,
         u = u0
     else:
         u = torch.zeros_like(rhs[bot])
-    u = bottom_solve(op, levels[bot], u, rhs[bot], cfg)
+    u = bottom_solve(op, levels[bot], u, rhs[bot], cfg, _must_subtract_mean(cfg))
 
     interp_f = get_interpolation(op.interpolation_fcycle)
     for lev in range(bot - 1, -1, -1):
         u = interp_f(u, 0.0, None, cfg.bc)  # prescale 0: overwrite (mg.c:1295)
         u = vcycle(op, levels, lev, u, rhs[lev], cfg)
-    return u, _cycle_norm(op, levels[0], u, f, cfg), norm_f
+    u, norm_r = _cycle_norm(op, levels[0], u, f, cfg)
+    return u, norm_r, norm_f
 
 
 def richardson_error(op: OperatorSuite, u_h, u_2h,

@@ -103,6 +103,20 @@ def test_bench_main_prints_bench_json(capsys):
     assert out["unit"] == "DOF/s" and out["value"] > 0
 
 
+@pytest.mark.parametrize("op", ["fv4", "fv7pt"])
+def test_bench_main_periodic(capsys, op):
+    """--bc periodic through the CLI on the CPU: the periodic problem, the
+    plain versions, a mean-free solve in the discretization-error regime."""
+    calls = T.tail_down_plain.calls
+    assert bench_main.main(["--n", "16", "--device", "cpu", "--op", op, "--bc",
+                            "periodic", "--min-seconds", "0.01",
+                            "--dynamic-range", "1"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["metric"] == f"{op}_periodic_fcycle_dof_per_s_n16"
+    assert out["device"] == "cpu" and 0 < out["rel_residual"] < 2e-2
+    assert T.tail_down_plain.calls == calls  # no K4 on periodic levels
+
+
 def test_profile_schedule_switch_restores_the_schedule():
     shipped = (S.GSRB2_MAX_DIM, T.TAIL_FUSE)
     assert shipped[0] >= 8 and shipped[1]

@@ -1,8 +1,9 @@
 """The port's CUDA kernels on a card: K1's ghost pass and each K1 mode, K2,
-K3, K4's two halves, each K5 mode and K6 (both bodies, all three tap sets)
-against their plain versions on the same CUDA tensors, and small F-cycles
-(fv4, fv7pt, fv2, 27pt) through the kernels against the same F-cycles on
-the CPU. max|kernel - plain| /
+K3, K4's two halves and K4c, each K5 mode and K6 (both bodies, all three
+tap sets), K7a and K7b (the periodic K1 and K5) against their plain
+versions on the same CUDA tensors, and small F-cycles (fv4, fv7pt, fv2,
+27pt; Dirichlet and periodic) through the kernels against the same
+F-cycles on the CPU. max|kernel - plain| /
 max|plain| <= 1e-12 in float64, 1e-5 in float32 (the kernel sums the
 stencil in another order than the plain version).
 
@@ -15,7 +16,7 @@ import pytest
 import torch
 
 from hpgmg_tpu_torch.bench.driver import build
-from hpgmg_tpu_torch.core.config import BottomSolver, SolverConfig
+from hpgmg_tpu_torch.core.config import BC, BottomSolver, SolverConfig
 from hpgmg_tpu_torch.core.level import Level, rb_mask
 from hpgmg_tpu_torch.kernels import restrict as R
 from hpgmg_tpu_torch.kernels import stencils as S
@@ -198,6 +199,137 @@ def test_r1_fcycle_through_kernels_matches_cpu(dev, op):
         hier, f = build(64, cfg, device)
         u, nr, nf = fmg_solve(get_suite(op), hier, f, cfg)
         sols.append((u.cpu(), float(nr) / float(nf)))
+    (ug, rg), (uc, rc) = sols
+    assert relerr(ug, uc) <= 1e-10
+    assert abs(rg - rc) <= 1e-6 * rc
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [4, 8, 48, 64])
+def test_k7a_matches_plain(dev, n, dtype):
+    """K7a: the periodic wrap pass, then K1's stencil, in every mode,
+    counted apart from K1's launches."""
+    rng = np.random.default_rng(n + 7)
+    lv = _level(n, dtype, dev, rng)
+    x, rhs = (torch.tensor(a, dtype=dtype, device=dev)
+              for a in rng.standard_normal((2, n, n, n)))
+    poisson = SolverConfig(a=0.0, bc=BC.PERIODIC, dtype=dtype)
+    helm = SolverConfig(a=1.5, helmholtz=True, bc=BC.PERIODIC, dtype=dtype)
+    cases = [("apply", poisson, {}), ("residual", poisson, {"rhs": rhs}),
+             ("gsrb", poisson, {"rhs": rhs, "kdinv": lv.kdinv[0]}),
+             ("gsrb", poisson, {"rhs": rhs, "kdinv": lv.kdinv[1]}),
+             ("fres", poisson, {"rhs": rhs}), ("apply", helm, {})]
+    before = (S.fv4_stencil_cuda.launches, S.fv4_ghost_fill_cuda.launches,
+              S.fv4_stencil_cuda.periodic_launches,
+              S.fv4_ghost_fill_periodic_cuda.launches)
+    for mode, cfg, kw in cases:
+        out = S.fv4_stencil(lv, x, cfg, mode, **kw)
+        assert relerr(out, S.fv4_stencil_plain(lv, x, cfg, mode, **kw)) <= TOL[dtype]
+    assert (S.fv4_stencil_cuda.launches, S.fv4_ghost_fill_cuda.launches,
+            S.fv4_stencil_cuda.periodic_launches,
+            S.fv4_ghost_fill_periodic_cuda.launches) == (
+        before[0], before[1], before[2] + len(cases), before[3] + len(cases))
+    assert relerr(S.fv4_ghost_fill_periodic_cuda(x),
+                  ghost_fill_fv(x, BC.PERIODIC, order=4, radius=2)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [2, 4, 8, 48, 64])
+def test_k7b_matches_plain(dev, n, dtype):
+    """K7b: every K5 mode with wrapped ghosts, each body and tap set (n = 2:
+    the low and the high ghost of an axis are the same two cells); K6
+    refuses the periodic level."""
+    rng = np.random.default_rng(n + 17)
+    lv = _level_r1(n, dtype, dev, rng)
+    x, rhs = (torch.tensor(a, dtype=dtype, device=dev)
+              for a in rng.standard_normal((2, n, n, n)))
+    for taps, var7, helm in R1_BODIES:
+        cfg = SolverConfig(a=1.5 if helm else 0.0, helmholtz=helm, bc=BC.PERIODIC,
+                           dtype=dtype)
+        cases = [("apply", {}), ("residual", {"rhs": rhs}),
+                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[0]}),
+                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[1]}), ("fres", {"rhs": rhs})]
+        before = (K.r1_stencil_cuda.launches, K.r1_stencil_cuda.periodic_launches)
+        for mode, kw in cases:
+            out = K.r1_stencil(lv, x, cfg, mode, taps, var7, **kw)
+            assert relerr(out, K.r1_stencil_plain(lv, x, cfg, mode, taps, var7,
+                                                  **kw)) <= TOL[dtype]
+        assert (K.r1_stencil_cuda.launches, K.r1_stencil_cuda.periodic_launches) == (
+            before[0], before[1] + len(cases))
+        with pytest.raises(NotImplementedError):
+            K.r1_gsrb2(lv, x, rhs, cfg, taps, var7)
+
+
+def _bottom(d, dtype, dev, rng):
+    m = d ** 3
+    ainv = (np.eye(m) + 0.1 * rng.standard_normal((m, m)) / np.sqrt(m)) / (8.0 * d * d)
+    return Level(dim=d, h=1.0 / d, depth=0, beta_i=torch.zeros((d + 1, d, d), dtype=dtype,
+                                                              device=dev),
+                 beta_j=torch.zeros((d, d + 1, d), dtype=dtype, device=dev),
+                 beta_k=torch.zeros((d, d, d + 1), dtype=dtype, device=dev),
+                 bottom_ainv=torch.tensor(ainv, dtype=dtype, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dims", [(32, 16), (16,)])
+def test_k4c_matches_plain(dev, dims, dtype):
+    """K4c: descent, DIRECT bottom matvec and climb in one launch, against
+    its plain version and against K4a + the matvec + K4b on the card; the
+    tail kernels refuse a periodic level."""
+    rng = np.random.default_rng(dims[0] + 3)
+    tail = [_level(d, dtype, dev, rng) for d in dims]
+    bottom = _bottom(dims[-1] // 2, dtype, dev, rng)
+    cfg = SolverConfig(a=0.0, dtype=dtype)
+    e, rhs = (torch.tensor(a, dtype=dtype, device=dev)
+              for a in rng.standard_normal((2,) + tail[0].shape))
+    launches = T.tail_v_cuda.launches
+    out = T.tail_v(tail, bottom, e, rhs, cfg, 6)
+    assert T.tail_v_cuda.launches == launches + 1
+    assert relerr(out, T.tail_v_plain(tail, bottom, e, rhs, cfg, 6)) <= TOL[dtype]
+    es, rhss = T.tail_down(tail, e, rhs, cfg, 6)
+    u_bot = (bottom.bottom_ainv @ rhss[-1].reshape(-1)).reshape(bottom.shape)
+    three = T.tail_up(tail, es, [rhs] + rhss[:-1], u_bot, cfg, 6)
+    assert relerr(out, three) <= TOL[dtype]
+    periodic = SolverConfig(a=0.0, bc=BC.PERIODIC, dtype=dtype)
+    for launch in (lambda: T.tail_v(tail, bottom, e, rhs, periodic, 6),
+                   lambda: T.tail_down(tail, e, rhs, periodic, 6),
+                   lambda: S.fv4_gsrb2(tail[0], e, rhs, periodic)):
+        with pytest.raises(NotImplementedError):
+            launch()
+
+
+@pytest.mark.parametrize("op", ["fv4", "fv7pt", "fv2", "27pt"])
+def test_periodic_fcycle_through_kernels_matches_cpu(dev, op):
+    """32^3 f64 periodic: K7a or K7b in every apply, half-sweep, residual
+    restriction and DIRECT-bottom probe (pseudo-inverted), against the same
+    F-cycle on the CPU; u is mean-free on both."""
+    cfg = SolverConfig(op=op, a=0.0, bc=BC.PERIODIC, dtype=torch.float64,
+                       bottom=BottomSolver.DIRECT, min_coarse_dim=8)
+    sols = []
+    for device in (dev, torch.device("cpu")):
+        hier, f = build(32, cfg, device)
+        u, nr, nf = fmg_solve(get_suite(op), hier, f, cfg)
+        sols.append((u.cpu(), float(nr) / float(nf)))
+    (ug, rg), (uc, rc) = sols
+    assert relerr(ug, uc) <= 1e-10
+    assert abs(rg - rc) <= 1e-6 * rc
+    assert abs(float(ug.mean())) <= 1e-12 * float(ug.abs().max())
+
+
+def test_fcycle_other_tail_setting_matches_cpu(dev, monkeypatch):
+    """64^3 f64 fv4 with tail.TAIL_ONE_LAUNCH flipped from its default: the
+    V-cycles from 32^3 and 16^3 run K4c (or K4a + matvec + K4b) over the
+    built hierarchy's DIRECT bottom, against the same F-cycle on the CPU."""
+    monkeypatch.setattr(T, "TAIL_ONE_LAUNCH", not T.TAIL_ONE_LAUNCH)
+    cfg = SolverConfig(op="fv4", a=0.0, dtype=torch.float64,
+                       bottom=BottomSolver.DIRECT, min_coarse_dim=8)
+    launches = T.tail_v_cuda.launches
+    sols = []
+    for device in (dev, torch.device("cpu")):
+        hier, f = build(64, cfg, device)
+        u, nr, nf = fmg_solve(get_suite("fv4"), hier, f, cfg)
+        sols.append((u.cpu(), float(nr) / float(nf)))
+    assert (T.tail_v_cuda.launches > launches) == T.TAIL_ONE_LAUNCH
     (ug, rg), (uc, rc) = sols
     assert relerr(ug, uc) <= 1e-10
     assert abs(rg - rc) <= 1e-6 * rc

@@ -81,9 +81,15 @@ def test_extend_beta_tangential(n, dt):
 
 
 def test_periodic_not_ported():
-    x = torch.zeros((8, 8, 8), dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        bc_fv.ghost_fill_fv(x, BC.PERIODIC, 4, 2)
+    """Periodic BCs are ported now: the quartic fv fill's periodic branch
+    wraps every axis (edges and corners included) as the JAX package's."""
+    a = np.random.default_rng(8).standard_normal((8, 8, 8))
+    for order, radius in ((1, 1), (2, 1), (4, 2)):
+        out = bc_fv.ghost_fill_fv(torch.tensor(a), BC.PERIODIC, order, radius)
+        ref = jbc.ghost_fill_fv(jnp.asarray(a), JBC.PERIODIC, order, radius)
+        assert out.shape == ref.shape == (8 + 2 * radius,) * 3
+        assert rel(out, ref) <= 1e-12
+        assert out[0, 0, 0] == a[8 - radius, 8 - radius, 8 - radius]
 
 
 @pytest.mark.parametrize("dt", ["f64", "f32"])

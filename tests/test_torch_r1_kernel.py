@@ -157,9 +157,8 @@ def test_dispatch_and_checks(data):
         K.r1_gsrb2_cuda(lv, x, x, cfg, "p1", True)
     with pytest.raises(ValueError, match="no kernel"):
         K.r1_stencil(lv, x.to("meta"), cfg, "apply", "p1", True)
-    with pytest.raises(NotImplementedError):
-        K.r1_stencil(lv, x, dataclasses.replace(cfg, bc=BC.PERIODIC), "apply",
-                     "p1", True)
+    with pytest.raises(NotImplementedError):  # K6 fuses no periodic sweep
+        K.r1_gsrb2(lv, x, x, dataclasses.replace(cfg, bc=BC.PERIODIC), "p1", True)
     with pytest.raises(ValueError, match="needs rhs"):
         K.r1_stencil(lv, x, cfg, "residual", "p1", True)
     with pytest.raises(ValueError, match="shape"):

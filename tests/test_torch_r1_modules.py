@@ -40,18 +40,18 @@ def rel(port, ref) -> float:
     return float(np.max(np.abs(port.numpy() - ref)) / np.max(np.abs(ref)))
 
 
+@pytest.mark.parametrize("bc_name", ["dirichlet", "periodic"])
 @pytest.mark.parametrize("fill", ["ghost_fill_linear", "ghost_fill_quadratic_fd"])
 @pytest.mark.parametrize("shape", [(N, N, N), (1, 4, 4)])
-def test_ghost_fills(fill, shape):
-    """Every ghost, edges and corners included; the 1-cell extent takes
-    the linear fallback of the quadratic fill."""
+def test_ghost_fills(fill, shape, bc_name):
+    """Every ghost, edges and corners included, under both BCs; the 1-cell
+    extent takes the linear fallback of the quadratic Dirichlet fill and
+    wraps onto itself under periodic BCs."""
     a = np.random.default_rng(1).standard_normal(shape)
-    out = getattr(bc, fill)(torch.tensor(a), BC.DIRICHLET, radius=1)
-    ref = getattr(jbc, fill)(jnp.asarray(a), JBC.DIRICHLET, radius=1)
+    out = getattr(bc, fill)(torch.tensor(a), BC(bc_name), radius=1)
+    ref = getattr(jbc, fill)(jnp.asarray(a), JBC(bc_name), radius=1)
     assert out.shape == ref.shape
     assert rel(out, ref) <= TOL
-    with pytest.raises(NotImplementedError):
-        getattr(bc, fill)(torch.tensor(a), BC.PERIODIC)
 
 
 @pytest.mark.parametrize("name", ["p0", "p1", "p2"])
