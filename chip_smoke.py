@@ -29,30 +29,48 @@ Phases, each printing its result and raising on failure (exit code != 0):
    every mode and body) at n in {8, ..., 256}, K4c (the
    one-launch tail V-cycle over a DIRECT bottom) on the 32-16 and 16
    ladders, and their times at 512^3 (K4c on the headline's 32-16 tail);
-   K2, K4 and K6 refuse a periodic level;
+   K2, K4 and K6 refuse a periodic level; K1s (the one-pass sub-tiled fv4
+   stencil: apply, residual, gsrb for both parities, with and without
+   a*alpha*x) against its plain version and against K1's two passes at n
+   in {8, ..., 256}, max relative error <= 2e-6 (f32) and 1e-13 (f64: its
+   ghosts round in another order), its times per mode at 64^3, 128^3 and
+   512^3 beside K1's ghost pass + stencil, and its refusal of a periodic
+   level;
 4. the headline solve through the port's own entry point: run_benchmark at
    512^3, fv4, GSRB, DIRECT bottom, min_coarse_dim 8, float32,
    dynamic_range 3, with every kernel's launch count reset before it and
    read after it: rel_residual <= 1e-3, Richardson order >= 3.0, every
-   kernel of its path (K1's two passes, K2, K3, and K4c or K4's two
-   halves, as tail.TAIL_ONE_LAUNCH says) launched, no periodic kernel and
-   no plain version; then the BiCGStab-bottom companion, and the headline
-   once more with the other TAIL_ONE_LAUNCH setting (same limits);
+   kernel of its path (K1s, or K1's two passes, as stencils.SUBTILE says;
+   K2, K3, and K4c or K4's two halves, as tail.TAIL_ONE_LAUNCH says)
+   launched, no periodic kernel, no K1s with SUBTILE off and no plain
+   version; then the BiCGStab-bottom companion, and the headline once more
+   with the other TAIL_ONE_LAUNCH setting and once with the other SUBTILE
+   setting (same limits);
 5. the radius-1 suites through the same entry point at 512^3 float32, the
    counts reset before each and read after it: fv7pt (this slice's
    headline), then fv2 and 27pt on shorter timed chains: rel_residual
    <= 1e-2, Richardson order in (1.5, 2.6), K5 and K3 launched (and K6 for
    fv7pt and fv2, whose var7 body it smooths), no plain version called;
 6. float64 verification through the kernels: fv4 at 256^3 with Richardson
-   order >= 3.8 (and with the other TAIL_ONE_LAUNCH setting: the same
-   order to 1e-6); fv7pt at 256^3, fv2 and 27pt at 128^3 with order in
-   (1.8, 2.3);
+   order >= 3.8 (and with the other TAIL_ONE_LAUNCH setting, and with the
+   other SUBTILE setting: the same order to 1e-6); fv7pt at 256^3, fv2 and
+   27pt at 128^3 with order in (1.8, 2.3);
 7. periodic F-cycles (--bc periodic) through the same entry point, float32:
    fv4 and fv7pt at 512^3, fv2 and 27pt at 256^3, with the limits of their
    Dirichlet runs, and the fv4 BiCGStab-bottom companion at 512^3
    (rel_residual <= 1e-3); each launches K7a or K7b and K3, and no
    Dirichlet ghost pass, K1 or K5 launch, K2, K4, K6 or plain version;
-   then float64 orders: fv4 at 256^3 >= 3.8, fv7pt at 128^3 in (1.8, 2.3).
+   then float64 orders: fv4 at 256^3 >= 3.8, fv7pt at 128^3 in (1.8, 2.3);
+8. fv4 at 512^3 float32 through the CLI (bench/cli.py) with each other
+   smoother (Chebyshev, Jacobi, L1-Jacobi, SymGS; DIRECT bottom): a finite
+   rel_residual below 1; and with GSRB over each other bottom solver (CG,
+   CABiCGStab, CACG, smooth): rel_residual <= 1e-3; DOF/s and order
+   printed, kernels counted as in phase 4;
+9. the CLI's drivers: FMGSolve2 and the compensated FMGSolve2-DD at 512^3
+   float32 (fmg2dd's lowest residual below 1e-5 and a fifth of fmg2's),
+   FMGSolve2 and MGPCG at 256^3 float64 to 1e-10 within 20 cycles;
+10. each other smoother and bottom solver at 32^3 float64 on the card
+   equals the same F-cycle on the CPU to 1e-10.
 
 The line before the last lists the kernels as JSON: for each, its launches
 on its path, its time, its plain version's time, its bound on the card
@@ -74,6 +92,9 @@ import torch
 
 SEED = 20261016
 F64_TOL, F32_TOL = 1e-12, 1e-5
+# K1s against its plain version and K1: its in-kernel ghosts round in
+# another order than the plain version's separable fill
+K1S_TOL = {torch.float32: 2e-6, torch.float64: 1e-13}
 HBM_BYTES_PER_S, F32_FLOP_PER_S = 3.35e12, 67e12  # H100 SXM, published
 
 # flops per cell, counted from the stencils' expressions: fv4 (main 35,
@@ -203,6 +224,46 @@ def check_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
     lv8, x8 = random_level(8, torch.float32, dev, rng), torch.zeros((8,) * 3, device=dev)
     refuses_periodic("K2", lambda cfg: S.fv4_gsrb2_cuda(lv8, x8, x8, cfg))
     check_tail(worst)
+
+
+def check_subtile(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
+    """Phase 3a, K1s: each mode (apply, residual, gsrb for both parities),
+    with and without a*alpha*x, float32 and float64, against its plain
+    version and against K1's two passes on the same tensors. The kernel
+    takes every n >= 4 on its fixed tile (16x8x32 cells, 8x8x32 in f64); the
+    sizes above the gate's SUBTILE_MAX_DIM call it directly; its tiles
+    cover the level partly at 8 and 16 and raggedly at 48 (along k). It
+    refuses a periodic level."""
+    from hpgmg_tpu_torch.core.config import SolverConfig
+    from hpgmg_tpu_torch.kernels import stencils as S
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 4)
+    for dtype in (torch.float32, torch.float64):
+        dn, tol = str(dtype)[6:], K1S_TOL[dtype]
+        for n in sizes:
+            lv = random_level(n, dtype, dev, rng)
+            x, rhs = (torch.tensor(a, dtype=dtype, device=dev)
+                      for a in rng.standard_normal((2, n, n, n)))
+            vs_plain = vs_k1 = 0.0
+            for cfg in (SolverConfig(a=0.0, b=1.0, dtype=dtype),
+                        SolverConfig(a=1.5, b=1.0, helmholtz=True, dtype=dtype)):
+                for mode, kw in (("apply", {}), ("residual", {"rhs": rhs}),
+                                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[0]}),
+                                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[1]})):
+                    out = S.fv4_subtile_cuda(lv, x, cfg, mode, **kw)
+                    rp, _ = relerr(out, S.fv4_subtile_plain(lv, x, cfg, mode, **kw))
+                    rk, _ = relerr(out, S.fv4_stencil_cuda(lv, x, cfg, mode, **kw))
+                    if not (rp <= tol and rk <= tol):
+                        raise AssertionError(f"K1s {mode} n={n} {dn} helmholtz="
+                                             f"{cfg.helmholtz}: {rp} (plain), {rk} (K1) > {tol}")
+                    vs_plain, vs_k1 = max(vs_plain, rp), max(vs_k1, rk)
+            print(f"  K1s (3 modes x 2 terms) n={n:3d} {dn}: rel err vs plain "
+                  f"{vs_plain:.3e}, vs K1 {vs_k1:.3e}")
+            worst["fv4_subtile"] = max(worst.get("fv4_subtile", 0.0), vs_plain)
+            del lv, x, rhs
+    lv8, x8 = random_level(8, torch.float32, dev, rng), torch.zeros((8,) * 3, device=dev)
+    refuses_periodic("K1s", lambda cfg: S.fv4_subtile_cuda(lv8, x8, cfg, "apply"))
 
 
 def refuses_periodic(name: str, launch):
@@ -352,6 +413,15 @@ def time_kernels(sizes=(64, 128, 512)):
                       lambda: S.fv4_stencil_cuda(lv, x, cfg, mode, **kw),
                       lambda: S.fv4_stencil_plain(lv, x, cfg, mode, **kw),
                       reps, row, mode, work=work)
+            if mode in S.SUBTILE_MODES:
+                time_pair(f"K1s {mode:8s} {n}^3 f32",
+                          lambda: S.fv4_subtile_cuda(lv, x, cfg, mode, **kw),
+                          lambda: S.fv4_subtile_plain(lv, x, cfg, mode, **kw),
+                          reps, row, f"k1s {mode}", work=work)
+                # K1's call is its two launches, the ghost pass and the stencil
+                print(f"  K1s {mode} {n}^3: {row[f'k1s {mode}']['ms']:.4f} ms against "
+                      f"K1's ghost pass + stencil {row[mode]['ms']:.4f} ms (the ghost "
+                      f"pass alone {row['ghost']['ms']:.4f} ms)")
         time_pair(f"K2 gsrb2 {n}^3 f32", lambda: S.fv4_gsrb2_cuda(lv, x, rhs, cfg),
                   lambda: S.fv4_gsrb2_plain(lv, x, rhs, cfg), reps, row, "gsrb2",
                   work=(nbytes(x, rhs, *lv.kdinv, x) + betas,
@@ -610,6 +680,7 @@ def _counters():
 
     kernels = [("fv4_ghost_fill", S.fv4_ghost_fill_cuda, "launches"),
                ("fv4_stencil", S.fv4_stencil_cuda, "launches"),
+               ("fv4_subtile", S.fv4_subtile_cuda, "launches"),
                ("fv4_ghost_fill_periodic", S.fv4_ghost_fill_periodic_cuda, "launches"),
                ("fv4_stencil_periodic", S.fv4_stencil_cuda, "periodic_launches"),
                ("fv4_gsrb2", S.fv4_gsrb2_cuda, "launches"),
@@ -621,6 +692,7 @@ def _counters():
                ("r1_stencil_periodic", K.r1_stencil_cuda, "periodic_launches"),
                ("r1_gsrb2", K.r1_gsrb2_cuda, "launches")]
     plains = [("fv4_stencil_plain", S.fv4_stencil_plain),
+              ("fv4_subtile_plain", S.fv4_subtile_plain),
               ("fv4_gsrb2_plain", S.fv4_gsrb2_plain),
               ("tail_down_plain", T.tail_down_plain), ("tail_up_plain", T.tail_up_plain),
               ("tail_v_plain", T.tail_v_plain),
@@ -655,7 +727,7 @@ def solve_cfg(bottom: str, dtype, op: str = "fv4", bc: str = "dirichlet"):
 R1_DIRICHLET = ("r1_stencil", "r1_gsrb2", "restrict_cell")
 R1_PERIODIC = ("r1_stencil_periodic", "restrict_cell")
 PATH_KERNELS = {
-    ("fv4", "dirichlet"): ("fv4_ghost_fill", "fv4_stencil", "fv4_gsrb2", "restrict_cell"),
+    ("fv4", "dirichlet"): ("fv4_gsrb2", "restrict_cell"),
     ("fv7pt", "dirichlet"): R1_DIRICHLET,
     ("fv2", "dirichlet"): R1_DIRICHLET,
     ("27pt", "dirichlet"): ("r1_stencil", "restrict_cell"),
@@ -668,23 +740,51 @@ PATH_KERNELS = {
 # and the kernels a periodic F-cycle must never launch: the Dirichlet ghost
 # synthesis (K1's ghost pass and stencil launches, K5) and the fused kernels
 # that read no periodic ghost (K2, K4, K6)
-DIRICHLET_ONLY = ("fv4_ghost_fill", "fv4_stencil", "fv4_gsrb2", "tail_down",
-                  "tail_up", "tail_v", "r1_stencil", "r1_gsrb2")
+DIRICHLET_ONLY = ("fv4_ghost_fill", "fv4_stencil", "fv4_subtile", "fv4_gsrb2",
+                  "tail_down", "tail_up", "tail_v", "r1_stencil", "r1_gsrb2")
 PERIODIC_ONLY = ("fv4_ghost_fill_periodic", "fv4_stencil_periodic",
                  "r1_stencil_periodic")
 
 
+def fv4_stencil_kernels():
+    """The fv4 Dirichlet stencil kernels of the path: K1s on the levels
+    the gate admits under stencils.SUBTILE, else K1's two passes."""
+    from hpgmg_tpu_torch.kernels import stencils as S
+
+    return ("fv4_subtile",) if S.SUBTILE else ("fv4_ghost_fill", "fv4_stencil")
+
+
 def path_kernels(op: str, bc: str, bottom: str):
-    """The kernels the F-cycle of ``op`` under ``bc`` must launch: the fv4
-    Dirichlet tail runs through K4c over the DIRECT bottom when
-    tail.TAIL_ONE_LAUNCH says so, else through K4's two halves."""
+    """The kernels the F-cycle of ``op`` under ``bc`` must launch: on fv4
+    Dirichlet levels K1s or K1 as stencils.SUBTILE says, and the tail
+    through K4c over the DIRECT bottom when tail.TAIL_ONE_LAUNCH says so,
+    else through K4's two halves."""
     from hpgmg_tpu_torch.kernels import tail as T
 
     want = PATH_KERNELS[(op, bc)]
     if (op, bc) == ("fv4", "dirichlet"):
         one = T.TAIL_ONE_LAUNCH and bottom == "direct"
-        want += ("tail_v",) if one else ("tail_down", "tail_up")
+        want += fv4_stencil_kernels() + (("tail_v",) if one else ("tail_down", "tail_up"))
     return want
+
+
+def check_counts(tag: str, counts: dict, plain_calls: dict, want, bc: str = "dirichlet"):
+    """Raise unless every kernel of ``want`` launched, no kernel of the
+    other BC did, K1s did not with stencils.SUBTILE off, and no plain
+    version ran."""
+    from hpgmg_tpu_torch.kernels import stencils as S
+
+    missing = [k for k in want if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"{tag}: kernels of the path never launched: {missing}")
+    stray = [k for k in (DIRICHLET_ONLY if bc == "periodic" else PERIODIC_ONLY)
+             if counts[k]]
+    if not S.SUBTILE and counts["fv4_subtile"]:
+        stray.append("fv4_subtile (SUBTILE off)")
+    if stray:
+        raise AssertionError(f"{tag}: kernels off the path launched: {stray}")
+    if any(plain_calls.values()):
+        raise AssertionError(f"{tag}: a plain version ran on the path: {plain_calls}")
 
 
 def headline(op="fv4", n=512, min_solve_seconds=1.0, rel_limit=1e-3,
@@ -693,7 +793,9 @@ def headline(op="fv4", n=512, min_solve_seconds=1.0, rel_limit=1e-3,
     point, with the launch counts reset before it and read after it."""
     from hpgmg_tpu_torch.bench.driver import run_benchmark
 
-    tag = f"{op} {bc} {bottom}"
+    from hpgmg_tpu_torch.kernels import stencils as S
+
+    tag = f"{op} {bc} {bottom}" + (" SUBTILE" if S.SUBTILE and op == "fv4" else "")
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     res = run_benchmark(n, solve_cfg(bottom, torch.float32, op, bc), "cuda",
@@ -710,15 +812,7 @@ def headline(op="fv4", n=512, min_solve_seconds=1.0, rel_limit=1e-3,
         raise AssertionError(f"{tag} rel_residual {res.rel_residual} > {rel_limit}")
     if order_range is not None and not order_range[0] < order < order_range[1]:
         raise AssertionError(f"{tag} Richardson order {order} outside {order_range}")
-    missing = [k for k in path_kernels(op, bc, bottom) if counts[k] <= 0]
-    if missing:
-        raise AssertionError(f"{tag}: kernels of the path never launched: {missing}")
-    stray = [k for k in (DIRICHLET_ONLY if bc == "periodic" else PERIODIC_ONLY)
-             if counts[k]]
-    if stray:
-        raise AssertionError(f"{tag}: kernels of the other BC launched: {stray}")
-    if any(plain_calls.values()):
-        raise AssertionError(f"{tag}: a plain version ran on the path: {plain_calls}")
+    check_counts(tag, counts, plain_calls, path_kernels(op, bc, bottom), bc)
     return res, counts
 
 
@@ -742,16 +836,129 @@ def f64_order(op="fv4", n=256, order_range=(3.8, float("inf")),
     return res
 
 
+def flipped(module, name: str, fn):
+    """Run ``fn()`` with the boolean ``module.name`` flipped."""
+    old = getattr(module, name)
+    setattr(module, name, not old)
+    try:
+        return fn()
+    finally:
+        setattr(module, name, old)
+
+
 def other_tail_setting(fn):
     """Run ``fn()`` with tail.TAIL_ONE_LAUNCH flipped."""
     from hpgmg_tpu_torch.kernels import tail as T
 
-    old = T.TAIL_ONE_LAUNCH
-    T.TAIL_ONE_LAUNCH = not old
-    try:
-        return fn()
-    finally:
-        T.TAIL_ONE_LAUNCH = old
+    return flipped(T, "TAIL_ONE_LAUNCH", fn)
+
+
+def other_subtile_setting(fn):
+    """Run ``fn()`` with stencils.SUBTILE flipped."""
+    from hpgmg_tpu_torch.kernels import stencils as S
+
+    return flipped(S, "SUBTILE", fn)
+
+
+SMOOTHERS = ("chebyshev", "jacobi", "l1jacobi", "symgs")
+BOTTOMS = ("cg", "cabicgstab", "cacg", "smooth")
+
+
+def cli_args(*argv):
+    from hpgmg_tpu_torch.bench import cli
+
+    return cli.parser().parse_args(list(argv))
+
+
+def solver_options(n=512):
+    """Phase 8: fv4 at n^3 float32 through the CLI's functions (bench/cli.py
+    run) with each other smoother over the DIRECT bottom, held to a finite
+    rel_residual below 1, and with GSRB over each other bottom solver, held
+    to rel_residual <= 1e-3; the counts reset before each run and read after
+    it: the fv4 stencil kernels (K1s or K1) and K3 launched (and K2 with the
+    K4a/K4b tail under GSRB), no plain version."""
+    from hpgmg_tpu_torch.bench import cli
+
+    out = {}
+    base = ("--n", str(n), "--op", "fv4", "--dtype", "float32", "--min-seconds", "0.1")
+    runs = [(f"smoother {s}", ("--smoother", s, "--bottom", "direct"), None)
+            for s in SMOOTHERS]
+    runs += [(f"bottom {b}", ("--bottom", b), 1e-3) for b in BOTTOMS]
+    for tag, argv, rel_limit in runs:
+        reset_counts()
+        res = cli.run(cli_args(*base, *argv))
+        counts, plain_calls = read_counts()
+        rel = res.rel_residual
+        print(f"  {tag} {n}^3 f32: DOF/s {res.dof_per_second:.6e}, rel_residual "
+              f"{rel:.6e}, order {res.richardson_order:.6f}")
+        ok = rel <= rel_limit if rel_limit is not None else (np.isfinite(rel) and rel < 1.0)
+        if not ok:
+            raise AssertionError(f"{tag}: rel_residual {rel} fails its limit {rel_limit}")
+        want = fv4_stencil_kernels() + ("restrict_cell",)
+        if tag.startswith("bottom"):
+            want += ("fv4_gsrb2", "tail_down", "tail_up")
+        check_counts(tag, counts, plain_calls, want)
+        out[tag] = res
+        torch.cuda.empty_cache()
+    return out
+
+
+def drivers():
+    """Phase 9: the CLI's drivers (bench/cli.py run_driver) on fv4 over the
+    DIRECT bottom: FMGSolve2 and its compensated double-f32 variant at
+    512^3 float32, 6 F-cycles each (the f32 iterate floors the plain one
+    near 5e-4): fmg2dd's lowest relative residual below 1e-5 and below a
+    fifth of fmg2's; then FMGSolve2 and MGPCG at 256^3 float64 to rtol
+    1e-10 within 20 F-cycles or iterations."""
+    from hpgmg_tpu_torch.bench import cli
+
+    out = {}
+    for dtype, n, runs, cap in (("float32", 512, ("fmg2", "fmg2dd"), 6),
+                                ("float64", 256, ("fmg2", "mgpcg"), 20)):
+        cfg = cli.solver_config(cli_args("--op", "fv4", "--dtype", dtype,
+                                         "--bottom", "direct"))
+        for driver in runs:
+            r = cli.run_driver(driver, n, cfg, "cuda", verbose=False, max_cycles=cap)
+            print(f"  {driver} {n}^3 {dtype}: {r['iterations']} cycles, rel residuals "
+                  f"{[f'{h:.3e}' for h in r['history']]}, {r['seconds']:.6f} s, "
+                  f"{r['dof_per_second']:.6e} DOF/s")
+            out[f"{driver} {dtype}"] = r
+            torch.cuda.empty_cache()
+    low_dd = min(out["fmg2dd float32"]["history"])
+    low_plain = min(out["fmg2 float32"]["history"])
+    if not (low_dd < 1e-5 and low_dd < low_plain / 5):
+        raise AssertionError(f"fmg2dd floor {low_dd} against fmg2's {low_plain}")
+    for key in ("fmg2 float64", "mgpcg float64"):
+        if not out[key]["rel_residual"] < 1e-10:
+            raise AssertionError(f"{key}: {out[key]['history']} never reached 1e-10")
+    return out
+
+
+def card_equals_cpu(n=32):
+    """Phase 10: one n^3 float64 fv4 F-cycle per other smoother (DIRECT
+    bottom) and per other bottom solver (GSRB) through the kernels, against
+    the same F-cycle on the CPU (plain versions), each on a hierarchy
+    built and slimmed for its own smoother: max|u_card - u_cpu| /
+    max|u_cpu| <= 1e-10."""
+    from hpgmg_tpu_torch.bench.driver import build
+    from hpgmg_tpu_torch.core.config import BottomSolver, Smoother, SolverConfig
+    from hpgmg_tpu_torch.ops.base import get_suite
+    from hpgmg_tpu_torch.solve.mg import fmg_solve
+
+    worst = 0.0
+    for sm, bt in [(s, "direct") for s in SMOOTHERS] + [("gsrb", b) for b in BOTTOMS]:
+        cfg = SolverConfig(op="fv4", a=0.0, b=1.0, smoother=Smoother(sm),
+                           bottom=BottomSolver(bt), min_coarse_dim=8, dtype=torch.float64)
+        sols = []
+        for device in ("cuda", "cpu"):
+            hier, f = build(n, cfg, torch.device(device))
+            sols.append(fmg_solve(get_suite("fv4"), hier, f, cfg)[0].cpu())
+        rel, _ = relerr(*sols)
+        print(f"  {sm} / {bt} {n}^3 f64: card vs CPU rel err {rel:.3e}")
+        if not rel <= 1e-10:
+            raise AssertionError(f"{sm} / {bt}: card differs from the CPU by {rel}")
+        worst = max(worst, rel)
+    return worst
 
 
 def main() -> int:
@@ -780,15 +987,17 @@ def main() -> int:
     worst = {}
     check_kernels(worst)
     check_r1_kernels(worst)
+    check_subtile(worst)
     times = time_kernels()
     r1_times = time_r1_kernels()
     p_times = time_periodic_kernels()
     torch.cuda.empty_cache()
 
+    from hpgmg_tpu_torch.kernels import stencils as S
     from hpgmg_tpu_torch.kernels import tail as T
 
     phase(f"4 headline fv4 F-cycle 512^3 f32, DIRECT bottom "
-          f"(TAIL_ONE_LAUNCH={T.TAIL_ONE_LAUNCH})")
+          f"(TAIL_ONE_LAUNCH={T.TAIL_ONE_LAUNCH}, SUBTILE={S.SUBTILE})")
     res, counts = headline()
     torch.cuda.empty_cache()
     phase("4b BiCGStab-bottom companion 512^3 f32")
@@ -796,6 +1005,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase(f"4c the headline with TAIL_ONE_LAUNCH={not T.TAIL_ONE_LAUNCH}")
     res_alt, counts_alt = other_tail_setting(lambda: headline(min_solve_seconds=0.25))
+    torch.cuda.empty_cache()
+    phase(f"4d the headline with SUBTILE={not S.SUBTILE} (K1s up to "
+          f"{S.SUBTILE_MAX_DIM}^3 when on)")
+    res_st, counts_st = other_subtile_setting(lambda: headline(min_solve_seconds=0.25))
     torch.cuda.empty_cache()
 
     phase("5 radius-1 F-cycles 512^3 f32, DIRECT bottom: fv7pt, fv2, 27pt")
@@ -811,6 +1024,10 @@ def main() -> int:
     if not abs(res64_alt.richardson_order - res64.richardson_order) <= 1e-6:
         raise AssertionError(f"fv4 f64 order {res64.richardson_order} changes to "
                              f"{res64_alt.richardson_order} with the other tail setting")
+    res64_st = other_subtile_setting(f64_order)
+    if not abs(res64_st.richardson_order - res64.richardson_order) <= 1e-6:
+        raise AssertionError(f"fv4 f64 order {res64.richardson_order} changes to "
+                             f"{res64_st.richardson_order} with the other SUBTILE setting")
     r1_64 = {op: f64_order(op, n, (1.8, 2.3), 0.25)
              for op, n in (("fv7pt", 256), ("fv2", 128), ("27pt", 128))}
     torch.cuda.empty_cache()
@@ -830,18 +1047,33 @@ def main() -> int:
     per64 = {op: f64_order(op, n, rng_, 0.25, bc="periodic")
              for op, n, rng_ in (("fv4", 256, (3.8, float("inf"))),
                                  ("fv7pt", 128, (1.8, 2.3)))}
+    torch.cuda.empty_cache()
+
+    phase("8 fv4 512^3 f32 through the CLI: each other smoother (DIRECT bottom), "
+          "each other bottom solver (GSRB)")
+    options = solver_options()
+    phase("9 the CLI's drivers: fmg2, fmg2dd at 512^3 f32; fmg2, mgpcg at 256^3 f64")
+    drv = drivers()
+    phase("10 card equals CPU: fv4 32^3 f64 per smoother and bottom solver")
+    worst["solver_options_card_vs_cpu"] = card_equals_cpu()
 
     big = times[512]
     # K6 at the largest level it smooths on the path
     gsrb2_n = max((m for m in r1_times if m <= K.GSRB2_MAX_DIM), default=min(r1_times))
     # K4c launches on the run whose tail setting is on, K4a/K4b on the other
     c_v, c_du = (counts, counts_alt) if T.TAIL_ONE_LAUNCH else (counts_alt, counts)
+    # K1s launches on the run with SUBTILE on, K1's two passes on the other
+    c_k1s, c_k1 = (counts, counts_st) if S.SUBTILE else (counts_st, counts)
     rows = [
         # name, source, replaces, timed pair, launches
         ("fv4_ghost_fill", "fv4_stencil.cu", "hpgmg_tpu/kernels/stencils.py:594",
-         big["ghost"], counts["fv4_ghost_fill"]),
+         big["ghost"], c_k1["fv4_ghost_fill"]),
         ("fv4_stencil", "fv4_stencil.cu", "hpgmg_tpu/kernels/stencils.py:594",
-         big["fres"], counts["fv4_stencil"]),
+         big["fres"], c_k1["fv4_stencil"]),
+        # K1s at the largest level it takes on its path (the gate's maximum)
+        ("fv4_subtile", "fv4_subtile.cu", "hpgmg_tpu/kernels/stencils.py:918",
+         times[max(m for m in times if m != "tail" and m <= S.SUBTILE_MAX_DIM)]["k1s gsrb"],
+         c_k1s["fv4_subtile"]),
         ("fv4_gsrb2", "fv4_gsrb2.cu", "hpgmg_tpu/kernels/stencils.py:1726",
          times[64]["gsrb2"], counts["fv4_gsrb2"]),
         ("tail_down", "tail.cu", "hpgmg_tpu/kernels/tail.py:273",
@@ -886,6 +1118,17 @@ def main() -> int:
         "f64_256_order": res64.richardson_order,
         "f64_256_dof_per_s": res64.dof_per_second,
         "f64_256_other_tail_order": res64_alt.richardson_order,
+        "subtile": S.SUBTILE,
+        "other_subtile_dof_per_s": res_st.dof_per_second,
+        "other_subtile_rel_residual": res_st.rel_residual,
+        "other_subtile_richardson_order": res_st.richardson_order,
+        "f64_256_other_subtile_order": res64_st.richardson_order,
+        **{f"{tag.replace(' ', '_')}_{key}": getattr(r, attr) for tag, r in options.items()
+           for key, attr in (("dof_per_s", "dof_per_second"),
+                             ("rel_residual", "rel_residual"),
+                             ("richardson_order", "richardson_order"))},
+        **{f"{tag.replace(' ', '_')}_{key}": r[key] for tag, r in drv.items()
+           for key in ("iterations", "rel_residual", "seconds", "dof_per_second")},
         **{f"{op}_{key}": getattr(r[0], attr) for op, r in r1.items()
            for key, attr in (("dof_per_s", "dof_per_second"),
                              ("rel_residual", "rel_residual"),

@@ -115,7 +115,7 @@ def run_test_error(n: int, cfg: SolverConfig, device="cuda",
     return rows
 
 
-def _elapsed(device: torch.device, fn) -> float:
+def elapsed(device: torch.device, fn) -> float:
     """Seconds ``fn()`` keeps the device busy: CUDA events around it on a
     CUDA device (queue drained first), the host clock on the CPU."""
     if device.type != "cuda":
@@ -158,12 +158,12 @@ def run_benchmark(n: int, cfg: SolverConfig, device="cuda",
             _, nr, _ = one_solve(f + dep)
             dep = 0.0 * nr
 
-    _elapsed(device, lambda: chain(1))
+    elapsed(device, lambda: chain(1))
     # calibrate the time per solve, then size the timed chain to the budget
     cal = max(1, min(4, max_solves))
-    per_solve_est = _elapsed(device, lambda: chain(cal)) / cal
+    per_solve_est = elapsed(device, lambda: chain(cal)) / cal
     num = int(max(1, min(max_solves, round(min_solve_seconds / per_solve_est))))
-    per_solve = _elapsed(device, lambda: chain(num)) / num
+    per_solve = elapsed(device, lambda: chain(num)) / num
 
     order = None
     if dynamic_range >= 3:

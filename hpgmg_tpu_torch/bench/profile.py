@@ -1,7 +1,8 @@
 """Where the time of the port's F-cycle goes, on one CUDA device.
 
     python -m hpgmg_tpu_torch.bench.profile [--n 512] [--op fv4]
-        [--bc dirichlet] [--dtype float32] [--solves 5] [--ab] [--json PATH]
+        [--bc dirichlet] [--dtype float32] [--solves 5] [--ab] [--subtile]
+        [--json PATH]
 
 On the benchmark's problem and hierarchy of the suite ``--op``
 (``bench/driver.py:build``), after a warm-up solve:
@@ -26,7 +27,12 @@ On the benchmark's problem and hierarchy of the suite ``--op``
    (host clock) ms per solve with K4c, the one-launch tail V-cycle, on and
    off (what sets ``tail.TAIL_ONE_LAUNCH``). Each A/B runs in turns on,
    off, off, on. Dirichlet only: under ``--bc periodic`` no level takes a
-   fused kernel.
+   fused kernel;
+4. with ``--subtile`` (fv4, Dirichlet): the chain's ms per solve with
+   ``stencils.SUBTILE`` on and off, and per level one residual and one
+   smoother call through K1s and through K1, in turns on, off, off, on
+   (what sets ``SUBTILE`` and ``SUBTILE_MAX_DIM``; the counterpart of
+   hpgmg_tpu/bench/kernel_sweep.py --subtile).
 
 Prints one line per number; ``--json`` also writes them to a file.
 """
@@ -47,6 +53,7 @@ from hpgmg_tpu_torch.kernels import stencils, stencils_r1, tail
 from hpgmg_tpu_torch.ops.base import get_suite
 from hpgmg_tpu_torch.ops.transfer import restrict_cell
 from hpgmg_tpu_torch.solve.mg import fmg_solve, vcycle
+from hpgmg_tpu_torch.solve.smoothers import smooth
 
 
 def _chain(op, hier, f, cfg, num: int):
@@ -200,6 +207,51 @@ def one_launch_ab(op, hier, f, cfg, solves: int) -> list:
     return out
 
 
+@contextlib.contextmanager
+def subtile(on: bool, max_dim=None):
+    """Set ``stencils.SUBTILE`` (and ``SUBTILE_MAX_DIM`` unless None) for
+    the duration."""
+    old = (stencils.SUBTILE, stencils.SUBTILE_MAX_DIM)
+    stencils.SUBTILE = on
+    if max_dim is not None:
+        stencils.SUBTILE_MAX_DIM = max_dim
+    try:
+        yield
+    finally:
+        stencils.SUBTILE, stencils.SUBTILE_MAX_DIM = old
+
+
+def subtile_ab(op, hier, f, cfg, solves: int, reps: int = 5) -> dict:
+    """``--subtile``: the chain's ms per solve with ``SUBTILE`` on (K1s on
+    the levels the gate admits) and off (K1 everywhere), and per level
+    above the bottom the device ms of one residual and one smoother call
+    with K1s on that level and with K1, from a smoothed iterate (what sets
+    ``SUBTILE`` and ``SUBTILE_MAX_DIM``). Each A/B in turns on, off, off,
+    on."""
+    chain = []
+    for on in (True, False, False, True):
+        with subtile(on):
+            _chain(op, hier, f, cfg, 1)
+            chain.append({"subtile": on, "ms_per_solve":
+                          _events_ms(lambda: _chain(op, hier, f, cfg, solves)) / solves})
+    levels, rhs = [], f
+    for lv in hier.levels[:-1]:
+        x = smooth(op, lv, torch.zeros_like(rhs), rhs, cfg)
+        row = {"dim": lv.dim, "k1s_residual_ms": [], "k1_residual_ms": [],
+               "k1s_smooth_ms": [], "k1_smooth_ms": []}
+        for on in (True, False, False, True):
+            key = "k1s" if on else "k1"
+            with subtile(on, lv.dim):
+                for what, fn in (("residual", lambda: op.residual(lv, x, rhs, cfg)),
+                                 ("smooth", lambda: smooth(op, lv, x, rhs, cfg))):
+                    fn()
+                    row[f"{key}_{what}_ms"].append(
+                        _events_ms(lambda: [fn() for _ in range(reps)]) / reps)
+        levels.append(row)
+        rhs = restrict_cell(rhs)
+    return {"chain": chain, "levels": levels}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=512)
@@ -208,6 +260,7 @@ def main(argv=None) -> int:
     ap.add_argument("--dtype", choices=("float32", "float64"), default="float32")
     ap.add_argument("--solves", type=int, default=5)
     ap.add_argument("--ab", action="store_true")
+    ap.add_argument("--subtile", action="store_true")
     ap.add_argument("--json", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -259,6 +312,17 @@ def main(argv=None) -> int:
                       + ", ".join(f"{r['dim']}^3 device {r['device_ms']:.4f} ms, host "
                                   f"enqueue {r['host_enqueue_ms']:.4f} ms"
                                   for r in row["tail_roots"]))
+    if args.subtile and (args.op != "fv4" or cfg.bc != BC.DIRICHLET):
+        print("  --subtile: only the Dirichlet fv4 levels take K1s; no A/B to run")
+    elif args.subtile:
+        res["subtile_ab"] = subtile_ab(op, hier, f, cfg, args.solves)
+        for row in res["subtile_ab"]["chain"]:
+            print(f"  SUBTILE {'on ' if row['subtile'] else 'off'} (K1s up to "
+                  f"{stencils.SUBTILE_MAX_DIM}^3): {row['ms_per_solve']:.4f} ms/solve")
+        for row in res["subtile_ab"]["levels"]:
+            print(f"  {row['dim']:4d}^3 residual: K1s {row['k1s_residual_ms']} ms, K1 "
+                  f"{row['k1_residual_ms']} ms; smoother: K1s {row['k1s_smooth_ms']} ms, "
+                  f"K1 {row['k1_smooth_ms']} ms")
     if args.json:
         with open(args.json, "w") as fh:
             json.dump(res, fh, indent=1)

@@ -24,18 +24,18 @@ class BC(enum.Enum):
 
 class Smoother(enum.Enum):
     GSRB = "gsrb"  # red-black Gauss-Seidel, GSRB_FP masked variant
-    CHEBYSHEV = "chebyshev"  # not ported yet
-    JACOBI = "jacobi"  # not ported yet
-    L1JACOBI = "l1jacobi"  # not ported yet
-    SYMGS = "symgs"  # not ported yet
+    CHEBYSHEV = "chebyshev"  # degree-d polynomial (chebyshev.c:8-100)
+    JACOBI = "jacobi"  # weighted, omega = 2/3 (jacobi.c:8-65)
+    L1JACOBI = "l1jacobi"  # L1 row-sum weights (operators.test/l1jacobi.c)
+    SYMGS = "symgs"  # symmetric red-black GS (operators.test/symgs.c)
 
 
 class BottomSolver(enum.Enum):
     BICGSTAB = "bicgstab"  # Saad Alg 7.7 with diagonal preconditioning
-    CG = "cg"  # not ported yet
-    CABICGSTAB = "cabicgstab"  # not ported yet
-    CACG = "cacg"  # not ported yet
-    SMOOTH = "smooth"  # not ported yet
+    CG = "cg"  # diagonally-preconditioned CG (solvers/cg.c)
+    CABICGSTAB = "cabicgstab"  # s-step communication-avoiding (cabicgstab.c)
+    CACG = "cacg"  # s-step CG (cacg.c)
+    SMOOTH = "smooth"  # smooth until converged (solvers.c fallback)
     # dense inverse of the coarsest operator, built at hierarchy build
     # time: every bottom solve is one small matvec
     DIRECT = "direct"
@@ -79,13 +79,16 @@ class SolverConfig:
     smoother: Smoother = Smoother.GSRB
     # None => the operator suite's default (GSRB: 2 smooths, 3 for fv2/fv4)
     num_smooths: Optional[int] = None
+    chebyshev_degree: Optional[int] = None  # None => suite default (4 or 6)
 
     bottom: BottomSolver = BottomSolver.DIRECT
     bottom_rtol: float = 1e-3  # MG_DEFAULT_BOTTOM_NORM (mg.h:18-19)
     bottom_max_iters: int = 200  # jMax in bicgstab.c:26
+    cabicgstab_telescoping: bool = True  # s=1,2,4 telescoping (cabicgstab.c:50-54)
 
     cycle: CycleType = CycleType.F
     max_vcycles: int = 20  # MGSolve cap (mg.c:1176)
+    post_f_vcycles: int = 0  # V-cycles after the F-cycle (mg.c:1246: none)
     rtol: float = 1e-10
 
     min_coarse_dim: int = 2  # coarsen while dims even and > this
@@ -101,6 +104,11 @@ class SolverConfig:
             return getattr(suite, "gsrb_num_smooths",
                            _DEFAULT_NUM_SMOOTHS[self.smoother])
         return _DEFAULT_NUM_SMOOTHS[self.smoother]
+
+    def resolved_chebyshev_degree(self, suite=None) -> int:
+        if self.chebyshev_degree is not None:
+            return self.chebyshev_degree
+        return getattr(suite, "chebyshev_degree", 4) if suite is not None else 4
 
     def __post_init__(self):
         if self.op not in OPS:

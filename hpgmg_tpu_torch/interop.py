@@ -5,7 +5,7 @@ Each level is a mapping with ``dim``, ``h``, ``depth`` and numpy arrays for
 the fields it has: ``beta_i/j/k`` as the JAX ``rebuild_operator`` leaves
 them (tangentially extended for fv4, the natural (n+1, n, n) face arrays
 for the radius-1 suites fv7pt, fv2 and 27pt), ``alpha``, ``dinv``,
-``kdinv`` (a pair), ``lambda_max`` and ``bottom_ainv``. Arrays are copied (``torch.tensor``),
+``l1inv``, ``kdinv`` (a pair), ``lambda_max`` and ``bottom_ainv``. Arrays are copied (``torch.tensor``),
 not shared: a zero-copy DLPack export of a JAX CPU array fails with
 "Cannot export readonly array". Where a level has ``dinv`` but no
 ``kdinv`` (the JAX package attaches it only to its kernel levels), the
@@ -25,8 +25,8 @@ from hpgmg_tpu_torch.core.config import SolverConfig
 from hpgmg_tpu_torch.core.hierarchy import Hierarchy
 from hpgmg_tpu_torch.core.level import Level, rb_mask
 
-_FIELDS = ("beta_i", "beta_j", "beta_k", "alpha", "dinv", "lambda_max",
-           "bottom_ainv")
+_FIELDS = ("beta_i", "beta_j", "beta_k", "alpha", "dinv", "l1inv",
+           "lambda_max", "bottom_ainv")
 
 
 def hierarchy_from_numpy(levels: Sequence[Mapping[str, Any]],

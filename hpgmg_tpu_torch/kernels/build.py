@@ -48,6 +48,10 @@ _SIGNATURES = {
                               _P),
     "hpgmg_fv4_stencil_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _D, _D,
                               _P),
+    # (x, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out, n, mode, scale,
+    #  a_coef, stream); x is the n^3 cell field, mode apply/residual/gsrb
+    "hpgmg_fv4_subtile_f32": (_P,) * 8 + (_I, _I, _D, _D, _P),
+    "hpgmg_fv4_subtile_f64": (_P,) * 8 + (_I, _I, _D, _D, _P),
     # (x, beta_i, beta_j, beta_k, alpha, rhs, kdinv0, kdinv1, xp, yp, out, n,
     #  scale, a_coef, stream); xp, yp are (n+4)^3 scratch buffers
     "hpgmg_fv4_gsrb2_f32": (_P,) * 11 + (_I, _D, _D, _P),

@@ -1,8 +1,8 @@
-// Device building blocks of the fv4 kernels (K1 in fv4_stencil.cu, K2 in
-// fv4_gsrb2.cu, K4 in tail.cu): the quartic Dirichlet ghost of x, the fv4
-// stencil on a ghost-filled (n+4)^3 buffer, the v2 interpolation taps, and
-// the grid-stride phases and the cooperative launch that the fused kernels
-// (K2, K4) chain with grid-wide barriers.
+// Device building blocks of the fv4 kernels (K1 in fv4_stencil.cu, K1s in
+// fv4_subtile.cu, K2 in fv4_gsrb2.cu, K4 in tail.cu): the quartic Dirichlet
+// ghost of x, the fv4 stencil on a ghost-filled (n+4)^3 buffer, the v2
+// interpolation taps, and the grid-stride phases and the cooperative launch
+// that the fused kernels (K2, K4) chain with grid-wide barriers.
 //
 // Layouts: a cell field is (n, n, n) with k fastest. A ghost-filled field
 // xp is (n+4)^3 with cell (i, j, k) at (i+2, j+2, k+2). The face

@@ -1,8 +1,10 @@
-"""K1, K7a and K2: the fv4 stencil in four modes, with Dirichlet (K1) or
-periodic (K7a) ghosts, and the fused red+black GSRB sweep (counterparts of
-hpgmg_tpu/kernels/stencils.py:_fv4_kernel, entered through _fv4_call for
-Dirichlet levels and through fv4_call_ext for periodic ones, from
-fv4_{apply,residual,gsrb_sweep,restrict_residual}_pallas; and
+"""K1, K7a, K1s and K2: the fv4 stencil in four modes, with Dirichlet (K1)
+or periodic (K7a) ghosts; its one-pass sub-tiled form (K1s); and the fused
+red+black GSRB sweep (counterparts of hpgmg_tpu/kernels/stencils.py:
+_fv4_kernel, entered through _fv4_call for Dirichlet levels and through
+fv4_call_ext for periodic ones, from
+fv4_{apply,residual,gsrb_sweep,restrict_residual}_pallas;
+_fv4_kernel_subtile, entered through _fv4_call_subtile under SUBTILE; and
 _fv4_gsrb2_kernel, entered through fv4_gsrb2_pallas).
 
 Each entry dispatches on the device of ``x``: CUDA tensors launch the
@@ -23,6 +25,12 @@ coefficients are wrapped tangentially at build time
 (``fv4_gsrb2``): the red half-sweep with kdinv[0], then the black one with
 kdinv[1], equal to two K1 gsrb calls. It takes Dirichlet levels only, as
 the JAX package fuses no periodic sweep (hpgmg_tpu/ops/fv4.py:172-174).
+
+K1s (``fv4_subtile``) computes K1's apply, residual and gsrb in one launch
+on a Dirichlet level, its ghosts synthesized in the kernel
+(``csrc/fv4_subtile.cu``); it has no fres mode and refuses periodic
+levels. The fv4 suite routes a level to it where ``use_subtile`` admits
+it (``SUBTILE`` on, Dirichlet, dim <= ``SUBTILE_MAX_DIM``).
 """
 
 from __future__ import annotations
@@ -45,6 +53,27 @@ TWELFTH = 1.0 / 12.0
 # 64^3, where launches dominate (0.21-0.43 against 0.48-0.59 ms), and
 # loses from 128^3 up (0.54 against 0.43 ms; 512^3: 23.0 against 19.9 ms).
 GSRB2_MAX_DIM = 64
+
+# K1s instead of K1 on the Dirichlet levels with dim <= SUBTILE_MAX_DIM
+# (the JAX package's switch, hpgmg_tpu/kernels/stencils.py:870, whose
+# default False is a TPU measurement). Measured on an H100
+# (bench/profile.py --subtile, residual per level): one K1s launch beats
+# K1's two (ghost pass, stencil) at 16^3-64^3, where launches dominate
+# (0.05-0.08 against 0.07-0.15 ms), is even at 128^3 and loses from 256^3 up
+# (512^3: 3.65-3.73 against 3.26-3.30 ms). Off by default: the fv4 512^3
+# chain with K1s up to 64^3 ran 79.4-86.9 ms per solve against 82.7-82.8
+# without, no gain beyond its noise.
+SUBTILE = False
+SUBTILE_MAX_DIM = 64
+SUBTILE_MODES = ("apply", "residual", "gsrb")
+
+
+def use_subtile(level: Level, cfg: SolverConfig) -> bool:
+    """Whether the fv4 suite sends ``level``'s applies, residuals and
+    half-sweeps to K1s: ``SUBTILE`` on, a Dirichlet level, dim <=
+    ``SUBTILE_MAX_DIM``; larger levels and periodic ones take K1 (K7a)."""
+    return (SUBTILE and cfg.bc == BC.DIRICHLET
+            and level.dim <= SUBTILE_MAX_DIM)
 
 
 def _check(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
@@ -184,12 +213,7 @@ def apply_plain(level: Level, x: torch.Tensor,
     return ax
 
 
-def fv4_stencil_plain(level: Level, x: torch.Tensor, cfg: SolverConfig,
-                      mode: str, rhs: Optional[torch.Tensor] = None,
-                      kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The plain PyTorch version of K1 (ghost fill, shifted slices)."""
-    _check(level, x, cfg, mode, rhs, (kdinv,) if mode == "gsrb" else ())
-    fv4_stencil_plain.calls += 1
+def _modes_plain(level: Level, x, cfg: SolverConfig, mode: str, rhs, kdinv):
     ax = apply_plain(level, x, cfg)
     if mode == "apply":
         return ax
@@ -200,7 +224,36 @@ def fv4_stencil_plain(level: Level, x: torch.Tensor, cfg: SolverConfig,
     return restrict_cell_plain(rhs - ax)
 
 
+def fv4_stencil_plain(level: Level, x: torch.Tensor, cfg: SolverConfig,
+                      mode: str, rhs: Optional[torch.Tensor] = None,
+                      kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain PyTorch version of K1 (ghost fill, shifted slices)."""
+    _check(level, x, cfg, mode, rhs, (kdinv,) if mode == "gsrb" else ())
+    fv4_stencil_plain.calls += 1
+    return _modes_plain(level, x, cfg, mode, rhs, kdinv)
+
+
 fv4_stencil_plain.calls = 0
+
+
+def _check_subtile(level: Level, x, cfg: SolverConfig, mode: str, rhs, kdinv):
+    if mode not in SUBTILE_MODES:
+        raise ValueError(f"the sub-tiled fv4 stencil (K1s) has no mode {mode!r}")
+    check_dirichlet(cfg, "the sub-tiled fv4 stencil (K1s)")
+    _check(level, x, cfg, mode, rhs, (kdinv,) if mode == "gsrb" else ())
+
+
+def fv4_subtile_plain(level: Level, x: torch.Tensor, cfg: SolverConfig,
+                      mode: str, rhs: Optional[torch.Tensor] = None,
+                      kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of K1s: K1's plain arithmetic in K1s's modes
+    (apply, residual, gsrb), Dirichlet levels only."""
+    _check_subtile(level, x, cfg, mode, rhs, kdinv)
+    fv4_subtile_plain.calls += 1
+    return _modes_plain(level, x, cfg, mode, rhs, kdinv)
+
+
+fv4_subtile_plain.calls = 0
 
 
 def fv4_gsrb2_plain(level: Level, x: torch.Tensor, rhs: torch.Tensor,
@@ -267,6 +320,45 @@ def fv4_ghost_fill_periodic_cuda(x: torch.Tensor) -> torch.Tensor:
 fv4_ghost_fill_periodic_cuda.launches = 0
 
 
+def _launch_stencil(entry: str, level: Level, src: torch.Tensor,
+                    cfg: SolverConfig, mode: str, rhs, kdinv) -> torch.Tensor:
+    """Launch ``hpgmg_<entry>_{f32,f64}`` on ``src`` (K1's ghost-filled
+    buffer, or x itself for K1s) into a newly allocated output."""
+    from hpgmg_tpu_torch.kernels.build import library
+
+    n = level.dim
+    m = n // 2 if mode == "fres" else n
+    out = torch.empty((m, m, m), dtype=src.dtype, device=src.device)
+    alpha = level.alpha if cfg.helmholtz else None
+    dt = "f32" if src.dtype == torch.float32 else "f64"
+    with torch.cuda.device(src.device):
+        rc = getattr(library(), f"hpgmg_{entry}_{dt}")(
+            src.data_ptr(), level.beta_i.data_ptr(), level.beta_j.data_ptr(),
+            level.beta_k.data_ptr(), _ptr(alpha), _ptr(rhs), _ptr(kdinv),
+            out.data_ptr(), n, MODES[mode], -cfg.b * level.h2inv, float(cfg.a),
+            _stream(src))
+    if rc != 0:
+        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def fv4_subtile_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
+                     mode: str, rhs: Optional[torch.Tensor] = None,
+                     kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K1s (one pass, ghosts in the kernel) on CUDA tensors into a
+    newly allocated output. It takes any Dirichlet level with n >= 4; the
+    suite's gate (``use_subtile``) only chooses which levels it gets."""
+    _check_subtile(level, x, cfg, mode, rhs, kdinv)
+    if not x.is_cuda:
+        raise ValueError(f"fv4_subtile_cuda wants CUDA tensors, got {x.device}")
+    out = _launch_stencil("fv4_subtile", level, x, cfg, mode, rhs, kdinv)
+    fv4_subtile_cuda.launches += 1
+    return out
+
+
+fv4_subtile_cuda.launches = 0
+
+
 def fv4_stencil_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
                      mode: str, rhs: Optional[torch.Tensor] = None,
                      kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -274,27 +366,12 @@ def fv4_stencil_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
     level's BC, then the stencil, on CUDA tensors into a newly allocated
     output. The stencil launches of K1 count in ``launches``, those of K7a
     in ``periodic_launches``."""
-    from hpgmg_tpu_torch.kernels.build import library
-
     _check(level, x, cfg, mode, rhs, (kdinv,) if mode == "gsrb" else ())
     if not x.is_cuda:
         raise ValueError(f"fv4_stencil_cuda wants CUDA tensors, got {x.device}")
-    n = level.dim
-    m = n // 2 if mode == "fres" else n
     periodic = cfg.bc == BC.PERIODIC
     xp = fv4_ghost_fill_periodic_cuda(x) if periodic else fv4_ghost_fill_cuda(x)
-    out = torch.empty((m, m, m), dtype=x.dtype, device=x.device)
-    alpha = level.alpha if cfg.helmholtz else None
-    lib = library()
-    fn = (lib.hpgmg_fv4_stencil_f32 if x.dtype == torch.float32
-          else lib.hpgmg_fv4_stencil_f64)
-    with torch.cuda.device(x.device):
-        rc = fn(xp.data_ptr(), level.beta_i.data_ptr(), level.beta_j.data_ptr(),
-                level.beta_k.data_ptr(), _ptr(alpha), _ptr(rhs), _ptr(kdinv),
-                out.data_ptr(), n, MODES[mode], -cfg.b * level.h2inv,
-                float(cfg.a), _stream(x))
-    if rc != 0:
-        raise RuntimeError(f"fv4 stencil kernel launch failed: CUDA error {rc}")
+    out = _launch_stencil("fv4_stencil", level, xp, cfg, mode, rhs, kdinv)
     if periodic:
         fv4_stencil_cuda.periodic_launches += 1
     else:
@@ -353,6 +430,18 @@ def fv4_stencil(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
     if x.device.type == "cpu":
         return fv4_stencil_plain(level, x, cfg, mode, rhs, kdinv)
     raise ValueError(f"fv4 stencil has no kernel for device {x.device}")
+
+
+def fv4_subtile(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
+                rhs: Optional[torch.Tensor] = None,
+                kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K1s on ``level``: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if x.is_cuda:
+        return fv4_subtile_cuda(level, x, cfg, mode, rhs, kdinv)
+    if x.device.type == "cpu":
+        return fv4_subtile_plain(level, x, cfg, mode, rhs, kdinv)
+    raise ValueError(f"fv4 subtile has no kernel for device {x.device}")
 
 
 def fv4_gsrb2(level: Level, x: torch.Tensor, rhs: torch.Tensor,

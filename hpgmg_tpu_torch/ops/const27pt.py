@@ -25,6 +25,7 @@ class Const27pt(base.RadiusOneSuite):
     interpolation_vcycle = "p2"
     interpolation_fcycle = "p2"
     gsrb_num_smooths = 2
+    chebyshev_degree = 4
     taps_key = "27pt"
     var7 = False
 

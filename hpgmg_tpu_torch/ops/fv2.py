@@ -27,6 +27,7 @@ class FV2(base.RadiusOneSuite):
     interpolation_vcycle = "v2"
     interpolation_fcycle = "v2"
     gsrb_num_smooths = 3
+    chebyshev_degree = 6  # operators.fv2.c:136
     taps_key = "v2"
 
     def rebuild_operator(self, level: Level, cfg: SolverConfig) -> Level:

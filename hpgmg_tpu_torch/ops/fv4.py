@@ -12,7 +12,11 @@ GSRB with 3 smooths.
 Every apply, residual, half-sweep and residual restriction goes through
 K1, or K7a on a periodic level (``kernels/stencils.py:fv4_stencil``, whose
 plain version is ``stencil_ax`` there), and every full GSRB sweep on the
-smaller Dirichlet levels through K2 (``fv4_gsrb2``).
+smaller Dirichlet levels through K2 (``fv4_gsrb2``). Under
+``stencils.SUBTILE`` the levels ``stencils.use_subtile`` admits take K1s
+(``fv4_subtile``) for their applies, residuals and half-sweeps instead,
+and restrict their residual unfused (K1s residual, then K3), as the JAX
+suite does (hpgmg_tpu/ops/fv4.py:194-195): K1s has no fres mode.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ import dataclasses
 from hpgmg_tpu_torch.core.config import BC, SolverConfig
 from hpgmg_tpu_torch.core.level import Level, rb_mask
 from hpgmg_tpu_torch.kernels import stencils
-from hpgmg_tpu_torch.kernels.stencils import fv4_gsrb2, fv4_stencil
+from hpgmg_tpu_torch.kernels.restrict import restrict_cell
+from hpgmg_tpu_torch.kernels.stencils import fv4_gsrb2, fv4_stencil, fv4_subtile
 from hpgmg_tpu_torch.ops import base
 from hpgmg_tpu_torch.ops.bc_fv import extend_beta_tangential
 from hpgmg_tpu_torch.ops.rebuild import rebuild_blackbox
@@ -34,23 +39,31 @@ class FV4(base.OperatorSuite):
     interpolation_vcycle = "v2"
     interpolation_fcycle = "v4"
     gsrb_num_smooths = 3
+    chebyshev_degree = 6  # operators.fv4.c smoother wiring
+
+    @staticmethod
+    def _stencil(level: Level, x, cfg: SolverConfig, mode: str, **kw):
+        """K1s where the gate admits the level, else K1 (K7a)."""
+        if stencils.use_subtile(level, cfg):
+            return fv4_subtile(level, x, cfg, mode, **kw)
+        return fv4_stencil(level, x, cfg, mode, **kw)
 
     def apply_op(self, level: Level, x, cfg: SolverConfig):
-        return fv4_stencil(level, x, cfg, "apply")
+        return self._stencil(level, x, cfg, "apply")
 
     def residual(self, level: Level, x, rhs, cfg: SolverConfig):
-        return fv4_stencil(level, x, cfg, "residual", rhs=rhs)
+        return self._stencil(level, x, cfg, "residual", rhs=rhs)
 
     def gsrb_sweep(self, level: Level, x, rhs, cfg: SolverConfig,
                    parity: int):
-        return fv4_stencil(level, x, cfg, "gsrb", rhs=rhs,
-                           kdinv=level.kdinv[parity & 1])
+        return self._stencil(level, x, cfg, "gsrb", rhs=rhs,
+                             kdinv=level.kdinv[parity & 1])
 
     def gsrb_smooth(self, level: Level, x, rhs, cfg: SolverConfig,
                     nsweeps: int):
         """``nsweeps`` half-sweeps from parity 0: pairs of them as K2's
         full sweeps on Dirichlet levels up to ``stencils.GSRB2_MAX_DIM``,
-        else one K1 (K7a) launch each."""
+        else one K1s, K1 or K7a launch each."""
         if (cfg.bc == BC.DIRICHLET and nsweeps % 2 == 0
                 and level.dim <= stencils.GSRB2_MAX_DIM):
             for _ in range(nsweeps // 2):
@@ -59,13 +72,15 @@ class FV4(base.OperatorSuite):
         return super().gsrb_smooth(level, x, rhs, cfg, nsweeps)
 
     def restrict_residual(self, level: Level, x, rhs, cfg: SolverConfig):
+        if stencils.use_subtile(level, cfg):
+            return restrict_cell(fv4_subtile(level, x, cfg, "residual", rhs=rhs))
         return fv4_stencil(level, x, cfg, "fres", rhs=rhs)
 
     def rebuild_operator(self, level: Level, cfg: SolverConfig) -> Level:
         """Extend the face coefficients tangentially once per level (the
         extrapolate_betas analog), probe the black-box diagonal through
-        K1, then fold the GSRB parity masks into dinv (the GSRB_FP mask
-        plane, gsrb.c:78-87, moved to build time)."""
+        the suite's apply (K1 or K1s), then fold the GSRB parity masks into
+        dinv (the GSRB_FP mask plane, gsrb.c:78-87, moved to build time)."""
         lv = dataclasses.replace(
             level,
             beta_i=extend_beta_tangential(level.beta_i, 0, cfg.bc).contiguous(),

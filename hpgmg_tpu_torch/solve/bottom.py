@@ -1,6 +1,13 @@
 """Coarse-grid (bottom) solvers (counterpart of hpgmg_tpu/solve/bottom.py):
-the DIRECT dense inverse and diagonally-preconditioned BiCGStab. The other
-bottom solvers raise NotImplementedError.
+the DIRECT dense inverse, diagonally-preconditioned BiCGStab and CG,
+smooth-until-converged, and the s-step CABiCGStab and CACG
+(``solve/ca_krylov.py``).
+
+The iterative solvers keep their convergence and breakdown flags as
+tensors and read them on the host once per iteration (one device sync per
+iteration of the bottom solve), where the JAX package runs a
+``lax.while_loop``; each break path keeps the iterate the reference exits
+with.
 """
 
 from __future__ import annotations
@@ -27,7 +34,19 @@ def bottom_solve(op, level: Level, x, rhs, cfg: SolverConfig,
         return _subtract_mean(out, must_subtract_mean, cfg)
     if cfg.bottom == BottomSolver.BICGSTAB:
         return bicgstab(op, level, x, rhs, cfg, must_subtract_mean)
-    raise NotImplementedError(f"bottom solver {cfg.bottom} is not ported yet")
+    if cfg.bottom == BottomSolver.CG:
+        return cg(op, level, x, rhs, cfg, must_subtract_mean)
+    if cfg.bottom == BottomSolver.CABICGSTAB:
+        from hpgmg_tpu_torch.solve.ca_krylov import cabicgstab
+
+        return cabicgstab(op, level, x, rhs, cfg, must_subtract_mean)
+    if cfg.bottom == BottomSolver.CACG:
+        from hpgmg_tpu_torch.solve.ca_krylov import cacg
+
+        return cacg(op, level, x, rhs, cfg, must_subtract_mean)
+    if cfg.bottom == BottomSolver.SMOOTH:
+        return smooth_until_converged(op, level, x, rhs, cfg, must_subtract_mean)
+    raise ValueError(f"unknown bottom solver {cfg.bottom}")
 
 
 def _subtract_mean(u, enabled: bool, cfg: SolverConfig):
@@ -36,13 +55,7 @@ def _subtract_mean(u, enabled: bool, cfg: SolverConfig):
 
 def bicgstab(op, level: Level, x, rhs, cfg: SolverConfig,
              must_subtract_mean: bool = False):
-    """Diagonally-preconditioned BiCGStab (Saad Alg 7.7; bicgstab.c:14-97).
-
-    The convergence and the breakdown flags are tensors; the loop reads
-    them on the host once per iteration (one device sync per iteration of
-    the bottom solve). Each break path keeps the iterate the reference
-    exits with.
-    """
+    """Diagonally-preconditioned BiCGStab (Saad Alg 7.7; bicgstab.c:14-97)."""
     msm, rd = must_subtract_mean, cfg.reduce_dtype
     r0 = _subtract_mean(op.residual(level, x, rhs, cfg), msm, cfg)
     r, p = r0, r0
@@ -94,4 +107,53 @@ def bicgstab(op, level: Level, x, rhs, cfg: SolverConfig,
         r_dot_r0 = torch.where(hold, r_dot_r0, r_dot_r0_new)
         j += 1
         done = bool(fail_pivot | fail_omega | fail_late | conv_half | conv_full)
+    return x
+
+
+def cg(op, level: Level, x, rhs, cfg: SolverConfig,
+       must_subtract_mean: bool = False):
+    """Diagonally-preconditioned CG (solvers/cg.c). A breakdown (pAp = 0,
+    or a non-finite alpha: 0/0 in f32 once converged) keeps the
+    pre-update iterate, like the reference's break before the update."""
+    msm, rd = must_subtract_mean, cfg.reduce_dtype
+    r = _subtract_mean(op.residual(level, x, rhs, cfg), msm, cfg)
+    norm_r0 = blas.norm(r)
+    target = cfg.bottom_rtol * norm_r0
+    p = level.dinv * r
+    rtz = blas.dot(r, p, rd)
+    done = bool(norm_r0 == 0.0)
+
+    j = 0
+    while j < cfg.bottom_max_iters and not done:
+        ap = op.apply_op(level, p, cfg)
+        pap = blas.dot(p, ap, rd)
+        alpha = rtz / pap
+        ok = (pap != 0.0) & torch.isfinite(alpha)
+        x = torch.where(ok, x + alpha * p, x)
+        r = _subtract_mean(torch.where(ok, r - alpha * ap, r), msm, cfg)
+        nr = blas.norm(r)
+        z = level.dinv * r
+        rtz_new = blas.dot(r, z, rd)
+        p = z + (rtz_new / rtz) * p
+        rtz = rtz_new
+        j += 1
+        done = bool(~ok | (nr < target) | (nr == 0.0))
+    return x
+
+
+def smooth_until_converged(op, level: Level, x, rhs, cfg: SolverConfig,
+                           must_subtract_mean: bool = False):
+    """The fallback bottom solve (solvers.c:17-88, its ``#else`` branch):
+    smooth until ||r|| <= bottom_rtol * ||r0||, at most bottom_max_iters
+    smoother calls."""
+    from hpgmg_tpu_torch.solve.smoothers import smooth
+
+    msm = must_subtract_mean
+    norm_r = blas.norm(_subtract_mean(op.residual(level, x, rhs, cfg), msm, cfg))
+    target = cfg.bottom_rtol * norm_r
+    j = 0
+    while j < cfg.bottom_max_iters and bool(norm_r > target):
+        x = smooth(op, level, x, rhs, cfg)
+        norm_r = blas.norm(_subtract_mean(op.residual(level, x, rhs, cfg), msm, cfg))
+        j += 1
     return x

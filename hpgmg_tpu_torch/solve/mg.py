@@ -1,10 +1,12 @@
-"""Multigrid cycles (counterpart of hpgmg_tpu/solve/mg.py; mg.c:1135-1344):
-V-cycle, MGSolve, FMGSolve and the Richardson analysis.
+"""Multigrid cycles (counterpart of hpgmg_tpu/solve/mg.py; mg.c:1135-1607):
+V-cycle, MGSolve, FMGSolve, the iterated F-cycle FMGSolve2 and its
+compensated double-f32 variant, MGPCG, and the Richardson analysis.
 
-Everything runs eagerly. Only ``mg_solve`` reads a value on the host (once
-per cycle, for its early exit); ``fmg_solve`` and ``mg_solve_fixed``
-enqueue their whole solve without a device sync (the BiCGStab bottom, if
-chosen, syncs once per iteration).
+Everything runs eagerly. ``fmg_solve`` and ``mg_solve_fixed`` enqueue
+their whole solve without a device sync (an iterative bottom solver, if
+chosen, syncs once per iteration); ``mg_solve``, ``fmg_solve2``,
+``fmg_solve2_dd`` and ``mgpcg`` read one value on the host per cycle or
+iteration, for their early exit.
 """
 
 from __future__ import annotations
@@ -136,8 +138,117 @@ def fmg_solve(op: OperatorSuite, hier: Hierarchy, f, cfg: SolverConfig,
     for lev in range(bot - 1, -1, -1):
         u = interp_f(u, 0.0, None, cfg.bc)  # prescale 0: overwrite (mg.c:1295)
         u = vcycle(op, levels, lev, u, rhs[lev], cfg)
+    for _ in range(cfg.post_f_vcycles):  # trailing V-cycles, a fixed count
+        u = vcycle(op, levels, 0, u, f, cfg)
     u, norm_r = _cycle_norm(op, levels[0], u, f, cfg)
     return u, norm_r, norm_f
+
+
+def fmg_solve2(op: OperatorSuite, hier: Hierarchy, f, cfg: SolverConfig,
+               u0=None, max_fcycles: int = 20, verbose: bool = False):
+    """FMGSolve2 (mg.c:1348-1495): iterated F-cycles in residual-correction
+    form: r = f - A u, solve A e = r with one F-cycle, u += e, until
+    ||f - A u|| / ||f|| < rtol. Returns (u, per-F-cycle relative
+    residuals)."""
+    lv0 = hier.levels[0]
+    u = torch.zeros_like(f) if u0 is None else u0
+    norm_f = float(blas.norm(f))
+    history = []
+    for fc in range(max_fcycles):
+        e, _, _ = fmg_solve(op, hier, op.residual(lv0, u, f, cfg), cfg)
+        u = u + e
+        if _must_subtract_mean(cfg):
+            u = u - blas.mean(u, cfg.reduce_dtype)
+        norm_r = float(blas.norm(op.residual(lv0, u, f, cfg)))
+        history.append(norm_r / norm_f)
+        if verbose:
+            print(f"f-cycle={fc + 1:2d}  norm={norm_r:1.15e}  rel={history[-1]:1.15e}")
+        if history[-1] < cfg.rtol:
+            break
+    return u, history
+
+
+def fmg_solve2_dd(op: OperatorSuite, hier: Hierarchy, f, cfg: SolverConfig,
+                  max_fcycles: int = 20, verbose: bool = False):
+    """FMGSolve2 with a compensated fine-level iterate: the solution is
+    the unevaluated sum u_hi + u_lo of two tensors of the solve dtype
+    (Dekker/Knuth two-sum accumulation), so in f32 the representation
+    noise of u no longer floors the residual at ~5e-4 (the h^-2-scaled
+    stencil amplifies it); every apply, transfer and smooth stays in the
+    solve dtype on the kernels:
+
+        r   = (f - A u_hi) - A u_lo      (linearity; two applies)
+        e   = FMG(r)                     (one F-cycle)
+        u   = two_sum(u_hi, u_lo + e)    (exact-error accumulation)
+
+    Returns (u_hi, u_lo, per-F-cycle relative residuals)."""
+    lv0 = hier.levels[0]
+    u_hi = torch.zeros_like(f)
+    u_lo = torch.zeros_like(f)
+    norm_f = float(blas.norm(f))
+    history = []
+    for fc in range(max_fcycles):
+        # residual of the unevaluated sum: the big cancellation first
+        r = op.residual(lv0, u_hi, f, cfg) - op.apply_op(lv0, u_lo, cfg)
+        e, _, _ = fmg_solve(op, hier, r, cfg)
+        # two-sum: (u_hi, u_lo) <- fl(u_hi + t) and its exact error, as
+        # separate operations in this order
+        t = u_lo + e
+        s = u_hi + t
+        err = (u_hi - s) + t
+        if _must_subtract_mean(cfg):
+            s = s - (blas.mean(s, cfg.reduce_dtype) + blas.mean(err, cfg.reduce_dtype))
+        u_hi, u_lo = s, err
+        norm_r = float(blas.norm(op.residual(lv0, u_hi, f, cfg)
+                                 - op.apply_op(lv0, u_lo, cfg)))
+        history.append(norm_r / norm_f)
+        if verbose:
+            print(f"f-cycle={fc + 1:2d}  norm={norm_r:1.15e}  rel={history[-1]:1.15e}")
+        if history[-1] < cfg.rtol:
+            break
+    return u_hi, u_lo, history
+
+
+def mgpcg(op: OperatorSuite, hier: Hierarchy, f, cfg: SolverConfig,
+          max_iters: int = 20, verbose: bool = False):
+    """MGPCG (mg.c:1500-1607): CG preconditioned by one V-cycle (Saad
+    Alg 9.1), the true residual recomputed every iteration for the
+    convergence test (mg.c:1578-1585), relative to the initial residual.
+    Returns (x, per-iteration relative true residuals)."""
+    levels = hier.levels
+    lv0, rd = levels[0], cfg.reduce_dtype
+    msm = _must_subtract_mean(cfg)
+
+    def precond(r):
+        return vcycle(op, levels, 0, torch.zeros_like(r), r, cfg)
+
+    x = torch.zeros_like(f)
+    r = op.residual(lv0, x, f, cfg)
+    if msm:
+        r = r - blas.mean(r, rd)
+    z = precond(r)
+    r_dot_z = blas.dot(r, z, rd)
+    norm_r0 = float(blas.norm(r))
+    p = z
+    history = []
+    for j in range(max_iters):
+        ap = op.apply_op(lv0, p, cfg)
+        alpha = r_dot_z / blas.dot(ap, p, rd)
+        x = x + alpha * p
+        r = r - alpha * ap
+        if msm:
+            r = r - blas.mean(r, rd)
+        norm_true = float(blas.norm(op.residual(lv0, x, f, cfg)))
+        z = precond(r)
+        r_dot_z_new = blas.dot(r, z, rd)
+        p = z + (r_dot_z_new / r_dot_z) * p
+        r_dot_z = r_dot_z_new
+        history.append(norm_true / norm_r0)
+        if verbose:
+            print(f"iter={j + 1:3d}  norm={norm_true:1.15e}  rel={history[-1]:1.15e}")
+        if history[-1] < cfg.rtol:
+            break
+    return x, history
 
 
 def richardson_error(op: OperatorSuite, u_h, u_2h,

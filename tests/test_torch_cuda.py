@@ -1,11 +1,12 @@
-"""The port's CUDA kernels on a card: K1's ghost pass and each K1 mode, K2,
-K3, K4's two halves and K4c, each K5 mode and K6 (both bodies, all three
-tap sets), K7a and K7b (the periodic K1 and K5) against their plain
-versions on the same CUDA tensors, and small F-cycles (fv4, fv7pt, fv2,
-27pt; Dirichlet and periodic) through the kernels against the same
-F-cycles on the CPU. max|kernel - plain| /
-max|plain| <= 1e-12 in float64, 1e-5 in float32 (the kernel sums the
-stencil in another order than the plain version).
+"""The port's CUDA kernels on a card: K1's ghost pass and each K1 mode, K1s
+(each mode, also against K1), K2, K3, K4's two halves and K4c, each K5
+mode and K6 (both bodies, all three tap sets), K7a and K7b (the periodic K1
+and K5) against their plain versions on the same CUDA tensors, and small
+F-cycles (fv4, fv7pt, fv2, 27pt; Dirichlet and periodic; fv4 with SUBTILE
+on, with each smoother and each bottom solver) through the kernels against
+the same F-cycles on the CPU. max|kernel - plain| / max|plain| <= 1e-12 in
+float64, 1e-5 in float32 (the kernel sums the stencil in another order
+than the plain version); K1s: 1e-13 and 2e-6.
 
 Marked ``cuda``: without a CUDA device (and nvcc) every test skips. On a
 card: python -m pytest tests/test_torch_cuda.py -q
@@ -296,6 +297,85 @@ def test_k4c_matches_plain(dev, dims, dtype):
                    lambda: S.fv4_gsrb2(tail[0], e, rhs, periodic)):
         with pytest.raises(NotImplementedError):
             launch()
+
+
+# K1s against its plain version: ghosts rounded in another order than the
+# plain version's separable fill (f32), the stencil summed in another order
+K1S_TOL = {torch.float32: 2e-6, torch.float64: 1e-13}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [4, 8, 48, 64])
+def test_k1s_matches_plain_and_k1(dev, n, dtype):
+    """K1s in each mode, with and without a*alpha*x, against its plain
+    version and against K1's two passes on the same tensors (n = 4: every
+    cell reads ghosts; 48: ragged tiles along k); one launch per call; it
+    refuses a periodic level and K1's fres mode."""
+    rng = np.random.default_rng(n + 11)
+    lv = _level(n, dtype, dev, rng)
+    x, rhs = (torch.tensor(a, dtype=dtype, device=dev)
+              for a in rng.standard_normal((2, n, n, n)))
+    for cfg in (SolverConfig(a=0.0, dtype=dtype),
+                SolverConfig(a=1.5, helmholtz=True, dtype=dtype)):
+        cases = [("apply", {}), ("residual", {"rhs": rhs}),
+                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[0]}),
+                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[1]})]
+        before = (S.fv4_subtile_cuda.launches, S.fv4_ghost_fill_cuda.launches)
+        for mode, kw in cases:
+            out = S.fv4_subtile(lv, x, cfg, mode, **kw)
+            assert out.is_cuda
+            assert relerr(out, S.fv4_subtile_plain(lv, x, cfg, mode, **kw)) <= K1S_TOL[dtype]
+            assert relerr(out, S.fv4_stencil_cuda(lv, x, cfg, mode, **kw)) <= K1S_TOL[dtype]
+        assert S.fv4_subtile_cuda.launches == before[0] + len(cases)
+        assert S.fv4_ghost_fill_cuda.launches == before[1] + len(cases)  # K1's only
+    with pytest.raises(NotImplementedError):
+        S.fv4_subtile(lv, x, SolverConfig(a=0.0, bc=BC.PERIODIC, dtype=dtype), "apply")
+    with pytest.raises(ValueError, match="mode"):
+        S.fv4_subtile(lv, x, SolverConfig(a=0.0, dtype=dtype), "fres", rhs=rhs)
+
+
+@pytest.mark.parametrize("smoother", ["gsrb", "symgs"])
+def test_subtile_fcycle_matches_cpu(dev, monkeypatch, smoother):
+    """32^3 f64 fv4 with SUBTILE on for every level: K1s takes every
+    apply, residual (the unfused residual restriction) and half-sweep that
+    K2 and the tail do not, against the same F-cycle on the CPU."""
+    from hpgmg_tpu_torch.core.config import Smoother
+
+    monkeypatch.setattr(S, "SUBTILE", True)
+    monkeypatch.setattr(S, "SUBTILE_MAX_DIM", 32)
+    cfg = SolverConfig(op="fv4", a=0.0, dtype=torch.float64, smoother=Smoother(smoother),
+                       bottom=BottomSolver.DIRECT, min_coarse_dim=8)
+    launches = S.fv4_subtile_cuda.launches
+    sols = []
+    for device in (dev, torch.device("cpu")):
+        hier, f = build(32, cfg, device)
+        u, nr, nf = fmg_solve(get_suite("fv4"), hier, f, cfg)
+        sols.append((u.cpu(), float(nr) / float(nf)))
+    assert S.fv4_subtile_cuda.launches > launches
+    (ug, rg), (uc, rc) = sols
+    assert relerr(ug, uc) <= 1e-10
+    assert abs(rg - rc) <= 1e-6 * rc
+
+
+@pytest.mark.parametrize("smoother,bottom", [
+    ("chebyshev", "direct"), ("jacobi", "direct"), ("l1jacobi", "direct"),
+    ("symgs", "direct"), ("gsrb", "cg"), ("gsrb", "cabicgstab"), ("gsrb", "cacg"),
+    ("gsrb", "smooth")])
+def test_solver_options_match_cpu(dev, smoother, bottom):
+    """32^3 f64 fv4 F-cycle with each smoother and bottom solver of the
+    CLI through the kernels, against the same F-cycle on the CPU."""
+    from hpgmg_tpu_torch.core.config import Smoother
+
+    cfg = SolverConfig(op="fv4", a=0.0, dtype=torch.float64, smoother=Smoother(smoother),
+                       bottom=BottomSolver(bottom), min_coarse_dim=8)
+    sols = []
+    for device in (dev, torch.device("cpu")):
+        hier, f = build(32, cfg, device)
+        u, nr, nf = fmg_solve(get_suite("fv4"), hier, f, cfg)
+        sols.append((u.cpu(), float(nr) / float(nf)))
+    (ug, rg), (uc, rc) = sols
+    assert relerr(ug, uc) <= 1e-10
+    assert abs(rg - rc) <= 1e-6 * rc
 
 
 @pytest.mark.parametrize("op", ["fv4", "fv7pt", "fv2", "27pt"])
