@@ -70,7 +70,26 @@ Phases, each printing its result and raising on failure (exit code != 0):
    float32 (fmg2dd's lowest residual below 1e-5 and a fifth of fmg2's),
    FMGSolve2 and MGPCG at 256^3 float64 to 1e-10 within 20 cycles;
 10. each other smoother and bottom solver at 32^3 float64 on the card
-   equals the same F-cycle on the CPU to 1e-10.
+   equals the same F-cycle on the CPU to 1e-10;
+11. the decomposed path's slab kernels on one whole-domain block
+   (single_chip_slabs*, every K8d edge flag set), float32 and float64, at n
+   in {8, ..., 256}, Dirichlet and periodic, every mode, against their
+   plain versions and the single-rank kernels at K1S_TOL: K8a (fv4) against
+   K1/K7a, K8b (its interior pass, then its edge pass) equal to K8a bit for
+   bit, K8c (every body and tap set) against K5/K7b, K8d against K6 (K3
+   takes a non-cubic block in phase 3);
+12. their times (float32) at the local blocks the 2x2 grid's 512^3 path
+   gives them, with bounds and plain times, and on one 512^3 block (K8d
+   256^3) beside K1, K5 and K6, in turns;
+13. the decomposed F-cycle through bench/weak.py: 4 processes in a 2x2
+   grid sharing this GPU over gloo (halos staged through host memory; its
+   seconds per solve are not a multi-card number): fv4 and fv7pt at 512^3
+   float32 (rel_residual <= 1e-3 and, fv7pt's one-rank limit, <= 1e-2;
+   order >= 3.0 and in [1.8, 2.2]), fv4 at
+   256^3 float64 with OVERLAP on (K8b; order >= 3.8), each one F-cycle per
+   timed solve, its u within DECOMPOSED_U_TOL of the one-rank F-cycle's,
+   the slab kernels and K3 launched in a counted F-cycle and no
+   single-rank stencil, fused sweep, tail kernel or plain version.
 
 The line before the last lists the kernels as JSON: for each, its launches
 on its path, its time, its plain version's time, its bound on the card
@@ -220,7 +239,11 @@ def check_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
                       S.fv4_gsrb2_plain(lv, x, rhs, cfg), tol, worst, "fv4_gsrb2")
             check(f"K3 restrict    n={n:3d} {dn}", R.restrict_cell_cuda(x),
                   R.restrict_cell_plain(x), tol, worst, "restrict_cell")
-            del lv, x, rhs
+            # a rank's local block of a decomposed level: any even extents
+            y = x[:, : max(2, n // 2)].reshape(n // 2, -1, 2 * n).contiguous()
+            check(f"K3 restrict {tuple(y.shape)} {dn}", R.restrict_cell_cuda(y),
+                  R.restrict_cell_plain(y), tol, worst, "restrict_cell")
+            del lv, x, rhs, y
     lv8, x8 = random_level(8, torch.float32, dev, rng), torch.zeros((8,) * 3, device=dev)
     refuses_periodic("K2", lambda cfg: S.fv4_gsrb2_cuda(lv8, x8, x8, cfg))
     check_tail(worst)
@@ -669,51 +692,19 @@ def time_r1_kernels(sizes=(64, 128, 256, 512)):
     return res
 
 
-def _counters():
-    """(name, wrapper, attribute) of every kernel's launch count and (name,
-    plain version) of every plain version's call count. The stencil
-    wrappers count their periodic launches (K7a's stencil pass, K7b) apart."""
-    from hpgmg_tpu_torch.kernels import restrict as R
-    from hpgmg_tpu_torch.kernels import stencils as S
-    from hpgmg_tpu_torch.kernels import stencils_r1 as K
-    from hpgmg_tpu_torch.kernels import tail as T
-
-    kernels = [("fv4_ghost_fill", S.fv4_ghost_fill_cuda, "launches"),
-               ("fv4_stencil", S.fv4_stencil_cuda, "launches"),
-               ("fv4_subtile", S.fv4_subtile_cuda, "launches"),
-               ("fv4_ghost_fill_periodic", S.fv4_ghost_fill_periodic_cuda, "launches"),
-               ("fv4_stencil_periodic", S.fv4_stencil_cuda, "periodic_launches"),
-               ("fv4_gsrb2", S.fv4_gsrb2_cuda, "launches"),
-               ("tail_down", T.tail_down_cuda, "launches"),
-               ("tail_up", T.tail_up_cuda, "launches"),
-               ("tail_v", T.tail_v_cuda, "launches"),
-               ("restrict_cell", R.restrict_cell_cuda, "launches"),
-               ("r1_stencil", K.r1_stencil_cuda, "launches"),
-               ("r1_stencil_periodic", K.r1_stencil_cuda, "periodic_launches"),
-               ("r1_gsrb2", K.r1_gsrb2_cuda, "launches")]
-    plains = [("fv4_stencil_plain", S.fv4_stencil_plain),
-              ("fv4_subtile_plain", S.fv4_subtile_plain),
-              ("fv4_gsrb2_plain", S.fv4_gsrb2_plain),
-              ("tail_down_plain", T.tail_down_plain), ("tail_up_plain", T.tail_up_plain),
-              ("tail_v_plain", T.tail_v_plain),
-              ("restrict_cell_plain", R.restrict_cell_plain),
-              ("r1_stencil_plain", K.r1_stencil_plain),
-              ("r1_gsrb2_plain", K.r1_gsrb2_plain)]
-    return kernels, plains
-
-
 def reset_counts():
-    kernels, plains = _counters()
-    for _, fn, attr in kernels:
-        setattr(fn, attr, 0)
-    for _, fn in plains:
-        fn.calls = 0
+    """Every kernel's launch count and every plain version's call count to
+    0 (hpgmg_tpu_torch/kernels/counts.py)."""
+    from hpgmg_tpu_torch.kernels import counts
+
+    counts.reset()
 
 
 def read_counts():
-    kernels, plains = _counters()
-    return ({name: getattr(fn, attr) for name, fn, attr in kernels},
-            {name: fn.calls for name, fn in plains})
+    """({kernel: launches}, {plain version: calls})."""
+    from hpgmg_tpu_torch.kernels import counts
+
+    return counts.read()
 
 
 def solve_cfg(bottom: str, dtype, op: str = "fv4", bc: str = "dirichlet"):
@@ -961,6 +952,299 @@ def card_equals_cpu(n=32):
     return worst
 
 
+# ---------------------------------------------------------------------------
+# the decomposed path: K8a-K8d and the F-cycle over a 2x2 grid of ranks
+# ---------------------------------------------------------------------------
+
+def check_slab_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
+    """Phase 11: the slab kernels driven on one block that is the whole
+    domain (single_chip_slabs*, every K8d edge flag set), float32 and
+    float64, against their plain versions and against the single-rank
+    kernels on the same level, at K1S_TOL (their k ghosts round in another
+    order than the plain versions' separable fills): K8a in every mode
+    (apply, residual, gsrb for both parities; with and without a*alpha*x),
+    Dirichlet and periodic, against K1 (K7a); K8b (both passes) equal to
+    K8a bit for bit where the block has >= 3 x 3 tiles; K8c in every mode,
+    body and tap set of R1_BODIES, Dirichlet and periodic, against K5
+    (K7b); K8d against K6 (Dirichlet)."""
+    from hpgmg_tpu_torch.core.config import BC, SolverConfig
+    from hpgmg_tpu_torch.kernels import stencils as S
+    from hpgmg_tpu_torch.kernels import stencils_r1 as K
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 5)
+    for dtype in (torch.float32, torch.float64):
+        tol, dn = K1S_TOL[dtype], str(dtype)[6:]
+        for n in sizes:
+            lv = random_level(n, dtype, dev, rng)
+            x, rhs = (torch.tensor(a, dtype=dtype, device=dev)
+                      for a in rng.standard_normal((2, n, n, n)))
+            errs = {"fv4_slab": 0.0, "fv4_slab_vs_K1": 0.0, "r1_slab": 0.0,
+                    "r1_slab_vs_K5": 0.0, "r1_gsrb2_slab": 0.0,
+                    "r1_gsrb2_slab_vs_K6": 0.0}
+
+            def hold(name, out, ref):
+                rel, _ = relerr(out, ref)
+                if not rel <= tol:
+                    raise AssertionError(f"{name} n={n} {dn}: rel err {rel} > {tol}")
+                errs[name] = max(errs[name], rel)
+
+            overlap = S.overlap_grid_shape(n, n, dtype) is not None
+            for bc in (BC.DIRICHLET, BC.PERIODIC):
+                slabs = S.single_chip_slabs(x, bc)
+                for cfg in (SolverConfig(a=0.0, b=1.0, dtype=dtype, bc=bc),
+                            SolverConfig(a=1.5, b=1.0, helmholtz=True, dtype=dtype, bc=bc)):
+                    for mode, kw in (("apply", {}), ("residual", {"rhs": rhs}),
+                                     ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[0]}),
+                                     ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[1]})):
+                        out = S.fv4_slab_cuda(lv, x, slabs, cfg, mode, **kw)
+                        hold("fv4_slab", out, S.fv4_slab_plain(lv, x, slabs, cfg, mode, **kw))
+                        hold("fv4_slab_vs_K1", out, S.fv4_stencil_cuda(lv, x, cfg, mode, **kw))
+                        if overlap:
+                            pair = S.fv4_overlap_edge_cuda(
+                                lv, x, slabs, cfg, mode,
+                                S.fv4_overlap_interior_cuda(lv, x, cfg, mode, **kw), **kw)
+                            if not torch.equal(pair, out):
+                                raise AssertionError(f"K8b {mode} n={n} {dn} {bc.value}: "
+                                                     f"differs from K8a by {relerr(pair, out)}")
+            del lv
+            lr = random_level_r1(n, dtype, dev, rng)
+            for label, taps, var7, helm in R1_BODIES:
+                for bc in (BC.DIRICHLET, BC.PERIODIC):
+                    cfg = SolverConfig(a=1.5 if helm else 0.0, b=1.0, helmholtz=helm,
+                                       dtype=dtype, bc=bc)
+                    slabs = K.single_chip_slabs_r1(x, bc, taps)
+                    for mode, kw in (("apply", {}), ("residual", {"rhs": rhs}),
+                                     ("gsrb", {"rhs": rhs, "kdinv": lr.kdinv[0]}),
+                                     ("gsrb", {"rhs": rhs, "kdinv": lr.kdinv[1]}),
+                                     ("fres", {"rhs": rhs})):
+                        out = K.r1_slab_cuda(lr, x, slabs, cfg, mode, taps, var7, **kw)
+                        hold("r1_slab", out,
+                             K.r1_slab_plain(lr, x, slabs, cfg, mode, taps, var7, **kw))
+                        hold("r1_slab_vs_K5", out,
+                             K.r1_stencil_cuda(lr, x, cfg, mode, taps, var7, **kw))
+                    if bc == BC.DIRICHLET:
+                        lr2 = dataclasses.replace(lr, ring=K.ring_views(lr, cfg, var7))
+                        s2, r2 = K.single_chip_slabs2_r1(x, taps), K.ring_cut(rhs, 0, 0, n, n)
+                        edges = (True,) * 4
+                        out = K.r1_gsrb2_slab_cuda(lr2, x, s2, edges, r2, cfg, taps, var7)
+                        hold("r1_gsrb2_slab", out, K.r1_gsrb2_slab_plain(
+                            lr2, x, s2, edges, r2, cfg, taps, var7))
+                        hold("r1_gsrb2_slab_vs_K6", out,
+                             K.r1_gsrb2_cuda(lr, x, rhs, cfg, taps, var7))
+            print(f"  n={n:3d} {dn}: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                  + (", K8b == K8a" if overlap else ""))
+            for k, v in errs.items():
+                worst[k] = max(worst.get(k, 0.0), v)
+            del lr, x, rhs
+    torch.cuda.empty_cache()
+
+
+def _block_level(ni: int, nj: int, nk: int, dev, rng, r1: bool):
+    """A level of random coefficients cut to an ni x nj x nk local block
+    (the fv4 tangentially-extended faces with their margins, or the
+    natural radius-1 faces), its kdinv pair, and (radius-1) K8d's ring
+    views: the operands the 2x2 grid's main path hands the slab kernels."""
+    from hpgmg_tpu_torch.core.level import Level, rb_mask
+
+    def t(shape, lo=1.0, span=0.25):
+        return torch.tensor(lo + span * rng.random(shape), dtype=torch.float32, device=dev)
+
+    faces = (((ni + 1, nj, nk), (ni, nj + 1, nk), (ni, nj, nk + 1)) if r1 else
+             ((ni + 1, nj + 2, nk + 2), (ni + 2, nj + 1, nk + 2), (ni + 2, nj + 2, nk + 1)))
+    n = 2 * ni
+    dinv = t((ni, nj, nk), 0.5 / (8.0 * n * n), 1.0 / (8.0 * n * n))
+    mask = rb_mask(n, 0, torch.float32, dev)[:ni, :nj, :nk]
+    lv = Level(dim=n, h=1.0 / n, depth=0, beta_i=t(faces[0]), beta_j=t(faces[1]),
+               beta_k=t(faces[2]), dinv=dinv, kdinv=(mask * dinv, (1 - mask) * dinv))
+    if r1:
+        ring = (ni + 2, nj + 2, nk)
+        rmask = rb_mask(n, 0, torch.float32, dev)[:ni + 2, :nj + 2, :nk]
+        lv = dataclasses.replace(lv, ring=(
+            rmask * t(ring, 0.5 / (8.0 * n * n), 1.0 / (8.0 * n * n)), None,
+            t((ni + 3, nj + 2, nk)), t((ni + 2, nj + 3, nk)), t((ni + 2, nj + 2, nk + 1))))
+    return lv
+
+
+def time_slab_kernels(n=512):
+    """Phase 12: the slab kernels' times (float32) at the local blocks the
+    2x2 grid's n^3 main path gives them (K8a, K8b, K8c: the (n/2, n/2, n)
+    block of the finest level; K8d: the (n/4, n/4, n/2) block of the
+    largest level it sweeps), on random coefficients and slabs, against
+    their plain versions and their bounds (each input read once, each
+    output written once); then, at n^3 on one whole-domain block, K8a and
+    K8c (K8d at n/2) against their plain versions and bounds, and in turns
+    with K1, K5 and K6 on the same level."""
+    from hpgmg_tpu_torch.core.config import SolverConfig
+    from hpgmg_tpu_torch.kernels import stencils as S
+    from hpgmg_tpu_torch.kernels import stencils_r1 as K
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 6)
+    cfg = SolverConfig(a=0.0, b=1.0, dtype=torch.float32)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    row = {}
+    ni, nj, nk = n // 2, n // 2, n
+    lv = _block_level(ni, nj, nk, dev, rng, r1=False)
+    x, rhs = rand(ni, nj, nk), rand(ni, nj, nk)
+    slabs = (rand(2, nj, nk), rand(2, nj, nk), rand(ni + 4, 2, nk), rand(ni + 4, 2, nk))
+    cells = ni * nj * nk
+    kw = {"rhs": rhs, "kdinv": lv.kdinv[0]}
+    work = (nbytes(x, *slabs, lv.beta_i, lv.beta_j, lv.beta_k, rhs, lv.kdinv[0], x),
+            mode_flops(FV4_AX, "gsrb", cells, 2))
+    label = f"({ni},{nj},{nk})"
+    time_pair(f"K8a gsrb {label} f32", lambda: S.fv4_slab_cuda(lv, x, slabs, cfg, "gsrb", **kw),
+              lambda: S.fv4_slab_plain(lv, x, slabs, cfg, "gsrb", **kw), 5, row, "fv4_slab",
+              work=work)
+    # K8b's two passes apart: the interior tiles from the block alone, then
+    # the edge tiles with the slabs into the same output
+    i0, i1, j0, j1 = S._interior_region(x)
+    inner = (i1 - i0) * (j1 - j0) * nk
+    block = nbytes(x, lv.beta_i, lv.beta_j, lv.beta_k, rhs, lv.kdinv[0], x)
+    time_pair(f"K8b interior pass gsrb {label} f32",
+              lambda: S.fv4_overlap_interior_cuda(lv, x, cfg, "gsrb", **kw)[i0:i1, j0:j1],
+              lambda: S.fv4_overlap_interior_plain(lv, x, cfg, "gsrb", **kw)[i0:i1, j0:j1],
+              5, row, "fv4_overlap_interior",
+              work=(block * inner / cells, mode_flops(FV4_AX, "gsrb", inner, 2)))
+    out_k = S.fv4_overlap_interior_cuda(lv, x, cfg, "gsrb", **kw)
+    out_p = S.fv4_overlap_interior_plain(lv, x, cfg, "gsrb", **kw)
+    time_pair(f"K8b edge pass gsrb {label} f32",
+              lambda: S.fv4_overlap_edge_cuda(lv, x, slabs, cfg, "gsrb", out_k, **kw),
+              lambda: S.fv4_overlap_edge_plain(lv, x, slabs, cfg, "gsrb", out_p.clone(),
+                                               **kw),
+              5, row, "fv4_overlap_edge",
+              work=(block * (cells - inner) / cells + nbytes(*slabs),
+                    mode_flops(FV4_AX, "gsrb", cells - inner, 2)))
+    del lv, x, rhs, slabs, out_k, out_p
+    lr = _block_level(ni, nj, nk, dev, rng, r1=True)
+    x, rhs = rand(ni, nj, nk), rand(ni, nj, nk)
+    slabs = (rand(1, nj, nk), rand(1, nj, nk), rand(ni + 2, 1, nk), rand(ni + 2, 1, nk))
+    kw = {"rhs": rhs, "kdinv": lr.kdinv[0]}
+    time_pair(f"K8c var7 gsrb {label} f32",
+              lambda: K.r1_slab_cuda(lr, x, slabs, cfg, "gsrb", "p1", True, **kw),
+              lambda: K.r1_slab_plain(lr, x, slabs, cfg, "gsrb", "p1", True, **kw), 5, row,
+              "r1_slab", work=(nbytes(x, *slabs, lr.beta_i, lr.beta_j, lr.beta_k, rhs,
+                                      lr.kdinv[0], x), mode_flops(VAR7_AX, "gsrb", cells, 0)))
+    del lr, x, rhs, slabs
+    mi, mj, mk = n // 4, n // 4, n // 2
+    l2 = _block_level(mi, mj, mk, dev, rng, r1=True)
+    x, rhs2 = rand(mi, mj, mk), rand(mi + 2, mj + 2, mk)
+    s2 = (rand(2, mj, mk), rand(2, mj, mk), rand(mi + 4, 2, mk), rand(mi + 4, 2, mk))
+    edges = (True, False, True, False)
+    time_pair(f"K8d var7 sweep ({mi},{mj},{mk}) f32",
+              lambda: K.r1_gsrb2_slab_cuda(l2, x, s2, edges, rhs2, cfg, "p1", True),
+              lambda: K.r1_gsrb2_slab_plain(l2, x, s2, edges, rhs2, cfg, "p1", True), 5, row,
+              "r1_gsrb2_slab",
+              work=(nbytes(x, *s2, rhs2, *(r for r in l2.ring if r is not None),
+                           l2.kdinv[1], x),
+                    2 * mode_flops(VAR7_AX, "gsrb", mi * mj * mk, 0)))
+    del l2, x, rhs2, s2
+    torch.cuda.empty_cache()
+
+    # one whole-domain block, against its plain version and bound, and
+    # beside the single-rank kernel on the same level, in turns
+    for m, names in ((n, ("K8a", "K8c")), (n // 2, ("K8d",))):
+        lv, lr = (random_level(m, torch.float32, dev, rng),
+                  random_level_r1(m, torch.float32, dev, rng))
+        x, rhs = rand(m, m, m), rand(m, m, m)
+        fkw, rkw = {"rhs": rhs, "kdinv": lv.kdinv[0]}, {"rhs": rhs, "kdinv": lr.kdinv[0]}
+        fs, rs = S.single_chip_slabs(x, cfg.bc), K.single_chip_slabs_r1(x, cfg.bc, "p1")
+        lr2 = dataclasses.replace(lr, ring=K.ring_views(lr, cfg, True))
+        s2, r2 = K.single_chip_slabs2_r1(x, "p1"), K.ring_cut(rhs, 0, 0, m, m)
+        cells, edges = m ** 3, (True,) * 4
+        runs = {
+            "K8a": (lambda: S.fv4_slab_cuda(lv, x, fs, cfg, "gsrb", **fkw),
+                    lambda: S.fv4_slab_plain(lv, x, fs, cfg, "gsrb", **fkw),
+                    (nbytes(x, *fs, lv.beta_i, lv.beta_j, lv.beta_k, rhs, lv.kdinv[0], x),
+                     mode_flops(FV4_AX, "gsrb", cells, 2)),
+                    "K1 (ghost pass + stencil)",
+                    lambda: S.fv4_stencil_cuda(lv, x, cfg, "gsrb", **fkw)),
+            "K8c": (lambda: K.r1_slab_cuda(lr, x, rs, cfg, "gsrb", "p1", True, **rkw),
+                    lambda: K.r1_slab_plain(lr, x, rs, cfg, "gsrb", "p1", True, **rkw),
+                    (nbytes(x, *rs, lr.beta_i, lr.beta_j, lr.beta_k, rhs, lr.kdinv[0], x),
+                     mode_flops(VAR7_AX, "gsrb", cells, 0)),
+                    "K5", lambda: K.r1_stencil_cuda(lr, x, cfg, "gsrb", "p1", True, **rkw)),
+            "K8d": (lambda: K.r1_gsrb2_slab_cuda(lr2, x, s2, edges, r2, cfg, "p1", True),
+                    lambda: K.r1_gsrb2_slab_plain(lr2, x, s2, edges, r2, cfg, "p1", True),
+                    (nbytes(x, *s2, r2, *(t for t in lr2.ring if t is not None),
+                            lr.kdinv[1], x), 2 * mode_flops(VAR7_AX, "gsrb", cells, 0)),
+                    "K6", lambda: K.r1_gsrb2_cuda(lr, x, rhs, cfg, "p1", True)),
+        }
+        for name in names:
+            kernel, plain, work, other, ref = runs[name]
+            time_pair(f"{name} gsrb on one {m}^3 block f32", kernel, plain, 5, row,
+                      f"{name} one block", work=work)
+            t = [time_ms(f, 5) for f in (ref, kernel, kernel, ref)]
+            print(f"  {name} gsrb on one {m}^3 block, in turns with {other}: "
+                  f"{t[1]:.4f} / {t[2]:.4f} ms; {other}: {t[0]:.4f} / {t[3]:.4f} ms")
+            row[f"{name} one block"]["single_rank"] = (other, t)
+        del lv, lr, lr2, x, rhs, fs, rs, s2, r2
+        torch.cuda.empty_cache()
+    return row
+
+
+# the kernels no decomposed level may launch: the single-rank stencils and
+# fused sweeps (K1, K1s, K2, K5, K6, K7a, K7b) and the tail (off under a mesh)
+SINGLE_RANK = ("fv4_ghost_fill", "fv4_stencil", "fv4_subtile", "fv4_ghost_fill_periodic",
+               "fv4_stencil_periodic", "fv4_gsrb2", "tail_down", "tail_up", "tail_v",
+               "r1_stencil", "r1_stencil_periodic", "r1_gsrb2")
+# u of the decomposed F-cycle against the one-rank F-cycle on the same card,
+# max|u_ranks - u_one| / max|u_one|: float64 to 1e-9; float32 to 1e-5, a
+# few hundred f32 ulps (the blocks sum their reductions, interpolations and
+# the DIRECT bottom's inputs in another order than the one-rank run)
+DECOMPOSED_U_TOL = {"float32": 1e-5, "float64": 1e-9}
+
+
+def decomposed(op: str, n: int, dtype: str, order_range, rel_limit: float = 1e-3,
+               overlap: bool = False):
+    """Phase 13: the decomposed F-cycle through its entry point
+    (bench/weak.py:run_weak): 4 processes in a 2x2 grid sharing this GPU
+    over gloo, the halos staged through host memory; run_benchmark on the
+    mesh (one warm-up F-cycle, calibration, one timed F-cycle, the 2h and
+    4h solves for the order), then one F-cycle with the launch counts reset
+    before it and read after it, then the one-rank F-cycle of the same
+    problem on rank 0. Held to rel_residual <= rel_limit, the Richardson
+    order in ``order_range``, u within DECOMPOSED_U_TOL of the one-rank u;
+    the slab kernels launched (K8b's passes under ``overlap``), no
+    single-rank stencil, fused sweep or tail kernel, no plain version."""
+    from hpgmg_tpu_torch.bench.weak import run_weak
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r = run_weak(n // 2, 4, op, dtype, reps=1, backend="gloo", check_serial=True,
+                 overlap=overlap, timeout=900.0)
+    wall = time.perf_counter() - t0
+    res, launches, plain = r["res"], r["launches"], r["plain_calls"]
+    tag = f"{op} {n}^3 {dtype}" + (" OVERLAP" if overlap else "")
+    print(f"  {tag} on the 2x2 grid (4 processes sharing one GPU, gloo, host-staged "
+          f"halos): {res['seconds_per_solve']:.6f} s per solve, rel_residual "
+          f"{res['rel_residual']:.6e} (one rank: {r['serial_rel_residual']:.6e}), order "
+          f"{res['richardson_order']:.6f}, u vs one rank {r['serial_u_rel_diff']:.3e}; "
+          f"phase wall {wall:.3f} s")
+    print(f"  launches in the counted F-cycle: { {k: v for k, v in launches.items() if v} }")
+    if r["grid"] != [2, 2, 1]:
+        raise AssertionError(f"{tag}: grid {r['grid']}")
+    if not res["rel_residual"] <= rel_limit:
+        raise AssertionError(f"{tag}: rel_residual {res['rel_residual']} > {rel_limit}")
+    if not order_range[0] <= res["richardson_order"] <= order_range[1]:
+        raise AssertionError(f"{tag}: order {res['richardson_order']} outside {order_range}")
+    if not r["serial_u_rel_diff"] <= DECOMPOSED_U_TOL[dtype]:
+        raise AssertionError(f"{tag}: u differs from the one-rank u by "
+                             f"{r['serial_u_rel_diff']}")
+    want = (("fv4_slab",) if op == "fv4" else ("r1_slab", "r1_gsrb2_slab")) + (
+        "restrict_cell",) + (("fv4_overlap_interior", "fv4_overlap_edge") if overlap else ())
+    missing = [k for k in want if not launches[k] > 0]
+    stray = [k for k in SINGLE_RANK if launches[k]]
+    if missing or stray or any(plain.values()):
+        raise AssertionError(f"{tag}: kernels not launched {missing}, launched off the "
+                             f"path {stray}, plain calls { {k: v for k, v in plain.items() if v} }")
+    return r
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -1056,6 +1340,19 @@ def main() -> int:
     drv = drivers()
     phase("10 card equals CPU: fv4 32^3 f64 per smoother and bottom solver")
     worst["solver_options_card_vs_cpu"] = card_equals_cpu()
+    torch.cuda.empty_cache()
+
+    phase("11 the slab kernels K8a-K8d vs plain and vs K1/K5/K6, one whole-domain block")
+    check_slab_kernels(worst)
+    phase("12 the slab kernels' times at the 2x2 grid's 512^3 blocks; one-block K8 vs "
+          "K1/K5/K6")
+    s_times = time_slab_kernels()
+    phase("13 the decomposed F-cycle over a 2x2 grid: 4 processes sharing one GPU, gloo, "
+          "host-staged halos (not a multi-card number)")
+    dec = {"fv4": decomposed("fv4", 512, "float32", (3.0, float("inf"))),
+           "fv7pt": decomposed("fv7pt", 512, "float32", (1.8, 2.2), rel_limit=1e-2),
+           "fv4_f64": decomposed("fv4", 256, "float64", (3.8, float("inf")),
+                                 overlap=True)}
 
     big = times[512]
     # K6 at the largest level it smooths on the path
@@ -1101,6 +1398,18 @@ def main() -> int:
         ("r1_stencil_periodic_27pt", "r1_stencil.cu",
          "hpgmg_tpu/kernels/stencils_r1.py:517", p_times["27pt apply"],
          per["27pt"][1]["r1_stencil_periodic"]),
+        # the decomposed path: launches in the counted F-cycle of phase 13
+        # (K8b's in the run with OVERLAP on)
+        ("fv4_slab", "fv4_slab.cu", "hpgmg_tpu/kernels/stencils.py:1268",
+         s_times["fv4_slab"], dec["fv4"]["launches"]["fv4_slab"]),
+        ("fv4_overlap_interior", "fv4_slab.cu", "hpgmg_tpu/kernels/stencils.py:1370",
+         s_times["fv4_overlap_interior"], dec["fv4_f64"]["launches"]["fv4_overlap_interior"]),
+        ("fv4_overlap_edge", "fv4_slab.cu", "hpgmg_tpu/kernels/stencils.py:1421",
+         s_times["fv4_overlap_edge"], dec["fv4_f64"]["launches"]["fv4_overlap_edge"]),
+        ("r1_slab", "r1_slab.cu", "hpgmg_tpu/kernels/stencils_r1.py:645",
+         s_times["r1_slab"], dec["fv7pt"]["launches"]["r1_slab"]),
+        ("r1_gsrb2_slab", "r1_slab.cu", "hpgmg_tpu/kernels/stencils_r1.py:1029",
+         s_times["r1_gsrb2_slab"], dec["fv7pt"]["launches"]["r1_gsrb2_slab"]),
     ]
     kernels = [{"name": name, "route": "cuda",
                 "source": f"hpgmg_tpu_torch/kernels/csrc/{src}", "replaces": rep,
@@ -1141,7 +1450,11 @@ def main() -> int:
         "fv4_periodic_bicgstab_dof_per_s": res_pb.dof_per_second,
         "fv4_periodic_bicgstab_rel_residual": res_pb.rel_residual,
         **{f"{op}_periodic_f64_{r.n}_order": r.richardson_order
-           for op, r in per64.items()}}}))
+           for op, r in per64.items()},
+        **{f"decomposed_2x2_{tag}_{key}": r["res"][key] for tag, r in dec.items()
+           for key in ("seconds_per_solve", "rel_residual", "richardson_order")},
+        **{f"decomposed_2x2_{tag}_u_vs_one_rank": r["serial_u_rel_diff"]
+           for tag, r in dec.items()}}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,13 @@ take the cell-averaged problem of ``problems/fv.py``, fv7pt and 27pt the
 pointwise p6; ``problem`` overrides with fv, p4, p6 or sine. Under
 ``cfg.bc == BC.PERIODIC`` fv, p4 and p6 take their periodic variants (sine
 satisfies both BCs as it is).
+
+``mesh`` (parallel/mesh.py) runs the same protocol on a hierarchy cut for
+a process grid, every rank calling with its own Mesh (the JAX driver's
+``mesh`` argument): each rank builds the global problem on its device,
+keeps its blocks, and solves under ``active_mesh``; the Richardson solves
+at 2h and 4h run on the same mesh. The timed chain's length is agreed
+between the ranks (the largest rank's), so every rank runs as many solves.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ from hpgmg_tpu_torch.core import blas
 from hpgmg_tpu_torch.core.config import BC, CycleType, SolverConfig
 from hpgmg_tpu_torch.core.hierarchy import build_hierarchy, slim_hierarchy
 from hpgmg_tpu_torch.ops.base import get_suite
+from hpgmg_tpu_torch.parallel.mesh import active_mesh, shard_array, shard_hierarchy
 from hpgmg_tpu_torch.problems.fv import init_problem_fv
 from hpgmg_tpu_torch.problems.p4 import init_problem_p4
 from hpgmg_tpu_torch.problems.p6 import init_problem_p6
@@ -79,12 +87,16 @@ def build_problem(n: int, cfg: SolverConfig, device: torch.device,
 
 
 def build(n: int, cfg: SolverConfig, device: torch.device,
-          problem: Optional[str] = None):
-    """The benchmark problem's slimmed hierarchy and rhs on ``device``."""
+          problem: Optional[str] = None, mesh=None):
+    """The benchmark problem's slimmed hierarchy and rhs on ``device``; with
+    ``mesh``, this rank's cut of both (the global arrays are freed)."""
     prob = build_problem(n, cfg, device, problem)
-    hier = build_hierarchy(prob.beta_i, prob.beta_j, prob.beta_k, cfg,
-                           alpha=prob.alpha if cfg.helmholtz else None)
-    return slim_hierarchy(hier, cfg), prob.f
+    hier = slim_hierarchy(build_hierarchy(prob.beta_i, prob.beta_j, prob.beta_k, cfg,
+                                          alpha=prob.alpha if cfg.helmholtz else None),
+                          cfg)
+    if mesh is None:
+        return hier, prob.f
+    return shard_hierarchy(mesh, hier, cfg), shard_array(mesh, prob.f)
 
 
 def run_test_error(n: int, cfg: SolverConfig, device="cuda",
@@ -132,13 +144,32 @@ def elapsed(device: torch.device, fn) -> float:
     return start.elapsed_time(end) / 1000.0
 
 
+def _agree(value: float, mesh) -> float:
+    """The largest ``value`` over the ranks of ``mesh`` (itself without)."""
+    if mesh is None:
+        return value
+    import torch.distributed as dist
+
+    t = torch.tensor([value], dtype=torch.float64,
+                     device="cpu" if mesh.backend == "gloo" else mesh.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return float(t)
+
+
 def run_benchmark(n: int, cfg: SolverConfig, device="cuda",
                   min_solve_seconds: float = 1.0, max_solves: int = 100,
                   dynamic_range: int = 1, verbose: bool = True,
-                  problem: Optional[str] = None) -> BenchResult:
+                  problem: Optional[str] = None, mesh=None) -> BenchResult:
     device = torch.device(device)
     op = get_suite(cfg.op)
-    hier, f = build(n, cfg, device, problem)
+    with active_mesh(mesh):
+        return _run(n, cfg, device, op, min_solve_seconds, max_solves,
+                    dynamic_range, verbose, problem, mesh)
+
+
+def _run(n, cfg, device, op, min_solve_seconds, max_solves, dynamic_range,
+         verbose, problem, mesh) -> BenchResult:
+    hier, f = build(n, cfg, device, problem, mesh)
 
     def one_solve(rhs):
         """One benchmark solve: an F-cycle, or under CycleType.V eleven
@@ -161,19 +192,20 @@ def run_benchmark(n: int, cfg: SolverConfig, device="cuda",
     elapsed(device, lambda: chain(1))
     # calibrate the time per solve, then size the timed chain to the budget
     cal = max(1, min(4, max_solves))
-    per_solve_est = elapsed(device, lambda: chain(cal)) / cal
+    per_solve_est = _agree(elapsed(device, lambda: chain(cal)) / cal, mesh)
     num = int(max(1, min(max_solves, round(min_solve_seconds / per_solve_est))))
-    per_solve = elapsed(device, lambda: chain(num)) / num
+    per_solve = _agree(elapsed(device, lambda: chain(num)) / num, mesh)
 
     order = None
     if dynamic_range >= 3:
         # Richardson: solve at 2h and 4h, compare restrictions (mg.c:1113)
-        sols = [u]
+        sols, parts = [u], [hier.levels[0].part]
         for k in (2, 4):
-            hk, fk = build(n // k, cfg, device, problem)
+            hk, fk = build(n // k, cfg, device, problem, mesh)
             sols.append(fmg_solve(op, hk, fk, cfg)[0])
+            parts.append(hk.levels[0].part)
             del hk, fk
-        order = float(richardson_error(op, *sols)[1])
+        order = float(richardson_error(op, *sols, parts=tuple(parts))[1])
 
     res = BenchResult(n=n, dof=n ** 3, seconds_per_solve=per_solve,
                       dof_per_second=n ** 3 / per_solve, num_solves=num,

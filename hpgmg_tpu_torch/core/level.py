@@ -4,6 +4,12 @@ Each level is one dense array per field. Ghost zones are never stored:
 the stencil synthesizes its boundary ghosts from the interior (in-kernel
 on CUDA, by a separable extension in the plain version).
 
+On a level decomposed over an i/j process grid (``part`` set, see
+parallel/mesh.py) every field is this rank's cut: the cell fields
+(ni, nj, n), the face arrays with their margins cut from the global ones
+(so interior margins hold the neighbours' true faces); ``dim`` stays the
+global extent.
+
 The face coefficients are plain face arrays, ``beta_i`` (n+1, n, n),
 ``beta_j`` (n, n+1, n), ``beta_k`` (n, n, n+1), as the radius-1 suites
 (fv7pt, fv2, 27pt) keep them. The fv4 suite stores them *tangentially
@@ -15,9 +21,12 @@ extended* by one ghost layer, as ``FV4.rebuild_operator`` leaves them:
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import TYPE_CHECKING, Optional, Tuple
 
 import torch
+
+if TYPE_CHECKING:
+    from hpgmg_tpu_torch.parallel.mesh import Part
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,9 +54,17 @@ class Level:
     # (red, black) dinv with the GSRB parity mask folded in: zeros at the
     # cells a half-sweep of that parity does not update
     kdinv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    # on a level decomposed over a process grid (parallel/mesh.py): this
+    # rank's part; every field above is then cut to it
+    part: Optional["Part"] = None
+    # K8d's ring views on such a level (kernels/stencils_r1.py:ring_views)
+    ring: Optional[tuple] = None
 
     @property
     def shape(self):
+        """The shape of this rank's cell fields."""
+        if self.part is not None:
+            return (self.part.ni, self.part.nj, self.dim)
         return (self.dim, self.dim, self.dim)
 
     @property

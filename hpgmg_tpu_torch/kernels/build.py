@@ -33,9 +33,9 @@ _D = ctypes.c_double
 # c_void_p, or ctypes would cut them to 32-bit ints). All return the
 # cudaError_t of the launch as an int.
 _SIGNATURES = {
-    # (x, out, m, stream): x is (2m)^3, out m^3
-    "hpgmg_restrict_cell_f32": (_P, _P, _I, _P),
-    "hpgmg_restrict_cell_f64": (_P, _P, _I, _P),
+    # (x, out, mi, mj, mk, stream): x is (2mi, 2mj, 2mk), out (mi, mj, mk)
+    "hpgmg_restrict_cell_f32": (_P, _P, _I, _I, _I, _P),
+    "hpgmg_restrict_cell_f64": (_P, _P, _I, _I, _I, _P),
     # (x, xp, n, stream): xp is (n+4)^3, x with its Dirichlet or periodic
     # ghost shell
     "hpgmg_fv4_ghost_fill_f32": (_P, _P, _I, _P),
@@ -74,6 +74,18 @@ _SIGNATURES = {
     #  b_h2inv, a_coef, t1, t2, stream)
     "hpgmg_r1_gsrb2_f32": (_P,) * 9 + (_I, _I, _D, _D, _D, _D, _P),
     "hpgmg_r1_gsrb2_f64": (_P,) * 9 + (_I, _I, _D, _D, _D, _D, _P),
+    # (x, ilo, ihi, jlo, jhi, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out,
+    #  ni, nj, nk, mode, periodic, scale, a_coef, pass, stream)
+    "hpgmg_fv4_slab_f32": (_P,) * 12 + (_I,) * 5 + (_D, _D, _I, _P),
+    "hpgmg_fv4_slab_f64": (_P,) * 12 + (_I,) * 5 + (_D, _D, _I, _P),
+    # (x, ilo, ihi, jlo, jhi, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out,
+    #  ni, nj, nk, mode, var7, periodic, b_h2inv, a_coef, t1, t2, stream)
+    "hpgmg_r1_slab_f32": (_P,) * 12 + (_I,) * 6 + (_D,) * 4 + (_P,),
+    "hpgmg_r1_slab_f64": (_P,) * 12 + (_I,) * 6 + (_D,) * 4 + (_P,),
+    # (x, ilo, ihi, jlo, jhi, ring beta_i, beta_j, beta_k, alpha, rhs, kdinv0,
+    #  kdinv1, out, ni, nj, nk, edges, var7, b_h2inv, a_coef, t1, t2, stream)
+    "hpgmg_r1_gsrb2_slab_f32": (_P,) * 13 + (_I,) * 5 + (_D,) * 4 + (_P,),
+    "hpgmg_r1_gsrb2_slab_f64": (_P,) * 13 + (_I,) * 5 + (_D,) * 4 + (_P,),
 }
 
 

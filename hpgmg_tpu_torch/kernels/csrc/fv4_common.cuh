@@ -1,5 +1,6 @@
 // Device building blocks of the fv4 kernels (K1 in fv4_stencil.cu, K1s in
-// fv4_subtile.cu, K2 in fv4_gsrb2.cu, K4 in tail.cu): the quartic Dirichlet
+// fv4_subtile.cu, K2 in fv4_gsrb2.cu, K4 in tail.cu, K8a/K8b in
+// fv4_slab.cu): the quartic Dirichlet
 // ghost of x, the fv4 stencil on a ghost-filled (n+4)^3 buffer, the v2
 // interpolation taps, and the grid-stride phases and the cooperative launch
 // that the fused kernels (K2, K4) chain with grid-wide barriers.

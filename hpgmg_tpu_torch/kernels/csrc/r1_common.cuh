@@ -1,6 +1,8 @@
 // Device building blocks of the radius-1 kernels (K5 in r1_stencil.cu, K6 in
-// r1_gsrb2.cu): the 2-tap Dirichlet ghost of x, and A x at one cell from an
-// accessor of its neighbourhood, for the two bodies:
+// r1_gsrb2.cu, K8c and K8d in r1_slab.cu): the 2-tap Dirichlet ghost of x,
+// and A x at one cell from an accessor of its neighbourhood and the indices
+// of its face coefficients (r1_ax; r1_index for an ni x nj x nk block), for
+// the two bodies:
 //
 //   var7  A x = -b/h^2 * sum over the six faces of beta_f * (x_nb - x_c)
 //               [+ a * alpha * x_c]                      (fv7pt, fv2)
@@ -155,26 +157,41 @@ __device__ __forceinline__ void load_tile(const R1Args<T>& p, T* xs, int i0,
   }
 }
 
-// A x at cell (i, j, k) with flat index c; X(di, dj, dk) reads x (ghosts
-// included) around it. The sums run in the order of the plain versions
-// (kernels/stencils_r1.py: beta_laplacian, laplacian_27pt).
+// Where the var7 body finds a cell's coefficients: its low i, j, k faces at
+// beta_i[ci], beta_j[cj], beta_k[ck], the high ones si, sj and 1 further,
+// alpha at ca.
+struct R1Index {
+  int64_t ci, si, cj, sj, ck, ca;
+};
+
+// The face indices of cell (i, j, k) in the natural face arrays of an
+// ni x nj x nk block (beta_i (ni+1, nj, nk) and so on).
+__device__ __forceinline__ R1Index r1_index(int i, int j, int k, int ni, int nj,
+                                            int nk) {
+  const int64_t c = (static_cast<int64_t>(i) * nj + j) * nk + k;
+  return {c, static_cast<int64_t>(nj) * nk,
+          (static_cast<int64_t>(i) * (nj + 1) + j) * nk + k, nk,
+          (static_cast<int64_t>(i) * nj + j) * (nk + 1) + k, c};
+}
+
+// A x at one cell from its face coefficients (found by `q`) and X(di, dj,
+// dk), which reads x (ghosts included) around it. The sums run in the
+// order of the plain versions (kernels/stencils_r1.py: beta_laplacian,
+// laplacian_27pt).
 template <typename T, bool VAR7, typename FX>
-__device__ __forceinline__ T r1_cell_ax(const R1Args<T>& p, const FX& X, int i,
-                                        int j, int k, int64_t c) {
+__device__ __forceinline__ T r1_ax(const T* beta_i, const T* beta_j, const T* beta_k,
+                                   const T* alpha, T b_h2inv, T a_coef, const FX& X,
+                                   const R1Index& q) {
   const T xc = X(0, 0, 0);
   if constexpr (VAR7) {
-    const int n = p.n;
-    const int64_t nn = static_cast<int64_t>(n) * n;
-    const int64_t cj = (static_cast<int64_t>(i) * (n + 1) + j) * n + k;
-    const int64_t ck = (static_cast<int64_t>(i) * n + j) * (n + 1) + k;
-    const T lap = ld(p.beta_i + c + nn) * (X(1, 0, 0) - xc) +
-                  ld(p.beta_i + c) * (X(-1, 0, 0) - xc) +
-                  ld(p.beta_j + cj + n) * (X(0, 1, 0) - xc) +
-                  ld(p.beta_j + cj) * (X(0, -1, 0) - xc) +
-                  ld(p.beta_k + ck + 1) * (X(0, 0, 1) - xc) +
-                  ld(p.beta_k + ck) * (X(0, 0, -1) - xc);
-    T ax = -p.b_h2inv * lap;
-    if (p.alpha != nullptr) ax = p.a_coef * ld(p.alpha + c) * xc + ax;
+    const T lap = ld(beta_i + q.ci + q.si) * (X(1, 0, 0) - xc) +
+                  ld(beta_i + q.ci) * (X(-1, 0, 0) - xc) +
+                  ld(beta_j + q.cj + q.sj) * (X(0, 1, 0) - xc) +
+                  ld(beta_j + q.cj) * (X(0, -1, 0) - xc) +
+                  ld(beta_k + q.ck + 1) * (X(0, 0, 1) - xc) +
+                  ld(beta_k + q.ck) * (X(0, 0, -1) - xc);
+    T ax = -b_h2inv * lap;
+    if (alpha != nullptr) ax = a_coef * ld(alpha + q.ca) * xc + ax;
     return ax;
   } else {
     T face = T(0), edge = T(0), corner = T(0);
@@ -195,8 +212,16 @@ __device__ __forceinline__ T r1_cell_ax(const R1Args<T>& p, const FX& X, int i,
     }
     const T lap = T(14.0 / 30.0) * face + T(3.0 / 30.0) * edge +
                   T(1.0 / 30.0) * corner;
-    return p.a_coef * xc - p.b_h2inv * lap;
+    return a_coef * xc - b_h2inv * lap;
   }
+}
+
+// A x at cell (i, j, k) of the n^3 level of `p`
+template <typename T, bool VAR7, typename FX>
+__device__ __forceinline__ T r1_cell_ax(const R1Args<T>& p, const FX& X, int i,
+                                        int j, int k) {
+  return r1_ax<T, VAR7>(p.beta_i, p.beta_j, p.beta_k, p.alpha, p.b_h2inv, p.a_coef, X,
+                        r1_index(i, j, k, p.n, p.n, p.n));
 }
 
 }  // namespace

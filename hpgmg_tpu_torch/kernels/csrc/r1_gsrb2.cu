@@ -76,7 +76,7 @@ __global__ void __launch_bounds__(kTileThreads) r1_gsrb2_kernel(const R1Args<T> 
     if (!(in_range(i, n) && in_range(j, n) && in_range(k, n))) continue;
     auto X = [&](int di, int dj, int dk) -> T { return xc[(di * XJ + dj) * XK + dk]; };
     const int64_t g = (static_cast<int64_t>(i) * n + j) * n + k;
-    const T ax = r1_cell_ax<T, VAR7>(p, X, i, j, k, g);
+    const T ax = r1_cell_ax<T, VAR7>(p, X, i, j, k);
     rs[q] = xc[0] + ld(p.kdinv + g) * (ld(p.rhs + g) - ax);
   }
   __syncthreads();
@@ -122,7 +122,7 @@ __global__ void __launch_bounds__(kTileThreads) r1_gsrb2_kernel(const R1Args<T> 
     if (!(in_range(i, n) && in_range(j, n) && in_range(k, n))) continue;
     auto R = [&](int di, int dj, int dk) -> T { return rc[(di * RJ + dj) * RK + dk]; };
     const int64_t g = (static_cast<int64_t>(i) * n + j) * n + k;
-    const T ax = r1_cell_ax<T, VAR7>(p, R, i, j, k, g);
+    const T ax = r1_cell_ax<T, VAR7>(p, R, i, j, k);
     p.out[g] = rc[0] + ld(p.kdinv1 + g) * (ld(p.rhs + g) - ax);
   }
 }

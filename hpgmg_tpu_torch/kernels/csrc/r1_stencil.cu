@@ -69,7 +69,7 @@ __global__ void __launch_bounds__(kTileThreads) r1_kernel(const R1Args<T> p) {
     const T* xc = xs + ((a + 1) * XJ + (b + 1)) * XK + (c + 1);
     auto X = [&](int di, int dj, int dk) -> T { return xc[(di * XJ + dj) * XK + dk]; };
     const int64_t g = (static_cast<int64_t>(i) * n + j) * n + k;
-    const T ax = r1_cell_ax<T, VAR7>(p, X, i, j, k, g);
+    const T ax = r1_cell_ax<T, VAR7>(p, X, i, j, k);
     if constexpr (MODE == kApply) {
       p.out[g] = ax;
     } else if constexpr (MODE == kResidual) {

@@ -35,6 +35,7 @@ it (``SUBTILE`` on, Dirichlet, dim <= ``SUBTILE_MAX_DIM``).
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
@@ -42,7 +43,8 @@ import torch
 from hpgmg_tpu_torch.core.config import BC, SolverConfig
 from hpgmg_tpu_torch.core.level import Level
 from hpgmg_tpu_torch.kernels.restrict import restrict_cell_plain
-from hpgmg_tpu_torch.ops.bc_fv import ghost_fill_fv
+from hpgmg_tpu_torch.ops.bc import _wrap_axis
+from hpgmg_tpu_torch.ops.bc_fv import _extend_axis_v4, ghost_fill_fv
 
 MODES = {"apply": 0, "residual": 1, "gsrb": 2, "fres": 3}
 TWELFTH = 1.0 / 12.0
@@ -183,29 +185,28 @@ def stencil_ax(sh, bi, bj, bk):
     return TWELFTH * main + 0.25 * TWELFTH * mixed
 
 
-def apply_plain(level: Level, x: torch.Tensor,
-                cfg: SolverConfig) -> torch.Tensor:
-    """A x by ghost fill and shifted slices: the arithmetic of K1's plain
-    version. At 512^3 it makes ~25 full-size temporaries, so the solver
-    never runs it on the card."""
-    n = level.dim
-    xg = ghost_fill_fv(x, cfg.bc, order=4, radius=2)
+def apply_ext_plain(level: Level, xg: torch.Tensor,
+                    cfg: SolverConfig) -> torch.Tensor:
+    """A x on a block of ni x nj x nk cells from ``xg``, the block with its
+    2-deep ghosts on every axis, and ``level``'s face coefficients cut to
+    the block (beta_i (ni+1, nj+2, nk+2) and so on, tangentially extended
+    by one ghost, as rebuild_operator leaves them: [1:...] on a tangential
+    axis is the block and the +-1 shifts stay inside)."""
+    ni, nj, nk = (m - 4 for m in xg.shape)
 
     def sh(di=0, dj=0, dk=0):
-        return xg[2 + di:2 + di + n, 2 + dj:2 + dj + n, 2 + dk:2 + dk + n]
+        return xg[2 + di:2 + di + ni, 2 + dj:2 + dj + nj, 2 + dk:2 + dk + nk]
 
-    # level.beta_* are tangentially extended by one ghost (rebuild_operator),
-    # so [1:...] on tangential axes is the domain and +-1 shifts stay inside
     bie, bje, bke = level.beta_i, level.beta_j, level.beta_k
 
     def bi(f, dj=0, dk=0):
-        return bie[f:f + n, 1 + dj:1 + dj + n, 1 + dk:1 + dk + n]
+        return bie[f:f + ni, 1 + dj:1 + dj + nj, 1 + dk:1 + dk + nk]
 
     def bj(f, di=0, dk=0):
-        return bje[1 + di:1 + di + n, f:f + n, 1 + dk:1 + dk + n]
+        return bje[1 + di:1 + di + ni, f:f + nj, 1 + dk:1 + dk + nk]
 
     def bk(f, di=0, dj=0):
-        return bke[1 + di:1 + di + n, 1 + dj:1 + dj + n, f:f + n]
+        return bke[1 + di:1 + di + ni, 1 + dj:1 + dj + nj, f:f + nk]
 
     ax = -cfg.b * level.h2inv * stencil_ax(sh, bi, bj, bk)
     if cfg.helmholtz:
@@ -213,8 +214,18 @@ def apply_plain(level: Level, x: torch.Tensor,
     return ax
 
 
-def _modes_plain(level: Level, x, cfg: SolverConfig, mode: str, rhs, kdinv):
-    ax = apply_plain(level, x, cfg)
+def apply_plain(level: Level, x: torch.Tensor,
+                cfg: SolverConfig) -> torch.Tensor:
+    """A x by ghost fill and shifted slices: the arithmetic of K1's plain
+    version. At 512^3 it makes ~25 full-size temporaries, so the solver
+    never runs it on the card."""
+    return apply_ext_plain(level, ghost_fill_fv(x, cfg.bc, order=4, radius=2), cfg)
+
+
+def _modes_plain(level: Level, x, cfg: SolverConfig, mode: str, rhs, kdinv,
+                 ax=None):
+    if ax is None:
+        ax = apply_plain(level, x, cfg)
     if mode == "apply":
         return ax
     if mode == "residual":
@@ -454,3 +465,322 @@ def fv4_gsrb2(level: Level, x: torch.Tensor, rhs: torch.Tensor,
     if x.device.type == "cpu":
         return fv4_gsrb2_plain(level, x, rhs, cfg)
     raise ValueError(f"fv4 gsrb2 has no kernel for device {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# K8a, K8b: the stencil on one rank's local block of a decomposed level
+# ---------------------------------------------------------------------------
+
+SLAB_MODES = ("apply", "residual", "gsrb")
+
+# K8a's output tile along i and j per dtype (csrc/fv4_slab.cu SlabTile)
+SLAB_TILE = {torch.float32: (16, 8), torch.float64: (8, 8)}
+
+
+def v4_slab(src: torch.Tensor, axis: int, lo: bool) -> torch.Tensor:
+    """The 2-deep quartic Dirichlet ghost slab of ``src`` along ``axis``
+    (apply_BCs_v4, boundary_fv.c:334-341), in ascending index order: the
+    low side's [far, near], the high side's [near, far]."""
+    m = src.shape[axis]
+    x1, x2, x3, x4 = (src.narrow(axis, i if lo else m - 1 - i, 1) for i in range(4))
+    near = TWELFTH * (-77.0 * x1 + 43.0 * x2 - 17.0 * x3 + 3.0 * x4)
+    far = TWELFTH * (-505.0 * x1 + 335.0 * x2 - 145.0 * x3 + 27.0 * x4)
+    return torch.cat([far, near] if lo else [near, far], dim=axis)
+
+
+def build_slabs(x: torch.Tensor, depth: int, width: int, ghost, exchange):
+    """The four halo slabs of the local block ``x`` (ni, nj, nk), ``depth``
+    cells deep: ilo, ihi (depth, nj, nk) first, by ``exchange(0, lo_face,
+    hi_face)``, then jlo, jhi (ni + 2 depth, depth, nk), the i-extended
+    strips, by ``exchange(1, ...)``, so the (i, j) edge ghosts arrive in
+    the i-then-j order of the separable fills. ``exchange`` returns the
+    neighbours' faces, None on a side that has none (a Dirichlet domain
+    face); there the slab is ``ghost(src, axis, lo)`` of the ``width``
+    cells nearest the face."""
+    ni, nj = x.shape[0], x.shape[1]
+    ilo, ihi = exchange(0, x[:depth], x[ni - depth:])
+    ilo = ghost(x[:width], 0, True) if ilo is None else ilo
+    ihi = ghost(x[ni - width:], 0, False) if ihi is None else ihi
+
+    def strip(j0, j1):
+        return torch.cat([ilo[:, j0:j1], x[:, j0:j1], ihi[:, j0:j1]], dim=0)
+
+    jlo, jhi = exchange(1, strip(0, depth), strip(nj - depth, nj))
+    jlo = ghost(strip(0, width), 1, True) if jlo is None else jlo
+    jhi = ghost(strip(nj - width, nj), 1, False) if jhi is None else jhi
+    return tuple(t.contiguous() for t in (ilo, ihi, jlo, jhi))
+
+
+def local_exchange(bc: BC):
+    """The ``exchange`` of ``build_slabs`` for a block that is the whole
+    domain in i and j: the periodic wrap, or no neighbour."""
+    def exchange(axis, lo_face, hi_face):
+        return (hi_face, lo_face) if bc == BC.PERIODIC else (None, None)
+    return exchange
+
+
+def single_chip_slabs(x: torch.Tensor, bc: BC):
+    """K8a's slabs for one block that is the whole domain (counterpart of
+    hpgmg_tpu/kernels/stencils.py:single_chip_slabs, without its j padding
+    to 8 rows): the quartic Dirichlet fill, or the wrap."""
+    return build_slabs(x, 2, 4, v4_slab, local_exchange(bc))
+
+
+def extend_slabs(x: torch.Tensor, slabs) -> torch.Tensor:
+    """(ni, nj, nk) block + its four d-deep slabs -> the (ni+2d, nj+2d, nk)
+    block with its i and j ghosts (the jlo/jhi strips are i-extended)."""
+    ilo, ihi, jlo, jhi = slabs
+    return torch.cat([jlo, torch.cat([ilo, x, ihi], dim=0), jhi], dim=1)
+
+
+def extend_for_kernel(x: torch.Tensor, slabs, bc: BC) -> torch.Tensor:
+    """The (ni+4, nj+4, nk+4) extended block K8a's plain version applies
+    the stencil to: the slabs in i and j, then the k ghosts of the result
+    (quartic Dirichlet, or wrapped; k is never split)."""
+    xe = extend_slabs(x, slabs)
+    if bc == BC.PERIODIC:
+        return _wrap_axis(xe, 2, 2)
+    return _extend_axis_v4(xe, 2, 2)
+
+
+def overlap_grid_shape(ni: int, nj: int, dtype: torch.dtype):
+    """(nti, ntj), K8a's tile grid on an ni x nj block, where K8b's split
+    applies: at least 3 x 3 tiles (with 2 a side every tile is an edge
+    tile); else None (counterpart of stencils.py:overlap_grid_shape)."""
+    ti, tj = SLAB_TILE[dtype]
+    nti, ntj = -(-ni // ti), -(-nj // tj)
+    return (nti, ntj) if nti >= 3 and ntj >= 3 else None
+
+
+def _check_slab(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
+                mode: str, rhs, kdinv, overlap: bool = False):
+    """Validate everything K8a/K8b read; raise on what they do not take."""
+    if mode not in SLAB_MODES:
+        raise ValueError(f"the fv4 slab kernel has no mode {mode!r}")
+    if cfg.bc not in (BC.DIRICHLET, BC.PERIODIC):
+        raise NotImplementedError(f"the fv4 slab kernel does not take {cfg.bc}")
+    if x.dim() != 3:
+        raise ValueError(f"x must be a 3-D block, got {tuple(x.shape)}")
+    ni, nj, nk = x.shape
+    if min(ni, nj, nk) < 4 or ni % 2 or nj % 2:
+        raise ValueError(f"the fv4 slab kernel takes even ni, nj >= 4 and nk >= 4, "
+                         f"got {tuple(x.shape)}")
+    if overlap and overlap_grid_shape(ni, nj, x.dtype) is None:
+        raise ValueError(f"K8b needs >= 3 x 3 tiles of {SLAB_TILE.get(x.dtype)}, "
+                         f"got {ni} x {nj}")
+    blk, dt = (ni, nj, nk), level.dtype
+    need = {"x": (x, blk),
+            "beta_i": (level.beta_i, (ni + 1, nj + 2, nk + 2)),
+            "beta_j": (level.beta_j, (ni + 2, nj + 1, nk + 2)),
+            "beta_k": (level.beta_k, (ni + 2, nj + 2, nk + 1))}
+    if slabs is not None:
+        for name, t, shape in zip(("ilo", "ihi", "jlo", "jhi"), slabs,
+                                  ((2, nj, nk),) * 2 + ((ni + 4, 2, nk),) * 2):
+            need[name] = (t, shape)
+    if mode != "apply":
+        need["rhs"] = (rhs, blk)
+    if mode == "gsrb":
+        need["kdinv"] = (kdinv, blk)
+    if cfg.helmholtz:
+        need["alpha"] = (level.alpha, blk)
+    for name, (t, shape) in need.items():
+        if t is None:
+            raise ValueError(f"fv4 slab kernel mode {mode!r} needs {name}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
+        if t.dtype != dt or dt not in (torch.float32, torch.float64):
+            raise TypeError(f"{name} is {t.dtype}; the level is {dt}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def fv4_slab_plain(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
+                   mode: str, rhs: Optional[torch.Tensor] = None,
+                   kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of K8a: the extended block assembled from x and the
+    slabs (``extend_for_kernel``), then K1's plain arithmetic."""
+    _check_slab(level, x, slabs, cfg, mode, rhs, kdinv)
+    fv4_slab_plain.calls += 1
+    return _slab_modes_plain(level, x, slabs, cfg, mode, rhs, kdinv)
+
+
+def _slab_modes_plain(level: Level, x, slabs, cfg: SolverConfig, mode: str, rhs,
+                      kdinv):
+    ax = apply_ext_plain(level, extend_for_kernel(x, slabs, cfg.bc), cfg)
+    return _modes_plain(level, x, cfg, mode, rhs, kdinv, ax=ax)
+
+
+fv4_slab_plain.calls = 0
+
+
+def _interior_region(x: torch.Tensor):
+    """K8b's interior tiles as (i0, i1, j0, j1): the tiles 1 .. nt-2 along
+    i and j, whose 2-cell halo lies inside the block (local extents are
+    even, so the last tile holds >= 2 rows)."""
+    ti, tj = SLAB_TILE[x.dtype]
+    nti, ntj = overlap_grid_shape(x.shape[0], x.shape[1], x.dtype)
+    return ti, (nti - 1) * ti, tj, (ntj - 1) * tj
+
+
+def fv4_overlap_interior_plain(level: Level, x: torch.Tensor, cfg: SolverConfig,
+                               mode: str, rhs: Optional[torch.Tensor] = None,
+                               kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of K8b's interior pass: the interior tiles of the
+    output from the block alone (no slab); zeros elsewhere."""
+    _check_slab(level, x, None, cfg, mode, rhs, kdinv, overlap=True)
+    fv4_overlap_interior_plain.calls += 1
+    i0, i1, j0, j1 = _interior_region(x)
+    sub = x[i0 - 2:i1 + 2, j0 - 2:j1 + 2]
+    xe = _wrap_axis(sub, 2, 2) if cfg.bc == BC.PERIODIC else _extend_axis_v4(sub, 2, 2)
+    # the fields the plain stencil reads, cut to the interior tiles (the
+    # face arrays with their tangential margins)
+    cut = SimpleNamespace(h2inv=level.h2inv, beta_i=level.beta_i[i0:i1 + 1, j0:j1 + 2],
+                          beta_j=level.beta_j[i0:i1 + 2, j0:j1 + 1],
+                          beta_k=level.beta_k[i0:i1 + 2, j0:j1 + 2],
+                          alpha=None if level.alpha is None else level.alpha[i0:i1, j0:j1])
+    ax = apply_ext_plain(cut, xe, cfg)
+    part = (slice(i0, i1), slice(j0, j1))
+    out = torch.zeros_like(x)
+    out[part] = _modes_plain(cut, x[part], cfg, mode,
+                             None if rhs is None else rhs[part],
+                             None if kdinv is None else kdinv[part], ax=ax)
+    return out
+
+
+fv4_overlap_interior_plain.calls = 0
+
+
+def fv4_overlap_edge_plain(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
+                           mode: str, out: torch.Tensor,
+                           rhs: Optional[torch.Tensor] = None,
+                           kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of K8b's edge pass: ``out`` (the interior pass's
+    result) with every cell outside the interior tiles set from K8a's plain
+    version; returns ``out``."""
+    _check_slab(level, x, slabs, cfg, mode, rhs, kdinv, overlap=True)
+    fv4_overlap_edge_plain.calls += 1
+    full = _slab_modes_plain(level, x, slabs, cfg, mode, rhs, kdinv)
+    i0, i1, j0, j1 = _interior_region(x)
+    keep = out[i0:i1, j0:j1].clone()
+    out.copy_(full)
+    out[i0:i1, j0:j1] = keep
+    return out
+
+
+fv4_overlap_edge_plain.calls = 0
+
+
+def _launch_slab(level: Level, x, slabs, cfg: SolverConfig, mode: str, rhs,
+                 kdinv, out, pass_: int):
+    from hpgmg_tpu_torch.kernels.build import library
+
+    ni, nj, nk = x.shape
+    alpha = level.alpha if cfg.helmholtz else None
+    ilo, ihi, jlo, jhi = slabs if slabs is not None else (None,) * 4
+    dt = "f32" if x.dtype == torch.float32 else "f64"
+    with torch.cuda.device(x.device):
+        rc = getattr(library(), f"hpgmg_fv4_slab_{dt}")(
+            x.data_ptr(), _ptr(ilo), _ptr(ihi), _ptr(jlo), _ptr(jhi),
+            level.beta_i.data_ptr(), level.beta_j.data_ptr(), level.beta_k.data_ptr(),
+            _ptr(alpha), _ptr(rhs), _ptr(kdinv), out.data_ptr(), ni, nj, nk,
+            MODES[mode], int(cfg.bc == BC.PERIODIC), -cfg.b * level.h2inv,
+            float(cfg.a), pass_, _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"fv4 slab kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def _cuda_only(x: torch.Tensor, what: str):
+    if not x.is_cuda:
+        raise ValueError(f"{what} wants CUDA tensors, got {x.device}")
+
+
+def fv4_slab_cuda(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
+                  mode: str, rhs: Optional[torch.Tensor] = None,
+                  kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K8a on CUDA tensors into a newly allocated output."""
+    _check_slab(level, x, slabs, cfg, mode, rhs, kdinv)
+    _cuda_only(x, "fv4_slab_cuda")
+    out = _launch_slab(level, x, slabs, cfg, mode, rhs, kdinv, torch.empty_like(x), 0)
+    fv4_slab_cuda.launches += 1
+    return out
+
+
+fv4_slab_cuda.launches = 0
+
+
+def fv4_overlap_interior_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
+                              mode: str, rhs: Optional[torch.Tensor] = None,
+                              kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K8b's interior pass into a newly allocated output (the edge
+    tiles are left for ``fv4_overlap_edge_cuda``)."""
+    _check_slab(level, x, None, cfg, mode, rhs, kdinv, overlap=True)
+    _cuda_only(x, "fv4_overlap_interior_cuda")
+    out = _launch_slab(level, x, None, cfg, mode, rhs, kdinv, torch.empty_like(x), 1)
+    fv4_overlap_interior_cuda.launches += 1
+    return out
+
+
+fv4_overlap_interior_cuda.launches = 0
+
+
+def fv4_overlap_edge_cuda(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
+                          mode: str, out: torch.Tensor,
+                          rhs: Optional[torch.Tensor] = None,
+                          kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K8b's edge pass, writing the edge tiles of ``out``."""
+    _check_slab(level, x, slabs, cfg, mode, rhs, kdinv, overlap=True)
+    _cuda_only(x, "fv4_overlap_edge_cuda")
+    if out.shape != x.shape or out.dtype != x.dtype or out.device != x.device:
+        raise ValueError("out must be the interior pass's output")
+    _launch_slab(level, x, slabs, cfg, mode, rhs, kdinv, out, 2)
+    fv4_overlap_edge_cuda.launches += 1
+    return out
+
+
+fv4_overlap_edge_cuda.launches = 0
+
+
+def fv4_slab(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig, mode: str,
+             rhs: Optional[torch.Tensor] = None,
+             kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K8a on a local block: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if x.is_cuda:
+        return fv4_slab_cuda(level, x, slabs, cfg, mode, rhs, kdinv)
+    if x.device.type == "cpu":
+        return fv4_slab_plain(level, x, slabs, cfg, mode, rhs, kdinv)
+    raise ValueError(f"fv4 slab kernel has no kernel for device {x.device}")
+
+
+def fv4_overlap_interior(level: Level, x: torch.Tensor, cfg: SolverConfig,
+                         mode: str, rhs: Optional[torch.Tensor] = None,
+                         kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K8b's interior pass (no slab read; queued before the exchange)."""
+    if x.is_cuda:
+        return fv4_overlap_interior_cuda(level, x, cfg, mode, rhs, kdinv)
+    if x.device.type == "cpu":
+        return fv4_overlap_interior_plain(level, x, cfg, mode, rhs, kdinv)
+    raise ValueError(f"fv4 overlap has no kernel for device {x.device}")
+
+
+def fv4_overlap_edge(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
+                     mode: str, out: torch.Tensor,
+                     rhs: Optional[torch.Tensor] = None,
+                     kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K8b's edge pass into the interior pass's ``out``."""
+    if x.is_cuda:
+        return fv4_overlap_edge_cuda(level, x, slabs, cfg, mode, out, rhs, kdinv)
+    if x.device.type == "cpu":
+        return fv4_overlap_edge_plain(level, x, slabs, cfg, mode, out, rhs, kdinv)
+    raise ValueError(f"fv4 overlap has no kernel for device {x.device}")
+
+
+def fv4_overlap(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig, mode: str,
+                rhs: Optional[torch.Tensor] = None,
+                kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K8b, both passes in order: equal to K8a bit for bit."""
+    out = fv4_overlap_interior(level, x, cfg, mode, rhs, kdinv)
+    return fv4_overlap_edge(level, x, slabs, cfg, mode, out, rhs, kdinv)

@@ -27,6 +27,7 @@ fused sweep would need the opposite face's red iterate
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Optional
 
 import torch
@@ -34,8 +35,10 @@ import torch
 from hpgmg_tpu_torch.core.config import BC, SolverConfig
 from hpgmg_tpu_torch.core.level import Level
 from hpgmg_tpu_torch.kernels.restrict import restrict_cell_plain
-from hpgmg_tpu_torch.kernels.stencils import MODES, _ptr, _stream, check_dirichlet
-from hpgmg_tpu_torch.ops.bc import ghost_fill_linear, ghost_fill_quadratic_fd
+from hpgmg_tpu_torch.kernels.stencils import (MODES, _ptr, _stream, build_slabs,
+                                              check_dirichlet, extend_slabs,
+                                              local_exchange)
+from hpgmg_tpu_torch.ops.bc import _wrap_axis, ghost_fill_linear, ghost_fill_quadratic_fd
 from hpgmg_tpu_torch.ops.bc_fv import ghost_fill_fv
 
 # Dirichlet ghost taps g = t1*x1 + t2*x2 per BC family
@@ -160,10 +163,10 @@ def laplacian_27pt(xg: torch.Tensor) -> torch.Tensor:
     of summation adds terms ~4|x| that cancel to ~h^2 |lap x|, which at
     512^3 in float32 leaves Ax with ~1e-3 relative rounding (PERF.md);
     the differences keep it at a few ulps."""
-    n = xg.shape[0] - 2
+    ni, nj, nk = (m - 2 for m in xg.shape)
 
     def sh(di, dj, dk):
-        return xg[1 + di:1 + di + n, 1 + dj:1 + dj + n, 1 + dk:1 + dk + n]
+        return xg[1 + di:1 + di + ni, 1 + dj:1 + dj + nj, 1 + dk:1 + dk + nk]
 
     c = sh(0, 0, 0)
     sums = {1: None, 2: None, 3: None}
@@ -177,17 +180,25 @@ def laplacian_27pt(xg: torch.Tensor) -> torch.Tensor:
     return C1 * sums[1] + C2 * sums[2] + C3 * sums[3]
 
 
-def apply_plain(level: Level, x: torch.Tensor, cfg: SolverConfig, taps: str,
-                var7: bool) -> torch.Tensor:
-    """A x by ghost fill and shifted slices, the arithmetic of the JAX
-    suites' XLA paths (fv7pt/fv2 ``apply_op``, const27pt ``apply_op``)."""
-    xg = ghost_fill_taps(x, taps, cfg.bc)
+def ax_ext_plain(level, xg: torch.Tensor, cfg: SolverConfig,
+                 var7: bool) -> torch.Tensor:
+    """A x on the block inside ``xg`` (the block with one ghost layer on
+    every axis), ``level``'s face coefficients (and alpha) cut to the block:
+    the arithmetic of the JAX suites' XLA paths (fv7pt/fv2 ``apply_op``,
+    const27pt ``apply_op``)."""
+    x = xg[1:-1, 1:-1, 1:-1]
     if not var7:
         return cfg.a * x - cfg.b * level.h2inv * laplacian_27pt(xg)
     ax = -cfg.b * level.h2inv * beta_laplacian(level, xg)
     if cfg.helmholtz:
         ax = cfg.a * level.alpha * x + ax
     return ax
+
+
+def apply_plain(level: Level, x: torch.Tensor, cfg: SolverConfig, taps: str,
+                var7: bool) -> torch.Tensor:
+    """A x by ghost fill and shifted slices."""
+    return ax_ext_plain(level, ghost_fill_taps(x, taps, cfg.bc), cfg, var7)
 
 
 def r1_stencil_plain(level: Level, x: torch.Tensor, cfg: SolverConfig,
@@ -198,7 +209,10 @@ def r1_stencil_plain(level: Level, x: torch.Tensor, cfg: SolverConfig,
     _check(level, x, cfg, mode, taps, var7, rhs,
            (kdinv,) if mode == "gsrb" else ())
     r1_stencil_plain.calls += 1
-    ax = apply_plain(level, x, cfg, taps, var7)
+    return _modes(apply_plain(level, x, cfg, taps, var7), x, mode, rhs, kdinv)
+
+
+def _modes(ax, x, mode: str, rhs, kdinv):
     if mode == "apply":
         return ax
     if mode == "residual":
@@ -333,3 +347,305 @@ def r1_gsrb2(level: Level, x: torch.Tensor, rhs: torch.Tensor,
     if x.device.type == "cpu":
         return r1_gsrb2_plain(level, x, rhs, cfg, taps, var7)
     raise ValueError(f"radius-1 gsrb2 has no kernel for device {x.device}")
+
+
+# ---------------------------------------------------------------------------
+# K8c, K8d: the radius-1 stencils on one rank's local block of a
+# decomposed level
+# ---------------------------------------------------------------------------
+
+def taps_ghost(taps: str):
+    """``ghost(src, axis, lo)`` of ``stencils.build_slabs`` for the 2-tap
+    Dirichlet rule: the 1-deep slab t1 * x1 + t2 * x2."""
+    t1, t2 = TAPS[taps]
+
+    def ghost(src, axis, lo):
+        m = src.shape[axis]
+        x1 = src.narrow(axis, 0 if lo else m - 1, 1)
+        x2 = src.narrow(axis, 1 if lo else m - 2, 1)
+        return t1 * x1 + t2 * x2
+    return ghost
+
+
+def taps_ghost2(taps: str):
+    """The 2-deep slab of K8d at a domain face: the 2-tap ghost twice. The
+    far row is read only by red at ghost positions, which K8d rebuilds
+    (counterpart of shard_kernels.py:slabs2_for_kernel_r1's bc_pair)."""
+    one = taps_ghost(taps)
+
+    def ghost(src, axis, lo):
+        g = one(src, axis, lo)
+        return torch.cat([g, g], dim=axis)
+    return ghost
+
+
+def single_chip_slabs_r1(x: torch.Tensor, bc: BC, taps: str):
+    """K8c's slabs for one block that is the whole domain (counterpart of
+    hpgmg_tpu/kernels/stencils_r1.py:single_chip_slabs_r1, without its j
+    padding to 8 rows): the 2-tap Dirichlet ghosts, or the wrap."""
+    return build_slabs(x, 1, 2, taps_ghost(taps), local_exchange(bc))
+
+
+def single_chip_slabs2_r1(x: torch.Tensor, taps: str):
+    """K8d's 2-deep slabs for one block that is the whole (Dirichlet)
+    domain."""
+    return build_slabs(x, 2, 2, taps_ghost2(taps), local_exchange(BC.DIRICHLET))
+
+
+def _k_ghosts(xe: torch.Tensor, bc: BC, taps: str) -> torch.Tensor:
+    """``xe`` with its 1-deep k ghosts (k is never split): wrapped, or the
+    2-tap Dirichlet rule."""
+    if bc == BC.PERIODIC:
+        return _wrap_axis(xe, 2, 1)
+    g = taps_ghost(taps)
+    return torch.cat([g(xe, 2, True), xe, g(xe, 2, False)], dim=2)
+
+
+def extend_for_kernel_r1(x: torch.Tensor, slabs, bc: BC, taps: str) -> torch.Tensor:
+    """The (ni+2, nj+2, nk+2) extended block K8c's plain version applies the
+    stencil to: the slabs in i and j, then the k ghosts."""
+    return _k_ghosts(extend_slabs(x, slabs), bc, taps)
+
+
+def ring_cut(a: torch.Tensor, oi: int, oj: int, ni: int, nj: int,
+             face_axis: Optional[int] = None) -> torch.Tensor:
+    """The cells [oi-1, oi+ni+1) x [oj-1, oj+nj+1) of the global array
+    ``a`` (one more face along ``face_axis``), zeros outside the domain:
+    one of K8d's ring views."""
+    ap = torch.nn.functional.pad(a, (0, 0, 1, 1, 1, 1))
+    ei = ni + 2 + (face_axis == 0)
+    ej = nj + 2 + (face_axis == 1)
+    return ap[oi:oi + ei, oj:oj + ej].contiguous()
+
+
+def ring_views(level: Level, cfg: SolverConfig, var7: bool, oi: int = 0,
+               oj: int = 0, ni: Optional[int] = None, nj: Optional[int] = None):
+    """K8d's ring views of the block [oi, oi+ni) x [oj, oj+nj) of the global
+    ``level``: (kdinv0, alpha, beta_i, beta_j, beta_k), each with its 1-cell
+    ring in i and j (counterpart of shard_kernels.py:build_sharded_k2_r1);
+    alpha and the faces None where the body reads none."""
+    ni = level.dim if ni is None else ni
+    nj = level.dim if nj is None else nj
+    kd0 = ring_cut(level.kdinv[0], oi, oj, ni, nj)
+    if not var7:
+        return kd0, None, None, None, None
+    alpha = ring_cut(level.alpha, oi, oj, ni, nj) if cfg.helmholtz else None
+    return (kd0, alpha, ring_cut(level.beta_i, oi, oj, ni, nj, 0),
+            ring_cut(level.beta_j, oi, oj, ni, nj, 1), ring_cut(level.beta_k, oi, oj, ni, nj))
+
+
+def _check_block(x: torch.Tensor, need: dict, what: str):
+    """Validate x and the operands ``need`` maps to their shapes; raise on
+    what ``what`` does not take."""
+    if x.dim() != 3:
+        raise ValueError(f"x must be a 3-D block, got {tuple(x.shape)}")
+    ni, nj, nk = x.shape
+    if min(ni, nj, nk) < 2:
+        raise ValueError(f"{what} takes extents >= 2, got {tuple(x.shape)}")
+    need = {"x": (x, (ni, nj, nk)), **need}
+    for name, (t, shape) in need.items():
+        if t is None:
+            raise ValueError(f"{what} needs {name}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
+        if t.dtype != x.dtype or x.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"{name} is {t.dtype}; x is {x.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _check_slab(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
+                mode: str, taps: str, var7: bool, rhs, kdinv):
+    if mode not in MODES:
+        raise ValueError(f"unknown radius-1 stencil mode {mode!r}")
+    if taps not in TAPS:
+        raise ValueError(f"unknown ghost taps {taps!r}; have {sorted(TAPS)}")
+    if cfg.bc not in (BC.DIRICHLET, BC.PERIODIC):
+        raise NotImplementedError(f"the radius-1 slab kernel does not take {cfg.bc}")
+    ni, nj, nk = x.shape if x.dim() == 3 else (0, 0, 0)
+    if mode == "fres" and (ni % 2 or nj % 2 or nk % 2):
+        raise ValueError(f"fres needs even extents, got {tuple(x.shape)}")
+    blk = (ni, nj, nk)
+    need = dict(zip(("ilo", "ihi", "jlo", "jhi"),
+                    zip(slabs, ((1, nj, nk),) * 2 + ((ni + 2, 1, nk),) * 2)))
+    if var7:
+        need.update(beta_i=(level.beta_i, (ni + 1, nj, nk)),
+                    beta_j=(level.beta_j, (ni, nj + 1, nk)),
+                    beta_k=(level.beta_k, (ni, nj, nk + 1)))
+        if cfg.helmholtz:
+            need["alpha"] = (level.alpha, blk)
+    if mode != "apply":
+        need["rhs"] = (rhs, blk)
+    if mode == "gsrb":
+        need["kdinv"] = (kdinv, blk)
+    _check_block(x, need, "the radius-1 slab kernel (K8c)")
+
+
+def r1_slab_plain(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
+                  mode: str, taps: str, var7: bool,
+                  rhs: Optional[torch.Tensor] = None,
+                  kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of K8c: the extended block assembled from x and the
+    slabs, then K5's plain arithmetic."""
+    _check_slab(level, x, slabs, cfg, mode, taps, var7, rhs, kdinv)
+    r1_slab_plain.calls += 1
+    xg = extend_for_kernel_r1(x, slabs, cfg.bc, taps)
+    return _modes(ax_ext_plain(level, xg, cfg, var7), x, mode, rhs, kdinv)
+
+
+r1_slab_plain.calls = 0
+
+
+def r1_slab_cuda(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
+                 mode: str, taps: str, var7: bool,
+                 rhs: Optional[torch.Tensor] = None,
+                 kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch K8c on CUDA tensors into a newly allocated output."""
+    from hpgmg_tpu_torch.kernels.build import library
+
+    _check_slab(level, x, slabs, cfg, mode, taps, var7, rhs, kdinv)
+    if not x.is_cuda:
+        raise ValueError(f"r1_slab_cuda wants CUDA tensors, got {x.device}")
+    ni, nj, nk = x.shape
+    shape = (ni // 2, nj // 2, nk // 2) if mode == "fres" else (ni, nj, nk)
+    out = torch.empty(shape, dtype=x.dtype, device=x.device)
+    alpha, a_coef = _coefs(level, cfg, var7)
+    fn = getattr(library(), "hpgmg_r1_slab_" + ("f32" if x.dtype == torch.float32 else "f64"))
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), *(t.data_ptr() for t in slabs), *_betas(level, var7),
+                _ptr(alpha), _ptr(rhs), _ptr(kdinv), out.data_ptr(), ni, nj, nk,
+                MODES[mode], int(var7), int(cfg.bc == BC.PERIODIC),
+                cfg.b * level.h2inv, a_coef, *TAPS[taps], _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"radius-1 slab kernel launch failed: CUDA error {rc}")
+    r1_slab_cuda.launches += 1
+    return out
+
+
+r1_slab_cuda.launches = 0
+
+
+def _check_gsrb2_slab(level: Level, x: torch.Tensor, slabs, edges, rhs2,
+                      cfg: SolverConfig, taps: str, var7: bool):
+    check_dirichlet(cfg, "the fused radius-1 slab sweep (K8d)")
+    if taps not in TAPS:
+        raise ValueError(f"unknown ghost taps {taps!r}; have {sorted(TAPS)}")
+    if len(edges) != 4:
+        raise ValueError(f"K8d wants 4 edge flags, got {edges}")
+    if level.ring is None or level.kdinv is None:
+        raise ValueError("K8d needs the level's ring views and kdinv")
+    ni, nj, nk = x.shape if x.dim() == 3 else (0, 0, 0)
+    if ni % 2 or nj % 2:
+        raise ValueError(f"K8d needs even local extents, got {tuple(x.shape)}")
+    kd0, alpha, rbi, rbj, rbk = level.ring
+    ring = (ni + 2, nj + 2, nk)
+    need = dict(zip(("ilo", "ihi", "jlo", "jhi"),
+                    zip(slabs, ((2, nj, nk),) * 2 + ((ni + 4, 2, nk),) * 2)))
+    need.update(rhs2=(rhs2, ring), kdinv0_ring=(kd0, ring),
+                kdinv1=(level.kdinv[1], (ni, nj, nk)))
+    if var7:
+        need.update(beta_i_ring=(rbi, (ni + 3, nj + 2, nk)),
+                    beta_j_ring=(rbj, (ni + 2, nj + 3, nk)),
+                    beta_k_ring=(rbk, (ni + 2, nj + 2, nk + 1)))
+        if cfg.helmholtz:
+            need["alpha_ring"] = (alpha, ring)
+    _check_block(x, need, "the fused radius-1 slab sweep (K8d)")
+
+
+def r1_gsrb2_slab_plain(level: Level, x: torch.Tensor, slabs, edges, rhs2,
+                        cfg: SolverConfig, taps: str, var7: bool) -> torch.Tensor:
+    """The plain version of K8d: red on the block and its 1-cell ring from
+    the 2-deep extended block (ring coefficients from ``level.ring``), the
+    red iterate's ghosts rebuilt on the sides ``edges`` flags (i, then j,
+    then k), then black on the block."""
+    _check_gsrb2_slab(level, x, slabs, edges, rhs2, cfg, taps, var7)
+    r1_gsrb2_slab_plain.calls += 1
+    kd0, alpha, rbi, rbj, rbk = level.ring
+    ring = SimpleNamespace(h2inv=level.h2inv, beta_i=rbi, beta_j=rbj, beta_k=rbk,
+                           alpha=alpha)
+    xg = _k_ghosts(extend_slabs(x, slabs), BC.DIRICHLET, taps)
+    red = xg[1:-1, 1:-1, 1:-1] + kd0 * (rhs2 - ax_ext_plain(ring, xg, cfg, var7))
+    t1, t2 = TAPS[taps]
+    for axis, (lo, hi) in enumerate((edges[:2], edges[2:])):
+        m = red.shape[axis]
+        for flag, g, a, b in ((lo, 0, 1, 2), (hi, m - 1, m - 2, m - 3)):
+            if flag:
+                red.select(axis, g).copy_(t1 * red.select(axis, a)
+                                          + t2 * red.select(axis, b))
+    inner = (slice(1, -1), slice(1, -1))
+    tile = SimpleNamespace(h2inv=level.h2inv, **{
+        name: None if t is None else t[inner]
+        for name, t in zip(("beta_i", "beta_j", "beta_k", "alpha"), (rbi, rbj, rbk, alpha))})
+    rg = _k_ghosts(red, BC.DIRICHLET, taps)
+    return red[inner] + level.kdinv[1] * (rhs2[inner] - ax_ext_plain(tile, rg, cfg, var7))
+
+
+r1_gsrb2_slab_plain.calls = 0
+
+
+def r1_gsrb2_slab_cuda(level: Level, x: torch.Tensor, slabs, edges, rhs2,
+                       cfg: SolverConfig, taps: str, var7: bool) -> torch.Tensor:
+    """Launch K8d (one full red+black sweep of the block) into a newly
+    allocated output."""
+    from hpgmg_tpu_torch.kernels.build import library
+
+    _check_gsrb2_slab(level, x, slabs, edges, rhs2, cfg, taps, var7)
+    if not x.is_cuda:
+        raise ValueError(f"r1_gsrb2_slab_cuda wants CUDA tensors, got {x.device}")
+    ni, nj, nk = x.shape
+    out = torch.empty_like(x)
+    kd0, alpha, rbi, rbj, rbk = level.ring
+    _, a_coef = _coefs(level, cfg, var7)
+    bits = sum(int(bool(e)) << k for k, e in enumerate(edges))
+    fn = getattr(library(),
+                 "hpgmg_r1_gsrb2_slab_" + ("f32" if x.dtype == torch.float32 else "f64"))
+    with torch.cuda.device(x.device):
+        rc = fn(x.data_ptr(), *(t.data_ptr() for t in slabs), _ptr(rbi), _ptr(rbj),
+                _ptr(rbk), _ptr(alpha), rhs2.data_ptr(), kd0.data_ptr(),
+                level.kdinv[1].data_ptr(), out.data_ptr(), ni, nj, nk, bits, int(var7),
+                cfg.b * level.h2inv, a_coef, *TAPS[taps], _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"radius-1 gsrb2 slab kernel launch failed: CUDA error {rc}")
+    r1_gsrb2_slab_cuda.launches += 1
+    return out
+
+
+r1_gsrb2_slab_cuda.launches = 0
+
+
+def r1_slab(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig, mode: str,
+            taps: str, var7: bool, rhs: Optional[torch.Tensor] = None,
+            kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K8c on a local block: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if x.is_cuda:
+        return r1_slab_cuda(level, x, slabs, cfg, mode, taps, var7, rhs, kdinv)
+    if x.device.type == "cpu":
+        return r1_slab_plain(level, x, slabs, cfg, mode, taps, var7, rhs, kdinv)
+    raise ValueError(f"radius-1 slab kernel has no kernel for device {x.device}")
+
+
+def r1_gsrb2_slab(level: Level, x: torch.Tensor, slabs, edges, rhs2,
+                  cfg: SolverConfig, taps: str, var7: bool) -> torch.Tensor:
+    """K8d on a local block: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors."""
+    if x.is_cuda:
+        return r1_gsrb2_slab_cuda(level, x, slabs, edges, rhs2, cfg, taps, var7)
+    if x.device.type == "cpu":
+        return r1_gsrb2_slab_plain(level, x, slabs, edges, rhs2, cfg, taps, var7)
+    raise ValueError(f"radius-1 gsrb2 slab has no kernel for device {x.device}")
+
+
+def r1_gsrb2_one_block(level: Level, x: torch.Tensor, rhs: torch.Tensor,
+                       cfg: SolverConfig, taps: str, var7: bool) -> torch.Tensor:
+    """K8d driven on one block that is the whole domain: the Dirichlet
+    slabs, every edge flag set, the ring views and rhs ring cut from the
+    level (zeros outside the domain). Equal to K6 to rounding."""
+    import dataclasses
+
+    lv = dataclasses.replace(level, ring=ring_views(level, cfg, var7))
+    n = level.dim
+    return r1_gsrb2_slab(lv, x, single_chip_slabs2_r1(x, taps), (True,) * 4,
+                         ring_cut(rhs, 0, 0, n, n), cfg, taps, var7)

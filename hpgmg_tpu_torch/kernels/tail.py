@@ -59,7 +59,7 @@ TAIL_ONE_LAUNCH = True
 
 def _fusible(lv: Level) -> bool:
     return (TAIL_MIN_DIM <= lv.dim <= TAIL_MAX_DIM and lv.dim % 2 == 0
-            and lv.kdinv is not None)
+            and lv.kdinv is not None and lv.part is None)
 
 
 def tail_span(levels: Sequence[Level], lev: int) -> int:
@@ -75,8 +75,14 @@ def tail_span(levels: Sequence[Level], lev: int) -> int:
 
 def use_tail(op, cfg: SolverConfig, levels: Sequence[Level], lev: int) -> bool:
     """Whether the V-cycle at ``levels[lev]`` runs its tail through K4:
-    fv4, Dirichlet, GSRB with an even half-sweep count, a non-empty span."""
+    fv4, Dirichlet, GSRB with an even half-sweep count, a non-empty span,
+    and no active process grid (parallel/mesh.py: off under a mesh, as in
+    hpgmg_tpu/kernels/tail.py:450-453; a decomposed level is never in a
+    span)."""
+    from hpgmg_tpu_torch.parallel.mesh import get_active_mesh
+
     return (TAIL_FUSE and op.name == "fv4" and cfg.bc == BC.DIRICHLET
+            and get_active_mesh() is None
             and cfg.smoother == Smoother.GSRB
             and cfg.resolved_num_smooths(op) >= 1
             and not (cfg.helmholtz and levels[lev].alpha is None)

@@ -13,6 +13,8 @@ import torch
 from hpgmg_tpu_torch.core.config import SolverConfig
 from hpgmg_tpu_torch.core.level import Level, rb_mask
 from hpgmg_tpu_torch.kernels import stencils_r1
+from hpgmg_tpu_torch.parallel.shard_kernels import (r1_gsrb2_rhs_sharded,
+                                                    r1_gsrb2_sharded, r1_sharded)
 
 
 class OperatorSuite:
@@ -65,7 +67,8 @@ class RadiusOneSuite(OperatorSuite):
     restriction is one K5 call (K7b on a periodic level), so the black-box
     probes of the rebuild and the DIRECT bottom's identity probes run
     through it too; full GSRB sweeps go through K6 where
-    ``stencils_r1.use_gsrb2`` admits the level.
+    ``stencils_r1.use_gsrb2`` admits the level. On a decomposed level
+    (``level.part``) K8c and K8d take their places after the exchange.
     The levels keep the natural face arrays (beta_i (n+1, n, n)): the
     radius-1 flux reads no face outside the domain."""
 
@@ -73,6 +76,8 @@ class RadiusOneSuite(OperatorSuite):
     var7: bool = True
 
     def _k5(self, level: Level, x, cfg: SolverConfig, mode: str, **kw):
+        if level.part is not None:
+            return r1_sharded(level, x, cfg, mode, self.taps_key, self.var7, **kw)
         return stencils_r1.r1_stencil(level, x, cfg, mode, self.taps_key,
                                       self.var7, **kw)
 
@@ -91,7 +96,16 @@ class RadiusOneSuite(OperatorSuite):
                     nsweeps: int):
         """``nsweeps`` half-sweeps from parity 0: pairs of them as K6's
         full sweeps where the gate admits the level (Dirichlet only), else
-        one K5 (K7b) launch each."""
+        one K5 (K7b) launch each; on a decomposed level K8d's full sweeps
+        where its ring views were cut (the same gate), else K8c's
+        half-sweeps."""
+        if level.part is not None:
+            if nsweeps % 2 == 0 and level.ring is not None:
+                rhs2 = r1_gsrb2_rhs_sharded(level.part, rhs)
+                for _ in range(nsweeps // 2):
+                    x = r1_gsrb2_sharded(level, x, rhs2, cfg, self.taps_key, self.var7)
+                return x
+            return super().gsrb_smooth(level, x, rhs, cfg, nsweeps)
         if (nsweeps % 2 == 0
                 and stencils_r1.use_gsrb2(level.dim, self.var7, cfg.bc)):
             for _ in range(nsweeps // 2):

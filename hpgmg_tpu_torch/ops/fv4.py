@@ -9,7 +9,12 @@ difference) / 48``. Radius 2, quartic volume-averaged BCs, black-box Dinv
 with 4 colors per axis, v2 interpolation in V-cycles and v4 in F-cycles,
 GSRB with 3 smooths.
 
-Every apply, residual, half-sweep and residual restriction goes through
+On a level decomposed over a process grid (``level.part``) every apply,
+residual and half-sweep goes through K8a (K8b under
+``shard_kernels.OVERLAP``) after the slab exchange, and the residual
+restriction is K8a's residual, then K3 on the local block (K8a has no
+fres mode); K2 takes no decomposed level. Elsewhere every apply,
+residual, half-sweep and residual restriction goes through
 K1, or K7a on a periodic level (``kernels/stencils.py:fv4_stencil``, whose
 plain version is ``stencil_ax`` there), and every full GSRB sweep on the
 smaller Dirichlet levels through K2 (``fv4_gsrb2``). Under
@@ -31,6 +36,7 @@ from hpgmg_tpu_torch.kernels.stencils import fv4_gsrb2, fv4_stencil, fv4_subtile
 from hpgmg_tpu_torch.ops import base
 from hpgmg_tpu_torch.ops.bc_fv import extend_beta_tangential
 from hpgmg_tpu_torch.ops.rebuild import rebuild_blackbox
+from hpgmg_tpu_torch.parallel.shard_kernels import fv4_sharded
 
 
 @base.register("fv4")
@@ -43,7 +49,10 @@ class FV4(base.OperatorSuite):
 
     @staticmethod
     def _stencil(level: Level, x, cfg: SolverConfig, mode: str, **kw):
-        """K1s where the gate admits the level, else K1 (K7a)."""
+        """K8a (K8b) on a decomposed level, K1s where the gate admits the
+        level, else K1 (K7a)."""
+        if level.part is not None:
+            return fv4_sharded(level, x, cfg, mode, **kw)
         if stencils.use_subtile(level, cfg):
             return fv4_subtile(level, x, cfg, mode, **kw)
         return fv4_stencil(level, x, cfg, mode, **kw)
@@ -64,7 +73,7 @@ class FV4(base.OperatorSuite):
         """``nsweeps`` half-sweeps from parity 0: pairs of them as K2's
         full sweeps on Dirichlet levels up to ``stencils.GSRB2_MAX_DIM``,
         else one K1s, K1 or K7a launch each."""
-        if (cfg.bc == BC.DIRICHLET and nsweeps % 2 == 0
+        if (level.part is None and cfg.bc == BC.DIRICHLET and nsweeps % 2 == 0
                 and level.dim <= stencils.GSRB2_MAX_DIM):
             for _ in range(nsweeps // 2):
                 x = fv4_gsrb2(level, x, rhs, cfg)
@@ -72,8 +81,8 @@ class FV4(base.OperatorSuite):
         return super().gsrb_smooth(level, x, rhs, cfg, nsweeps)
 
     def restrict_residual(self, level: Level, x, rhs, cfg: SolverConfig):
-        if stencils.use_subtile(level, cfg):
-            return restrict_cell(fv4_subtile(level, x, cfg, "residual", rhs=rhs))
+        if level.part is not None or stencils.use_subtile(level, cfg):
+            return restrict_cell(self._stencil(level, x, cfg, "residual", rhs=rhs))
         return fv4_stencil(level, x, cfg, "fres", rhs=rhs)
 
     def rebuild_operator(self, level: Level, cfg: SolverConfig) -> Level:

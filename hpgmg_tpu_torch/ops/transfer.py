@@ -6,7 +6,9 @@ CUDA tensors. Every interpolation, with its boundary ghost synthesis
 folded in, is a separable linear operator applied as three dense per-axis
 matrix products (``sep_apply``); the matrices come from applying the same
 1D extender and child taps to an identity, so the operator is the
-reference's stencil (+BC) by construction.
+reference's stencil (+BC) by construction. The same matrix serves all
+three axes (levels are cubes; k, never split, gives its extent), and on a
+decomposed level each rank applies its rows of it (``interpolate``).
 
 Float32 matrix products must not drop to TF32, which keeps ~3 decimal
 digits: the transfers feed the residual ladder (the JAX package runs them
@@ -94,17 +96,78 @@ def _interp_axis_2tap(x: torch.Tensor, axis: int, w_c: float,
     return out.reshape(shape)
 
 
-def interp_p0(xc: torch.Tensor, prescale_f: float, xf, bc: BC) -> torch.Tensor:
-    """Piecewise-constant injection: every fine cell copies its coarse
-    parent (interpolation_p0.c)."""
-    Ws = [torch.repeat_interleave(torch.eye(xc.shape[a], dtype=xc.dtype,
-                                            device=xc.device), 2, dim=0)
-          for a in range(3)]
-    up = sep_apply(*Ws, xc)
+def _window(W: torch.Tensor, oc: int, mc: int, radius: int,
+            periodic: bool) -> torch.Tensor:
+    """The rows of the (2m, m) matrix ``W`` for the fine cells of the coarse
+    block [oc, oc+mc), as columns over that block extended by ``radius``
+    ghosts: global coarse index oc - radius + w at column w, wrapped
+    under periodic BCs; a Dirichlet ghost column is zero (the boundary is
+    folded into W's interior columns)."""
+    m = W.shape[1]
+    rows = W[2 * oc:2 * (oc + mc)]
+    g = torch.arange(oc - radius, oc + mc + radius, device=W.device)
+    if periodic:
+        if mc + 2 * radius > m:
+            raise ValueError(f"a {mc}-cell block with {radius} ghosts wraps onto "
+                             f"itself on an axis of {m}")
+        return rows[:, g % m]
+    out = torch.zeros((rows.shape[0], g.numel()), dtype=W.dtype, device=W.device)
+    valid = (g >= 0) & (g < m)
+    out[:, valid] = rows[:, g[valid]]
+    return out
+
+
+def interpolate(W: torch.Tensor, radius: int, xc: torch.Tensor, prescale_f: float,
+                xf, bc: BC, coarse=None, fine=None) -> torch.Tensor:
+    """fine = prescale_f * fine + P(coarse), P = W (x) W (x) W, the
+    separable operator of the (2m, m) one-axis matrix ``W`` (boundary
+    ghosts folded in) whose stencil reaches ``radius`` coarse cells.
+
+    On a decomposed fine level (``fine``, a parallel/mesh.Part) each rank
+    applies the rows of W for its fine cells: from a replicated coarse
+    level (``coarse`` None) to the whole coarse field it holds; from a
+    coarse level split the same way to its block extended by ``radius``
+    ghosts from the neighbours (i, then j, so the corners arrive), the
+    columns remapped to that window (``_window``); from a coarse level
+    split otherwise, to the gathered coarse field."""
+    if fine is None:
+        if coarse is not None:
+            raise ValueError("a decomposed coarse level under a replicated fine one")
+        up = sep_apply(W, W, W, xc)
+    else:
+        from hpgmg_tpu_torch.parallel.halo import _exchange_axis
+        from hpgmg_tpu_torch.parallel.mesh import gather
+
+        if coarse is not None and coarse.split != fine.split:
+            xc, coarse = gather(xc, coarse), None
+        offsets, extents = (fine.oi, fine.oj), (fine.ni, fine.nj)
+        mats = []
+        for axis in (0, 1):
+            if coarse is None or not coarse.split[axis]:
+                o = offsets[axis]
+                mats.append(W if coarse is not None
+                            else W[o:o + extents[axis]])
+                continue
+            periodic = bc == BC.PERIODIC
+            xc = _exchange_axis(xc, coarse, axis, radius, periodic)
+            oc = (coarse.oi, coarse.oj)[axis]
+            mc = (coarse.ni, coarse.nj)[axis]
+            mats.append(_window(W, oc, mc, radius, periodic))
+        up = sep_apply(mats[0], mats[1], W, xc)
     return prescale_f * xf + up if prescale_f != 0.0 else up
 
 
-def interp_p1(xc: torch.Tensor, prescale_f: float, xf, bc: BC) -> torch.Tensor:
+def interp_p0(xc: torch.Tensor, prescale_f: float, xf, bc: BC, coarse=None,
+              fine=None) -> torch.Tensor:
+    """Piecewise-constant injection: every fine cell copies its coarse
+    parent (interpolation_p0.c)."""
+    W = torch.repeat_interleave(torch.eye(xc.shape[2], dtype=xc.dtype,
+                                          device=xc.device), 2, dim=0)
+    return interpolate(W, 0, xc, prescale_f, xf, bc, coarse, fine)
+
+
+def interp_p1(xc: torch.Tensor, prescale_f: float, xf, bc: BC, coarse=None,
+              fine=None) -> torch.Tensor:
     """Trilinear interpolation (interpolation_p1.c:42-62): the weights
     {27, 9, 3, 1}/64 are the tensor product of the 1D pair (3/4, 1/4),
     even children looking backward and odd ones forward, with the
@@ -112,10 +175,8 @@ def interp_p1(xc: torch.Tensor, prescale_f: float, xf, bc: BC) -> torch.Tensor:
     def tap(x, axis):
         return _interp_axis_2tap(x, axis, 0.75, 0.25)
 
-    Ws = [interp_matrix(xc.shape[a], xc.dtype, xc.device, bc, _reflect_odd_axis,
-                        1, tap) for a in range(3)]
-    up = sep_apply(*Ws, xc)
-    return prescale_f * xf + up if prescale_f != 0.0 else up
+    W = interp_matrix(xc.shape[2], xc.dtype, xc.device, bc, _reflect_odd_axis, 1, tap)
+    return interpolate(W, 1, xc, prescale_f, xf, bc, coarse, fine)
 
 
 _INTERP: Dict[str, Callable] = {"p0": interp_p0, "p1": interp_p1}

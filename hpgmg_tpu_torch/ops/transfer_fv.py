@@ -19,7 +19,7 @@ from hpgmg_tpu_torch.core.config import BC
 from hpgmg_tpu_torch.ops import transfer
 from hpgmg_tpu_torch.ops.bc import _quadratic_fd_axis
 from hpgmg_tpu_torch.ops.bc_fv import _extend_axis_v2, _extend_axis_v4
-from hpgmg_tpu_torch.ops.transfer import interp_matrix, sep_apply
+from hpgmg_tpu_torch.ops.transfer import interp_matrix, interpolate
 
 
 def _interleave(even: torch.Tensor, odd: torch.Tensor, axis: int):
@@ -49,36 +49,37 @@ def _interp_axis_5tap(x, axis: int, w2: float, w1: float):
     return _interleave(even, odd, axis)
 
 
-def _sep_interp(xc, prescale_f, xf, bc, extend, radius, tap):
-    Ws = [interp_matrix(xc.shape[a], xc.dtype, xc.device, bc, extend, radius,
-                        tap) for a in range(3)]
-    up = sep_apply(*Ws, xc)
-    return prescale_f * xf + up if prescale_f != 0.0 else up
+def _sep_interp(xc, prescale_f, xf, bc, extend, radius, tap, coarse, fine):
+    W = interp_matrix(xc.shape[2], xc.dtype, xc.device, bc, extend, radius, tap)
+    return interpolate(W, radius, xc, prescale_f, xf, bc, coarse, fine)
 
 
-def interp_v2(xc: torch.Tensor, prescale_f: float, xf, bc: BC) -> torch.Tensor:
+def interp_v2(xc: torch.Tensor, prescale_f: float, xf, bc: BC, coarse=None,
+              fine=None) -> torch.Tensor:
     """Volume-averaged quadratic: fine = prescale_f * fine + P(coarse)."""
     def tap(x, axis):
         return _interp_axis_3tap(x, axis, 1.0 / 8.0, 1.0, -1.0 / 8.0)
 
-    return _sep_interp(xc, prescale_f, xf, bc, _extend_axis_v2, 1, tap)
+    return _sep_interp(xc, prescale_f, xf, bc, _extend_axis_v2, 1, tap, coarse, fine)
 
 
-def interp_p2(xc: torch.Tensor, prescale_f: float, xf, bc: BC) -> torch.Tensor:
+def interp_p2(xc: torch.Tensor, prescale_f: float, xf, bc: BC, coarse=None,
+              fine=None) -> torch.Tensor:
     """Cell-centered piecewise-quadratic: fine = prescale_f * fine +
     P(coarse)."""
     def tap(x, axis):
         return _interp_axis_3tap(x, axis, 5.0 / 32.0, 30.0 / 32.0, -3.0 / 32.0)
 
-    return _sep_interp(xc, prescale_f, xf, bc, _quadratic_fd_axis, 1, tap)
+    return _sep_interp(xc, prescale_f, xf, bc, _quadratic_fd_axis, 1, tap, coarse, fine)
 
 
-def interp_v4(xc: torch.Tensor, prescale_f: float, xf, bc: BC) -> torch.Tensor:
+def interp_v4(xc: torch.Tensor, prescale_f: float, xf, bc: BC, coarse=None,
+              fine=None) -> torch.Tensor:
     """Volume-averaged quartic: fine = prescale_f * fine + P(coarse)."""
     def tap(x, axis):
         return _interp_axis_5tap(x, axis, -3.0 / 128.0, 22.0 / 128.0)
 
-    return _sep_interp(xc, prescale_f, xf, bc, _extend_axis_v4, 2, tap)
+    return _sep_interp(xc, prescale_f, xf, bc, _extend_axis_v4, 2, tap, coarse, fine)
 
 
 transfer._INTERP.setdefault("v2", interp_v2)

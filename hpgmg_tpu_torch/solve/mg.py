@@ -7,6 +7,14 @@ their whole solve without a device sync (an iterative bottom solver, if
 chosen, syncs once per iteration); ``mg_solve``, ``fmg_solve2``,
 ``fmg_solve2_dd`` and ``mgpcg`` read one value on the host per cycle or
 iteration, for their early exit.
+
+On a hierarchy cut for a process grid (parallel/mesh.py:shard_hierarchy)
+every rank runs the same cycle on its blocks: a decomposed level's fields
+are local, its reductions all-reduced (``level.part``); the restriction
+stays local (K3 on the block) and is gathered where the next level is
+held otherwise (``redistribute``, at the first replicated level going
+down), and the interpolation reads the coarse block's halo
+(ops/transfer.py:interpolate).
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from hpgmg_tpu_torch.kernels import tail as _tail
 from hpgmg_tpu_torch.kernels.tail import tail_down, tail_span, tail_up, tail_v, use_tail
 from hpgmg_tpu_torch.ops.base import OperatorSuite, get_suite
 from hpgmg_tpu_torch.ops.transfer import get_interpolation, restrict_cell
+from hpgmg_tpu_torch.parallel.mesh import redistribute
 from hpgmg_tpu_torch.solve.bottom import bottom_solve
 from hpgmg_tpu_torch.solve.smoothers import smooth
 
@@ -30,6 +39,11 @@ from hpgmg_tpu_torch.solve.smoothers import smooth
 def _must_subtract_mean(cfg: SolverConfig) -> bool:
     """Periodic pure Poisson has the constants as null space (mg.c:1008-1018)."""
     return cfg.bc == BC.PERIODIC and not cfg.helmholtz
+
+
+def _half(part):
+    """The Part a local restriction of a block of ``part`` leaves."""
+    return None if part is None else part.coarsen()
 
 
 def vcycle(op: OperatorSuite, levels: List[Level], lev: int, e, rhs,
@@ -44,10 +58,12 @@ def vcycle(op: OperatorSuite, levels: List[Level], lev: int, e, rhs,
     if use_tail(op, cfg, levels, lev):
         return _tail_vcycle(op, levels, lev, e, rhs, cfg)
     e = smooth(op, level, e, rhs, cfg)
-    rhs_c = op.restrict_residual(level, e, rhs, cfg)
+    coarse = levels[lev + 1]
+    rhs_c = redistribute(op.restrict_residual(level, e, rhs, cfg),
+                         _half(level.part), coarse.part)
     e_c = vcycle(op, levels, lev + 1, torch.zeros_like(rhs_c), rhs_c, cfg)
     interp = get_interpolation(op.interpolation_vcycle)
-    e = interp(e_c, 1.0, e, cfg.bc)
+    e = interp(e_c, 1.0, e, cfg.bc, coarse=coarse.part, fine=level.part)
     return smooth(op, level, e, rhs, cfg)
 
 
@@ -74,8 +90,8 @@ def _cycle_norm(op, level, u, f, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """Post-cycle true-residual max norm (mg.c:1208-1213), u made mean-free
     first where the operator is singular. Returns (u, norm)."""
     if _must_subtract_mean(cfg):
-        u = u - blas.mean(u, cfg.reduce_dtype)
-    return u, blas.norm(op.residual(level, u, f, cfg))
+        u = u - blas.mean(u, cfg.reduce_dtype, level.part)
+    return u, blas.norm(op.residual(level, u, f, cfg), level.part)
 
 
 def mg_solve(op: OperatorSuite, hier: Hierarchy, f, cfg: SolverConfig,
@@ -84,7 +100,7 @@ def mg_solve(op: OperatorSuite, hier: Hierarchy, f, cfg: SolverConfig,
     host sync per cycle. Returns (u, per-cycle relative residuals)."""
     levels = hier.levels
     u = torch.zeros_like(f) if u0 is None else u0
-    norm_f = float(blas.norm(f))
+    norm_f = float(blas.norm(f, levels[0].part))
     history = []
     for v in range(cfg.max_vcycles):
         u, norm_r = _cycle_norm(op, levels[0], vcycle(op, levels, 0, u, f, cfg),
@@ -105,7 +121,7 @@ def mg_solve_fixed(op: OperatorSuite, hier: Hierarchy, f, cfg: SolverConfig,
     (u, stacked relative residual norms)."""
     levels = hier.levels
     u = torch.zeros_like(f) if u0 is None else u0
-    norm_f = blas.norm(f)
+    norm_f = blas.norm(f, levels[0].part)
     rels = []
     for _ in range(num_cycles):
         u, norm_r = _cycle_norm(op, levels[0], vcycle(op, levels, 0, u, f, cfg),
@@ -121,11 +137,12 @@ def fmg_solve(op: OperatorSuite, hier: Hierarchy, f, cfg: SolverConfig,
     V-cycle up to the finest. Returns (u, norm_r, norm_f), the norms as
     0-d tensors; u is mean-free where the operator is singular."""
     levels = hier.levels
-    norm_f = blas.norm(f)
+    norm_f = blas.norm(f, levels[0].part)
 
     rhs = [f]  # restrict the rhs down the whole ladder (mg.c:1274-1278)
-    for _ in range(len(levels) - 1):
-        rhs.append(restrict_cell(rhs[-1]))
+    for lev in range(len(levels) - 1):
+        rhs.append(redistribute(restrict_cell(rhs[-1]), _half(levels[lev].part),
+                                levels[lev + 1].part))
 
     bot = len(levels) - 1  # coarsest-grid solve (mg.c:1283-1287)
     if bot == 0 and u0 is not None:
@@ -136,7 +153,9 @@ def fmg_solve(op: OperatorSuite, hier: Hierarchy, f, cfg: SolverConfig,
 
     interp_f = get_interpolation(op.interpolation_fcycle)
     for lev in range(bot - 1, -1, -1):
-        u = interp_f(u, 0.0, None, cfg.bc)  # prescale 0: overwrite (mg.c:1295)
+        # prescale 0: overwrite (mg.c:1295)
+        u = interp_f(u, 0.0, None, cfg.bc, coarse=levels[lev + 1].part,
+                     fine=levels[lev].part)
         u = vcycle(op, levels, lev, u, rhs[lev], cfg)
     for _ in range(cfg.post_f_vcycles):  # trailing V-cycles, a fixed count
         u = vcycle(op, levels, 0, u, f, cfg)
@@ -152,14 +171,14 @@ def fmg_solve2(op: OperatorSuite, hier: Hierarchy, f, cfg: SolverConfig,
     residuals)."""
     lv0 = hier.levels[0]
     u = torch.zeros_like(f) if u0 is None else u0
-    norm_f = float(blas.norm(f))
+    norm_f = float(blas.norm(f, lv0.part))
     history = []
     for fc in range(max_fcycles):
         e, _, _ = fmg_solve(op, hier, op.residual(lv0, u, f, cfg), cfg)
         u = u + e
         if _must_subtract_mean(cfg):
-            u = u - blas.mean(u, cfg.reduce_dtype)
-        norm_r = float(blas.norm(op.residual(lv0, u, f, cfg)))
+            u = u - blas.mean(u, cfg.reduce_dtype, lv0.part)
+        norm_r = float(blas.norm(op.residual(lv0, u, f, cfg), lv0.part))
         history.append(norm_r / norm_f)
         if verbose:
             print(f"f-cycle={fc + 1:2d}  norm={norm_r:1.15e}  rel={history[-1]:1.15e}")
@@ -185,7 +204,8 @@ def fmg_solve2_dd(op: OperatorSuite, hier: Hierarchy, f, cfg: SolverConfig,
     lv0 = hier.levels[0]
     u_hi = torch.zeros_like(f)
     u_lo = torch.zeros_like(f)
-    norm_f = float(blas.norm(f))
+    part = lv0.part
+    norm_f = float(blas.norm(f, part))
     history = []
     for fc in range(max_fcycles):
         # residual of the unevaluated sum: the big cancellation first
@@ -197,10 +217,11 @@ def fmg_solve2_dd(op: OperatorSuite, hier: Hierarchy, f, cfg: SolverConfig,
         s = u_hi + t
         err = (u_hi - s) + t
         if _must_subtract_mean(cfg):
-            s = s - (blas.mean(s, cfg.reduce_dtype) + blas.mean(err, cfg.reduce_dtype))
+            s = s - (blas.mean(s, cfg.reduce_dtype, part)
+                     + blas.mean(err, cfg.reduce_dtype, part))
         u_hi, u_lo = s, err
         norm_r = float(blas.norm(op.residual(lv0, u_hi, f, cfg)
-                                 - op.apply_op(lv0, u_lo, cfg)))
+                                 - op.apply_op(lv0, u_lo, cfg), part))
         history.append(norm_r / norm_f)
         if verbose:
             print(f"f-cycle={fc + 1:2d}  norm={norm_r:1.15e}  rel={history[-1]:1.15e}")
@@ -217,6 +238,7 @@ def mgpcg(op: OperatorSuite, hier: Hierarchy, f, cfg: SolverConfig,
     Returns (x, per-iteration relative true residuals)."""
     levels = hier.levels
     lv0, rd = levels[0], cfg.reduce_dtype
+    part = lv0.part
     msm = _must_subtract_mean(cfg)
 
     def precond(r):
@@ -225,22 +247,22 @@ def mgpcg(op: OperatorSuite, hier: Hierarchy, f, cfg: SolverConfig,
     x = torch.zeros_like(f)
     r = op.residual(lv0, x, f, cfg)
     if msm:
-        r = r - blas.mean(r, rd)
+        r = r - blas.mean(r, rd, part)
     z = precond(r)
-    r_dot_z = blas.dot(r, z, rd)
-    norm_r0 = float(blas.norm(r))
+    r_dot_z = blas.dot(r, z, rd, part)
+    norm_r0 = float(blas.norm(r, part))
     p = z
     history = []
     for j in range(max_iters):
         ap = op.apply_op(lv0, p, cfg)
-        alpha = r_dot_z / blas.dot(ap, p, rd)
+        alpha = r_dot_z / blas.dot(ap, p, rd, part)
         x = x + alpha * p
         r = r - alpha * ap
         if msm:
-            r = r - blas.mean(r, rd)
-        norm_true = float(blas.norm(op.residual(lv0, x, f, cfg)))
+            r = r - blas.mean(r, rd, part)
+        norm_true = float(blas.norm(op.residual(lv0, x, f, cfg), part))
         z = precond(r)
-        r_dot_z_new = blas.dot(r, z, rd)
+        r_dot_z_new = blas.dot(r, z, rd, part)
         p = z + (r_dot_z_new / r_dot_z) * p
         r_dot_z = r_dot_z_new
         history.append(norm_true / norm_r0)
@@ -251,12 +273,14 @@ def mgpcg(op: OperatorSuite, hier: Hierarchy, f, cfg: SolverConfig,
     return x, history
 
 
-def richardson_error(op: OperatorSuite, u_h, u_2h,
-                     u_4h) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Richardson order from solves at h, 2h, 4h (mg.c:1113-1131).
+def richardson_error(op: OperatorSuite, u_h, u_2h, u_4h,
+                     parts=(None, None, None)) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Richardson order from solves at h, 2h, 4h (mg.c:1113-1131), each
+    held as its ``parts`` entry says (None: the whole field).
     Returns (||u2h - R uh||_max, log2(||u4h - R u2h|| / ||u2h - R uh||))."""
-    e_h = blas.norm(u_2h - restrict_cell(u_h))
-    e_2h = blas.norm(u_4h - restrict_cell(u_2h))
+    p_h, p_2h, p_4h = parts
+    e_h = blas.norm(u_2h - redistribute(restrict_cell(u_h), _half(p_h), p_2h), p_2h)
+    e_2h = blas.norm(u_4h - redistribute(restrict_cell(u_2h), _half(p_2h), p_4h), p_4h)
     return e_h, torch.log2(e_2h / e_h)
 
 

@@ -56,11 +56,23 @@ def test_restrict_cpu_dispatch_counts_plain(dtype):
     assert float(out[0, 0, 0]) == 10.5
 
 
+@pytest.mark.parametrize("shape", [(8, 4, 16), (16, 8, 32), (2, 6, 4)])
+def test_restrict_plain_takes_local_blocks(shape):
+    """K3 on a rank's non-cubic local block with even extents equals the
+    JAX XLA restriction of the same array."""
+    x = np.random.default_rng(7).standard_normal(shape)
+    out = R.restrict_cell(torch.tensor(x))
+    assert tuple(out.shape) == tuple(s // 2 for s in shape)
+    assert rel(out, jrestrict(jnp.asarray(x))) <= TOL
+
+
 def test_restrict_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="even"):
         R.restrict_cell(torch.zeros((5, 5, 5), dtype=torch.float64))
-    with pytest.raises(ValueError, match="cube"):
-        R.restrict_cell(torch.zeros((4, 4, 2), dtype=torch.float64))
+    with pytest.raises(ValueError, match="even"):
+        R.restrict_cell(torch.zeros((4, 6, 3), dtype=torch.float64))
+    with pytest.raises(ValueError, match="3-D"):
+        R.restrict_cell(torch.zeros((4, 4), dtype=torch.float64))
     with pytest.raises(TypeError):
         R.restrict_cell(torch.zeros((4, 4, 4), dtype=torch.float16))
     with pytest.raises(ValueError, match="contiguous"):
