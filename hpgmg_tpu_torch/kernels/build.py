@@ -36,18 +36,10 @@ _SIGNATURES = {
     # (x, out, mi, mj, mk, stream): x is (2mi, 2mj, 2mk), out (mi, mj, mk)
     "hpgmg_restrict_cell_f32": (_P, _P, _I, _I, _I, _P),
     "hpgmg_restrict_cell_f64": (_P, _P, _I, _I, _I, _P),
-    # (x, xp, n, stream): xp is (n+4)^3, x with its Dirichlet or periodic
-    # ghost shell
-    "hpgmg_fv4_ghost_fill_f32": (_P, _P, _I, _P),
-    "hpgmg_fv4_ghost_fill_f64": (_P, _P, _I, _P),
-    "hpgmg_fv4_ghost_fill_periodic_f32": (_P, _P, _I, _P),
-    "hpgmg_fv4_ghost_fill_periodic_f64": (_P, _P, _I, _P),
-    # (xp, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out, n, mode, scale,
-    #  a_coef, stream)
-    "hpgmg_fv4_stencil_f32": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _D, _D,
-                              _P),
-    "hpgmg_fv4_stencil_f64": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _D, _D,
-                              _P),
+    # (x, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out, n, mode, periodic,
+    #  parity, chunk, scale, a_coef, stream); x is the n^3 cell field
+    "hpgmg_fv4_stream_f32": (_P,) * 8 + (_I,) * 5 + (_D, _D, _P),
+    "hpgmg_fv4_stream_f64": (_P,) * 8 + (_I,) * 5 + (_D, _D, _P),
     # (x, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out, n, mode, scale,
     #  a_coef, stream); x is the n^3 cell field, mode apply/residual/gsrb
     "hpgmg_fv4_subtile_f32": (_P,) * 8 + (_I, _I, _D, _D, _P),

@@ -7,13 +7,10 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 # (name, module, wrapper, attribute) of every kernel's launch count; the
-# stencil wrappers count their periodic launches (K7a's stencil pass, K7b)
-# apart
+# stencil wrappers count their periodic launches (K7a, K7b) apart
 KERNELS = (
-    ("fv4_ghost_fill", "stencils", "fv4_ghost_fill_cuda", "launches"),
     ("fv4_stencil", "stencils", "fv4_stencil_cuda", "launches"),
     ("fv4_subtile", "stencils", "fv4_subtile_cuda", "launches"),
-    ("fv4_ghost_fill_periodic", "stencils", "fv4_ghost_fill_periodic_cuda", "launches"),
     ("fv4_stencil_periodic", "stencils", "fv4_stencil_cuda", "periodic_launches"),
     ("fv4_gsrb2", "stencils", "fv4_gsrb2_cuda", "launches"),
     ("fv4_slab", "stencils", "fv4_slab_cuda", "launches"),

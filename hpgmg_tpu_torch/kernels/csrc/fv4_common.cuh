@@ -1,5 +1,5 @@
-// Device building blocks of the fv4 kernels (K1 in fv4_stencil.cu, K1s in
-// fv4_subtile.cu, K2 in fv4_gsrb2.cu, K4 in tail.cu, K8a/K8b in
+// Device building blocks of the fv4 kernels (K1/K7a in fv4_stream.cu, K1s
+// in fv4_subtile.cu, K2 in fv4_gsrb2.cu, K4 in tail.cu, K8a/K8b in
 // fv4_slab.cu): the quartic Dirichlet
 // ghost of x, the fv4 stencil on a ghost-filled (n+4)^3 buffer, the v2
 // interpolation taps, and the grid-stride phases and the cooperative launch

@@ -6,7 +6,7 @@
 // with kdinv0/kdinv1 the parity-folded dinv pair (zeros off the parity a
 // half-sweep updates) and the quartic Dirichlet ghosts of x and of y
 // synthesized before each half, as gsrb.c:24-41 refills the ghosts between
-// the two. Equal to two K1 gsrb launches (fv4_stencil.cu) to rounding.
+// the two. Equal to two K1 gsrb launches (fv4_stream.cu) to rounding.
 //
 // Replaces hpgmg_tpu/kernels/stencils.py:_fv4_gsrb2_kernel (reached through
 // fv4_gsrb2_pallas). That kernel held a radius-4 window of x per VMEM tile

@@ -33,8 +33,8 @@
 // The output is out of place: every cell is written, x unchanged where
 // kdinv is 0.
 //
-// Measured on an H100 (chip_smoke.py, 512^3 f32 gsrb; K1's two passes
-// 3.30 ms): a first version carried K2's register window along i
+// Measured on an H100 (chip_smoke.py, 512^3 f32 gsrb; the two-pass K1 that
+// fv4_stream.cu replaced: 3.30 ms): a first version carried K2's register window along i
 // (StencilWindow, 13 x and 17 beta loads a cell) at ~110 registers a
 // thread, two blocks an SM: 3.83 ms. One cell at a time without the
 // window: 4.26 ms at 80 registers (three blocks an SM); with the register
@@ -47,8 +47,8 @@
 // What bounds it on an H100: device-memory bandwidth. gsrb reads x, the
 // three beta arrays, rhs and kdinv and writes out: 7 values a cell, 28 B in
 // f32, against ~113 flops (~4 flop/B, below the card's f32 ridge of
-// 20 flop/B). K1 moves x three more times (the ghost pass writes and the
-// stencil reads the (n+4)^3 buffer) in two launches. The x tile is read
+// 20 flop/B). The two-pass K1 moved x three more times (its ghost pass
+// wrote and its stencil read an (n+4)^3 buffer). The x tile is read
 // from device memory once per block plus its halo (2.1x in f32, 3.4x in
 // f64, mostly from L2), and its 25 reads a cell come from shared memory
 // instead of L1.

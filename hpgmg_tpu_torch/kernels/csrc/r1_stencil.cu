@@ -21,8 +21,8 @@
 // level), where XLA materialized the i/j wrap into a j-padded block and the
 // kernel wrapped k in lanes: here the wrapped cells are read while x is
 // loaded into the tile, the rest of the kernel unchanged.
-// No separate ghost pass is needed (K1's fv4 ghosts take 4 taps at two
-// depths and got one): a radius-1 Dirichlet ghost is a 2-tap function of
+// No separate ghost pass is needed (K1's fv4 ghosts, 4 taps at two depths,
+// once had one): a radius-1 Dirichlet ghost is a 2-tap function of
 // the two cells nearest the face (r1_common.cuh), synthesized while x is
 // loaded.
 //

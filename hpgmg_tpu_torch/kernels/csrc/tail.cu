@@ -13,7 +13,7 @@
 //
 // (mg.c:1135-1164: the descent and the climb of MGVCycle; K4a and K4b leave
 // the bottom solve between them outside). The arithmetic per level is K1's gsrb and
-// fres modes (fv4_stencil.cu) and the v2 interpolation of
+// fres modes (fv4_stream.cu) and the v2 interpolation of
 // ops/transfer_fv.py:interp_v2, whose coarse quadratic Dirichlet ghosts
 // (g = -5/2 c0 + 1/2 c1) and 3-tap children (1/8, 1, -1/8) are computed
 // in the kernel body as per-axis taps, their tensor product being the

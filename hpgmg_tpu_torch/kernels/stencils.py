@@ -16,12 +16,13 @@ kernels of ``csrc/``, CPU tensors take the plain version. K1's modes:
   parity folded in; out of place, the result is a new tensor
 * ``fres``: restrict_cell(rhs - A x), an (n/2)^3 tensor
 
-On CUDA, K1 is two launches: the ghost fill of x into an (n+4)^3 buffer
-(``fv4_ghost_fill_cuda``, counted on its own) and the stencil. K7a is the
-same stencil launch after the periodic wrap fill
-(``fv4_ghost_fill_periodic_cuda``, counted on its own); its face
-coefficients are wrapped tangentially at build time
-(``extend_beta_tangential``). K2 is one launch per full sweep
+On CUDA, K1 and K7a are one launch a call (``fv4_stencil_cuda``,
+``csrc/fv4_stream.cu``): blocks stream x and the face coefficients plane
+by plane through shared memory, making x's quartic Dirichlet ghosts (K1)
+or wrapped ones (K7a) as its planes arrive, and a gsrb half-sweep computes
+A x at the cells of its ``parity`` only. K7a's face coefficients are
+wrapped tangentially at build time (``extend_beta_tangential``); its
+launches count in ``periodic_launches``. K2 is one launch per full sweep
 (``fv4_gsrb2``): the red half-sweep with kdinv[0], then the black one with
 kdinv[1], equal to two K1 gsrb calls. It takes Dirichlet levels only, as
 the JAX package fuses no periodic sweep (hpgmg_tpu/ops/fv4.py:172-174).
@@ -58,11 +59,11 @@ GSRB2_MAX_DIM = 64
 
 # K1s instead of K1 on the Dirichlet levels with dim <= SUBTILE_MAX_DIM
 # (the JAX package's switch, hpgmg_tpu/kernels/stencils.py:870, whose
-# default False is a TPU measurement). Measured on an H100
-# (bench/profile.py --subtile, residual per level): one K1s launch beats
-# K1's two (ghost pass, stencil) at 16^3-64^3, where launches dominate
-# (0.05-0.08 against 0.07-0.15 ms), is even at 128^3 and loses from 256^3 up
-# (512^3: 3.65-3.73 against 3.26-3.30 ms). Off by default: the fv4 512^3
+# default False is a TPU measurement). Measured on an H100 against the
+# two-launch K1 that fv4_stream.cu replaced (bench/profile.py --subtile,
+# residual per level): K1s won at 16^3-64^3, where launches dominate
+# (0.05-0.08 against 0.07-0.15 ms), was even at 128^3 and lost from 256^3
+# up (512^3: 3.65-3.73 against 3.26-3.30 ms). Off by default: the fv4 512^3
 # chain with K1s up to 64^3 ran 79.4-86.9 ms per solve against 82.7-82.8
 # without, no gain beyond its noise.
 SUBTILE = False
@@ -285,84 +286,29 @@ fv4_gsrb2_plain.calls = 0
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
-def _ghost_pass(x: torch.Tensor, entry: str) -> torch.Tensor:
-    """Launch the ghost pass ``hpgmg_<entry>_{f32,f64}`` of x into a new
-    (n+4)^3 buffer."""
-    from hpgmg_tpu_torch.kernels.build import library
-
-    if not x.is_cuda:
-        raise ValueError(f"{entry} wants a CUDA tensor, got {x.device}")
-    n = x.shape[0]
-    if (x.dim() != 3 or len(set(x.shape)) != 1 or n < 4 or not x.is_contiguous()
-            or x.dtype not in (torch.float32, torch.float64)):
-        raise ValueError(f"fv4 ghost fill wants a contiguous float cube, got "
-                         f"{tuple(x.shape)} {x.dtype}")
-    xp = torch.empty((n + 4,) * 3, dtype=x.dtype, device=x.device)
-    dt = "f32" if x.dtype == torch.float32 else "f64"
-    with torch.cuda.device(x.device):
-        rc = getattr(library(), f"hpgmg_{entry}_{dt}")(x.data_ptr(), xp.data_ptr(),
-                                                       n, _stream(x))
-    if rc != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
-    return xp
-
-
-def fv4_ghost_fill_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Launch K1's ghost pass: the (n+4)^3 tensor of x with its 2-deep
-    quartic Dirichlet ghost shell (plain version:
-    ``ops/bc_fv.py:ghost_fill_fv(x, BC.DIRICHLET, 4, 2)``)."""
-    xp = _ghost_pass(x, "fv4_ghost_fill")
-    fv4_ghost_fill_cuda.launches += 1
-    return xp
-
-
-fv4_ghost_fill_cuda.launches = 0
-
-
-def fv4_ghost_fill_periodic_cuda(x: torch.Tensor) -> torch.Tensor:
-    """Launch K7a's ghost pass: the (n+4)^3 tensor of x with its 2-deep
-    periodic shell, edges and corners wrapped on each axis (plain version:
-    ``ops/bc_fv.py:ghost_fill_fv(x, BC.PERIODIC, 4, 2)``)."""
-    xp = _ghost_pass(x, "fv4_ghost_fill_periodic")
-    fv4_ghost_fill_periodic_cuda.launches += 1
-    return xp
-
-
-fv4_ghost_fill_periodic_cuda.launches = 0
-
-
-def _launch_stencil(entry: str, level: Level, src: torch.Tensor,
-                    cfg: SolverConfig, mode: str, rhs, kdinv) -> torch.Tensor:
-    """Launch ``hpgmg_<entry>_{f32,f64}`` on ``src`` (K1's ghost-filled
-    buffer, or x itself for K1s) into a newly allocated output."""
-    from hpgmg_tpu_torch.kernels.build import library
-
-    n = level.dim
-    m = n // 2 if mode == "fres" else n
-    out = torch.empty((m, m, m), dtype=src.dtype, device=src.device)
-    alpha = level.alpha if cfg.helmholtz else None
-    dt = "f32" if src.dtype == torch.float32 else "f64"
-    with torch.cuda.device(src.device):
-        rc = getattr(library(), f"hpgmg_{entry}_{dt}")(
-            src.data_ptr(), level.beta_i.data_ptr(), level.beta_j.data_ptr(),
-            level.beta_k.data_ptr(), _ptr(alpha), _ptr(rhs), _ptr(kdinv),
-            out.data_ptr(), n, MODES[mode], -cfg.b * level.h2inv, float(cfg.a),
-            _stream(src))
-    if rc != 0:
-        raise RuntimeError(f"{entry} kernel launch failed: CUDA error {rc}")
-    return out
-
-
 def fv4_subtile_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
                      mode: str, rhs: Optional[torch.Tensor] = None,
                      kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch K1s (one pass, ghosts in the kernel) on CUDA tensors into a
     newly allocated output. It takes any Dirichlet level with n >= 4; the
     suite's gate (``use_subtile``) only chooses which levels it gets."""
+    from hpgmg_tpu_torch.kernels.build import library
+
     _check_subtile(level, x, cfg, mode, rhs, kdinv)
     if not x.is_cuda:
         raise ValueError(f"fv4_subtile_cuda wants CUDA tensors, got {x.device}")
-    out = _launch_stencil("fv4_subtile", level, x, cfg, mode, rhs, kdinv)
+    n = level.dim
+    out = torch.empty((n, n, n), dtype=x.dtype, device=x.device)
+    alpha = level.alpha if cfg.helmholtz else None
+    dt = "f32" if x.dtype == torch.float32 else "f64"
+    with torch.cuda.device(x.device):
+        rc = getattr(library(), f"hpgmg_fv4_subtile_{dt}")(
+            x.data_ptr(), level.beta_i.data_ptr(), level.beta_j.data_ptr(),
+            level.beta_k.data_ptr(), _ptr(alpha), _ptr(rhs), _ptr(kdinv),
+            out.data_ptr(), n, MODES[mode], -cfg.b * level.h2inv, float(cfg.a),
+            _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"fv4_subtile kernel launch failed: CUDA error {rc}")
     fv4_subtile_cuda.launches += 1
     return out
 
@@ -372,17 +318,36 @@ fv4_subtile_cuda.launches = 0
 
 def fv4_stencil_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
                      mode: str, rhs: Optional[torch.Tensor] = None,
-                     kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K1 (Dirichlet) or K7a (periodic): the ghost pass of the
-    level's BC, then the stencil, on CUDA tensors into a newly allocated
-    output. The stencil launches of K1 count in ``launches``, those of K7a
-    in ``periodic_launches``."""
+                     kdinv: Optional[torch.Tensor] = None,
+                     parity: Optional[int] = None, chunk: int = 0) -> torch.Tensor:
+    """Launch K1 (Dirichlet) or K7a (periodic), ``csrc/fv4_stream.cu``: one
+    launch on CUDA tensors into a newly allocated output, no ghost buffer.
+    gsrb needs ``parity``, the colour that ``kdinv`` carries: the kernel
+    computes A x at that colour's cells only and copies x at the others.
+    ``chunk``: i-planes a block marches (0: the launcher's rule, as the
+    solver calls it; other values time the rule). The launches of K1 count
+    in ``launches``, those of K7a in ``periodic_launches``."""
+    from hpgmg_tpu_torch.kernels.build import library
+
     _check(level, x, cfg, mode, rhs, (kdinv,) if mode == "gsrb" else ())
     if not x.is_cuda:
         raise ValueError(f"fv4_stencil_cuda wants CUDA tensors, got {x.device}")
+    if mode == "gsrb" and parity not in (0, 1):
+        raise ValueError(f"fv4 gsrb needs the sweep's parity (0 or 1), got {parity!r}")
+    n = level.dim
+    m = n // 2 if mode == "fres" else n
+    out = torch.empty((m, m, m), dtype=x.dtype, device=x.device)
+    alpha = level.alpha if cfg.helmholtz else None
     periodic = cfg.bc == BC.PERIODIC
-    xp = fv4_ghost_fill_periodic_cuda(x) if periodic else fv4_ghost_fill_cuda(x)
-    out = _launch_stencil("fv4_stencil", level, xp, cfg, mode, rhs, kdinv)
+    dt = "f32" if x.dtype == torch.float32 else "f64"
+    with torch.cuda.device(x.device):
+        rc = getattr(library(), f"hpgmg_fv4_stream_{dt}")(
+            x.data_ptr(), level.beta_i.data_ptr(), level.beta_j.data_ptr(),
+            level.beta_k.data_ptr(), _ptr(alpha), _ptr(rhs), _ptr(kdinv),
+            out.data_ptr(), n, MODES[mode], int(periodic), parity or 0, chunk,
+            -cfg.b * level.h2inv, float(cfg.a), _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"fv4 stencil kernel launch failed: CUDA error {rc}")
     if periodic:
         fv4_stencil_cuda.periodic_launches += 1
     else:
@@ -433,11 +398,14 @@ fv4_gsrb2_cuda.launches = 0
 
 def fv4_stencil(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
                 rhs: Optional[torch.Tensor] = None,
-                kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K1 (K7a on a periodic level) on ``level``: the CUDA kernels for CUDA
-    tensors, the plain version for CPU tensors."""
+                kdinv: Optional[torch.Tensor] = None,
+                parity: Optional[int] = None) -> torch.Tensor:
+    """K1 (K7a on a periodic level) on ``level``: the CUDA kernel for CUDA
+    tensors, the plain version for CPU tensors. A gsrb half-sweep on the
+    card needs ``parity``, the colour ``kdinv`` carries; the plain version
+    reads the colour from kdinv alone."""
     if x.is_cuda:
-        return fv4_stencil_cuda(level, x, cfg, mode, rhs, kdinv)
+        return fv4_stencil_cuda(level, x, cfg, mode, rhs, kdinv, parity)
     if x.device.type == "cpu":
         return fv4_stencil_plain(level, x, cfg, mode, rhs, kdinv)
     raise ValueError(f"fv4 stencil has no kernel for device {x.device}")

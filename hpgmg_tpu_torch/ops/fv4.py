@@ -48,14 +48,15 @@ class FV4(base.OperatorSuite):
     chebyshev_degree = 6  # operators.fv4.c smoother wiring
 
     @staticmethod
-    def _stencil(level: Level, x, cfg: SolverConfig, mode: str, **kw):
+    def _stencil(level: Level, x, cfg: SolverConfig, mode: str, parity=None, **kw):
         """K8a (K8b) on a decomposed level, K1s where the gate admits the
-        level, else K1 (K7a)."""
+        level, else K1 (K7a), which takes a half-sweep's ``parity`` (the
+        others read it from kdinv alone)."""
         if level.part is not None:
             return fv4_sharded(level, x, cfg, mode, **kw)
         if stencils.use_subtile(level, cfg):
             return fv4_subtile(level, x, cfg, mode, **kw)
-        return fv4_stencil(level, x, cfg, mode, **kw)
+        return fv4_stencil(level, x, cfg, mode, parity=parity, **kw)
 
     def apply_op(self, level: Level, x, cfg: SolverConfig):
         return self._stencil(level, x, cfg, "apply")
@@ -65,7 +66,7 @@ class FV4(base.OperatorSuite):
 
     def gsrb_sweep(self, level: Level, x, rhs, cfg: SolverConfig,
                    parity: int):
-        return self._stencil(level, x, cfg, "gsrb", rhs=rhs,
+        return self._stencil(level, x, cfg, "gsrb", parity=parity & 1, rhs=rhs,
                              kdinv=level.kdinv[parity & 1])
 
     def gsrb_smooth(self, level: Level, x, rhs, cfg: SolverConfig,

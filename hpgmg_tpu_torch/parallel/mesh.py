@@ -201,11 +201,18 @@ class Part:
 
 def level_part(mesh: Mesh, dim: int) -> Optional[Part]:
     """This rank's Part of a level of extent ``dim``; None where the level
-    is replicated."""
+    is replicated: where ``level_sharding`` replicates it, and where it
+    splits it into blocks of an odd extent, which the slab kernels (K8a,
+    K8c: even extents) do not take. The JAX package splits such a level
+    through GSPMD; the port, which has no GSPMD, replicates it, with the
+    same solution."""
     spec = level_sharding(mesh, dim)
     if spec == REPLICATED:
         return None
-    return Part(mesh, ("x" in spec, "y" in spec), dim)
+    part = Part(mesh, ("x" in spec, "y" in spec), dim)
+    if part.ni % 2 or part.nj % 2:
+        return None
+    return part
 
 
 def shard_array(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
@@ -245,9 +252,9 @@ def shard_hierarchy(mesh: Mesh, hier, cfg):
     """Cut every level of a (global) hierarchy to this rank: decomposed
     levels keep this rank's block of every field (shard_kernels'
     view builders), replicated ones stay as they are (decided per level by
-    ``level_sharding``). A decomposed level the slab kernels do not take
-    (odd local extents) raises: the port has no GSPMD path to fall back
-    on."""
+    ``level_part``, which also replicates a level whose blocks would have
+    an odd extent: the slab kernels do not take them, and the port has no
+    GSPMD path)."""
     from hpgmg_tpu_torch.core.hierarchy import Hierarchy
     from hpgmg_tpu_torch.parallel.shard_kernels import shard_level
 

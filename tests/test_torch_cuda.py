@@ -1,4 +1,4 @@
-"""The port's CUDA kernels on a card: K1's ghost pass and each K1 mode, K1s
+"""The port's CUDA kernels on a card: each K1 mode, K1s
 (each mode, also against K1), K2, K3, K4's two halves and K4c, each K5
 mode and K6 (both bodies, all three tap sets), K7a and K7b (the periodic K1
 and K5) against their plain versions on the same CUDA tensors, and small
@@ -23,7 +23,6 @@ from hpgmg_tpu_torch.kernels import restrict as R
 from hpgmg_tpu_torch.kernels import stencils as S
 from hpgmg_tpu_torch.kernels import stencils_r1 as K
 from hpgmg_tpu_torch.kernels import tail as T
-from hpgmg_tpu_torch.ops.bc_fv import ghost_fill_fv
 from hpgmg_tpu_torch.ops.base import get_suite
 from hpgmg_tpu_torch.problems.fv import init_problem_fv
 from hpgmg_tpu_torch.core.hierarchy import build_hierarchy
@@ -65,20 +64,16 @@ def test_k1_modes_match_plain(dev, n, dtype):
               for a in rng.standard_normal((2, n, n, n)))
     poisson = SolverConfig(a=0.0, dtype=dtype)
     helm = SolverConfig(a=1.5, helmholtz=True, dtype=dtype)
-    cases = [("apply", poisson, {}), ("residual", poisson, {"rhs": rhs}),
-             ("gsrb", poisson, {"rhs": rhs, "kdinv": lv.kdinv[0]}),
-             ("gsrb", poisson, {"rhs": rhs, "kdinv": lv.kdinv[1]}),
-             ("fres", poisson, {"rhs": rhs}), ("apply", helm, {})]
+    cases = [("apply", poisson, {}, None), ("residual", poisson, {"rhs": rhs}, None),
+             ("gsrb", poisson, {"rhs": rhs, "kdinv": lv.kdinv[0]}, 0),
+             ("gsrb", poisson, {"rhs": rhs, "kdinv": lv.kdinv[1]}, 1),
+             ("fres", poisson, {"rhs": rhs}, None), ("apply", helm, {}, None)]
     launches = S.fv4_stencil_cuda.launches
-    ghost = S.fv4_ghost_fill_cuda.launches
-    for mode, cfg, kw in cases:
-        out = S.fv4_stencil(lv, x, cfg, mode, **kw)
+    for mode, cfg, kw, parity in cases:
+        out = S.fv4_stencil(lv, x, cfg, mode, parity=parity, **kw)
         assert out.is_cuda
         assert relerr(out, S.fv4_stencil_plain(lv, x, cfg, mode, **kw)) <= TOL[dtype]
-    assert S.fv4_stencil_cuda.launches == launches + len(cases)
-    assert S.fv4_ghost_fill_cuda.launches == ghost + len(cases)
-    assert relerr(S.fv4_ghost_fill_cuda(x),
-                  ghost_fill_fv(x, poisson.bc, order=4, radius=2)) <= TOL[dtype]
+    assert S.fv4_stencil_cuda.launches == launches + len(cases)  # one launch a call
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -208,7 +203,7 @@ def test_r1_fcycle_through_kernels_matches_cpu(dev, op):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("n", [4, 8, 48, 64])
 def test_k7a_matches_plain(dev, n, dtype):
-    """K7a: the periodic wrap pass, then K1's stencil, in every mode,
+    """K7a: K1's kernel with wrapped ghosts, one launch in every mode,
     counted apart from K1's launches."""
     rng = np.random.default_rng(n + 7)
     lv = _level(n, dtype, dev, rng)
@@ -216,22 +211,16 @@ def test_k7a_matches_plain(dev, n, dtype):
               for a in rng.standard_normal((2, n, n, n)))
     poisson = SolverConfig(a=0.0, bc=BC.PERIODIC, dtype=dtype)
     helm = SolverConfig(a=1.5, helmholtz=True, bc=BC.PERIODIC, dtype=dtype)
-    cases = [("apply", poisson, {}), ("residual", poisson, {"rhs": rhs}),
-             ("gsrb", poisson, {"rhs": rhs, "kdinv": lv.kdinv[0]}),
-             ("gsrb", poisson, {"rhs": rhs, "kdinv": lv.kdinv[1]}),
-             ("fres", poisson, {"rhs": rhs}), ("apply", helm, {})]
-    before = (S.fv4_stencil_cuda.launches, S.fv4_ghost_fill_cuda.launches,
-              S.fv4_stencil_cuda.periodic_launches,
-              S.fv4_ghost_fill_periodic_cuda.launches)
-    for mode, cfg, kw in cases:
-        out = S.fv4_stencil(lv, x, cfg, mode, **kw)
+    cases = [("apply", poisson, {}, None), ("residual", poisson, {"rhs": rhs}, None),
+             ("gsrb", poisson, {"rhs": rhs, "kdinv": lv.kdinv[0]}, 0),
+             ("gsrb", poisson, {"rhs": rhs, "kdinv": lv.kdinv[1]}, 1),
+             ("fres", poisson, {"rhs": rhs}, None), ("apply", helm, {}, None)]
+    before = (S.fv4_stencil_cuda.launches, S.fv4_stencil_cuda.periodic_launches)
+    for mode, cfg, kw, parity in cases:
+        out = S.fv4_stencil(lv, x, cfg, mode, parity=parity, **kw)
         assert relerr(out, S.fv4_stencil_plain(lv, x, cfg, mode, **kw)) <= TOL[dtype]
-    assert (S.fv4_stencil_cuda.launches, S.fv4_ghost_fill_cuda.launches,
-            S.fv4_stencil_cuda.periodic_launches,
-            S.fv4_ghost_fill_periodic_cuda.launches) == (
-        before[0], before[1], before[2] + len(cases), before[3] + len(cases))
-    assert relerr(S.fv4_ghost_fill_periodic_cuda(x),
-                  ghost_fill_fv(x, BC.PERIODIC, order=4, radius=2)) <= TOL[dtype]
+    assert (S.fv4_stencil_cuda.launches, S.fv4_stencil_cuda.periodic_launches) == (
+        before[0], before[1] + len(cases))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -308,26 +297,27 @@ K1S_TOL = {torch.float32: 2e-6, torch.float64: 1e-13}
 @pytest.mark.parametrize("n", [4, 8, 48, 64])
 def test_k1s_matches_plain_and_k1(dev, n, dtype):
     """K1s in each mode, with and without a*alpha*x, against its plain
-    version and against K1's two passes on the same tensors (n = 4: every
-    cell reads ghosts; 48: ragged tiles along k); one launch per call; it
-    refuses a periodic level and K1's fres mode."""
+    version and against K1 on the same tensors (n = 4: every cell reads
+    ghosts; 48: ragged tiles along k); one launch per call; it refuses a
+    periodic level and K1's fres mode."""
     rng = np.random.default_rng(n + 11)
     lv = _level(n, dtype, dev, rng)
     x, rhs = (torch.tensor(a, dtype=dtype, device=dev)
               for a in rng.standard_normal((2, n, n, n)))
     for cfg in (SolverConfig(a=0.0, dtype=dtype),
                 SolverConfig(a=1.5, helmholtz=True, dtype=dtype)):
-        cases = [("apply", {}), ("residual", {"rhs": rhs}),
-                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[0]}),
-                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[1]})]
-        before = (S.fv4_subtile_cuda.launches, S.fv4_ghost_fill_cuda.launches)
-        for mode, kw in cases:
+        cases = [("apply", {}, None), ("residual", {"rhs": rhs}, None),
+                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[0]}, 0),
+                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[1]}, 1)]
+        before = (S.fv4_subtile_cuda.launches, S.fv4_stencil_cuda.launches)
+        for mode, kw, parity in cases:
             out = S.fv4_subtile(lv, x, cfg, mode, **kw)
             assert out.is_cuda
             assert relerr(out, S.fv4_subtile_plain(lv, x, cfg, mode, **kw)) <= K1S_TOL[dtype]
-            assert relerr(out, S.fv4_stencil_cuda(lv, x, cfg, mode, **kw)) <= K1S_TOL[dtype]
+            assert relerr(out, S.fv4_stencil_cuda(lv, x, cfg, mode, parity=parity,
+                                                  **kw)) <= K1S_TOL[dtype]
         assert S.fv4_subtile_cuda.launches == before[0] + len(cases)
-        assert S.fv4_ghost_fill_cuda.launches == before[1] + len(cases)  # K1's only
+        assert S.fv4_stencil_cuda.launches == before[1] + len(cases)  # K1's only
     with pytest.raises(NotImplementedError):
         S.fv4_subtile(lv, x, SolverConfig(a=0.0, bc=BC.PERIODIC, dtype=dtype), "apply")
     with pytest.raises(ValueError, match="mode"):

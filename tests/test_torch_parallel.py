@@ -13,6 +13,10 @@ against the JAX package on the CPU.
   7-point operator and Jacobi sweeps built on it equal their global
   versions; K8d's rhs ring, the gather and the mesh-aware dot, max norm
   and mean equal the global field's. Exact to 1e-15 relative.
+* ``level_part`` on the 2x2 grid: a Part where the blocks have even
+  extents (36^3, 16^3), None where the level is replicated (9^3) or its
+  blocks would be odd (18^3 in 9x9 blocks, which the slab kernels do not
+  take).
 * The entry point ``python -m hpgmg_tpu_torch.bench.weak`` on 2 CPU ranks:
   its JSON line, and u equal to the one-rank F-cycle's to 1e-10.
 """
@@ -23,6 +27,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 import torch_ranks
 from hpgmg_tpu.core.config import BC as JBC
@@ -49,6 +54,20 @@ def test_grid_shapes_match_jax(ranks):
     assert M._factor3(ranks) == jfactor3(ranks)
     jmesh = jmake_mesh_ij(jax.devices()[:ranks])
     assert M.mesh_ij_shape(ranks) == tuple(jmesh.shape[a] for a in ("x", "y", "z"))
+
+
+@pytest.mark.parametrize("rank", range(4))
+def test_level_part_replicates_odd_blocks(rank):
+    mesh = M.Mesh(shape=(2, 2, 1), rank=rank, backend="gloo",
+                  device=torch.device("cpu"))
+    for dim in (36, 16):
+        part = M.level_part(mesh, dim)
+        assert part is not None and part.split == (True, True)
+        assert (part.ni, part.nj) == (dim // 2, dim // 2)
+        assert (part.oi, part.oj) == (dim // 2 * (rank // 2), dim // 2 * (rank % 2))
+    assert M.level_sharding(mesh, 18) == ("x", "y")  # split by the JAX rule...
+    assert M.level_part(mesh, 18) is None  # ...but its 9x9 blocks are odd
+    assert M.level_part(mesh, 9) is None
 
 
 @pytest.mark.parametrize("ranks", range(1, 9))

@@ -8,9 +8,13 @@ BiCGStab bottom, each equal the JAX serial fmg_solve (kernels="xla") of
 the same problem: u and rel_residual to 1e-10 relative. On the 2x1 grid
 with min_coarse_dim 16 the bottom (16^3) is itself decomposed: BiCGStab
 (fv4) all-reduces its dots and norms, DIRECT (fv7pt) gathers its rhs;
-both equal the JAX serial solve too. No kernel's plain version other
-than the slab kernels' (and K3's, and on a replicated bottom the suite's
-own) runs on the decomposed levels.
+both equal the JAX serial solve too. On the 2x2 grid the fv4 and fv7pt
+Dirichlet F-cycles at 36^3 (ladder 36-18-9) decompose 36^3 only: the 18^3
+level would split into 9x9 blocks, which the slab kernels do not take, so
+it is replicated (``parallel/mesh.py:level_part``); both equal the JAX
+serial solve. No kernel's plain version other than the slab kernels' (and
+K3's, and on a replicated level the suite's own) runs on the decomposed
+levels.
 """
 
 import functools
@@ -37,6 +41,9 @@ CASES = [("fv4", "dirichlet", "direct", 8), ("fv7pt", "dirichlet", "direct", 8),
 BICGSTAB = ("fv4", "dirichlet", "bicgstab", 8)
 # the bottom level decomposed (2x1 grid, 16^3 bottom)
 BOTTOM16 = [("fv4", "dirichlet", "bicgstab", 16), ("fv7pt", "dirichlet", "direct", 16)]
+# 36^3 on the 2x2 grid: the 18^3 level's blocks would be 9x9, so it is
+# replicated under the decomposed 36^3
+ODD36 = [("fv4", "dirichlet", "direct", 8, 36), ("fv7pt", "dirichlet", "direct", 8, 36)]
 
 
 @pytest.fixture(scope="module")
@@ -44,28 +51,29 @@ def jobs(tmp_path_factory):
     """Each grid's results (rank 0's: u and rel_residual are global)."""
     four, two = torch_ranks.spawn([
         (torch_ranks.fcycle_body, 4, tmp_path_factory.mktemp("gloo4"), N,
-         CASES + [BICGSTAB]),
+         CASES + [BICGSTAB] + ODD36),
         (torch_ranks.fcycle_body, 2, tmp_path_factory.mktemp("gloo2"), N,
          CASES + BOTTOM16)])
     return {"2x2": four[0], "2x1": two[0]}
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_fcycle(op, bc, bottom, mcd):
+def _jax_fcycle(op, bc, bottom, mcd, n=N):
     cfg = JConfig(op=op, bc=JBC(bc), a=0.0, b=1.0, dtype=jnp.float64, kernels="xla",
                   bottom=JBottom(bottom), min_coarse_dim=mcd)
     periodic = bc == "periodic"
     if op == "fv4":
-        prob = init_problem_fv(N, dtype=jnp.float64, periodic=periodic)
+        prob = init_problem_fv(n, dtype=jnp.float64, periodic=periodic)
     else:
-        prob = init_problem_p6(N, dtype=jnp.float64, periodic=periodic, a=0.0, b=1.0)
+        prob = init_problem_p6(n, dtype=jnp.float64, periodic=periodic, a=0.0, b=1.0)
     hier = jbuild(prob.beta_i, prob.beta_j, prob.beta_k, cfg, alpha=prob.alpha)
     u, nr, nf = jax.jit(lambda h, f: jfmg(jsuite(op), h, f, cfg))(hier, prob.f)
     return np.asarray(u), float(nr) / float(nf)
 
 
 @pytest.mark.parametrize("grid,case", [(g, c) for g in ("2x2", "2x1") for c in CASES]
-                         + [("2x2", BICGSTAB)] + [("2x1", c) for c in BOTTOM16],
+                         + [("2x2", BICGSTAB)] + [("2x1", c) for c in BOTTOM16]
+                         + [("2x2", c) for c in ODD36],
                          ids=lambda v: v if isinstance(v, str) else "-".join(map(str, v)))
 def test_decomposed_fcycle_equals_jax_serial(jobs, grid, case):
     res = jobs[grid][case]
@@ -82,15 +90,19 @@ def test_levels_and_kernels_of_the_decomposed_cycle(jobs, grid):
     applies) ran their plain versions."""
     out = jobs[grid]
     assert tuple(out["grid"]) == ((2, 2, 1) if grid == "2x2" else (2, 1, 1))
-    for case in CASES + ([BICGSTAB] if grid == "2x2" else BOTTOM16):
+    for case in CASES + ([BICGSTAB] + ODD36 if grid == "2x2" else BOTTOM16):
         res = out[case]
-        want = [True, True] if case[3] == 16 else [True, True, False]
+        want = ([True, False, False] if case in ODD36 else
+                [True, True] if case[3] == 16 else [True, True, False])
         assert res["decomposed"] == want, case
         slab = "fv4_slab_plain" if case[0] == "fv4" else "r1_slab_plain"
         assert res["plain_calls"].get(slab, 0) > 0, case
         allowed = {slab, "restrict_cell_plain", "r1_gsrb2_slab_plain"}
         if case[2] == "bicgstab" and case[3] == 8:  # the replicated bottom's applies
             allowed.add("fv4_stencil_plain")
+        if case in ODD36:  # the replicated 18^3 level's stencil and smoother
+            allowed |= ({"fv4_stencil_plain", "fv4_gsrb2_plain"} if case[0] == "fv4"
+                        else {"r1_stencil_plain", "r1_gsrb2_plain"})
         assert set(res["plain_calls"]) <= allowed, (case, res["plain_calls"])
     assert out[("fv7pt", "dirichlet", "direct", 8)]["plain_calls"]["r1_gsrb2_slab_plain"] > 0
 

@@ -101,10 +101,10 @@ def slab_body(rank: int, world: int, n: int) -> dict:
 
 
 def fcycle_body(rank: int, world: int, n: int, cases) -> dict:
-    """One F-cycle per case (op, bc, bottom, min_coarse_dim) of the
-    benchmark problem at n^3 float64 on the make_mesh_ij grid of the group:
-    the gathered u, rel_residual, which levels are decomposed, and the
-    plain versions that ran."""
+    """One F-cycle per case (op, bc, bottom, min_coarse_dim[, size]) of the
+    benchmark problem at n^3 (size^3 where the case gives one) float64 on
+    the make_mesh_ij grid of the group: the gathered u, rel_residual, which
+    levels are decomposed, and the plain versions that ran."""
     from hpgmg_tpu_torch.bench.driver import build
     from hpgmg_tpu_torch.core.config import BC, BottomSolver, Smoother, SolverConfig
     from hpgmg_tpu_torch.kernels import counts
@@ -116,11 +116,11 @@ def fcycle_body(rank: int, world: int, n: int, cases) -> dict:
     mesh = make_mesh_ij(cpu)
     out = {"grid": mesh.shape}
     for case in cases:
-        op, bc, bottom, mcd = case
+        op, bc, bottom, mcd, *size = case
         cfg = SolverConfig(op=op, bc=BC(bc), a=0.0, b=1.0, smoother=Smoother.GSRB,
                            bottom=BottomSolver(bottom), min_coarse_dim=mcd,
                            dtype=torch.float64)
-        hier, f = build(n, cfg, cpu, mesh=mesh)
+        hier, f = build(size[0] if size else n, cfg, cpu, mesh=mesh)
         counts.reset()
         with active_mesh(mesh):
             u, norm_r, norm_f = fmg_solve(get_suite(op), hier, f, cfg)
