@@ -16,14 +16,20 @@ Phases, each printing its result and raising on failure (exit code != 0):
    and without the a*alpha*x term, Dirichlet and periodic) at n in {4, 8,
    12, 20, 36, 48, 64, 128, 256}, a gsrb leaving the other colour's cells
    equal to x bit for bit, and on Dirichlet levels equal to K1s bit for bit
-   (or held to K1S_TOL); K2 (full red+black sweep) and K3 (cell
-   restriction) at n in {8, 16, 32, 48, 64, 128, 256}; K4 (tail descent
+   (or held to K1S_TOL); K2 (csrc/fv4_gsrb2.cu, the full red+black sweep
+   in one ordinary launch) at the same sizes, f32 and f64, with and without
+   a*alpha*x, equal to two K1 gsrb launches bit for bit and to itself with
+   the shortest chunk of i-planes; K2c (the sweep as one cooperative
+   launch) and K3 (cell restriction) at n in {8, 16, 32, 48, 64, 128,
+   256}; K4 (tail descent
    and climb) on the tail ladders 32-16 and 16 over an 8^3 bottom; then
    kernel vs plain times, with the same error check, at 64^3, 128^3, 256^3
    and 512^3 (K4 at 32-16; K1 also at 512^3 float64), K1 in turns
-   with K1s, its bound and its gsrb per chunk of i-planes at 128^3 and up;
-   the kernels line reports each kernel at a size the main path runs it at
-   (K2 smooths the levels up to 64^3, the others run at 512^3);
+   with K1s, its bound and its gsrb per chunk of i-planes at 128^3 and up,
+   K2 in turns with two K1 launches (also at 512^3 float64), K2c up to its
+   gate; the kernels line reports each kernel at a size the main path runs
+   it at (K2c smooths the 64^3 level, K2 is reported at 512^3, the others
+   run at 512^3);
    K5 (the radius-1 stencil: var7 body with the fv7pt and fv2 ghost taps,
    every mode, with and without a*alpha*x; 27pt body, every mode, with and
    without its constant a*x) and K6 (full red+black sweep, both bodies,
@@ -33,7 +39,7 @@ Phases, each printing its result and raising on failure (exit code != 0):
    wrapped ghosts, every mode and body) at n in {8, ..., 256}, K4c (the
    one-launch tail V-cycle over a DIRECT bottom) on the 32-16 and 16
    ladders, and their times at 512^3 (K4c on the headline's 32-16 tail);
-   K2, K4 and K6 refuse a periodic level; K1s (the one-pass sub-tiled fv4
+   K2, K2c, K4 and K6 refuse a periodic level; K1s (the one-pass sub-tiled fv4
    stencil: apply, residual, gsrb for both parities, with and without
    a*alpha*x) against its plain version and against K1 at n in {8, ...,
    256}, max relative error <= 2e-6 (f32) and 1e-13 (f64: its ghosts round
@@ -44,11 +50,13 @@ Phases, each printing its result and raising on failure (exit code != 0):
    dynamic_range 3, with every kernel's launch count reset before it and
    read after it: rel_residual <= 1e-3, Richardson order >= 3.0, every
    kernel of its path (K1, and K1s up to its gate with stencils.SUBTILE;
-   K2, K3, and K4c or K4's two halves, as tail.TAIL_ONE_LAUNCH says)
-   launched, no periodic kernel, no K1s with SUBTILE off and no plain
-   version; then the BiCGStab-bottom companion, and the headline once more
-   with the other TAIL_ONE_LAUNCH setting and once with the other SUBTILE
-   setting (same limits);
+   the fused sweeps its gates admit (K2c at 64^3); K3, and K4c or K4's
+   two halves, as tail.TAIL_ONE_LAUNCH says) launched, no periodic kernel,
+   no K1s with SUBTILE off and no plain version; then the BiCGStab-bottom
+   companion, and the headline once more with the other TAIL_ONE_LAUNCH
+   setting, once with the other SUBTILE setting (same limits) and once
+   with K2 smoothing 512^3-128^3 (4e: rel_residual and order equal to the
+   headline's bit for bit);
 5. the radius-1 suites through the same entry point at 512^3 float32, the
    counts reset before each and read after it: fv7pt (this slice's
    headline), then fv2 and 27pt on shorter timed chains: rel_residual
@@ -56,7 +64,8 @@ Phases, each printing its result and raising on failure (exit code != 0):
    fv7pt and fv2, whose var7 body it smooths), no plain version called;
 6. float64 verification through the kernels: fv4 at 256^3 with Richardson
    order >= 3.8 (and with the other TAIL_ONE_LAUNCH setting, and with the
-   other SUBTILE setting: the same order to 1e-6); fv7pt at 256^3, fv2 and
+   other SUBTILE setting: the same order to 1e-6; with K2 on: the same
+   order); fv7pt at 256^3, fv2 and
    27pt at 128^3 with order in (1.8, 2.3);
 7. periodic F-cycles (--bc periodic) through the same entry point, float32:
    fv4 and fv7pt at 512^3, fv2 and 27pt at 256^3, with the limits of their
@@ -65,9 +74,9 @@ Phases, each printing its result and raising on failure (exit code != 0):
    K1s or K5 launch, K2, K4, K6 or plain version; then float64 orders: fv4
    at 256^3 >= 3.8, fv7pt at 128^3 in (1.8, 2.3);
 7b. one counted F-cycle (float32, 512^3) of the headline, its other tail
-   and SUBTILE settings, fv7pt, 27pt and their periodic runs and periodic
-   fv4: every kernel's launches per F-cycle, K1's and K7a's by level, no
-   plain version;
+   setting, K2 on from 128^3, the other SUBTILE setting, fv7pt, 27pt and
+   their periodic runs and periodic fv4: every kernel's launches per
+   F-cycle, K1's and K7a's and K2's and K2c's by level, no plain version;
 8. fv4 at 512^3 float32 through the CLI (bench/cli.py) with each other
    smoother (Chebyshev, Jacobi, L1-Jacobi, SymGS; DIRECT bottom): a finite
    rel_residual below 1; and with GSRB over each other bottom solver (CG,
@@ -223,10 +232,10 @@ def check(label: str, out, ref, tol: float, worst: dict, name: str):
 
 
 def check_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
-    """Phase 3a: K2 and K3 against their plain versions, at the sizes the
+    """Phase 3a: K2c and K3 against their plain versions, at the sizes the
     main path gives them (the smoother levels run from 512 down; 256 and up
     span several blocks along k); then K4 (check_tail). K1 and K7a:
-    check_stream."""
+    check_stream; K2: check_gsrb2."""
     from hpgmg_tpu_torch.core.config import SolverConfig
     from hpgmg_tpu_torch.kernels import restrict as R
     from hpgmg_tpu_torch.kernels import stencils as S
@@ -242,9 +251,9 @@ def check_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
             poisson = SolverConfig(a=0.0, b=1.0, dtype=dtype)
             helm = SolverConfig(a=1.5, b=1.0, helmholtz=True, dtype=dtype)
             for label, cfg in (("", poisson), ("+alpha", helm)):
-                check(f"K2 gsrb2{label:6s}  n={n:3d} {dn}",
-                      S.fv4_gsrb2_cuda(lv, x, rhs, cfg),
-                      S.fv4_gsrb2_plain(lv, x, rhs, cfg), tol, worst, "fv4_gsrb2")
+                check(f"K2c gsrb2{label:6s} n={n:3d} {dn}",
+                      S.fv4_gsrb2_coop_cuda(lv, x, rhs, cfg),
+                      S.fv4_gsrb2_plain(lv, x, rhs, cfg), tol, worst, "fv4_gsrb2_coop")
             check(f"K3 restrict    n={n:3d} {dn}", R.restrict_cell_cuda(x),
                   R.restrict_cell_plain(x), tol, worst, "restrict_cell")
             # a rank's local block of a decomposed level: any even extents
@@ -254,7 +263,53 @@ def check_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
             del lv, x, rhs, y
     lv8, x8 = random_level(8, torch.float32, dev, rng), torch.zeros((8,) * 3, device=dev)
     refuses_periodic("K2", lambda cfg: S.fv4_gsrb2_cuda(lv8, x8, x8, cfg))
+    refuses_periodic("K2c", lambda cfg: S.fv4_gsrb2_coop_cuda(lv8, x8, x8, cfg))
     check_tail(worst)
+
+
+def check_gsrb2(worst: dict, sizes=(4, 8, 12, 20, 36, 48, 64, 128, 256)):
+    """Phase 3a, K2 (csrc/fv4_gsrb2.cu, one ordinary launch a full sweep):
+    with and without a*alpha*x, float32 and float64, at sizes thinner than
+    its 16 x 32 column and not a multiple of it: against two K1 gsrb
+    launches (parity 0 with kdinv[0], then 1 with kdinv[1]) bit for bit,
+    and against its plain version at F32_TOL / F64_TOL; the shortest chunk
+    of i-planes the launcher takes (4) gives the launcher's result bit for
+    bit."""
+    from hpgmg_tpu_torch.core.config import SolverConfig
+    from hpgmg_tpu_torch.kernels import stencils as S
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 11)
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+        dn = str(dtype)[6:]
+        for n in sizes:
+            lv = random_level(n, dtype, dev, rng)
+            x, rhs = (torch.tensor(a, dtype=dtype, device=dev)
+                      for a in rng.standard_normal((2, n, n, n)))
+            errs = []
+            for cfg in (SolverConfig(a=0.0, b=1.0, dtype=dtype),
+                        SolverConfig(a=1.5, b=1.0, helmholtz=True, dtype=dtype)):
+                out = S.fv4_gsrb2_cuda(lv, x, rhs, cfg)
+                y = S.fv4_stencil_cuda(lv, x, cfg, "gsrb", rhs=rhs, kdinv=lv.kdinv[0],
+                                       parity=0)
+                two = S.fv4_stencil_cuda(lv, y, cfg, "gsrb", rhs=rhs, kdinv=lv.kdinv[1],
+                                         parity=1)
+                if not torch.equal(out, two):
+                    raise AssertionError(f"K2 n={n} {dn} helmholtz={cfg.helmholtz}: "
+                                         f"differs from two K1 launches by "
+                                         f"{relerr(out, two)[0]:.3e}")
+                rel, _ = relerr(out, S.fv4_gsrb2_plain(lv, x, rhs, cfg))
+                if not rel <= tol:
+                    raise AssertionError(f"K2 n={n} {dn} helmholtz={cfg.helmholtz}: "
+                                         f"{rel} > {tol}")
+                errs.append(rel)
+                if n > 4 and not torch.equal(S.fv4_gsrb2_cuda(lv, x, rhs, cfg, chunk=4),
+                                             out):
+                    raise AssertionError(f"K2 n={n} {dn}: chunk 4 differs")
+            print(f"  K2 gsrb2 (2 terms) n={n:3d} {dn}: equals two K1 launches bit for "
+                  f"bit; rel err vs plain {max(errs):.3e}")
+            worst["fv4_gsrb2"] = max(worst.get("fv4_gsrb2", 0.0), max(errs))
+            del lv, x, rhs
 
 
 def stream_cases(lv, rhs):
@@ -520,6 +575,22 @@ def time_stream(lv, x, rhs, cfg, reps: int, row: dict, chunks: bool):
         row["gsrb"]["chunks"] = t
 
 
+def gsrb2_in_turns(lv, x, rhs, cfg, reps: int, label: str):
+    """ms of K2 and of two K1 gsrb launches, one full sweep each, in turns
+    K2, K1 x 2, K1 x 2, K2."""
+    from hpgmg_tpu_torch.kernels import stencils as S
+
+    def two_k1():
+        y = S.fv4_stencil_cuda(lv, x, cfg, "gsrb", rhs=rhs, kdinv=lv.kdinv[0], parity=0)
+        return S.fv4_stencil_cuda(lv, y, cfg, "gsrb", rhs=rhs, kdinv=lv.kdinv[1], parity=1)
+
+    t = [time_ms(f, reps) for f in (lambda: S.fv4_gsrb2_cuda(lv, x, rhs, cfg), two_k1,
+                                     two_k1, lambda: S.fv4_gsrb2_cuda(lv, x, rhs, cfg))]
+    print(f"  K2 gsrb2 {label} in turns with two K1 gsrb launches: K2 {t[0]:.4f} / "
+          f"{t[3]:.4f} ms, K1 x 2 {t[1]:.4f} / {t[2]:.4f} ms")
+    return t
+
+
 def time_kernels(sizes=(64, 128, 256, 512)):
     """Phase 3b: kernel vs plain time on the benchmark's own coefficients
     (float32), each pair checked against F32_TOL. Returns per size (and
@@ -548,10 +619,20 @@ def time_kernels(sizes=(64, 128, 256, 512)):
         row = {}
         cells, betas = n ** 3, nbytes(lv.beta_i, lv.beta_j, lv.beta_k)
         time_stream(lv, x, rhs, cfg, reps, row, n >= 128)
+        # K2 and K2c: x, rhs, the kdinv pair and the face arrays read once,
+        # out written once; the stencil at one cell of each colour a pair
+        sweep = (nbytes(x, rhs, *lv.kdinv, x) + betas,
+                 2 * mode_flops(FV4_AX, "gsrb", cells, 0))
         time_pair(f"K2 gsrb2 {n}^3 f32", lambda: S.fv4_gsrb2_cuda(lv, x, rhs, cfg),
                   lambda: S.fv4_gsrb2_plain(lv, x, rhs, cfg), reps, row, "gsrb2",
-                  work=(nbytes(x, rhs, *lv.kdinv, x) + betas,
-                        2 * mode_flops(FV4_AX, "gsrb", cells, 0)))
+                  work=sweep)
+        row["gsrb2"]["vs_two_k1_in_turns"] = gsrb2_in_turns(lv, x, rhs, cfg, reps,
+                                                            f"{n}^3 f32")
+        if n <= S.GSRB2_MAX_DIM:
+            time_pair(f"K2c gsrb2 {n}^3 f32",
+                      lambda: S.fv4_gsrb2_coop_cuda(lv, x, rhs, cfg),
+                      lambda: S.fv4_gsrb2_plain(lv, x, rhs, cfg), reps, row,
+                      "gsrb2_coop", work=sweep)
         time_pair(f"K3 restrict {n}^3 f32", lambda: R.restrict_cell_cuda(x),
                   lambda: R.restrict_cell_plain(x), reps * 4, row, "restrict",
                   work=(4 * (cells + cells // 8), cells),
@@ -598,6 +679,8 @@ def time_kernels(sizes=(64, 128, 256, 512)):
     x = torch.randn((512,) * 3, generator=gen, device=dev, dtype=torch.float64)
     res["f64"] = {}
     time_stream(lv, x, prob.f, c64, 3, res["f64"], False)
+    res["f64"]["gsrb2_vs_two_k1_in_turns"] = gsrb2_in_turns(lv, x, prob.f, c64, 3,
+                                                            "512^3 f64")
     del prob, lv, x
     torch.cuda.empty_cache()
     return res
@@ -821,7 +904,7 @@ def solve_cfg(bottom: str, dtype, op: str = "fv4", bc: str = "dirichlet"):
 R1_DIRICHLET = ("r1_stencil", "r1_gsrb2", "restrict_cell")
 R1_PERIODIC = ("r1_stencil_periodic", "restrict_cell")
 PATH_KERNELS = {
-    ("fv4", "dirichlet"): ("fv4_gsrb2", "restrict_cell"),
+    ("fv4", "dirichlet"): ("fv4_gsrb2_coop", "restrict_cell"),
     ("fv7pt", "dirichlet"): R1_DIRICHLET,
     ("fv2", "dirichlet"): R1_DIRICHLET,
     ("27pt", "dirichlet"): ("r1_stencil", "restrict_cell"),
@@ -833,7 +916,7 @@ PATH_KERNELS = {
 # and the kernels a periodic F-cycle must never launch: the Dirichlet ghost
 # synthesis (K1, K1s, K5) and the fused kernels that read no periodic ghost
 # (K2, K4, K6)
-DIRICHLET_ONLY = ("fv4_stencil", "fv4_subtile", "fv4_gsrb2",
+DIRICHLET_ONLY = ("fv4_stencil", "fv4_subtile", "fv4_gsrb2", "fv4_gsrb2_coop",
                   "tail_down", "tail_up", "tail_v", "r1_stencil", "r1_gsrb2")
 PERIODIC_ONLY = ("fv4_stencil_periodic", "r1_stencil_periodic")
 
@@ -880,9 +963,11 @@ def check_counts(tag: str, counts: dict, plain_calls: dict, want, bc: str = "dir
 
 
 def headline(op="fv4", n=512, min_solve_seconds=1.0, rel_limit=1e-3,
-             order_range=(3.0, float("inf")), bc="dirichlet", bottom="direct"):
+             order_range=(3.0, float("inf")), bc="dirichlet", bottom="direct",
+             also=()):
     """Phases 4, 5 and 7: one suite's F-cycle through the port's entry
-    point, with the launch counts reset before it and read after it."""
+    point, with the launch counts reset before it and read after it; the
+    kernels of ``also`` must launch too."""
     from hpgmg_tpu_torch.bench.driver import run_benchmark
 
     from hpgmg_tpu_torch.kernels import stencils as S
@@ -904,7 +989,7 @@ def headline(op="fv4", n=512, min_solve_seconds=1.0, rel_limit=1e-3,
         raise AssertionError(f"{tag} rel_residual {res.rel_residual} > {rel_limit}")
     if order_range is not None and not order_range[0] < order < order_range[1]:
         raise AssertionError(f"{tag} Richardson order {order} outside {order_range}")
-    check_counts(tag, counts, plain_calls, path_kernels(op, bc, bottom), bc)
+    check_counts(tag, counts, plain_calls, path_kernels(op, bc, bottom) + also, bc)
     return res, counts
 
 
@@ -945,6 +1030,29 @@ def other_tail_setting(fn):
     return flipped(T, "TAIL_ONE_LAUNCH", fn)
 
 
+def k2_on(fn, least=128):
+    """Run ``fn()`` with K2 (the streaming full sweep) smoothing the fv4
+    Dirichlet levels from ``least`` up, K2c below: stencils.GSRB2_MAX_DIM
+    raised to take every level and the fv4 suite's fv4_gsrb2 swapped for
+    one that launches K2 there (the shipped gate gives K2 no level: two K1
+    half-sweeps measured faster)."""
+    from hpgmg_tpu_torch.kernels import stencils as S
+    from hpgmg_tpu_torch.ops import fv4 as F
+
+    shipped, gate = F.fv4_gsrb2, S.GSRB2_MAX_DIM
+
+    def sweep(level, x, rhs, cfg):
+        if x.is_cuda and level.dim >= least:
+            return S.fv4_gsrb2_cuda(level, x, rhs, cfg)
+        return shipped(level, x, rhs, cfg)
+
+    S.GSRB2_MAX_DIM, F.fv4_gsrb2 = 1 << 20, sweep
+    try:
+        return fn()
+    finally:
+        S.GSRB2_MAX_DIM, F.fv4_gsrb2 = gate, shipped
+
+
 def other_subtile_setting(fn):
     """Run ``fn()`` with stencils.SUBTILE flipped."""
     from hpgmg_tpu_torch.kernels import stencils as S
@@ -956,6 +1064,7 @@ def other_subtile_setting(fn):
 # other tail and SUBTILE settings, the radius-1 suites, the periodic path
 FCYCLES = (("fv4", "fv4", "dirichlet", None),
            ("fv4 other tail", "fv4", "dirichlet", "TAIL_ONE_LAUNCH"),
+           ("fv4 K2 from 128^3", "fv4", "dirichlet", "K2"),
            ("fv4 other SUBTILE", "fv4", "dirichlet", "SUBTILE"),
            ("fv7pt", "fv7pt", "dirichlet", None), ("27pt", "27pt", "dirichlet", None),
            ("fv4 periodic", "fv4", "periodic", None),
@@ -967,8 +1076,9 @@ def fcycle_launches(n=512):
     """Phase 7b: the launches of one F-cycle (float32, DIRECT bottom) of
     each of FCYCLES: the hierarchy built, the counts reset, one fmg_solve,
     the counts read; K1's and K7a's launches also by level (a tally around
-    the fv4 suite's fv4_stencil). No plain version may run, and the fv4
-    F-cycles must launch K1 (K7a)."""
+    the fv4 suite's fv4_stencil), and K2's and K2c's (around its
+    fv4_gsrb2). No plain version may run, and the fv4 F-cycles must launch
+    K1 (K7a)."""
     from hpgmg_tpu_torch.bench.driver import build
     from hpgmg_tpu_torch.kernels import stencils as S
     from hpgmg_tpu_torch.kernels import tail as T
@@ -981,7 +1091,7 @@ def fcycle_launches(n=512):
     out = {}
     for tag, op, bc, flip in FCYCLES:
         cfg = solve_cfg("direct", torch.float32, op, bc)
-        by_level = {}
+        by_level, k2_by_level = {}, {}
 
         def tally(level, *args, **kw):
             by_level[level.dim] = by_level.get(level.dim, 0) + 1
@@ -990,25 +1100,36 @@ def fcycle_launches(n=512):
         def one():
             hier, f = build(n, cfg, dev)
             reset_counts()
-            F.fv4_stencil = tally
+            sweep = F.fv4_gsrb2  # its entry to K2c (K2 where k2_on forces it)
+
+            def tally_k2(level, *args, **kw):
+                k2 = S.fv4_gsrb2_cuda.launches
+                out = sweep(level, *args, **kw)
+                key = f"{level.dim} {'K2' if S.fv4_gsrb2_cuda.launches > k2 else 'K2c'}"
+                k2_by_level[key] = k2_by_level.get(key, 0) + 1
+                return out
+
+            F.fv4_stencil, F.fv4_gsrb2 = tally, tally_k2
             try:
                 fmg_solve(get_suite(op), hier, f, cfg)
                 torch.cuda.synchronize()
             finally:
-                F.fv4_stencil = launch
+                F.fv4_stencil, F.fv4_gsrb2 = launch, sweep
             return read_counts()
 
-        counts, plain = (one() if flip is None else
+        counts, plain = (one() if flip is None else k2_on(one) if flip == "K2" else
                          flipped(T if flip == "TAIL_ONE_LAUNCH" else S, flip, one))
         counts = {k: v for k, v in counts.items() if v}
         print(f"  {tag} {n}^3: launches per F-cycle {counts}; K1/K7a by level "
-              f"{dict(sorted(by_level.items(), reverse=True))}")
+              f"{dict(sorted(by_level.items(), reverse=True))}; K2/K2c by level "
+              f"{k2_by_level}")
         if any(plain.values()):
             raise AssertionError(f"{tag}: a plain version ran: {plain}")
         k1 = "fv4_stencil_periodic" if bc == "periodic" else "fv4_stencil"
         if op == "fv4" and not counts.get(k1):
             raise AssertionError(f"{tag}: no {k1} launch")
-        out[tag] = {"launches": counts, "fv4_stencil_by_level": by_level}
+        out[tag] = {"launches": counts, "fv4_stencil_by_level": by_level,
+                    "fv4_gsrb2_by_level": k2_by_level}
         torch.cuda.empty_cache()
     return out
 
@@ -1049,7 +1170,7 @@ def solver_options(n=512):
             raise AssertionError(f"{tag}: rel_residual {rel} fails its limit {rel_limit}")
         want = fv4_stencil_kernels() + ("restrict_cell",)
         if tag.startswith("bottom"):
-            want += ("fv4_gsrb2", "tail_down", "tail_up")
+            want += ("fv4_gsrb2_coop", "tail_down", "tail_up")
         check_counts(tag, counts, plain_calls, want)
         out[tag] = res
         torch.cuda.empty_cache()
@@ -1352,6 +1473,7 @@ def time_slab_kernels(n=512):
 # the kernels no decomposed level may launch: the single-rank stencils and
 # fused sweeps (K1, K1s, K2, K5, K6, K7a, K7b) and the tail (off under a mesh)
 SINGLE_RANK = ("fv4_stencil", "fv4_subtile", "fv4_stencil_periodic", "fv4_gsrb2",
+               "fv4_gsrb2_coop",
                "tail_down", "tail_up", "tail_v", "r1_stencil", "r1_stencil_periodic",
                "r1_gsrb2")
 # u of the decomposed F-cycle against the one-rank F-cycle on the same card,
@@ -1431,6 +1553,7 @@ def main() -> int:
     phase("3 kernels vs plain")
     worst = {}
     worst["fv4_stencil_vs_K1s"] = check_stream(worst)
+    check_gsrb2(worst)
     check_kernels(worst)
     check_r1_kernels(worst)
     check_subtile(worst)
@@ -1456,6 +1579,16 @@ def main() -> int:
           f"{S.SUBTILE_MAX_DIM}^3 when on)")
     res_st, counts_st = other_subtile_setting(lambda: headline(min_solve_seconds=0.25))
     torch.cuda.empty_cache()
+    phase("4e the headline with K2 smoothing 512^3-128^3 (its gate admits none): K2 "
+          "equals two K1 launches bit for bit, so the same residual and order")
+    res_k2, counts_k2 = k2_on(lambda: headline(min_solve_seconds=0.25,
+                                               also=("fv4_gsrb2",)))
+    if (res_k2.rel_residual, res_k2.richardson_order) != (res.rel_residual,
+                                                          res.richardson_order):
+        raise AssertionError(f"K2 on: rel_residual {res_k2.rel_residual}, order "
+                             f"{res_k2.richardson_order} against {res.rel_residual}, "
+                             f"{res.richardson_order}")
+    torch.cuda.empty_cache()
 
     phase("5 radius-1 F-cycles 512^3 f32, DIRECT bottom: fv7pt, fv2, 27pt")
     r1 = {}
@@ -1470,6 +1603,10 @@ def main() -> int:
     if not abs(res64_alt.richardson_order - res64.richardson_order) <= 1e-6:
         raise AssertionError(f"fv4 f64 order {res64.richardson_order} changes to "
                              f"{res64_alt.richardson_order} with the other tail setting")
+    res64_k2 = k2_on(f64_order)
+    if res64_k2.richardson_order != res64.richardson_order:
+        raise AssertionError(f"fv4 f64 order {res64.richardson_order} changes to "
+                             f"{res64_k2.richardson_order} with K2 on")
     res64_st = other_subtile_setting(f64_order)
     if not abs(res64_st.richardson_order - res64.richardson_order) <= 1e-6:
         raise AssertionError(f"fv4 f64 order {res64.richardson_order} changes to "
@@ -1536,8 +1673,14 @@ def main() -> int:
          times[max(m for m in times if isinstance(m, int) and m <= S.SUBTILE_MAX_DIM)][
              "k1s gsrb"],
          c_k1s["fv4_subtile"]),
+        # K2 at the headline's size, its launches in the run that forces it
+        # on 512^3-128^3 (phase 4e; the shipped gate gives it no level, see
+        # "shipped_path_launches"); K2c at the largest level it smooths
         ("fv4_gsrb2", "fv4_gsrb2.cu", "hpgmg_tpu/kernels/stencils.py:1726",
-         times[64]["gsrb2"], counts["fv4_gsrb2"]),
+         big["gsrb2"], counts_k2["fv4_gsrb2"]),
+        ("fv4_gsrb2_coop", "fv4_gsrb2_coop.cu", "hpgmg_tpu/kernels/stencils.py:1726",
+         times[max(m for m in times if isinstance(m, int) and m <= S.GSRB2_MAX_DIM)][
+             "gsrb2_coop"], counts["fv4_gsrb2_coop"]),
         ("tail_down", "tail.cu", "hpgmg_tpu/kernels/tail.py:273",
          times["tail"]["tail_down"], c_du["tail_down"]),
         ("tail_up", "tail.cu", "hpgmg_tpu/kernels/tail.py:298",
@@ -1577,6 +1720,9 @@ def main() -> int:
                 "source": f"hpgmg_tpu_torch/kernels/csrc/{src}", "replaces": rep,
                 "launches": launches, **t}
                for name, src, rep, t, launches in rows]
+    kernels[[k["name"] for k in kernels].index("fv4_gsrb2")].update(
+        launches_from="phase 4e: the headline with K2 forced on 512^3-128^3",
+        shipped_path_launches=counts["fv4_gsrb2"])
     print(f"  worst relative errors over the checks: {worst}")
     print(json.dumps({"headline": {
         "dof_per_s": res.dof_per_second, "rel_residual": res.rel_residual,
@@ -1590,6 +1736,10 @@ def main() -> int:
         "f64_256_dof_per_s": res64.dof_per_second,
         "f64_256_other_tail_order": res64_alt.richardson_order,
         "subtile": S.SUBTILE,
+        "k2_on_dof_per_s": res_k2.dof_per_second,
+        "k2_on_rel_residual": res_k2.rel_residual,
+        "k2_on_richardson_order": res_k2.richardson_order,
+        "f64_256_k2_on_order": res64_k2.richardson_order,
         "other_subtile_dof_per_s": res_st.dof_per_second,
         "other_subtile_rel_residual": res_st.rel_residual,
         "other_subtile_richardson_order": res_st.richardson_order,

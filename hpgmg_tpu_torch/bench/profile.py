@@ -19,9 +19,10 @@ On the benchmark's problem and hierarchy of the suite ``--op``
    5 V-cycles;
 3. with ``--ab``: phase 2 again with the fused kernels off (half-sweeps
    on every level, no K4 tail); one smoother call per level above the
-   tail through the fused full sweeps (K2 for fv4, K6 for the radius-1
+   tail through the fused full sweeps (K2c for fv4, K6 for the radius-1
    suites) and through half-sweeps (K1, K5) (what sets
-   ``stencils.GSRB2_MAX_DIM`` and ``stencils_r1.GSRB2_MAX_DIM``); and the
+   ``stencils.GSRB2_MAX_DIM`` and ``stencils_r1.GSRB2_MAX_DIM``; a run
+   moves its own suite's gate only); and the
    chain's ms per solve with the shipped schedule and with the fused
    kernels off; for fv4 also the chain's device (CUDA events) and wall
    (host clock) ms per solve with K4c, the one-launch tail V-cycle, on and
@@ -129,29 +130,30 @@ def per_level(op, hier, f, cfg, reps: int = 5) -> list:
 
 
 @contextlib.contextmanager
-def schedule(gsrb2_max_dim, tail_fuse: bool):
-    """Set the levels the fused full sweeps smooth (K2's
-    ``stencils.GSRB2_MAX_DIM`` and K6's ``stencils_r1.GSRB2_MAX_DIM``;
-    None keeps both) and whether the tail goes through K4, for the
-    duration."""
-    old = (stencils.GSRB2_MAX_DIM, stencils_r1.GSRB2_MAX_DIM, tail.TAIL_FUSE)
+def schedule(gsrb2_max_dim, tail_fuse: bool, op: str = "fv4"):
+    """Set the levels the fused full sweeps of suite ``op`` smooth (K2c's
+    ``stencils.GSRB2_MAX_DIM`` for fv4, K6's ``stencils_r1.GSRB2_MAX_DIM``
+    for the radius-1 suites; None keeps the gate) and whether the tail goes
+    through K4, for the duration. Only the suite's own gate moves."""
+    gates = stencils if op == "fv4" else stencils_r1
+    old = (gates.GSRB2_MAX_DIM, tail.TAIL_FUSE)
     if gsrb2_max_dim is not None:
-        stencils.GSRB2_MAX_DIM = stencils_r1.GSRB2_MAX_DIM = gsrb2_max_dim
+        gates.GSRB2_MAX_DIM = gsrb2_max_dim
     tail.TAIL_FUSE = tail_fuse
     try:
         yield
     finally:
-        stencils.GSRB2_MAX_DIM, stencils_r1.GSRB2_MAX_DIM, tail.TAIL_FUSE = old
+        gates.GSRB2_MAX_DIM, tail.TAIL_FUSE = old
 
 
-def fused(on: bool):
+def fused(on: bool, op: str = "fv4"):
     """The shipped schedule (on) or half-sweeps and no tail (off)."""
-    return schedule(None if on else 0, on)
+    return schedule(None if on else 0, on, op)
 
 
 def smooth_ab(op, hier, f, cfg, reps: int = 5) -> list:
     """Phase 3: one smoother call (2 * num_smooths half-sweeps) per level
-    through the fused full sweeps (K2, K6) and through half-sweeps (K1,
+    through the fused full sweeps (K2c, K6) and through half-sweeps (K1,
     K5), device ms per call, in turns fused/half/half/fused, from a
     smoothed iterate."""
     nsweeps = 2 * cfg.resolved_num_smooths(op)
@@ -163,7 +165,7 @@ def smooth_ab(op, hier, f, cfg, reps: int = 5) -> list:
         x = op.gsrb_smooth(lv, torch.zeros_like(rhs), rhs, cfg, nsweeps)
         row = {"dim": lv.dim, "fused_ms": [], "half_ms": []}
         for k2 in (True, False, False, True):
-            with schedule(lv.dim if k2 else 0, True):
+            with schedule(lv.dim if k2 else 0, True, op.name):
                 op.gsrb_smooth(lv, x, rhs, cfg, nsweeps)
                 ms = _events_ms(lambda: [op.gsrb_smooth(lv, x, rhs, cfg, nsweeps)
                                          for _ in range(reps)]) / reps
@@ -174,10 +176,10 @@ def smooth_ab(op, hier, f, cfg, reps: int = 5) -> list:
 
 
 def fused_ab(op, hier, f, cfg, solves: int) -> list:
-    """Phase 3: ms per solve with K2/K4 on and off, in turns on/off/off/on."""
+    """Phase 3: ms per solve with K2c/K6/K4 on and off, in turns on/off/off/on."""
     out = []
     for on in (True, False, False, True):
-        with fused(on):
+        with fused(on, op.name):
             _chain(op, hier, f, cfg, 1)
             ms = _events_ms(lambda: _chain(op, hier, f, cfg, solves)) / solves
         out.append({"fused": on, "ms_per_solve": ms})
@@ -290,7 +292,7 @@ def main(argv=None) -> int:
     if args.ab and cfg.bc != BC.DIRICHLET:
         print("  --ab: periodic levels take no fused kernel (K2, K4, K6); no A/B to run")
     elif args.ab:
-        with fused(False):
+        with fused(False, args.op):
             res["levels_unfused"] = per_level(op, hier, f, cfg)
         for row in res["levels_unfused"]:
             print(f"  V-cycle from {row['dim']:4d}^3, fused sweeps/K4 off: device "

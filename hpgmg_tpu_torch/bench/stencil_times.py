@@ -7,14 +7,23 @@ one CUDA device.
 For each size and BC, on the benchmark problem's finest level as the fv4
 suite rebuilds it, with x drawn from a seeded generator: the ms per call
 (CUDA events over ``--reps`` calls at 512^3, as many cells' worth on
-smaller levels, after 3 warm-up calls) of the suite's
+smaller levels up to 64 times as many calls, after 3 warm-up calls) of the
+suite's
 ``apply_op``, ``residual``, ``gsrb_sweep`` (parity 0) and
-``restrict_residual``, the calls a V-cycle makes on levels above the fused
-sweep's gate (K1 on Dirichlet levels, K7a on periodic ones). It reads
-nothing but the suite's methods, so the same file times an older tree of
-the package too (copied into that tree and run from its root), in turns
-with this one on the same card. Prints one JSON line; ``--json`` also
-writes it to a file.
+``restrict_residual`` (K1 on Dirichlet levels, K7a on periodic ones), and
+one smoother call (the suite's 6 half-sweeps): as the suite's
+``gsrb_smooth`` under the tree's own gate (``smooth``; K7a half-sweeps on
+a periodic level), and on a Dirichlet level also as three
+``stencils.fv4_gsrb2_cuda`` sweeps (K2, ``smooth_k2``), as three
+``fv4_gsrb2_coop_cuda`` sweeps where the tree has K2c (``smooth_k2c``) and
+as ``gsrb_smooth`` with ``stencils.GSRB2_MAX_DIM`` set to 0 (K1
+half-sweeps, ``smooth_k1``); beside each smoother call's time, the device
+time of its kernels alone (torch.profiler), which tells launch overhead
+from kernel time on the small levels. It reads nothing but these and the gate, so the
+same file times an older tree of the package too (copied into that tree
+and run from its root; there ``fv4_gsrb2_cuda`` is its own K2), in turns
+with this one on the same card. Prints one JSON line;
+``--json`` also writes it to a file.
 """
 
 from __future__ import annotations
@@ -28,6 +37,7 @@ import torch
 from hpgmg_tpu_torch.bench.driver import build_problem
 from hpgmg_tpu_torch.core.config import BC, SolverConfig
 from hpgmg_tpu_torch.core.level import Level
+from hpgmg_tpu_torch.kernels import stencils
 from hpgmg_tpu_torch.ops.base import get_suite
 
 SEED = 20261017
@@ -48,11 +58,28 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int):
+    """Device ms per call of ``fn``: its kernels' own time in a
+    torch.profiler trace of ``reps`` calls, without the gaps between
+    launches; None when the trace shows no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return us / 1000.0 / reps if us else None
+
+
 def level_times(n: int, dtype: torch.dtype, bc: BC, reps: int) -> dict:
-    """{call: ms} of the four stencil calls on the n^3 level, each over
-    ``reps`` calls at 512^3 and proportionally more on smaller levels (the
-    same cells timed)."""
-    reps = reps * max(1, (512 // n) ** 3)
+    """{call: ms} of the four stencil calls and the smoother calls on the
+    n^3 level, each over ``reps`` calls at 512^3 and proportionally more on
+    smaller levels (the same cells timed); for each smoother call also its
+    kernels' device ms (``<call>_device``)."""
+    reps = reps * min(64, max(1, (512 // n) ** 3))
     dev = torch.device("cuda")
     cfg = SolverConfig(op="fv4", bc=bc, a=0.0, b=1.0, dtype=dtype)
     suite = get_suite("fv4")
@@ -66,7 +93,36 @@ def level_times(n: int, dtype: torch.dtype, bc: BC, reps: int) -> dict:
              "residual": lambda: suite.residual(lv, x, f, cfg),
              "gsrb": lambda: suite.gsrb_sweep(lv, x, f, cfg, 0),
              "fres": lambda: suite.restrict_residual(lv, x, f, cfg)}
-    return {name: time_ms(fn, reps) for name, fn in calls.items()}
+    out = {name: time_ms(fn, reps) for name, fn in calls.items()}
+    nsweeps = 2 * suite.gsrb_num_smooths
+
+    def sweeps(kernel):
+        def run():
+            y = x
+            for _ in range(nsweeps // 2):
+                y = kernel(lv, y, f, cfg)
+            return y
+        return run
+
+    def half_sweeps():
+        old = stencils.GSRB2_MAX_DIM
+        stencils.GSRB2_MAX_DIM = 0
+        try:
+            return suite.gsrb_smooth(lv, x, f, cfg, nsweeps)
+        finally:
+            stencils.GSRB2_MAX_DIM = old
+
+    # the smoother call as the solver makes it, under the tree's own gate
+    smooths = {"smooth": lambda: suite.gsrb_smooth(lv, x, f, cfg, nsweeps)}
+    if bc == BC.DIRICHLET:
+        smooths["smooth_k2"] = sweeps(stencils.fv4_gsrb2_cuda)
+        if hasattr(stencils, "fv4_gsrb2_coop_cuda"):
+            smooths["smooth_k2c"] = sweeps(stencils.fv4_gsrb2_coop_cuda)
+        smooths["smooth_k1"] = half_sweeps
+    for name, fn in smooths.items():
+        out[name] = time_ms(fn, reps)
+        out[name + "_device"] = device_ms(fn, reps)
+    return out
 
 
 def main(argv=None) -> dict:

@@ -44,10 +44,14 @@ _SIGNATURES = {
     #  a_coef, stream); x is the n^3 cell field, mode apply/residual/gsrb
     "hpgmg_fv4_subtile_f32": (_P,) * 8 + (_I, _I, _D, _D, _P),
     "hpgmg_fv4_subtile_f64": (_P,) * 8 + (_I, _I, _D, _D, _P),
+    # (x, beta_i, beta_j, beta_k, alpha, rhs, kd0, kd1, out, n, chunk, scale,
+    #  a_coef, stream); kd0 read at red cells, kd1 at black ones
+    "hpgmg_fv4_gsrb2_f32": (_P,) * 9 + (_I, _I, _D, _D, _P),
+    "hpgmg_fv4_gsrb2_f64": (_P,) * 9 + (_I, _I, _D, _D, _P),
     # (x, beta_i, beta_j, beta_k, alpha, rhs, kdinv0, kdinv1, xp, yp, out, n,
     #  scale, a_coef, stream); xp, yp are (n+4)^3 scratch buffers
-    "hpgmg_fv4_gsrb2_f32": (_P,) * 11 + (_I, _D, _D, _P),
-    "hpgmg_fv4_gsrb2_f64": (_P,) * 11 + (_I, _D, _D, _P),
+    "hpgmg_fv4_gsrb2_coop_f32": (_P,) * 11 + (_I, _D, _D, _P),
+    "hpgmg_fv4_gsrb2_coop_f64": (_P,) * 11 + (_I, _D, _D, _P),
     # (ptrs, dims, scales, nlev, nsweeps, a_coef, x_in | u_bot, xp, tmp,
     #  stream); ptrs is a host array of 9 device pointers per level
     "hpgmg_tail_down_f32": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P),

@@ -22,10 +22,16 @@ by plane through shared memory, making x's quartic Dirichlet ghosts (K1)
 or wrapped ones (K7a) as its planes arrive, and a gsrb half-sweep computes
 A x at the cells of its ``parity`` only. K7a's face coefficients are
 wrapped tangentially at build time (``extend_beta_tangential``); its
-launches count in ``periodic_launches``. K2 is one launch per full sweep
-(``fv4_gsrb2``): the red half-sweep with kdinv[0], then the black one with
-kdinv[1], equal to two K1 gsrb calls. It takes Dirichlet levels only, as
-the JAX package fuses no periodic sweep (hpgmg_tpu/ops/fv4.py:172-174).
+launches count in ``periodic_launches``. A full sweep (the red half-sweep
+with kdinv[0], then the black one with kdinv[1]) has two kernels: K2c, one
+cooperative launch of four grid-wide phases (``fv4_gsrb2_coop_cuda``,
+``csrc/fv4_gsrb2_coop.cu``), which the suite's ``fv4_gsrb2`` launches on
+the levels up to ``GSRB2_MAX_DIM``; and K2, one ordinary launch that
+streams the red half-sweep two planes ahead of the black one through
+shared memory (``fv4_gsrb2_cuda``, ``csrc/fv4_gsrb2.cu``), equal to two K1
+gsrb calls bit for bit, which no level takes (see the gate). Both take
+Dirichlet levels only, as the JAX package fuses no periodic sweep
+(hpgmg_tpu/ops/fv4.py:172-174).
 
 K1s (``fv4_subtile``) computes K1's apply, residual and gsrb in one launch
 on a Dirichlet level, its ghosts synthesized in the kernel
@@ -50,12 +56,27 @@ from hpgmg_tpu_torch.ops.bc_fv import _extend_axis_v4, ghost_fill_fv
 MODES = {"apply": 0, "residual": 1, "gsrb": 2, "fres": 3}
 TWELFTH = 1.0 / 12.0
 
-# Full GSRB sweeps on levels with dim <= GSRB2_MAX_DIM go through K2 (one
-# launch) instead of two K1 half-sweeps (0: never). Measured on an H100
-# (bench/profile.py --ab, one smoother call of 6 half-sweeps): K2 wins at
-# 64^3, where launches dominate (0.21-0.43 against 0.48-0.59 ms), and
-# loses from 128^3 up (0.54 against 0.43 ms; 512^3: 23.0 against 19.9 ms).
+# Full GSRB sweeps on the Dirichlet levels of one rank with dim <=
+# GSRB2_MAX_DIM go through K2c (``fv4_gsrb2``, the cooperative kernel)
+# instead of two K1 half-sweeps (0: never). K2 (``fv4_gsrb2_cuda``, the
+# streaming kernel) smooths no level: it won at no size. Measured on an
+# H100 (700 W) in turns with the tree before K2's redesign
+# (bench/stencil_times.py, ms per smoother call of 6 half-sweeps; PERF.md),
+# f32 then f64:
+#   64^3   K2c 0.119-0.197 over 4 runs, its kernels' device time
+#          0.091-0.093 (that tree's same kernel 0.118-0.204, 0.092-0.095);
+#          K2 0.158-0.160 (device 0.155-0.156), K1 0.304-0.307;
+#          f64 K2c 0.130-0.204 (0.115-0.127), K2 0.188-0.189, K1 0.383
+#   128^3  K2 0.383-0.384, K1 0.367-0.369; f64 0.7291-0.7292 against
+#          0.7296-0.7300 (even)
+#   256^3  K2 2.176-2.196, K1 1.979-1.991; f64 4.298-4.300, 4.059-4.065
+#   512^3  K2 13.37-13.51, K1 13.20-13.27; f64 29.81-29.82, 28.50-28.73
+# K2c's device time is the least at 64^3; its call time there is mostly
+# the cooperative launch's host cost, which varies from run to run. K1
+# wins from 128^3 up in both types. The 16^3 and 32^3 levels are the
+# tail's.
 GSRB2_MAX_DIM = 64
+
 
 # K1s instead of K1 on the Dirichlet levels with dim <= SUBTILE_MAX_DIM
 # (the JAX package's switch, hpgmg_tpu/kernels/stencils.py:870, whose
@@ -360,29 +381,29 @@ fv4_stencil_cuda.periodic_launches = 0
 
 
 def fv4_gsrb2_cuda(level: Level, x: torch.Tensor, rhs: torch.Tensor,
-                   cfg: SolverConfig) -> torch.Tensor:
-    """Launch K2 (one full red+black sweep) into a newly allocated output."""
+                   cfg: SolverConfig, chunk: int = 0) -> torch.Tensor:
+    """Launch K2 (one full red+black sweep, ``csrc/fv4_gsrb2.cu``) into a
+    newly allocated output: one ordinary launch, no scratch; ``kdinv[0]``
+    is read at the red cells, ``kdinv[1]`` at the black ones. ``chunk``:
+    i-planes a block marches (0: the launcher's rule, as the solver calls
+    it; other values time the rule)."""
     from hpgmg_tpu_torch.kernels.build import library
 
     check_dirichlet(cfg, "the fused fv4 sweep (K2)")
     _check(level, x, cfg, "gsrb", rhs, level.kdinv or (None, None))
     if not x.is_cuda:
         raise ValueError(f"fv4_gsrb2_cuda wants CUDA tensors, got {x.device}")
+    kd0, kd1 = level.kdinv
     n = level.dim
-    if n > 1200:
-        raise ValueError(f"fv4 gsrb2 kernel takes n <= 1200, got {n}")
-    xp = torch.empty((2,) + (n + 4,) * 3, dtype=x.dtype, device=x.device)
     out = torch.empty_like(x)
     alpha = level.alpha if cfg.helmholtz else None
-    lib = library()
-    fn = (lib.hpgmg_fv4_gsrb2_f32 if x.dtype == torch.float32
-          else lib.hpgmg_fv4_gsrb2_f64)
+    dt = "f32" if x.dtype == torch.float32 else "f64"
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), level.beta_i.data_ptr(), level.beta_j.data_ptr(),
-                level.beta_k.data_ptr(), _ptr(alpha), rhs.data_ptr(),
-                level.kdinv[0].data_ptr(), level.kdinv[1].data_ptr(),
-                xp[0].data_ptr(), xp[1].data_ptr(), out.data_ptr(), n,
-                -cfg.b * level.h2inv, float(cfg.a), _stream(x))
+        rc = getattr(library(), f"hpgmg_fv4_gsrb2_{dt}")(
+            x.data_ptr(), level.beta_i.data_ptr(), level.beta_j.data_ptr(),
+            level.beta_k.data_ptr(), _ptr(alpha), rhs.data_ptr(), kd0.data_ptr(),
+            kd1.data_ptr(), out.data_ptr(), n, chunk, -cfg.b * level.h2inv,
+            float(cfg.a), _stream(x))
     if rc != 0:
         raise RuntimeError(f"fv4 gsrb2 kernel launch failed: CUDA error {rc}")
     fv4_gsrb2_cuda.launches += 1
@@ -390,6 +411,40 @@ def fv4_gsrb2_cuda(level: Level, x: torch.Tensor, rhs: torch.Tensor,
 
 
 fv4_gsrb2_cuda.launches = 0
+
+
+def fv4_gsrb2_coop_cuda(level: Level, x: torch.Tensor, rhs: torch.Tensor,
+                        cfg: SolverConfig) -> torch.Tensor:
+    """Launch K2c (K2's full sweep as one cooperative launch of four
+    grid-wide phases, ``csrc/fv4_gsrb2_coop.cu``) into a newly allocated
+    output, with two (n+4)^3 scratch buffers."""
+    from hpgmg_tpu_torch.kernels.build import library
+
+    check_dirichlet(cfg, "the fused fv4 sweep (K2c)")
+    _check(level, x, cfg, "gsrb", rhs, level.kdinv or (None, None))
+    if not x.is_cuda:
+        raise ValueError(f"fv4_gsrb2_coop_cuda wants CUDA tensors, got {x.device}")
+    n = level.dim
+    if n > 1200:
+        raise ValueError(f"fv4 gsrb2 coop kernel takes n <= 1200, got {n}")
+    xp = torch.empty((2,) + (n + 4,) * 3, dtype=x.dtype, device=x.device)
+    out = torch.empty_like(x)
+    alpha = level.alpha if cfg.helmholtz else None
+    dt = "f32" if x.dtype == torch.float32 else "f64"
+    with torch.cuda.device(x.device):
+        rc = getattr(library(), f"hpgmg_fv4_gsrb2_coop_{dt}")(
+            x.data_ptr(), level.beta_i.data_ptr(), level.beta_j.data_ptr(),
+            level.beta_k.data_ptr(), _ptr(alpha), rhs.data_ptr(),
+            level.kdinv[0].data_ptr(), level.kdinv[1].data_ptr(),
+            xp[0].data_ptr(), xp[1].data_ptr(), out.data_ptr(), n,
+            -cfg.b * level.h2inv, float(cfg.a), _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"fv4 gsrb2 coop kernel launch failed: CUDA error {rc}")
+    fv4_gsrb2_coop_cuda.launches += 1
+    return out
+
+
+fv4_gsrb2_coop_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -425,11 +480,11 @@ def fv4_subtile(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
 
 def fv4_gsrb2(level: Level, x: torch.Tensor, rhs: torch.Tensor,
               cfg: SolverConfig) -> torch.Tensor:
-    """K2 on ``level``: one full GSRB sweep (parity 0, then 1) with the
-    level's ``kdinv`` pair; the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    """One full GSRB sweep (parity 0, then 1) on ``level`` with the
+    level's ``kdinv`` pair: K2c for CUDA tensors, the plain version for
+    CPU tensors."""
     if x.is_cuda:
-        return fv4_gsrb2_cuda(level, x, rhs, cfg)
+        return fv4_gsrb2_coop_cuda(level, x, rhs, cfg)
     if x.device.type == "cpu":
         return fv4_gsrb2_plain(level, x, rhs, cfg)
     raise ValueError(f"fv4 gsrb2 has no kernel for device {x.device}")

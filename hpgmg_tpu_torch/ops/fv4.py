@@ -13,11 +13,11 @@ On a level decomposed over a process grid (``level.part``) every apply,
 residual and half-sweep goes through K8a (K8b under
 ``shard_kernels.OVERLAP``) after the slab exchange, and the residual
 restriction is K8a's residual, then K3 on the local block (K8a has no
-fres mode); K2 takes no decomposed level. Elsewhere every apply,
+fres mode); K2c takes no decomposed level. Elsewhere every apply,
 residual, half-sweep and residual restriction goes through
 K1, or K7a on a periodic level (``kernels/stencils.py:fv4_stencil``, whose
 plain version is ``stencil_ax`` there), and every full GSRB sweep on the
-smaller Dirichlet levels through K2 (``fv4_gsrb2``). Under
+smaller Dirichlet levels through K2c (``fv4_gsrb2``). Under
 ``stencils.SUBTILE`` the levels ``stencils.use_subtile`` admits take K1s
 (``fv4_subtile``) for their applies, residuals and half-sweeps instead,
 and restrict their residual unfused (K1s residual, then K3), as the JAX
@@ -71,7 +71,7 @@ class FV4(base.OperatorSuite):
 
     def gsrb_smooth(self, level: Level, x, rhs, cfg: SolverConfig,
                     nsweeps: int):
-        """``nsweeps`` half-sweeps from parity 0: pairs of them as K2's
+        """``nsweeps`` half-sweeps from parity 0: pairs of them as K2c's
         full sweeps on Dirichlet levels up to ``stencils.GSRB2_MAX_DIM``,
         else one K1s, K1 or K7a launch each."""
         if (level.part is None and cfg.bc == BC.DIRICHLET and nsweeps % 2 == 0

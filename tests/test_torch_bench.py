@@ -73,7 +73,7 @@ def test_run_benchmark_on_cpu_names_its_device():
     assert T.tail_down_plain.calls > tail_calls[0]
     assert T.tail_up_plain.calls > tail_calls[1]
     assert all(fn.launches == 0 for fn in (
-        S.fv4_stencil_cuda, S.fv4_gsrb2_cuda,
+        S.fv4_stencil_cuda, S.fv4_gsrb2_cuda, S.fv4_gsrb2_coop_cuda,
         T.tail_down_cuda, T.tail_up_cuda, R.restrict_cell_cuda))
 
 
@@ -118,13 +118,20 @@ def test_bench_main_periodic(capsys, op):
 
 
 def test_profile_schedule_switch_restores_the_schedule():
+    from hpgmg_tpu_torch.kernels import stencils_r1 as R
+
     shipped = (S.GSRB2_MAX_DIM, T.TAIL_FUSE)
+    r1_gate = R.GSRB2_MAX_DIM
     assert shipped[0] >= 8 and shipped[1]
     with bench_profile.fused(False):
         assert (S.GSRB2_MAX_DIM, T.TAIL_FUSE) == (0, False)
+        assert R.GSRB2_MAX_DIM == r1_gate  # an fv4 run leaves K6's gate
     with bench_profile.schedule(512, True):
         assert S.GSRB2_MAX_DIM == 512
+    with bench_profile.fused(False, "fv7pt"):
+        assert (R.GSRB2_MAX_DIM, S.GSRB2_MAX_DIM) == (0, shipped[0])
     assert (S.GSRB2_MAX_DIM, T.TAIL_FUSE) == shipped
+    assert R.GSRB2_MAX_DIM == r1_gate
 
 
 def test_entry_points_refuse_without_cuda(monkeypatch, capsys):

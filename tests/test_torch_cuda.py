@@ -85,10 +85,13 @@ def test_k2_matches_plain(dev, n, dtype):
               for a in rng.standard_normal((2, n, n, n)))
     for cfg in (SolverConfig(a=0.0, dtype=dtype),
                 SolverConfig(a=1.5, helmholtz=True, dtype=dtype)):
-        launches = S.fv4_gsrb2_cuda.launches
-        out = S.fv4_gsrb2(lv, x, rhs, cfg)
-        assert S.fv4_gsrb2_cuda.launches == launches + 1
-        assert relerr(out, S.fv4_gsrb2_plain(lv, x, rhs, cfg)) <= TOL[dtype]
+        launches = S.fv4_gsrb2_coop_cuda.launches
+        out = S.fv4_gsrb2(lv, x, rhs, cfg)  # the entry launches K2c
+        assert S.fv4_gsrb2_coop_cuda.launches == launches + 1
+        plain = S.fv4_gsrb2_plain(lv, x, rhs, cfg)
+        assert relerr(out, plain) <= TOL[dtype]
+        for kernel in (S.fv4_gsrb2_cuda, S.fv4_gsrb2_coop_cuda):
+            assert relerr(kernel(lv, x, rhs, cfg), plain) <= TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

@@ -108,3 +108,25 @@ def test_gsrb2_rejects_what_the_kernel_does_not_take(setup):
         S.fv4_gsrb2(dataclasses.replace(lv, kdinv=None), tx, tx, cfg)
     with pytest.raises(TypeError):
         S.fv4_gsrb2(lv, tx.float(), torch.tensor(rhs).float(), cfg)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_smooth_takes_k2_on_exactly_the_levels_the_gate_admits(monkeypatch, dtype):
+    """On each level of a 32^3 ladder the smoother's 6 half-sweeps are 3
+    full sweeps (K2c on the card, counted here by their plain version) on
+    exactly the Dirichlet levels with dim <= GSRB2_MAX_DIM; the other
+    levels take K1 half-sweeps."""
+    from hpgmg_tpu_torch.bench.driver import build
+
+    cfg = SolverConfig(op="fv4", a=0.0, b=1.0, dtype=dtype, min_coarse_dim=4)
+    hier, f = build(32, cfg, torch.device("cpu"))[:2]
+    op = get_suite("fv4")
+    for top in (S.GSRB2_MAX_DIM, 0, 8, 16):
+        monkeypatch.setattr(S, "GSRB2_MAX_DIM", top)
+        for lv in hier.levels:
+            x = torch.zeros(lv.shape, dtype=dtype)
+            rhs = torch.ones(lv.shape, dtype=dtype)
+            k2, k1 = S.fv4_gsrb2_plain.calls, S.fv4_stencil_plain.calls
+            op.gsrb_smooth(lv, x, rhs, cfg, 6)
+            assert S.fv4_gsrb2_plain.calls - k2 == (3 if lv.dim <= top else 0), (lv.dim, top)
+            assert S.fv4_stencil_plain.calls - k1 == 6, lv.dim
