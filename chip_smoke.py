@@ -19,17 +19,21 @@ Phases, each printing its result and raising on failure (exit code != 0):
    (or held to K1S_TOL); K2 (csrc/fv4_gsrb2.cu, the full red+black sweep
    in one ordinary launch) at the same sizes, f32 and f64, with and without
    a*alpha*x, equal to two K1 gsrb launches bit for bit and to itself with
-   the shortest chunk of i-planes; K2c (the sweep as one cooperative
-   launch) and K3 (cell restriction) at n in {8, 16, 32, 48, 64, 128,
-   256}; K4 (tail descent
-   and climb) on the tail ladders 32-16 and 16 over an 8^3 bottom; then
+   the shortest chunk of i-planes; K2c (the sweep in one launch of
+   thread-block clusters) at every n from 4 to its largest (64, the top of
+   its gate), odd n included, also against two K1 launches, and K3 (cell
+   restriction) at n in {8, 16, 32, 48, 64, 128, 256}; K4 (the tail
+   descent, climb and one-launch V-cycle, one cluster each) on the tail
+   ladders 32-16 and 16 over an 8^3 bottom; K2c and K4 refuse a size beyond
+   their limits; then
    kernel vs plain times, with the same error check, at 64^3, 128^3, 256^3
    and 512^3 (K4 at 32-16; K1 also at 512^3 float64), K1 in turns
    with K1s, its bound and its gsrb per chunk of i-planes at 128^3 and up,
    K2 in turns with two K1 launches (also at 512^3 float64), K2c up to its
-   gate; the kernels line reports each kernel at a size the main path runs
-   it at (K2c smooths the 64^3 level, K2 is reported at 512^3, the others
-   run at 512^3);
+   gate and K4 on the headline's 32-16 tail each with its device time
+   (torch.profiler) and its shared memory a block; the kernels line reports each
+   kernel at a size the main path runs it at (K2c smooths the 64^3 level,
+   K2 is reported at 512^3, the others run at 512^3);
    K5 (the radius-1 stencil: var7 body with the fv7pt and fv2 ghost taps,
    every mode, with and without a*alpha*x; 27pt body, every mode, with and
    without its constant a*x) and K6 (full red+black sweep, both bodies,
@@ -204,6 +208,25 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Device time per call of ``fn``: its kernels' own time in a
+    torch.profiler trace of ``reps`` calls (no gaps between launches)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    if not us:
+        raise AssertionError("torch.profiler shows no device time")
+    return us / 1000.0 / reps
+
+
 def random_level(n: int, dtype, device, rng):
     """A level of random positive face coefficients (stored tangentially
     extended, as rebuild_operator leaves them), random alpha and a
@@ -232,11 +255,10 @@ def check(label: str, out, ref, tol: float, worst: dict, name: str):
 
 
 def check_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
-    """Phase 3a: K2c and K3 against their plain versions, at the sizes the
-    main path gives them (the smoother levels run from 512 down; 256 and up
-    span several blocks along k); then K4 (check_tail). K1 and K7a:
-    check_stream; K2: check_gsrb2."""
-    from hpgmg_tpu_torch.core.config import SolverConfig
+    """Phase 3a: K3 against its plain version, at the sizes the main path
+    gives it (the smoother levels run from 512 down; 256 and up span
+    several blocks along k); K2c (check_cluster_gsrb2); then K4
+    (check_tail). K1 and K7a: check_stream; K2: check_gsrb2."""
     from hpgmg_tpu_torch.kernels import restrict as R
     from hpgmg_tpu_torch.kernels import stencils as S
 
@@ -248,12 +270,6 @@ def check_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
             lv = random_level(n, dtype, dev, rng)
             x = torch.tensor(rng.standard_normal((n, n, n)), dtype=dtype, device=dev)
             rhs = torch.tensor(rng.standard_normal((n, n, n)), dtype=dtype, device=dev)
-            poisson = SolverConfig(a=0.0, b=1.0, dtype=dtype)
-            helm = SolverConfig(a=1.5, b=1.0, helmholtz=True, dtype=dtype)
-            for label, cfg in (("", poisson), ("+alpha", helm)):
-                check(f"K2c gsrb2{label:6s} n={n:3d} {dn}",
-                      S.fv4_gsrb2_coop_cuda(lv, x, rhs, cfg),
-                      S.fv4_gsrb2_plain(lv, x, rhs, cfg), tol, worst, "fv4_gsrb2_coop")
             check(f"K3 restrict    n={n:3d} {dn}", R.restrict_cell_cuda(x),
                   R.restrict_cell_plain(x), tol, worst, "restrict_cell")
             # a rank's local block of a decomposed level: any even extents
@@ -263,8 +279,60 @@ def check_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
             del lv, x, rhs, y
     lv8, x8 = random_level(8, torch.float32, dev, rng), torch.zeros((8,) * 3, device=dev)
     refuses_periodic("K2", lambda cfg: S.fv4_gsrb2_cuda(lv8, x8, x8, cfg))
-    refuses_periodic("K2c", lambda cfg: S.fv4_gsrb2_coop_cuda(lv8, x8, x8, cfg))
+    check_cluster_gsrb2(worst)
     check_tail(worst)
+
+
+def check_cluster_gsrb2(worst: dict):
+    """Phase 3a, K2c: the full sweep in one launch of clusters against its
+    plain version and against two K1 gsrb launches (equal to rounding: its
+    ghost planes' edges sum the same taps in another order) at every n from
+    4 to its gate's top and its largest n, odd ones included, float32 and
+    float64, with and without a*alpha*x; its refusal of a periodic level
+    and of n beyond its largest."""
+    from hpgmg_tpu_torch.core.config import SolverConfig
+    from hpgmg_tpu_torch.kernels import stencils as S
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 2)
+    top = max(S.GSRB2_MAX_DIM, S.GSRB2_CLUSTER_MAX_N)
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+        dn = str(dtype)[6:]
+        for n in range(4, top + 1):
+            lv = random_level(n, dtype, dev, rng)
+            x, rhs = (torch.tensor(a, dtype=dtype, device=dev)
+                      for a in rng.standard_normal((2, n, n, n)))
+            for label, cfg in (("", SolverConfig(a=0.0, b=1.0, dtype=dtype)),
+                               ("+alpha", SolverConfig(a=1.5, b=1.0, helmholtz=True,
+                                                       dtype=dtype))):
+                out = S.fv4_gsrb2_cluster_cuda(lv, x, rhs, cfg)
+                y = S.fv4_stencil_cuda(lv, x, cfg, "gsrb", rhs=rhs, kdinv=lv.kdinv[0],
+                                       parity=0)
+                two_k1 = S.fv4_stencil_cuda(lv, y, cfg, "gsrb", rhs=rhs,
+                                            kdinv=lv.kdinv[1], parity=1)
+                tag = f"n={n:3d} {dn}{label}"
+                check(f"K2c gsrb2 vs plain  {tag}", out,
+                      S.fv4_gsrb2_plain(lv, x, rhs, cfg), tol, worst, "fv4_gsrb2_cluster")
+                check(f"K2c gsrb2 vs 2 K1   {tag}", out, two_k1, tol, worst,
+                      "fv4_gsrb2_cluster_vs_two_k1")
+            del lv, x, rhs
+    lv8, x8 = random_level(8, torch.float32, dev, rng), torch.zeros((8,) * 3, device=dev)
+    refuses_periodic("K2c", lambda cfg: S.fv4_gsrb2_cluster_cuda(lv8, x8, x8, cfg))
+    n = S.GSRB2_CLUSTER_MAX_N + 2
+    big, xb = random_level(n, torch.float32, dev, rng), torch.zeros((n,) * 3, device=dev)
+    refuses_size(f"K2c at {n}^3", lambda: S.fv4_gsrb2_cluster_cuda(
+        big, xb, xb, SolverConfig(a=0.0, b=1.0)))
+
+
+def refuses_size(name: str, launch):
+    """Raise unless ``launch()`` raises ValueError: a size beyond the
+    kernel's limits."""
+    try:
+        launch()
+    except ValueError as e:
+        print(f"  {name} refused: {e}")
+        return
+    raise AssertionError(f"{name} launched beyond the kernel's limits")
 
 
 def check_gsrb2(worst: dict, sizes=(4, 8, 12, 20, 36, 48, 64, 128, 256)):
@@ -478,6 +546,10 @@ def check_tail(worst: dict, ladders=((32, 16), (16,))):
     refuses_periodic("K4a", lambda c: T.tail_down_cuda(tail, e, rhs, c, 6))
     refuses_periodic("K4b", lambda c: T.tail_up_cuda(tail, es_p, rhss, u_bot, c, 6))
     refuses_periodic("K4c", lambda c: T.tail_v_cuda(tail, bottom, e, rhs, c, 6))
+    big = [random_level(d, torch.float32, dev, rng) for d in (64, 32)]
+    e64 = torch.zeros(big[0].shape, device=dev)
+    refuses_size("K4 on a 64-32 tail", lambda: T.tail_down_cuda(
+        big, e64, e64, SolverConfig(a=0.0, b=1.0), 6))
 
 
 def random_ainv(d: int, dtype, device, rng) -> torch.Tensor:
@@ -500,11 +572,12 @@ def bound(nbytes_: float, flops: float):
 
 
 def time_pair(label: str, kernel, plain, reps: int, row: dict, key: str,
-              work=(0, 0), library=None):
+              work=(0, 0), library=None, device=False):
     """Time ``kernel`` and ``plain`` (and ``library``, one PyTorch call
     computing the same function, where there is one) with CUDA events, check
     them against each other at the float32 tolerance, and record the times,
-    the max abs error and the bound of ``work`` = (bytes, flops)."""
+    the max abs error and the bound of ``work`` = (bytes, flops); with
+    ``device``, also the kernel's device time (torch.profiler)."""
     k_ms = time_ms(kernel, reps)
     p_ms = time_ms(plain, reps)
     lib_ms = time_ms(library, reps) if library is not None else None
@@ -525,6 +598,9 @@ def time_pair(label: str, kernel, plain, reps: int, row: dict, key: str,
         raise AssertionError(f"{label}: rel err {rel} > {F32_TOL}")
     row[key] = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": err,
                 "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+    if device:
+        row[key]["device_ms"] = device_ms(kernel, reps)
+        print(f"  {label}: device {row[key]['device_ms']:.4f} ms a call")
 
 
 def stream_work(lv, x, mode: str, kw: dict):
@@ -630,9 +706,10 @@ def time_kernels(sizes=(64, 128, 256, 512)):
                                                             f"{n}^3 f32")
         if n <= S.GSRB2_MAX_DIM:
             time_pair(f"K2c gsrb2 {n}^3 f32",
-                      lambda: S.fv4_gsrb2_coop_cuda(lv, x, rhs, cfg),
-                      lambda: S.fv4_gsrb2_plain(lv, x, rhs, cfg), reps, row,
-                      "gsrb2_coop", work=sweep)
+                      lambda: S.fv4_gsrb2_cluster_cuda(lv, x, rhs, cfg),
+                      lambda: S.fv4_gsrb2_plain(lv, x, rhs, cfg), reps * 10, row,
+                      "gsrb2_cluster", work=sweep, device=True)
+            row["gsrb2_cluster"]["smem_bytes"] = S.gsrb2_cluster_smem(n, 4)
         time_pair(f"K3 restrict {n}^3 f32", lambda: R.restrict_cell_cuda(x),
                   lambda: R.restrict_cell_plain(x), reps * 4, row, "restrict",
                   work=(4 * (cells + cells // 8), cells),
@@ -652,14 +729,14 @@ def time_kernels(sizes=(64, 128, 256, 512)):
     time_pair("K4 down 32-16 f32", lambda: T.tail_down_cuda(tail, e, rhs, cfg, 6),
               lambda: T.tail_down_plain(tail, e, rhs, cfg, 6), 50, row, "tail_down",
               work=(coefs + nbytes(e, rhs, *es, *rs),
-                    sweeps + sum((FV4_AX + 2) * lv.ncells for lv in tail)))
+                    sweeps + sum((FV4_AX + 2) * lv.ncells for lv in tail)), device=True)
     u_bot = torch.randn((8, 8, 8), generator=gen, device=dev)
     time_pair("K4 up 32-16 f32",
               lambda: T.tail_up_cuda(tail, es, [rhs, rs[0]], u_bot, cfg, 6),
               lambda: T.tail_up_plain(tail, es, [rhs, rs[0]], u_bot, cfg, 6),
               50, row, "tail_up",
               work=(coefs + nbytes(*es, rhs, rs[0], u_bot, e),
-                    sweeps + sum(16 * lv.ncells for lv in tail)))
+                    sweeps + sum(16 * lv.ncells for lv in tail)), device=True)
     # K4c: the same tail over the headline's 8^3 DIRECT bottom, in one launch
     bottom = hier.levels[3]
     m = bottom.ncells
@@ -668,7 +745,9 @@ def time_kernels(sizes=(64, 128, 256, 512)):
               lambda: T.tail_v_plain(tail, bottom, e, rhs, cfg, 6), 50, row, "tail_v",
               work=(coefs + nbytes(e, rhs, bottom.bottom_ainv, e),
                     2 * sweeps + sum((FV4_AX + 2 + 16) * lv.ncells for lv in tail)
-                    + 2 * m * m))
+                    + 2 * m * m), device=True)
+    for key in ("tail_down", "tail_up", "tail_v"):
+        row[key]["smem_bytes"] = T.tail_smem(32, 4)
     res["tail"] = row
     # K1 in float64 at the headline's size, every mode
     prob = init_problem_fv(512, torch.float64, dev)
@@ -904,7 +983,7 @@ def solve_cfg(bottom: str, dtype, op: str = "fv4", bc: str = "dirichlet"):
 R1_DIRICHLET = ("r1_stencil", "r1_gsrb2", "restrict_cell")
 R1_PERIODIC = ("r1_stencil_periodic", "restrict_cell")
 PATH_KERNELS = {
-    ("fv4", "dirichlet"): ("fv4_gsrb2_coop", "restrict_cell"),
+    ("fv4", "dirichlet"): ("fv4_gsrb2_cluster", "restrict_cell"),
     ("fv7pt", "dirichlet"): R1_DIRICHLET,
     ("fv2", "dirichlet"): R1_DIRICHLET,
     ("27pt", "dirichlet"): ("r1_stencil", "restrict_cell"),
@@ -916,7 +995,7 @@ PATH_KERNELS = {
 # and the kernels a periodic F-cycle must never launch: the Dirichlet ghost
 # synthesis (K1, K1s, K5) and the fused kernels that read no periodic ghost
 # (K2, K4, K6)
-DIRICHLET_ONLY = ("fv4_stencil", "fv4_subtile", "fv4_gsrb2", "fv4_gsrb2_coop",
+DIRICHLET_ONLY = ("fv4_stencil", "fv4_subtile", "fv4_gsrb2", "fv4_gsrb2_cluster",
                   "tail_down", "tail_up", "tail_v", "r1_stencil", "r1_gsrb2")
 PERIODIC_ONLY = ("fv4_stencil_periodic", "r1_stencil_periodic")
 
@@ -1170,7 +1249,7 @@ def solver_options(n=512):
             raise AssertionError(f"{tag}: rel_residual {rel} fails its limit {rel_limit}")
         want = fv4_stencil_kernels() + ("restrict_cell",)
         if tag.startswith("bottom"):
-            want += ("fv4_gsrb2_coop", "tail_down", "tail_up")
+            want += ("fv4_gsrb2_cluster", "tail_down", "tail_up")
         check_counts(tag, counts, plain_calls, want)
         out[tag] = res
         torch.cuda.empty_cache()
@@ -1473,7 +1552,7 @@ def time_slab_kernels(n=512):
 # the kernels no decomposed level may launch: the single-rank stencils and
 # fused sweeps (K1, K1s, K2, K5, K6, K7a, K7b) and the tail (off under a mesh)
 SINGLE_RANK = ("fv4_stencil", "fv4_subtile", "fv4_stencil_periodic", "fv4_gsrb2",
-               "fv4_gsrb2_coop",
+               "fv4_gsrb2_cluster",
                "tail_down", "tail_up", "tail_v", "r1_stencil", "r1_stencil_periodic",
                "r1_gsrb2")
 # u of the decomposed F-cycle against the one-rank F-cycle on the same card,
@@ -1547,7 +1626,8 @@ def main() -> int:
     lib_path = build.build()
     build.library()
     print(f"  built {lib_path.name} in {time.perf_counter() - t0:.3f} s")
-    for name, props in ptxas_report(lib_path.with_suffix(".log").read_text()):
+    ptxas = ptxas_report(lib_path.with_suffix(".log").read_text())
+    for name, props in ptxas:
         print(f"  {name}: {props}")
 
     phase("3 kernels vs plain")
@@ -1678,9 +1758,9 @@ def main() -> int:
         # "shipped_path_launches"); K2c at the largest level it smooths
         ("fv4_gsrb2", "fv4_gsrb2.cu", "hpgmg_tpu/kernels/stencils.py:1726",
          big["gsrb2"], counts_k2["fv4_gsrb2"]),
-        ("fv4_gsrb2_coop", "fv4_gsrb2_coop.cu", "hpgmg_tpu/kernels/stencils.py:1726",
+        ("fv4_gsrb2_cluster", "fv4_gsrb2_cluster.cu", "hpgmg_tpu/kernels/stencils.py:1726",
          times[max(m for m in times if isinstance(m, int) and m <= S.GSRB2_MAX_DIM)][
-             "gsrb2_coop"], counts["fv4_gsrb2_coop"]),
+             "gsrb2_cluster"], counts["fv4_gsrb2_cluster"]),
         ("tail_down", "tail.cu", "hpgmg_tpu/kernels/tail.py:273",
          times["tail"]["tail_down"], c_du["tail_down"]),
         ("tail_up", "tail.cu", "hpgmg_tpu/kernels/tail.py:298",
@@ -1723,6 +1803,12 @@ def main() -> int:
     kernels[[k["name"] for k in kernels].index("fv4_gsrb2")].update(
         launches_from="phase 4e: the headline with K2 forced on 512^3-128^3",
         shipped_path_launches=counts["fv4_gsrb2"])
+    # the cluster kernels' registers and spills (f32), beside their shared
+    # memory a block (smem_bytes, dynamic: ptxas does not see it)
+    regs = dict(ptxas)
+    for k in kernels:
+        if k["name"] in ("fv4_gsrb2_cluster", "tail_down", "tail_up", "tail_v"):
+            k["ptxas"] = regs.get(f"{k['name']}_kernel<float>")
     print(f"  worst relative errors over the checks: {worst}")
     print(json.dumps({"headline": {
         "dof_per_s": res.dof_per_second, "rel_residual": res.rel_residual,

@@ -155,13 +155,18 @@ def smooth_ab(op, hier, f, cfg, reps: int = 5) -> list:
     """Phase 3: one smoother call (2 * num_smooths half-sweeps) per level
     through the fused full sweeps (K2c, K6) and through half-sweeps (K1,
     K5), device ms per call, in turns fused/half/half/fused, from a
-    smoothed iterate."""
+    smoothed iterate; on the levels the fused kernel takes (K2c: n up to
+    ``stencils.GSRB2_CLUSTER_MAX_N``)."""
     nsweeps = 2 * cfg.resolved_num_smooths(op)
+    largest = getattr(stencils, "GSRB2_CLUSTER_MAX_N", None) if op.name == "fv4" else None
     rhs = f
     out = []
     for lv in hier.levels:
         if tail.use_tail(op, cfg, hier.levels, lv.depth) or lv is hier.levels[-1]:
             break
+        if largest is not None and lv.dim > largest:
+            rhs = restrict_cell(rhs)
+            continue
         x = op.gsrb_smooth(lv, torch.zeros_like(rhs), rhs, cfg, nsweeps)
         row = {"dim": lv.dim, "fused_ms": [], "half_ms": []}
         for k2 in (True, False, False, True):

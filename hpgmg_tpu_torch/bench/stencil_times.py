@@ -2,7 +2,8 @@
 one CUDA device.
 
     python -m hpgmg_tpu_torch.bench.stencil_times [--sizes 128 256 512]
-        [--dtype float32] [--bc dirichlet periodic] [--reps 10] [--json PATH]
+        [--dtype float32] [--bc dirichlet periodic] [--reps 10] [--tail]
+        [--json PATH]
 
 For each size and BC, on the benchmark problem's finest level as the fv4
 suite rebuilds it, with x drawn from a seeded generator: the ms per call
@@ -14,16 +15,21 @@ suite's
 one smoother call (the suite's 6 half-sweeps): as the suite's
 ``gsrb_smooth`` under the tree's own gate (``smooth``; K7a half-sweeps on
 a periodic level), and on a Dirichlet level also as three
-``stencils.fv4_gsrb2_cuda`` sweeps (K2, ``smooth_k2``), as three
-``fv4_gsrb2_coop_cuda`` sweeps where the tree has K2c (``smooth_k2c``) and
-as ``gsrb_smooth`` with ``stencils.GSRB2_MAX_DIM`` set to 0 (K1
-half-sweeps, ``smooth_k1``); beside each smoother call's time, the device
-time of its kernels alone (torch.profiler), which tells launch overhead
-from kernel time on the small levels. It reads nothing but these and the gate, so the
-same file times an older tree of the package too (copied into that tree
-and run from its root; there ``fv4_gsrb2_cuda`` is its own K2), in turns
-with this one on the same card. Prints one JSON line;
-``--json`` also writes it to a file.
+``stencils.fv4_gsrb2_cuda`` sweeps (K2, ``smooth_k2``), as three K2c
+sweeps on the levels K2c takes (``smooth_k2c``: ``fv4_gsrb2_cluster_cuda``,
+or an older tree's cooperative ``fv4_gsrb2_coop_cuda``) and as
+``gsrb_smooth`` with ``stencils.GSRB2_MAX_DIM`` set to 0 (K1 half-sweeps,
+``smooth_k1``); beside each smoother call's time, the device time of its
+kernels alone (torch.profiler), which tells launch overhead from kernel
+time on the small levels. With ``--tail``, also K4c, K4a and K4b (the
+tail kernels' entries ``tail_v_cuda``, ``tail_down_cuda``,
+``tail_up_cuda``) on the headline's tail, the 32^3 and 16^3 levels of the
+benchmark hierarchy over its 8^3 DIRECT bottom, each with its device
+time (rows with n 32 and calls ``tail_v``, ``tail_down``, ``tail_up``). It
+reads nothing but these and the gate, so the same file times an older
+tree of the package too (copied into that tree and run from its root;
+there ``fv4_gsrb2_cuda`` is its own K2), in turns with this one on the same
+card. Prints one JSON line; ``--json`` also writes it to a file.
 """
 
 from __future__ import annotations
@@ -34,7 +40,7 @@ import subprocess
 
 import torch
 
-from hpgmg_tpu_torch.bench.driver import build_problem
+from hpgmg_tpu_torch.bench.driver import build, build_problem
 from hpgmg_tpu_torch.core.config import BC, SolverConfig
 from hpgmg_tpu_torch.core.level import Level
 from hpgmg_tpu_torch.kernels import stencils
@@ -116,12 +122,40 @@ def level_times(n: int, dtype: torch.dtype, bc: BC, reps: int) -> dict:
     smooths = {"smooth": lambda: suite.gsrb_smooth(lv, x, f, cfg, nsweeps)}
     if bc == BC.DIRICHLET:
         smooths["smooth_k2"] = sweeps(stencils.fv4_gsrb2_cuda)
-        if hasattr(stencils, "fv4_gsrb2_coop_cuda"):
-            smooths["smooth_k2c"] = sweeps(stencils.fv4_gsrb2_coop_cuda)
+        k2c = (getattr(stencils, "fv4_gsrb2_cluster_cuda", None)
+               or getattr(stencils, "fv4_gsrb2_coop_cuda", None))
+        if k2c is not None and n <= getattr(stencils, "GSRB2_CLUSTER_MAX_N", n):
+            smooths["smooth_k2c"] = sweeps(k2c)
         smooths["smooth_k1"] = half_sweeps
     for name, fn in smooths.items():
         out[name] = time_ms(fn, reps)
         out[name + "_device"] = device_ms(fn, reps)
+    return out
+
+
+def tail_times(dtype: torch.dtype, reps: int) -> dict:
+    """{call: ms} of K4c, K4a and K4b on the headline's tail (the 32^3 and
+    16^3 levels of the benchmark hierarchy over its 8^3 DIRECT bottom, 6
+    half-sweeps a level), with each call's device ms (``<call>_device``)."""
+    from hpgmg_tpu_torch.kernels import tail
+
+    dev = torch.device("cuda")
+    cfg = SolverConfig(op="fv4", a=0.0, b=1.0, dtype=dtype, min_coarse_dim=8)
+    hier, _ = build(64, cfg, dev)
+    levels, bottom = hier.levels[1:3], hier.levels[3]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    e, rhs = (torch.randn(levels[0].shape, generator=gen, device=dev, dtype=dtype)
+              for _ in range(2))
+    es, rhss = tail.tail_down_cuda(levels, e, rhs, cfg, 6)
+    u_bot = torch.randn(bottom.shape, generator=gen, device=dev, dtype=dtype)
+    calls = {"tail_v": lambda: tail.tail_v_cuda(levels, bottom, e, rhs, cfg, 6),
+             "tail_down": lambda: tail.tail_down_cuda(levels, e, rhs, cfg, 6),
+             "tail_up": lambda: tail.tail_up_cuda(levels, es, [rhs, rhss[0]], u_bot,
+                                                  cfg, 6)}
+    out = {}
+    for name, fn in calls.items():
+        out[name] = time_ms(fn, reps * 64)
+        out[name + "_device"] = device_ms(fn, reps * 64)
     return out
 
 
@@ -132,6 +166,8 @@ def main(argv=None) -> dict:
     p.add_argument("--bc", nargs="+", choices=["dirichlet", "periodic"],
                    default=["dirichlet", "periodic"])
     p.add_argument("--reps", type=int, default=10)
+    p.add_argument("--tail", action="store_true",
+                   help="also time K4c, K4a and K4b on the headline's 32-16 tail")
     p.add_argument("--json", default=None)
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
@@ -146,6 +182,9 @@ def main(argv=None) -> dict:
             rows += [{"n": n, "dtype": args.dtype, "bc": bc, "call": k, "ms": v}
                      for k, v in ms.items()]
             torch.cuda.empty_cache()
+    if args.tail:
+        rows += [{"n": 32, "dtype": args.dtype, "bc": "dirichlet", "call": k, "ms": v}
+                 for k, v in tail_times(getattr(torch, args.dtype), args.reps).items()]
     out = {"device": torch.cuda.get_device_name(0), "card": card, "rows": rows}
     line = json.dumps(out)
     print(line)

@@ -204,6 +204,8 @@ def main(argv=None) -> int:
     ap.add_argument("--overlap", action="store_true",
                     help="K8b's interior/edge split (shard_kernels.OVERLAP)")
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--timeout", type=float, default=1800.0,
+                    help="seconds the spawned ranks may take before they are killed")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("no CUDA device available (use --device cpu)", file=sys.stderr)
@@ -225,7 +227,7 @@ def main(argv=None) -> int:
     else:
         r = run_weak(args.per_rank, args.ranks, args.op, args.dtype, args.reps,
                      args.backend, args.bc, args.bottom, args.dynamic_range,
-                     args.check_serial, args.overlap, args.device)
+                     args.check_serial, args.overlap, args.device, timeout=args.timeout)
     print(json.dumps(summary(r, args.op, args.dtype, args.bottom, args.bc)))
     return 0
 

@@ -21,7 +21,7 @@ extended* by one ghost layer, as ``FV4.rebuild_operator`` leaves them:
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Optional, Tuple
+from typing import TYPE_CHECKING, Any, Callable, Optional, Tuple
 
 import torch
 
@@ -59,6 +59,20 @@ class Level:
     part: Optional["Part"] = None
     # K8d's ring views on such a level (kernels/stencils_r1.py:ring_views)
     ring: Optional[tuple] = None
+    # launch plans made from this level's operands (``plan``); a new level,
+    # from dataclasses.replace too, starts with none
+    plans: dict = dataclasses.field(default_factory=dict, init=False, repr=False,
+                                    compare=False)
+
+    def plan(self, key, make: Callable[[], Any]):
+        """The launch plan ``make()`` returns for ``key``: made once, its
+        operands checked then, and kept with the level, so that it goes
+        when the level goes. A plan that also reads other levels or a
+        config holds them, and ``key`` names them by id."""
+        plan = self.plans.get(key)
+        if plan is None:
+            plan = self.plans[key] = make()
+        return plan
 
     @property
     def shape(self):

@@ -48,20 +48,19 @@ _SIGNATURES = {
     #  a_coef, stream); kd0 read at red cells, kd1 at black ones
     "hpgmg_fv4_gsrb2_f32": (_P,) * 9 + (_I, _I, _D, _D, _P),
     "hpgmg_fv4_gsrb2_f64": (_P,) * 9 + (_I, _I, _D, _D, _P),
-    # (x, beta_i, beta_j, beta_k, alpha, rhs, kdinv0, kdinv1, xp, yp, out, n,
-    #  scale, a_coef, stream); xp, yp are (n+4)^3 scratch buffers
-    "hpgmg_fv4_gsrb2_coop_f32": (_P,) * 11 + (_I, _D, _D, _P),
-    "hpgmg_fv4_gsrb2_coop_f64": (_P,) * 11 + (_I, _D, _D, _P),
-    # (ptrs, dims, scales, nlev, nsweeps, a_coef, x_in | u_bot, xp, tmp,
-    #  stream); ptrs is a host array of 9 device pointers per level
-    "hpgmg_tail_down_f32": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P),
-    "hpgmg_tail_down_f64": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P),
-    "hpgmg_tail_up_f32": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P),
-    "hpgmg_tail_up_f64": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P),
-    # (ptrs, dims, scales, nlev, nsweeps, a_coef, x_in, ainv, u_bot, xp,
-    #  tmp, stream)
-    "hpgmg_tail_v_f32": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P, _P, _P),
-    "hpgmg_tail_v_f64": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P, _P, _P),
+    # (x, beta_i, beta_j, beta_k, alpha, rhs, kdinv0, kdinv1, out, n, scale,
+    #  a_coef, stream)
+    "hpgmg_fv4_gsrb2_cluster_f32": (_P,) * 9 + (_I, _D, _D, _P),
+    "hpgmg_fv4_gsrb2_cluster_f64": (_P,) * 9 + (_I, _D, _D, _P),
+    # (ptrs, dims, scales, nlev, nsweeps, a_coef, x_in | u_bot, stream); ptrs
+    # is a host array of 9 device pointers per level
+    "hpgmg_tail_down_f32": (_P, _P, _P, _I, _I, _D, _P, _P),
+    "hpgmg_tail_down_f64": (_P, _P, _P, _I, _I, _D, _P, _P),
+    "hpgmg_tail_up_f32": (_P, _P, _P, _I, _I, _D, _P, _P),
+    "hpgmg_tail_up_f64": (_P, _P, _P, _I, _I, _D, _P, _P),
+    # (ptrs, dims, scales, nlev, nsweeps, a_coef, x_in, ainv, u_bot, stream)
+    "hpgmg_tail_v_f32": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P),
+    "hpgmg_tail_v_f64": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P),
     # (x, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out, n, mode, var7,
     #  periodic, b_h2inv, a_coef, t1, t2, stream)
     "hpgmg_r1_stencil_f32": (_P,) * 8 + (_I, _I, _I, _I, _D, _D, _D, _D, _P),

@@ -13,7 +13,7 @@ KERNELS = (
     ("fv4_subtile", "stencils", "fv4_subtile_cuda", "launches"),
     ("fv4_stencil_periodic", "stencils", "fv4_stencil_cuda", "periodic_launches"),
     ("fv4_gsrb2", "stencils", "fv4_gsrb2_cuda", "launches"),
-    ("fv4_gsrb2_coop", "stencils", "fv4_gsrb2_coop_cuda", "launches"),
+    ("fv4_gsrb2_cluster", "stencils", "fv4_gsrb2_cluster_cuda", "launches"),
     ("fv4_slab", "stencils", "fv4_slab_cuda", "launches"),
     ("fv4_overlap_interior", "stencils", "fv4_overlap_interior_cuda", "launches"),
     ("fv4_overlap_edge", "stencils", "fv4_overlap_edge_cuda", "launches"),

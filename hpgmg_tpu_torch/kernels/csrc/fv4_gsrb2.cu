@@ -316,7 +316,7 @@ __device__ __forceinline__ T ring_ax(const T* ring, const Planes& P, int ra, int
                                      T scale, T& f0) {
   const int fo = (ra + h) * FP + (rb + h);
   auto X = [&](int di, int dj, int dk) -> T { return ring[P.f[di + 2] + fo + dj * FP + dk]; };
-  // face f (0 low, 1 high) of the cell, shifted tangentially (cell_ax)
+  // face f (0 low, 1 high) of the cell, shifted tangentially
   auto BI = [&](int f, int dj, int dk) -> T {
     return ring[P.bi[f] + (ra + 1 + dj) * G::BP + (rb + 1 + dk)];
   };

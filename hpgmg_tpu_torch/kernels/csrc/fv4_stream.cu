@@ -325,7 +325,7 @@ __device__ __forceinline__ T stream_ax(const Args<T>& p, const T* ring,
   auto X = [&](int di, int dj, int dk) -> T {
     return ring[P.x[di + 2] + xo + dj * XP + dk];
   };
-  // face f (0 low, 1 high) of the cell, shifted tangentially (cell_ax)
+  // face f (0 low, 1 high) of the cell, shifted tangentially
   auto BI = [&](int f, int dj, int dk) -> T {
     return ring[P.bi[f] + (jl + 1 + dj) * BP + (kl + 1 + dk)];
   };

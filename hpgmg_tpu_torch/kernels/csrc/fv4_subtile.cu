@@ -115,7 +115,7 @@ __global__ void __launch_bounds__(kSubThreads, SubTile<T>::MinBlocks)
     const int i = i0 + il;
     const T* xc = xs + ((il + 2) * XJ + (jl + 2)) * XK + (kl + 2);
     auto X = [&](int di, int dj, int dk) -> T { return xc[(di * XJ + dj) * XK + dk]; };
-    // face f (0 low, 1 high) of the cell, shifted tangentially (cell_ax)
+    // face f (0 low, 1 high) of the cell, shifted tangentially
     auto BI = [&](int f, int dj, int dk) -> T {
       return __ldg(p.bie + ((i + f) * n2 + (1 + j + dj)) * n2 + (1 + k + dk));
     };

@@ -10,9 +10,9 @@
 // (bi, bj, n) VMEM tile from a radius-2 window, rebuilt the red iterate's
 // Dirichlet ghosts (_fix_ghost_axis_r1) and ran black on the tile from the
 // resident red values, reading j-padded pre-padded views. The same dataflow
-// fits a thread block, so unlike K2 (fv4, radius 2: a cooperative kernel
-// with grid barriers) this kernel needs no grid-wide barrier. Each block owns
-// a TI x TJ x TK tile of the output and
+// fits a thread block, so unlike K2c (fv4, radius 2: red planes shared
+// across a cluster of blocks) this kernel needs no barrier beyond its
+// block. Each block owns a TI x TJ x TK tile of the output and
 //
 //   1. loads x on the tile with a radius-2 halo into shared memory, the
 //      ghosts one cell outside the domain synthesized (2-tap, tensor product

@@ -24,9 +24,11 @@ A x at the cells of its ``parity`` only. K7a's face coefficients are
 wrapped tangentially at build time (``extend_beta_tangential``); its
 launches count in ``periodic_launches``. A full sweep (the red half-sweep
 with kdinv[0], then the black one with kdinv[1]) has two kernels: K2c, one
-cooperative launch of four grid-wide phases (``fv4_gsrb2_coop_cuda``,
-``csrc/fv4_gsrb2_coop.cu``), which the suite's ``fv4_gsrb2`` launches on
-the levels up to ``GSRB2_MAX_DIM``; and K2, one ordinary launch that
+launch of thread-block clusters, each a slab of i-planes whose blocks
+share their red planes through distributed shared memory
+(``fv4_gsrb2_cluster_cuda``, ``csrc/fv4_gsrb2_cluster.cu``), which the
+suite's ``fv4_gsrb2`` launches on the levels up to ``GSRB2_MAX_DIM``; and
+K2, one ordinary launch that
 streams the red half-sweep two planes ahead of the black one through
 shared memory (``fv4_gsrb2_cuda``, ``csrc/fv4_gsrb2.cu``), equal to two K1
 gsrb calls bit for bit, which no level takes (see the gate). Both take
@@ -57,26 +59,26 @@ MODES = {"apply": 0, "residual": 1, "gsrb": 2, "fres": 3}
 TWELFTH = 1.0 / 12.0
 
 # Full GSRB sweeps on the Dirichlet levels of one rank with dim <=
-# GSRB2_MAX_DIM go through K2c (``fv4_gsrb2``, the cooperative kernel)
-# instead of two K1 half-sweeps (0: never). K2 (``fv4_gsrb2_cuda``, the
-# streaming kernel) smooths no level: it won at no size. Measured on an
-# H100 (700 W) in turns with the tree before K2's redesign
-# (bench/stencil_times.py, ms per smoother call of 6 half-sweeps; PERF.md),
-# f32 then f64:
-#   64^3   K2c 0.119-0.197 over 4 runs, its kernels' device time
-#          0.091-0.093 (that tree's same kernel 0.118-0.204, 0.092-0.095);
-#          K2 0.158-0.160 (device 0.155-0.156), K1 0.304-0.307;
-#          f64 K2c 0.130-0.204 (0.115-0.127), K2 0.188-0.189, K1 0.383
+# GSRB2_MAX_DIM go through K2c (``fv4_gsrb2``, the cluster kernel) instead
+# of two K1 half-sweeps (0: never); it must not exceed GSRB2_CLUSTER_MAX_N.
+# K2 (``fv4_gsrb2_cuda``, the streaming kernel) smooths no level: it won at
+# no size. Measured on an H100 (700 W) in turns with the tree before K2's
+# redesign (bench/stencil_times.py, ms per smoother call of 6 half-sweeps;
+# PERF.md), f32 then f64:
+#   64^3   the cooperative K2c 0.119-0.197 over 4 runs, its kernels'
+#          device time 0.091-0.093; K2 0.158-0.160 (device 0.155-0.156),
+#          K1 0.304-0.307; f64 K2c 0.130-0.204 (0.115-0.127), K2
+#          0.188-0.189, K1 0.383
 #   128^3  K2 0.383-0.384, K1 0.367-0.369; f64 0.7291-0.7292 against
 #          0.7296-0.7300 (even)
 #   256^3  K2 2.176-2.196, K1 1.979-1.991; f64 4.298-4.300, 4.059-4.065
 #   512^3  K2 13.37-13.51, K1 13.20-13.27; f64 29.81-29.82, 28.50-28.73
-# K2c's device time is the least at 64^3; its call time there is mostly
-# the cooperative launch's host cost, which varies from run to run. K1
-# wins from 128^3 up in both types. The 16^3 and 32^3 levels are the
-# tail's.
+# K1 wins from 128^3 up in both types, and the cluster K2c takes no level
+# above 64^3. The 16^3 and 32^3 levels are the tail's.
 GSRB2_MAX_DIM = 64
-
+# K2c's largest n (csrc/fv4_gsrb2_cluster.cu:kGsrb2ClusterMaxN): a block
+# holds six padded planes, 222 KB of f64 at 64^3.
+GSRB2_CLUSTER_MAX_N = 64
 
 # K1s instead of K1 on the Dirichlet levels with dim <= SUBTILE_MAX_DIM
 # (the JAX package's switch, hpgmg_tpu/kernels/stencils.py:870, whose
@@ -413,38 +415,71 @@ def fv4_gsrb2_cuda(level: Level, x: torch.Tensor, rhs: torch.Tensor,
 fv4_gsrb2_cuda.launches = 0
 
 
-def fv4_gsrb2_coop_cuda(level: Level, x: torch.Tensor, rhs: torch.Tensor,
-                        cfg: SolverConfig) -> torch.Tensor:
-    """Launch K2c (K2's full sweep as one cooperative launch of four
-    grid-wide phases, ``csrc/fv4_gsrb2_coop.cu``) into a newly allocated
-    output, with two (n+4)^3 scratch buffers."""
+def cluster_error(rc: int, what: str, smem: int) -> RuntimeError:
+    """The error of a refused cluster launch (csrc/cluster.cuh:cluster_launch
+    returns -2 when the card cannot hold one of the kernel's clusters)."""
+    if rc == -2:
+        return RuntimeError(f"{what}: the card cannot schedule its cluster with "
+                            f"{smem} bytes of shared memory a block")
+    return RuntimeError(f"{what} launch failed: CUDA error {rc}")
+
+
+def gsrb2_cluster_smem(n: int, itemsize: int) -> int:
+    """Bytes of shared memory a K2c block takes at n^3: six planes of
+    (n+4)^2 values, each rounded up to 4 values."""
+    return 6 * ((((n + 4) ** 2) + 3) & ~3) * itemsize
+
+
+def _gsrb2_plan(level: Level, cfg: SolverConfig) -> SimpleNamespace:
+    """K2c's unchanging operands on ``level``, checked (checking the
+    level's seven arrays on every call cost about as much host time as
+    the 64^3 sweep's device time)."""
+    check_dirichlet(cfg, "the fused fv4 sweep (K2c)")
+    if level.kdinv is None:
+        raise ValueError(f"K2c needs the {level.dim}^3 level's kdinv pair")
+    _check(level, level.kdinv[0], cfg, "gsrb", level.kdinv[0], level.kdinv)
+    n = level.dim
+    if n > GSRB2_CLUSTER_MAX_N:
+        raise ValueError(f"K2c takes n <= {GSRB2_CLUSTER_MAX_N}, got {n}")
+    alpha = level.alpha if cfg.helmholtz else None
+    return SimpleNamespace(
+        cfg=cfg, smem=gsrb2_cluster_smem(n, level.kdinv[0].element_size()),
+        name=f"hpgmg_fv4_gsrb2_cluster_{'f32' if level.dtype == torch.float32 else 'f64'}",
+        coefs=(level.beta_i.data_ptr(), level.beta_j.data_ptr(), level.beta_k.data_ptr(),
+               _ptr(alpha)),
+        kd=(level.kdinv[0].data_ptr(), level.kdinv[1].data_ptr()),
+        scalars=(n, -cfg.b * level.h2inv, float(cfg.a)))
+
+
+def fv4_gsrb2_cluster_cuda(level: Level, x: torch.Tensor, rhs: torch.Tensor,
+                           cfg: SolverConfig) -> torch.Tensor:
+    """Launch K2c (K2's full sweep in one launch of thread-block clusters,
+    ``csrc/fv4_gsrb2_cluster.cu``) into a newly allocated output; no
+    scratch. Raises on n > ``GSRB2_CLUSTER_MAX_N`` and on a cluster the
+    card cannot schedule."""
     from hpgmg_tpu_torch.kernels.build import library
 
-    check_dirichlet(cfg, "the fused fv4 sweep (K2c)")
-    _check(level, x, cfg, "gsrb", rhs, level.kdinv or (None, None))
+    plan = level.plan(("k2c", id(cfg)), lambda: _gsrb2_plan(level, cfg))
+    probe = level.kdinv[0]
+    for name, t in (("x", x), ("rhs", rhs)):
+        if t is None or t.shape != probe.shape or t.dtype != probe.dtype \
+                or t.device != probe.device or not t.is_contiguous():
+            raise ValueError(f"K2c wants {name} contiguous, {tuple(probe.shape)} "
+                             f"{probe.dtype} on {probe.device}")
     if not x.is_cuda:
-        raise ValueError(f"fv4_gsrb2_coop_cuda wants CUDA tensors, got {x.device}")
-    n = level.dim
-    if n > 1200:
-        raise ValueError(f"fv4 gsrb2 coop kernel takes n <= 1200, got {n}")
-    xp = torch.empty((2,) + (n + 4,) * 3, dtype=x.dtype, device=x.device)
+        raise ValueError(f"fv4_gsrb2_cluster_cuda wants CUDA tensors, got {x.device}")
     out = torch.empty_like(x)
-    alpha = level.alpha if cfg.helmholtz else None
-    dt = "f32" if x.dtype == torch.float32 else "f64"
     with torch.cuda.device(x.device):
-        rc = getattr(library(), f"hpgmg_fv4_gsrb2_coop_{dt}")(
-            x.data_ptr(), level.beta_i.data_ptr(), level.beta_j.data_ptr(),
-            level.beta_k.data_ptr(), _ptr(alpha), rhs.data_ptr(),
-            level.kdinv[0].data_ptr(), level.kdinv[1].data_ptr(),
-            xp[0].data_ptr(), xp[1].data_ptr(), out.data_ptr(), n,
-            -cfg.b * level.h2inv, float(cfg.a), _stream(x))
+        rc = getattr(library(), plan.name)(x.data_ptr(), *plan.coefs, rhs.data_ptr(),
+                                           *plan.kd, out.data_ptr(), *plan.scalars,
+                                           _stream(x))
     if rc != 0:
-        raise RuntimeError(f"fv4 gsrb2 coop kernel launch failed: CUDA error {rc}")
-    fv4_gsrb2_coop_cuda.launches += 1
+        raise cluster_error(rc, "the fv4 gsrb2 cluster kernel (K2c)", plan.smem)
+    fv4_gsrb2_cluster_cuda.launches += 1
     return out
 
 
-fv4_gsrb2_coop_cuda.launches = 0
+fv4_gsrb2_cluster_cuda.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -484,7 +519,7 @@ def fv4_gsrb2(level: Level, x: torch.Tensor, rhs: torch.Tensor,
     level's ``kdinv`` pair: K2c for CUDA tensors, the plain version for
     CPU tensors."""
     if x.is_cuda:
-        return fv4_gsrb2_coop_cuda(level, x, rhs, cfg)
+        return fv4_gsrb2_cluster_cuda(level, x, rhs, cfg)
     if x.device.type == "cpu":
         return fv4_gsrb2_plain(level, x, rhs, cfg)
     raise ValueError(f"fv4 gsrb2 has no kernel for device {x.device}")

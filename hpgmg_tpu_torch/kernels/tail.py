@@ -9,7 +9,9 @@ The tail is the run of levels with TAIL_MIN_DIM <= dim <= TAIL_MAX_DIM
 starting at a V-cycle's root, never including the bottom level. Below
 32^3 a level's work is a few microseconds of device time against ~20
 launches, each costing more host time than that; K4 does a whole descent
-or climb in one launch (``csrc/tail.cu``):
+or climb in one launch of one thread-block cluster, whose blocks hold the
+level being smoothed in their shared memory, each a slab of its i-planes
+(``csrc/tail.cu``):
 
 * ``tail_down``: per level, ``nsweeps`` GSRB half-sweeps (from the given
   iterate on the first level, from zero below), then the restricted
@@ -30,6 +32,7 @@ take the plain versions, the same steps through K1's plain version and
 from __future__ import annotations
 
 import ctypes
+from types import SimpleNamespace
 from typing import List, Sequence, Tuple
 
 import torch
@@ -37,7 +40,7 @@ import torch
 from hpgmg_tpu_torch.core.config import BC, Smoother, SolverConfig
 from hpgmg_tpu_torch.core.level import Level
 from hpgmg_tpu_torch.kernels.stencils import (_check, _stream, check_dirichlet,
-                                              fv4_stencil_plain)
+                                              cluster_error, fv4_stencil_plain)
 from hpgmg_tpu_torch.ops.transfer_fv import interp_v2
 
 # V-cycles route their tail levels through K4; False keeps the level-by-level
@@ -46,15 +49,28 @@ TAIL_FUSE = True
 TAIL_MAX_DIM = 32  # levels with dim <= this fuse
 TAIL_MIN_DIM = 8   # quartic ghosts need 4 cells, the v2 coarse grid 2
 MAX_TAIL = 6       # levels per launch (csrc/tail.cu:kMaxTail)
+# Shared memory a block may use (csrc/cluster.cuh:kMaxClusterSmem).
+MAX_SMEM = 232448
 # A tail span right above the DIRECT bottom runs as one K4c launch
 # (tail_v) instead of K4a + the bottom matvec + K4b; False keeps the three.
-# Measured on an H100 (bench/profile.py --ab, fv4 512^3 f32, two runs in
-# turns on/off/off/on): a V-cycle from 16^3 takes 0.122-0.140 against
-# 0.162-0.280 ms on the device and half the host enqueue, from 32^3
-# 0.238-0.255 against 0.244-0.379 ms; the F-cycle chain 76.10-77.28
-# against 76.49-78.51 ms per solve, its 512^3 level setting the pace. The
-# JAX package's default (False) is a TPU one.
+# Measured on an H100 (700 W; bench/profile.py --ab, fv4 512^3 f32, two
+# runs in turns on/off/off/on; PERF.md): a V-cycle from 16^3 takes
+# 0.083-0.114 against 0.127-0.187 ms on the device, from 32^3 0.210-0.233
+# against 0.198-0.243 ms; the F-cycle chain 55.69-60.02 against
+# 56.09-57.17 ms per solve, its 512^3 level setting the pace. The JAX
+# package's default (False) is a TPU one.
 TAIL_ONE_LAUNCH = True
+
+
+def tail_smem(n0: int, itemsize: int) -> int:
+    """Bytes of shared memory a K4 block takes for a tail whose first
+    level is n0^3 (csrc/tail.cu:tail_smem): two buffers of its slab's
+    planes (ceil(n0 / 16), 16 the blocks of K4's cluster,
+    csrc/tail.cu:kTailCluster, rounded up to even) and four halo planes,
+    each (n0+4)^2 values rounded up to 4."""
+    planes = -(-n0 // 16)
+    planes += planes & 1
+    return 2 * (planes + 4) * ((((n0 + 4) ** 2) + 3) & ~3) * itemsize
 
 
 def _fusible(lv: Level) -> bool:
@@ -91,6 +107,11 @@ def use_tail(op, cfg: SolverConfig, levels: Sequence[Level], lev: int) -> bool:
 
 def _check_tail(tail: Sequence[Level], cfg: SolverConfig, nsweeps: int,
                 tensors: Sequence[Tuple[str, torch.Tensor, tuple]]):
+    _check_levels(tail, cfg, nsweeps)
+    _check_tensors(tail, tensors)
+
+
+def _check_levels(tail: Sequence[Level], cfg: SolverConfig, nsweeps: int):
     check_dirichlet(cfg, "the tail kernels (K4)")
     if not 1 <= len(tail) <= MAX_TAIL:
         raise ValueError(f"the tail kernels take 1..{MAX_TAIL} levels, got {len(tail)}")
@@ -104,6 +125,9 @@ def _check_tail(tail: Sequence[Level], cfg: SolverConfig, nsweeps: int,
                              f"from an even dim >= {TAIL_MIN_DIM}")
         probe = lv.kdinv[0]  # any tensor of the level's shape, dtype, device
         _check(lv, probe, cfg, "gsrb", probe, lv.kdinv)
+
+
+def _check_tensors(tail: Sequence[Level], tensors: Sequence[Tuple[str, torch.Tensor, tuple]]):
     dev, dt = tail[0].device, tail[0].dtype
     for name, t, shape in tensors:
         if tuple(t.shape) != shape or t.dtype != dt or t.device != dev:
@@ -201,47 +225,71 @@ tail_v_plain.calls = 0
 # CUDA kernels
 # ---------------------------------------------------------------------------
 
-def _launch(kind: str, tail, cfg, nsweeps, per_level, src, extra=()):
-    """Call the C entry ``hpgmg_tail_<kind>`` with ``per_level``: (rhs, e,
-    res) per level, ``src`` the starting iterate or the solution below,
-    ``extra`` the bottom operands of the one-launch V-cycle."""
-    from hpgmg_tpu_torch.kernels.build import library
+def _plan(kind: str, tail, cfg, nsweeps, bottom=None) -> SimpleNamespace:
+    """The unchanging part of a K4 launch, checked: the levels' pointers,
+    dims and scales and the shared-memory plan. Kept with the tail's first
+    level (``Level.plan``); it holds the other levels and the config its
+    key names by id. Checking the levels on every call cost more host time
+    than a 16^3 tail's device time."""
+    key = (kind, tuple(map(id, tail[1:])), id(bottom), id(cfg), nsweeps)
+    return tail[0].plan(key, lambda: _make_plan(kind, tail, cfg, nsweeps, bottom))
 
-    n0, dt, dev = tail[0].dim, tail[0].dtype, tail[0].device
+
+def _make_plan(kind: str, tail, cfg, nsweeps, bottom) -> SimpleNamespace:
+    _check_levels(tail, cfg, nsweeps)
+    if bottom is not None:
+        _check_bottom(tail, bottom)
+    n0, dt = tail[0].dim, tail[0].dtype
+    smem = tail_smem(n0, tail[0].kdinv[0].element_size())
+    if smem > MAX_SMEM:
+        raise ValueError(f"K4 takes no {n0}^3 {dt} tail: {smem} bytes of shared "
+                         f"memory a block (at most {MAX_SMEM})")
     ptrs = []
-    for lv, (rhs, e, res) in zip(tail, per_level):
+    for lv in tail:
         alpha = lv.alpha if cfg.helmholtz else None
+        # rhs, e and res (the last three) are the call's
         ptrs += [lv.beta_i.data_ptr(), lv.beta_j.data_ptr(), lv.beta_k.data_ptr(),
                  None if alpha is None else alpha.data_ptr(),
-                 lv.kdinv[0].data_ptr(), lv.kdinv[1].data_ptr(),
-                 rhs.data_ptr(), e.data_ptr(), res.data_ptr()]
+                 lv.kdinv[0].data_ptr(), lv.kdinv[1].data_ptr(), None, None, None]
     nlev = len(tail)
-    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    c_dims = (ctypes.c_int * nlev)(*[lv.dim for lv in tail])
-    c_scales = (ctypes.c_double * nlev)(*[-cfg.b * lv.h2inv for lv in tail])
-    xp = torch.empty((n0 + 4,) * 3, dtype=dt, device=dev)
-    tmp = torch.empty((n0,) * 3, dtype=dt, device=dev)
-    name = f"hpgmg_tail_{kind}_{'f32' if dt == torch.float32 else 'f64'}"
-    with torch.cuda.device(dev):
-        rc = getattr(library(), name)(c_ptrs, c_dims, c_scales, nlev, nsweeps,
-                                      float(cfg.a), src.data_ptr(),
-                                      *[t.data_ptr() for t in extra],
-                                      xp.data_ptr(), tmp.data_ptr(), _stream(src))
+    return SimpleNamespace(
+        held=(tuple(tail[1:]), bottom, cfg), smem=smem, ptrs=ptrs,
+        dims=(ctypes.c_int * nlev)(*[lv.dim for lv in tail]),
+        scales=(ctypes.c_double * nlev)(*[-cfg.b * lv.h2inv for lv in tail]),
+        name=f"hpgmg_tail_{kind}_{'f32' if dt == torch.float32 else 'f64'}",
+        a=float(cfg.a), nsweeps=nsweeps)
+
+
+def _launch(plan: SimpleNamespace, kind: str, per_level, src, extra=()):
+    """Call the plan's C entry with ``per_level``: (rhs, e, res) per level,
+    ``src`` the starting iterate or the solution below, ``extra`` the
+    bottom operands of the one-launch V-cycle. Raises on a cluster the card
+    cannot schedule."""
+    from hpgmg_tpu_torch.kernels.build import library
+
+    ptrs = list(plan.ptrs)
+    for l, (rhs, e, res) in enumerate(per_level):
+        ptrs[9 * l + 6:9 * l + 9] = rhs.data_ptr(), e.data_ptr(), res.data_ptr()
+    with torch.cuda.device(src.device):
+        rc = getattr(library(), plan.name)(
+            (ctypes.c_void_p * len(ptrs))(*ptrs), plan.dims, plan.scales, len(per_level),
+            plan.nsweeps, plan.a, src.data_ptr(), *[t.data_ptr() for t in extra],
+            _stream(src))
     if rc != 0:
-        raise RuntimeError(f"tail {kind} kernel launch failed: CUDA error {rc}")
+        raise cluster_error(rc, f"the tail {kind} kernel (K4)", plan.smem)
 
 
 def tail_down_cuda(tail: Sequence[Level], e, rhs, cfg: SolverConfig,
                    nsweeps: int) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
     """Launch K4's descent (``csrc/tail.cu:tail_down_kernel``)."""
-    _check_tail(tail, cfg, nsweeps, [("e", e, tail[0].shape),
-                                     ("rhs", rhs, tail[0].shape)])
+    plan = _plan("down", tail, cfg, nsweeps)
+    _check_tensors(tail, [("e", e, tail[0].shape), ("rhs", rhs, tail[0].shape)])
     if not e.is_cuda:
         raise ValueError(f"tail_down_cuda wants CUDA tensors, got {e.device}")
     es = [torch.empty(lv.shape, dtype=e.dtype, device=e.device) for lv in tail]
     rhss = [torch.empty((lv.dim // 2,) * 3, dtype=e.dtype, device=e.device)
             for lv in tail]
-    _launch("down", tail, cfg, nsweeps, list(zip([rhs] + rhss[:-1], es, rhss)), e)
+    _launch(plan, "down", list(zip([rhs] + rhss[:-1], es, rhss)), e)
     tail_down_cuda.launches += 1
     return es, rhss
 
@@ -254,12 +302,13 @@ def tail_up_cuda(tail: Sequence[Level], es, rhss, u_bot, cfg: SolverConfig,
     """Launch K4's climb (``csrc/tail.cu:tail_up_kernel``)."""
     if len(es) != len(tail) or len(rhss) != len(tail):
         raise ValueError("tail_up wants one iterate and one rhs per level")
-    _check_tail(tail, cfg, nsweeps, _up_tensors(tail, es, rhss, u_bot))
+    plan = _plan("up", tail, cfg, nsweeps)
+    _check_tensors(tail, _up_tensors(tail, es, rhss, u_bot))
     if not u_bot.is_cuda:
         raise ValueError(f"tail_up_cuda wants CUDA tensors, got {u_bot.device}")
     outs = [torch.empty(lv.shape, dtype=u_bot.dtype, device=u_bot.device)
             for lv in tail]
-    _launch("up", tail, cfg, nsweeps, list(zip(rhss, es, outs)), u_bot)
+    _launch(plan, "up", list(zip(rhss, es, outs)), u_bot)
     tail_up_cuda.launches += 1
     return outs[0]
 
@@ -270,19 +319,18 @@ tail_up_cuda.launches = 0
 def tail_v_cuda(tail: Sequence[Level], bottom: Level, e, rhs, cfg: SolverConfig,
                 nsweeps: int) -> torch.Tensor:
     """Launch K4c (``csrc/tail.cu:tail_v_kernel``): the descent, the bottom
-    matvec and the climb in one cooperative launch. The climb writes each
-    level's solution over its pre-smoothed iterate, so the first level's
-    iterate buffer is the result."""
-    _check_tail(tail, cfg, nsweeps, [("e", e, tail[0].shape),
-                                     ("rhs", rhs, tail[0].shape)])
-    _check_bottom(tail, bottom)
+    matvec and the climb in one launch of one cluster. The climb writes
+    each level's solution over its pre-smoothed iterate, so the first
+    level's iterate buffer is the result."""
+    plan = _plan("v", tail, cfg, nsweeps, bottom)
+    _check_tensors(tail, [("e", e, tail[0].shape), ("rhs", rhs, tail[0].shape)])
     if not e.is_cuda:
         raise ValueError(f"tail_v_cuda wants CUDA tensors, got {e.device}")
     es = [torch.empty(lv.shape, dtype=e.dtype, device=e.device) for lv in tail]
     rhss = [torch.empty((lv.dim // 2,) * 3, dtype=e.dtype, device=e.device)
             for lv in tail]
     u_bot = torch.empty(bottom.shape, dtype=e.dtype, device=e.device)
-    _launch("v", tail, cfg, nsweeps, list(zip([rhs] + rhss[:-1], es, rhss)), e,
+    _launch(plan, "v", list(zip([rhs] + rhss[:-1], es, rhss)), e,
             extra=(bottom.bottom_ainv, u_bot))
     tail_v_cuda.launches += 1
     return es[0]

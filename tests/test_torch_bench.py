@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one intra-op thread a test process)
 
 from hpgmg_tpu.core.config import BottomSolver as JBottom
 from hpgmg_tpu.core.config import SolverConfig as JConfig
@@ -73,7 +74,7 @@ def test_run_benchmark_on_cpu_names_its_device():
     assert T.tail_down_plain.calls > tail_calls[0]
     assert T.tail_up_plain.calls > tail_calls[1]
     assert all(fn.launches == 0 for fn in (
-        S.fv4_stencil_cuda, S.fv4_gsrb2_cuda, S.fv4_gsrb2_coop_cuda,
+        S.fv4_stencil_cuda, S.fv4_gsrb2_cuda, S.fv4_gsrb2_cluster_cuda,
         T.tail_down_cuda, T.tail_up_cuda, R.restrict_cell_cuda))
 
 

@@ -15,6 +15,7 @@ card: python -m pytest tests/test_torch_cuda.py -q
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one intra-op thread a test process)
 
 from hpgmg_tpu_torch.bench.driver import build
 from hpgmg_tpu_torch.core.config import BC, BottomSolver, SolverConfig
@@ -85,13 +86,16 @@ def test_k2_matches_plain(dev, n, dtype):
               for a in rng.standard_normal((2, n, n, n)))
     for cfg in (SolverConfig(a=0.0, dtype=dtype),
                 SolverConfig(a=1.5, helmholtz=True, dtype=dtype)):
-        launches = S.fv4_gsrb2_coop_cuda.launches
-        out = S.fv4_gsrb2(lv, x, rhs, cfg)  # the entry launches K2c
-        assert S.fv4_gsrb2_coop_cuda.launches == launches + 1
         plain = S.fv4_gsrb2_plain(lv, x, rhs, cfg)
+        assert relerr(S.fv4_gsrb2_cuda(lv, x, rhs, cfg), plain) <= TOL[dtype]
+        if n > S.GSRB2_CLUSTER_MAX_N:  # beyond K2c: the entry raises
+            with pytest.raises(ValueError, match="K2c takes n"):
+                S.fv4_gsrb2(lv, x, rhs, cfg)
+            continue
+        launches = S.fv4_gsrb2_cluster_cuda.launches
+        out = S.fv4_gsrb2(lv, x, rhs, cfg)  # the entry launches K2c
+        assert S.fv4_gsrb2_cluster_cuda.launches == launches + 1
         assert relerr(out, plain) <= TOL[dtype]
-        for kernel in (S.fv4_gsrb2_cuda, S.fv4_gsrb2_coop_cuda):
-            assert relerr(kernel(lv, x, rhs, cfg), plain) <= TOL[dtype]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])

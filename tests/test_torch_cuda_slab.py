@@ -16,6 +16,7 @@ import dataclasses
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one intra-op thread a test process)
 
 from hpgmg_tpu_torch.core.config import BC, SolverConfig
 from hpgmg_tpu_torch.core.level import Level, rb_mask

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one intra-op thread a test process)
 
 import hpgmg_tpu.kernels.stencils as JK
 from hpgmg_tpu.core.config import SolverConfig as JConfig

@@ -28,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one intra-op thread a test process)
 
 import torch_ranks
 from hpgmg_tpu.core.config import BC as JBC
@@ -177,10 +178,10 @@ def test_rhs_ring_gather_and_reductions(ranks):
 def test_weak_entry_point_on_the_cpu(capsys):
     """python -m hpgmg_tpu_torch.bench.weak on 2 CPU ranks over gloo: one
     JSON line with the benchmark's keys, the grid and the backend, u equal
-    to the one-rank F-cycle's."""
+    to the one-rank F-cycle's; the ranks are killed after 240 s."""
     rc = weak.main(["--ranks", "2", "--backend", "gloo", "--device", "cpu",
                     "--per-rank", "16", "--dtype", "float64", "--dynamic-range", "1",
-                    "--check-serial"])
+                    "--check-serial", "--timeout", "240"])
     assert rc == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert out["grid"] == [2, 1, 1] and out["ranks"] == 2 and out["backend"] == "gloo"

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+import torch_cpu  # noqa: F401  (one intra-op thread a test process)
 import torch_ranks
 from hpgmg_tpu.core.config import BC as JBC
 from hpgmg_tpu.core.config import BottomSolver as JBottom

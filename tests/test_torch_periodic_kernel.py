@@ -25,6 +25,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one intra-op thread a test process)
 
 import hpgmg_tpu.kernels.stencils as JK
 import hpgmg_tpu.kernels.stencils_r1 as JK1

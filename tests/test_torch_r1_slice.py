@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one intra-op thread a test process)
 from test_golden import GOLDEN_FV7PT16_FCYCLE_REL, GOLDEN_FV7PT16_HISTORY, RTOL
 
 from hpgmg_tpu.bench.driver import _build_problem as jproblem

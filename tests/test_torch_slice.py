@@ -12,6 +12,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch_cpu  # noqa: F401  (one intra-op thread a test process)
 
 from hpgmg_tpu.core.config import BottomSolver as JBottom
 from hpgmg_tpu.core.config import SolverConfig as JConfig
