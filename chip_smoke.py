@@ -35,14 +35,17 @@ Phases, each printing its result and raising on failure (exit code != 0):
    kernel at a size the main path runs it at (K2c smooths the 64^3 level,
    K2 is reported at 512^3, the others run at 512^3);
    K5 (the radius-1 stencil: var7 body with the fv7pt and fv2 ghost taps,
-   every mode, with and without a*alpha*x; 27pt body, every mode, with and
-   without its constant a*x) and K6 (full red+black sweep, both bodies,
-   all three tap sets) at n in {8, 16, 32, 48, 64, 128, 256}, then their
-   times at 64^3, 128^3, 256^3 and 512^3 on the fv7pt and 27pt problems'
-   own levels; the periodic kernels with the same checks: K7b (K5 with
-   wrapped ghosts, every mode and body) at n in {8, ..., 256}, K4c (the
-   one-launch tail V-cycle over a DIRECT bottom) on the 32-16 and 16
-   ladders, and their times at 512^3 (K4c on the headline's 32-16 tail);
+   every mode, with and without a*alpha*x, csrc/r1_stencil.cu; 27pt body,
+   every mode, with and without its constant a*x, csrc/r1_stream.cu, also
+   at n in {2, 3, 9, 33} and with a chunk of 3 i-planes, its gsrb leaving
+   the other colour's cells equal to x bit for bit) and K6 (full red+black
+   sweep, both bodies, all three tap sets) at n in {8, 16, 32, 48, 64,
+   128, 256}, then their times, every mode, at 64^3, 128^3, 256^3 and
+   512^3 on the fv7pt and 27pt problems' own levels; the periodic kernels
+   with the same checks: K7b (K5 with wrapped ghosts, every mode and body)
+   at the same sizes, K4c (the one-launch tail V-cycle over a DIRECT
+   bottom) on the 32-16 and 16 ladders, and their times at 512^3 (the 27pt
+   body at 64^3-512^3, K4c on the headline's 32-16 tail);
    K2, K2c, K4 and K6 refuse a periodic level; K1s (the one-pass sub-tiled fv4
    stencil: apply, residual, gsrb for both parities, with and without
    a*alpha*x) against its plain version and against K1 at n in {8, ...,
@@ -80,7 +83,8 @@ Phases, each printing its result and raising on failure (exit code != 0):
 7b. one counted F-cycle (float32, 512^3) of the headline, its other tail
    setting, K2 on from 128^3, the other SUBTILE setting, fv7pt, 27pt and
    their periodic runs and periodic fv4: every kernel's launches per
-   F-cycle, K1's and K7a's and K2's and K2c's by level, no plain version;
+   F-cycle, K1's and K7a's, K2's and K2c's and K5's and K7b's by level,
+   no plain version;
 8. fv4 at 512^3 float32 through the CLI (bench/cli.py) with each other
    smoother (Chebyshev, Jacobi, L1-Jacobi, SymGS; DIRECT bottom): a finite
    rel_residual below 1; and with GSRB over each other bottom solver (CG,
@@ -765,59 +769,43 @@ def time_kernels(sizes=(64, 128, 256, 512)):
     return res
 
 
-def time_periodic_kernels(n=512):
+def time_periodic_kernels(n=512, sizes_27pt=(64, 128, 256, 512)):
     """Phase 3b, K7a and K7b: kernel vs plain time (float32) at n^3 on the
-    periodic problems' own finest levels (fv4: the fv problem; fv7pt and
-    27pt: p6), each pair checked against F32_TOL; the 27pt apply also
-    against a circular pad and conv3d, its library yardstick. Returns
-    {key: timing}."""
+    periodic problems' own finest levels (fv4: the fv problem; fv7pt: p6),
+    and of the 27pt body (p6) at each of ``sizes_27pt``, every mode, each
+    pair checked against F32_TOL; the 27pt apply also against a circular
+    pad and conv3d, its library yardstick. Returns {key: timing}, the 27pt
+    body's under "27pt" by size."""
     from hpgmg_tpu_torch.bench.driver import build_problem
     from hpgmg_tpu_torch.core.config import BC, SolverConfig
     from hpgmg_tpu_torch.core.level import Level
-    from hpgmg_tpu_torch.kernels import stencils_r1 as K
     from hpgmg_tpu_torch.ops.base import get_suite
 
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    x = torch.randn((n, n, n), generator=gen, device=dev)
-    cells, row, reps = n ** 3, {}, 5
-    for op, taps, var7 in (("fv4", None, None), ("fv7pt", "p1", True),
-                           ("27pt", "27pt", False)):
+    row, reps = {"27pt": {}}, 5
+    runs = [("fv4", None, None, n), ("fv7pt", "p1", True, n)]
+    runs += [("27pt", "27pt", False, m) for m in sizes_27pt]
+    for op, taps, var7, m in runs:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        x = torch.randn((m, m, m), generator=gen, device=dev)
         cfg = SolverConfig(op=op, bc=BC.PERIODIC, a=0.0, b=1.0, dtype=torch.float32)
-        prob = build_problem(n, cfg, dev)
+        prob = build_problem(m, cfg, dev)
         lv = get_suite(op).rebuild_operator(
-            Level(dim=n, h=1.0 / n, depth=0, beta_i=prob.beta_i,
+            Level(dim=m, h=1.0 / m, depth=0, beta_i=prob.beta_i,
                   beta_j=prob.beta_j, beta_k=prob.beta_k), cfg)
         rhs = prob.f
-        modes = (("apply", {}), ("residual", {"rhs": rhs}),
-                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[0]}), ("fres", {"rhs": rhs}))
         if op == "fv4":
             fv4 = {}
             time_stream(lv, x, rhs, cfg, reps, fv4, True)
             row.update({f"fv4 {mode}": t for mode, t in fv4.items()})
+        elif var7:
+            time_r1_modes(f"K7b var7 {m}^3 f32", lv, x, rhs, cfg, taps, var7, reps, row,
+                          "var7 ")
         else:
-            betas = nbytes(lv.beta_i, lv.beta_j, lv.beta_k) if var7 else 0
-            ax = VAR7_AX if var7 else P27_AX
-            body = "var7" if var7 else "27pt"
-            for mode, kw in modes:
-                out_cells = cells // 8 if mode == "fres" else cells
-                library = None
-                if not var7 and mode == "apply":
-                    d = torch.arange(3, device=dev).sub(1).abs()
-                    m = d[:, None, None] + d[None, :, None] + d[None, None, :]
-                    w = torch.tensor([K.C0, K.C1, K.C2, K.C3], device=dev)[m]
-                    w = (-cfg.b * lv.h2inv * w)[None, None]
-                    library = lambda w=w: torch.nn.functional.conv3d(  # noqa: E731
-                        torch.nn.functional.pad(x[None, None], (1,) * 6,
-                                                mode="circular"), w)[0, 0]
-                time_pair(f"K7b {body} {mode:8s} {n}^3 f32",
-                          lambda: K.r1_stencil_cuda(lv, x, cfg, mode, taps, var7, **kw),
-                          lambda: K.r1_stencil_plain(lv, x, cfg, mode, taps, var7, **kw),
-                          reps, row, f"{body} {mode}", library=library,
-                          work=(nbytes(x, *kw.values()) + betas + 4 * out_cells,
-                                mode_flops(ax, mode, cells, 1)))
-        del prob, lv, rhs
+            row["27pt"][m] = {}
+            time_r1_modes(f"K7b 27pt {m}^3 f32", lv, x, rhs, cfg, taps, var7,
+                          20 if m <= 128 else reps, row["27pt"][m], "")
+        del prob, lv, rhs, x
         torch.cuda.empty_cache()
     return row
 
@@ -846,10 +834,23 @@ R1_BODIES = (("var7 p1", "p1", True, False), ("var7 v2", "v2", True, False),
              ("27pt a=1.5", "27pt", False, True))
 
 
-def check_r1_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
+def r1_cases(lv, rhs):
+    """(mode, kwargs, parity) of every radius-1 mode: gsrb at both
+    parities, fres where n is even."""
+    out = [("apply", {}, None), ("residual", {"rhs": rhs}, None)]
+    out += [("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[p]}, p) for p in (0, 1)]
+    if lv.dim % 2 == 0:
+        out.append(("fres", {"rhs": rhs}, None))
+    return out
+
+
+def check_r1_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256), odd=(2, 3, 9, 33)):
     """Phase 3a, K5, K7b and K6: every mode of K5 and of K7b (K5 on a
     periodic level) and K6's full sweep, for each body and tap set of
-    R1_BODIES, against their plain versions."""
+    R1_BODIES, against their plain versions; the 27pt body (its own
+    kernel, csrc/r1_stream.cu) also at the sizes of ``odd`` (n = 2, odd
+    n; fres at even n), and with a forced chunk of 3 i-planes, its gsrb
+    leaving the other colour's cells equal to x bit for bit."""
     from hpgmg_tpu_torch.core.config import BC, SolverConfig
     from hpgmg_tpu_torch.kernels import stencils_r1 as K
 
@@ -857,58 +858,115 @@ def check_r1_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
     rng = np.random.default_rng(SEED + 2)
     for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
         dn = str(dtype)[6:]
-        for n in sizes:
+        for n in sorted(sizes + odd):
             lv = random_level_r1(n, dtype, dev, rng)
             x, rhs = (torch.tensor(a, dtype=dtype, device=dev)
                       for a in rng.standard_normal((2, n, n, n)))
-            k5 = k6 = k7 = 0.0
+            errs = {}
             for label, taps, var7, helm in R1_BODIES:
+                if var7 and n not in sizes:
+                    continue
                 cfg = SolverConfig(a=1.5 if helm else 0.0, b=1.0, helmholtz=helm,
                                    dtype=dtype)
-                for mode, kw in (("apply", {}), ("residual", {"rhs": rhs}),
-                                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[0]}),
-                                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[1]}),
-                                 ("fres", {"rhs": rhs})):
-                    for name, c in (("K5", cfg),
-                                    ("K7b", dataclasses.replace(cfg, bc=BC.PERIODIC))):
-                        rel, _ = relerr(K.r1_stencil_cuda(lv, x, c, mode, taps, var7, **kw),
-                                        K.r1_stencil_plain(lv, x, c, mode, taps, var7, **kw))
-                        if not rel <= tol:
-                            raise AssertionError(f"{name} {label} {mode} n={n} {dn}: "
-                                                 f"{rel} > {tol}")
-                        if name == "K5":
-                            k5 = max(k5, rel)
-                        else:
-                            k7 = max(k7, rel)
-                rel, _ = relerr(K.r1_gsrb2_cuda(lv, x, rhs, cfg, taps, var7),
-                                K.r1_gsrb2_plain(lv, x, rhs, cfg, taps, var7))
-                if not rel <= tol:
-                    raise AssertionError(f"K6 {label} n={n} {dn}: {rel} > {tol}")
-                k6 = max(k6, rel)
-            print(f"  K5 (5 modes x {len(R1_BODIES)} bodies) n={n:3d} {dn}: worst rel err "
-                  f"{k5:.3e}; K7b (the same, periodic): {k7:.3e}; "
-                  f"K6 ({len(R1_BODIES)} bodies): {k6:.3e}")
-            worst["r1_stencil"] = max(worst.get("r1_stencil", 0.0), k5)
-            worst["r1_stencil_periodic"] = max(worst.get("r1_stencil_periodic", 0.0), k7)
-            worst["r1_gsrb2"] = max(worst.get("r1_gsrb2", 0.0), k6)
+                for bc in (BC.DIRICHLET, BC.PERIODIC):
+                    c = dataclasses.replace(cfg, bc=bc)
+                    name = (("r1_stencil" if var7 else "r1_stream")
+                            + ("_periodic" if bc == BC.PERIODIC else ""))
+                    for mode, kw, parity in r1_cases(lv, rhs):
+                        ref = K.r1_stencil_plain(lv, x, c, mode, taps, var7, parity=parity,
+                                                 **kw)
+                        outs = [K.r1_stencil_cuda(lv, x, c, mode, taps, var7, parity=parity,
+                                                  **kw)]
+                        if not var7:
+                            outs.append(K.r1_stream_cuda(lv, x, c, mode, taps, parity=parity,
+                                                         chunk=3, **kw))
+                        for out in outs:
+                            rel, _ = relerr(out, ref)
+                            if not rel <= tol:
+                                raise AssertionError(f"{name} {label} {mode} {parity} n={n} "
+                                                     f"{dn}: {rel} > {tol}")
+                            errs[name] = max(errs.get(name, 0.0), rel)
+                            other = kw["kdinv"] == 0 if mode == "gsrb" else None
+                            if other is not None and not var7 and not torch.equal(
+                                    out[other], x[other]):
+                                raise AssertionError(f"{name} {label} gsrb{parity} n={n} "
+                                                     f"{dn}: the other colour differs from x")
+                if n in sizes:
+                    rel, _ = relerr(K.r1_gsrb2_cuda(lv, x, rhs, cfg, taps, var7),
+                                    K.r1_gsrb2_plain(lv, x, rhs, cfg, taps, var7))
+                    if not rel <= tol:
+                        raise AssertionError(f"K6 {label} n={n} {dn}: {rel} > {tol}")
+                    errs["r1_gsrb2"] = max(errs.get("r1_gsrb2", 0.0), rel)
+            print(f"  radius-1 every mode, body and BC n={n:3d} {dn}: worst rel err "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                  + "; the 27pt gsrb's other colour equals x bit for bit")
+            for k, v in errs.items():
+                worst[k] = max(worst.get(k, 0.0), v)
             del lv, x, rhs
     lv8, x8 = random_level_r1(8, torch.float32, dev, rng), torch.zeros((8,) * 3, device=dev)
     refuses_periodic("K6", lambda c: K.r1_gsrb2_cuda(lv8, x8, x8, c, "p1", True))
 
 
+def r1_library(lv, x, cfg):
+    """conv3d of x with its ghosts (a circular pad on a periodic level) and
+    the 27pt weights: the 27pt apply in one PyTorch call, its yardstick
+    (cudnn's TF32 off)."""
+    from hpgmg_tpu_torch.core.config import BC
+    from hpgmg_tpu_torch.kernels import stencils_r1 as K
+
+    torch.backends.cudnn.allow_tf32 = False
+    d = torch.arange(3, device=x.device).sub(1).abs()
+    m = d[:, None, None] + d[None, :, None] + d[None, None, :]
+    w = torch.tensor([K.C0, K.C1, K.C2, K.C3], device=x.device)[m]
+    w = (-cfg.b * lv.h2inv * w)[None, None]
+    if cfg.bc == BC.PERIODIC:
+        return lambda: torch.nn.functional.conv3d(
+            torch.nn.functional.pad(x[None, None], (1,) * 6, mode="circular"), w)[0, 0]
+    xg = K.ghost_fill_taps(x, "27pt", cfg.bc)[None, None]
+    return lambda: torch.nn.functional.conv3d(xg, w)[0, 0]
+
+
+def time_r1_modes(label: str, lv, x, rhs, cfg, taps: str, var7: bool, reps: int,
+                  row: dict, prefix: str):
+    """Each mode of K5 (K7b on a periodic level) against its plain version
+    and bound, the 27pt apply also against its conv3d yardstick; a gsrb at
+    parity 0, its stencil counted at its colour's cells only."""
+    from hpgmg_tpu_torch.kernels import stencils_r1 as K
+
+    cells = lv.ncells
+    betas = nbytes(lv.beta_i, lv.beta_j, lv.beta_k) if var7 else 0
+    ax = VAR7_AX if var7 else P27_AX
+    for mode, kw, parity in r1_cases(lv, rhs)[:3]:  # apply, residual, gsrb0
+        out_cells = cells // 8 if mode == "fres" else cells
+        time_pair(f"{label} {mode:8s}",
+                  lambda: K.r1_stencil_cuda(lv, x, cfg, mode, taps, var7, parity=parity, **kw),
+                  lambda: K.r1_stencil_plain(lv, x, cfg, mode, taps, var7, parity=parity,
+                                             **kw),
+                  reps, row, f"{prefix}{mode}",
+                  work=(nbytes(x, *kw.values()) + betas + x.element_size() * out_cells,
+                        mode_flops(ax, mode, cells, 1)),
+                  library=r1_library(lv, x, cfg) if not var7 and mode == "apply" else None)
+    fres_kw = {"rhs": rhs}
+    time_pair(f"{label} fres    ",
+              lambda: K.r1_stencil_cuda(lv, x, cfg, "fres", taps, var7, **fres_kw),
+              lambda: K.r1_stencil_plain(lv, x, cfg, "fres", taps, var7, **fres_kw),
+              reps, row, f"{prefix}fres",
+              work=(nbytes(x, rhs) + betas + x.element_size() * cells // 8,
+                    mode_flops(ax, "fres", cells, 1)))
+
+
 def time_r1_kernels(sizes=(64, 128, 256, 512)):
-    """Phase 3b, K5 and K6: kernel vs plain time (float32) on the finest
-    level of the fv7pt problem (p6 coefficients, var7 body, p1 taps) and of
-    the 27pt problem, each pair checked against F32_TOL; the 27pt apply
-    also against conv3d of the ghost-extended x, its library yardstick.
-    Returns per size {key: timing}."""
+    """Phase 3b, K5 and K6: kernel vs plain time (float32) of every mode on
+    the finest level of the fv7pt problem (p6 coefficients, var7 body, p1
+    taps) and of the 27pt problem, each pair checked against F32_TOL; the
+    27pt apply also against conv3d of the ghost-extended x, its library
+    yardstick. Returns per size {key: timing}."""
     from hpgmg_tpu_torch.bench.driver import build_problem
     from hpgmg_tpu_torch.core.config import SolverConfig
     from hpgmg_tpu_torch.core.level import Level
     from hpgmg_tpu_torch.kernels import stencils_r1 as K
     from hpgmg_tpu_torch.ops.base import get_suite
 
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     res = {}
     for n in sizes:
@@ -923,33 +981,16 @@ def time_r1_kernels(sizes=(64, 128, 256, 512)):
                 Level(dim=n, h=1.0 / n, depth=0, beta_i=prob.beta_i,
                       beta_j=prob.beta_j, beta_k=prob.beta_k), cfg)
             rhs = prob.f
-            betas = nbytes(lv.beta_i, lv.beta_j, lv.beta_k) if var7 else 0
-            ax = VAR7_AX if var7 else P27_AX
             body = "var7" if var7 else "27pt"
-            for mode, kw in (("apply", {}), ("residual", {"rhs": rhs}),
-                             ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[0]}),
-                             ("fres", {"rhs": rhs})):
-                out_cells = cells // 8 if mode == "fres" else cells
-                work = (nbytes(x, *kw.values()) + betas + 4 * out_cells,
-                        mode_flops(ax, mode, cells, 1))
-                library = None
-                if not var7 and mode == "apply":
-                    d = torch.arange(3, device=dev).sub(1).abs()
-                    m = d[:, None, None] + d[None, :, None] + d[None, None, :]
-                    w = torch.tensor([K.C0, K.C1, K.C2, K.C3], device=dev)[m]
-                    w = (-cfg.b * lv.h2inv * w)[None, None]
-                    xg = K.ghost_fill_taps(x, "27pt", cfg.bc)[None, None]
-                    library = lambda xg=xg, w=w: torch.nn.functional.conv3d(xg, w)[0, 0]  # noqa: E731
-                time_pair(f"K5 {body} {mode:8s} {n}^3 f32",
-                          lambda: K.r1_stencil_cuda(lv, x, cfg, mode, taps, var7, **kw),
-                          lambda: K.r1_stencil_plain(lv, x, cfg, mode, taps, var7, **kw),
-                          reps, row, f"{body} {mode}", work=work, library=library)
+            time_r1_modes(f"K5 {body} {n}^3 f32", lv, x, rhs, cfg, taps, var7, reps, row,
+                          f"{body} ")
             time_pair(f"K6 {body} gsrb2 {n}^3 f32",
                       lambda: K.r1_gsrb2_cuda(lv, x, rhs, cfg, taps, var7),
                       lambda: K.r1_gsrb2_plain(lv, x, rhs, cfg, taps, var7),
                       reps, row, f"{body} gsrb2",
-                      work=(nbytes(x, rhs, *lv.kdinv, x) + betas,
-                            2 * mode_flops(ax, "gsrb", cells, 0)))
+                      work=(nbytes(x, rhs, *lv.kdinv, x)
+                            + (nbytes(lv.beta_i, lv.beta_j, lv.beta_k) if var7 else 0),
+                            2 * mode_flops(VAR7_AX if var7 else P27_AX, "gsrb", cells, 0)))
             del prob, lv, rhs
         res[n] = row
         del x
@@ -982,22 +1023,23 @@ def solve_cfg(bottom: str, dtype, op: str = "fv4", bc: str = "dirichlet"):
 # the kernels each suite's F-cycle must launch, per BC
 R1_DIRICHLET = ("r1_stencil", "r1_gsrb2", "restrict_cell")
 R1_PERIODIC = ("r1_stencil_periodic", "restrict_cell")
+# the 27pt body runs on its own kernel (csrc/r1_stream.cu)
 PATH_KERNELS = {
     ("fv4", "dirichlet"): ("fv4_gsrb2_cluster", "restrict_cell"),
     ("fv7pt", "dirichlet"): R1_DIRICHLET,
     ("fv2", "dirichlet"): R1_DIRICHLET,
-    ("27pt", "dirichlet"): ("r1_stencil", "restrict_cell"),
+    ("27pt", "dirichlet"): ("r1_stream", "restrict_cell"),
     ("fv4", "periodic"): ("fv4_stencil_periodic", "restrict_cell"),
     ("fv7pt", "periodic"): R1_PERIODIC,
     ("fv2", "periodic"): R1_PERIODIC,
-    ("27pt", "periodic"): R1_PERIODIC,
+    ("27pt", "periodic"): ("r1_stream_periodic", "restrict_cell"),
 }
 # and the kernels a periodic F-cycle must never launch: the Dirichlet ghost
 # synthesis (K1, K1s, K5) and the fused kernels that read no periodic ghost
 # (K2, K4, K6)
 DIRICHLET_ONLY = ("fv4_stencil", "fv4_subtile", "fv4_gsrb2", "fv4_gsrb2_cluster",
-                  "tail_down", "tail_up", "tail_v", "r1_stencil", "r1_gsrb2")
-PERIODIC_ONLY = ("fv4_stencil_periodic", "r1_stencil_periodic")
+                  "tail_down", "tail_up", "tail_v", "r1_stencil", "r1_stream", "r1_gsrb2")
+PERIODIC_ONLY = ("fv4_stencil_periodic", "r1_stencil_periodic", "r1_stream_periodic")
 
 
 def fv4_stencil_kernels():
@@ -1160,6 +1202,7 @@ def fcycle_launches(n=512):
     K1 (K7a)."""
     from hpgmg_tpu_torch.bench.driver import build
     from hpgmg_tpu_torch.kernels import stencils as S
+    from hpgmg_tpu_torch.kernels import stencils_r1 as K
     from hpgmg_tpu_torch.kernels import tail as T
     from hpgmg_tpu_torch.ops import fv4 as F
     from hpgmg_tpu_torch.ops.base import get_suite
@@ -1167,14 +1210,19 @@ def fcycle_launches(n=512):
 
     dev = torch.device("cuda")
     launch = F.fv4_stencil  # the fv4 suite's entry to K1 / K7a, a launch a call
+    r1_launch = K.r1_stencil  # the radius-1 suites' entry to K5 / K7b, likewise
     out = {}
     for tag, op, bc, flip in FCYCLES:
         cfg = solve_cfg("direct", torch.float32, op, bc)
-        by_level, k2_by_level = {}, {}
+        by_level, k2_by_level, r1_by_level = {}, {}, {}
 
         def tally(level, *args, **kw):
             by_level[level.dim] = by_level.get(level.dim, 0) + 1
             return launch(level, *args, **kw)
+
+        def tally_r1(level, *args, **kw):
+            r1_by_level[level.dim] = r1_by_level.get(level.dim, 0) + 1
+            return r1_launch(level, *args, **kw)
 
         def one():
             hier, f = build(n, cfg, dev)
@@ -1188,12 +1236,12 @@ def fcycle_launches(n=512):
                 k2_by_level[key] = k2_by_level.get(key, 0) + 1
                 return out
 
-            F.fv4_stencil, F.fv4_gsrb2 = tally, tally_k2
+            F.fv4_stencil, F.fv4_gsrb2, K.r1_stencil = tally, tally_k2, tally_r1
             try:
                 fmg_solve(get_suite(op), hier, f, cfg)
                 torch.cuda.synchronize()
             finally:
-                F.fv4_stencil, F.fv4_gsrb2 = launch, sweep
+                F.fv4_stencil, F.fv4_gsrb2, K.r1_stencil = launch, sweep, r1_launch
             return read_counts()
 
         counts, plain = (one() if flip is None else k2_on(one) if flip == "K2" else
@@ -1201,14 +1249,20 @@ def fcycle_launches(n=512):
         counts = {k: v for k, v in counts.items() if v}
         print(f"  {tag} {n}^3: launches per F-cycle {counts}; K1/K7a by level "
               f"{dict(sorted(by_level.items(), reverse=True))}; K2/K2c by level "
-              f"{k2_by_level}")
+              f"{k2_by_level}; K5/K7b by level "
+              f"{dict(sorted(r1_by_level.items(), reverse=True))}")
         if any(plain.values()):
             raise AssertionError(f"{tag}: a plain version ran: {plain}")
         k1 = "fv4_stencil_periodic" if bc == "periodic" else "fv4_stencil"
         if op == "fv4" and not counts.get(k1):
             raise AssertionError(f"{tag}: no {k1} launch")
+        if op != "fv4" and sum(r1_by_level.values()) != (
+                counts.get("r1_stencil", 0) + counts.get("r1_stencil_periodic", 0)
+                + counts.get("r1_stream", 0) + counts.get("r1_stream_periodic", 0)):
+            raise AssertionError(f"{tag}: K5/K7b calls {r1_by_level} against launches "
+                                 f"{counts}")
         out[tag] = {"launches": counts, "fv4_stencil_by_level": by_level,
-                    "fv4_gsrb2_by_level": k2_by_level}
+                    "fv4_gsrb2_by_level": k2_by_level, "r1_stencil_by_level": r1_by_level}
         torch.cuda.empty_cache()
     return out
 
@@ -1377,15 +1431,12 @@ def check_slab_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
                     cfg = SolverConfig(a=1.5 if helm else 0.0, b=1.0, helmholtz=helm,
                                        dtype=dtype, bc=bc)
                     slabs = K.single_chip_slabs_r1(x, bc, taps)
-                    for mode, kw in (("apply", {}), ("residual", {"rhs": rhs}),
-                                     ("gsrb", {"rhs": rhs, "kdinv": lr.kdinv[0]}),
-                                     ("gsrb", {"rhs": rhs, "kdinv": lr.kdinv[1]}),
-                                     ("fres", {"rhs": rhs})):
+                    for mode, kw, parity in r1_cases(lr, rhs):
                         out = K.r1_slab_cuda(lr, x, slabs, cfg, mode, taps, var7, **kw)
                         hold("r1_slab", out,
                              K.r1_slab_plain(lr, x, slabs, cfg, mode, taps, var7, **kw))
-                        hold("r1_slab_vs_K5", out,
-                             K.r1_stencil_cuda(lr, x, cfg, mode, taps, var7, **kw))
+                        hold("r1_slab_vs_K5", out, K.r1_stencil_cuda(
+                            lr, x, cfg, mode, taps, var7, parity=parity, **kw))
                     if bc == BC.DIRICHLET:
                         lr2 = dataclasses.replace(lr, ring=K.ring_views(lr, cfg, var7))
                         s2, r2 = K.single_chip_slabs2_r1(x, taps), K.ring_cut(rhs, 0, 0, n, n)
@@ -1529,7 +1580,8 @@ def time_slab_kernels(n=512):
                     lambda: K.r1_slab_plain(lr, x, rs, cfg, "gsrb", "p1", True, **rkw),
                     (nbytes(x, *rs, lr.beta_i, lr.beta_j, lr.beta_k, rhs, lr.kdinv[0], x),
                      mode_flops(VAR7_AX, "gsrb", cells, 0)),
-                    "K5", lambda: K.r1_stencil_cuda(lr, x, cfg, "gsrb", "p1", True, **rkw)),
+                    "K5", lambda: K.r1_stencil_cuda(lr, x, cfg, "gsrb", "p1", True,
+                                                    parity=0, **rkw)),
             "K8d": (lambda: K.r1_gsrb2_slab_cuda(lr2, x, s2, edges, r2, cfg, "p1", True),
                     lambda: K.r1_gsrb2_slab_plain(lr2, x, s2, edges, r2, cfg, "p1", True),
                     (nbytes(x, *s2, r2, *(t for t in lr2.ring if t is not None),
@@ -1554,7 +1606,7 @@ def time_slab_kernels(n=512):
 SINGLE_RANK = ("fv4_stencil", "fv4_subtile", "fv4_stencil_periodic", "fv4_gsrb2",
                "fv4_gsrb2_cluster",
                "tail_down", "tail_up", "tail_v", "r1_stencil", "r1_stencil_periodic",
-               "r1_gsrb2")
+               "r1_stream", "r1_stream_periodic", "r1_gsrb2")
 # u of the decomposed F-cycle against the one-rank F-cycle on the same card,
 # max|u_ranks - u_one| / max|u_one|: float64 to 1e-9; float32 to 1e-5, a
 # few hundred f32 ulps (the blocks sum their reductions, interpolations and
@@ -1771,8 +1823,8 @@ def main() -> int:
          big["restrict"], counts["restrict_cell"]),
         ("r1_stencil_var7", "r1_stencil.cu", "hpgmg_tpu/kernels/stencils_r1.py:364",
          r1_times[512]["var7 gsrb"], r1["fv7pt"][1]["r1_stencil"]),
-        ("r1_stencil_27pt", "r1_stencil.cu", "hpgmg_tpu/kernels/stencils_r1.py:364",
-         r1_times[512]["27pt apply"], r1["27pt"][1]["r1_stencil"]),
+        ("r1_stencil_27pt", "r1_stream.cu", "hpgmg_tpu/kernels/stencils_r1.py:364",
+         r1_times[512]["27pt apply"], r1["27pt"][1]["r1_stream"]),
         ("r1_gsrb2", "r1_gsrb2.cu", "hpgmg_tpu/kernels/stencils_r1.py:783",
          r1_times[gsrb2_n]["var7 gsrb2"], r1["fv7pt"][1]["r1_gsrb2"]),
         ("fv4_stencil_periodic", "fv4_stream.cu", "hpgmg_tpu/kernels/stencils.py:1106",
@@ -1780,9 +1832,9 @@ def main() -> int:
         ("r1_stencil_periodic_var7", "r1_stencil.cu",
          "hpgmg_tpu/kernels/stencils_r1.py:517", p_times["var7 gsrb"],
          per["fv7pt"][1]["r1_stencil_periodic"]),
-        ("r1_stencil_periodic_27pt", "r1_stencil.cu",
-         "hpgmg_tpu/kernels/stencils_r1.py:517", p_times["27pt apply"],
-         per["27pt"][1]["r1_stencil_periodic"]),
+        ("r1_stencil_periodic_27pt", "r1_stream.cu",
+         "hpgmg_tpu/kernels/stencils_r1.py:517", p_times["27pt"][512]["apply"],
+         per["27pt"][1]["r1_stream_periodic"]),
         # the decomposed path: launches in the counted F-cycle of phase 13
         # (K8b's in the run with OVERLAP on)
         ("fv4_slab", "fv4_slab.cu", "hpgmg_tpu/kernels/stencils.py:1268",
@@ -1809,6 +1861,17 @@ def main() -> int:
     for k in kernels:
         if k["name"] in ("fv4_gsrb2_cluster", "tail_down", "tail_up", "tail_v"):
             k["ptxas"] = regs.get(f"{k['name']}_kernel<float>")
+    # the 27pt body's other modes at 512^3 (the row's own numbers are its
+    # apply's) and its registers and spills by mode (f32)
+    for name, modes in (("r1_stencil_27pt", {m: r1_times[512][f"27pt {m}"]
+                                             for m in ("residual", "gsrb", "fres")}),
+                        ("r1_stencil_periodic_27pt", {m: p_times["27pt"][512][m]
+                                                      for m in ("residual", "gsrb", "fres")})):
+        k = kernels[[k["name"] for k in kernels].index(name)]
+        k["modes"] = {m: {key: t[key] for key in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
+                      for m, t in modes.items()}
+        k["ptxas"] = {m: regs.get(f"r1_stream_kernel<float, {i}>")
+                      for i, m in enumerate(("apply", "residual", "gsrb", "fres"))}
     print(f"  worst relative errors over the checks: {worst}")
     print(json.dumps({"headline": {
         "dof_per_s": res.dof_per_second, "rel_residual": res.rel_residual,

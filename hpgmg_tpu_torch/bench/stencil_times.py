@@ -1,9 +1,9 @@
-"""Device time of each fv4 stencil call the F-cycle makes on one level, on
-one CUDA device.
+"""Device time of each fv4 (or radius-1) stencil call the F-cycle makes on
+one level, on one CUDA device.
 
     python -m hpgmg_tpu_torch.bench.stencil_times [--sizes 128 256 512]
-        [--dtype float32] [--bc dirichlet periodic] [--reps 10] [--tail]
-        [--json PATH]
+        [--dtype float32 [float64]] [--bc dirichlet periodic] [--reps 10]
+        [--tail] [--r1] [--json PATH]
 
 For each size and BC, on the benchmark problem's finest level as the fv4
 suite rebuilds it, with x drawn from a seeded generator: the ms per call
@@ -25,10 +25,18 @@ time on the small levels. With ``--tail``, also K4c, K4a and K4b (the
 tail kernels' entries ``tail_v_cuda``, ``tail_down_cuda``,
 ``tail_up_cuda``) on the headline's tail, the 32^3 and 16^3 levels of the
 benchmark hierarchy over its 8^3 DIRECT bottom, each with its device
-time (rows with n 32 and calls ``tail_v``, ``tail_down``, ``tail_up``). It
-reads nothing but these and the gate, so the same file times an older
-tree of the package too (copied into that tree and run from its root;
-there ``fv4_gsrb2_cuda`` is its own K2), in turns with this one on the same
+time (rows with n 32 and calls ``tail_v``, ``tail_down``, ``tail_up``).
+With ``--r1``, the radius-1 suites instead of fv4 (sizes 16^3-512^3 by
+default): for the var7 body (fv7pt's level) and the 27pt body (27pt's
+level, K5 or K7b through the suite), each of ``apply_op``, ``residual``,
+``gsrb_sweep`` (parity 0) and ``restrict_residual`` with its ms per call,
+its kernels' device ms (``<call>_device``, torch.profiler) and its byte
+bound (``<call>_bound``: x, the call's operands and the face arrays the
+body reads once, the output written once, over 3.35 TB/s; both bodies do
+a few flops a byte, far below the card's ridge in f32 and f64). It reads
+nothing but these and the gate, so the same file times an older tree of
+the package too (copied into that tree and run from its root; there
+``fv4_gsrb2_cuda`` is its own K2), in turns with this one on the same
 card. Prints one JSON line; ``--json`` also writes it to a file.
 """
 
@@ -47,6 +55,7 @@ from hpgmg_tpu_torch.kernels import stencils
 from hpgmg_tpu_torch.ops.base import get_suite
 
 SEED = 20261017
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 
 
 def time_ms(fn, reps: int) -> float:
@@ -133,6 +142,41 @@ def level_times(n: int, dtype: torch.dtype, bc: BC, reps: int) -> dict:
     return out
 
 
+def r1_times(n: int, dtype: torch.dtype, bc: BC, reps: int) -> dict:
+    """{body call: ms} of the four stencil calls of the var7 body (fv7pt's
+    level) and of the 27pt body (27pt's level) on the n^3 level, each with
+    its kernels' device ms (``<body> <call>_device``), over ``reps`` calls
+    at 512^3 and proportionally more on smaller levels, and its byte bound
+    (``<body> <call>_bound``)."""
+    reps = reps * min(64, max(1, (512 // n) ** 3))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((n, n, n), generator=gen, device=dev, dtype=dtype)
+    out = {}
+    for op, body in (("fv7pt", "var7"), ("27pt", "27pt")):
+        cfg = SolverConfig(op=op, bc=bc, a=0.0, b=1.0, dtype=dtype)
+        suite = get_suite(op)
+        prob = build_problem(n, cfg, dev)
+        lv = suite.rebuild_operator(Level(dim=n, h=1.0 / n, depth=0, beta_i=prob.beta_i,
+                                          beta_j=prob.beta_j, beta_k=prob.beta_k), cfg)
+        f = prob.f
+        calls = {"apply": lambda: suite.apply_op(lv, x, cfg),
+                 "residual": lambda: suite.residual(lv, x, f, cfg),
+                 "gsrb": lambda: suite.gsrb_sweep(lv, x, f, cfg, 0),
+                 "fres": lambda: suite.restrict_residual(lv, x, f, cfg)}
+        faces = sum(t.numel() for t in (lv.beta_i, lv.beta_j, lv.beta_k)) \
+            if body == "var7" else 0
+        # values read and written: x, rhs, kdinv, the output, the faces
+        values = {"apply": 2 * x.numel(), "residual": 3 * x.numel(),
+                  "gsrb": 4 * x.numel(), "fres": 2 * x.numel() + x.numel() // 8}
+        for name, fn in calls.items():
+            out[f"{body} {name}"] = time_ms(fn, reps)
+            out[f"{body} {name}_device"] = device_ms(fn, reps)
+            out[f"{body} {name}_bound"] = ((values[name] + faces) * x.element_size()
+                                           / HBM_BYTES_PER_S * 1e3)
+    return out
+
+
 def tail_times(dtype: torch.dtype, reps: int) -> dict:
     """{call: ms} of K4c, K4a and K4b on the headline's tail (the 32^3 and
     16^3 levels of the benchmark hierarchy over its 8^3 DIRECT bottom, 6
@@ -161,30 +205,37 @@ def tail_times(dtype: torch.dtype, reps: int) -> dict:
 
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--sizes", type=int, nargs="+", default=[128, 256, 512])
-    p.add_argument("--dtype", choices=["float32", "float64"], default="float32")
+    p.add_argument("--sizes", type=int, nargs="+", default=None,
+                   help="default 128 256 512; with --r1 16 32 64 128 256 512")
+    p.add_argument("--dtype", choices=["float32", "float64"], nargs="+",
+                   default=["float32"])
     p.add_argument("--bc", nargs="+", choices=["dirichlet", "periodic"],
                    default=["dirichlet", "periodic"])
     p.add_argument("--reps", type=int, default=10)
     p.add_argument("--tail", action="store_true",
                    help="also time K4c, K4a and K4b on the headline's 32-16 tail")
+    p.add_argument("--r1", action="store_true",
+                   help="time the radius-1 suites' calls (var7 and 27pt) instead of fv4's")
     p.add_argument("--json", default=None)
     args = p.parse_args(argv)
+    sizes = args.sizes or ([16, 32, 64, 128, 256, 512] if args.r1 else [128, 256, 512])
     if not torch.cuda.is_available():
         raise SystemExit("stencil_times needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     rows = []
-    for bc in args.bc:
-        for n in args.sizes:
-            ms = level_times(n, getattr(torch, args.dtype), BC(bc), args.reps)
-            rows += [{"n": n, "dtype": args.dtype, "bc": bc, "call": k, "ms": v}
-                     for k, v in ms.items()]
-            torch.cuda.empty_cache()
-    if args.tail:
-        rows += [{"n": 32, "dtype": args.dtype, "bc": "dirichlet", "call": k, "ms": v}
-                 for k, v in tail_times(getattr(torch, args.dtype), args.reps).items()]
+    times = r1_times if args.r1 else level_times
+    for dt in args.dtype:
+        for bc in args.bc:
+            for n in sizes:
+                ms = times(n, getattr(torch, dt), BC(bc), args.reps)
+                rows += [{"n": n, "dtype": dt, "bc": bc, "call": k, "ms": v}
+                         for k, v in ms.items()]
+                torch.cuda.empty_cache()
+        if args.tail:
+            rows += [{"n": 32, "dtype": dt, "bc": "dirichlet", "call": k, "ms": v}
+                     for k, v in tail_times(getattr(torch, dt), args.reps).items()]
     out = {"device": torch.cuda.get_device_name(0), "card": card, "rows": rows}
     line = json.dumps(out)
     print(line)

@@ -61,10 +61,14 @@ _SIGNATURES = {
     # (ptrs, dims, scales, nlev, nsweeps, a_coef, x_in, ainv, u_bot, stream)
     "hpgmg_tail_v_f32": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P),
     "hpgmg_tail_v_f64": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P),
-    # (x, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out, n, mode, var7,
-    #  periodic, b_h2inv, a_coef, t1, t2, stream)
-    "hpgmg_r1_stencil_f32": (_P,) * 8 + (_I, _I, _I, _I, _D, _D, _D, _D, _P),
-    "hpgmg_r1_stencil_f64": (_P,) * 8 + (_I, _I, _I, _I, _D, _D, _D, _D, _P),
+    # (x, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out, n, mode, periodic,
+    #  b_h2inv, a_coef, t1, t2, stream): the var7 body
+    "hpgmg_r1_stencil_f32": (_P,) * 8 + (_I, _I, _I, _D, _D, _D, _D, _P),
+    "hpgmg_r1_stencil_f64": (_P,) * 8 + (_I, _I, _I, _D, _D, _D, _D, _P),
+    # (x, rhs, kdinv, out, n, mode, periodic, parity, chunk, b_h2inv, a_coef,
+    #  t1, t2, stream): the 27pt body
+    "hpgmg_r1_stream_f32": (_P,) * 4 + (_I,) * 5 + (_D,) * 4 + (_P,),
+    "hpgmg_r1_stream_f64": (_P,) * 4 + (_I,) * 5 + (_D,) * 4 + (_P,),
     # (x, beta_i, beta_j, beta_k, alpha, rhs, kdinv0, kdinv1, out, n, var7,
     #  b_h2inv, a_coef, t1, t2, stream)
     "hpgmg_r1_gsrb2_f32": (_P,) * 9 + (_I, _I, _D, _D, _D, _D, _P),

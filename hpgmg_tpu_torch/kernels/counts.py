@@ -23,6 +23,8 @@ KERNELS = (
     ("restrict_cell", "restrict", "restrict_cell_cuda", "launches"),
     ("r1_stencil", "stencils_r1", "r1_stencil_cuda", "launches"),
     ("r1_stencil_periodic", "stencils_r1", "r1_stencil_cuda", "periodic_launches"),
+    ("r1_stream", "stencils_r1", "r1_stream_cuda", "launches"),
+    ("r1_stream_periodic", "stencils_r1", "r1_stream_cuda", "periodic_launches"),
     ("r1_gsrb2", "stencils_r1", "r1_gsrb2_cuda", "launches"),
     ("r1_slab", "stencils_r1", "r1_slab_cuda", "launches"),
     ("r1_gsrb2_slab", "stencils_r1", "r1_gsrb2_slab_cuda", "launches"),

@@ -1,8 +1,8 @@
-// Device building blocks of the radius-1 kernels (K5 in r1_stencil.cu, K6 in
-// r1_gsrb2.cu, K8c and K8d in r1_slab.cu): the 2-tap Dirichlet ghost of x,
-// and A x at one cell from an accessor of its neighbourhood and the indices
-// of its face coefficients (r1_ax; r1_index for an ni x nj x nk block), for
-// the two bodies:
+// Device building blocks of the radius-1 kernels (K5 in r1_stencil.cu and
+// r1_stream.cu, K6 in r1_gsrb2.cu, K8c and K8d in r1_slab.cu): the 2-tap
+// Dirichlet ghost of x, and A x at one cell from an accessor of its
+// neighbourhood and the indices of its face coefficients (r1_ax; r1_index
+// for an ni x nj x nk block), for the two bodies:
 //
 //   var7  A x = -b/h^2 * sum over the six faces of beta_f * (x_nb - x_c)
 //               [+ a * alpha * x_c]                      (fv7pt, fv2)

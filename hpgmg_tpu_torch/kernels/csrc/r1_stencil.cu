@@ -1,8 +1,7 @@
-// K5 and K7b: the radius-1 stencils of the fv7pt, fv2 and 27pt suites
-// (var7: the 7-point variable-coefficient flux, operators.7pt.c:52-76 and
-// operators.fv2.c:55-92; 27pt: the constant-coefficient Mehrstellen
-// stencil, operators.27pt.c:48-92) with 2-tap Dirichlet ghosts (K5) or
-// periodic ghosts (K7b, the `periodic` argument), in four modes:
+// K5 and K7b for the var7 body: the radius-1 stencils of the fv7pt and fv2
+// suites (the 7-point variable-coefficient flux, operators.7pt.c:52-76 and
+// operators.fv2.c:55-92) with 2-tap Dirichlet ghosts (K5) or periodic
+// ghosts (K7b, the `periodic` argument), in four modes:
 //
 //   apply     out = A x
 //   residual  out = rhs - A x
@@ -11,27 +10,30 @@
 //   fres      out = restrict_cell(rhs - A x)  (the 8 children averaged in
 //                                             shared memory)
 //
-// Replaces hpgmg_tpu/kernels/stencils_r1.py:_r1_kernel (reached through
-// _r1_call and the r1_{apply,residual,gsrb_sweep,restrict_residual}_pallas
-// entries). That kernel worked on (bi, bj, n) VMEM tiles and read j-padded,
-// split-k coefficient views built for the TPU's (8, 128) tiling; none of
-// that is carried over: the face coefficients are the natural face arrays.
+// The 27pt body (operators.27pt.c:48-92) runs on r1_stream.cu, which beat
+// this tile kernel in every mode at every size from 16^3 to 512^3
+// (PERF.md); the var7 body, at 75-77% of its byte bound here, stays.
+//
+// Replaces hpgmg_tpu/kernels/stencils_r1.py:_r1_kernel for the var7 body
+// (reached through _r1_call and the
+// r1_{apply,residual,gsrb_sweep,restrict_residual}_pallas entries). That
+// kernel worked on (bi, bj, n) VMEM tiles and read j-padded, split-k
+// coefficient views built for the TPU's (8, 128) tiling; none of that is
+// carried over: the face coefficients are the natural face arrays.
 // K7b replaces the same body's ext mode, hpgmg_tpu/kernels/stencils_r1.py:
 // r1_call_ext with kperiodic (reached through _r1_call on a periodic
 // level), where XLA materialized the i/j wrap into a j-padded block and the
 // kernel wrapped k in lanes: here the wrapped cells are read while x is
 // loaded into the tile, the rest of the kernel unchanged.
-// No separate ghost pass is needed (K1's fv4 ghosts, 4 taps at two depths,
-// once had one): a radius-1 Dirichlet ghost is a 2-tap function of
-// the two cells nearest the face (r1_common.cuh), synthesized while x is
-// loaded.
+// No separate ghost pass is needed: a radius-1 Dirichlet ghost is a 2-tap
+// function of the two cells nearest the face (r1_common.cuh), synthesized
+// while x is loaded.
 //
-// What bounds it on an H100: device-memory bandwidth. var7 gsrb reads x,
-// three face arrays, rhs and kdinv and writes out: 7 values, 28 B a cell in
-// f32, against ~21 flops; 27pt gsrb reads x, rhs, kdinv and writes out, 16 B
-// a cell against ~40 flops. Both are far below the card's f32 ridge
-// (67 TFLOP/s over 3.35 TB/s = 20 flop/B). What the design has to keep off
-// the critical path is the neighbour reads: 7 or 27 a cell.
+// What bounds it on an H100: device-memory bandwidth. A gsrb reads x,
+// three face arrays, rhs and kdinv and writes out: 7 values, 28 B a cell
+// in f32, against ~21 flops, far below the card's f32 ridge (67 TFLOP/s
+// over 3.35 TB/s = 20 flop/B). What the design has to keep off the
+// critical path is the neighbour reads: 7 a cell.
 //
 // Design: a block owns a TI x TJ x TK tile of cells (Tile in r1_common.cuh,
 // k fastest) and first loads x on it with a 1-cell halo into shared memory,
@@ -40,16 +42,14 @@
 // kdinv straight from device memory (coalesced along k). fres writes the
 // tile's residuals to a second shared array and each thread averages the
 // 8 children of one coarse cell (TI, TJ, TK even: a coarse cell's children
-// lie in one tile). A first version read all neighbours from device memory
-// through L1, one thread per cell on a 3D grid; its 27pt body issued 27
-// loads with bounds checks a cell and ran at 16x its bound (PERF.md).
+// lie in one tile).
 // Plain version: hpgmg_tpu_torch/kernels/stencils_r1.py:r1_stencil_plain.
 
 #include "r1_common.cuh"
 
 namespace {
 
-template <typename T, bool VAR7, int MODE>
+template <typename T, int MODE>
 __global__ void __launch_bounds__(kTileThreads) r1_kernel(const R1Args<T> p) {
   constexpr int TI = Tile<T>::I, TJ = Tile<T>::J, TK = Tile<T>::K;
   constexpr int XJ = TJ + 2, XK = TK + 2, XSIZE = (TI + 2) * XJ * XK;
@@ -69,7 +69,7 @@ __global__ void __launch_bounds__(kTileThreads) r1_kernel(const R1Args<T> p) {
     const T* xc = xs + ((a + 1) * XJ + (b + 1)) * XK + (c + 1);
     auto X = [&](int di, int dj, int dk) -> T { return xc[(di * XJ + dj) * XK + dk]; };
     const int64_t g = (static_cast<int64_t>(i) * n + j) * n + k;
-    const T ax = r1_cell_ax<T, VAR7>(p, X, i, j, k);
+    const T ax = r1_cell_ax<T, true>(p, X, i, j, k);
     if constexpr (MODE == kApply) {
       p.out[g] = ax;
     } else if constexpr (MODE == kResidual) {
@@ -99,25 +99,11 @@ __global__ void __launch_bounds__(kTileThreads) r1_kernel(const R1Args<T> p) {
   }
 }
 
-template <typename T, bool VAR7>
-cudaError_t launch_body(const R1Args<T>& p, int mode, cudaStream_t s) {
-  const dim3 grid((p.n + Tile<T>::K - 1) / Tile<T>::K, (p.n + Tile<T>::J - 1) / Tile<T>::J,
-                  (p.n + Tile<T>::I - 1) / Tile<T>::I);
-  switch (mode) {
-    case kApply: r1_kernel<T, VAR7, kApply><<<grid, kTileThreads, 0, s>>>(p); break;
-    case kResidual: r1_kernel<T, VAR7, kResidual><<<grid, kTileThreads, 0, s>>>(p); break;
-    case kGsrb: r1_kernel<T, VAR7, kGsrb><<<grid, kTileThreads, 0, s>>>(p); break;
-    default: r1_kernel<T, VAR7, kFres><<<grid, kTileThreads, 0, s>>>(p); break;
-  }
-  return cudaGetLastError();
-}
-
 template <typename T>
 int launch_r1(const void* x, const void* beta_i, const void* beta_j,
               const void* beta_k, const void* alpha, const void* rhs,
-              const void* kdinv, void* out, int n, int mode, int var7,
-              int periodic, double b_h2inv, double a_coef, double t1,
-              double t2, void* stream) {
+              const void* kdinv, void* out, int n, int mode, int periodic,
+              double b_h2inv, double a_coef, double t1, double t2, void* stream) {
   if (n < 2 || n > 524280 || mode < kApply || mode > kFres ||
       (mode == kFres && n % 2 != 0)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -131,33 +117,39 @@ int launch_r1(const void* x, const void* beta_i, const void* beta_j,
                     static_cast<T>(t1),            static_cast<T>(t2),
                     periodic != 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(var7 ? launch_body<T, true>(p, mode, s)
-                               : launch_body<T, false>(p, mode, s));
+  const dim3 grid((n + Tile<T>::K - 1) / Tile<T>::K, (n + Tile<T>::J - 1) / Tile<T>::J,
+                  (n + Tile<T>::I - 1) / Tile<T>::I);
+  switch (mode) {
+    case kApply: r1_kernel<T, kApply><<<grid, kTileThreads, 0, s>>>(p); break;
+    case kResidual: r1_kernel<T, kResidual><<<grid, kTileThreads, 0, s>>>(p); break;
+    case kGsrb: r1_kernel<T, kGsrb><<<grid, kTileThreads, 0, s>>>(p); break;
+    default: r1_kernel<T, kFres><<<grid, kTileThreads, 0, s>>>(p); break;
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// var7 != 0: the 7-point body (beta_* read; alpha may be null); else the
-// 27pt body (beta_* and alpha unused, a_coef the constant a). periodic != 0:
-// wrapped ghosts (t1, t2 unused)
+// the var7 body: beta_* read, alpha may be null (no a*alpha*x);
+// periodic != 0: wrapped ghosts (t1, t2 unused)
 extern "C" int hpgmg_r1_stencil_f32(const void* x, const void* beta_i,
                                     const void* beta_j, const void* beta_k,
                                     const void* alpha, const void* rhs,
                                     const void* kdinv, void* out, int n,
-                                    int mode, int var7, int periodic,
-                                    double b_h2inv, double a_coef, double t1,
-                                    double t2, void* stream) {
+                                    int mode, int periodic, double b_h2inv,
+                                    double a_coef, double t1, double t2,
+                                    void* stream) {
   return launch_r1<float>(x, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out, n,
-                          mode, var7, periodic, b_h2inv, a_coef, t1, t2, stream);
+                          mode, periodic, b_h2inv, a_coef, t1, t2, stream);
 }
 
 extern "C" int hpgmg_r1_stencil_f64(const void* x, const void* beta_i,
                                     const void* beta_j, const void* beta_k,
                                     const void* alpha, const void* rhs,
                                     const void* kdinv, void* out, int n,
-                                    int mode, int var7, int periodic,
-                                    double b_h2inv, double a_coef, double t1,
-                                    double t2, void* stream) {
+                                    int mode, int periodic, double b_h2inv,
+                                    double a_coef, double t1, double t2,
+                                    void* stream) {
   return launch_r1<double>(x, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out, n,
-                           mode, var7, periodic, b_h2inv, a_coef, t1, t2, stream);
+                           mode, periodic, b_h2inv, a_coef, t1, t2, stream);
 }

@@ -15,14 +15,15 @@ suite (``TAPS``), and their tensor product at edges and corners; the
 periodic ghosts (K7b) are the wrapped cells, on each axis crossed.
 
 Each entry dispatches on the device of ``x``: CUDA tensors launch the
-kernels of ``csrc/`` (``r1_stencil.cu``, ``r1_gsrb2.cu``), CPU tensors take
-the plain version. K5's modes are K1's (kernels/stencils.py): apply,
-residual, gsrb (out of place, ``x + kdinv * (rhs - A x)``) and fres
-(``restrict_cell(rhs - A x)``). K7b is K5's launch with its periodic
-flag set. K6 is one launch per full sweep, equal to two K5 gsrb calls
-(kdinv[0], then kdinv[1]); it takes Dirichlet levels only: a periodic
-fused sweep would need the opposite face's red iterate
-(hpgmg_tpu/kernels/stencils_r1.py:196-205).
+kernels of ``csrc/`` (``r1_stream.cu`` for the 27pt body, ``r1_stencil.cu``
+for var7, ``r1_gsrb2.cu``), CPU tensors take the plain version. K5's
+modes are K1's (kernels/stencils.py): apply, residual, gsrb (out of
+place, ``x + kdinv * (rhs - A x)``, with the sweep's ``parity``, the
+colour kdinv carries) and fres (``restrict_cell(rhs - A x)``). K7b is
+K5's launch with its periodic flag set. K6 is one launch per full sweep,
+equal to two K5 gsrb calls (kdinv[0], then kdinv[1]); it takes Dirichlet
+levels only: a periodic fused sweep would need the opposite face's red
+iterate (hpgmg_tpu/kernels/stencils_r1.py:196-205).
 """
 
 from __future__ import annotations
@@ -75,11 +76,16 @@ def use_gsrb2(dim: int, var7: bool, bc: BC) -> bool:
 
 
 def _check(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
-           taps: str, var7: bool, rhs: Optional[torch.Tensor], kdinv=()):
+           taps: str, var7: bool, rhs: Optional[torch.Tensor], kdinv=(),
+           parity: Optional[int] = 0):
     """Validate everything the kernels read; raise on what they do not
-    take. ``kdinv`` holds the dinv operands the mode reads."""
+    take. ``kdinv`` holds the dinv operands the mode reads; a half-sweep
+    (gsrb) needs its ``parity``, 0 or 1."""
     if mode not in MODES:
         raise ValueError(f"unknown radius-1 stencil mode {mode!r}")
+    if mode == "gsrb" and parity not in (0, 1):
+        raise ValueError(f"a radius-1 gsrb needs the sweep's parity (0 or 1), "
+                         f"got {parity!r}")
     if taps not in TAPS:
         raise ValueError(f"unknown ghost taps {taps!r}; have {sorted(TAPS)}")
     if cfg.bc not in (BC.DIRICHLET, BC.PERIODIC):
@@ -204,10 +210,13 @@ def apply_plain(level: Level, x: torch.Tensor, cfg: SolverConfig, taps: str,
 def r1_stencil_plain(level: Level, x: torch.Tensor, cfg: SolverConfig,
                      mode: str, taps: str, var7: bool,
                      rhs: Optional[torch.Tensor] = None,
-                     kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The plain PyTorch version of K5."""
+                     kdinv: Optional[torch.Tensor] = None,
+                     parity: Optional[int] = None) -> torch.Tensor:
+    """The plain PyTorch version of K5. A gsrb takes and checks the
+    kernels' ``parity``; its arithmetic reads the colour from kdinv alone
+    (``x + 0 * r`` at the other cells)."""
     _check(level, x, cfg, mode, taps, var7, rhs,
-           (kdinv,) if mode == "gsrb" else ())
+           (kdinv,) if mode == "gsrb" else (), parity)
     r1_stencil_plain.calls += 1
     return _modes(apply_plain(level, x, cfg, taps, var7), x, mode, rhs, kdinv)
 
@@ -233,9 +242,9 @@ def r1_gsrb2_plain(level: Level, x: torch.Tensor, rhs: torch.Tensor,
     _check(level, x, cfg, "gsrb", taps, var7, rhs, level.kdinv or (None, None))
     r1_gsrb2_plain.calls += 1
     x = r1_stencil_plain(level, x, cfg, "gsrb", taps, var7, rhs=rhs,
-                         kdinv=level.kdinv[0])
+                         kdinv=level.kdinv[0], parity=0)
     return r1_stencil_plain(level, x, cfg, "gsrb", taps, var7, rhs=rhs,
-                            kdinv=level.kdinv[1])
+                            kdinv=level.kdinv[1], parity=1)
 
 
 r1_gsrb2_plain.calls = 0
@@ -254,14 +263,19 @@ def _betas(level: Level, var7: bool):
 def r1_stencil_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
                     mode: str, taps: str, var7: bool,
                     rhs: Optional[torch.Tensor] = None,
-                    kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    kdinv: Optional[torch.Tensor] = None,
+                    parity: Optional[int] = None) -> torch.Tensor:
     """Launch K5 (K7b on a periodic level) on CUDA tensors into a newly
-    allocated output. K5 launches count in ``launches``, K7b launches in
-    ``periodic_launches``."""
+    allocated output: the 27pt body through ``r1_stream_cuda``, the var7
+    body on the tile kernel (``csrc/r1_stencil.cu``), whose launches count
+    in ``launches`` (K5) and ``periodic_launches`` (K7b). A gsrb needs
+    ``parity``, the colour ``kdinv`` carries."""
     from hpgmg_tpu_torch.kernels.build import library
 
+    if not var7:
+        return r1_stream_cuda(level, x, cfg, mode, taps, rhs, kdinv, parity)
     _check(level, x, cfg, mode, taps, var7, rhs,
-           (kdinv,) if mode == "gsrb" else ())
+           (kdinv,) if mode == "gsrb" else (), parity)
     if not x.is_cuda:
         raise ValueError(f"r1_stencil_cuda wants CUDA tensors, got {x.device}")
     n = level.dim
@@ -274,9 +288,8 @@ def r1_stencil_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
           else lib.hpgmg_r1_stencil_f64)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), *_betas(level, var7), _ptr(alpha), _ptr(rhs),
-                _ptr(kdinv), out.data_ptr(), n, MODES[mode], int(var7),
-                int(periodic), cfg.b * level.h2inv, a_coef, *TAPS[taps],
-                _stream(x))
+                _ptr(kdinv), out.data_ptr(), n, MODES[mode], int(periodic),
+                cfg.b * level.h2inv, a_coef, *TAPS[taps], _stream(x))
     if rc != 0:
         raise RuntimeError(f"radius-1 stencil kernel launch failed: CUDA error {rc}")
     if periodic:
@@ -288,6 +301,49 @@ def r1_stencil_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
 
 r1_stencil_cuda.launches = 0
 r1_stencil_cuda.periodic_launches = 0
+
+
+def r1_stream_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
+                   taps: str, rhs: Optional[torch.Tensor] = None,
+                   kdinv: Optional[torch.Tensor] = None,
+                   parity: Optional[int] = None, chunk: int = 0) -> torch.Tensor:
+    """Launch the 27pt body of K5 (K7b on a periodic level),
+    ``csrc/r1_stream.cu``, on CUDA tensors into a newly allocated output:
+    one launch a call, planes streamed through a shared-memory ring. A gsrb
+    needs ``parity``, the colour ``kdinv`` carries: the kernel computes A x
+    at that colour's cells only and copies x at the others. ``chunk``:
+    i-planes a block marches (0: the launcher's rule, as the solver calls
+    it; other values time the rule). Launches count in ``launches`` (K5)
+    and ``periodic_launches`` (K7b)."""
+    from hpgmg_tpu_torch.kernels.build import library
+
+    _check(level, x, cfg, mode, taps, False, rhs,
+           (kdinv,) if mode == "gsrb" else (), parity)
+    if not x.is_cuda:
+        raise ValueError(f"r1_stream_cuda wants CUDA tensors, got {x.device}")
+    if chunk < 0:
+        raise ValueError(f"chunk must be >= 0, got {chunk}")
+    n = level.dim
+    m = n // 2 if mode == "fres" else n
+    out = torch.empty((m, m, m), dtype=x.dtype, device=x.device)
+    periodic = cfg.bc == BC.PERIODIC
+    dt = "f32" if x.dtype == torch.float32 else "f64"
+    with torch.cuda.device(x.device):
+        rc = getattr(library(), f"hpgmg_r1_stream_{dt}")(
+            x.data_ptr(), _ptr(rhs), _ptr(kdinv), out.data_ptr(), n, MODES[mode],
+            int(periodic), parity or 0, chunk, cfg.b * level.h2inv, float(cfg.a),
+            *TAPS[taps], _stream(x))
+    if rc != 0:
+        raise RuntimeError(f"27pt stream kernel launch failed: CUDA error {rc}")
+    if periodic:
+        r1_stream_cuda.periodic_launches += 1
+    else:
+        r1_stream_cuda.launches += 1
+    return out
+
+
+r1_stream_cuda.launches = 0
+r1_stream_cuda.periodic_launches = 0
 
 
 def r1_gsrb2_cuda(level: Level, x: torch.Tensor, rhs: torch.Tensor,
@@ -327,13 +383,15 @@ r1_gsrb2_cuda.launches = 0
 
 def r1_stencil(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
                taps: str, var7: bool, rhs: Optional[torch.Tensor] = None,
-               kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+               kdinv: Optional[torch.Tensor] = None,
+               parity: Optional[int] = None) -> torch.Tensor:
     """K5 (K7b on a periodic level) on ``level``: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors."""
+    tensors, the plain version for CPU tensors. A gsrb half-sweep needs
+    ``parity``, the colour ``kdinv`` carries."""
     if x.is_cuda:
-        return r1_stencil_cuda(level, x, cfg, mode, taps, var7, rhs, kdinv)
+        return r1_stencil_cuda(level, x, cfg, mode, taps, var7, rhs, kdinv, parity)
     if x.device.type == "cpu":
-        return r1_stencil_plain(level, x, cfg, mode, taps, var7, rhs, kdinv)
+        return r1_stencil_plain(level, x, cfg, mode, taps, var7, rhs, kdinv, parity)
     raise ValueError(f"radius-1 stencil has no kernel for device {x.device}")
 
 

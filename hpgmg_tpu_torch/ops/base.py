@@ -75,11 +75,14 @@ class RadiusOneSuite(OperatorSuite):
     taps_key: str = "p1"
     var7: bool = True
 
-    def _k5(self, level: Level, x, cfg: SolverConfig, mode: str, **kw):
+    def _k5(self, level: Level, x, cfg: SolverConfig, mode: str, parity=None,
+            **kw):
+        """K5 (K7b) on a level, K8c on a rank's block of a decomposed one; a
+        gsrb passes its sweep's ``parity`` (K8c reads it from kdinv)."""
         if level.part is not None:
             return r1_sharded(level, x, cfg, mode, self.taps_key, self.var7, **kw)
         return stencils_r1.r1_stencil(level, x, cfg, mode, self.taps_key,
-                                      self.var7, **kw)
+                                      self.var7, parity=parity, **kw)
 
     def apply_op(self, level: Level, x, cfg: SolverConfig):
         return self._k5(level, x, cfg, "apply")
@@ -90,7 +93,7 @@ class RadiusOneSuite(OperatorSuite):
     def gsrb_sweep(self, level: Level, x, rhs, cfg: SolverConfig,
                    parity: int):
         return self._k5(level, x, cfg, "gsrb", rhs=rhs,
-                        kdinv=level.kdinv[parity & 1])
+                        kdinv=level.kdinv[parity & 1], parity=parity & 1)
 
     def gsrb_smooth(self, level: Level, x, rhs, cfg: SolverConfig,
                     nsweeps: int):

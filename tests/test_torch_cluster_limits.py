@@ -3,7 +3,10 @@ csrc/fv4_gsrb2_cluster.cu; K4, csrc/tail.cu) admit only levels the kernels
 take: the Python constants agree with the CUDA sources' own, and the
 largest level each gate admits fits a block's shared memory in float64.
 Runs on the CPU: it reads the sources, it launches nothing. Also: the
-launch plans the two kernels' wrappers keep on a level (``Level.plan``)
+ring of the streaming 27pt kernel (csrc/r1_stream.cu) fits a block's
+static shared memory, and the blocks an SM it asks for (its
+__launch_bounds__) fit the SM's shared memory and threads; the launch
+plans the two cluster kernels' wrappers keep on a level (``Level.plan``)
 are made once and go with the level, and every kernel's C entry takes
 what its ctypes signature declares.
 """
@@ -61,6 +64,30 @@ def test_tail_gates_within_the_kernels_limits(dtype):
     # reuse its buffers
     assert T.tail_smem(T.TAIL_MAX_DIM, itemsize) <= T.MAX_SMEM
     assert T.tail_smem(T.TAIL_MAX_DIM, itemsize) >= T.tail_smem(T.TAIL_MAX_DIM // 2, itemsize)
+
+
+# an H100 SM: 228 KB of shared memory, 1 KB of it reserved for each
+# block; at most 48 KB of static shared memory a block; 2048 threads
+SM_SMEM, BLOCK_RESERVED, STATIC_SMEM, SM_THREADS = 233472, 1024, 49152, 2048
+
+
+@pytest.mark.parametrize("dtype,blocks", [(torch.float32, "kR1Blocks32"),
+                                          (torch.float64, "kR1Blocks64")])
+def test_r1_stream_ring_fits_a_block(dtype, blocks):
+    """The 27pt kernel's ring (kR1Ring x planes of (TJ + 2) x (TK + 2)
+    values, static shared memory; its copy offsets sit in registers) fits
+    a block, and the SM holds the blocks its __launch_bounds__ asks for."""
+    src = "r1_stream.cu"
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    ring = _constant(src, "kR1Ring") * (_constant(src, "R1TJ") + 2) * \
+        (_constant(src, "R1TK") + 2) * itemsize
+    per_sm = _constant(src, blocks)
+    threads = _constant(src, "kR1Threads")
+    assert threads == _constant(src, "R1TJ") * _constant(src, "R1TK") // 2
+    assert _constant(src, "kR1Ring") >= 3  # the plane read, the one awaited, one more
+    assert ring <= STATIC_SMEM
+    assert per_sm * (ring + BLOCK_RESERVED) <= SM_SMEM
+    assert per_sm * threads <= SM_THREADS
 
 
 def test_level_keeps_its_launch_plans():

@@ -176,15 +176,18 @@ def test_k5_k6_match_plain(dev, n, dtype):
     for taps, var7, helm in R1_BODIES:
         cfg = SolverConfig(a=1.5 if helm else 0.0, helmholtz=helm, dtype=dtype)
         cases = [("apply", {}), ("residual", {"rhs": rhs}),
-                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[0]}),
-                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[1]}), ("fres", {"rhs": rhs})]
-        launches = K.r1_stencil_cuda.launches
+                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[0], "parity": 0}),
+                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[1], "parity": 1}),
+                 ("fres", {"rhs": rhs})]
+        # var7 on the tile kernel, 27pt on the streaming one
+        wrapper = K.r1_stencil_cuda if var7 else K.r1_stream_cuda
+        launches = wrapper.launches
         for mode, kw in cases:
             out = K.r1_stencil(lv, x, cfg, mode, taps, var7, **kw)
             assert out.is_cuda
             assert relerr(out, K.r1_stencil_plain(lv, x, cfg, mode, taps, var7,
                                                   **kw)) <= TOL[dtype]
-        assert K.r1_stencil_cuda.launches == launches + len(cases)
+        assert wrapper.launches == launches + len(cases)
         launches = K.r1_gsrb2_cuda.launches
         out = K.r1_gsrb2(lv, x, rhs, cfg, taps, var7)
         assert K.r1_gsrb2_cuda.launches == launches + 1
@@ -244,14 +247,16 @@ def test_k7b_matches_plain(dev, n, dtype):
         cfg = SolverConfig(a=1.5 if helm else 0.0, helmholtz=helm, bc=BC.PERIODIC,
                            dtype=dtype)
         cases = [("apply", {}), ("residual", {"rhs": rhs}),
-                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[0]}),
-                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[1]}), ("fres", {"rhs": rhs})]
-        before = (K.r1_stencil_cuda.launches, K.r1_stencil_cuda.periodic_launches)
+                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[0], "parity": 0}),
+                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[1], "parity": 1}),
+                 ("fres", {"rhs": rhs})]
+        wrapper = K.r1_stencil_cuda if var7 else K.r1_stream_cuda
+        before = (wrapper.launches, wrapper.periodic_launches)
         for mode, kw in cases:
             out = K.r1_stencil(lv, x, cfg, mode, taps, var7, **kw)
             assert relerr(out, K.r1_stencil_plain(lv, x, cfg, mode, taps, var7,
                                                   **kw)) <= TOL[dtype]
-        assert (K.r1_stencil_cuda.launches, K.r1_stencil_cuda.periodic_launches) == (
+        assert (wrapper.launches, wrapper.periodic_launches) == (
             before[0], before[1] + len(cases))
         with pytest.raises(NotImplementedError):
             K.r1_gsrb2(lv, x, rhs, cfg, taps, var7)

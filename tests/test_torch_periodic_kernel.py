@@ -239,7 +239,7 @@ def test_k7b_plain_matches_jax(r1_data, monkeypatch, ref, op, taps, var7, helmho
         want = _r1_jax(ref, op, jlv, jcfg, taps, mode, x, rhs)
         if mode.startswith("gsrb"):
             out = K.r1_stencil(lv, tx, cfg, "gsrb", taps, var7, rhs=trhs,
-                               kdinv=lv.kdinv[int(mode[-1])])
+                               kdinv=lv.kdinv[int(mode[-1])], parity=int(mode[-1]))
         else:
             out = K.r1_stencil(lv, tx, cfg, mode, taps, var7,
                                rhs=None if mode == "apply" else trhs)

@@ -10,7 +10,10 @@ body with the fv7pt (p1) and fv2 (v2) ghost taps, with and without the
 a*alpha*x term, and for the 27pt body with and without its constant a*x.
 K6: one full sweep for the same bodies against r1_gsrb2_pallas, and
 against two K5 half-sweeps. Both packages read the same random level. The
-CUDA kernels run only on a card (tests/test_torch_cuda.py, chip_smoke.py).
+CUDA kernels run only on a card (tests/test_torch_cuda.py,
+tests/test_torch_cuda_r1_stream.py, chip_smoke.py). Also: a half-sweep
+takes the sweep's parity (the plain version checks it, the suite passes
+it, the entry refuses a gsrb without it).
 """
 
 import dataclasses
@@ -119,7 +122,7 @@ def test_k5_plain_matches_pallas(data, interpret, taps, var7, helmholtz):
             p = int(mode[-1])
             ref = JK1.r1_gsrb_sweep_pallas(jlv, jx, jrhs, jcfg, p, taps)
             out = K.r1_stencil(lv, x, cfg, "gsrb", taps, var7, rhs=rhs,
-                               kdinv=lv.kdinv[p])
+                               kdinv=lv.kdinv[p], parity=p)
         assert out.shape == ref.shape, mode
         assert rel(out, ref) <= TOL, mode
 
@@ -139,7 +142,7 @@ def test_k6_plain_matches_pallas_and_two_half_sweeps(data, interpret, taps, var7
     halves = x
     for p in (0, 1):
         halves = K.r1_stencil_plain(lv, halves, cfg, "gsrb", taps, var7, rhs=rhs,
-                                    kdinv=lv.kdinv[p])
+                                    kdinv=lv.kdinv[p], parity=p)
     assert torch.equal(out, halves)
 
 
@@ -221,3 +224,73 @@ def test_27pt_body_float32_rounding():
     err = rel(out.double(), ref.numpy())
     jerr = rel(torch.tensor(np.asarray(jout, dtype=np.float64)), ref.numpy())
     assert err <= 3e-5 and err < 0.5 * jerr, (err, jerr)
+
+
+@pytest.mark.parametrize("taps,var7", [("p1", True), ("27pt", False)])
+@pytest.mark.parametrize("parity", [0, 1])
+def test_plain_gsrb_with_parity_is_the_kdinv_form(data, taps, var7, parity):
+    """The plain half-sweep with its parity is x + kdinv * (rhs - A x), and
+    x bit for bit at the other colour's cells (what the streaming kernel
+    copies there); it refuses a parity that is not 0 or 1."""
+    lv = _port_level(data, False)
+    x, rhs = (torch.tensor(a) for a in data[3:])
+    cfg = SolverConfig(op="27pt" if taps == "27pt" else "fv7pt", a=0.0,
+                       dtype=torch.float64)
+    kd = lv.kdinv[parity]
+    out = K.r1_stencil_plain(lv, x, cfg, "gsrb", taps, var7, rhs=rhs, kdinv=kd,
+                             parity=parity)
+    ax = K.r1_stencil_plain(lv, x, cfg, "apply", taps, var7)
+    assert torch.equal(out, x + kd * (rhs - ax))
+    other = rb_mask(N, 1 - parity, torch.float64, torch.device("cpu")) > 0
+    assert torch.equal(out[other], x[other])
+    for bad in (None, 2, -1):
+        with pytest.raises(ValueError, match="parity"):
+            K.r1_stencil_plain(lv, x, cfg, "gsrb", taps, var7, rhs=rhs, kdinv=kd,
+                               parity=bad)
+
+
+def test_entry_refuses_a_gsrb_without_its_parity(data):
+    """r1_stencil (the entry the suites call) and both CUDA wrappers refuse
+    a half-sweep without the sweep's parity before they launch anything;
+    the other modes need none."""
+    lv = _port_level(data, False)
+    x, rhs = (torch.tensor(a) for a in data[3:])
+    cfg = SolverConfig(op="27pt", a=0.0, dtype=torch.float64)
+    for taps, var7 in (("27pt", False), ("p1", True)):
+        with pytest.raises(ValueError, match="parity"):
+            K.r1_stencil(lv, x, cfg, "gsrb", taps, var7, rhs=rhs, kdinv=lv.kdinv[0])
+        with pytest.raises(ValueError, match="parity"):
+            K.r1_stencil_cuda(lv, x, cfg, "gsrb", taps, var7, rhs=rhs,
+                              kdinv=lv.kdinv[0])
+        K.r1_stencil(lv, x, cfg, "residual", taps, var7, rhs=rhs)
+    with pytest.raises(ValueError, match="parity"):
+        K.r1_stream_cuda(lv, x, cfg, "gsrb", "27pt", rhs=rhs, kdinv=lv.kdinv[0])
+    with pytest.raises(ValueError, match="CUDA"):  # checked, then refused
+        K.r1_stream_cuda(lv, x, cfg, "gsrb", "27pt", rhs=rhs, kdinv=lv.kdinv[0],
+                         parity=0)
+
+
+@pytest.mark.parametrize("op", ["fv7pt", "27pt"])
+def test_suite_half_sweep_passes_its_parity(data, op, monkeypatch):
+    """RadiusOneSuite.gsrb_sweep hands the entry the sweep's parity (its
+    low bit) with the matching kdinv, and gsrb_smooth's half-sweeps
+    alternate 0, 1, 0, ... (the 27pt suite smooths only by half-sweeps)."""
+    suite = get_suite(op)
+    lv = _port_level(data, False)
+    x, rhs = (torch.tensor(a) for a in data[3:])
+    cfg = SolverConfig(op=op, a=0.0, dtype=torch.float64)
+    seen = []
+    entry = K.r1_stencil
+
+    def record(level, x, cfg, mode, taps, var7, rhs=None, kdinv=None, parity=None):
+        seen.append((mode, parity, kdinv is level.kdinv[parity] if kdinv is not None
+                     else None))
+        return entry(level, x, cfg, mode, taps, var7, rhs, kdinv, parity)
+
+    monkeypatch.setattr(K, "r1_stencil", record)
+    suite.gsrb_sweep(lv, x, rhs, cfg, 3)
+    assert seen == [("gsrb", 1, True)]
+    seen.clear()
+    monkeypatch.setattr(K, "GSRB2_MAX_DIM", 0)  # half-sweeps for every suite
+    suite.gsrb_smooth(lv, x, rhs, cfg, 4)
+    assert seen == [("gsrb", p, True) for p in (0, 1, 0, 1)]
