@@ -101,10 +101,16 @@ Phases, each printing its result and raising on failure (exit code != 0):
    plain versions and the single-rank kernels at K1S_TOL: K8a (fv4) against
    K1/K7a, K8b (its interior pass, then its edge pass) equal to K8a bit for
    bit, K8c (every body and tap set) against K5/K7b, K8d against K6 (K3
-   takes a non-cubic block in phase 3);
+   takes a non-cubic block in phase 3); then K8a on thin, ragged and the
+   2x2 grid's local blocks with random slabs (SLAB_BLOCKS, (4,4,8) to
+   (128,128,256)), every mode against its plain version, its gsrb's other
+   colour equal to x, chunks of 2 and 3 i-planes and K8b's two passes
+   equal to it bit for bit;
 12. their times (float32) at the local blocks the 2x2 grid's 512^3 path
-   gives them, with bounds and plain times, and on one 512^3 block (K8d
-   256^3) beside K1, K5 and K6, in turns;
+   gives them (K8a's three modes and K8b's two passes at the finest
+   block, each with its device time), with bounds and plain times, and on
+   one 512^3 block (K8a's three modes; K8d 256^3) beside K1, K5 and K6, in
+   turns;
 13. the decomposed F-cycle through bench/weak.py: 4 processes in a 2x2
    grid sharing this GPU over gloo (halos staged through host memory; its
    seconds per solve are not a multi-card number): fv4 and fv7pt at 512^3
@@ -158,8 +164,8 @@ def mode_flops(ax: int, mode: str, cells: int, extra: int) -> int:
 
 def ptxas_report(log: str):
     """(kernel, "registers, spills") of each entry function in the build's
-    ptxas log: the kernel's name, its type (f/d) and template int (the
-    mode) read from the mangled name."""
+    ptxas log: the kernel's name, its type (f/d) and template ints (the
+    mode; K8a's pass) read from the mangled name."""
     import re
 
     out, name, spill = [], None, ""
@@ -167,11 +173,12 @@ def ptxas_report(log: str):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            # _GLOBAL__N_..._<file>_cu_<8 hex><len><kernel>I<type>[Li<int>E]
-            k = re.search(r"_cu_[0-9a-f]{8}\d+(\w+?)I([fd])(?:Li(\d+)E)?", name)
+            # _GLOBAL__N_..._<file>_cu_<8 hex><len><kernel>I<type>[Li<int>E]...
+            k = re.search(r"_cu_[0-9a-f]{8}\d+(\w+?)I([fd])((?:Li\d+E)*)", name)
             if k:
+                ints = re.findall(r"Li(\d+)E", k.group(3))
                 name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}"
-                        + (f", {k.group(3)}>" if k.group(3) else ">"))
+                        + "".join(f", {v}" for v in ints) + ">")
         elif "spill stores" in line:
             spill = line.strip()
         elif "registers" in line and name is not None:
@@ -1405,7 +1412,7 @@ def check_slab_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
                     raise AssertionError(f"{name} n={n} {dn}: rel err {rel} > {tol}")
                 errs[name] = max(errs[name], rel)
 
-            overlap = S.overlap_grid_shape(n, n, dtype) is not None
+            overlap = S.overlap_grid_shape(n, n) is not None
             for bc in (BC.DIRICHLET, BC.PERIODIC):
                 slabs = S.single_chip_slabs(x, bc)
                 for cfg in (SolverConfig(a=0.0, b=1.0, dtype=dtype, bc=bc),
@@ -1413,14 +1420,15 @@ def check_slab_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
                     for _, mode, kw, parity in stream_cases(lv, rhs):
                         if mode not in S.SLAB_MODES:
                             continue
-                        out = S.fv4_slab_cuda(lv, x, slabs, cfg, mode, **kw)
+                        out = S.fv4_slab_cuda(lv, x, slabs, cfg, mode, parity=parity, **kw)
                         hold("fv4_slab", out, S.fv4_slab_plain(lv, x, slabs, cfg, mode, **kw))
                         hold("fv4_slab_vs_K1", out, S.fv4_stencil_cuda(lv, x, cfg, mode,
                                                                        parity=parity, **kw))
                         if overlap:
                             pair = S.fv4_overlap_edge_cuda(
                                 lv, x, slabs, cfg, mode,
-                                S.fv4_overlap_interior_cuda(lv, x, cfg, mode, **kw), **kw)
+                                S.fv4_overlap_interior_cuda(lv, x, cfg, mode, parity=parity,
+                                                            **kw), parity=parity, **kw)
                             if not torch.equal(pair, out):
                                 raise AssertionError(f"K8b {mode} n={n} {dn} {bc.value}: "
                                                      f"differs from K8a by {relerr(pair, out)}")
@@ -1452,9 +1460,76 @@ def check_slab_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
                 worst[k] = max(worst.get(k, 0.0), v)
             del lr, x, rhs
     torch.cuda.empty_cache()
+    check_slab_blocks(worst)
 
 
-def _block_level(ni: int, nj: int, nk: int, dev, rng, r1: bool):
+# K8a's local blocks beyond the whole-domain ones: thin (a column tile wider
+# than the block), ragged (extents no multiple of the 16 x 32 column tile)
+# and the 2x2 grid's
+SLAB_BLOCKS = ((4, 4, 8), (8, 8, 16), (16, 48, 32), (24, 40, 48), (64, 64, 128),
+               (128, 128, 256))
+
+
+def check_slab_blocks(worst: dict):
+    """Phase 11, K8a on SLAB_BLOCKS with random coefficients and slabs (as
+    neighbours would send them), float32 and float64, both BCs, with and
+    without a*alpha*x: every mode against its plain version at K1S_TOL, a
+    gsrb leaving the other colour equal to x bit for bit, chunks of 2 and 3
+    i-planes equal to the launcher's rule bit for bit, K8b's two passes
+    equal to K8a bit for bit where its split takes the block."""
+    from hpgmg_tpu_torch.core.config import BC, SolverConfig
+    from hpgmg_tpu_torch.kernels import stencils as S
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 7)
+    for dtype in (torch.float32, torch.float64):
+        tol, dn = K1S_TOL[dtype], str(dtype)[6:]
+        for ni, nj, nk in SLAB_BLOCKS:
+            lv = _block_level(ni, nj, nk, dev, rng, r1=False, dtype=dtype)
+            lv = dataclasses.replace(lv, alpha=torch.tensor(
+                rng.random((ni, nj, nk)), dtype=dtype, device=dev))
+            x, rhs = (torch.tensor(rng.standard_normal((ni, nj, nk)), dtype=dtype, device=dev)
+                      for _ in range(2))
+            slabs = tuple(torch.tensor(rng.standard_normal(s), dtype=dtype, device=dev)
+                          for s in ((2, nj, nk),) * 2 + ((ni + 4, 2, nk),) * 2)
+            split = S.overlap_grid_shape(ni, nj) is not None
+            err = 0.0
+            for bc in (BC.DIRICHLET, BC.PERIODIC):
+                for cfg in (SolverConfig(a=0.0, b=1.0, dtype=dtype, bc=bc),
+                            SolverConfig(a=1.5, b=1.0, helmholtz=True, dtype=dtype, bc=bc)):
+                    for mode, kw, parity in (
+                            ("apply", {}, None), ("residual", {"rhs": rhs}, None),
+                            *(("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[p]}, p) for p in (0, 1))):
+                        tag = f"K8a {mode} {parity} ({ni},{nj},{nk}) {dn} {bc.value}"
+                        out = S.fv4_slab_cuda(lv, x, slabs, cfg, mode, parity=parity, **kw)
+                        rel, _ = relerr(out, S.fv4_slab_plain(lv, x, slabs, cfg, mode, **kw))
+                        if not rel <= tol:
+                            raise AssertionError(f"{tag}: rel err {rel} > {tol}")
+                        err = max(err, rel)
+                        if mode == "gsrb":
+                            other = kw["kdinv"] == 0
+                            if not torch.equal(out[other], x[other]):
+                                raise AssertionError(f"{tag}: the other colour moved")
+                        for chunk in (2, 3):
+                            if not torch.equal(S.fv4_slab_cuda(lv, x, slabs, cfg, mode,
+                                                               parity=parity, chunk=chunk,
+                                                               **kw), out):
+                                raise AssertionError(f"{tag}: chunk {chunk} differs")
+                        if split:
+                            inner = S.fv4_overlap_interior_cuda(lv, x, cfg, mode,
+                                                                parity=parity, **kw)
+                            if not torch.equal(S.fv4_overlap_edge_cuda(
+                                    lv, x, slabs, cfg, mode, inner, parity=parity, **kw), out):
+                                raise AssertionError(f"{tag}: K8b differs from K8a")
+            print(f"  K8a ({ni},{nj},{nk}) {dn}: rel err vs plain {err:.3e}; the other "
+                  f"colour equals x, chunks 2 and 3 equal the rule"
+                  + (", K8b == K8a" if split else ""))
+            worst["fv4_slab_blocks"] = max(worst.get("fv4_slab_blocks", 0.0), err)
+            del lv, x, rhs, slabs
+    torch.cuda.empty_cache()
+
+
+def _block_level(ni: int, nj: int, nk: int, dev, rng, r1: bool, dtype=torch.float32):
     """A level of random coefficients cut to an ni x nj x nk local block
     (the fv4 tangentially-extended faces with their margins, or the
     natural radius-1 faces), its kdinv pair, and (radius-1) K8d's ring
@@ -1462,18 +1537,18 @@ def _block_level(ni: int, nj: int, nk: int, dev, rng, r1: bool):
     from hpgmg_tpu_torch.core.level import Level, rb_mask
 
     def t(shape, lo=1.0, span=0.25):
-        return torch.tensor(lo + span * rng.random(shape), dtype=torch.float32, device=dev)
+        return torch.tensor(lo + span * rng.random(shape), dtype=dtype, device=dev)
 
     faces = (((ni + 1, nj, nk), (ni, nj + 1, nk), (ni, nj, nk + 1)) if r1 else
              ((ni + 1, nj + 2, nk + 2), (ni + 2, nj + 1, nk + 2), (ni + 2, nj + 2, nk + 1)))
-    n = 2 * ni
+    n = max(2 * ni, 2 * nj, nk)
     dinv = t((ni, nj, nk), 0.5 / (8.0 * n * n), 1.0 / (8.0 * n * n))
-    mask = rb_mask(n, 0, torch.float32, dev)[:ni, :nj, :nk]
+    mask = rb_mask(n, 0, dtype, dev)[:ni, :nj, :nk]
     lv = Level(dim=n, h=1.0 / n, depth=0, beta_i=t(faces[0]), beta_j=t(faces[1]),
                beta_k=t(faces[2]), dinv=dinv, kdinv=(mask * dinv, (1 - mask) * dinv))
     if r1:
         ring = (ni + 2, nj + 2, nk)
-        rmask = rb_mask(n, 0, torch.float32, dev)[:ni + 2, :nj + 2, :nk]
+        rmask = rb_mask(n, 0, dtype, dev)[:ni + 2, :nj + 2, :nk]
         lv = dataclasses.replace(lv, ring=(
             rmask * t(ring, 0.5 / (8.0 * n * n), 1.0 / (8.0 * n * n)), None,
             t((ni + 3, nj + 2, nk)), t((ni + 2, nj + 3, nk)), t((ni + 2, nj + 2, nk + 1))))
@@ -1508,26 +1583,32 @@ def time_slab_kernels(n=512):
     slabs = (rand(2, nj, nk), rand(2, nj, nk), rand(ni + 4, 2, nk), rand(ni + 4, 2, nk))
     cells = ni * nj * nk
     kw = {"rhs": rhs, "kdinv": lv.kdinv[0]}
-    work = (nbytes(x, *slabs, lv.beta_i, lv.beta_j, lv.beta_k, rhs, lv.kdinv[0], x),
-            mode_flops(FV4_AX, "gsrb", cells, 2))
     label = f"({ni},{nj},{nk})"
-    time_pair(f"K8a gsrb {label} f32", lambda: S.fv4_slab_cuda(lv, x, slabs, cfg, "gsrb", **kw),
-              lambda: S.fv4_slab_plain(lv, x, slabs, cfg, "gsrb", **kw), 5, row, "fv4_slab",
-              work=work)
-    # K8b's two passes apart: the interior tiles from the block alone, then
-    # the edge tiles with the slabs into the same output
+    # K8a's three modes (the row's own numbers are the gsrb's, the F-cycle's
+    # most frequent call)
+    for mode, mkw in (("apply", {}), ("residual", {"rhs": rhs}), ("gsrb", kw)):
+        par = {"parity": 0} if mode == "gsrb" else {}
+        time_pair(f"K8a {mode} {label} f32",
+                  lambda: S.fv4_slab_cuda(lv, x, slabs, cfg, mode, **mkw, **par),
+                  lambda: S.fv4_slab_plain(lv, x, slabs, cfg, mode, **mkw), 5, row,
+                  "fv4_slab" if mode == "gsrb" else f"fv4_slab {mode}",
+                  work=(nbytes(x, *slabs, lv.beta_i, lv.beta_j, lv.beta_k, *mkw.values(), x),
+                        mode_flops(FV4_AX, mode, cells, 2)))
+    # K8b's two passes apart: the interior part from the block alone, then
+    # the rest with the slabs into the same output
     i0, i1, j0, j1 = S._interior_region(x)
     inner = (i1 - i0) * (j1 - j0) * nk
     block = nbytes(x, lv.beta_i, lv.beta_j, lv.beta_k, rhs, lv.kdinv[0], x)
     time_pair(f"K8b interior pass gsrb {label} f32",
-              lambda: S.fv4_overlap_interior_cuda(lv, x, cfg, "gsrb", **kw)[i0:i1, j0:j1],
+              lambda: S.fv4_overlap_interior_cuda(lv, x, cfg, "gsrb", parity=0,
+                                                  **kw)[i0:i1, j0:j1],
               lambda: S.fv4_overlap_interior_plain(lv, x, cfg, "gsrb", **kw)[i0:i1, j0:j1],
               5, row, "fv4_overlap_interior",
               work=(block * inner / cells, mode_flops(FV4_AX, "gsrb", inner, 2)))
-    out_k = S.fv4_overlap_interior_cuda(lv, x, cfg, "gsrb", **kw)
+    out_k = S.fv4_overlap_interior_cuda(lv, x, cfg, "gsrb", parity=0, **kw)
     out_p = S.fv4_overlap_interior_plain(lv, x, cfg, "gsrb", **kw)
     time_pair(f"K8b edge pass gsrb {label} f32",
-              lambda: S.fv4_overlap_edge_cuda(lv, x, slabs, cfg, "gsrb", out_k, **kw),
+              lambda: S.fv4_overlap_edge_cuda(lv, x, slabs, cfg, "gsrb", out_k, parity=0, **kw),
               lambda: S.fv4_overlap_edge_plain(lv, x, slabs, cfg, "gsrb", out_p.clone(),
                                                **kw),
               5, row, "fv4_overlap_edge",
@@ -1561,7 +1642,8 @@ def time_slab_kernels(n=512):
 
     # one whole-domain block, against its plain version and bound, and
     # beside the single-rank kernel on the same level, in turns
-    for m, names in ((n, ("K8a", "K8c")), (n // 2, ("K8d",))):
+    for m, names in ((n, ("K8a apply", "K8a residual", "K8a gsrb", "K8c")),
+                     (n // 2, ("K8d",))):
         lv, lr = (random_level(m, torch.float32, dev, rng),
                   random_level_r1(m, torch.float32, dev, rng))
         x, rhs = rand(m, m, m), rand(m, m, m)
@@ -1571,11 +1653,17 @@ def time_slab_kernels(n=512):
         s2, r2 = K.single_chip_slabs2_r1(x, "p1"), K.ring_cut(rhs, 0, 0, m, m)
         cells, edges = m ** 3, (True,) * 4
         runs = {
-            "K8a": (lambda: S.fv4_slab_cuda(lv, x, fs, cfg, "gsrb", **fkw),
-                    lambda: S.fv4_slab_plain(lv, x, fs, cfg, "gsrb", **fkw),
-                    (nbytes(x, *fs, lv.beta_i, lv.beta_j, lv.beta_k, rhs, lv.kdinv[0], x),
-                     mode_flops(FV4_AX, "gsrb", cells, 2)),
-                    "K1", lambda: S.fv4_stencil_cuda(lv, x, cfg, "gsrb", parity=0, **fkw)),
+            f"K8a {mode}": (
+                lambda mode=mode, mkw=mkw, par=par: S.fv4_slab_cuda(lv, x, fs, cfg, mode,
+                                                                    **mkw, **par),
+                lambda mode=mode, mkw=mkw: S.fv4_slab_plain(lv, x, fs, cfg, mode, **mkw),
+                (nbytes(x, *fs, lv.beta_i, lv.beta_j, lv.beta_k, *mkw.values(), x),
+                 mode_flops(FV4_AX, mode, cells, 2)),
+                "K1", lambda mode=mode, mkw=mkw, par=par: S.fv4_stencil_cuda(
+                    lv, x, cfg, mode, **mkw, **par))
+            for mode, mkw, par in (("apply", {}, {}), ("residual", {"rhs": rhs}, {}),
+                                   ("gsrb", fkw, {"parity": 0}))}
+        runs.update({
             "K8c": (lambda: K.r1_slab_cuda(lr, x, rs, cfg, "gsrb", "p1", True, **rkw),
                     lambda: K.r1_slab_plain(lr, x, rs, cfg, "gsrb", "p1", True, **rkw),
                     (nbytes(x, *rs, lr.beta_i, lr.beta_j, lr.beta_k, rhs, lr.kdinv[0], x),
@@ -1587,13 +1675,14 @@ def time_slab_kernels(n=512):
                     (nbytes(x, *s2, r2, *(t for t in lr2.ring if t is not None),
                             lr.kdinv[1], x), 2 * mode_flops(VAR7_AX, "gsrb", cells, 0)),
                     "K6", lambda: K.r1_gsrb2_cuda(lr, x, rhs, cfg, "p1", True)),
-        }
+        })
         for name in names:
             kernel, plain, work, other, ref = runs[name]
-            time_pair(f"{name} gsrb on one {m}^3 block f32", kernel, plain, 5, row,
+            what = name if " " in name else f"{name} gsrb"
+            time_pair(f"{what} on one {m}^3 block f32", kernel, plain, 5, row,
                       f"{name} one block", work=work)
             t = [time_ms(f, 5) for f in (ref, kernel, kernel, ref)]
-            print(f"  {name} gsrb on one {m}^3 block, in turns with {other}: "
+            print(f"  {what} on one {m}^3 block, in turns with {other}: "
                   f"{t[1]:.4f} / {t[2]:.4f} ms; {other}: {t[0]:.4f} / {t[3]:.4f} ms")
             row[f"{name} one block"]["single_rank"] = (other, t)
         del lv, lr, lr2, x, rhs, fs, rs, s2, r2
@@ -1641,6 +1730,8 @@ def decomposed(op: str, n: int, dtype: str, order_range, rel_limit: float = 1e-3
           f"{res['richardson_order']:.6f}, u vs one rank {r['serial_u_rel_diff']:.3e}; "
           f"phase wall {wall:.3f} s")
     print(f"  launches in the counted F-cycle: { {k: v for k, v in launches.items() if v} }")
+    if r["slab_launches_by_block"]:
+        print(f"  K8a/K8b launches by local block (rank 0): {r['slab_launches_by_block']}")
     if r["grid"] != [2, 2, 1]:
         raise AssertionError(f"{tag}: grid {r['grid']}")
     if not res["rel_residual"] <= rel_limit:
@@ -1872,6 +1963,23 @@ def main() -> int:
                       for m, t in modes.items()}
         k["ptxas"] = {m: regs.get(f"r1_stream_kernel<float, {i}>")
                       for i, m in enumerate(("apply", "residual", "gsrb", "fres"))}
+    # K8a's other modes at the 2x2 grid's finest block and its three modes on
+    # one n^3 block in turns with K1; its registers and spills by mode and
+    # pass (f32; pass 0 K8a, 1 and 2 K8b's interior and edge passes)
+    keys = ("ms", "plain_ms", "bound_ms", "max_abs_err")
+    for k in kernels:
+        if k["name"] == "fv4_slab":
+            k["launches_by_block"] = dec["fv4"]["slab_launches_by_block"]
+            k["modes"] = {m: {key: s_times[f"fv4_slab {m}"].get(key) for key in keys}
+                          for m in ("apply", "residual")}
+            k["one_block"] = {m: {key: s_times[f"K8a {m} one block"].get(key)
+                                  for key in ("ms", "plain_ms", "bound_ms", "single_rank")}
+                              for m in ("apply", "residual", "gsrb")}
+        if k["name"].startswith("fv4_slab") or k["name"].startswith("fv4_overlap"):
+            pass_ = {"fv4_slab": 0, "fv4_overlap_interior": 1,
+                     "fv4_overlap_edge": 2}[k["name"]]
+            k["ptxas"] = {m: regs.get(f"fv4_slab_kernel<float, {i}, {pass_}>")
+                          for i, m in enumerate(("apply", "residual", "gsrb"))}
     print(f"  worst relative errors over the checks: {worst}")
     print(json.dumps({"headline": {
         "dof_per_s": res.dof_per_second, "rel_residual": res.rel_residual,

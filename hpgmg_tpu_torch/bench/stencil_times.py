@@ -3,7 +3,7 @@ one level, on one CUDA device.
 
     python -m hpgmg_tpu_torch.bench.stencil_times [--sizes 128 256 512]
         [--dtype float32 [float64]] [--bc dirichlet periodic] [--reps 10]
-        [--tail] [--r1] [--json PATH]
+        [--tail] [--r1] [--slab] [--json PATH]
 
 For each size and BC, on the benchmark problem's finest level as the fv4
 suite rebuilds it, with x drawn from a seeded generator: the ms per call
@@ -33,16 +33,30 @@ level, K5 or K7b through the suite), each of ``apply_op``, ``residual``,
 its kernels' device ms (``<call>_device``, torch.profiler) and its byte
 bound (``<call>_bound``: x, the call's operands and the face arrays the
 body reads once, the output written once, over 3.35 TB/s; both bodies do
-a few flops a byte, far below the card's ridge in f32 and f64). It reads
+a few flops a byte, far below the card's ridge in f32 and f64). With
+``--slab``, the decomposed fv4 stencil instead: on one whole n^3 block
+and on each local block the 2x2 grid gives the levels of an n^3 problem
+(``--sizes`` n, default 512: blocks (256, 256, 512) down to (8, 8, 16)),
+with random coefficients,
+x, rhs and slabs from a seeded generator, K8a's apply, residual and gsrb
+(``stencils.fv4_slab_cuda``) and K8b's two gsrb passes
+(``fv4_overlap_interior_cuda``, ``fv4_overlap_edge_cuda``, where its
+split takes the block), each with its ms per call, its device ms
+(``<call>_device``) and its byte bound (``<call>_bound``: the block's
+arrays the call reads once and its output written once, K8b's passes
+their parts of them, the edge pass also the slabs). It reads
 nothing but these and the gate, so the same file times an older tree of
 the package too (copied into that tree and run from its root; there
-``fv4_gsrb2_cuda`` is its own K2), in turns with this one on the same
-card. Prints one JSON line; ``--json`` also writes it to a file.
+``fv4_gsrb2_cuda`` is its own K2, and a gsrb is handed its ``parity``
+only where the tree's ``fv4_slab_cuda`` takes one), in turns with this
+one on the same card. Prints one JSON line; ``--json`` also writes it to
+a file.
 """
 
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import subprocess
 
@@ -50,7 +64,7 @@ import torch
 
 from hpgmg_tpu_torch.bench.driver import build, build_problem
 from hpgmg_tpu_torch.core.config import BC, SolverConfig
-from hpgmg_tpu_torch.core.level import Level
+from hpgmg_tpu_torch.core.level import Level, rb_mask
 from hpgmg_tpu_torch.kernels import stencils
 from hpgmg_tpu_torch.ops.base import get_suite
 
@@ -177,6 +191,68 @@ def r1_times(n: int, dtype: torch.dtype, bc: BC, reps: int) -> dict:
     return out
 
 
+def slab_times(block, dtype: torch.dtype, bc: BC, reps: int) -> dict:
+    """{call: ms} of K8a's apply, residual and gsrb (parity 0) and K8b's two
+    gsrb passes on an ni x nj x nk local block, each with its device ms
+    (``<call>_device``) and its byte bound (``<call>_bound``), over ``reps``
+    calls on the (256, 256, 512) block and proportionally more on smaller
+    ones (at most 64 times as many)."""
+    ni, nj, nk = block
+    reps = reps * min(64, max(1, (256 * 256 * 512) // (ni * nj * nk)))
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    n = 2 * ni
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    def coef(*shape):
+        return 1.0 + 0.25 * torch.rand(shape, generator=gen, device=dev, dtype=dtype)
+
+    dinv = coef(ni, nj, nk) / (8.0 * n * n)
+    mask = rb_mask(n, 0, dtype, dev)[:ni, :nj, :nk]
+    lv = Level(dim=n, h=1.0 / n, depth=0, beta_i=coef(ni + 1, nj + 2, nk + 2),
+               beta_j=coef(ni + 2, nj + 1, nk + 2), beta_k=coef(ni + 2, nj + 2, nk + 1),
+               dinv=dinv, kdinv=(mask * dinv, (1 - mask) * dinv))
+    x, rhs = rand(ni, nj, nk), rand(ni, nj, nk)
+    slabs = (rand(2, nj, nk), rand(2, nj, nk), rand(ni + 4, 2, nk), rand(ni + 4, 2, nk))
+    cfg = SolverConfig(op="fv4", bc=bc, a=0.0, b=1.0, dtype=dtype)
+    # an older tree's entries take no parity (its tile kernel reads the
+    # colour from kdinv alone) and its split takes the dtype
+    par = ({"parity": 0} if "parity" in inspect.signature(stencils.fv4_slab_cuda).parameters
+           else {})
+    shape_args = (ni, nj, dtype) if len(inspect.signature(
+        stencils.overlap_grid_shape).parameters) == 3 else (ni, nj)
+    item = x.element_size()
+    betas = sum(t.numel() for t in (lv.beta_i, lv.beta_j, lv.beta_k))
+    slab_values = sum(t.numel() for t in slabs)
+    ops = {"apply": {}, "residual": {"rhs": rhs}, "gsrb": {"rhs": rhs, "kdinv": lv.kdinv[0]}}
+    # values read and written: x, the faces, the slabs, the mode's operands,
+    # the output
+    values = {f"K8a {mode}": x.numel() * (2 + len(kw)) + betas + slab_values
+              for mode, kw in ops.items()}
+    calls = {f"K8a {mode}": (lambda mode=mode, kw=kw: stencils.fv4_slab_cuda(
+        lv, x, slabs, cfg, mode, **kw, **par)) for mode, kw in ops.items()}
+    if stencils.overlap_grid_shape(*shape_args) is not None:
+        kw = ops["gsrb"]
+        inner = stencils.fv4_overlap_interior_cuda(lv, x, cfg, "gsrb", **kw, **par)
+        i0, i1, j0, j1 = stencils._interior_region(x)
+        part = (i1 - i0) * (j1 - j0) / (ni * nj)
+        block_values = values["K8a gsrb"] - slab_values
+        calls["K8b interior gsrb"] = lambda: stencils.fv4_overlap_interior_cuda(
+            lv, x, cfg, "gsrb", **kw, **par)
+        calls["K8b edge gsrb"] = lambda: stencils.fv4_overlap_edge_cuda(
+            lv, x, slabs, cfg, "gsrb", inner, **kw, **par)
+        values["K8b interior gsrb"] = block_values * part
+        values["K8b edge gsrb"] = block_values * (1 - part) + slab_values
+    out = {}
+    for name, fn in calls.items():
+        out[name] = time_ms(fn, reps)
+        out[name + "_device"] = device_ms(fn, reps)
+        out[name + "_bound"] = values[name] * item / HBM_BYTES_PER_S * 1e3
+    return out
+
+
 def tail_times(dtype: torch.dtype, reps: int) -> dict:
     """{call: ms} of K4c, K4a and K4b on the headline's tail (the 32^3 and
     16^3 levels of the benchmark hierarchy over its 8^3 DIRECT bottom, 6
@@ -216,9 +292,13 @@ def main(argv=None) -> dict:
                    help="also time K4c, K4a and K4b on the headline's 32-16 tail")
     p.add_argument("--r1", action="store_true",
                    help="time the radius-1 suites' calls (var7 and 27pt) instead of fv4's")
+    p.add_argument("--slab", action="store_true",
+                   help="time K8a and K8b on the local blocks of the 2x2 grid's levels "
+                        "of each n^3 of --sizes (default 512) instead")
     p.add_argument("--json", default=None)
     args = p.parse_args(argv)
-    sizes = args.sizes or ([16, 32, 64, 128, 256, 512] if args.r1 else [128, 256, 512])
+    sizes = args.sizes or ([16, 32, 64, 128, 256, 512] if args.r1
+                           else [512] if args.slab else [128, 256, 512])
     if not torch.cuda.is_available():
         raise SystemExit("stencil_times needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -229,10 +309,17 @@ def main(argv=None) -> dict:
     for dt in args.dtype:
         for bc in args.bc:
             for n in sizes:
-                ms = times(n, getattr(torch, dt), BC(bc), args.reps)
-                rows += [{"n": n, "dtype": dt, "bc": bc, "call": k, "ms": v}
-                         for k, v in ms.items()]
-                torch.cuda.empty_cache()
+                # --slab: one whole n^3 block, then the 2x2 grid's blocks of
+                # every level from n^3 to 16^3
+                for block in ([(n, n, n)] + [(m // 2, m // 2, m) for m in
+                                             (n >> s for s in range(8)) if m >= 16]
+                              if args.slab else [n]):
+                    ms = (slab_times(block, getattr(torch, dt), BC(bc), args.reps)
+                          if args.slab else times(n, getattr(torch, dt), BC(bc), args.reps))
+                    rows += [{"n": n, **({"block": list(block)} if args.slab else {}),
+                              "dtype": dt, "bc": bc, "call": k, "ms": v}
+                             for k, v in ms.items()]
+                    torch.cuda.empty_cache()
         if args.tail:
             rows += [{"n": 32, "dtype": dt, "bc": "dirichlet", "call": k, "ms": v}
                      for k, v in tail_times(getattr(torch, dt), args.reps).items()]

@@ -22,8 +22,10 @@ solves), then one more F-cycle with the launch counts reset before it and
 read after it. ``--check-serial`` then solves the same problem on one rank
 and compares u (max|u_ranks - u_one| / max|u_one|) and rel_residual.
 Prints one JSON line: the keys of ``python -m hpgmg_tpu_torch.bench`` plus
-``ranks``, ``grid``, ``backend``, ``launches`` (of that F-cycle) and, with
-``--check-serial``, ``serial_u_rel_diff`` and ``serial_rel_residual``.
+``ranks``, ``grid``, ``backend``, ``launches`` (of that F-cycle), rank 0's
+``slab_launches_by_block`` (its K8a and K8b launches in that F-cycle by
+pass, mode and local block shape) and, with ``--check-serial``,
+``serial_u_rel_diff`` and ``serial_rel_residual``.
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ def _rank_main(rank: int, world: int, init: str, opts: dict, out: str):
     import torch.distributed as dist
 
     from hpgmg_tpu_torch.bench.driver import build, device_name, run_benchmark
-    from hpgmg_tpu_torch.kernels import counts
+    from hpgmg_tpu_torch.kernels import counts, stencils
     from hpgmg_tpu_torch.ops.base import get_suite
     from hpgmg_tpu_torch.parallel import shard_kernels
     from hpgmg_tpu_torch.parallel.mesh import active_mesh, gather, make_mesh_ij
@@ -82,6 +84,7 @@ def _rank_main(rank: int, world: int, init: str, opts: dict, out: str):
                             mesh=mesh)
         hier, f = build(n, cfg, device, mesh=mesh)
         counts.reset()
+        stencils.slab_launches_by_block.clear()
         with active_mesh(mesh):
             u, norm_r, norm_f = fmg_solve(op, hier, f, cfg)
         if device.type == "cuda":
@@ -91,6 +94,7 @@ def _rank_main(rank: int, world: int, init: str, opts: dict, out: str):
         wall = time.perf_counter() - t0
         result = {"n": n, "grid": list(mesh.shape), "res": res.__dict__,
                   "launches": launches, "plain_calls": plain_calls,
+                  "slab_launches_by_block": dict(stencils.slab_launches_by_block),
                   "counted_rel_residual": float(norm_r) / float(norm_f),
                   "device": device_name(device), "wall_seconds": wall}
         del hier, f, u

@@ -74,9 +74,9 @@ _SIGNATURES = {
     "hpgmg_r1_gsrb2_f32": (_P,) * 9 + (_I, _I, _D, _D, _D, _D, _P),
     "hpgmg_r1_gsrb2_f64": (_P,) * 9 + (_I, _I, _D, _D, _D, _D, _P),
     # (x, ilo, ihi, jlo, jhi, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out,
-    #  ni, nj, nk, mode, periodic, scale, a_coef, pass, stream)
-    "hpgmg_fv4_slab_f32": (_P,) * 12 + (_I,) * 5 + (_D, _D, _I, _P),
-    "hpgmg_fv4_slab_f64": (_P,) * 12 + (_I,) * 5 + (_D, _D, _I, _P),
+    #  ni, nj, nk, mode, periodic, parity, chunk, scale, a_coef, pass, stream)
+    "hpgmg_fv4_slab_f32": (_P,) * 12 + (_I,) * 7 + (_D, _D, _I, _P),
+    "hpgmg_fv4_slab_f64": (_P,) * 12 + (_I,) * 7 + (_D, _D, _I, _P),
     # (x, ilo, ihi, jlo, jhi, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out,
     #  ni, nj, nk, mode, var7, periodic, b_h2inv, a_coef, t1, t2, stream)
     "hpgmg_r1_slab_f32": (_P,) * 12 + (_I,) * 6 + (_D,) * 4 + (_P,),

@@ -531,8 +531,9 @@ def fv4_gsrb2(level: Level, x: torch.Tensor, rhs: torch.Tensor,
 
 SLAB_MODES = ("apply", "residual", "gsrb")
 
-# K8a's output tile along i and j per dtype (csrc/fv4_slab.cu SlabTile)
-SLAB_TILE = {torch.float32: (16, 8), torch.float64: (8, 8)}
+# K8a's column tile along j (csrc/fv4_slab.cu TJ): K8b's interior pass
+# takes the column tiles 1 .. ntj-2 in j, whose halo rows lie in the block
+SLAB_TJ = 16
 
 
 def v4_slab(src: torch.Tensor, axis: int, lo: bool) -> torch.Tensor:
@@ -601,13 +602,13 @@ def extend_for_kernel(x: torch.Tensor, slabs, bc: BC) -> torch.Tensor:
     return _extend_axis_v4(xe, 2, 2)
 
 
-def overlap_grid_shape(ni: int, nj: int, dtype: torch.dtype):
-    """(nti, ntj), K8a's tile grid on an ni x nj block, where K8b's split
-    applies: at least 3 x 3 tiles (with 2 a side every tile is an edge
-    tile); else None (counterpart of stencils.py:overlap_grid_shape)."""
-    ti, tj = SLAB_TILE[dtype]
-    nti, ntj = -(-ni // ti), -(-nj // tj)
-    return (nti, ntj) if nti >= 3 and ntj >= 3 else None
+def overlap_grid_shape(ni: int, nj: int):
+    """(ni, ntj): the block's i-planes and K8a's column tiles along j, where
+    K8b's split applies: at least 3 column tiles (the interior pass takes
+    the inner ones) and 6 planes (it takes planes 2 .. ni-3); else None
+    (counterpart of stencils.py:overlap_grid_shape)."""
+    ntj = -(-nj // SLAB_TJ)
+    return (ni, ntj) if ntj >= 3 and ni >= 6 else None
 
 
 def _check_slab(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
@@ -620,12 +621,12 @@ def _check_slab(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
     if x.dim() != 3:
         raise ValueError(f"x must be a 3-D block, got {tuple(x.shape)}")
     ni, nj, nk = x.shape
-    if min(ni, nj, nk) < 4 or ni % 2 or nj % 2:
-        raise ValueError(f"the fv4 slab kernel takes even ni, nj >= 4 and nk >= 4, "
+    if min(ni, nj, nk) < 4 or ni % 2 or nj % 2 or nk % 2:
+        raise ValueError(f"the fv4 slab kernel takes even ni, nj, nk >= 4, "
                          f"got {tuple(x.shape)}")
-    if overlap and overlap_grid_shape(ni, nj, x.dtype) is None:
-        raise ValueError(f"K8b needs >= 3 x 3 tiles of {SLAB_TILE.get(x.dtype)}, "
-                         f"got {ni} x {nj}")
+    if overlap and overlap_grid_shape(ni, nj) is None:
+        raise ValueError(f"K8b needs >= 3 column tiles of {SLAB_TJ} along j and >= 6 "
+                         f"i-planes, got {ni} x {nj}")
     blk, dt = (ni, nj, nk), level.dtype
     need = {"x": (x, blk),
             "beta_i": (level.beta_i, (ni + 1, nj + 2, nk + 2)),
@@ -674,25 +675,25 @@ fv4_slab_plain.calls = 0
 
 
 def _interior_region(x: torch.Tensor):
-    """K8b's interior tiles as (i0, i1, j0, j1): the tiles 1 .. nt-2 along
-    i and j, whose 2-cell halo lies inside the block (local extents are
-    even, so the last tile holds >= 2 rows)."""
-    ti, tj = SLAB_TILE[x.dtype]
-    nti, ntj = overlap_grid_shape(x.shape[0], x.shape[1], x.dtype)
-    return ti, (nti - 1) * ti, tj, (ntj - 1) * tj
+    """K8b's interior part as (i0, i1, j0, j1): the i-planes 2 .. ni-3 of
+    the column tiles 1 .. ntj-2 along j, whose stencils read the block
+    alone (nj is even, so the last column tile holds >= 2 rows)."""
+    ni, ntj = overlap_grid_shape(x.shape[0], x.shape[1])
+    return 2, ni - 2, SLAB_TJ, (ntj - 1) * SLAB_TJ
 
 
 def fv4_overlap_interior_plain(level: Level, x: torch.Tensor, cfg: SolverConfig,
                                mode: str, rhs: Optional[torch.Tensor] = None,
                                kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The plain version of K8b's interior pass: the interior tiles of the
-    output from the block alone (no slab); zeros elsewhere."""
+    """The plain version of K8b's interior pass: the interior part of the
+    output (``_interior_region``) from the block alone (no slab); zeros
+    elsewhere."""
     _check_slab(level, x, None, cfg, mode, rhs, kdinv, overlap=True)
     fv4_overlap_interior_plain.calls += 1
     i0, i1, j0, j1 = _interior_region(x)
     sub = x[i0 - 2:i1 + 2, j0 - 2:j1 + 2]
     xe = _wrap_axis(sub, 2, 2) if cfg.bc == BC.PERIODIC else _extend_axis_v4(sub, 2, 2)
-    # the fields the plain stencil reads, cut to the interior tiles (the
+    # the fields the plain stencil reads, cut to the interior part (the
     # face arrays with their tangential margins)
     cut = SimpleNamespace(h2inv=level.h2inv, beta_i=level.beta_i[i0:i1 + 1, j0:j1 + 2],
                           beta_j=level.beta_j[i0:i1 + 2, j0:j1 + 1],
@@ -715,7 +716,7 @@ def fv4_overlap_edge_plain(level: Level, x: torch.Tensor, slabs, cfg: SolverConf
                            rhs: Optional[torch.Tensor] = None,
                            kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain version of K8b's edge pass: ``out`` (the interior pass's
-    result) with every cell outside the interior tiles set from K8a's plain
+    result) with every cell outside the interior part set from K8a's plain
     version; returns ``out``."""
     _check_slab(level, x, slabs, cfg, mode, rhs, kdinv, overlap=True)
     fv4_overlap_edge_plain.calls += 1
@@ -730,10 +731,22 @@ def fv4_overlap_edge_plain(level: Level, x: torch.Tensor, slabs, cfg: SolverConf
 fv4_overlap_edge_plain.calls = 0
 
 
+# K8a's and K8b's launches by pass, mode and local block shape, keyed
+# "<pass> <mode> (ni, nj, nk)" (bench/weak.py reads them for the counted
+# F-cycle)
+SLAB_PASSES = ("K8a", "K8b interior", "K8b edge")
+slab_launches_by_block = {}
+
+
 def _launch_slab(level: Level, x, slabs, cfg: SolverConfig, mode: str, rhs,
-                 kdinv, out, pass_: int):
+                 kdinv, out, pass_: int, parity: Optional[int], chunk: int):
     from hpgmg_tpu_torch.kernels.build import library
 
+    if mode == "gsrb" and parity not in (0, 1):
+        raise ValueError(f"the fv4 slab gsrb needs the sweep's parity (0 or 1), "
+                         f"got {parity!r}")
+    if chunk < 0:
+        raise ValueError(f"chunk must be >= 0 (0: the launcher's rule), got {chunk}")
     ni, nj, nk = x.shape
     alpha = level.alpha if cfg.helmholtz else None
     ilo, ihi, jlo, jhi = slabs if slabs is not None else (None,) * 4
@@ -743,10 +756,12 @@ def _launch_slab(level: Level, x, slabs, cfg: SolverConfig, mode: str, rhs,
             x.data_ptr(), _ptr(ilo), _ptr(ihi), _ptr(jlo), _ptr(jhi),
             level.beta_i.data_ptr(), level.beta_j.data_ptr(), level.beta_k.data_ptr(),
             _ptr(alpha), _ptr(rhs), _ptr(kdinv), out.data_ptr(), ni, nj, nk,
-            MODES[mode], int(cfg.bc == BC.PERIODIC), -cfg.b * level.h2inv,
-            float(cfg.a), pass_, _stream(x))
+            MODES[mode], int(cfg.bc == BC.PERIODIC), parity or 0, chunk,
+            -cfg.b * level.h2inv, float(cfg.a), pass_, _stream(x))
     if rc != 0:
         raise RuntimeError(f"fv4 slab kernel launch failed: CUDA error {rc}")
+    key = f"{SLAB_PASSES[pass_]} {mode} {tuple(x.shape)}"
+    slab_launches_by_block[key] = slab_launches_by_block.get(key, 0) + 1
     return out
 
 
@@ -757,11 +772,17 @@ def _cuda_only(x: torch.Tensor, what: str):
 
 def fv4_slab_cuda(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
                   mode: str, rhs: Optional[torch.Tensor] = None,
-                  kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K8a on CUDA tensors into a newly allocated output."""
+                  kdinv: Optional[torch.Tensor] = None, parity: Optional[int] = None,
+                  chunk: int = 0) -> torch.Tensor:
+    """Launch K8a (``csrc/fv4_slab.cu``, one streaming launch) on CUDA
+    tensors into a newly allocated output. gsrb needs ``parity``, the
+    colour ``kdinv`` carries: the kernel computes A x at that colour's
+    cells only and copies x at the others. ``chunk``: i-planes a block
+    marches (0: the launcher's rule, as the solver calls it)."""
     _check_slab(level, x, slabs, cfg, mode, rhs, kdinv)
     _cuda_only(x, "fv4_slab_cuda")
-    out = _launch_slab(level, x, slabs, cfg, mode, rhs, kdinv, torch.empty_like(x), 0)
+    out = _launch_slab(level, x, slabs, cfg, mode, rhs, kdinv, torch.empty_like(x), 0,
+                       parity, chunk)
     fv4_slab_cuda.launches += 1
     return out
 
@@ -771,12 +792,14 @@ fv4_slab_cuda.launches = 0
 
 def fv4_overlap_interior_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
                               mode: str, rhs: Optional[torch.Tensor] = None,
-                              kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K8b's interior pass into a newly allocated output (the edge
-    tiles are left for ``fv4_overlap_edge_cuda``)."""
+                              kdinv: Optional[torch.Tensor] = None,
+                              parity: Optional[int] = None, chunk: int = 0) -> torch.Tensor:
+    """Launch K8b's interior pass into a newly allocated output (the rest
+    is left for ``fv4_overlap_edge_cuda``)."""
     _check_slab(level, x, None, cfg, mode, rhs, kdinv, overlap=True)
     _cuda_only(x, "fv4_overlap_interior_cuda")
-    out = _launch_slab(level, x, None, cfg, mode, rhs, kdinv, torch.empty_like(x), 1)
+    out = _launch_slab(level, x, None, cfg, mode, rhs, kdinv, torch.empty_like(x), 1,
+                       parity, chunk)
     fv4_overlap_interior_cuda.launches += 1
     return out
 
@@ -787,13 +810,15 @@ fv4_overlap_interior_cuda.launches = 0
 def fv4_overlap_edge_cuda(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
                           mode: str, out: torch.Tensor,
                           rhs: Optional[torch.Tensor] = None,
-                          kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K8b's edge pass, writing the edge tiles of ``out``."""
+                          kdinv: Optional[torch.Tensor] = None,
+                          parity: Optional[int] = None, chunk: int = 0) -> torch.Tensor:
+    """Launch K8b's edge pass, writing the rest of ``out``."""
     _check_slab(level, x, slabs, cfg, mode, rhs, kdinv, overlap=True)
     _cuda_only(x, "fv4_overlap_edge_cuda")
-    if out.shape != x.shape or out.dtype != x.dtype or out.device != x.device:
+    if out.shape != x.shape or out.dtype != x.dtype or out.device != x.device \
+            or not out.is_contiguous():
         raise ValueError("out must be the interior pass's output")
-    _launch_slab(level, x, slabs, cfg, mode, rhs, kdinv, out, 2)
+    _launch_slab(level, x, slabs, cfg, mode, rhs, kdinv, out, 2, parity, chunk)
     fv4_overlap_edge_cuda.launches += 1
     return out
 
@@ -803,11 +828,14 @@ fv4_overlap_edge_cuda.launches = 0
 
 def fv4_slab(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig, mode: str,
              rhs: Optional[torch.Tensor] = None,
-             kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+             kdinv: Optional[torch.Tensor] = None,
+             parity: Optional[int] = None) -> torch.Tensor:
     """K8a on a local block: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors. A gsrb half-sweep on the card needs
+    ``parity``, the colour ``kdinv`` carries; the plain version reads the
+    colour from kdinv alone."""
     if x.is_cuda:
-        return fv4_slab_cuda(level, x, slabs, cfg, mode, rhs, kdinv)
+        return fv4_slab_cuda(level, x, slabs, cfg, mode, rhs, kdinv, parity)
     if x.device.type == "cpu":
         return fv4_slab_plain(level, x, slabs, cfg, mode, rhs, kdinv)
     raise ValueError(f"fv4 slab kernel has no kernel for device {x.device}")
@@ -815,10 +843,11 @@ def fv4_slab(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig, mode: str,
 
 def fv4_overlap_interior(level: Level, x: torch.Tensor, cfg: SolverConfig,
                          mode: str, rhs: Optional[torch.Tensor] = None,
-                         kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+                         kdinv: Optional[torch.Tensor] = None,
+                         parity: Optional[int] = None) -> torch.Tensor:
     """K8b's interior pass (no slab read; queued before the exchange)."""
     if x.is_cuda:
-        return fv4_overlap_interior_cuda(level, x, cfg, mode, rhs, kdinv)
+        return fv4_overlap_interior_cuda(level, x, cfg, mode, rhs, kdinv, parity)
     if x.device.type == "cpu":
         return fv4_overlap_interior_plain(level, x, cfg, mode, rhs, kdinv)
     raise ValueError(f"fv4 overlap has no kernel for device {x.device}")
@@ -827,10 +856,11 @@ def fv4_overlap_interior(level: Level, x: torch.Tensor, cfg: SolverConfig,
 def fv4_overlap_edge(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
                      mode: str, out: torch.Tensor,
                      rhs: Optional[torch.Tensor] = None,
-                     kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+                     kdinv: Optional[torch.Tensor] = None,
+                     parity: Optional[int] = None) -> torch.Tensor:
     """K8b's edge pass into the interior pass's ``out``."""
     if x.is_cuda:
-        return fv4_overlap_edge_cuda(level, x, slabs, cfg, mode, out, rhs, kdinv)
+        return fv4_overlap_edge_cuda(level, x, slabs, cfg, mode, out, rhs, kdinv, parity)
     if x.device.type == "cpu":
         return fv4_overlap_edge_plain(level, x, slabs, cfg, mode, out, rhs, kdinv)
     raise ValueError(f"fv4 overlap has no kernel for device {x.device}")
@@ -838,7 +868,8 @@ def fv4_overlap_edge(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
 
 def fv4_overlap(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig, mode: str,
                 rhs: Optional[torch.Tensor] = None,
-                kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+                kdinv: Optional[torch.Tensor] = None,
+                parity: Optional[int] = None) -> torch.Tensor:
     """K8b, both passes in order: equal to K8a bit for bit."""
-    out = fv4_overlap_interior(level, x, cfg, mode, rhs, kdinv)
-    return fv4_overlap_edge(level, x, slabs, cfg, mode, out, rhs, kdinv)
+    out = fv4_overlap_interior(level, x, cfg, mode, rhs, kdinv, parity)
+    return fv4_overlap_edge(level, x, slabs, cfg, mode, out, rhs, kdinv, parity)

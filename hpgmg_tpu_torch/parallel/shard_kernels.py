@@ -121,27 +121,30 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
 
 def fv4_sharded(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
                 rhs: Optional[torch.Tensor] = None,
-                kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+                kdinv: Optional[torch.Tensor] = None,
+                parity: Optional[int] = None) -> torch.Tensor:
     """One fv4 apply / residual / GSRB half-sweep on this rank's block:
-    the slab exchange, then K8a. Under ``OVERLAP`` (on blocks of >= 3 x 3
-    tiles) K8b instead: its interior pass first (on a side stream for CUDA
-    tensors, so it runs while the exchange is in flight), then the edge
-    pass once the slabs are in."""
+    the slab exchange, then K8a (a half-sweep with its ``parity``, which
+    is global and local alike: block offsets are even). Under ``OVERLAP``
+    (on blocks K8b's split takes) K8b instead: its interior pass first (on
+    a side stream for CUDA tensors, so it runs while the exchange is in
+    flight), then the edge pass once the slabs are in."""
     part = level.part
-    if OVERLAP and S.overlap_grid_shape(part.ni, part.nj, x.dtype) is not None:
+    if OVERLAP and S.overlap_grid_shape(part.ni, part.nj) is not None:
         if not x.is_cuda:
-            out = S.fv4_overlap_interior(level, x, cfg, mode, rhs, kdinv)
+            out = S.fv4_overlap_interior(level, x, cfg, mode, rhs, kdinv, parity)
             slabs = slabs_for_kernel(x, part, cfg.bc)
-            return S.fv4_overlap_edge(level, x, slabs, cfg, mode, out, rhs, kdinv)
+            return S.fv4_overlap_edge(level, x, slabs, cfg, mode, out, rhs, kdinv, parity)
         main, side = torch.cuda.current_stream(x.device), _side_stream(x.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            out = S.fv4_overlap_interior(level, x, cfg, mode, rhs, kdinv)
+            out = S.fv4_overlap_interior(level, x, cfg, mode, rhs, kdinv, parity)
         slabs = slabs_for_kernel(x, part, cfg.bc)
         main.wait_stream(side)
         out.record_stream(main)
-        return S.fv4_overlap_edge(level, x, slabs, cfg, mode, out, rhs, kdinv)
-    return S.fv4_slab(level, x, slabs_for_kernel(x, part, cfg.bc), cfg, mode, rhs, kdinv)
+        return S.fv4_overlap_edge(level, x, slabs, cfg, mode, out, rhs, kdinv, parity)
+    return S.fv4_slab(level, x, slabs_for_kernel(x, part, cfg.bc), cfg, mode, rhs, kdinv,
+                      parity)
 
 
 def r1_sharded(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
