@@ -39,8 +39,10 @@ Phases, each printing its result and raising on failure (exit code != 0):
    every mode, with and without its constant a*x, csrc/r1_stream.cu, also
    at n in {2, 3, 9, 33} and with a chunk of 3 i-planes, its gsrb leaving
    the other colour's cells equal to x bit for bit) and K6 (full red+black
-   sweep, both bodies, all three tap sets) at n in {8, 16, 32, 48, 64,
-   128, 256}, then their times, every mode, at 64^3, 128^3, 256^3 and
+   sweep in one streaming launch, csrc/r1_gsrb2.cu, both bodies, all three
+   tap sets) at n in {2, 3, 8, 9, 16, 32, 33, 48, 64, 128, 256}, with
+   forced chunks of 2 and 3 i-planes equal to its launcher's rule bit for
+   bit, then their times, every mode, at 64^3, 128^3, 256^3 and
    512^3 on the fv7pt and 27pt problems' own levels; the periodic kernels
    with the same checks: K7b (K5 with wrapped ghosts, every mode and body)
    at the same sizes, K4c (the one-launch tail V-cycle over a DIRECT
@@ -83,8 +85,8 @@ Phases, each printing its result and raising on failure (exit code != 0):
 7b. one counted F-cycle (float32, 512^3) of the headline, its other tail
    setting, K2 on from 128^3, the other SUBTILE setting, fv7pt, 27pt and
    their periodic runs and periodic fv4: every kernel's launches per
-   F-cycle, K1's and K7a's, K2's and K2c's and K5's and K7b's by level,
-   no plain version;
+   F-cycle, K1's and K7a's, K2's and K2c's, K5's and K7b's and K6's by
+   level, no plain version;
 8. fv4 at 512^3 float32 through the CLI (bench/cli.py) with each other
    smoother (Chebyshev, Jacobi, L1-Jacobi, SymGS; DIRECT bottom): a finite
    rel_residual below 1; and with GSRB over each other bottom solver (CG,
@@ -105,11 +107,16 @@ Phases, each printing its result and raising on failure (exit code != 0):
    2x2 grid's local blocks with random slabs (SLAB_BLOCKS, (4,4,8) to
    (128,128,256)), every mode against its plain version, its gsrb's other
    colour equal to x, chunks of 2 and 3 i-planes and K8b's two passes
-   equal to it bit for bit;
+   equal to it bit for bit; and K8d (K6's kernel with the slabs as its
+   halo's sources) on the same blocks with random ring views, rhs ring and
+   slabs, every body and tap set, under each 2x2 rank's edge flags,
+   against its plain version at 1e-5 (f32) and 1e-12 (f64), chunks of 2
+   and 3 i-planes equal to it bit for bit;
 12. their times (float32) at the local blocks the 2x2 grid's 512^3 path
    gives them (K8a's three modes and K8b's two passes at the finest
    block, each with its device time), with bounds and plain times, and on
-   one 512^3 block (K8a's three modes; K8d 256^3) beside K1, K5 and K6, in
+   one 512^3 block (K8a's three modes; K8d at the largest level its gate
+   admits) beside K1, K5 and K6, in
    turns;
 13. the decomposed F-cycle through bench/weak.py: 4 processes in a 2x2
    grid sharing this GPU over gloo (halos staged through host memory; its
@@ -119,7 +126,8 @@ Phases, each printing its result and raising on failure (exit code != 0):
    256^3 float64 with OVERLAP on (K8b; order >= 3.8), each one F-cycle per
    timed solve, its u within DECOMPOSED_U_TOL of the one-rank F-cycle's,
    the slab kernels and K3 launched in a counted F-cycle and no
-   single-rank stencil, fused sweep, tail kernel or plain version.
+   single-rank stencil, fused sweep, tail kernel or plain version; rank
+   0's K8a/K8b launches and K8d sweeps in it by local block.
 
 The line before the last lists the kernels as JSON: for each, its launches
 on its path, its time, its plain version's time, its bound on the card
@@ -164,8 +172,9 @@ def mode_flops(ax: int, mode: str, cells: int, extra: int) -> int:
 
 def ptxas_report(log: str):
     """(kernel, "registers, spills") of each entry function in the build's
-    ptxas log: the kernel's name, its type (f/d) and template ints (the
-    mode; K8a's pass) read from the mangled name."""
+    ptxas log: the kernel's name, its type (f/d) and template ints and
+    bools (the mode; K8a's pass; K6's body and slab flags) read from the
+    mangled name."""
     import re
 
     out, name, spill = [], None, ""
@@ -174,9 +183,9 @@ def ptxas_report(log: str):
         if m:
             name = m.group(1)
             # _GLOBAL__N_..._<file>_cu_<8 hex><len><kernel>I<type>[Li<int>E]...
-            k = re.search(r"_cu_[0-9a-f]{8}\d+(\w+?)I([fd])((?:Li\d+E)*)", name)
+            k = re.search(r"_cu_[0-9a-f]{8}\d+(\w+?)I([fd])((?:L[ib]\d+E)*)", name)
             if k:
-                ints = re.findall(r"Li(\d+)E", k.group(3))
+                ints = re.findall(r"L[ib](\d+)E", k.group(3))
                 name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}"
                         + "".join(f", {v}" for v in ints) + ">")
         elif "spill stores" in line:
@@ -855,9 +864,11 @@ def check_r1_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256), odd=(2, 3
     """Phase 3a, K5, K7b and K6: every mode of K5 and of K7b (K5 on a
     periodic level) and K6's full sweep, for each body and tap set of
     R1_BODIES, against their plain versions; the 27pt body (its own
-    kernel, csrc/r1_stream.cu) also at the sizes of ``odd`` (n = 2, odd
-    n; fres at even n), and with a forced chunk of 3 i-planes, its gsrb
-    leaving the other colour's cells equal to x bit for bit."""
+    kernel, csrc/r1_stream.cu) and K6 also at the sizes of ``odd`` (n = 2,
+    odd n; fres at even n), the 27pt body with a forced chunk of 3
+    i-planes, its gsrb leaving the other colour's cells equal to x bit for
+    bit, K6 with forced chunks of 2 and 3 i-planes equal to its launcher's
+    rule bit for bit."""
     from hpgmg_tpu_torch.core.config import BC, SolverConfig
     from hpgmg_tpu_torch.kernels import stencils_r1 as K
 
@@ -898,15 +909,20 @@ def check_r1_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256), odd=(2, 3
                                     out[other], x[other]):
                                 raise AssertionError(f"{name} {label} gsrb{parity} n={n} "
                                                      f"{dn}: the other colour differs from x")
-                if n in sizes:
-                    rel, _ = relerr(K.r1_gsrb2_cuda(lv, x, rhs, cfg, taps, var7),
-                                    K.r1_gsrb2_plain(lv, x, rhs, cfg, taps, var7))
-                    if not rel <= tol:
-                        raise AssertionError(f"K6 {label} n={n} {dn}: {rel} > {tol}")
-                    errs["r1_gsrb2"] = max(errs.get("r1_gsrb2", 0.0), rel)
+                out = K.r1_gsrb2_cuda(lv, x, rhs, cfg, taps, var7)
+                rel, _ = relerr(out, K.r1_gsrb2_plain(lv, x, rhs, cfg, taps, var7))
+                if not rel <= tol:
+                    raise AssertionError(f"K6 {label} n={n} {dn}: {rel} > {tol}")
+                errs["r1_gsrb2"] = max(errs.get("r1_gsrb2", 0.0), rel)
+                for chunk in (2, 3):
+                    if not torch.equal(K.r1_gsrb2_cuda(lv, x, rhs, cfg, taps, var7,
+                                                       chunk=chunk), out):
+                        raise AssertionError(f"K6 {label} n={n} {dn}: chunk {chunk} "
+                                             f"differs from the launcher's rule")
             print(f"  radius-1 every mode, body and BC n={n:3d} {dn}: worst rel err "
                   + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-                  + "; the 27pt gsrb's other colour equals x bit for bit")
+                  + "; the 27pt gsrb's other colour equals x bit for bit; K6 with "
+                    "chunks of 2 and 3 i-planes equals its rule bit for bit")
             for k, v in errs.items():
                 worst[k] = max(worst.get(k, 0.0), v)
             del lv, x, rhs
@@ -1204,9 +1220,10 @@ def fcycle_launches(n=512):
     """Phase 7b: the launches of one F-cycle (float32, DIRECT bottom) of
     each of FCYCLES: the hierarchy built, the counts reset, one fmg_solve,
     the counts read; K1's and K7a's launches also by level (a tally around
-    the fv4 suite's fv4_stencil), and K2's and K2c's (around its
-    fv4_gsrb2). No plain version may run, and the fv4 F-cycles must launch
-    K1 (K7a)."""
+    the fv4 suite's fv4_stencil), K2's and K2c's (around its fv4_gsrb2),
+    K5's and K7b's (around the radius-1 suites' r1_stencil) and K6's
+    (around their r1_gsrb2). No plain version may run, and the fv4
+    F-cycles must launch K1 (K7a)."""
     from hpgmg_tpu_torch.bench.driver import build
     from hpgmg_tpu_torch.kernels import stencils as S
     from hpgmg_tpu_torch.kernels import stencils_r1 as K
@@ -1218,10 +1235,11 @@ def fcycle_launches(n=512):
     dev = torch.device("cuda")
     launch = F.fv4_stencil  # the fv4 suite's entry to K1 / K7a, a launch a call
     r1_launch = K.r1_stencil  # the radius-1 suites' entry to K5 / K7b, likewise
+    k6_launch = K.r1_gsrb2  # the radius-1 suites' entry to K6, a launch a call
     out = {}
     for tag, op, bc, flip in FCYCLES:
         cfg = solve_cfg("direct", torch.float32, op, bc)
-        by_level, k2_by_level, r1_by_level = {}, {}, {}
+        by_level, k2_by_level, r1_by_level, k6_by_level = {}, {}, {}, {}
 
         def tally(level, *args, **kw):
             by_level[level.dim] = by_level.get(level.dim, 0) + 1
@@ -1230,6 +1248,10 @@ def fcycle_launches(n=512):
         def tally_r1(level, *args, **kw):
             r1_by_level[level.dim] = r1_by_level.get(level.dim, 0) + 1
             return r1_launch(level, *args, **kw)
+
+        def tally_k6(level, *args, **kw):
+            k6_by_level[level.dim] = k6_by_level.get(level.dim, 0) + 1
+            return k6_launch(level, *args, **kw)
 
         def one():
             hier, f = build(n, cfg, dev)
@@ -1243,12 +1265,14 @@ def fcycle_launches(n=512):
                 k2_by_level[key] = k2_by_level.get(key, 0) + 1
                 return out
 
-            F.fv4_stencil, F.fv4_gsrb2, K.r1_stencil = tally, tally_k2, tally_r1
+            F.fv4_stencil, F.fv4_gsrb2, K.r1_stencil, K.r1_gsrb2 = (tally, tally_k2,
+                                                                   tally_r1, tally_k6)
             try:
                 fmg_solve(get_suite(op), hier, f, cfg)
                 torch.cuda.synchronize()
             finally:
-                F.fv4_stencil, F.fv4_gsrb2, K.r1_stencil = launch, sweep, r1_launch
+                F.fv4_stencil, F.fv4_gsrb2, K.r1_stencil, K.r1_gsrb2 = (launch, sweep,
+                                                                       r1_launch, k6_launch)
             return read_counts()
 
         counts, plain = (one() if flip is None else k2_on(one) if flip == "K2" else
@@ -1257,7 +1281,8 @@ def fcycle_launches(n=512):
         print(f"  {tag} {n}^3: launches per F-cycle {counts}; K1/K7a by level "
               f"{dict(sorted(by_level.items(), reverse=True))}; K2/K2c by level "
               f"{k2_by_level}; K5/K7b by level "
-              f"{dict(sorted(r1_by_level.items(), reverse=True))}")
+              f"{dict(sorted(r1_by_level.items(), reverse=True))}; K6 by level "
+              f"{dict(sorted(k6_by_level.items(), reverse=True))}")
         if any(plain.values()):
             raise AssertionError(f"{tag}: a plain version ran: {plain}")
         k1 = "fv4_stencil_periodic" if bc == "periodic" else "fv4_stencil"
@@ -1268,8 +1293,11 @@ def fcycle_launches(n=512):
                 + counts.get("r1_stream", 0) + counts.get("r1_stream_periodic", 0)):
             raise AssertionError(f"{tag}: K5/K7b calls {r1_by_level} against launches "
                                  f"{counts}")
+        if sum(k6_by_level.values()) != counts.get("r1_gsrb2", 0):
+            raise AssertionError(f"{tag}: K6 calls {k6_by_level} against launches {counts}")
         out[tag] = {"launches": counts, "fv4_stencil_by_level": by_level,
-                    "fv4_gsrb2_by_level": k2_by_level, "r1_stencil_by_level": r1_by_level}
+                    "fv4_gsrb2_by_level": k2_by_level, "r1_stencil_by_level": r1_by_level,
+                    "r1_gsrb2_by_level": k6_by_level}
         torch.cuda.empty_cache()
     return out
 
@@ -1461,6 +1489,7 @@ def check_slab_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
             del lr, x, rhs
     torch.cuda.empty_cache()
     check_slab_blocks(worst)
+    check_k8d_blocks(worst)
 
 
 # K8a's local blocks beyond the whole-domain ones: thin (a column tile wider
@@ -1529,6 +1558,57 @@ def check_slab_blocks(worst: dict):
     torch.cuda.empty_cache()
 
 
+# the edge flags (i low, i high, j low, j high) of the 2x2 grid's four ranks
+GRID_EDGES = ((True, False, True, False), (True, False, False, True),
+              (False, True, True, False), (False, True, False, True))
+
+
+def check_k8d_blocks(worst: dict):
+    """Phase 11, K8d on SLAB_BLOCKS with random ring views, rhs ring and
+    2-deep slabs (as neighbours would send them), float32 and float64, each
+    body and tap set of R1_BODIES, under the edge flags of each rank of a
+    2x2 grid: against its plain version at F32_TOL (F64_TOL), chunks of 2
+    and 3 i-planes equal to the launcher's rule bit for bit."""
+    from hpgmg_tpu_torch.core.config import SolverConfig
+    from hpgmg_tpu_torch.kernels import stencils_r1 as K
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 8)
+    for dtype, tol in ((torch.float32, F32_TOL), (torch.float64, F64_TOL)):
+        dn = str(dtype)[6:]
+        for ni, nj, nk in SLAB_BLOCKS:
+            lv = _block_level(ni, nj, nk, dev, rng, r1=True, dtype=dtype)
+            kd0, _, *faces = lv.ring
+            lv = dataclasses.replace(lv, ring=(kd0, torch.tensor(
+                rng.random((ni + 2, nj + 2, nk)), dtype=dtype, device=dev), *faces))
+            x = torch.tensor(rng.standard_normal((ni, nj, nk)), dtype=dtype, device=dev)
+            rhs2 = torch.tensor(rng.standard_normal((ni + 2, nj + 2, nk)), dtype=dtype,
+                                device=dev)
+            slabs = tuple(torch.tensor(rng.standard_normal(s), dtype=dtype, device=dev)
+                          for s in ((2, nj, nk),) * 2 + ((ni + 4, 2, nk),) * 2)
+            err = 0.0
+            for label, taps, var7, helm in R1_BODIES:
+                cfg = SolverConfig(a=1.5 if helm else 0.0, b=1.0, helmholtz=helm,
+                                   dtype=dtype)
+                for edges in GRID_EDGES:
+                    tag = f"K8d {label} ({ni},{nj},{nk}) {dn} edges {edges}"
+                    out = K.r1_gsrb2_slab_cuda(lv, x, slabs, edges, rhs2, cfg, taps, var7)
+                    rel, _ = relerr(out, K.r1_gsrb2_slab_plain(lv, x, slabs, edges, rhs2,
+                                                               cfg, taps, var7))
+                    if not rel <= tol:
+                        raise AssertionError(f"{tag}: rel err {rel} > {tol}")
+                    err = max(err, rel)
+                    for chunk in (2, 3):
+                        if not torch.equal(K.r1_gsrb2_slab_cuda(
+                                lv, x, slabs, edges, rhs2, cfg, taps, var7, chunk=chunk), out):
+                            raise AssertionError(f"{tag}: chunk {chunk} differs")
+            print(f"  K8d ({ni},{nj},{nk}) {dn}: every body, each 2x2 rank's edge flags: "
+                  f"rel err vs plain {err:.3e}; chunks 2 and 3 equal the rule")
+            worst["r1_gsrb2_slab_blocks"] = max(worst.get("r1_gsrb2_slab_blocks", 0.0), err)
+            del lv, x, rhs2, slabs
+    torch.cuda.empty_cache()
+
+
 def _block_level(ni: int, nj: int, nk: int, dev, rng, r1: bool, dtype=torch.float32):
     """A level of random coefficients cut to an ni x nj x nk local block
     (the fv4 tangentially-extended faces with their margins, or the
@@ -1558,11 +1638,12 @@ def _block_level(ni: int, nj: int, nk: int, dev, rng, r1: bool, dtype=torch.floa
 def time_slab_kernels(n=512):
     """Phase 12: the slab kernels' times (float32) at the local blocks the
     2x2 grid's n^3 main path gives them (K8a, K8b, K8c: the (n/2, n/2, n)
-    block of the finest level; K8d: the (n/4, n/4, n/2) block of the
-    largest level it sweeps), on random coefficients and slabs, against
+    block of the finest level; K8d: the (m/2, m/2, m) block of the
+    largest level it sweeps, m = min(n, stencils_r1.GSRB2_MAX_DIM)), on
+    random coefficients and slabs, against
     their plain versions and their bounds (each input read once, each
     output written once); then, at n^3 on one whole-domain block, K8a and
-    K8c (K8d at n/2) against their plain versions and bounds, and in turns
+    K8c (K8d at m) against their plain versions and bounds, and in turns
     with K1, K5 and K6 on the same level."""
     from hpgmg_tpu_torch.core.config import SolverConfig
     from hpgmg_tpu_torch.kernels import stencils as S
@@ -1625,7 +1706,8 @@ def time_slab_kernels(n=512):
               "r1_slab", work=(nbytes(x, *slabs, lr.beta_i, lr.beta_j, lr.beta_k, rhs,
                                       lr.kdinv[0], x), mode_flops(VAR7_AX, "gsrb", cells, 0)))
     del lr, x, rhs, slabs
-    mi, mj, mk = n // 4, n // 4, n // 2
+    md = min(n, K.GSRB2_MAX_DIM)  # the largest level K8d sweeps
+    mi, mj, mk = md // 2, md // 2, md
     l2 = _block_level(mi, mj, mk, dev, rng, r1=True)
     x, rhs2 = rand(mi, mj, mk), rand(mi + 2, mj + 2, mk)
     s2 = (rand(2, mj, mk), rand(2, mj, mk), rand(mi + 4, 2, mk), rand(mi + 4, 2, mk))
@@ -1643,7 +1725,7 @@ def time_slab_kernels(n=512):
     # one whole-domain block, against its plain version and bound, and
     # beside the single-rank kernel on the same level, in turns
     for m, names in ((n, ("K8a apply", "K8a residual", "K8a gsrb", "K8c")),
-                     (n // 2, ("K8d",))):
+                     (md, ("K8d",))):
         lv, lr = (random_level(m, torch.float32, dev, rng),
                   random_level_r1(m, torch.float32, dev, rng))
         x, rhs = rand(m, m, m), rand(m, m, m)
@@ -1731,7 +1813,8 @@ def decomposed(op: str, n: int, dtype: str, order_range, rel_limit: float = 1e-3
           f"phase wall {wall:.3f} s")
     print(f"  launches in the counted F-cycle: { {k: v for k, v in launches.items() if v} }")
     if r["slab_launches_by_block"]:
-        print(f"  K8a/K8b launches by local block (rank 0): {r['slab_launches_by_block']}")
+        print(f"  K8a/K8b/K8d launches by local block (rank 0): "
+              f"{r['slab_launches_by_block']}")
     if r["grid"] != [2, 2, 1]:
         raise AssertionError(f"{tag}: grid {r['grid']}")
     if not res["rel_residual"] <= rel_limit:
@@ -1980,6 +2063,20 @@ def main() -> int:
                      "fv4_overlap_edge": 2}[k["name"]]
             k["ptxas"] = {m: regs.get(f"fv4_slab_kernel<float, {i}, {pass_}>")
                           for i, m in enumerate(("apply", "residual", "gsrb"))}
+    # K6's launches by level (phase 7b's fv7pt F-cycle) and K8d's by block
+    # (rank 0 of phase 13's fv7pt run), each with its registers and spills
+    # by body (f32)
+    for k in kernels:
+        if k["name"] == "r1_gsrb2":
+            k["launches_by_level"] = per_cycle["fv7pt"]["r1_gsrb2_by_level"]
+        if k["name"] == "r1_gsrb2_slab":
+            k["launches_by_block"] = {b: v for b, v in
+                                      dec["fv7pt"]["slab_launches_by_block"].items()
+                                      if b.startswith("K8d")}
+        if k["name"] in ("r1_gsrb2", "r1_gsrb2_slab"):
+            slab = int(k["name"] == "r1_gsrb2_slab")
+            k["ptxas"] = {body: regs.get(f"r1_gsrb2_kernel<float, {v}, {slab}>")
+                          for body, v in (("var7", 1), ("27pt", 0))}
     print(f"  worst relative errors over the checks: {worst}")
     print(json.dumps({"headline": {
         "dof_per_s": res.dof_per_second, "rel_residual": res.rel_residual,

@@ -33,7 +33,13 @@ level, K5 or K7b through the suite), each of ``apply_op``, ``residual``,
 its kernels' device ms (``<call>_device``, torch.profiler) and its byte
 bound (``<call>_bound``: x, the call's operands and the face arrays the
 body reads once, the output written once, over 3.35 TB/s; both bodies do
-a few flops a byte, far below the card's ridge in f32 and f64). With
+a few flops a byte, far below the card's ridge in f32 and f64); on a
+Dirichlet level also one full red+black sweep through K6
+(``stencils_r1.r1_gsrb2_cuda``, ``sweep``: 8 values a cell read or
+written for var7, 5 for 27pt) and through two K5 gsrb half-sweeps
+(``r1_stencil_cuda`` at parity 0, then 1, ``pair``: 14 and 8), and with
+``--chunks`` K6 with each forced chunk of i-planes (``sweep chunk <c>``,
+where the tree's ``r1_gsrb2_cuda`` takes one). With
 ``--slab``, the decomposed fv4 stencil instead: on one whole n^3 block
 and on each local block the 2x2 grid gives the levels of an n^3 problem
 (``--sizes`` n, default 512: blocks (256, 256, 512) down to (8, 8, 16)),
@@ -44,7 +50,12 @@ x, rhs and slabs from a seeded generator, K8a's apply, residual and gsrb
 split takes the block), each with its ms per call, its device ms
 (``<call>_device``) and its byte bound (``<call>_bound``: the block's
 arrays the call reads once and its output written once, K8b's passes
-their parts of them, the edge pass also the slabs). It reads
+their parts of them, the edge pass also the slabs), and on the same
+block the decomposed radius-1 sweep (fv7pt's var7 body, p1 taps): one
+K8d sweep (``stencils_r1.r1_gsrb2_slab_cuda`` under the edge flags of the
+2x2 grid's rank 0, with random ring views, rhs ring and 2-deep slabs,
+``K8d sweep``) and two K8c gsrb half-sweeps (``r1_slab_cuda``, ``K8c
+pair``), each with its device ms and byte bound. It reads
 nothing but these and the gate, so the same file times an older tree of
 the package too (copied into that tree and run from its root; there
 ``fv4_gsrb2_cuda`` is its own K2, and a gsrb is handed its ``parity``
@@ -66,6 +77,7 @@ from hpgmg_tpu_torch.bench.driver import build, build_problem
 from hpgmg_tpu_torch.core.config import BC, SolverConfig
 from hpgmg_tpu_torch.core.level import Level, rb_mask
 from hpgmg_tpu_torch.kernels import stencils
+from hpgmg_tpu_torch.kernels import stencils_r1 as K
 from hpgmg_tpu_torch.ops.base import get_suite
 
 SEED = 20261017
@@ -156,11 +168,13 @@ def level_times(n: int, dtype: torch.dtype, bc: BC, reps: int) -> dict:
     return out
 
 
-def r1_times(n: int, dtype: torch.dtype, bc: BC, reps: int) -> dict:
+def r1_times(n: int, dtype: torch.dtype, bc: BC, reps: int, chunks=()) -> dict:
     """{body call: ms} of the four stencil calls of the var7 body (fv7pt's
-    level) and of the 27pt body (27pt's level) on the n^3 level, each with
-    its kernels' device ms (``<body> <call>_device``), over ``reps`` calls
-    at 512^3 and proportionally more on smaller levels, and its byte bound
+    level) and of the 27pt body (27pt's level) on the n^3 level, and on a
+    Dirichlet level of K6's full sweep, the pair of K5 half-sweeps it
+    replaces and K6 with each forced chunk of ``chunks``, each with its
+    kernels' device ms (``<body> <call>_device``), over ``reps`` calls at
+    512^3 and proportionally more on smaller levels, and its byte bound
     (``<body> <call>_bound``)."""
     reps = reps * min(64, max(1, (512 // n) ** 3))
     dev = torch.device("cuda")
@@ -183,10 +197,30 @@ def r1_times(n: int, dtype: torch.dtype, bc: BC, reps: int) -> dict:
         # values read and written: x, rhs, kdinv, the output, the faces
         values = {"apply": 2 * x.numel(), "residual": 3 * x.numel(),
                   "gsrb": 4 * x.numel(), "fres": 2 * x.numel() + x.numel() // 8}
+        if bc == BC.DIRICHLET:
+            taps, var7 = ("p1", True) if body == "var7" else ("27pt", False)
+
+            def half(y, p):
+                return K.r1_stencil_cuda(lv, y, cfg, "gsrb", taps, var7, rhs=f,
+                                         kdinv=lv.kdinv[p], parity=p)
+
+            calls["sweep"] = lambda: K.r1_gsrb2_cuda(lv, x, f, cfg, taps, var7)
+            calls["pair"] = lambda: half(half(x, 0), 1)
+            # x, rhs, kdinv0, kdinv1, the output (and the faces) once
+            values.update(sweep=5 * x.numel(), pair=2 * values["gsrb"])
+            faces = {k: faces * (2 if k == "pair" else 1) for k in values}
+            if "chunk" in inspect.signature(K.r1_gsrb2_cuda).parameters:
+                for c in chunks:
+                    calls[f"sweep chunk {c}"] = (lambda c=c: K.r1_gsrb2_cuda(
+                        lv, x, f, cfg, taps, var7, chunk=c))
+                    values[f"sweep chunk {c}"] = values["sweep"]
+                    faces[f"sweep chunk {c}"] = faces["sweep"]
+        else:
+            faces = {k: faces for k in values}
         for name, fn in calls.items():
             out[f"{body} {name}"] = time_ms(fn, reps)
             out[f"{body} {name}_device"] = device_ms(fn, reps)
-            out[f"{body} {name}_bound"] = ((values[name] + faces) * x.element_size()
+            out[f"{body} {name}_bound"] = ((values[name] + faces[name]) * x.element_size()
                                            / HBM_BYTES_PER_S * 1e3)
     return out
 
@@ -246,11 +280,59 @@ def slab_times(block, dtype: torch.dtype, bc: BC, reps: int) -> dict:
         values["K8b interior gsrb"] = block_values * part
         values["K8b edge gsrb"] = block_values * (1 - part) + slab_values
     out = {}
+    if bc == BC.DIRICHLET:
+        calls.update(r1_slab_calls(n, lv, x, values, gen, dtype))
     for name, fn in calls.items():
         out[name] = time_ms(fn, reps)
         out[name + "_device"] = device_ms(fn, reps)
         out[name + "_bound"] = values[name] * item / HBM_BYTES_PER_S * 1e3
     return out
+
+
+def r1_slab_calls(n: int, lv, x, values: dict, gen, dtype) -> dict:
+    """The radius-1 sweep of fv7pt's var7 body on x's block: K8d under rank
+    0's edge flags (i low and j low are domain faces) and two K8c gsrb
+    half-sweeps, on random ring views, rhs ring and slabs; each call's
+    values read and written go into ``values``."""
+    ni, nj, nk = x.shape
+    dev = x.device
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+    def coef(*shape):
+        return 1.0 + 0.25 * torch.rand(shape, generator=gen, device=dev, dtype=dtype)
+
+    rcfg = SolverConfig(op="fv7pt", bc=BC.DIRICHLET, a=0.0, b=1.0, dtype=dtype)
+    ring = (ni + 2, nj + 2, nk)
+    faces = (coef(ni + 3, nj + 2, nk), coef(ni + 2, nj + 3, nk), coef(ni + 2, nj + 2, nk + 1))
+    kd0 = rb_mask(n + 2, 0, dtype, dev)[:ni + 2, :nj + 2, :nk] * coef(*ring) / (8.0 * n * n)
+    rlv = Level(dim=n, h=1.0 / n, depth=0,
+                beta_i=faces[0][1:-1, 1:-1].contiguous(),
+                beta_j=faces[1][1:-1, 1:-1].contiguous(),
+                beta_k=faces[2][1:-1, 1:-1].contiguous(),
+                kdinv=(kd0[1:-1, 1:-1].contiguous(), lv.kdinv[1]), ring=(kd0, None, *faces))
+    rhs2 = rand(*ring)
+    rrhs = rhs2[1:-1, 1:-1].contiguous()
+    slabs2 = (rand(2, nj, nk), rand(2, nj, nk), rand(ni + 4, 2, nk), rand(ni + 4, 2, nk))
+    slabs1 = (rand(1, nj, nk), rand(1, nj, nk), rand(ni + 2, 1, nk), rand(ni + 2, 1, nk))
+    edges = (True, False, True, False)
+
+    def half(y, p):
+        return K.r1_slab_cuda(rlv, y, slabs1, rcfg, "gsrb", "p1", True, rhs=rrhs,
+                              kdinv=rlv.kdinv[p])
+
+    calls = {"K8d sweep": lambda: K.r1_gsrb2_slab_cuda(rlv, x, slabs2, edges, rhs2, rcfg,
+                                                       "p1", True),
+             "K8c pair": lambda: half(half(x, 0), 1)}
+    cells = x.numel()
+    # K8d: x, kdinv1, the output, the ring views, the rhs ring, the slabs;
+    # each K8c half: x, rhs, kdinv, the output, the faces, the slabs
+    values["K8d sweep"] = (3 * cells + kd0.numel() + rhs2.numel()
+                           + sum(t.numel() for t in (*faces, *slabs2)))
+    values["K8c pair"] = 2 * (4 * cells + sum(t.numel() for t in (
+        rlv.beta_i, rlv.beta_j, rlv.beta_k, *slabs1)))
+    return calls
 
 
 def tail_times(dtype: torch.dtype, reps: int) -> dict:
@@ -295,6 +377,8 @@ def main(argv=None) -> dict:
     p.add_argument("--slab", action="store_true",
                    help="time K8a and K8b on the local blocks of the 2x2 grid's levels "
                         "of each n^3 of --sizes (default 512) instead")
+    p.add_argument("--chunks", type=int, nargs="*", default=[],
+                   help="with --r1: also time K6 with each of these chunks of i-planes")
     p.add_argument("--json", default=None)
     args = p.parse_args(argv)
     sizes = args.sizes or ([16, 32, 64, 128, 256, 512] if args.r1
@@ -305,7 +389,6 @@ def main(argv=None) -> dict:
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     rows = []
-    times = r1_times if args.r1 else level_times
     for dt in args.dtype:
         for bc in args.bc:
             for n in sizes:
@@ -315,7 +398,10 @@ def main(argv=None) -> dict:
                                              (n >> s for s in range(8)) if m >= 16]
                               if args.slab else [n]):
                     ms = (slab_times(block, getattr(torch, dt), BC(bc), args.reps)
-                          if args.slab else times(n, getattr(torch, dt), BC(bc), args.reps))
+                          if args.slab else
+                          r1_times(n, getattr(torch, dt), BC(bc), args.reps, args.chunks)
+                          if args.r1 else level_times(n, getattr(torch, dt), BC(bc),
+                                                      args.reps))
                     rows += [{"n": n, **({"block": list(block)} if args.slab else {}),
                               "dtype": dt, "bc": bc, "call": k, "ms": v}
                              for k, v in ms.items()]

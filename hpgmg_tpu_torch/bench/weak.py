@@ -24,7 +24,8 @@ and compares u (max|u_ranks - u_one| / max|u_one|) and rel_residual.
 Prints one JSON line: the keys of ``python -m hpgmg_tpu_torch.bench`` plus
 ``ranks``, ``grid``, ``backend``, ``launches`` (of that F-cycle), rank 0's
 ``slab_launches_by_block`` (its K8a and K8b launches in that F-cycle by
-pass, mode and local block shape) and, with ``--check-serial``,
+pass, mode and local block shape, and its K8d sweeps by block) and, with
+``--check-serial``,
 ``serial_u_rel_diff`` and ``serial_rel_residual``.
 """
 

@@ -1,8 +1,9 @@
 // Device building blocks of the radius-1 kernels (K5 in r1_stencil.cu and
-// r1_stream.cu, K6 in r1_gsrb2.cu, K8c and K8d in r1_slab.cu): the 2-tap
-// Dirichlet ghost of x, and A x at one cell from an accessor of its
-// neighbourhood and the indices of its face coefficients (r1_ax; r1_index
-// for an ni x nj x nk block), for the two bodies:
+// r1_stream.cu, K6 and K8d in r1_gsrb2.cu, K8c in r1_slab.cu): the 2-tap
+// Dirichlet ghost of x, the shared-memory tiles of the tile kernels, the
+// register windows of the streaming ones, and A x at one cell from an
+// accessor of its neighbourhood and the indices of its face coefficients
+// (r1_ax; r1_index for an ni x nj x nk block), for the two bodies:
 //
 //   var7  A x = -b/h^2 * sum over the six faces of beta_f * (x_nb - x_c)
 //               [+ a * alpha * x_c]                      (fv7pt, fv2)
@@ -48,14 +49,13 @@ struct R1Args {
   const T* beta_k;
   const T* alpha;   // var7 with a*alpha*x; nullptr otherwise
   const T* rhs;
-  const T* kdinv;   // K5 gsrb: the half's parity-folded dinv; K6: red's
-  const T* kdinv1;  // K6: black's
+  const T* kdinv;   // gsrb: the half's parity-folded dinv
   T* out;
   int n;
   T b_h2inv;  // b / h^2
   T a_coef;   // var7: a (with alpha); 27pt: the constant a of a*x
   T t1, t2;   // Dirichlet ghost taps
-  int periodic;  // K7b: ghosts wrap (t1, t2 unused); K5 and K6: 0
+  int periodic;  // K7b: ghosts wrap (t1, t2 unused); K5: 0
 };
 
 template <typename T>
@@ -119,12 +119,12 @@ __device__ __forceinline__ T r1_wrap_value(const T* x, int n, int i, int j,
 
 // --------------------------------------------------------------------------
 // Tiles in shared memory. A block owns a TI x TJ x TK box of cells at
-// (i0, j0, k0) (k fastest) and keeps x on it with an H-cell halo.
+// (i0, j0, k0) (k fastest) and keeps x on it with a 1-cell halo.
 
 constexpr int kTileThreads = 256;
 
-// Output tile per block (i, j, k); f64 halves k to keep K6's two shared
-// arrays under 48 KB of static shared memory.
+// Output tile per block (i, j, k) of the tile kernels (K5's var7 body, K8c);
+// f64 halves k.
 template <typename T>
 struct Tile {
   static constexpr int I = 8, J = 8, K = 32;
@@ -138,18 +138,18 @@ __device__ __forceinline__ bool near_domain(int idx, int n) {
   return idx >= -1 && idx <= n;
 }
 
-// xs <- x at tile offsets [-H, T+H) on each axis: the cells inside the
+// xs <- x at tile offsets [-1, T+1) on each axis: the cells inside the
 // domain, the ghosts one cell outside it (Dirichlet taps or the periodic
 // wrap), zeros further out (read only by results at ghost positions, which
 // are discarded).
-template <typename T, int H, int TI, int TJ, int TK>
+template <typename T, int TI, int TJ, int TK>
 __device__ __forceinline__ void load_tile(const R1Args<T>& p, T* xs, int i0,
                                           int j0, int k0) {
-  constexpr int XJ = TJ + 2 * H, XK = TK + 2 * H, XSIZE = (TI + 2 * H) * XJ * XK;
+  constexpr int XJ = TJ + 2, XK = TK + 2, XSIZE = (TI + 2) * XJ * XK;
   const int n = p.n;
   for (int t = threadIdx.x; t < XSIZE; t += kTileThreads) {
     const int c = t % XK, r = t / XK;
-    const int i = i0 + r / XJ - H, j = j0 + r % XJ - H, k = k0 + c - H;
+    const int i = i0 + r / XJ - 1, j = j0 + r % XJ - 1, k = k0 + c - 1;
     xs[t] = !(near_domain(i, n) && near_domain(j, n) && near_domain(k, n))
                 ? T(0)
                 : p.periodic ? r1_wrap_value(p.x, n, i, j, k)
@@ -213,6 +213,52 @@ __device__ __forceinline__ T r1_ax(const T* beta_i, const T* beta_j, const T* be
     const T lap = T(14.0 / 30.0) * face + T(3.0 / 30.0) * edge +
                   T(1.0 / 30.0) * corner;
     return a_coef * xc - b_h2inv * lap;
+  }
+}
+
+// --------------------------------------------------------------------------
+// Register windows of the streaming kernels (r1_stream.cu, r1_gsrb2.cu): a
+// thread owns two neighbouring k cells of a row and holds three planes of
+// their neighbourhood.
+
+// the 3 x 4 values of one plane in a thread's window: rows j-1 .. j+1,
+// columns kb-1 .. kb+2
+template <typename T>
+using Rows = T[3][4];
+
+// Where a thread's window holds Dirichlet (j, k) ghosts: row 0 (j = 0),
+// row 2 (j = n-1), column 0 (kb = 0), column 3 (kb = n-2) or column 2
+// (kb = n-1, n odd)
+struct Faces {
+  bool jlo, jhi, klo;
+  int khi;  // the window column of the ghost k = n, or -1
+};
+
+// the (j, k) Dirichlet ghosts of one plane of the window, from its cells:
+// rows, then columns (edges: the tensor product of the taps)
+template <typename T>
+__device__ __forceinline__ void ghost_rows_cols(Rows<T>& w, const Faces& f, T t1, T t2) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    if (f.jlo) w[0][c] = t1 * w[1][c] + t2 * w[2][c];
+    if (f.jhi) w[2][c] = t1 * w[1][c] + t2 * w[0][c];
+  }
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    if (f.klo) w[r][0] = t1 * w[r][1] + t2 * w[r][2];
+    if (f.khi == 3) w[r][3] = t1 * w[r][2] + t2 * w[r][1];
+    if (f.khi == 2) w[r][2] = t1 * w[r][1] + t2 * w[r][0];
+  }
+}
+
+// out = t1 * a + t2 * b over a plane of the window (a Dirichlet ghost plane)
+template <typename T>
+__device__ __forceinline__ void ghost_plane(Rows<T>& out, const Rows<T>& a, const Rows<T>& b,
+                                            T t1, T t2) {
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) out[r][c] = t1 * a[r][c] + t2 * b[r][c];
   }
 }
 

@@ -37,7 +37,7 @@
 //
 // Design: a block owns a TI x TJ x TK tile of cells (Tile in r1_common.cuh,
 // k fastest) and first loads x on it with a 1-cell halo into shared memory,
-// ghosts included (load_tile, the K6 loader); every thread then evaluates
+// ghosts included (load_tile); every thread then evaluates
 // its cells' stencils from shared memory, reading the coefficients, rhs and
 // kdinv straight from device memory (coalesced along k). fres writes the
 // tile's residuals to a second shared array and each thread averages the
@@ -59,7 +59,7 @@ __global__ void __launch_bounds__(kTileThreads) r1_kernel(const R1Args<T> p) {
   const int n = p.n;
   const int i0 = blockIdx.z * TI, j0 = blockIdx.y * TJ, k0 = blockIdx.x * TK;
 
-  load_tile<T, 1, TI, TJ, TK>(p, xs, i0, j0, k0);
+  load_tile<T, TI, TJ, TK>(p, xs, i0, j0, k0);
   __syncthreads();
 
   for (int t = threadIdx.x; t < TSIZE; t += kTileThreads) {
@@ -111,8 +111,8 @@ int launch_r1(const void* x, const void* beta_i, const void* beta_j,
   const R1Args<T> p{static_cast<const T*>(x),      static_cast<const T*>(beta_i),
                     static_cast<const T*>(beta_j), static_cast<const T*>(beta_k),
                     static_cast<const T*>(alpha),  static_cast<const T*>(rhs),
-                    static_cast<const T*>(kdinv),  nullptr,
-                    static_cast<T*>(out),          n,
+                    static_cast<const T*>(kdinv),  static_cast<T*>(out),
+                    n,
                     static_cast<T>(b_h2inv),       static_cast<T>(a_coef),
                     static_cast<T>(t1),            static_cast<T>(t2),
                     periodic != 0};

@@ -90,47 +90,6 @@ constexpr int XPLANE = (R1TJ + 2) * XP;  // the tile and its 1-cell halo
 constexpr int kXE = (XPLANE + kR1Threads - 1) / kR1Threads;  // copies a thread
 constexpr unsigned kNoCopy = ~0u;
 
-// the 3 x 4 values of one plane in a thread's window: rows j-1 .. j+1,
-// columns kb-1 .. kb+2
-template <typename T>
-using Rows = T[3][4];
-
-// Where a thread's window holds Dirichlet (j, k) ghosts: row 0 (j = 0),
-// row 2 (j = n-1), column 0 (kb = 0), column 3 (kb = n-2) or column 2
-// (kb = n-1, n odd)
-struct Faces {
-  bool jlo, jhi, klo;
-  int khi;  // the window column of the ghost k = n, or -1
-};
-
-// the (j, k) Dirichlet ghosts of one plane of the window, from its cells:
-// rows, then columns (edges: the tensor product of the taps)
-template <typename T>
-__device__ __forceinline__ void ghost_rows_cols(Rows<T>& w, const Faces& f, T t1, T t2) {
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    if (f.jlo) w[0][c] = t1 * w[1][c] + t2 * w[2][c];
-    if (f.jhi) w[2][c] = t1 * w[1][c] + t2 * w[0][c];
-  }
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-    if (f.klo) w[r][0] = t1 * w[r][1] + t2 * w[r][2];
-    if (f.khi == 3) w[r][3] = t1 * w[r][2] + t2 * w[r][1];
-    if (f.khi == 2) w[r][2] = t1 * w[r][1] + t2 * w[r][0];
-  }
-}
-
-// out = t1 * a + t2 * b over a plane of the window (a Dirichlet ghost plane)
-template <typename T>
-__device__ __forceinline__ void ghost_plane(Rows<T>& out, const Rows<T>& a, const Rows<T>& b,
-                                            T t1, T t2) {
-#pragma unroll
-  for (int r = 0; r < 3; ++r) {
-#pragma unroll
-    for (int c = 0; c < 4; ++c) out[r][c] = t1 * a[r][c] + t2 * b[r][c];
-  }
-}
-
 // A x at a cell from X(di, dj, dk), its neighbourhood in the window
 template <typename T, typename FX>
 __device__ __forceinline__ T ax27(const FX& X, T b_h2inv, T a_coef) {
@@ -385,7 +344,7 @@ int launch_stream(const void* x, const void* rhs, const void* kdinv, void* out, 
   }
   const R1Args<T> p{static_cast<const T*>(x), nullptr,  nullptr,
                     nullptr,                  nullptr,  static_cast<const T*>(rhs),
-                    static_cast<const T*>(kdinv), nullptr, static_cast<T*>(out),
+                    static_cast<const T*>(kdinv), static_cast<T*>(out),
                     n,                        static_cast<T>(b_h2inv),
                     static_cast<T>(a_coef),   static_cast<T>(t1),
                     static_cast<T>(t2),       periodic != 0};

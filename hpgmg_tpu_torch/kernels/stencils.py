@@ -732,7 +732,8 @@ fv4_overlap_edge_plain.calls = 0
 
 
 # K8a's and K8b's launches by pass, mode and local block shape, keyed
-# "<pass> <mode> (ni, nj, nk)" (bench/weak.py reads them for the counted
+# "<pass> <mode> (ni, nj, nk)", and K8d's (stencils_r1.r1_gsrb2_slab_cuda),
+# keyed "K8d sweep (ni, nj, nk)" (bench/weak.py reads them for the counted
 # F-cycle)
 SLAB_PASSES = ("K8a", "K8b interior", "K8b edge")
 slab_launches_by_block = {}

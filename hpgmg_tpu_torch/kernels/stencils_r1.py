@@ -16,12 +16,14 @@ periodic ghosts (K7b) are the wrapped cells, on each axis crossed.
 
 Each entry dispatches on the device of ``x``: CUDA tensors launch the
 kernels of ``csrc/`` (``r1_stream.cu`` for the 27pt body, ``r1_stencil.cu``
-for var7, ``r1_gsrb2.cu``), CPU tensors take the plain version. K5's
+for var7, ``r1_gsrb2.cu`` for K6 and K8d), CPU tensors take the plain
+version. K5's
 modes are K1's (kernels/stencils.py): apply, residual, gsrb (out of
 place, ``x + kdinv * (rhs - A x)``, with the sweep's ``parity``, the
 colour kdinv carries) and fres (``restrict_cell(rhs - A x)``). K7b is
-K5's launch with its periodic flag set. K6 is one launch per full sweep,
-equal to two K5 gsrb calls (kdinv[0], then kdinv[1]); it takes Dirichlet
+K5's launch with its periodic flag set. K6 is one streaming launch per
+full sweep (red one plane ahead of black in shared memory), equal to two
+K5 gsrb calls (kdinv[0], then kdinv[1]) to rounding; it takes Dirichlet
 levels only: a periodic fused sweep would need the opposite face's red
 iterate (hpgmg_tpu/kernels/stencils_r1.py:196-205).
 """
@@ -38,7 +40,7 @@ from hpgmg_tpu_torch.core.level import Level
 from hpgmg_tpu_torch.kernels.restrict import restrict_cell_plain
 from hpgmg_tpu_torch.kernels.stencils import (MODES, _ptr, _stream, build_slabs,
                                               check_dirichlet, extend_slabs,
-                                              local_exchange)
+                                              local_exchange, slab_launches_by_block)
 from hpgmg_tpu_torch.ops.bc import _wrap_axis, ghost_fill_linear, ghost_fill_quadratic_fd
 from hpgmg_tpu_torch.ops.bc_fv import ghost_fill_fv
 
@@ -59,13 +61,15 @@ C3 = 1.0 / 30.0
 # K6 smooths the levels with dim <= GSRB2_MAX_DIM (pairs of K5 half-sweeps
 # above it), for the var7 body only, as the JAX package's default
 # (GSRB2_VAR7_ONLY). Measured on an H100 (bench/profile.py --ab, one
-# smoother call, device ms, K6 against K5 half-sweeps; fv7pt / fv2):
-# 16^3-64^3 0.12 / 0.16 against 0.23-0.27 / 0.31-0.32 (launch-bound),
-# 128^3 0.14 / 0.21 against 0.20 / 0.32, 256^3 0.78-0.80 / 1.18-1.19 against
-# 0.79 / 1.18-1.19 (a tie, in half the launches), 512^3 6.70 / 10.04-10.12
-# against 6.00-6.05 / 9.04-9.12.
+# smoother call, ms by CUDA events, K6 against K5 half-sweeps, in turns;
+# fv7pt / fv2): 512^3 3.82-3.84 / 5.69-5.72 against 5.94-5.95 / 8.87-8.91,
+# 256^3 0.49-0.50 / 0.73-0.74 against 0.78-0.79 / 1.16-1.17, 128^3
+# 0.10-0.11 / 0.12 against 0.18-0.21 / 0.22, 16^3-64^3 0.06-0.11 against
+# 0.11-0.22 (launch-bound: half the launches). The 27pt body stays on K5:
+# its half-sweeps (csrc/r1_stream.cu) beat K6 from 64^3 up (device ms, f32
+# 256^3 0.19-0.23 against 0.26-0.28; bench/stencil_times.py --r1).
 GSRB2_VAR7_ONLY = True
-GSRB2_MAX_DIM = 256
+GSRB2_MAX_DIM = 512
 
 
 def use_gsrb2(dim: int, var7: bool, bc: BC) -> bool:
@@ -346,23 +350,35 @@ r1_stream_cuda.launches = 0
 r1_stream_cuda.periodic_launches = 0
 
 
-def r1_gsrb2_cuda(level: Level, x: torch.Tensor, rhs: torch.Tensor,
-                  cfg: SolverConfig, taps: str, var7: bool) -> torch.Tensor:
-    """Launch K6 (one full red+black sweep) into a newly allocated output.
-    Each half evaluates the stencil at its parity's cells only, so the
-    level's kdinv pair must vanish off its parity, as
-    ``RadiusOneSuite.fold_kdinv`` builds it."""
+def _sweep_entry(name: str, x: torch.Tensor, chunk: int):
+    """The C entry of K6 or K8d (``name``) for x's dtype: the launcher's
+    chunk rule, or (``chunk`` > 0) the ``_chunk`` entry, whose arguments
+    take the chunk of i-planes after var7."""
     from hpgmg_tpu_torch.kernels.build import library
 
+    if chunk < 0:
+        raise ValueError(f"chunk must be >= 0, got {chunk}")
+    dt = "f32" if x.dtype == torch.float32 else "f64"
+    fn = getattr(library(), f"{name}_chunk_{dt}" if chunk else f"{name}_{dt}")
+    return (lambda *a: fn(*a[:-5], chunk, *a[-5:])) if chunk else fn
+
+
+def r1_gsrb2_cuda(level: Level, x: torch.Tensor, rhs: torch.Tensor,
+                  cfg: SolverConfig, taps: str, var7: bool,
+                  chunk: int = 0) -> torch.Tensor:
+    """Launch K6 (one full red+black sweep, ``csrc/r1_gsrb2.cu``) into a
+    newly allocated output. Each half evaluates the stencil at its parity's
+    cells only, so the level's kdinv pair must vanish off its parity, as
+    ``RadiusOneSuite.fold_kdinv`` builds it. ``chunk``: i-planes a block
+    marches (0: the launcher's rule, as the solver calls it; any chunk
+    gives the same bits)."""
     check_dirichlet(cfg, "the fused radius-1 sweep (K6)")
     _check(level, x, cfg, "gsrb", taps, var7, rhs, level.kdinv or (None, None))
     if not x.is_cuda:
         raise ValueError(f"r1_gsrb2_cuda wants CUDA tensors, got {x.device}")
+    fn = _sweep_entry("hpgmg_r1_gsrb2", x, chunk)
     out = torch.empty_like(x)
     alpha, a_coef = _coefs(level, cfg, var7)
-    lib = library()
-    fn = (lib.hpgmg_r1_gsrb2_f32 if x.dtype == torch.float32
-          else lib.hpgmg_r1_gsrb2_f64)
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), *_betas(level, var7), _ptr(alpha), rhs.data_ptr(),
                 level.kdinv[0].data_ptr(), level.kdinv[1].data_ptr(),
@@ -644,21 +660,20 @@ r1_gsrb2_slab_plain.calls = 0
 
 
 def r1_gsrb2_slab_cuda(level: Level, x: torch.Tensor, slabs, edges, rhs2,
-                       cfg: SolverConfig, taps: str, var7: bool) -> torch.Tensor:
-    """Launch K8d (one full red+black sweep of the block) into a newly
-    allocated output."""
-    from hpgmg_tpu_torch.kernels.build import library
-
+                       cfg: SolverConfig, taps: str, var7: bool,
+                       chunk: int = 0) -> torch.Tensor:
+    """Launch K8d (one full red+black sweep of the block, K6's kernel with
+    the slabs as its halo's sources) into a newly allocated output.
+    ``chunk`` as ``r1_gsrb2_cuda``'s."""
     _check_gsrb2_slab(level, x, slabs, edges, rhs2, cfg, taps, var7)
     if not x.is_cuda:
         raise ValueError(f"r1_gsrb2_slab_cuda wants CUDA tensors, got {x.device}")
+    fn = _sweep_entry("hpgmg_r1_gsrb2_slab", x, chunk)
     ni, nj, nk = x.shape
     out = torch.empty_like(x)
     kd0, alpha, rbi, rbj, rbk = level.ring
     _, a_coef = _coefs(level, cfg, var7)
     bits = sum(int(bool(e)) << k for k, e in enumerate(edges))
-    fn = getattr(library(),
-                 "hpgmg_r1_gsrb2_slab_" + ("f32" if x.dtype == torch.float32 else "f64"))
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), *(t.data_ptr() for t in slabs), _ptr(rbi), _ptr(rbj),
                 _ptr(rbk), _ptr(alpha), rhs2.data_ptr(), kd0.data_ptr(),
@@ -667,6 +682,8 @@ def r1_gsrb2_slab_cuda(level: Level, x: torch.Tensor, slabs, edges, rhs2,
     if rc != 0:
         raise RuntimeError(f"radius-1 gsrb2 slab kernel launch failed: CUDA error {rc}")
     r1_gsrb2_slab_cuda.launches += 1
+    key = f"K8d sweep {(ni, nj, nk)}"
+    slab_launches_by_block[key] = slab_launches_by_block.get(key, 0) + 1
     return out
 
 

@@ -9,7 +9,10 @@ K5: every mode (apply, residual, gsrb for both parities, fres) for the var7
 body with the fv7pt (p1) and fv2 (v2) ghost taps, with and without the
 a*alpha*x term, and for the 27pt body with and without its constant a*x.
 K6: one full sweep for the same bodies against r1_gsrb2_pallas, and
-against two K5 half-sweeps. Both packages read the same random level. The
+against two K5 half-sweeps; at n = 9, which r1_gsrb2_pallas does not take
+(its tile_shape_gsrb2 finds no tiling of an odd n or of n < 32), against
+the JAX XLA red-then-black pair that kernel fuses. Both packages read the
+same random level. The
 CUDA kernels run only on a card (tests/test_torch_cuda.py,
 tests/test_torch_cuda_r1_stream.py, chip_smoke.py). Also: a half-sweep
 takes the sweep's parity (the plain version checks it, the suite passes
@@ -29,6 +32,7 @@ import hpgmg_tpu.kernels.stencils_r1 as JK1
 from hpgmg_tpu.core.config import SolverConfig as JConfig
 from hpgmg_tpu.core.level import Level as JLevel
 from hpgmg_tpu.core.level import rb_mask as jrb_mask
+from hpgmg_tpu.ops.base import get_suite as jsuite
 from hpgmg_tpu_torch.core.config import BC, SolverConfig
 from hpgmg_tpu_torch.core.level import Level, rb_mask
 from hpgmg_tpu_torch.kernels import stencils_r1 as K
@@ -146,6 +150,37 @@ def test_k6_plain_matches_pallas_and_two_half_sweeps(data, interpret, taps, var7
     assert torch.equal(out, halves)
 
 
+@pytest.mark.parametrize("taps,var7,helmholtz", BODIES)
+def test_k6_plain_at_odd_n_matches_xla_pair(taps, var7, helmholtz):
+    """n = 9: the last cell pair along each axis straddles the face."""
+    n = 9
+    rng = np.random.default_rng(9)
+    b = [1.0 + 0.25 * rng.random(s) for s in ((n + 1, n, n), (n, n + 1, n), (n, n, n + 1))]
+    alpha = 0.5 + rng.random((n, n, n))
+    dinv = (0.5 + rng.random((n, n, n))) / (8.0 * n * n)
+    x, rhs = rng.standard_normal((2, n, n, n))
+    op = {"p1": "fv7pt", "v2": "fv2", "27pt": "27pt"}[taps]
+    kw = dict(op=op, b=1.0, a=1.5 if helmholtz else 0.0, helmholtz=helmholtz)
+    jcfg = JConfig(dtype=jnp.float64, kernels="xla", **kw)
+    jd = jnp.asarray(dinv)
+    jlv = JLevel(dim=n, h=1.0 / n, depth=0, beta_i=jnp.asarray(b[0]),
+                 beta_j=jnp.asarray(b[1]), beta_k=jnp.asarray(b[2]),
+                 alpha=jnp.asarray(alpha) if helmholtz else None, dinv=jd,
+                 kdinv=tuple(jrb_mask(n, p, jnp.float64) * jd for p in (0, 1)))
+    ref = jnp.asarray(x)
+    for p in (0, 1):
+        ref = ref + jlv.kdinv[p] * (jnp.asarray(rhs) - jsuite(op).apply_op(jlv, ref, jcfg))
+    d = torch.tensor(dinv)
+    lv = Level(dim=n, h=1.0 / n, depth=0, beta_i=torch.tensor(b[0]),
+               beta_j=torch.tensor(b[1]), beta_k=torch.tensor(b[2]),
+               alpha=torch.tensor(alpha) if helmholtz else None, dinv=d,
+               kdinv=tuple(rb_mask(n, p, torch.float64, torch.device("cpu")) * d
+                           for p in (0, 1)))
+    out = K.r1_gsrb2(lv, torch.tensor(x), torch.tensor(rhs),
+                     SolverConfig(dtype=torch.float64, **kw), taps, var7)
+    assert rel(out, ref) <= TOL
+
+
 def test_dispatch_and_checks(data):
     """CPU tensors take the plain versions; the CUDA wrappers refuse CPU
     tensors; what the kernels do not take raises."""
@@ -159,6 +194,8 @@ def test_dispatch_and_checks(data):
         K.r1_stencil_cuda(lv, x, cfg, "apply", "p1", True)
     with pytest.raises(ValueError, match="CUDA"):
         K.r1_gsrb2_cuda(lv, x, x, cfg, "p1", True)
+    with pytest.raises(ValueError, match="chunk"):  # checked before the build
+        K._sweep_entry("hpgmg_r1_gsrb2", x, -1)
     with pytest.raises(ValueError, match="no kernel"):
         K.r1_stencil(lv, x.to("meta"), cfg, "apply", "p1", True)
     with pytest.raises(NotImplementedError):  # K6 fuses no periodic sweep

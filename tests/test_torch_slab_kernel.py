@@ -12,7 +12,10 @@ max|port - jax| / max|jax|):
 * K8c (var7 with the fv7pt and fv2 taps, 27pt) against the JAX radius-1
   XLA apply and residual, Dirichlet and periodic, and its restricted
   residual against restrict_cell of it;
-* K8d with all edge flags against the XLA red-then-black pair;
+* K8d with all edge flags against the XLA red-then-black pair; and on each
+  block of a 2x2 split of a 16^3 level (each block's edge flags, its slabs
+  cut from its neighbours' cells, its ring views and rhs ring), the blocks
+  assembled, against the same pair on the whole level;
 * the port's slabs equal the live rows of the JAX single_chip_slabs(_r1).
 
 The CUDA kernels run only on a card (tests/test_torch_cuda_slab.py,
@@ -214,6 +217,56 @@ def test_k8d_plain_matches_xla_red_black_pair(r1_data, taps, var7, op):
     assert K.r1_gsrb2_slab_plain.calls == calls + 1
     assert rel(out, ref) <= TOL
     assert rel(out, K.r1_gsrb2_plain(lv, x, rhs, cfg, taps, var7).numpy()) <= TOL
+
+
+@pytest.mark.parametrize("taps,var7,op", R1_BODIES)
+def test_k8d_plain_on_a_2x2_split_matches_xla_red_black_pair(taps, var7, op):
+    """Four 8 x 8 x 16 blocks with the edge flags of their grid positions;
+    a side that is not a domain face gets its neighbour's cells: the i
+    slabs from the neighbour's block, the j strips from the field extended
+    in i (the neighbour's strip, its own i ghosts included)."""
+    n, nb = 16, 8
+    rng = np.random.default_rng(16)
+    b = [1.0 + 0.25 * rng.random(s) for s in ((n + 1, n, n), (n, n + 1, n), (n, n, n + 1))]
+    dinv = (0.5 + rng.random((n,) * 3)) / (8.0 * n * n)
+    x, rhs = rng.standard_normal((2, n, n, n))
+    jd = jnp.asarray(dinv)
+    jlv = JLevel(dim=n, h=1.0 / n, depth=0, beta_i=jnp.asarray(b[0]),
+                 beta_j=jnp.asarray(b[1]), beta_k=jnp.asarray(b[2]), dinv=jd,
+                 kdinv=tuple(jrb_mask(n, p, jnp.float64) * jd for p in (0, 1)))
+    a = 1.5 if op == "27pt" else 0.0
+    jcfg = JConfig(op=op, a=a, b=1.0, dtype=jnp.float64, kernels="xla")
+    ref = jnp.asarray(x)
+    for p in (0, 1):
+        ref = ref + jlv.kdinv[p] * (jnp.asarray(rhs) - jsuite(op).apply_op(jlv, ref, jcfg))
+    d = t(dinv)
+    lv = Level(dim=n, h=1.0 / n, depth=0, beta_i=t(b[0]), beta_j=t(b[1]), beta_k=t(b[2]),
+               dinv=d, kdinv=tuple(rb_mask(n, p, torch.float64, CPU) * d for p in (0, 1)))
+    cfg = SolverConfig(op=op, a=a, b=1.0, dtype=torch.float64)
+    xt, rt = t(x), t(rhs)
+    ghost2 = K.taps_ghost2(taps)
+    xe = torch.cat([ghost2(xt[:2], 0, True), xt, ghost2(xt[-2:], 0, False)], dim=0)
+    out = torch.empty_like(xt)
+    for ci in (0, 1):
+        for cj in (0, 1):
+            oi, oj = nb * ci, nb * cj
+
+            def exchange(axis, lo_face, hi_face):
+                if axis == 0:
+                    return (xt[oi - 2:oi, oj:oj + nb] if ci else None,
+                            None if ci else xt[oi + nb:oi + nb + 2, oj:oj + nb])
+                return (xe[oi:oi + nb + 4, oj - 2:oj] if cj else None,
+                        None if cj else xe[oi:oi + nb + 4, oj + nb:oj + nb + 2])
+
+            blk = xt[oi:oi + nb, oj:oj + nb].contiguous()
+            blv = dataclasses.replace(
+                lv, ring=K.ring_views(lv, cfg, var7, oi, oj, nb, nb),
+                kdinv=tuple(k[oi:oi + nb, oj:oj + nb].contiguous() for k in lv.kdinv))
+            out[oi:oi + nb, oj:oj + nb] = K.r1_gsrb2_slab(
+                blv, blk, S.build_slabs(blk, 2, 2, ghost2, exchange),
+                (ci == 0, ci == 1, cj == 0, cj == 1), K.ring_cut(rt, oi, oj, nb, nb), cfg,
+                taps, var7)
+    assert rel(out, ref) <= TOL
 
 
 @pytest.mark.parametrize("bc", ["dirichlet", "periodic"])
