@@ -48,12 +48,13 @@ Phases, each printing its result and raising on failure (exit code != 0):
    at the same sizes, K4c (the one-launch tail V-cycle over a DIRECT
    bottom) on the 32-16 and 16 ladders, and their times at 512^3 (the 27pt
    body at 64^3-512^3, K4c on the headline's 32-16 tail);
-   K2, K2c, K4 and K6 refuse a periodic level; K1s (the one-pass sub-tiled fv4
-   stencil: apply, residual, gsrb for both parities, with and without
-   a*alpha*x) against its plain version and against K1 at n in {8, ...,
-   256}, max relative error <= 2e-6 (f32) and 1e-13 (f64: its ghosts round
-   in another order than the plain version's), and its refusal of a
-   periodic level;
+   K2, K2c, K4 and K6 refuse a periodic level; K1s (the one-pass fv4
+   stencil for the small levels: apply, residual, gsrb for both parities,
+   with and without a*alpha*x) against its plain version and against K1 at
+   n in {8, 9, 16, 32, 33, 48, 64, 128, 256}, max relative error <= 2e-6
+   (f32) and 1e-13 (f64: its ghosts round in another order than the plain
+   version's), with a forced tile length of 3 i-planes equal to the
+   launcher's rule bit for bit, and its refusal of a periodic level;
 4. the headline solve through the port's own entry point: run_benchmark at
    512^3, fv4, GSRB, DIRECT bottom, min_coarse_dim 8, float32,
    dynamic_range 3, with every kernel's launch count reset before it and
@@ -85,8 +86,8 @@ Phases, each printing its result and raising on failure (exit code != 0):
 7b. one counted F-cycle (float32, 512^3) of the headline, its other tail
    setting, K2 on from 128^3, the other SUBTILE setting, fv7pt, 27pt and
    their periodic runs and periodic fv4: every kernel's launches per
-   F-cycle, K1's and K7a's, K2's and K2c's, K5's and K7b's and K6's by
-   level, no plain version;
+   F-cycle, K1's and K7a's, K1s's, K2's and K2c's, K5's and K7b's and K6's
+   by level, no plain version;
 8. fv4 at 512^3 float32 through the CLI (bench/cli.py) with each other
    smoother (Chebyshev, Jacobi, L1-Jacobi, SymGS; DIRECT bottom): a finite
    rel_residual below 1; and with GSRB over each other bottom solver (CG,
@@ -450,7 +451,8 @@ def check_stream(worst: dict, sizes=(4, 8, 12, 20, 36, 48, 64, 128, 256)):
                                 raise AssertionError(f"{name} {label} n={n} {dn}: the "
                                                      "other colour's cells differ from x")
                         if bc == BC.DIRICHLET and mode in S.SUBTILE_MODES:
-                            k1s = S.fv4_subtile_cuda(lv, x, cfg, mode, **kw)
+                            k1s = S.fv4_subtile_cuda(lv, x, cfg, mode, parity=parity,
+                                                     **kw)
                             if not torch.equal(out, k1s):
                                 unequal += 1
                                 d, _ = relerr(out, k1s)
@@ -468,14 +470,16 @@ def check_stream(worst: dict, sizes=(4, 8, 12, 20, 36, 48, 64, 128, 256)):
     return vs_k1s
 
 
-def check_subtile(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
+def check_subtile(worst: dict, sizes=(8, 9, 16, 32, 33, 48, 64, 128, 256)):
     """Phase 3a, K1s: each mode (apply, residual, gsrb for both parities),
     with and without a*alpha*x, float32 and float64, against its plain
-    version and against K1's two passes on the same tensors. The kernel
-    takes every n >= 4 on its fixed tile (16x8x32 cells, 8x8x32 in f64); the
-    sizes above the gate's SUBTILE_MAX_DIM call it directly; its tiles
-    cover the level partly at 8 and 16 and raggedly at 48 (along k). It
-    refuses a periodic level."""
+    version and against K1 on the same tensors, and with a forced tile
+    length along i (3, odd, beside the launcher's rule) equal to the rule's
+    result bit for bit. The kernel takes every n >= 4 on its TI x 8 x 32
+    tiles; the sizes above the gate's SUBTILE_MAX_DIM call it directly; its
+    tiles cover the level partly at 8 and 16, raggedly at 48 (along k), and
+    with one cell along j (9) or k (33), whose ghosts come from device
+    memory. It refuses a periodic level."""
     from hpgmg_tpu_torch.core.config import SolverConfig
     from hpgmg_tpu_torch.kernels import stencils as S
 
@@ -493,13 +497,18 @@ def check_subtile(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
                 for _, mode, kw, parity in stream_cases(lv, rhs):
                     if mode not in S.SUBTILE_MODES:
                         continue
-                    out = S.fv4_subtile_cuda(lv, x, cfg, mode, **kw)
-                    rp, _ = relerr(out, S.fv4_subtile_plain(lv, x, cfg, mode, **kw))
+                    out = S.fv4_subtile_cuda(lv, x, cfg, mode, parity=parity, **kw)
+                    rp, _ = relerr(out, S.fv4_subtile_plain(lv, x, cfg, mode, parity=parity,
+                                                            **kw))
                     rk, _ = relerr(out, S.fv4_stencil_cuda(lv, x, cfg, mode, parity=parity,
                                                            **kw))
                     if not (rp <= tol and rk <= tol):
                         raise AssertionError(f"K1s {mode} n={n} {dn} helmholtz="
                                              f"{cfg.helmholtz}: {rp} (plain), {rk} (K1) > {tol}")
+                    forced = S.fv4_subtile_cuda(lv, x, cfg, mode, parity=parity, ti=3, **kw)
+                    if not torch.equal(forced, out):
+                        raise AssertionError(f"K1s {mode} n={n} {dn}: a tile length of 3 "
+                                             "differs from the launcher's rule")
                     vs_plain, vs_k1 = max(vs_plain, rp), max(vs_k1, rk)
             print(f"  K1s (3 modes x 2 terms) n={n:3d} {dn}: rel err vs plain "
                   f"{vs_plain:.3e}, vs K1 {vs_k1:.3e}")
@@ -653,9 +662,11 @@ def time_stream(lv, x, rhs, cfg, reps: int, row: dict, chunks: bool):
                   lambda: S.fv4_stencil_plain(lv, x, cfg, mode, **kw), reps, row, mode,
                   work=stream_work(lv, x, mode, kw))
         if cfg.bc == BC.DIRICHLET and mode in S.SUBTILE_MODES:
-            k1s = lambda: S.fv4_subtile_cuda(lv, x, cfg, mode, **kw)  # noqa: E731
+            k1s = lambda: S.fv4_subtile_cuda(lv, x, cfg, mode, parity=parity,  # noqa: E731
+                                             **kw)
             time_pair(f"K1s {mode:8s} {n}^3 {dn}", k1s,
-                      lambda: S.fv4_subtile_plain(lv, x, cfg, mode, **kw), reps, row,
+                      lambda: S.fv4_subtile_plain(lv, x, cfg, mode, parity=parity, **kw),
+                      reps, row,
                       f"k1s {mode}", work=stream_work(lv, x, mode, kw))
             t = [time_ms(f, reps) for f in (k1, k1s, k1s, k1)]
             print(f"  K1 {mode} {n}^3 {dn} in turns with K1s: K1 {t[0]:.4f} / {t[3]:.4f} "
@@ -1220,7 +1231,8 @@ def fcycle_launches(n=512):
     """Phase 7b: the launches of one F-cycle (float32, DIRECT bottom) of
     each of FCYCLES: the hierarchy built, the counts reset, one fmg_solve,
     the counts read; K1's and K7a's launches also by level (a tally around
-    the fv4 suite's fv4_stencil), K2's and K2c's (around its fv4_gsrb2),
+    the fv4 suite's fv4_stencil), K1s's (around its fv4_subtile), K2's and
+    K2c's (around its fv4_gsrb2),
     K5's and K7b's (around the radius-1 suites' r1_stencil) and K6's
     (around their r1_gsrb2). No plain version may run, and the fv4
     F-cycles must launch K1 (K7a)."""
@@ -1234,16 +1246,22 @@ def fcycle_launches(n=512):
 
     dev = torch.device("cuda")
     launch = F.fv4_stencil  # the fv4 suite's entry to K1 / K7a, a launch a call
+    k1s_launch = F.fv4_subtile  # its entry to K1s, likewise
     r1_launch = K.r1_stencil  # the radius-1 suites' entry to K5 / K7b, likewise
     k6_launch = K.r1_gsrb2  # the radius-1 suites' entry to K6, a launch a call
     out = {}
     for tag, op, bc, flip in FCYCLES:
         cfg = solve_cfg("direct", torch.float32, op, bc)
         by_level, k2_by_level, r1_by_level, k6_by_level = {}, {}, {}, {}
+        k1s_by_level = {}
 
         def tally(level, *args, **kw):
             by_level[level.dim] = by_level.get(level.dim, 0) + 1
             return launch(level, *args, **kw)
+
+        def tally_k1s(level, *args, **kw):
+            k1s_by_level[level.dim] = k1s_by_level.get(level.dim, 0) + 1
+            return k1s_launch(level, *args, **kw)
 
         def tally_r1(level, *args, **kw):
             r1_by_level[level.dim] = r1_by_level.get(level.dim, 0) + 1
@@ -1265,21 +1283,22 @@ def fcycle_launches(n=512):
                 k2_by_level[key] = k2_by_level.get(key, 0) + 1
                 return out
 
-            F.fv4_stencil, F.fv4_gsrb2, K.r1_stencil, K.r1_gsrb2 = (tally, tally_k2,
-                                                                   tally_r1, tally_k6)
+            F.fv4_stencil, F.fv4_subtile, F.fv4_gsrb2, K.r1_stencil, K.r1_gsrb2 = (
+                tally, tally_k1s, tally_k2, tally_r1, tally_k6)
             try:
                 fmg_solve(get_suite(op), hier, f, cfg)
                 torch.cuda.synchronize()
             finally:
-                F.fv4_stencil, F.fv4_gsrb2, K.r1_stencil, K.r1_gsrb2 = (launch, sweep,
-                                                                       r1_launch, k6_launch)
+                F.fv4_stencil, F.fv4_subtile, F.fv4_gsrb2, K.r1_stencil, K.r1_gsrb2 = (
+                    launch, k1s_launch, sweep, r1_launch, k6_launch)
             return read_counts()
 
         counts, plain = (one() if flip is None else k2_on(one) if flip == "K2" else
                          flipped(T if flip == "TAIL_ONE_LAUNCH" else S, flip, one))
         counts = {k: v for k, v in counts.items() if v}
         print(f"  {tag} {n}^3: launches per F-cycle {counts}; K1/K7a by level "
-              f"{dict(sorted(by_level.items(), reverse=True))}; K2/K2c by level "
+              f"{dict(sorted(by_level.items(), reverse=True))}; K1s by level "
+              f"{dict(sorted(k1s_by_level.items(), reverse=True))}; K2/K2c by level "
               f"{k2_by_level}; K5/K7b by level "
               f"{dict(sorted(r1_by_level.items(), reverse=True))}; K6 by level "
               f"{dict(sorted(k6_by_level.items(), reverse=True))}")
@@ -1295,7 +1314,10 @@ def fcycle_launches(n=512):
                                  f"{counts}")
         if sum(k6_by_level.values()) != counts.get("r1_gsrb2", 0):
             raise AssertionError(f"{tag}: K6 calls {k6_by_level} against launches {counts}")
+        if sum(k1s_by_level.values()) != counts.get("fv4_subtile", 0):
+            raise AssertionError(f"{tag}: K1s calls {k1s_by_level} against launches {counts}")
         out[tag] = {"launches": counts, "fv4_stencil_by_level": by_level,
+                    "fv4_subtile_by_level": k1s_by_level,
                     "fv4_gsrb2_by_level": k2_by_level, "r1_stencil_by_level": r1_by_level,
                     "r1_gsrb2_by_level": k6_by_level}
         torch.cuda.empty_cache()
@@ -1968,12 +1990,13 @@ def main() -> int:
     gsrb2_n = max((m for m in r1_times if m <= K.GSRB2_MAX_DIM), default=min(r1_times))
     # K4c launches on the run whose tail setting is on, K4a/K4b on the other
     c_v, c_du = (counts, counts_alt) if T.TAIL_ONE_LAUNCH else (counts_alt, counts)
-    # K1s launches on the run with SUBTILE on, K1 alone on the other
-    c_k1s, c_k1 = (counts, counts_st) if S.SUBTILE else (counts_st, counts)
+    # K1s launches on the run with SUBTILE on (K1 above its gate), K1 alone
+    # on the other; K1's launches are the main path's either way
+    c_k1s = counts if S.SUBTILE else counts_st
     rows = [
         # name, source, replaces, timed pair, launches
         ("fv4_stencil", "fv4_stream.cu", "hpgmg_tpu/kernels/stencils.py:594",
-         big["gsrb"], c_k1["fv4_stencil"]),
+         big["gsrb"], counts["fv4_stencil"]),
         # K1s at the largest level it takes on its path (the gate's maximum)
         ("fv4_subtile", "fv4_subtile.cu", "hpgmg_tpu/kernels/stencils.py:918",
          times[max(m for m in times if isinstance(m, int) and m <= S.SUBTILE_MAX_DIM)][

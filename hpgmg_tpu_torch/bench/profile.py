@@ -1,11 +1,12 @@
 """Where the time of the port's F-cycle goes, on one CUDA device.
 
     python -m hpgmg_tpu_torch.bench.profile [--n 512] [--op fv4]
-        [--bc dirichlet] [--dtype float32] [--solves 5] [--ab] [--subtile]
-        [--json PATH]
+        [--bc dirichlet] [--dtype float32] [--smoother gsrb] [--solves 5]
+        [--ab] [--subtile] [--json PATH]
 
 On the benchmark's problem and hierarchy of the suite ``--op``
-(``bench/driver.py:build``), after a warm-up solve:
+(``bench/driver.py:build``), with the smoother ``--smoother`` (the CLI's
+choices; the headline's GSRB by default), after a warm-up solve:
 
 1. the chain of ``--solves`` data-dependent F-cycles (the driver's
    protocol) timed with CUDA events, without and then under
@@ -265,6 +266,7 @@ def main(argv=None) -> int:
     ap.add_argument("--op", choices=OPS, default="fv4")
     ap.add_argument("--bc", choices=[b.value for b in BC], default="dirichlet")
     ap.add_argument("--dtype", choices=("float32", "float64"), default="float32")
+    ap.add_argument("--smoother", choices=[v.value for v in Smoother], default="gsrb")
     ap.add_argument("--solves", type=int, default=5)
     ap.add_argument("--ab", action="store_true")
     ap.add_argument("--subtile", action="store_true")
@@ -274,16 +276,17 @@ def main(argv=None) -> int:
         raise SystemExit("bench.profile needs a CUDA device")
 
     cfg = SolverConfig(op=args.op, bc=BC(args.bc), a=0.0, b=1.0,
-                       smoother=Smoother.GSRB, bottom=BottomSolver.DIRECT,
+                       smoother=Smoother(args.smoother), bottom=BottomSolver.DIRECT,
                        min_coarse_dim=8, dtype=getattr(torch, args.dtype))
     op = get_suite(args.op)
     hier, f = build(args.n, cfg, torch.device("cuda"))
     fmg_solve(op, hier, f, cfg)  # warm-up
     res = {"n": args.n, "op": args.op, "bc": args.bc, "dtype": args.dtype,
-           "solves": args.solves, "device": torch.cuda.get_device_name(0)}
+           "smoother": args.smoother, "solves": args.solves,
+           "device": torch.cuda.get_device_name(0)}
     res["chain"] = profile_chain(op, hier, f, cfg, args.solves)
     c = res["chain"]
-    print(f"{args.op} {args.bc} F-cycle {args.n}^3 {args.dtype}: "
+    print(f"{args.op} {args.bc} {args.smoother} F-cycle {args.n}^3 {args.dtype}: "
           f"{c['ms_per_solve']:.4f} ms/solve, "
           f"{c['ms_per_solve_profiled']:.4f} under the profiler; device "
           f"{c['device_ms_per_solve']:.4f} ms/solve; idle share {c['idle_share']:.4f}")

@@ -3,7 +3,7 @@ one level, on one CUDA device.
 
     python -m hpgmg_tpu_torch.bench.stencil_times [--sizes 128 256 512]
         [--dtype float32 [float64]] [--bc dirichlet periodic] [--reps 10]
-        [--tail] [--r1] [--slab] [--json PATH]
+        [--tail] [--r1] [--slab] [--subtile] [--chunks C ...] [--json PATH]
 
 For each size and BC, on the benchmark problem's finest level as the fv4
 suite rebuilds it, with x drawn from a seeded generator: the ms per call
@@ -39,7 +39,15 @@ Dirichlet level also one full red+black sweep through K6
 written for var7, 5 for 27pt) and through two K5 gsrb half-sweeps
 (``r1_stencil_cuda`` at parity 0, then 1, ``pair``: 14 and 8), and with
 ``--chunks`` K6 with each forced chunk of i-planes (``sweep chunk <c>``,
-where the tree's ``r1_gsrb2_cuda`` takes one). With
+where the tree's ``r1_gsrb2_cuda`` takes one). With ``--subtile``, K1s
+instead, on the fv4 benchmark's Dirichlet levels (sizes 16^3-512^3 by
+default): its apply, residual and gsrb (``stencils.fv4_subtile_cuda``,
+``K1s <mode>``) beside K1's (``K1 <mode>``), K1 with each forced chunk of
+``--chunks`` (default 2 4 8 16, ``K1 <mode> chunk <c>``) and K1s with each
+as its forced tile length along i where the tree's K1s takes one (up to
+``stencils.SUBTILE_MAX_TI``, ``K1s <mode> ti <c>``), each with its device
+ms and byte bound (x, the mode's operands and the face arrays read once,
+the output written once). With
 ``--slab``, the decomposed fv4 stencil instead: on one whole n^3 block
 and on each local block the 2x2 grid gives the levels of an n^3 problem
 (``--sizes`` n, default 512: blocks (256, 256, 512) down to (8, 8, 16)),
@@ -51,7 +59,9 @@ split takes the block), each with its ms per call, its device ms
 (``<call>_device``) and its byte bound (``<call>_bound``: the block's
 arrays the call reads once and its output written once, K8b's passes
 their parts of them, the edge pass also the slabs), and on the same
-block the decomposed radius-1 sweep (fv7pt's var7 body, p1 taps): one
+block the decomposed radius-1 stencil (fv7pt's var7 body, p1 taps): K8c's
+apply, residual, gsrb and fres (``stencils_r1.r1_slab_cuda``, ``K8c
+<mode>``), one
 K8d sweep (``stencils_r1.r1_gsrb2_slab_cuda`` under the edge flags of the
 2x2 grid's rank 0, with random ring views, rhs ring and 2-deep slabs,
 ``K8d sweep``) and two K8c gsrb half-sweeps (``r1_slab_cuda``, ``K8c
@@ -59,7 +69,8 @@ pair``), each with its device ms and byte bound. It reads
 nothing but these and the gate, so the same file times an older tree of
 the package too (copied into that tree and run from its root; there
 ``fv4_gsrb2_cuda`` is its own K2, and a gsrb is handed its ``parity``
-only where the tree's ``fv4_slab_cuda`` takes one), in turns with this
+only where the tree's ``fv4_slab_cuda`` or ``fv4_subtile_cuda`` takes
+one), in turns with this
 one on the same card. Prints one JSON line; ``--json`` also writes it to
 a file.
 """
@@ -165,6 +176,55 @@ def level_times(n: int, dtype: torch.dtype, bc: BC, reps: int) -> dict:
     for name, fn in smooths.items():
         out[name] = time_ms(fn, reps)
         out[name + "_device"] = device_ms(fn, reps)
+    return out
+
+
+def subtile_times(n: int, dtype: torch.dtype, reps: int, chunks=()) -> dict:
+    """{call: ms} of K1s's apply, residual and gsrb (parity 0) on the fv4
+    benchmark's n^3 Dirichlet level beside K1's (``fv4_stencil_cuda``) at
+    the launcher's rule and with each forced chunk of ``chunks``, and K1s
+    with each of them as its forced tile length along i where it takes it
+    (up to ``stencils.SUBTILE_MAX_TI``), each with its kernels' device ms
+    (``<call>_device``) and its byte bound (``<call>_bound``: x, the mode's
+    operands and the face arrays read once, the output written once), over
+    ``reps`` calls at 512^3 and proportionally more on smaller levels."""
+    reps = reps * min(64, max(1, (512 // n) ** 3))
+    dev = torch.device("cuda")
+    cfg = SolverConfig(op="fv4", a=0.0, b=1.0, dtype=dtype)
+    prob = build_problem(n, cfg, dev)
+    lv = get_suite("fv4").rebuild_operator(
+        Level(dim=n, h=1.0 / n, depth=0, beta_i=prob.beta_i, beta_j=prob.beta_j,
+              beta_k=prob.beta_k), cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((n, n, n), generator=gen, device=dev, dtype=dtype)
+    # an older tree's K1s takes no parity (it reads the colour from kdinv
+    # alone) and no tile length
+    k1s_args = inspect.signature(stencils.fv4_subtile_cuda).parameters
+    tis = [c for c in chunks if c <= getattr(stencils, "SUBTILE_MAX_TI", 0)] \
+        if "ti" in k1s_args else []
+    betas = sum(t.numel() for t in (lv.beta_i, lv.beta_j, lv.beta_k))
+    calls, values = {}, {}
+    for mode, kw in (("apply", {}), ("residual", {"rhs": prob.f}),
+                     ("gsrb", {"rhs": prob.f, "kdinv": lv.kdinv[0]})):
+        par = {"parity": 0} if mode == "gsrb" else {}
+        k1s_par = par if "parity" in k1s_args else {}
+        forms = {f"K1s {mode}": lambda m=mode, kw=kw, p=k1s_par: stencils.fv4_subtile_cuda(
+            lv, x, cfg, m, **kw, **p)}
+        forms.update({f"K1s {mode} ti {t}": lambda m=mode, kw=kw, p=par, t=t:
+                      stencils.fv4_subtile_cuda(lv, x, cfg, m, **kw, **p, ti=t)
+                      for t in tis})
+        forms[f"K1 {mode}"] = lambda m=mode, kw=kw, p=par: stencils.fv4_stencil_cuda(
+            lv, x, cfg, m, **kw, **p)
+        forms.update({f"K1 {mode} chunk {c}": lambda m=mode, kw=kw, p=par, c=c:
+                      stencils.fv4_stencil_cuda(lv, x, cfg, m, **kw, **p, chunk=c)
+                      for c in chunks})
+        calls.update(forms)
+        values.update({k: x.numel() * (2 + len(kw)) + betas for k in forms})
+    out = {}
+    for name, fn in calls.items():
+        out[name] = time_ms(fn, reps)
+        out[name + "_device"] = device_ms(fn, reps)
+        out[name + "_bound"] = values[name] * x.element_size() / HBM_BYTES_PER_S * 1e3
     return out
 
 
@@ -292,8 +352,9 @@ def slab_times(block, dtype: torch.dtype, bc: BC, reps: int) -> dict:
 def r1_slab_calls(n: int, lv, x, values: dict, gen, dtype) -> dict:
     """The radius-1 sweep of fv7pt's var7 body on x's block: K8d under rank
     0's edge flags (i low and j low are domain faces) and two K8c gsrb
-    half-sweeps, on random ring views, rhs ring and slabs; each call's
-    values read and written go into ``values``."""
+    half-sweeps, on random ring views, rhs ring and slabs, and K8c's apply,
+    residual, gsrb (parity 0) and fres; each call's values read and written
+    go into ``values``."""
     ni, nj, nk = x.shape
     dev = x.device
 
@@ -325,7 +386,15 @@ def r1_slab_calls(n: int, lv, x, values: dict, gen, dtype) -> dict:
     calls = {"K8d sweep": lambda: K.r1_gsrb2_slab_cuda(rlv, x, slabs2, edges, rhs2, rcfg,
                                                        "p1", True),
              "K8c pair": lambda: half(half(x, 0), 1)}
+    ops = {"apply": {}, "residual": {"rhs": rrhs}, "gsrb": {"rhs": rrhs, "kdinv": rlv.kdinv[0]},
+           "fres": {"rhs": rrhs}}
+    calls.update({f"K8c {mode}": (lambda mode=mode, kw=kw: K.r1_slab_cuda(
+        rlv, x, slabs1, rcfg, mode, "p1", True, **kw)) for mode, kw in ops.items()})
     cells = x.numel()
+    # each K8c call: x, the mode's operands, the output, the faces, the slabs
+    coefs = sum(t.numel() for t in (rlv.beta_i, rlv.beta_j, rlv.beta_k, *slabs1))
+    values.update({f"K8c {mode}": cells * (1 + len(kw)) + coefs
+                   + (cells // 8 if mode == "fres" else cells) for mode, kw in ops.items()})
     # K8d: x, kdinv1, the output, the ring views, the rhs ring, the slabs;
     # each K8c half: x, rhs, kdinv, the output, the faces, the slabs
     values["K8d sweep"] = (3 * cells + kd0.numel() + rhs2.numel()
@@ -377,12 +446,20 @@ def main(argv=None) -> dict:
     p.add_argument("--slab", action="store_true",
                    help="time K8a and K8b on the local blocks of the 2x2 grid's levels "
                         "of each n^3 of --sizes (default 512) instead")
-    p.add_argument("--chunks", type=int, nargs="*", default=[],
-                   help="with --r1: also time K6 with each of these chunks of i-planes")
+    p.add_argument("--subtile", action="store_true",
+                   help="time K1s beside K1 per mode on the Dirichlet fv4 levels "
+                        "(sizes 16-512) instead")
+    p.add_argument("--chunks", type=int, nargs="*", default=None,
+                   help="with --r1: also time K6 with each of these chunks of i-planes; "
+                        "with --subtile: K1 with each as its chunk and K1s with each "
+                        "as its tile length (default 2 4 8 16)")
     p.add_argument("--json", default=None)
     args = p.parse_args(argv)
-    sizes = args.sizes or ([16, 32, 64, 128, 256, 512] if args.r1
+    sizes = args.sizes or ([16, 32, 64, 128, 256, 512] if args.r1 or args.subtile
                            else [512] if args.slab else [128, 256, 512])
+    chunks = args.chunks if args.chunks is not None else \
+        [2, 4, 8, 16] if args.subtile else []
+    bcs = ["dirichlet"] if args.subtile else args.bc
     if not torch.cuda.is_available():
         raise SystemExit("stencil_times needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -390,7 +467,7 @@ def main(argv=None) -> dict:
                           text=True).stdout.strip()
     rows = []
     for dt in args.dtype:
-        for bc in args.bc:
+        for bc in bcs:
             for n in sizes:
                 # --slab: one whole n^3 block, then the 2x2 grid's blocks of
                 # every level from n^3 to 16^3
@@ -399,9 +476,11 @@ def main(argv=None) -> dict:
                               if args.slab else [n]):
                     ms = (slab_times(block, getattr(torch, dt), BC(bc), args.reps)
                           if args.slab else
-                          r1_times(n, getattr(torch, dt), BC(bc), args.reps, args.chunks)
-                          if args.r1 else level_times(n, getattr(torch, dt), BC(bc),
-                                                      args.reps))
+                          r1_times(n, getattr(torch, dt), BC(bc), args.reps, chunks)
+                          if args.r1 else
+                          subtile_times(n, getattr(torch, dt), args.reps, chunks)
+                          if args.subtile else level_times(n, getattr(torch, dt), BC(bc),
+                                                           args.reps))
                     rows += [{"n": n, **({"block": list(block)} if args.slab else {}),
                               "dtype": dt, "bc": bc, "call": k, "ms": v}
                              for k, v in ms.items()]

@@ -40,10 +40,11 @@ _SIGNATURES = {
     #  parity, chunk, scale, a_coef, stream); x is the n^3 cell field
     "hpgmg_fv4_stream_f32": (_P,) * 8 + (_I,) * 5 + (_D, _D, _P),
     "hpgmg_fv4_stream_f64": (_P,) * 8 + (_I,) * 5 + (_D, _D, _P),
-    # (x, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out, n, mode, scale,
-    #  a_coef, stream); x is the n^3 cell field, mode apply/residual/gsrb
-    "hpgmg_fv4_subtile_f32": (_P,) * 8 + (_I, _I, _D, _D, _P),
-    "hpgmg_fv4_subtile_f64": (_P,) * 8 + (_I, _I, _D, _D, _P),
+    # (x, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out, n, mode, parity,
+    #  ti, scale, a_coef, stream); x is the n^3 cell field, mode
+    #  apply/residual/gsrb, ti the tile length along i (0: the rule)
+    "hpgmg_fv4_subtile_f32": (_P,) * 8 + (_I,) * 4 + (_D, _D, _P),
+    "hpgmg_fv4_subtile_f64": (_P,) * 8 + (_I,) * 4 + (_D, _D, _P),
     # (x, beta_i, beta_j, beta_k, alpha, rhs, kd0, kd1, out, n, chunk, scale,
     #  a_coef, stream); kd0 read at red cells, kd1 at black ones
     "hpgmg_fv4_gsrb2_f32": (_P,) * 9 + (_I, _I, _D, _D, _P),

@@ -36,10 +36,12 @@ Dirichlet levels only, as the JAX package fuses no periodic sweep
 (hpgmg_tpu/ops/fv4.py:172-174).
 
 K1s (``fv4_subtile``) computes K1's apply, residual and gsrb in one launch
-on a Dirichlet level, its ghosts synthesized in the kernel
-(``csrc/fv4_subtile.cu``); it has no fres mode and refuses periodic
-levels. The fv4 suite routes a level to it where ``use_subtile`` admits
-it (``SUBTILE`` on, Dirichlet, dim <= ``SUBTILE_MAX_DIM``).
+on a Dirichlet level (``csrc/fv4_subtile.cu``): short tiles along i, each
+staged once into shared memory with its halo, its face coefficients and
+its cells' operands, its ghosts made there, a gsrb half-sweep at its
+``parity``'s cells only; it has no fres mode and refuses periodic levels.
+The fv4 suite routes a level to it where ``use_subtile`` admits it
+(``SUBTILE`` on, Dirichlet, dim <= ``SUBTILE_MAX_DIM``).
 """
 
 from __future__ import annotations
@@ -82,16 +84,22 @@ GSRB2_CLUSTER_MAX_N = 64
 
 # K1s instead of K1 on the Dirichlet levels with dim <= SUBTILE_MAX_DIM
 # (the JAX package's switch, hpgmg_tpu/kernels/stencils.py:870, whose
-# default False is a TPU measurement). Measured on an H100 against the
-# two-launch K1 that fv4_stream.cu replaced (bench/profile.py --subtile,
-# residual per level): K1s won at 16^3-64^3, where launches dominate
-# (0.05-0.08 against 0.07-0.15 ms), was even at 128^3 and lost from 256^3
-# up (512^3: 3.65-3.73 against 3.26-3.30 ms). Off by default: the fv4 512^3
-# chain with K1s up to 64^3 ran 79.4-86.9 ms per solve against 82.7-82.8
-# without, no gain beyond its noise.
-SUBTILE = False
-SUBTILE_MAX_DIM = 64
+# default False is a TPU measurement). Measured on an H100 (700 W) in turns
+# with the tree before K1s's one-pass redesign (bench/stencil_times.py
+# --subtile, device ms a call, f32 gsrb; PERF.md): K1s 0.0081 (16^3),
+# 0.0090 (32^3), 0.0123-0.0124 (64^3), 0.0508-0.0514 (128^3), 0.3221-0.3224
+# (256^3) against K1's 0.0654-0.0659, 0.0497-0.0501, 0.0495-0.0500,
+# 0.0594-0.0601, 0.3291-0.3351; at 512^3 2.4499-2.4519 against
+# 2.1631-2.2044. K1s wins every mode at every level up to 256^3 in f32 and
+# f64 and loses every f32 mode at 512^3, so the gate is 256. On by
+# default: the fv4 512^3 f32 chain ran 55.1306 and 55.6721 ms a solve with
+# it against 56.0246 and 56.4585 without (bench/profile.py --subtile, in
+# turns on, off, off, on).
+SUBTILE = True
+SUBTILE_MAX_DIM = 256
 SUBTILE_MODES = ("apply", "residual", "gsrb")
+# K1s's longest tile along i (csrc/fv4_subtile.cu:kMaxTI)
+SUBTILE_MAX_TI = 8
 
 
 def use_subtile(level: Level, cfg: SolverConfig) -> bool:
@@ -271,19 +279,25 @@ def fv4_stencil_plain(level: Level, x: torch.Tensor, cfg: SolverConfig,
 fv4_stencil_plain.calls = 0
 
 
-def _check_subtile(level: Level, x, cfg: SolverConfig, mode: str, rhs, kdinv):
+def _check_subtile(level: Level, x, cfg: SolverConfig, mode: str, rhs, kdinv,
+                   parity):
     if mode not in SUBTILE_MODES:
         raise ValueError(f"the sub-tiled fv4 stencil (K1s) has no mode {mode!r}")
+    if mode == "gsrb" and parity not in (0, 1):
+        raise ValueError(f"a K1s gsrb needs the sweep's parity (0 or 1), got {parity!r}")
     check_dirichlet(cfg, "the sub-tiled fv4 stencil (K1s)")
     _check(level, x, cfg, mode, rhs, (kdinv,) if mode == "gsrb" else ())
 
 
 def fv4_subtile_plain(level: Level, x: torch.Tensor, cfg: SolverConfig,
                       mode: str, rhs: Optional[torch.Tensor] = None,
-                      kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      kdinv: Optional[torch.Tensor] = None,
+                      parity: Optional[int] = None) -> torch.Tensor:
     """The plain version of K1s: K1's plain arithmetic in K1s's modes
-    (apply, residual, gsrb), Dirichlet levels only."""
-    _check_subtile(level, x, cfg, mode, rhs, kdinv)
+    (apply, residual, gsrb), Dirichlet levels only. A gsrb takes and checks
+    the kernel's ``parity``; its arithmetic reads the colour from kdinv
+    alone (``x + 0 * r`` at the other cells)."""
+    _check_subtile(level, x, cfg, mode, rhs, kdinv, parity)
     fv4_subtile_plain.calls += 1
     return _modes_plain(level, x, cfg, mode, rhs, kdinv)
 
@@ -311,13 +325,21 @@ fv4_gsrb2_plain.calls = 0
 
 def fv4_subtile_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
                      mode: str, rhs: Optional[torch.Tensor] = None,
-                     kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K1s (one pass, ghosts in the kernel) on CUDA tensors into a
-    newly allocated output. It takes any Dirichlet level with n >= 4; the
-    suite's gate (``use_subtile``) only chooses which levels it gets."""
+                     kdinv: Optional[torch.Tensor] = None,
+                     parity: Optional[int] = None, ti: int = 0) -> torch.Tensor:
+    """Launch K1s (one pass over tiles staged in shared memory, ghosts made
+    there) on CUDA tensors into a newly allocated output. It takes any
+    Dirichlet level with n >= 4; the suite's gate (``use_subtile``) only
+    chooses which levels it gets. gsrb needs ``parity``, the colour that
+    ``kdinv`` carries: the kernel computes A x at that colour's cells only
+    and copies x at the others. ``ti``: the tile length along i, 1 to
+    ``SUBTILE_MAX_TI`` (0: the launcher's rule, as the solver calls it;
+    other values time the rule; any gives the same bits)."""
     from hpgmg_tpu_torch.kernels.build import library
 
-    _check_subtile(level, x, cfg, mode, rhs, kdinv)
+    _check_subtile(level, x, cfg, mode, rhs, kdinv, parity)
+    if not 0 <= ti <= SUBTILE_MAX_TI:
+        raise ValueError(f"K1s takes a tile length of 0 to {SUBTILE_MAX_TI}, got {ti}")
     if not x.is_cuda:
         raise ValueError(f"fv4_subtile_cuda wants CUDA tensors, got {x.device}")
     n = level.dim
@@ -328,8 +350,8 @@ def fv4_subtile_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
         rc = getattr(library(), f"hpgmg_fv4_subtile_{dt}")(
             x.data_ptr(), level.beta_i.data_ptr(), level.beta_j.data_ptr(),
             level.beta_k.data_ptr(), _ptr(alpha), _ptr(rhs), _ptr(kdinv),
-            out.data_ptr(), n, MODES[mode], -cfg.b * level.h2inv, float(cfg.a),
-            _stream(x))
+            out.data_ptr(), n, MODES[mode], parity or 0, ti, -cfg.b * level.h2inv,
+            float(cfg.a), _stream(x))
     if rc != 0:
         raise RuntimeError(f"fv4_subtile kernel launch failed: CUDA error {rc}")
     fv4_subtile_cuda.launches += 1
@@ -503,13 +525,15 @@ def fv4_stencil(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
 
 def fv4_subtile(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
                 rhs: Optional[torch.Tensor] = None,
-                kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+                kdinv: Optional[torch.Tensor] = None,
+                parity: Optional[int] = None) -> torch.Tensor:
     """K1s on ``level``: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors. A gsrb half-sweep needs ``parity``, the colour
+    ``kdinv`` carries."""
     if x.is_cuda:
-        return fv4_subtile_cuda(level, x, cfg, mode, rhs, kdinv)
+        return fv4_subtile_cuda(level, x, cfg, mode, rhs, kdinv, parity)
     if x.device.type == "cpu":
-        return fv4_subtile_plain(level, x, cfg, mode, rhs, kdinv)
+        return fv4_subtile_plain(level, x, cfg, mode, rhs, kdinv, parity)
     raise ValueError(f"fv4 subtile has no kernel for device {x.device}")
 
 

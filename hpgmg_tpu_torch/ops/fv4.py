@@ -50,12 +50,12 @@ class FV4(base.OperatorSuite):
     @staticmethod
     def _stencil(level: Level, x, cfg: SolverConfig, mode: str, parity=None, **kw):
         """K8a (K8b) on a decomposed level, K1s where the gate admits the
-        level, else K1 (K7a); K8a and K1 take a half-sweep's ``parity`` (K1s
-        reads it from kdinv alone)."""
+        level, else K1 (K7a); each takes a half-sweep's ``parity`` and
+        computes that colour's cells only."""
         if level.part is not None:
             return fv4_sharded(level, x, cfg, mode, parity=parity, **kw)
         if stencils.use_subtile(level, cfg):
-            return fv4_subtile(level, x, cfg, mode, **kw)
+            return fv4_subtile(level, x, cfg, mode, parity=parity, **kw)
         return fv4_stencil(level, x, cfg, mode, parity=parity, **kw)
 
     def apply_op(self, level: Level, x, cfg: SolverConfig):

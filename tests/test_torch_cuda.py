@@ -323,9 +323,10 @@ def test_k1s_matches_plain_and_k1(dev, n, dtype):
                  ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[1]}, 1)]
         before = (S.fv4_subtile_cuda.launches, S.fv4_stencil_cuda.launches)
         for mode, kw, parity in cases:
-            out = S.fv4_subtile(lv, x, cfg, mode, **kw)
+            out = S.fv4_subtile(lv, x, cfg, mode, parity=parity, **kw)
             assert out.is_cuda
-            assert relerr(out, S.fv4_subtile_plain(lv, x, cfg, mode, **kw)) <= K1S_TOL[dtype]
+            assert relerr(out, S.fv4_subtile_plain(lv, x, cfg, mode, parity=parity,
+                                                   **kw)) <= K1S_TOL[dtype]
             assert relerr(out, S.fv4_stencil_cuda(lv, x, cfg, mode, parity=parity,
                                                   **kw)) <= K1S_TOL[dtype]
         assert S.fv4_subtile_cuda.launches == before[0] + len(cases)

@@ -103,7 +103,8 @@ def test_stream_equals_k1s_bit_for_bit(dev, n, dtype):
             if mode == "fres":  # K1s has no fres mode
                 continue
             out = S.fv4_stencil_cuda(lv, x, cfg, mode, parity=parity, **kw)
-            assert torch.equal(out, S.fv4_subtile_cuda(lv, x, cfg, mode, **kw)), \
+            assert torch.equal(out, S.fv4_subtile_cuda(lv, x, cfg, mode, parity=parity,
+                                                       **kw)), \
                 (mode, parity, helmholtz)
 
 

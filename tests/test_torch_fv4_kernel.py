@@ -101,9 +101,12 @@ def test_fv4_plain_matches_jax(setup, monkeypatch, mode, ref):
     assert rel(out, want) <= TOL
 
 
-def test_suite_methods_route_through_k1(setup):
-    """FV4's apply/residual/gsrb_sweep/restrict_residual are K1's modes,
-    and a CPU tensor takes the plain version."""
+def test_suite_methods_route_through_k1(setup, monkeypatch):
+    """FV4's apply/residual/gsrb_sweep/restrict_residual are K1's modes
+    where the SUBTILE gate admits no level (K1s's routing:
+    tests/test_torch_subtile.py), and a CPU tensor takes the plain
+    version."""
+    monkeypatch.setattr(S, "SUBTILE", False)
     _, _, cfg, lv, x, rhs = setup
     op = get_suite("fv4")
     tx, trhs = torch.tensor(x), torch.tensor(rhs)

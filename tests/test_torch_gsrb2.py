@@ -84,8 +84,10 @@ def test_gsrb2_plain_matches_jax(setup, monkeypatch, ref):
 def test_smooth_routes_pairs_through_k2(setup, monkeypatch, nsweeps):
     """On a level up to GSRB2_MAX_DIM an even half-sweep count is K2 pairs
     (nsweeps/2 launches), an odd one K1 half-sweeps; above it (or with K2
-    off) K1 half-sweeps; both schedules give the same iterate."""
+    off) K1 half-sweeps (K1s's under SUBTILE, off here); both schedules
+    give the same iterate."""
     assert N <= S.GSRB2_MAX_DIM
+    monkeypatch.setattr(S, "SUBTILE", False)
     _, _, cfg, lv, x, rhs = setup
     op = get_suite("fv4")
     tx, trhs = torch.tensor(x), torch.tensor(rhs)
@@ -116,8 +118,10 @@ def test_smooth_takes_k2_on_exactly_the_levels_the_gate_admits(monkeypatch, dtyp
     """On each level of a 32^3 ladder the smoother's 6 half-sweeps are 3
     full sweeps (K2c on the card, counted here by their plain version) on
     exactly the Dirichlet levels with dim <= GSRB2_MAX_DIM; the other
-    levels take K1 half-sweeps."""
+    levels take K1 half-sweeps (K1s's under SUBTILE, off here)."""
     from hpgmg_tpu_torch.bench.driver import build
+
+    monkeypatch.setattr(S, "SUBTILE", False)
 
     cfg = SolverConfig(op="fv4", a=0.0, b=1.0, dtype=dtype, min_coarse_dim=4)
     hier, f = build(32, cfg, torch.device("cpu"))[:2]

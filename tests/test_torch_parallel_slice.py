@@ -34,6 +34,7 @@ from hpgmg_tpu.ops.base import get_suite as jsuite
 from hpgmg_tpu.problems.fv import init_problem_fv
 from hpgmg_tpu.problems.p6 import init_problem_p6
 from hpgmg_tpu.solve.mg import fmg_solve as jfmg
+from hpgmg_tpu_torch.kernels import stencils as S
 
 N = 32
 TOL = 1e-10
@@ -88,7 +89,8 @@ def test_decomposed_fcycle_equals_jax_serial(jobs, grid, case):
 def test_levels_and_kernels_of_the_decomposed_cycle(jobs, grid):
     """32^3 and 16^3 are decomposed, 8^3 replicated; only the slab kernels,
     K3 and, on the replicated bottom, the suite's stencil (BiCGStab's
-    applies) ran their plain versions."""
+    applies; K1s's where the SUBTILE gate admits the level) ran their plain
+    versions."""
     out = jobs[grid]
     assert tuple(out["grid"]) == ((2, 2, 1) if grid == "2x2" else (2, 1, 1))
     for case in CASES + ([BICGSTAB] + ODD36 if grid == "2x2" else BOTTOM16):
@@ -99,10 +101,11 @@ def test_levels_and_kernels_of_the_decomposed_cycle(jobs, grid):
         slab = "fv4_slab_plain" if case[0] == "fv4" else "r1_slab_plain"
         assert res["plain_calls"].get(slab, 0) > 0, case
         allowed = {slab, "restrict_cell_plain", "r1_gsrb2_slab_plain"}
+        k1 = "fv4_subtile_plain" if S.SUBTILE else "fv4_stencil_plain"
         if case[2] == "bicgstab" and case[3] == 8:  # the replicated bottom's applies
-            allowed.add("fv4_stencil_plain")
+            allowed.add(k1)
         if case in ODD36:  # the replicated 18^3 level's stencil and smoother
-            allowed |= ({"fv4_stencil_plain", "fv4_gsrb2_plain"} if case[0] == "fv4"
+            allowed |= ({k1, "fv4_stencil_plain", "fv4_gsrb2_plain"} if case[0] == "fv4"
                         else {"r1_stencil_plain", "r1_gsrb2_plain"})
         assert set(res["plain_calls"]) <= allowed, (case, res["plain_calls"])
     assert out[("fv7pt", "dirichlet", "direct", 8)]["plain_calls"]["r1_gsrb2_slab_plain"] > 0

@@ -87,7 +87,7 @@ def test_k1s_plain_matches_interpreted_jax_k1s(setup, monkeypatch, mode, helmhol
     else:
         p = int(mode[-1])
         want = JK.fv4_gsrb_sweep_pallas(jlv, jx, jrhs, jcfg, p)
-        out = S.fv4_subtile(lv, tx, cfg, "gsrb", rhs=trhs, kdinv=lv.kdinv[p])
+        out = S.fv4_subtile(lv, tx, cfg, "gsrb", rhs=trhs, kdinv=lv.kdinv[p], parity=p)
     assert S.fv4_subtile_plain.calls == calls + 1
     assert rel(out, want) <= TOL
 
@@ -122,6 +122,7 @@ def test_dispatch_under_subtile(setup, monkeypatch):
     _, _, cfg, lv, x, rhs = setup
     op = get_suite("fv4")
     tx, trhs = torch.tensor(x), torch.tensor(rhs)
+    monkeypatch.setattr(S, "SUBTILE", False)
     fres = op.restrict_residual(lv, tx, trhs, cfg)  # SUBTILE off: K1's fres
     monkeypatch.setattr(S, "SUBTILE", True)
     monkeypatch.setattr(S, "SUBTILE_MAX_DIM", N)
@@ -189,7 +190,10 @@ def test_subtile_fcycle_equals_k1_fcycle(monkeypatch):
                        bottom=BottomSolver.DIRECT, min_coarse_dim=8)
     op = get_suite("fv4")
     hier, f = build(32, cfg, torch.device("cpu"))
+    monkeypatch.setattr(S, "SUBTILE", False)
+    calls = S.fv4_subtile_plain.calls
     u_off, nr_off, _ = fmg_solve(op, hier, f, cfg)
+    assert S.fv4_subtile_plain.calls == calls
     monkeypatch.setattr(S, "SUBTILE", True)
     monkeypatch.setattr(S, "SUBTILE_MAX_DIM", 32)
     calls = S.fv4_subtile_plain.calls
