@@ -35,19 +35,22 @@ Phases, each printing its result and raising on failure (exit code != 0):
    kernel at a size the main path runs it at (K2c smooths the 64^3 level,
    K2 is reported at 512^3, the others run at 512^3);
    K5 (the radius-1 stencil: var7 body with the fv7pt and fv2 ghost taps,
-   every mode, with and without a*alpha*x, csrc/r1_stencil.cu; 27pt body,
-   every mode, with and without its constant a*x, csrc/r1_stream.cu, also
-   at n in {2, 3, 9, 33} and with a chunk of 3 i-planes, its gsrb leaving
-   the other colour's cells equal to x bit for bit) and K6 (full red+black
+   every mode, with and without a*alpha*x, csrc/r1_var7_stream.cu; 27pt
+   body, every mode, with and without its constant a*x, csrc/r1_stream.cu;
+   both also at n in {2, 3, 9, 33} and with a chunk of 3 i-planes equal to
+   the launcher's bit for bit, each gsrb leaving the other colour's cells
+   equal to x bit for bit)
+   and K6 (full red+black
    sweep in one streaming launch, csrc/r1_gsrb2.cu, both bodies, all three
    tap sets) at n in {2, 3, 8, 9, 16, 32, 33, 48, 64, 128, 256}, with
    forced chunks of 2 and 3 i-planes equal to its launcher's rule bit for
-   bit, then their times, every mode, at 64^3, 128^3, 256^3 and
-   512^3 on the fv7pt and 27pt problems' own levels; the periodic kernels
+   bit, then their times, every mode, at 16^3-512^3 on the fv7pt and 27pt
+   problems' own levels; the periodic kernels
    with the same checks: K7b (K5 with wrapped ghosts, every mode and body)
    at the same sizes, K4c (the one-launch tail V-cycle over a DIRECT
-   bottom) on the 32-16 and 16 ladders, and their times at 512^3 (the 27pt
-   body at 64^3-512^3, K4c on the headline's 32-16 tail);
+   bottom) on the 32-16 and 16 ladders, and their times at 512^3 (the var7
+   body at 16^3-512^3, the 27pt body at 64^3-512^3, K4c on the headline's
+   32-16 tail);
    K2, K2c, K4 and K6 refuse a periodic level; K1s (the one-pass fv4
    stencil for the small levels: apply, residual, gsrb for both parities,
    with and without a*alpha*x) against its plain version and against K1 at
@@ -108,7 +111,11 @@ Phases, each printing its result and raising on failure (exit code != 0):
    2x2 grid's local blocks with random slabs (SLAB_BLOCKS, (4,4,8) to
    (128,128,256)), every mode against its plain version, its gsrb's other
    colour equal to x, chunks of 2 and 3 i-planes and K8b's two passes
-   equal to it bit for bit; and K8d (K6's kernel with the slabs as its
+   equal to it bit for bit; K8c (K5's var7 kernel with the slabs as its
+   halo's sources, csrc/r1_var7_stream.cu) on the same blocks with random
+   1-deep slabs, every body and tap set, both BCs, every mode against its
+   plain version, its gsrb's other colour equal to x, a chunk of 3
+   i-planes equal to it bit for bit; and K8d (K6's kernel with the slabs as its
    halo's sources) on the same blocks with random ring views, rhs ring and
    slabs, every body and tap set, under each 2x2 rank's edge flags,
    against its plain version at 1e-5 (f32) and 1e-12 (f64), chunks of 2
@@ -128,7 +135,7 @@ Phases, each printing its result and raising on failure (exit code != 0):
    timed solve, its u within DECOMPOSED_U_TOL of the one-rank F-cycle's,
    the slab kernels and K3 launched in a counted F-cycle and no
    single-rank stencil, fused sweep, tail kernel or plain version; rank
-   0's K8a/K8b launches and K8d sweeps in it by local block.
+   0's K8a/K8b/K8c launches and K8d sweeps in it by local block.
 
 The line before the last lists the kernels as JSON: for each, its launches
 on its path, its time, its plain version's time, its bound on the card
@@ -796,21 +803,23 @@ def time_kernels(sizes=(64, 128, 256, 512)):
     return res
 
 
-def time_periodic_kernels(n=512, sizes_27pt=(64, 128, 256, 512)):
+def time_periodic_kernels(n=512, sizes_var7=(16, 32, 64, 128, 256, 512),
+                          sizes_27pt=(64, 128, 256, 512)):
     """Phase 3b, K7a and K7b: kernel vs plain time (float32) at n^3 on the
-    periodic problems' own finest levels (fv4: the fv problem; fv7pt: p6),
-    and of the 27pt body (p6) at each of ``sizes_27pt``, every mode, each
-    pair checked against F32_TOL; the 27pt apply also against a circular
-    pad and conv3d, its library yardstick. Returns {key: timing}, the 27pt
-    body's under "27pt" by size."""
+    periodic problems' own finest levels (fv4: the fv problem), and of the
+    var7 body (fv7pt: p6) at each of ``sizes_var7`` and the 27pt body (p6)
+    at each of ``sizes_27pt``, every mode, each pair checked against
+    F32_TOL; the 27pt apply also against a circular pad and conv3d, its
+    library yardstick. Returns {key: timing}, each radius-1 body's under
+    its name ("var7", "27pt") by size."""
     from hpgmg_tpu_torch.bench.driver import build_problem
     from hpgmg_tpu_torch.core.config import BC, SolverConfig
     from hpgmg_tpu_torch.core.level import Level
     from hpgmg_tpu_torch.ops.base import get_suite
 
     dev = torch.device("cuda")
-    row, reps = {"27pt": {}}, 5
-    runs = [("fv4", None, None, n), ("fv7pt", "p1", True, n)]
+    row, reps = {"var7": {}, "27pt": {}}, 5
+    runs = [("fv4", None, None, n)] + [("fv7pt", "p1", True, m) for m in sizes_var7]
     runs += [("27pt", "27pt", False, m) for m in sizes_27pt]
     for op, taps, var7, m in runs:
         gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -825,13 +834,11 @@ def time_periodic_kernels(n=512, sizes_27pt=(64, 128, 256, 512)):
             fv4 = {}
             time_stream(lv, x, rhs, cfg, reps, fv4, True)
             row.update({f"fv4 {mode}": t for mode, t in fv4.items()})
-        elif var7:
-            time_r1_modes(f"K7b var7 {m}^3 f32", lv, x, rhs, cfg, taps, var7, reps, row,
-                          "var7 ")
         else:
-            row["27pt"][m] = {}
-            time_r1_modes(f"K7b 27pt {m}^3 f32", lv, x, rhs, cfg, taps, var7,
-                          20 if m <= 128 else reps, row["27pt"][m], "")
+            body = "var7" if var7 else "27pt"
+            row[body][m] = {}
+            time_r1_modes(f"K7b {body} {m}^3 f32", lv, x, rhs, cfg, taps, var7,
+                          20 if m <= 128 else reps, row[body][m], "")
         del prob, lv, rhs, x
         torch.cuda.empty_cache()
     return row
@@ -874,12 +881,12 @@ def r1_cases(lv, rhs):
 def check_r1_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256), odd=(2, 3, 9, 33)):
     """Phase 3a, K5, K7b and K6: every mode of K5 and of K7b (K5 on a
     periodic level) and K6's full sweep, for each body and tap set of
-    R1_BODIES, against their plain versions; the 27pt body (its own
-    kernel, csrc/r1_stream.cu) and K6 also at the sizes of ``odd`` (n = 2,
-    odd n; fres at even n), the 27pt body with a forced chunk of 3
-    i-planes, its gsrb leaving the other colour's cells equal to x bit for
-    bit, K6 with forced chunks of 2 and 3 i-planes equal to its launcher's
-    rule bit for bit."""
+    R1_BODIES, against their plain versions, also at the sizes of ``odd``
+    (n = 2, odd n; fres at even n); each body (var7: csrc/r1_var7_stream.cu,
+    27pt: csrc/r1_stream.cu) with a forced chunk of 3 i-planes equal to
+    its launcher's bit for bit, each gsrb leaving the other colour's cells
+    equal to x bit for bit, K6 with forced chunks of 2 and 3 i-planes equal
+    to its launcher's rule bit for bit."""
     from hpgmg_tpu_torch.core.config import BC, SolverConfig
     from hpgmg_tpu_torch.kernels import stencils_r1 as K
 
@@ -893,8 +900,6 @@ def check_r1_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256), odd=(2, 3
                       for a in rng.standard_normal((2, n, n, n)))
             errs = {}
             for label, taps, var7, helm in R1_BODIES:
-                if var7 and n not in sizes:
-                    continue
                 cfg = SolverConfig(a=1.5 if helm else 0.0, b=1.0, helmholtz=helm,
                                    dtype=dtype)
                 for bc in (BC.DIRICHLET, BC.PERIODIC):
@@ -904,22 +909,22 @@ def check_r1_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256), odd=(2, 3
                     for mode, kw, parity in r1_cases(lv, rhs):
                         ref = K.r1_stencil_plain(lv, x, c, mode, taps, var7, parity=parity,
                                                  **kw)
-                        outs = [K.r1_stencil_cuda(lv, x, c, mode, taps, var7, parity=parity,
-                                                  **kw)]
-                        if not var7:
-                            outs.append(K.r1_stream_cuda(lv, x, c, mode, taps, parity=parity,
-                                                         chunk=3, **kw))
-                        for out in outs:
-                            rel, _ = relerr(out, ref)
-                            if not rel <= tol:
-                                raise AssertionError(f"{name} {label} {mode} {parity} n={n} "
-                                                     f"{dn}: {rel} > {tol}")
-                            errs[name] = max(errs.get(name, 0.0), rel)
-                            other = kw["kdinv"] == 0 if mode == "gsrb" else None
-                            if other is not None and not var7 and not torch.equal(
-                                    out[other], x[other]):
-                                raise AssertionError(f"{name} {label} gsrb{parity} n={n} "
-                                                     f"{dn}: the other colour differs from x")
+                        out = K.r1_stencil_cuda(lv, x, c, mode, taps, var7, parity=parity,
+                                                **kw)
+                        rel, _ = relerr(out, ref)
+                        if not rel <= tol:
+                            raise AssertionError(f"{name} {label} {mode} {parity} n={n} "
+                                                 f"{dn}: {rel} > {tol}")
+                        errs[name] = max(errs.get(name, 0.0), rel)
+                        short = K.r1_stencil_cuda(lv, x, c, mode, taps, var7,
+                                                  parity=parity, chunk=3, **kw)
+                        if not torch.equal(short, out):
+                            raise AssertionError(f"{name} {label} {mode} {parity} n={n} "
+                                                 f"{dn}: chunk 3 differs from the rule")
+                        other = kw["kdinv"] == 0 if mode == "gsrb" else None
+                        if other is not None and not torch.equal(out[other], x[other]):
+                            raise AssertionError(f"{name} {label} gsrb{parity} n={n} "
+                                                 f"{dn}: the other colour differs from x")
                 out = K.r1_gsrb2_cuda(lv, x, rhs, cfg, taps, var7)
                 rel, _ = relerr(out, K.r1_gsrb2_plain(lv, x, rhs, cfg, taps, var7))
                 if not rel <= tol:
@@ -932,8 +937,8 @@ def check_r1_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256), odd=(2, 3
                                              f"differs from the launcher's rule")
             print(f"  radius-1 every mode, body and BC n={n:3d} {dn}: worst rel err "
                   + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-                  + "; the 27pt gsrb's other colour equals x bit for bit; K6 with "
-                    "chunks of 2 and 3 i-planes equals its rule bit for bit")
+                  + "; each gsrb's other colour equals x and chunk 3 the rule bit for "
+                    "bit; K6 with chunks of 2 and 3 i-planes equals its rule bit for bit")
             for k, v in errs.items():
                 worst[k] = max(worst.get(k, 0.0), v)
             del lv, x, rhs
@@ -989,7 +994,7 @@ def time_r1_modes(label: str, lv, x, rhs, cfg, taps: str, var7: bool, reps: int,
                     mode_flops(ax, "fres", cells, 1)))
 
 
-def time_r1_kernels(sizes=(64, 128, 256, 512)):
+def time_r1_kernels(sizes=(16, 32, 64, 128, 256, 512)):
     """Phase 3b, K5 and K6: kernel vs plain time (float32) of every mode on
     the finest level of the fv7pt problem (p6 coefficients, var7 body, p1
     taps) and of the 27pt problem, each pair checked against F32_TOL; the
@@ -1490,7 +1495,8 @@ def check_slab_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
                                        dtype=dtype, bc=bc)
                     slabs = K.single_chip_slabs_r1(x, bc, taps)
                     for mode, kw, parity in r1_cases(lr, rhs):
-                        out = K.r1_slab_cuda(lr, x, slabs, cfg, mode, taps, var7, **kw)
+                        out = K.r1_slab_cuda(lr, x, slabs, cfg, mode, taps, var7,
+                                             parity=parity, **kw)
                         hold("r1_slab", out,
                              K.r1_slab_plain(lr, x, slabs, cfg, mode, taps, var7, **kw))
                         hold("r1_slab_vs_K5", out, K.r1_stencil_cuda(
@@ -1511,6 +1517,7 @@ def check_slab_kernels(worst: dict, sizes=(8, 16, 32, 48, 64, 128, 256)):
             del lr, x, rhs
     torch.cuda.empty_cache()
     check_slab_blocks(worst)
+    check_k8c_blocks(worst)
     check_k8d_blocks(worst)
 
 
@@ -1576,6 +1583,60 @@ def check_slab_blocks(worst: dict):
                   f"colour equals x, chunks 2 and 3 equal the rule"
                   + (", K8b == K8a" if split else ""))
             worst["fv4_slab_blocks"] = max(worst.get("fv4_slab_blocks", 0.0), err)
+            del lv, x, rhs, slabs
+    torch.cuda.empty_cache()
+
+
+def check_k8c_blocks(worst: dict):
+    """Phase 11, K8c (csrc/r1_var7_stream.cu with the slabs as its halo's
+    sources) on SLAB_BLOCKS with random natural faces, alpha and 1-deep
+    slabs, float32 and float64, both BCs, every body and tap set of
+    R1_BODIES: every mode (gsrb at both parities, fres where the extents
+    are even) against its plain version at K1S_TOL, a gsrb leaving the
+    other colour equal to x bit for bit, a chunk of 3 i-planes equal to
+    the launcher's rule bit for bit."""
+    from hpgmg_tpu_torch.core.config import BC, SolverConfig
+    from hpgmg_tpu_torch.kernels import stencils_r1 as K
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 9)
+    for dtype in (torch.float32, torch.float64):
+        tol, dn = K1S_TOL[dtype], str(dtype)[6:]
+        for ni, nj, nk in SLAB_BLOCKS:
+            lv = _block_level(ni, nj, nk, dev, rng, r1=True, dtype=dtype)
+            lv = dataclasses.replace(lv, alpha=torch.tensor(
+                rng.random((ni, nj, nk)), dtype=dtype, device=dev))
+            x, rhs = (torch.tensor(rng.standard_normal((ni, nj, nk)), dtype=dtype, device=dev)
+                      for _ in range(2))
+            slabs = tuple(torch.tensor(rng.standard_normal(s), dtype=dtype, device=dev)
+                          for s in ((1, nj, nk),) * 2 + ((ni + 2, 1, nk),) * 2)
+            err = 0.0
+            for label, taps, var7, helm in R1_BODIES:
+                for bc in (BC.DIRICHLET, BC.PERIODIC):
+                    cfg = SolverConfig(a=1.5 if helm else 0.0, b=1.0, helmholtz=helm,
+                                       dtype=dtype, bc=bc)
+                    for mode, kw, parity in (
+                            ("apply", {}, None), ("residual", {"rhs": rhs}, None),
+                            *(("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[p]}, p) for p in (0, 1)),
+                            ("fres", {"rhs": rhs}, None)):
+                        tag = f"K8c {label} {mode} {parity} ({ni},{nj},{nk}) {dn} {bc.value}"
+                        out = K.r1_slab_cuda(lv, x, slabs, cfg, mode, taps, var7,
+                                             parity=parity, **kw)
+                        rel, _ = relerr(out, K.r1_slab_plain(lv, x, slabs, cfg, mode, taps,
+                                                             var7, **kw))
+                        if not rel <= tol:
+                            raise AssertionError(f"{tag}: rel err {rel} > {tol}")
+                        err = max(err, rel)
+                        if mode == "gsrb":
+                            other = kw["kdinv"] == 0
+                            if not torch.equal(out[other], x[other]):
+                                raise AssertionError(f"{tag}: the other colour moved")
+                        if not torch.equal(K.r1_slab_cuda(lv, x, slabs, cfg, mode, taps, var7,
+                                                          parity=parity, chunk=3, **kw), out):
+                            raise AssertionError(f"{tag}: chunk 3 differs")
+            print(f"  K8c ({ni},{nj},{nk}) {dn}: rel err vs plain {err:.3e}; the other "
+                  f"colour equals x, chunk 3 equals the rule")
+            worst["r1_slab_blocks"] = max(worst.get("r1_slab_blocks", 0.0), err)
             del lv, x, rhs, slabs
     torch.cuda.empty_cache()
 
@@ -1723,7 +1784,7 @@ def time_slab_kernels(n=512):
     slabs = (rand(1, nj, nk), rand(1, nj, nk), rand(ni + 2, 1, nk), rand(ni + 2, 1, nk))
     kw = {"rhs": rhs, "kdinv": lr.kdinv[0]}
     time_pair(f"K8c var7 gsrb {label} f32",
-              lambda: K.r1_slab_cuda(lr, x, slabs, cfg, "gsrb", "p1", True, **kw),
+              lambda: K.r1_slab_cuda(lr, x, slabs, cfg, "gsrb", "p1", True, parity=0, **kw),
               lambda: K.r1_slab_plain(lr, x, slabs, cfg, "gsrb", "p1", True, **kw), 5, row,
               "r1_slab", work=(nbytes(x, *slabs, lr.beta_i, lr.beta_j, lr.beta_k, rhs,
                                       lr.kdinv[0], x), mode_flops(VAR7_AX, "gsrb", cells, 0)))
@@ -1768,7 +1829,8 @@ def time_slab_kernels(n=512):
             for mode, mkw, par in (("apply", {}, {}), ("residual", {"rhs": rhs}, {}),
                                    ("gsrb", fkw, {"parity": 0}))}
         runs.update({
-            "K8c": (lambda: K.r1_slab_cuda(lr, x, rs, cfg, "gsrb", "p1", True, **rkw),
+            "K8c": (lambda: K.r1_slab_cuda(lr, x, rs, cfg, "gsrb", "p1", True, parity=0,
+                                           **rkw),
                     lambda: K.r1_slab_plain(lr, x, rs, cfg, "gsrb", "p1", True, **rkw),
                     (nbytes(x, *rs, lr.beta_i, lr.beta_j, lr.beta_k, rhs, lr.kdinv[0], x),
                      mode_flops(VAR7_AX, "gsrb", cells, 0)),
@@ -1835,7 +1897,7 @@ def decomposed(op: str, n: int, dtype: str, order_range, rel_limit: float = 1e-3
           f"phase wall {wall:.3f} s")
     print(f"  launches in the counted F-cycle: { {k: v for k, v in launches.items() if v} }")
     if r["slab_launches_by_block"]:
-        print(f"  K8a/K8b/K8d launches by local block (rank 0): "
+        print(f"  K8a/K8b/K8c/K8d launches by local block (rank 0): "
               f"{r['slab_launches_by_block']}")
     if r["grid"] != [2, 2, 1]:
         raise AssertionError(f"{tag}: grid {r['grid']}")
@@ -2018,7 +2080,7 @@ def main() -> int:
          times["tail"]["tail_v"], c_v["tail_v"]),
         ("restrict_cell", "restrict.cu", "hpgmg_tpu/kernels/restrict.py:77",
          big["restrict"], counts["restrict_cell"]),
-        ("r1_stencil_var7", "r1_stencil.cu", "hpgmg_tpu/kernels/stencils_r1.py:364",
+        ("r1_stencil_var7", "r1_var7_stream.cu", "hpgmg_tpu/kernels/stencils_r1.py:364",
          r1_times[512]["var7 gsrb"], r1["fv7pt"][1]["r1_stencil"]),
         ("r1_stencil_27pt", "r1_stream.cu", "hpgmg_tpu/kernels/stencils_r1.py:364",
          r1_times[512]["27pt apply"], r1["27pt"][1]["r1_stream"]),
@@ -2026,8 +2088,8 @@ def main() -> int:
          r1_times[gsrb2_n]["var7 gsrb2"], r1["fv7pt"][1]["r1_gsrb2"]),
         ("fv4_stencil_periodic", "fv4_stream.cu", "hpgmg_tpu/kernels/stencils.py:1106",
          p_times["fv4 gsrb"], per["fv4"][1]["fv4_stencil_periodic"]),
-        ("r1_stencil_periodic_var7", "r1_stencil.cu",
-         "hpgmg_tpu/kernels/stencils_r1.py:517", p_times["var7 gsrb"],
+        ("r1_stencil_periodic_var7", "r1_var7_stream.cu",
+         "hpgmg_tpu/kernels/stencils_r1.py:517", p_times["var7"][512]["gsrb"],
          per["fv7pt"][1]["r1_stencil_periodic"]),
         ("r1_stencil_periodic_27pt", "r1_stream.cu",
          "hpgmg_tpu/kernels/stencils_r1.py:517", p_times["27pt"][512]["apply"],
@@ -2040,9 +2102,9 @@ def main() -> int:
          s_times["fv4_overlap_interior"], dec["fv4_f64"]["launches"]["fv4_overlap_interior"]),
         ("fv4_overlap_edge", "fv4_slab.cu", "hpgmg_tpu/kernels/stencils.py:1421",
          s_times["fv4_overlap_edge"], dec["fv4_f64"]["launches"]["fv4_overlap_edge"]),
-        ("r1_slab", "r1_slab.cu", "hpgmg_tpu/kernels/stencils_r1.py:645",
+        ("r1_slab", "r1_var7_stream.cu", "hpgmg_tpu/kernels/stencils_r1.py:645",
          s_times["r1_slab"], dec["fv7pt"]["launches"]["r1_slab"]),
-        ("r1_gsrb2_slab", "r1_slab.cu", "hpgmg_tpu/kernels/stencils_r1.py:1029",
+        ("r1_gsrb2_slab", "r1_gsrb2.cu", "hpgmg_tpu/kernels/stencils_r1.py:1029",
          s_times["r1_gsrb2_slab"], dec["fv7pt"]["launches"]["r1_gsrb2_slab"]),
     ]
     kernels = [{"name": name, "route": "cuda",
@@ -2086,6 +2148,33 @@ def main() -> int:
                      "fv4_overlap_edge": 2}[k["name"]]
             k["ptxas"] = {m: regs.get(f"fv4_slab_kernel<float, {i}, {pass_}>")
                           for i, m in enumerate(("apply", "residual", "gsrb"))}
+    # the var7 body of K5 and K7b: its other modes at 512^3 and its gsrb at
+    # every size of phase 3b, its launches by level (phase 7b's counted
+    # fv7pt F-cycles), its registers and spills by mode (f32); K8c's
+    # launches by block (rank 0 of phase 13's fv7pt run) and registers
+    per_size = {"r1_stencil_var7": {m: r1_times[m]["var7 gsrb"] for m in r1_times},
+                "r1_stencil_periodic_var7": {m: r["gsrb"] for m, r in p_times["var7"].items()}}
+    var7_modes = {"r1_stencil_var7": {m: r1_times[512][f"var7 {m}"]
+                                      for m in ("apply", "residual", "fres")},
+                  "r1_stencil_periodic_var7": {m: p_times["var7"][512][m]
+                                               for m in ("apply", "residual", "fres")}}
+    for k in kernels:
+        name = k["name"]
+        if name in per_size:
+            k["modes"] = {m: {key: t[key] for key in keys}
+                          for m, t in var7_modes[name].items()}
+            k["gsrb_by_size"] = {m: {key: t[key] for key in ("ms", "bound_ms")}
+                                 for m, t in per_size[name].items()}
+            k["launches_by_level"] = per_cycle[
+                "fv7pt" if name == "r1_stencil_var7" else "fv7pt periodic"][
+                "r1_stencil_by_level"]
+        if name in ("r1_stencil_var7", "r1_stencil_periodic_var7", "r1_slab"):
+            k["ptxas"] = {m: regs.get(f"r1_v7_kernel<float, {i}, 1, {int(name == 'r1_slab')}>")
+                          for i, m in enumerate(("apply", "residual", "gsrb", "fres"))}
+        if name == "r1_slab":
+            k["launches_by_block"] = {b: v for b, v in
+                                      dec["fv7pt"]["slab_launches_by_block"].items()
+                                      if b.startswith("K8c")}
     # K6's launches by level (phase 7b's fv7pt F-cycle) and K8d's by block
     # (rank 0 of phase 13's fv7pt run), each with its registers and spills
     # by body (f32)

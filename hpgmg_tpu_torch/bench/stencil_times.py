@@ -39,7 +39,9 @@ Dirichlet level also one full red+black sweep through K6
 written for var7, 5 for 27pt) and through two K5 gsrb half-sweeps
 (``r1_stencil_cuda`` at parity 0, then 1, ``pair``: 14 and 8), and with
 ``--chunks`` K6 with each forced chunk of i-planes (``sweep chunk <c>``,
-where the tree's ``r1_gsrb2_cuda`` takes one). With ``--subtile``, K1s
+where the tree's ``r1_gsrb2_cuda`` takes one) and each var7 mode of
+``r1_stencil_cuda`` likewise (``var7 <mode> chunk <c>``, where it takes
+one). With ``--subtile``, K1s
 instead, on the fv4 benchmark's Dirichlet levels (sizes 16^3-512^3 by
 default): its apply, residual and gsrb (``stencils.fv4_subtile_cuda``,
 ``K1s <mode>``) beside K1's (``K1 <mode>``), K1 with each forced chunk of
@@ -59,9 +61,11 @@ split takes the block), each with its ms per call, its device ms
 (``<call>_device``) and its byte bound (``<call>_bound``: the block's
 arrays the call reads once and its output written once, K8b's passes
 their parts of them, the edge pass also the slabs), and on the same
-block the decomposed radius-1 stencil (fv7pt's var7 body, p1 taps): K8c's
-apply, residual, gsrb and fres (``stencils_r1.r1_slab_cuda``, ``K8c
-<mode>``), one
+block the decomposed radius-1 stencil under the block's BC: K8c's apply,
+residual, gsrb and fres (``stencils_r1.r1_slab_cuda``) for fv7pt's var7
+body (p1 taps, ``K8c <mode>``; with ``--chunks`` also at each forced chunk,
+``K8c <mode> chunk <c>``) and the 27pt body (``K8c 27pt <mode>``), and on
+a Dirichlet block one
 K8d sweep (``stencils_r1.r1_gsrb2_slab_cuda`` under the edge flags of the
 2x2 grid's rank 0, with random ring views, rhs ring and 2-deep slabs,
 ``K8d sweep``) and two K8c gsrb half-sweeps (``r1_slab_cuda``, ``K8c
@@ -69,8 +73,8 @@ pair``), each with its device ms and byte bound. It reads
 nothing but these and the gate, so the same file times an older tree of
 the package too (copied into that tree and run from its root; there
 ``fv4_gsrb2_cuda`` is its own K2, and a gsrb is handed its ``parity``
-only where the tree's ``fv4_slab_cuda`` or ``fv4_subtile_cuda`` takes
-one), in turns with this
+only where the tree's ``fv4_slab_cuda``, ``fv4_subtile_cuda`` or
+``r1_slab_cuda`` takes one), in turns with this
 one on the same card. Prints one JSON line; ``--json`` also writes it to
 a file.
 """
@@ -277,6 +281,16 @@ def r1_times(n: int, dtype: torch.dtype, bc: BC, reps: int, chunks=()) -> dict:
                     faces[f"sweep chunk {c}"] = faces["sweep"]
         else:
             faces = {k: faces for k in values}
+        if body == "var7" and "chunk" in inspect.signature(K.r1_stencil_cuda).parameters:
+            # the var7 kernel with each forced chunk of i-planes
+            for mode, kw in (("apply", {}), ("residual", {"rhs": f}),
+                             ("gsrb", {"rhs": f, "kdinv": lv.kdinv[0], "parity": 0}),
+                             ("fres", {"rhs": f})):
+                for c in chunks:
+                    key = f"{mode} chunk {c}"
+                    calls[key] = (lambda mode=mode, kw=kw, c=c: K.r1_stencil_cuda(
+                        lv, x, cfg, mode, "p1", True, **kw, chunk=c))
+                    values[key], faces[key] = values[mode], faces[mode]
         for name, fn in calls.items():
             out[f"{body} {name}"] = time_ms(fn, reps)
             out[f"{body} {name}_device"] = device_ms(fn, reps)
@@ -285,9 +299,10 @@ def r1_times(n: int, dtype: torch.dtype, bc: BC, reps: int, chunks=()) -> dict:
     return out
 
 
-def slab_times(block, dtype: torch.dtype, bc: BC, reps: int) -> dict:
+def slab_times(block, dtype: torch.dtype, bc: BC, reps: int, chunks=()) -> dict:
     """{call: ms} of K8a's apply, residual and gsrb (parity 0) and K8b's two
-    gsrb passes on an ni x nj x nk local block, each with its device ms
+    gsrb passes on an ni x nj x nk local block, and of the radius-1 slab
+    kernels there (``r1_slab_calls``), each with its device ms
     (``<call>_device``) and its byte bound (``<call>_bound``), over ``reps``
     calls on the (256, 256, 512) block and proportionally more on smaller
     ones (at most 64 times as many)."""
@@ -340,8 +355,7 @@ def slab_times(block, dtype: torch.dtype, bc: BC, reps: int) -> dict:
         values["K8b interior gsrb"] = block_values * part
         values["K8b edge gsrb"] = block_values * (1 - part) + slab_values
     out = {}
-    if bc == BC.DIRICHLET:
-        calls.update(r1_slab_calls(n, lv, x, values, gen, dtype))
+    calls.update(r1_slab_calls(n, lv, x, values, gen, dtype, bc, chunks))
     for name, fn in calls.items():
         out[name] = time_ms(fn, reps)
         out[name + "_device"] = device_ms(fn, reps)
@@ -349,12 +363,16 @@ def slab_times(block, dtype: torch.dtype, bc: BC, reps: int) -> dict:
     return out
 
 
-def r1_slab_calls(n: int, lv, x, values: dict, gen, dtype) -> dict:
-    """The radius-1 sweep of fv7pt's var7 body on x's block: K8d under rank
-    0's edge flags (i low and j low are domain faces) and two K8c gsrb
-    half-sweeps, on random ring views, rhs ring and slabs, and K8c's apply,
-    residual, gsrb (parity 0) and fres; each call's values read and written
-    go into ``values``."""
+def r1_slab_calls(n: int, lv, x, values: dict, gen, dtype, bc: BC, chunks=()) -> dict:
+    """K8c's apply, residual, gsrb (parity 0) and fres on x's block under
+    ``bc`` (k ghosts wrapped or made), for fv7pt's var7 body (p1 taps,
+    ``K8c <mode>``) and the 27pt body (a = 1.5, ``K8c 27pt <mode>``), and
+    the var7 body with each forced chunk of i-planes where the tree's
+    ``r1_slab_cuda`` takes one (``K8c <mode> chunk <c>``); on a Dirichlet
+    block also the radius-1 sweep of the var7 body: K8d under rank 0's edge
+    flags (i low and j low are domain faces) and two K8c gsrb half-sweeps
+    (``K8c pair``); on random ring views, rhs ring and slabs. Each call's
+    values read and written go into ``values``."""
     ni, nj, nk = x.shape
     dev = x.device
 
@@ -364,7 +382,12 @@ def r1_slab_calls(n: int, lv, x, values: dict, gen, dtype) -> dict:
     def coef(*shape):
         return 1.0 + 0.25 * torch.rand(shape, generator=gen, device=dev, dtype=dtype)
 
-    rcfg = SolverConfig(op="fv7pt", bc=BC.DIRICHLET, a=0.0, b=1.0, dtype=dtype)
+    rcfg = SolverConfig(op="fv7pt", bc=bc, a=0.0, b=1.0, dtype=dtype)
+    pcfg = SolverConfig(op="27pt", bc=bc, a=1.5, b=1.0, dtype=dtype)
+    # an older tree's K8c takes no parity (its tile kernel reads the colour
+    # from kdinv alone) and no chunk
+    k8c_args = inspect.signature(K.r1_slab_cuda).parameters
+    par = {"parity": 0} if "parity" in k8c_args else {}
     ring = (ni + 2, nj + 2, nk)
     faces = (coef(ni + 3, nj + 2, nk), coef(ni + 2, nj + 3, nk), coef(ni + 2, nj + 2, nk + 1))
     kd0 = rb_mask(n + 2, 0, dtype, dev)[:ni + 2, :nj + 2, :nk] * coef(*ring) / (8.0 * n * n)
@@ -381,20 +404,34 @@ def r1_slab_calls(n: int, lv, x, values: dict, gen, dtype) -> dict:
 
     def half(y, p):
         return K.r1_slab_cuda(rlv, y, slabs1, rcfg, "gsrb", "p1", True, rhs=rrhs,
-                              kdinv=rlv.kdinv[p])
+                              kdinv=rlv.kdinv[p], **({"parity": p} if par else {}))
 
-    calls = {"K8d sweep": lambda: K.r1_gsrb2_slab_cuda(rlv, x, slabs2, edges, rhs2, rcfg,
-                                                       "p1", True),
-             "K8c pair": lambda: half(half(x, 0), 1)}
+    calls = {}
+    if bc == BC.DIRICHLET:
+        calls = {"K8d sweep": lambda: K.r1_gsrb2_slab_cuda(rlv, x, slabs2, edges, rhs2, rcfg,
+                                                           "p1", True),
+                 "K8c pair": lambda: half(half(x, 0), 1)}
     ops = {"apply": {}, "residual": {"rhs": rrhs}, "gsrb": {"rhs": rrhs, "kdinv": rlv.kdinv[0]},
            "fres": {"rhs": rrhs}}
-    calls.update({f"K8c {mode}": (lambda mode=mode, kw=kw: K.r1_slab_cuda(
-        rlv, x, slabs1, rcfg, mode, "p1", True, **kw)) for mode, kw in ops.items()})
     cells = x.numel()
-    # each K8c call: x, the mode's operands, the output, the faces, the slabs
-    coefs = sum(t.numel() for t in (rlv.beta_i, rlv.beta_j, rlv.beta_k, *slabs1))
-    values.update({f"K8c {mode}": cells * (1 + len(kw)) + coefs
-                   + (cells // 8 if mode == "fres" else cells) for mode, kw in ops.items()})
+    # each K8c call: x, the mode's operands, the output, the faces (var7),
+    # the slabs
+    slab_values = sum(t.numel() for t in slabs1)
+    coefs = sum(t.numel() for t in (rlv.beta_i, rlv.beta_j, rlv.beta_k)) + slab_values
+    for mode, kw in ops.items():
+        kw = {**kw, **(par if mode == "gsrb" else {})}
+        own = cells * (1 + len(ops[mode])) + (cells // 8 if mode == "fres" else cells)
+        calls[f"K8c {mode}"] = (lambda mode=mode, kw=kw: K.r1_slab_cuda(
+            rlv, x, slabs1, rcfg, mode, "p1", True, **kw))
+        calls[f"K8c 27pt {mode}"] = (lambda mode=mode, kw=kw: K.r1_slab_cuda(
+            rlv, x, slabs1, pcfg, mode, "27pt", False, **kw))
+        values[f"K8c {mode}"] = own + coefs
+        values[f"K8c 27pt {mode}"] = own + slab_values
+        if "chunk" in k8c_args:
+            for c in chunks:
+                calls[f"K8c {mode} chunk {c}"] = (lambda mode=mode, kw=kw, c=c: K.r1_slab_cuda(
+                    rlv, x, slabs1, rcfg, mode, "p1", True, **kw, chunk=c))
+                values[f"K8c {mode} chunk {c}"] = own + coefs
     # K8d: x, kdinv1, the output, the ring views, the rhs ring, the slabs;
     # each K8c half: x, rhs, kdinv, the output, the faces, the slabs
     values["K8d sweep"] = (3 * cells + kd0.numel() + rhs2.numel()
@@ -450,9 +487,10 @@ def main(argv=None) -> dict:
                    help="time K1s beside K1 per mode on the Dirichlet fv4 levels "
                         "(sizes 16-512) instead")
     p.add_argument("--chunks", type=int, nargs="*", default=None,
-                   help="with --r1: also time K6 with each of these chunks of i-planes; "
-                        "with --subtile: K1 with each as its chunk and K1s with each "
-                        "as its tile length (default 2 4 8 16)")
+                   help="with --r1: also time K6 and the var7 body of K5/K7b with each "
+                        "of these chunks of i-planes; with --slab: K8c's var7 body; with "
+                        "--subtile: K1 with each as its chunk and K1s with each as its "
+                        "tile length (default 2 4 8 16)")
     p.add_argument("--json", default=None)
     args = p.parse_args(argv)
     sizes = args.sizes or ([16, 32, 64, 128, 256, 512] if args.r1 or args.subtile
@@ -474,7 +512,7 @@ def main(argv=None) -> dict:
                 for block in ([(n, n, n)] + [(m // 2, m // 2, m) for m in
                                              (n >> s for s in range(8)) if m >= 16]
                               if args.slab else [n]):
-                    ms = (slab_times(block, getattr(torch, dt), BC(bc), args.reps)
+                    ms = (slab_times(block, getattr(torch, dt), BC(bc), args.reps, chunks)
                           if args.slab else
                           r1_times(n, getattr(torch, dt), BC(bc), args.reps, chunks)
                           if args.r1 else

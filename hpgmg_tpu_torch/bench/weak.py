@@ -23,8 +23,8 @@ read after it. ``--check-serial`` then solves the same problem on one rank
 and compares u (max|u_ranks - u_one| / max|u_one|) and rel_residual.
 Prints one JSON line: the keys of ``python -m hpgmg_tpu_torch.bench`` plus
 ``ranks``, ``grid``, ``backend``, ``launches`` (of that F-cycle), rank 0's
-``slab_launches_by_block`` (its K8a and K8b launches in that F-cycle by
-pass, mode and local block shape, and its K8d sweeps by block) and, with
+``slab_launches_by_block`` (its K8a, K8b and K8c launches in that F-cycle
+by pass, mode and local block shape, and its K8d sweeps by block) and, with
 ``--check-serial``,
 ``serial_u_rel_diff`` and ``serial_rel_residual``.
 """

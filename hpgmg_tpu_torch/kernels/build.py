@@ -63,9 +63,9 @@ _SIGNATURES = {
     "hpgmg_tail_v_f32": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P),
     "hpgmg_tail_v_f64": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P),
     # (x, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out, n, mode, periodic,
-    #  b_h2inv, a_coef, t1, t2, stream): the var7 body
-    "hpgmg_r1_stencil_f32": (_P,) * 8 + (_I, _I, _I, _D, _D, _D, _D, _P),
-    "hpgmg_r1_stencil_f64": (_P,) * 8 + (_I, _I, _I, _D, _D, _D, _D, _P),
+    #  parity, chunk, b_h2inv, a_coef, t1, t2, stream): the var7 body
+    "hpgmg_r1_var7_f32": (_P,) * 8 + (_I,) * 5 + (_D,) * 4 + (_P,),
+    "hpgmg_r1_var7_f64": (_P,) * 8 + (_I,) * 5 + (_D,) * 4 + (_P,),
     # (x, rhs, kdinv, out, n, mode, periodic, parity, chunk, b_h2inv, a_coef,
     #  t1, t2, stream): the 27pt body
     "hpgmg_r1_stream_f32": (_P,) * 4 + (_I,) * 5 + (_D,) * 4 + (_P,),
@@ -82,9 +82,10 @@ _SIGNATURES = {
     "hpgmg_fv4_slab_f32": (_P,) * 12 + (_I,) * 7 + (_D, _D, _I, _P),
     "hpgmg_fv4_slab_f64": (_P,) * 12 + (_I,) * 7 + (_D, _D, _I, _P),
     # (x, ilo, ihi, jlo, jhi, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out,
-    #  ni, nj, nk, mode, var7, periodic, b_h2inv, a_coef, t1, t2, stream)
-    "hpgmg_r1_slab_f32": (_P,) * 12 + (_I,) * 6 + (_D,) * 4 + (_P,),
-    "hpgmg_r1_slab_f64": (_P,) * 12 + (_I,) * 6 + (_D,) * 4 + (_P,),
+    #  ni, nj, nk, mode, var7, periodic, parity, chunk, b_h2inv, a_coef, t1,
+    #  t2, stream)
+    "hpgmg_r1_slab_f32": (_P,) * 12 + (_I,) * 8 + (_D,) * 4 + (_P,),
+    "hpgmg_r1_slab_f64": (_P,) * 12 + (_I,) * 8 + (_D,) * 4 + (_P,),
     # (x, ilo, ihi, jlo, jhi, ring beta_i, beta_j, beta_k, alpha, rhs, kdinv0,
     #  kdinv1, out, ni, nj, nk, edges, var7, b_h2inv, a_coef, t1, t2, stream);
     #  the _chunk entries take the chunk of i-planes after var7

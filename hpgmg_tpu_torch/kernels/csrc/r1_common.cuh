@@ -1,7 +1,7 @@
-// Device building blocks of the radius-1 kernels (K5 in r1_stencil.cu and
-// r1_stream.cu, K6 and K8d in r1_gsrb2.cu, K8c in r1_slab.cu): the 2-tap
-// Dirichlet ghost of x, the shared-memory tiles of the tile kernels, the
-// register windows of the streaming ones, and A x at one cell from an
+// Device building blocks of the radius-1 kernels (K5/K7b's 27pt body in
+// r1_stream.cu, their var7 body and K8c in r1_var7_stream.cu, K6 and K8d in
+// r1_gsrb2.cu): the register windows of the streaming kernels, their
+// Dirichlet ghosts, and A x at one cell from an
 // accessor of its neighbourhood and the indices of its face coefficients
 // (r1_ax; r1_index for an ni x nj x nk block), for the two bodies:
 //
@@ -61,100 +61,6 @@ struct R1Args {
 template <typename T>
 __device__ __forceinline__ T ld(const T* p) {
   return __ldg(p);
-}
-
-__device__ __forceinline__ bool in_range(int idx, int n) {
-  return idx >= 0 && idx < n;
-}
-
-// 1D taps of index idx in [-1, n] on an axis of n cells: itself inside the
-// domain, else the two interior cells nearest the face.
-template <typename T>
-__device__ __forceinline__ int r1_taps(int idx, int n, T t1, T t2,
-                                       int (&id)[2], T (&w)[2]) {
-  if (in_range(idx, n)) {
-    id[0] = idx;
-    w[0] = T(1);
-    return 1;
-  }
-  const bool lo = idx < 0;
-  id[0] = lo ? 0 : n - 1;
-  id[1] = lo ? 1 : n - 2;
-  w[0] = t1;
-  w[1] = t2;
-  return 2;
-}
-
-// x at (i, j, k), each in [-1, n]: the cell inside the domain, else the
-// tensor product of the per-axis ghost taps.
-template <typename T>
-__device__ __forceinline__ T r1_value(const T* x, int n, T t1, T t2, int i,
-                                      int j, int k) {
-  int ii[2], jj[2], kk[2];
-  T wi[2], wj[2], wk[2];
-  const int ni = r1_taps(i, n, t1, t2, ii, wi);
-  const int nj = r1_taps(j, n, t1, t2, jj, wj);
-  const int nk = r1_taps(k, n, t1, t2, kk, wk);
-  if (ni == 1 && nj == 1 && nk == 1)
-    return ld(x + (static_cast<int64_t>(i) * n + j) * n + k);
-  T s = T(0);
-  for (int a = 0; a < ni; ++a) {
-    for (int b = 0; b < nj; ++b) {
-      const T wab = wi[a] * wj[b];
-      for (int c = 0; c < nk; ++c)
-        s += wab * wk[c] * ld(x + (static_cast<int64_t>(ii[a]) * n + jj[b]) * n + kk[c]);
-    }
-  }
-  return s;
-}
-
-// x at (i, j, k), each in [-1, n], under periodic BCs: the cell at each
-// index mod n.
-template <typename T>
-__device__ __forceinline__ T r1_wrap_value(const T* x, int n, int i, int j,
-                                           int k) {
-  auto wrap = [n](int idx) { return idx < 0 ? idx + n : (idx >= n ? idx - n : idx); };
-  return ld(x + (static_cast<int64_t>(wrap(i)) * n + wrap(j)) * n + wrap(k));
-}
-
-// --------------------------------------------------------------------------
-// Tiles in shared memory. A block owns a TI x TJ x TK box of cells at
-// (i0, j0, k0) (k fastest) and keeps x on it with a 1-cell halo.
-
-constexpr int kTileThreads = 256;
-
-// Output tile per block (i, j, k) of the tile kernels (K5's var7 body, K8c);
-// f64 halves k.
-template <typename T>
-struct Tile {
-  static constexpr int I = 8, J = 8, K = 32;
-};
-template <>
-struct Tile<double> {
-  static constexpr int I = 8, J = 8, K = 16;
-};
-
-__device__ __forceinline__ bool near_domain(int idx, int n) {
-  return idx >= -1 && idx <= n;
-}
-
-// xs <- x at tile offsets [-1, T+1) on each axis: the cells inside the
-// domain, the ghosts one cell outside it (Dirichlet taps or the periodic
-// wrap), zeros further out (read only by results at ghost positions, which
-// are discarded).
-template <typename T, int TI, int TJ, int TK>
-__device__ __forceinline__ void load_tile(const R1Args<T>& p, T* xs, int i0,
-                                          int j0, int k0) {
-  constexpr int XJ = TJ + 2, XK = TK + 2, XSIZE = (TI + 2) * XJ * XK;
-  const int n = p.n;
-  for (int t = threadIdx.x; t < XSIZE; t += kTileThreads) {
-    const int c = t % XK, r = t / XK;
-    const int i = i0 + r / XJ - 1, j = j0 + r % XJ - 1, k = k0 + c - 1;
-    xs[t] = !(near_domain(i, n) && near_domain(j, n) && near_domain(k, n))
-                ? T(0)
-                : p.periodic ? r1_wrap_value(p.x, n, i, j, k)
-                             : r1_value(p.x, n, p.t1, p.t2, i, j, k);
-  }
 }
 
 // Where the var7 body finds a cell's coefficients: its low i, j, k faces at
@@ -260,14 +166,6 @@ __device__ __forceinline__ void ghost_plane(Rows<T>& out, const Rows<T>& a, cons
 #pragma unroll
     for (int c = 0; c < 4; ++c) out[r][c] = t1 * a[r][c] + t2 * b[r][c];
   }
-}
-
-// A x at cell (i, j, k) of the n^3 level of `p`
-template <typename T, bool VAR7, typename FX>
-__device__ __forceinline__ T r1_cell_ax(const R1Args<T>& p, const FX& X, int i,
-                                        int j, int k) {
-  return r1_ax<T, VAR7>(p.beta_i, p.beta_j, p.beta_k, p.alpha, p.b_h2inv, p.a_coef, X,
-                        r1_index(i, j, k, p.n, p.n, p.n));
 }
 
 }  // namespace

@@ -18,12 +18,12 @@
 // levels and through r1_call_ext (:517 -> :562, its ext mode with
 // kperiodic) on periodic ones. That kernel worked on (bi, bj, n) VMEM
 // tiles of j-padded, split-k views laid out for the TPU's (8, 128) tiling;
-// none of that is carried over. The var7 body (fv7pt, fv2) stays on the
-// tile kernel of r1_stencil.cu.
+// none of that is carried over. The var7 body (fv7pt, fv2) and K8c run on
+// r1_var7_stream.cu, this column with their own window.
 //
 // What bounds it on an H100: device-memory bandwidth. apply reads x and
 // writes out, 8 B a cell in f32, against ~60 flops; gsrb reads x, rhs and
-// kdinv and writes out. The tile kernel it replaces (r1_stencil.cu) ran
+// kdinv and writes out. The tile kernel it replaced (8 x 8 x 32 tiles) ran
 // 27pt apply at ~4.5x its byte bound and a gsrb no faster than apply: it
 // filled a shared tile with two div/mod pairs and three range tests a value,
 // read 27 shared values a cell, and computed A x at every cell of a gsrb.
@@ -46,9 +46,9 @@
 // read: a thread at a domain face holds the two cells nearest it, so its
 // ghost row (j) and column (k) are t1 * x1 + t2 * x2 of its own registers,
 // the row first, so that an edge is the per-axis taps' tensor product as
-// in r1_value; the ghost planes i = -1 and i = n are the same combination
-// of the window's planes 0, 1 and n-1, n-2, (j, k) ghosts included. The
-// ring never holds a Dirichlet ghost.
+// the separable fills make it; the ghost planes i = -1 and i = n are the
+// same combination of the window's planes 0, 1 and n-1, n-2, (j, k) ghosts
+// included. The ring never holds a Dirichlet ghost.
 // gsrb computes A x only at the cell of its pair with the sweep's colour
 // (a warp holds rows j and j+2, so its threads take the same cell and one
 // branch), reads rhs and kdinv only there, a plane ahead into registers,

@@ -15,9 +15,9 @@ suite (``TAPS``), and their tensor product at edges and corners; the
 periodic ghosts (K7b) are the wrapped cells, on each axis crossed.
 
 Each entry dispatches on the device of ``x``: CUDA tensors launch the
-kernels of ``csrc/`` (``r1_stream.cu`` for the 27pt body, ``r1_stencil.cu``
-for var7, ``r1_gsrb2.cu`` for K6 and K8d), CPU tensors take the plain
-version. K5's
+kernels of ``csrc/`` (``r1_stream.cu`` for the 27pt body,
+``r1_var7_stream.cu`` for var7 and for K8c, ``r1_gsrb2.cu`` for K6 and
+K8d), CPU tensors take the plain version. K5's
 modes are K1's (kernels/stencils.py): apply, residual, gsrb (out of
 place, ``x + kdinv * (rhs - A x)``, with the sweep's ``parity``, the
 colour kdinv carries) and fres (``restrict_cell(rhs - A x)``). K7b is
@@ -268,31 +268,36 @@ def r1_stencil_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
                     mode: str, taps: str, var7: bool,
                     rhs: Optional[torch.Tensor] = None,
                     kdinv: Optional[torch.Tensor] = None,
-                    parity: Optional[int] = None) -> torch.Tensor:
+                    parity: Optional[int] = None, chunk: int = 0) -> torch.Tensor:
     """Launch K5 (K7b on a periodic level) on CUDA tensors into a newly
     allocated output: the 27pt body through ``r1_stream_cuda``, the var7
-    body on the tile kernel (``csrc/r1_stencil.cu``), whose launches count
-    in ``launches`` (K5) and ``periodic_launches`` (K7b). A gsrb needs
-    ``parity``, the colour ``kdinv`` carries."""
+    body on its streaming kernel (``csrc/r1_var7_stream.cu``, one launch a
+    call), whose launches count in ``launches`` (K5) and
+    ``periodic_launches`` (K7b). A gsrb needs ``parity``, the colour
+    ``kdinv`` carries: the kernel computes A x at that colour's cells only
+    and copies x at the others. ``chunk``: i-planes a block marches (0: the
+    launcher's rule, as the solver calls it; any chunk gives the same
+    bits)."""
     from hpgmg_tpu_torch.kernels.build import library
 
     if not var7:
-        return r1_stream_cuda(level, x, cfg, mode, taps, rhs, kdinv, parity)
+        return r1_stream_cuda(level, x, cfg, mode, taps, rhs, kdinv, parity, chunk)
     _check(level, x, cfg, mode, taps, var7, rhs,
            (kdinv,) if mode == "gsrb" else (), parity)
     if not x.is_cuda:
         raise ValueError(f"r1_stencil_cuda wants CUDA tensors, got {x.device}")
+    if chunk < 0:
+        raise ValueError(f"chunk must be >= 0, got {chunk}")
     n = level.dim
     m = n // 2 if mode == "fres" else n
     out = torch.empty((m, m, m), dtype=x.dtype, device=x.device)
     alpha, a_coef = _coefs(level, cfg, var7)
     periodic = cfg.bc == BC.PERIODIC
-    lib = library()
-    fn = (lib.hpgmg_r1_stencil_f32 if x.dtype == torch.float32
-          else lib.hpgmg_r1_stencil_f64)
+    fn = getattr(library(), "hpgmg_r1_var7_" + ("f32" if x.dtype == torch.float32
+                                                else "f64"))
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), *_betas(level, var7), _ptr(alpha), _ptr(rhs),
-                _ptr(kdinv), out.data_ptr(), n, MODES[mode], int(periodic),
+        rc = fn(x.data_ptr(), *_betas(level, var7), _ptr(alpha), _ptr(rhs), _ptr(kdinv),
+                out.data_ptr(), n, MODES[mode], int(periodic), parity or 0, chunk,
                 cfg.b * level.h2inv, a_coef, *TAPS[taps], _stream(x))
     if rc != 0:
         raise RuntimeError(f"radius-1 stencil kernel launch failed: CUDA error {rc}")
@@ -575,13 +580,23 @@ r1_slab_plain.calls = 0
 def r1_slab_cuda(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
                  mode: str, taps: str, var7: bool,
                  rhs: Optional[torch.Tensor] = None,
-                 kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch K8c on CUDA tensors into a newly allocated output."""
+                 kdinv: Optional[torch.Tensor] = None,
+                 parity: Optional[int] = None, chunk: int = 0) -> torch.Tensor:
+    """Launch K8c (``csrc/r1_var7_stream.cu``, K5's var7 kernel with the
+    slabs as its halo's sources, both bodies) on CUDA tensors into a newly
+    allocated output. A gsrb needs ``parity``, the colour
+    ``kdinv`` carries (local parity is global: block offsets are even);
+    ``chunk`` as ``r1_stencil_cuda``'s."""
     from hpgmg_tpu_torch.kernels.build import library
 
     _check_slab(level, x, slabs, cfg, mode, taps, var7, rhs, kdinv)
     if not x.is_cuda:
         raise ValueError(f"r1_slab_cuda wants CUDA tensors, got {x.device}")
+    if mode == "gsrb" and parity not in (0, 1):
+        raise ValueError(f"the radius-1 slab gsrb needs the sweep's parity (0 or 1), "
+                         f"got {parity!r}")
+    if chunk < 0:
+        raise ValueError(f"chunk must be >= 0, got {chunk}")
     ni, nj, nk = x.shape
     shape = (ni // 2, nj // 2, nk // 2) if mode == "fres" else (ni, nj, nk)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
@@ -590,11 +605,13 @@ def r1_slab_cuda(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), *(t.data_ptr() for t in slabs), *_betas(level, var7),
                 _ptr(alpha), _ptr(rhs), _ptr(kdinv), out.data_ptr(), ni, nj, nk,
-                MODES[mode], int(var7), int(cfg.bc == BC.PERIODIC),
+                MODES[mode], int(var7), int(cfg.bc == BC.PERIODIC), parity or 0, chunk,
                 cfg.b * level.h2inv, a_coef, *TAPS[taps], _stream(x))
     if rc != 0:
         raise RuntimeError(f"radius-1 slab kernel launch failed: CUDA error {rc}")
     r1_slab_cuda.launches += 1
+    key = f"K8c {mode} {(ni, nj, nk)}"
+    slab_launches_by_block[key] = slab_launches_by_block.get(key, 0) + 1
     return out
 
 
@@ -692,11 +709,14 @@ r1_gsrb2_slab_cuda.launches = 0
 
 def r1_slab(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig, mode: str,
             taps: str, var7: bool, rhs: Optional[torch.Tensor] = None,
-            kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+            kdinv: Optional[torch.Tensor] = None,
+            parity: Optional[int] = None) -> torch.Tensor:
     """K8c on a local block: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    version for CPU tensors. A gsrb half-sweep on the card needs
+    ``parity``, the colour ``kdinv`` carries; the plain version reads the
+    colour from kdinv alone."""
     if x.is_cuda:
-        return r1_slab_cuda(level, x, slabs, cfg, mode, taps, var7, rhs, kdinv)
+        return r1_slab_cuda(level, x, slabs, cfg, mode, taps, var7, rhs, kdinv, parity)
     if x.device.type == "cpu":
         return r1_slab_plain(level, x, slabs, cfg, mode, taps, var7, rhs, kdinv)
     raise ValueError(f"radius-1 slab kernel has no kernel for device {x.device}")

@@ -78,9 +78,10 @@ class RadiusOneSuite(OperatorSuite):
     def _k5(self, level: Level, x, cfg: SolverConfig, mode: str, parity=None,
             **kw):
         """K5 (K7b) on a level, K8c on a rank's block of a decomposed one; a
-        gsrb passes its sweep's ``parity`` (K8c reads it from kdinv)."""
+        gsrb passes its sweep's ``parity``."""
         if level.part is not None:
-            return r1_sharded(level, x, cfg, mode, self.taps_key, self.var7, **kw)
+            return r1_sharded(level, x, cfg, mode, self.taps_key, self.var7,
+                              parity=parity, **kw)
         return stencils_r1.r1_stencil(level, x, cfg, mode, self.taps_key,
                                       self.var7, parity=parity, **kw)
 

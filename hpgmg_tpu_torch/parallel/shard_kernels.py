@@ -149,11 +149,13 @@ def fv4_sharded(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
 
 def r1_sharded(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
                taps: str, var7: bool, rhs: Optional[torch.Tensor] = None,
-               kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+               kdinv: Optional[torch.Tensor] = None,
+               parity: Optional[int] = None) -> torch.Tensor:
     """One radius-1 apply / residual / GSRB half-sweep / restricted
-    residual on this rank's block: the 1-deep slab exchange, then K8c."""
+    residual on this rank's block: the 1-deep slab exchange, then K8c (a
+    half-sweep with its ``parity``, global and local alike)."""
     slabs = slabs_for_kernel_r1(x, level.part, cfg.bc, taps)
-    return K.r1_slab(level, x, slabs, cfg, mode, taps, var7, rhs, kdinv)
+    return K.r1_slab(level, x, slabs, cfg, mode, taps, var7, rhs, kdinv, parity)
 
 
 def r1_gsrb2_rhs_sharded(part: Part, rhs: torch.Tensor) -> torch.Tensor:

@@ -179,7 +179,7 @@ def test_k5_k6_match_plain(dev, n, dtype):
                  ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[0], "parity": 0}),
                  ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[1], "parity": 1}),
                  ("fres", {"rhs": rhs})]
-        # var7 on the tile kernel, 27pt on the streaming one
+        # var7 on its streaming kernel, 27pt on r1_stream.cu
         wrapper = K.r1_stencil_cuda if var7 else K.r1_stream_cuda
         launches = wrapper.launches
         for mode, kw in cases:

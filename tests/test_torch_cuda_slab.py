@@ -184,9 +184,10 @@ def test_k8c_k8d_match_plain(dev, taps, var7, dtype):
     for bc in (BC.DIRICHLET, BC.PERIODIC):
         cfg = SolverConfig(a=0.0 if var7 else 1.5, b=1.0, dtype=dtype, bc=bc)
         slabs = K.single_chip_slabs_r1(x, bc, taps)
-        for mode, kw in (("apply", {}), ("residual", {"rhs": rhs}),
-                         ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[0]}), ("fres", {"rhs": rhs})):
-            out = K.r1_slab(lv, x, slabs, cfg, mode, taps, var7, **kw)
+        for mode, kw, par in (("apply", {}, {}), ("residual", {"rhs": rhs}, {}),
+                              ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[0]}, {"parity": 0}),
+                              ("fres", {"rhs": rhs}, {})):
+            out = K.r1_slab(lv, x, slabs, cfg, mode, taps, var7, **kw, **par)
             ref = K.r1_slab_plain(lv, x, slabs, cfg, mode, taps, var7, **kw)
             assert relerr(out, ref) <= TOL[dtype], (bc, mode)
     cfg = SolverConfig(a=0.0 if var7 else 1.5, b=1.0, dtype=dtype)
