@@ -135,7 +135,20 @@ Phases, each printing its result and raising on failure (exit code != 0):
    timed solve, its u within DECOMPOSED_U_TOL of the one-rank F-cycle's,
    the slab kernels and K3 launched in a counted F-cycle and no
    single-rank stencil, fused sweep, tail kernel or plain version; rank
-   0's K8a/K8b/K8c launches and K8d sweeps in it by local block.
+   0's K8a/K8b/K8c launches and K8d sweeps in it by local block;
+14. the FE solver (hpgmg_tpu_torch/fe, no kernel of its own: matrix
+   products with TF32 off and elementwise torch ops) on the card, the
+   counts reset before it and read after it (no K1-K8 launch, no plain
+   version): (a) the reference's t220, t230 and t120 tables and the Q2
+   G[8^3] diagnostics in float64 at the CPU tests' limits, that F-cycle's
+   u equal to the CPU's to 1e-12; (b) one Q2 float64 F-cycle at G[32^3],
+   G[64^3] and G[128^3], e_L2 falling faster than 2^2.5 a doubling, and
+   the distorted G[64^3] (-coord_distort 0.05) at the uniform grid's
+   error; (c) the sampler through its CLI, -local 50,2097152 -maxsamples 8
+   in float32 (G[4^3] to G[128^3]); (d) -local 262144,2097152
+   -maxsamples 2 in float64 (G[64^3], G[128^3]); (e) one profiled Q2
+   G[128^3] float32 F-cycle: device ms by scope, host reads, idle share.
+   Its results are the "fe" JSON line.
 
 The line before the last lists the kernels as JSON: for each, its launches
 on its path, its time, its plain version's time, its bound on the card
@@ -148,6 +161,7 @@ It needs one card and imports nothing of JAX.
 
 import dataclasses
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1918,6 +1932,236 @@ def decomposed(op: str, n: int, dtype: str, order_range, rel_limit: float = 1e-3
     return r
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the FE Q1/Q2 FAS solver, its sampler and the CLI on the card
+# ---------------------------------------------------------------------------
+
+# the reference's expected tables (t220-fmg.sh, t230-fmg-poisson2.sh:
+# (|e|_2/|u|_2, |r|_2/|f|_2) after F, V, V, printed to 3 digits, rtol 5e-3;
+# t120-poissonksp.sh: the KSP error at rtol 1e-4 in 15-19 iterations) and
+# the JAX package's recorded Q2 G[8^3] diagnostics (tests/test_golden.py:
+# (r_2, e_max, e_L2) after F and after one V, rtol 2e-3)
+FE_T220 = [(2.26e-02, 3.37e-02), (2.58e-02, 2.05e-03), (2.60e-02, 1.25e-04)]
+FE_T230 = [(9.08e-03, 3.35e-04), (9.17e-03, 8.27e-07), (9.17e-03, 5.54e-09)]
+FE_Q2_M8 = ((1.168401e-03, 1.023855e-02, 7.655858e-03),
+            (2.944131e-05, 1.021663e-02, 7.789023e-03))
+# the Q2 G[8^3] F-cycle's u on the card against the port's on the CPU,
+# max|u_card - u_cpu| / max|u_cpu| (f64: cuBLAS and the CPU sum the
+# contractions in other orders)
+FE_CARD_CPU_TOL = 1e-12
+# e_L2 rate of one Q2 F-cycle per doubling (order degree+1 = 3; the JAX
+# package's tests hold 2.5 from M=4 to 8)
+FE_RATE_LO = 2.5
+# the FE path has no kernel of its own: its scopes in one profiled F-cycle
+FE_SCOPES = (("gather", "op", "_elements"), ("contract", "op", "_contract"),
+             ("contract_t", "op", "_contract_t"),
+             ("metric product", "op", "FEOp._apply_metric"),
+             ("assembly", "grid", "FEGrid.assemble_interior"),
+             ("zero boundaries", "grid", "FEGrid.zero_boundaries"),
+             ("interpolate", "grid", "FEGrid.interpolate"),
+             ("restrict", "grid", "FEGrid.restrict"),
+             ("inject", "grid", "FEGrid.inject"),
+             ("host reads", "fas", "_host_flag"))
+
+
+def fe_table(results, expected, tag):
+    got = [(s["rel_e"], s["rel_r"]) for _, s in results]
+    for (ge, gr), (ee, er) in zip(got, expected):
+        if not (abs(ge - ee) <= 5e-3 * ee and abs(gr - er) <= 5e-3 * er):
+            raise AssertionError(f"{tag}: {got} against {expected}")
+
+
+def fe_tables(dev):
+    """Phase 14a: the reference's tables in f64 on the card, the CPU tests'
+    limits; the Q2 G[8^3] F-cycle's u on the card against the CPU's."""
+    from hpgmg_tpu_torch.fe import fas
+    from hpgmg_tpu_torch.fe.grid import FEGrid
+    from hpgmg_tpu_torch.fe.op import get_fe_op
+
+    print("  t220: fmg -op_type poisson1 -M 8,16,24 -smooth 3,3 -mg_eig_target 2,0.2")
+    r = fas.run_fmg(FEGrid((8, 16, 24), 1, (8 / 24, 16 / 24, 1.0)), get_fe_op("poisson1"),
+                    pre=3, post=3, monitor=False, eig=(0.2, 2.0), device=dev)[3]
+    fe_table(r, FE_T220, "t220")
+    print("  t230: fmg -op_type poisson2 -M 4,4,6 -smooth 4,3 -poisson_solution wave")
+    r = fas.run_fmg(FEGrid((4, 4, 6), 2, (4 / 6, 4 / 6, 1.0)), get_fe_op("poisson2"),
+                    "wave", pre=4, post=3, monitor=False, device=dev)[3]
+    fe_table(r, FE_T230, "t230")
+    print("  t120: test-kspsolve -op_type poisson1 -M 8,12,16 -ksp_type chebyshev")
+    _, its, err = fas.run_ksp(FEGrid((8, 12, 16), 1), get_fe_op("poisson1"), eig=(0.2, 2.0),
+                              device=dev)
+    if not (abs(err - 0.0393766) <= 1e-4 * 0.0393766 and 15 <= its <= 19):
+        raise AssertionError(f"t120: error {err} in {its} iterations")
+    op = get_fe_op("poisson2")
+    us = []
+    for d in (dev, torch.device("cpu")):
+        levels = fas.build_fe_levels(FEGrid((8, 8, 8), 2), op, device=d)
+        f = op.forcing(levels[0].grid, levels[0].coords, "sine")
+        u = fas.fas_fcycle(op, levels, 0, f)
+        got_f = [float(x) for x in fas.diagnostics(op, levels[0], f, u, "sine")]
+        us.append(u.cpu())
+        v = fas.fas_vcycle(op, levels, 0, f, u)
+        got_v = [float(x) for x in fas.diagnostics(op, levels[0], f, v, "sine")]
+        for got, want in zip((got_f, got_v), FE_Q2_M8):
+            if not all(abs(g - w) <= 2e-3 * w for g, w in zip(got, want)):
+                raise AssertionError(f"Q2 G[8^3] on {d}: {got} against {want}")
+    diff, _ = relerr(*us)
+    print(f"  Q2 G[8^3] F then V: (r_2, e_max, e_L2) {got_f} then {got_v}; F-cycle u "
+          f"card vs CPU {diff:.3e}")
+    if not diff <= FE_CARD_CPU_TOL:
+        raise AssertionError(f"Q2 G[8^3] F-cycle u on the card vs the CPU: {diff}")
+    return {"q2_m8_card_vs_cpu": diff, "t120_iterations": its, "t120_error": err}
+
+
+def fe_rates(dev):
+    """Phase 14b: one Q2 f64 F-cycle at G[32^3], G[64^3], G[128^3], its
+    e_L2 rate above FE_RATE_LO at each step; the distorted G[64^3]
+    (-coord_distort 0.05) converges to the uniform grid's error."""
+    from hpgmg_tpu_torch.fe import fas
+    from hpgmg_tpu_torch.fe.grid import FEGrid
+    from hpgmg_tpu_torch.fe.op import get_fe_op
+
+    op, out = get_fe_op("poisson2"), {}
+    for m, distort in ((32, 0.0), (64, 0.0), (128, 0.0), (64, 0.05)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s = fas.run_fmg(FEGrid((m, m, m), 2), op, distort=distort, num_vcycles=0,
+                        device=dev)[3][0][1]
+        torch.cuda.empty_cache()
+        print(f"    {time.perf_counter() - t0:.3f} s (build, F-cycle, diagnostics)")
+        if not all(math.isfinite(v) for v in s.values()):
+            raise AssertionError(f"Q2 G[{m}^3] distort {distort}: {s}")
+        out[f"q2_{m}{'_distorted' if distort else ''}"] = s
+    rates = [math.log2(out[f"q2_{a}"]["e_L2"] / out[f"q2_{b}"]["e_L2"])
+             for a, b in ((32, 64), (64, 128))]
+    print(f"  e_L2 rates 32->64->128: {rates}")
+    if not min(rates) > FE_RATE_LO:
+        raise AssertionError(f"Q2 f64 e_L2 rates {rates}, limit {FE_RATE_LO}")
+    dist, flat = out["q2_64_distorted"], out["q2_64"]
+    if not (dist["r2"] <= 1e-2 and dist["e_L2"] <= 1.1 * flat["e_L2"]):
+        raise AssertionError(f"distorted G[64^3]: {dist} against uniform {flat}")
+    return {**out, "e_L2_rates": rates}
+
+
+def fe_sampler(*argv):
+    """Phase 14c/d: the sampler through the CLI (python -m
+    hpgmg_tpu_torch.fe.cli sample ...), its lines printed and parsed by
+    bench/analyze.py; every sample finite and positive."""
+    import io
+    from contextlib import redirect_stdout
+
+    from hpgmg_tpu_torch.bench import analyze
+    from hpgmg_tpu_torch.fe import cli
+
+    print(f"  python -m hpgmg_tpu_torch.fe.cli {' '.join(argv)}", flush=True)
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    wall = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        print(f"    {line}")
+    samples, _ = analyze.parse(buf.getvalue().splitlines())
+    print(f"    {wall:.3f} s")
+    if rc != 0 or not samples or not all(
+            s["time"] > 0 and s["meqs"] > 0 and s["gf"] > 0 for s in samples):
+        raise AssertionError(f"sampler {argv}: rc {rc}, samples {samples}")
+    return samples
+
+
+def fe_profile(dev, m=128):
+    """Phase 14e: where the time goes in one Q2 G[m^3] f32 F-cycle: its
+    wall time (CUDA events, after a warm-up), the coarsest CG's host reads,
+    and a torch.profiler trace with each FE scope (FE_SCOPES) as a
+    record_function range: the device ms of its kernels, the device's busy
+    ms and the idle share 1 - busy / wall."""
+    import importlib
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from hpgmg_tpu_torch.fe import fas
+    from hpgmg_tpu_torch.fe.grid import FEGrid
+    from hpgmg_tpu_torch.fe.op import get_fe_op
+
+    op = get_fe_op("poisson2")
+    levels = fas.build_fe_levels(FEGrid((m, m, m), 2), op, torch.float32, device=dev)
+    f = op.forcing(levels[0].grid, levels[0].coords, "sine")
+    fas.fas_fcycle(op, levels, 0, f)
+    reads = fas.host_reads
+    wall = time_ms(lambda: fas.fas_fcycle(op, levels, 0, f), 3)
+    reads = (fas.host_reads - reads) // 4
+
+    saved = []
+    for label, mod, attr in FE_SCOPES:
+        owner = importlib.import_module(f"hpgmg_tpu_torch.fe.{mod}")
+        if "." in attr:
+            owner, attr = getattr(owner, attr.split(".")[0]), attr.split(".")[1]
+        fn = getattr(owner, attr)
+
+        def scoped(*a, _fn=fn, _label=label, **kw):
+            with record_function(f"fe::{_label}"):
+                return _fn(*a, **kw)
+
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, scoped)
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fas.fas_fcycle(op, levels, 0, f)
+            torch.cuda.synchronize()
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+    ev = prof.key_averages()
+    scopes = {e.key[4:]: e.device_time_total / 1000.0 for e in ev
+              if e.key.startswith("fe::") and e.device_type == DeviceType.CPU}
+    host_ms = {e.key[4:]: e.cpu_time_total / 1000.0 for e in ev
+               if e.key == "fe::host reads" and e.device_type == DeviceType.CPU}
+    busy = sum(getattr(e, "self_device_time_total", 0.0) for e in ev
+               if e.device_type == DeviceType.CUDA and not e.key.startswith("fe::"))
+    busy /= 1000.0
+    if not busy:
+        raise AssertionError("torch.profiler shows no device time")
+    print(prof.key_averages().table(sort_by="self_device_time_total", row_limit=12,
+                                    max_name_column_width=60))
+    row = {"grid": [m] * 3, "dtype": "float32", "wall_ms": wall, "device_busy_ms": busy,
+           "idle_share": 1.0 - busy / wall, "host_reads_per_fcycle": reads,
+           "scope_device_ms": scopes, "host_reads_cpu_ms": host_ms.get("host reads"),
+           "levels": len(levels)}
+    print(f"  one Q2 G[{m}^3] f32 F-cycle: {json.dumps(row)}")
+    return row
+
+
+def fe_on_card():
+    """Phase 14: FE on the card. The counts reset before it and read after
+    it: the FE path launches no kernel of K1-K8 and calls no plain
+    version."""
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = {"tables": fe_tables(dev)}
+    print(f"  (a) {time.perf_counter() - t0:.3f} s", flush=True)
+    out["rates"] = fe_rates(dev)
+    print(f"  (b) {time.perf_counter() - t0:.3f} s", flush=True)
+    out["sampler_f32"] = fe_sampler("sample", "-op_type", "poisson2", "-local", "50,2097152",
+                                    "-maxsamples", "8", "-dtype", "float32")
+    torch.cuda.empty_cache()
+    out["sampler_f64"] = fe_sampler("sample", "-op_type", "poisson2", "-local",
+                                    "262144,2097152", "-maxsamples", "2", "-dtype", "float64")
+    torch.cuda.empty_cache()
+    print(f"  (c, d) {time.perf_counter() - t0:.3f} s", flush=True)
+    out["profile"] = fe_profile(dev)
+    torch.cuda.empty_cache()
+    launches, plain = read_counts()
+    stray = {k: v for k, v in {**launches, **plain}.items() if v}
+    if stray:
+        raise AssertionError(f"the FE path launched kernels or plain versions: {stray}")
+    print(f"  no kernel of K1-K8 and no plain version launched; phase wall "
+          f"{time.perf_counter() - t0:.3f} s")
+    return out
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -2046,6 +2290,10 @@ def main() -> int:
            "fv7pt": decomposed("fv7pt", 512, "float32", (1.8, 2.2), rel_limit=1e-2),
            "fv4_f64": decomposed("fv4", 256, "float64", (3.8, float("inf")),
                                  overlap=True)}
+    phase("14 FE on the card: the reference's tables, Q2 f64 e_L2 rates to G[128^3], "
+          "the sampler in f32 to G[128^3] and in f64 at G[64^3] and G[128^3], one "
+          "profiled F-cycle; no kernel of K1-K8")
+    fe = fe_on_card()
 
     big = times[512]
     # K6 at the largest level it smooths on the path
@@ -2234,6 +2482,7 @@ def main() -> int:
         **{f"decomposed_2x2_{tag}_u_vs_one_rank": r["serial_u_rel_diff"]
            for tag, r in dec.items()}}}))
     print(json.dumps({"fcycle_launches": per_cycle}))
+    print(json.dumps({"fe": fe}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
-"""Carry a hierarchy built elsewhere (numpy copies of the JAX package's
-level fields) into the port's ``Hierarchy``.
+"""Carry levels built elsewhere (numpy copies of the JAX package's level
+fields) into the port: FV levels into a ``Hierarchy``
+(``hierarchy_from_numpy``), FE levels into ``FELevel``s
+(``fe_levels_from_numpy``).
 
 Each level is a mapping with ``dim``, ``h``, ``depth`` and numpy arrays for
 the fields it has: ``beta_i/j/k`` as the JAX ``rebuild_operator`` leaves
@@ -47,3 +49,24 @@ def hierarchy_from_numpy(levels: Sequence[Mapping[str, Any]],
                                 for p in (0, 1))
         out.append(Level(dim=n, h=float(lv["h"]), depth=int(lv["depth"]), **kw))
     return Hierarchy(levels=out)
+
+
+def fe_levels_from_numpy(levels: Sequence[Mapping[str, Any]], grid,
+                         device, dtype) -> list:
+    """The port's ``FELevel``s of ``grid``'s ladder (fine to coarse) from
+    numpy copies of the JAX package's FELevel fields: one mapping a level
+    with ``coords``, ``dinv``, ``metric_a`` and ``metric_w``."""
+    from hpgmg_tpu_torch.fe.fas import FELevel
+
+    grids = [grid]
+    while grids[-1].can_coarsen():
+        grids.append(grids[-1].coarsen())
+    if len(levels) != len(grids):
+        raise ValueError(f"{len(levels)} levels for a ladder of {len(grids)}")
+
+    def tensor(a):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return [FELevel(grid=g, **{f: tensor(lv[f]) for f in
+                               ("coords", "dinv", "metric_a", "metric_w")})
+            for g, lv in zip(grids, levels)]
