@@ -148,7 +148,25 @@ Phases, each printing its result and raising on failure (exit code != 0):
    in float32 (G[4^3] to G[128^3]); (d) -local 262144,2097152
    -maxsamples 2 in float64 (G[64^3], G[128^3]); (e) one profiled Q2
    G[128^3] float32 F-cycle: device ms by scope, host reads, idle share.
-   Its results are the "fe" JSON line.
+   Its results are the "fe" JSON line;
+15. the bench tooling (bench/timing.py, utils/profiler.py, utils/memory.py,
+   the timed cycle of solve/mg.py) on the headline: (a) bench/cli.py at
+   512^3 f32, DIRECT bottom, with --timing-table and --solve-timing-table:
+   both tables with the 7 level columns 512 ... 8, every cell the JAX
+   layout fills > 0, the timed F-cycle's total >= the chain's seconds a
+   solve (the ratio printed), measure_breakdown's 512^3 smooth within 25%
+   of (K1 launches in one smooth call) x (K1's gsrb time from phase 3),
+   and the launches of the timed F-cycle by level; (b) the memory report
+   after the 512^3 build: bytes_in_use between the hierarchy's tensors
+   and bytes_limit; (c) utils.profiler.trace around one untimed F-cycle:
+   an mg.L{lev} range on every level, an mg.L{lev}.tail range for each
+   K4c launch, >= 90% of the F-cycle's kernel time inside the ranges, the
+   ten largest ranges by device ms; (d) bench/weak.py --ranks 1 4
+   --per-rank 128 over gloo with --trace: both JAX-format lines and, from
+   rank 0's trace of the 4-rank chain, the shares of its wall time in
+   communication, in kernels and in neither (and of neither, the host's
+   wait in CUDA copies and syncs) (the K8a path launched). Its
+   results are the "tooling" JSON line.
 
 The line before the last lists the kernels as JSON: for each, its launches
 on its path, its time, its plain version's time, its bound on the card
@@ -159,11 +177,15 @@ same function, that call's time. The last line is
 It needs one card and imports nothing of JAX.
 """
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
+import re
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2162,6 +2184,340 @@ def fe_on_card():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the bench tooling on the card: the CLI's two timing tables, the
+# memory report, a traced F-cycle and the weak sweep with a traced rank
+# ---------------------------------------------------------------------------
+
+def echoed(fn):
+    """(fn(), its standard output), the output printed as well."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    print(buf.getvalue(), end="", flush=True)
+    return out, buf.getvalue()
+
+
+def parse_tables(text: str) -> list:
+    """The per-level tables of bench/timing.py in ``text``: for each, its
+    level dims and its rows (name -> seconds a level, None where blank)."""
+    lines = text.splitlines()
+    tables = []
+    for i, line in enumerate(lines):
+        if not line.startswith("level "):
+            continue
+        nlev = len(line[16:]) // 12
+        rows = {}
+        for row in lines[i + 2:]:
+            rows[row[:16].strip()] = [
+                float(c) if c else None
+                for c in (row[16 + 12 * j:28 + 12 * j].strip() for j in range(nlev))]
+            if row.startswith("total"):
+                break
+        tables.append({"dims": [int(d[:-2]) for d in lines[i + 1].split()[1:]],
+                       "rows": rows})
+    return tables
+
+
+def sync(dev: torch.device):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def check_table(tag: str, table: dict, dims, filled) -> None:
+    """Raise unless ``table`` has the level columns ``dims`` and every cell
+    ``filled(row, level, last level)`` says the JAX layout fills is > 0
+    (and every other cell blank)."""
+    if table["dims"] != dims:
+        raise AssertionError(f"{tag}: level columns {table['dims']}, not {dims}")
+    last = len(dims) - 1
+    for name, cells in table["rows"].items():
+        if name == "total":
+            continue
+        for lev, v in enumerate(cells):
+            want = filled(name, lev, last)
+            if (v is not None) != want or (want and not v > 0.0):
+                raise AssertionError(f"{tag}: cell ({name}, level {lev}) is {v}")
+
+
+def timed_launches(op, hier, f, cfg) -> dict:
+    """One timed F-cycle (solve/mg.py's timers mode) with the launches of
+    each phase tallied by level (a wrapper around mg._phase reading
+    kernels/counts.py before and after each phase); launches outside any
+    phase (the final residual) under "outside"."""
+    from hpgmg_tpu_torch.kernels import counts
+    from hpgmg_tpu_torch.solve import mg
+
+    shipped = mg._phase
+    by_level = {}
+
+    def tally(timers, lev, name, fn, x):
+        before = counts.read()[0]
+        out = shipped(timers, lev, name, fn, x)
+        for k, v in counts.read()[0].items():
+            if v > before[k]:
+                key = f"L{lev} {hier.levels[lev].dim}^3"
+                by_level.setdefault(key, {})[k] = by_level.get(key, {}).get(k, 0) + v - before[k]
+        return out
+
+    reset_counts()
+    mg._phase = tally
+    try:
+        mg.fmg_solve(op, hier, f, cfg, timers={})
+        sync(f.device)
+    finally:
+        mg._phase = shipped
+    total, plain = read_counts()
+    if any(plain.values()):
+        raise AssertionError(f"the timed F-cycle ran a plain version: {plain}")
+    outside = {k: v - sum(lv.get(k, 0) for lv in by_level.values())
+               for k, v in total.items() if v}
+    by_level["outside"] = {k: v for k, v in outside.items() if v}
+    return by_level
+
+
+def tooling_tables(gsrb_ms: float, dev: torch.device, n: int) -> dict:
+    """Phase 15a: the CLI with both tables on the headline (fv4, n^3 (512),
+    f32, DIRECT bottom, min_coarse_dim 8): a level column for each of n ...
+    8, every cell the JAX layout fills > 0; the timed solve's total >= the
+    chain's seconds a solve; measure_breakdown's n^3 smooth within 25% of
+    (K1 launches in one smooth call) x (K1's gsrb time ``gsrb_ms`` from
+    phase 3); then the timed F-cycle's launches by level."""
+    from hpgmg_tpu_torch.bench import cli
+    from hpgmg_tpu_torch.bench.driver import build
+    from hpgmg_tpu_torch.ops.base import get_suite
+    from hpgmg_tpu_torch.solve.smoothers import smooth
+
+    rc, text = echoed(lambda: cli.main([
+        "--n", str(n), "--op", "fv4", "--bottom", "direct", "--min-coarse-dim", "8",
+        "--dtype", "float32", "--dynamic-range", "1", "--min-seconds", "0.5",
+        "--device", dev.type, "--timing-table", "--solve-timing-table"]))
+    if rc != 0:
+        raise AssertionError(f"the CLI exited {rc}")
+    chain_s = float(re.search(r"([0-9.]+) s/solve", text).group(1))
+    breakdown, solve_table = parse_tables(text)
+    dims = [n >> i for i in range(n.bit_length() - 3)]  # n ... 8
+    check_table("measure_breakdown", breakdown, dims, lambda name, lev, last: (
+        name in ("smooth", "residual", "blas1")
+        or (name in ("transfer_v", "transfer_f") and lev < last)
+        or (name == "bottom" and lev == last)))
+    check_table("fmg_timing_table", solve_table, dims, lambda name, lev, last: (
+        name == "bottom") == (lev == last))
+    solve_s = sum(solve_table["rows"]["total"])
+    print(f"  timed solve {solve_s:.6f} s against the chain's {chain_s:.6f} s a solve: "
+          f"ratio {solve_s / chain_s:.4f}")
+    if not solve_s >= chain_s:
+        raise AssertionError(f"timed solve {solve_s} s < the chain's {chain_s} s")
+
+    cfg = solve_cfg("direct", torch.float32)
+    op = get_suite("fv4")
+    hier, f = build(n, cfg, dev)
+    lv = hier.levels[0]
+    x, r = torch.zeros_like(f), torch.ones_like(f)
+    smooth(op, lv, x, r, cfg)
+    sync(dev)
+    reset_counts()
+    smooth(op, lv, x, r, cfg)
+    sync(dev)
+    launches = read_counts()[0]
+    k1 = launches["fv4_stencil"]
+    if not k1 > 0:
+        raise AssertionError(f"one {n}^3 smooth call launched no K1: {launches}")
+    expect_ms = k1 * gsrb_ms
+    got_ms = breakdown["rows"]["smooth"][0] * 1e3
+    print(f"  measure_breakdown's {n}^3 smooth {got_ms:.3f} ms against {k1} K1 gsrb "
+          f"launches x {gsrb_ms:.4f} ms = {expect_ms:.3f} ms (ratio "
+          f"{got_ms / expect_ms:.4f}); one smooth call launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    if not abs(got_ms - expect_ms) <= 0.25 * expect_ms:
+        raise AssertionError(f"{n}^3 smooth {got_ms} ms against {expect_ms} ms")
+    by_level = timed_launches(op, hier, f, cfg)
+    print(f"  launches of the timed F-cycle by level: {by_level}")
+    return {"chain_s_per_solve": chain_s, "timed_solve_s": solve_s,
+            "breakdown": breakdown, "solve_table": solve_table,
+            "smooth_512_ms": got_ms, "smooth_512_expect_ms": expect_ms,
+            "timed_launches_by_level": by_level, "hier": hier, "f": f}
+
+
+def hierarchy_bytes(hier) -> int:
+    """Bytes of the distinct tensors the hierarchy's levels hold."""
+    seen = {}
+    for lv in hier.levels:
+        for fld in dataclasses.fields(lv):
+            v = getattr(lv, fld.name)
+            for t in (v if isinstance(v, tuple) else (v,)):
+                if isinstance(t, torch.Tensor):
+                    seen[t.data_ptr()] = t.numel() * t.element_size()
+    return sum(seen.values())
+
+
+def tooling_memory(hier, f) -> dict:
+    """Phase 15b: utils/memory.py after the 512^3 build: bytes_in_use at
+    least the hierarchy's and the rhs's tensors, at most bytes_limit."""
+    from hpgmg_tpu_torch.utils.memory import device_memory_stats, format_memory_report
+
+    sync(f.device)
+    held = hierarchy_bytes(hier) + f.numel() * f.element_size()
+    print(format_memory_report())
+    stats = device_memory_stats()["cuda:0"]
+    used, limit = stats["bytes_in_use"], stats["bytes_limit"]
+    print(f"  bytes_in_use {used} against the hierarchy's and rhs's {held} bytes; "
+          f"bytes_limit {limit}")
+    if not held <= used <= limit:
+        raise AssertionError(f"bytes_in_use {used} outside [{held}, {limit}]")
+    return {"bytes_in_use": used, "bytes_limit": limit, "hierarchy_bytes": held}
+
+
+def tooling_trace(hier, f) -> dict:
+    """Phase 15c: utils.profiler.trace around one untimed headline F-cycle:
+    an mg.L{lev}.* range on every level, mg.L{lev}.tail on each level whose
+    V-cycle takes the tail (one K4c launch a range), and >= 90% of the
+    F-cycle's kernel time inside the ranges; the ten largest ranges."""
+    from hpgmg_tpu_torch.kernels.tail import use_tail
+    from hpgmg_tpu_torch.ops.base import get_suite
+    from hpgmg_tpu_torch.solve.mg import fmg_solve
+    from hpgmg_tpu_torch.utils.profiler import kernel_ms_by_range, read_trace, trace
+
+    cfg = solve_cfg("direct", torch.float32)
+    op = get_suite("fv4")
+    fmg_solve(op, hier, f, cfg)
+    sync(f.device)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts()
+        with trace(tmp) as log_dir:
+            fmg_solve(op, hier, f, cfg)
+        launches = read_counts()[0]
+        events = read_trace(log_dir)
+    by_range, total, inside = kernel_ms_by_range(events)
+    levels = {int(name.split(".")[1][1:]) for name in by_range}
+    tails = {lev for lev in range(len(hier.levels)) if use_tail(op, cfg, hier.levels, lev)}
+    tail_calls = sum(by_range[f"mg.L{lev}.tail"][1] for lev in tails
+                     if f"mg.L{lev}.tail" in by_range)
+    top = sorted(by_range.items(), key=lambda kv: -kv[1][0])[:10]
+    if not total > 0.0:
+        raise AssertionError("the trace of the F-cycle holds no kernel")
+    print(f"  kernels {total:.3f} device ms in the F-cycle, {inside:.3f} inside the "
+          f"mg.L ranges ({inside / total:.4f}); tail ranges on levels {sorted(tails)}: "
+          f"{tail_calls} calls, K4c launches {launches['tail_v']}")
+    for name, (ms, calls) in top:
+        print(f"    {name:28s} {ms:9.4f} device ms in {calls} calls")
+    if levels != set(range(len(hier.levels))):
+        raise AssertionError(f"mg.L ranges on levels {sorted(levels)}")
+    if not tails or any(by_range.get(f"mg.L{lev}.tail", (0.0, 0))[0] <= 0.0
+                        for lev in tails):
+        raise AssertionError(f"no tail range with kernel time on levels {sorted(tails)}")
+    if tail_calls != launches["tail_v"]:
+        raise AssertionError(f"{tail_calls} tail ranges against {launches['tail_v']} K4c")
+    if not inside >= 0.9 * total:
+        raise AssertionError(f"{inside} of {total} device ms inside the ranges")
+    interp = interpolation_host(events, by_range)
+    return {"kernel_ms": total, "inside_ms": inside, "interpolation_host": interp,
+            "top_ranges": {name: {"device_ms": ms, "calls": c} for name, (ms, c) in top}}
+
+
+GEMM_OPS = ("aten::mm", "aten::bmm", "aten::matmul")
+
+
+def interpolation_host(events: list, by_range: dict) -> dict:
+    """Phase 15c: where the host time of each level's interpolation ranges
+    (``mg.L{lev}.interpolation`` and ``.interpolation_f``) goes: the
+    matrix build (the range's start to its first GEMM op, ``interp_matrix``
+    and the tap ops it runs), the GEMMs (``sep_apply``) and the rest (the
+    final axpy), with the outermost host ops of the build counted. Host
+    times are of the traced run, profiler overhead included."""
+    ops = sorted((e for e in events if e.get("cat") == "cpu_op"),
+                 key=lambda e: float(e["ts"]))
+    out = {}
+    for r in events:
+        name = r.get("name", "")
+        if r.get("cat") != "user_annotation" or not (
+                name.startswith("mg.L") and name.endswith((".interpolation",
+                                                           ".interpolation_f"))):
+            continue
+        lo, hi = float(r["ts"]), float(r["ts"]) + float(r["dur"])
+        outer, end = [], lo
+        for o in ops:  # the outermost ops inside the range, in order
+            a, b = float(o["ts"]), float(o["ts"]) + float(o["dur"])
+            if (o.get("pid"), o.get("tid")) != (r.get("pid"), r.get("tid")):
+                continue
+            if a >= lo and b <= hi and a >= end:
+                outer.append(o)
+                end = b
+        first = next((float(o["ts"]) for o in outer if o["name"] in GEMM_OPS), hi)
+        gemm = sum(float(o["dur"]) for o in outer if o["name"] in GEMM_OPS)
+        acc = out.setdefault(name, {"calls": 0, "host_ms": 0.0, "build_ms": 0.0,
+                                    "gemm_ms": 0.0, "build_ops": 0})
+        acc["calls"] += 1
+        acc["host_ms"] += (hi - lo) / 1e3
+        acc["build_ms"] += (first - lo) / 1e3
+        acc["gemm_ms"] += gemm / 1e3
+        acc["build_ops"] += sum(float(o["ts"]) < first for o in outer)
+    print("  interpolation ranges, host ms a call (traced): total, matrix build "
+          "(its outermost ops), GEMMs, rest; device ms a call")
+    for name in sorted(out, key=lambda s: (int(s.split(".")[1][1:]), s)):
+        acc = out[name]
+        c = acc["calls"]
+        h, b, g = acc["host_ms"] / c, acc["build_ms"] / c, acc["gemm_ms"] / c
+        acc["device_ms"] = by_range.get(name, (0.0, 0))[0]
+        print(f"    {name:24s} {c:2d} calls: host {h:.4f}, build {b:.4f} ({b / h:.3f}, "
+              f"{acc['build_ops'] / c:.1f} ops), GEMMs {g:.4f}, rest {h - b - g:.4f}; "
+              f"device {acc['device_ms'] / c:.4f}")
+    if not out:
+        raise AssertionError("no interpolation range in the trace")
+    return out
+
+
+def tooling_weak(dev: torch.device, per_rank: int) -> dict:
+    """Phase 15d: bench/weak.py's sweep over 1 and 4 ranks (gloo, sharing
+    this card) with --trace: both JAX lines, and from rank 0's trace of
+    the 4-rank chain the shares of its wall time in the process group's
+    communication, in kernels and in neither."""
+    from hpgmg_tpu_torch.bench import weak
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rc, text = echoed(lambda: weak.main([
+            "--ranks", "1", "4", "--per-rank", str(per_rank), "--backend", "gloo",
+            "--device", dev.type, "--reps", "3", "--trace", tmp, "--timeout", "600"]))
+    if rc != 0:
+        raise AssertionError(f"bench.weak exited {rc}")
+    lines = text.splitlines()
+    jax_lines = [line for line in lines if line.startswith("devices=")]
+    records = [json.loads(line) for line in lines if line.startswith("{")]
+    if len(jax_lines) != 2 or [r["ranks"] for r in records] != [1, 4]:
+        raise AssertionError(f"the sweep printed {lines}")
+    tr = records[1]["trace"]
+    print(f"  rank 0 of 4, its traced chain of {tr['solves']} solves: wall "
+          f"{tr['wall_ms']:.3f} ms; communication {tr['comm_share']:.4f}, kernels "
+          f"{tr['kernel_share']:.4f} (both at once {tr['overlap_share']:.4f}), neither "
+          f"{tr['neither_share']:.4f}, of it in CUDA copies and syncs "
+          f"{tr['host_wait_share']:.4f}")
+    if not (tr["kernel_share"] > 0.0 and records[1]["launches"].get("fv4_slab", 0) > 0):
+        raise AssertionError(f"the 4-rank run: kernel share {tr['kernel_share']}, "
+                             f"launches {records[1]['launches']}")
+    return {"jax_lines": jax_lines,
+            "seconds_per_solve": [r["seconds_per_solve"] for r in records],
+            "rank0_trace": tr}
+
+
+def tooling(gsrb_ms: float, dev=torch.device("cuda"), n=512, per_rank=128) -> dict:
+    """Phase 15: (a)-(d) above at the headline's n = 512 and 128^3 cells a
+    rank (smaller ``n`` and ``per_rank``, and ``dev`` the CPU, rehearse it
+    without a card)."""
+    t0 = time.perf_counter()
+    a = tooling_tables(gsrb_ms, dev, n)
+    hier, f = a.pop("hier"), a.pop("f")
+    print(f"  (a) {time.perf_counter() - t0:.3f} s", flush=True)
+    b = tooling_memory(hier, f)
+    c = tooling_trace(hier, f)
+    del hier, f
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    print(f"  (b, c) {time.perf_counter() - t0:.3f} s", flush=True)
+    d = tooling_weak(dev, per_rank)
+    print(f"  (d) {time.perf_counter() - t0:.3f} s", flush=True)
+    return {"tables": a, "memory": b, "trace": c, "weak": d}
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -2294,6 +2650,9 @@ def main() -> int:
           "the sampler in f32 to G[128^3] and in f64 at G[64^3] and G[128^3], one "
           "profiled F-cycle; no kernel of K1-K8")
     fe = fe_on_card()
+    phase("15 the bench tooling: the CLI's two timing tables at 512^3 f32, the memory "
+          "report, a traced F-cycle, the weak sweep over 1 and 4 ranks with a trace")
+    tools = tooling(times[512]["gsrb"]["ms"])
 
     big = times[512]
     # K6 at the largest level it smooths on the path
@@ -2483,6 +2842,7 @@ def main() -> int:
            for tag, r in dec.items()}}}))
     print(json.dumps({"fcycle_launches": per_cycle}))
     print(json.dumps({"fe": fe}))
+    print(json.dumps({"tooling": tools}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

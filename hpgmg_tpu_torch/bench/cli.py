@@ -7,6 +7,7 @@ cycle and driver of the solver, on one device.
         [--cycle F] [--bc dirichlet] [--dtype float32] [--problem fv]
         [--dynamic-range 3] [--min-seconds 1.0] [--test-error]
         [--driver fmg2|fmg2dd|mgpcg] [--min-coarse-dim 8] [--device cuda]
+        [--timing-table] [--solve-timing-table]
 
 The protocol follows main()/bench_hpgmg (hpgmg-fv.c:103-386) through
 ``bench/driver.py``: build, warm up, a timed chain of F-cycle solves (or,
@@ -21,10 +22,14 @@ the convergence history, the seconds of the converged solve and its DOF/s.
 The reference-style positionals size the grid as
 box_dim * cbrt(target_boxes), one device. ``--min-coarse-dim`` is the
 port's (default 8, as ``python -m hpgmg_tpu_torch.bench``): the fv4
-kernels take levels of 4^3 and up. The JAX CLI's ``--timing-table``,
-``--solve-timing-table`` and ``bfloat16`` are not offered (ROADMAP
-Queue 1 item 10). On the default device ``cuda`` the CLI exits with 1 when
-no CUDA device is present; ``--device cpu`` runs the plain versions.
+kernels take levels of 4^3 and up. After the DOF/s lines,
+``--timing-table`` prints the per-level x per-operation table of
+standalone phase times (``bench/timing.py:measure_breakdown``) and
+``--solve-timing-table`` the reference's MGPrintTiming table of one timed
+F-cycle (``bench/timing.py:fmg_timing_table``), both on the CLI's device.
+The JAX CLI's ``bfloat16`` is not offered. On the default device ``cuda``
+the CLI exits with 1 when no CUDA device is present; ``--device cpu`` runs
+the plain versions.
 """
 
 from __future__ import annotations
@@ -37,6 +42,8 @@ import torch
 
 from hpgmg_tpu_torch.bench.driver import (PROBLEMS, elapsed, build, device_name,
                                           run_benchmark, run_test_error)
+from hpgmg_tpu_torch.bench.timing import (fmg_timing_table, format_breakdown,
+                                          measure_breakdown)
 from hpgmg_tpu_torch.core.config import (OPS, BC, BottomSolver, CycleType, Smoother,
                                          SolverConfig)
 from hpgmg_tpu_torch.ops.base import get_suite
@@ -74,6 +81,11 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--min-seconds", type=float, default=1.0)
     p.add_argument("--min-coarse-dim", type=int, default=8)
     p.add_argument("--device", default="cuda")
+    p.add_argument("--timing-table", action="store_true",
+                   help="print the per-level x per-op breakdown (standalone costs)")
+    p.add_argument("--solve-timing-table", action="store_true",
+                   help="print MGPrintTiming-style per-level times accumulated "
+                        "inside one actual solve")
     return p
 
 
@@ -156,6 +168,12 @@ def run(args):
     print(f"  rel_residual == {res.rel_residual:.3e}")
     if res.richardson_order is not None:
         print(f"  Richardson order == {res.richardson_order:.3f}")
+    if args.timing_table or args.solve_timing_table:
+        hier, f = build(n, cfg, device, args.problem)
+        if args.timing_table:
+            print(format_breakdown(measure_breakdown(hier, cfg)))
+        if args.solve_timing_table:
+            print(fmg_timing_table(hier, cfg, f)[1])
     return res
 
 

@@ -3,10 +3,10 @@ hpgmg_tpu/bench/weak.py and of __graft_entry__.dryrun_multichip): a fixed
 per-rank block, one process per rank, the fine levels decomposed over the
 (sx, sy, 1) grid of ``make_mesh_ij``, the coarse ones replicated.
 
-    python -m hpgmg_tpu_torch.bench.weak --ranks 4 --per-rank 256 \\
+    python -m hpgmg_tpu_torch.bench.weak --ranks 1 4 --per-rank 256 \\
         [--backend nccl|gloo] [--op fv4] [--dtype float32] [--bc dirichlet] \\
         [--bottom direct|bicgstab] [--dynamic-range 3] [--check-serial] \\
-        [--overlap] [--device cuda|cpu]
+        [--overlap] [--device cuda|cpu] [--trace DIR]
 
 The global grid is per_rank * max(sx, sy) cells a side. The ranks start
 with ``torch.multiprocessing`` (spawn), or from ``torchrun``'s environment
@@ -21,7 +21,23 @@ F-cycle, then timed chains, and with ``--dynamic-range 3`` the 2h and 4h
 solves), then one more F-cycle with the launch counts reset before it and
 read after it. ``--check-serial`` then solves the same problem on one rank
 and compares u (max|u_ranks - u_one| / max|u_one|) and rel_residual.
-Prints one JSON line: the keys of ``python -m hpgmg_tpu_torch.bench`` plus
+``--ranks`` takes a list of rank counts and runs one job per count (the
+JAX ``main``'s ``--devices`` sweep, hpgmg_tpu/bench/weak.py:70-93). For each
+count it prints the JAX line
+
+    devices=N mesh=(sx, sy, 1) n=... ms/solve DOF/s weak-eff=t1/tN serial-eff=min(N*t1/tN, 1)
+
+(t1 the first count's seconds a solve; ranks sharing one card, or the
+CPU, run one after another, so serial-eff, not weak-eff, is what such a
+run says about the distribution layer), then its JSON line, the last line
+of its output. ``--trace DIR`` has each rank run, after the benchmark, one
+more chain of ``--reps`` solves inside ``utils.profiler.trace(DIR/rank{r})``
+(the chain in a ``weak.chain`` range); the JSON line then holds rank 0's
+``trace``: the chain's wall ms and the shares of it spent in the process
+group's communication, in kernels, and in neither, and of neither the
+host's wait in CUDA copies and syncs (``utils.profiler.wall_shares``).
+
+Each JSON line has the keys of ``python -m hpgmg_tpu_torch.bench`` plus
 ``ranks``, ``grid``, ``backend``, ``launches`` (of that F-cycle), rank 0's
 ``slab_launches_by_block`` (its K8a, K8b and K8c launches in that F-cycle
 by pass, mode and local block shape, and its K8d sweeps by block) and, with
@@ -84,6 +100,10 @@ def _rank_main(rank: int, world: int, init: str, opts: dict, out: str):
                             dynamic_range=opts["dynamic_range"], verbose=False,
                             mesh=mesh)
         hier, f = build(n, cfg, device, mesh=mesh)
+        traced = None
+        if opts.get("trace"):
+            traced = _traced_chain(op, hier, f, cfg, mesh, opts["max_solves"],
+                                   os.path.join(opts["trace"], f"rank{rank}"))
         counts.reset()
         stencils.slab_launches_by_block.clear()
         with active_mesh(mesh):
@@ -98,6 +118,8 @@ def _rank_main(rank: int, world: int, init: str, opts: dict, out: str):
                   "slab_launches_by_block": dict(stencils.slab_launches_by_block),
                   "counted_rel_residual": float(norm_r) / float(norm_f),
                   "device": device_name(device), "wall_seconds": wall}
+        if traced is not None:
+            result["trace"] = traced
         del hier, f, u
     finally:
         dist.destroy_process_group()
@@ -112,17 +134,37 @@ def _rank_main(rank: int, world: int, init: str, opts: dict, out: str):
     Path(out).write_text(json.dumps(result))
 
 
+def _traced_chain(op, hier, f, cfg, mesh, solves: int, log_dir: str) -> dict:
+    """``solves`` data-dependent F-cycles (bench/driver.py's chain) inside
+    ``utils.profiler.trace(log_dir)``, in a ``weak.chain`` range; returns
+    the trace's directory and the chain's wall shares."""
+    from hpgmg_tpu_torch.parallel.mesh import active_mesh
+    from hpgmg_tpu_torch.solve.mg import fmg_solve
+    from hpgmg_tpu_torch.utils.profiler import read_trace, scope, trace, wall_shares
+
+    with trace(log_dir), active_mesh(mesh), scope("weak.chain"):
+        dep = torch.zeros((), dtype=f.dtype, device=f.device)
+        for _ in range(solves):
+            _, nr, _ = fmg_solve(op, hier, f + dep, cfg)
+            dep = 0.0 * nr
+        if f.device.type == "cuda":
+            torch.cuda.synchronize(f.device)
+    return dict(dir=log_dir, solves=solves,
+                **wall_shares(read_trace(log_dir), "weak.chain"))
+
+
 def run_weak(per_rank: int, ranks: int, op: str = "fv4", dtype: str = "float32",
              reps: int = 1, backend: str = "nccl", bc: str = "dirichlet",
              bottom: str = "direct", dynamic_range: int = 3,
              check_serial: bool = False, overlap: bool = False,
              device: str = "cuda", min_seconds: float = 0.0,
-             timeout: float = 1800.0) -> dict:
+             timeout: float = 1800.0, trace=None) -> dict:
     """Spawn ``ranks`` processes, run the decomposed F-cycle benchmark with
     ``per_rank`` cells a side per rank (timed chain: at most ``reps``
     solves beyond the calibration, sized by ``min_seconds``), and return
-    rank 0's result. A rank that fails, or a job that outlives ``timeout``
-    seconds, raises."""
+    rank 0's result; with ``trace`` (a directory) each rank also runs a
+    traced chain of ``reps`` solves (``_traced_chain``). A rank that fails,
+    or a job that outlives ``timeout`` seconds, raises."""
     import torch.multiprocessing as mp
 
     if device == "cuda":
@@ -139,7 +181,7 @@ def run_weak(per_rank: int, ranks: int, op: str = "fv4", dtype: str = "float32",
     opts = dict(per_rank=per_rank, op=op, dtype=dtype, bc=bc, bottom=bottom,
                 backend=backend, dynamic_range=dynamic_range, min_seconds=min_seconds,
                 max_solves=max(1, reps), check_serial=check_serial, overlap=overlap,
-                device=device)
+                device=device, trace=trace)
     with tempfile.TemporaryDirectory() as tmp:
         out = os.path.join(tmp, "result.json")
         ctx = mp.start_processes(_rank_main,
@@ -186,17 +228,34 @@ def summary(r: dict, op: str, dtype: str, bottom: str, bc: str) -> dict:
            "ranks": r["ranks"], "grid": r["grid"], "backend": r["backend"],
            "launches": {k: v for k, v in r["launches"].items() if v},
            "wall_seconds": r["wall_seconds"]}
-    for key in ("serial_u_rel_diff", "serial_rel_residual"):
+    for key in ("serial_u_rel_diff", "serial_rel_residual", "trace"):
         if key in r:
             out[key] = r[key]
     return out
+
+
+def jax_line(r: dict, base_seconds: float) -> str:
+    """The JAX sweep's line for a result of ``run_weak``
+    (hpgmg_tpu/bench/weak.py:84-93): weak-eff is the wall-clock efficiency
+    against the first count's seconds a solve, serial-eff the efficiency
+    against the serialized ideal ranks * t1 (ranks that share one device
+    run one after another, so it isolates the distribution layer's cost:
+    halos, collectives, redistribution)."""
+    res = r["res"]
+    seconds, ranks = res["seconds_per_solve"], r["ranks"]
+    weak_eff = base_seconds / seconds
+    serial_eff = ranks * base_seconds / seconds
+    return (f"devices={ranks:3d} mesh={tuple(r['grid'])} n={r['n']:4d} "
+            f"{seconds * 1e3:8.2f} ms/solve {res['dof_per_second']:.3e} DOF/s "
+            f"weak-eff={weak_eff:5.2f} serial-eff={min(serial_eff, 1.0):5.2f}")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(prog="python -m hpgmg_tpu_torch.bench.weak")
     ap.add_argument("--per-rank", type=int, default=64,
                     help="cells a side of each rank's block at the finest level")
-    ap.add_argument("--ranks", type=int, default=4)
+    ap.add_argument("--ranks", type=int, nargs="+", default=[4],
+                    help="rank counts to sweep, one job each")
     ap.add_argument("--backend", choices=["nccl", "gloo"], default="nccl")
     ap.add_argument("--op", choices=["fv4", "fv7pt", "fv2", "27pt"], default="fv4")
     ap.add_argument("--dtype", choices=sorted(_DTYPES), default="float32")
@@ -211,29 +270,40 @@ def main(argv=None) -> int:
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     ap.add_argument("--timeout", type=float, default=1800.0,
                     help="seconds the spawned ranks may take before they are killed")
+    ap.add_argument("--trace", default=None, metavar="DIR",
+                    help="trace a chain of --reps solves on each rank into DIR/rank{r}")
     args = ap.parse_args(argv)
     if args.device == "cuda" and not torch.cuda.is_available():
         print("no CUDA device available (use --device cpu)", file=sys.stderr)
         return 1
-    print(f"backend {args.backend}: "
-          + ("one card per rank (NCCL)" if args.backend == "nccl" else
-             f"{args.ranks} processes sharing "
-             + ("one GPU, gloo, host-staged halos" if args.device == "cuda"
-                else "the CPU, gloo")), file=sys.stderr)
+
+    def report(r: dict, base_seconds: float):
+        print(jax_line(r, base_seconds))
+        print(json.dumps(summary(r, args.op, args.dtype, args.bottom, args.bc)), flush=True)
+
+    trace = None if args.trace is None else os.path.abspath(args.trace)
     if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
         opts = dict(per_rank=args.per_rank, op=args.op, dtype=args.dtype, bc=args.bc,
                     bottom=args.bottom, backend=args.backend,
                     dynamic_range=args.dynamic_range, min_seconds=0.0,
                     max_solves=args.reps, check_serial=args.check_serial,
-                    overlap=args.overlap, device=args.device)
+                    overlap=args.overlap, device=args.device, trace=trace)
         r = _torchrun_main(opts)
-        if r is None:
-            return 0
-    else:
-        r = run_weak(args.per_rank, args.ranks, args.op, args.dtype, args.reps,
-                     args.backend, args.bc, args.bottom, args.dynamic_range,
-                     args.check_serial, args.overlap, args.device, timeout=args.timeout)
-    print(json.dumps(summary(r, args.op, args.dtype, args.bottom, args.bc)))
+        if r is not None:
+            report(r, r["res"]["seconds_per_solve"])
+        return 0
+    base = None
+    for ranks in args.ranks:
+        print(f"backend {args.backend}: "
+              + ("one card per rank (NCCL)" if args.backend == "nccl" else
+                 f"{ranks} processes sharing "
+                 + ("one GPU, gloo, host-staged halos" if args.device == "cuda"
+                    else "the CPU, gloo")), file=sys.stderr)
+        r = run_weak(args.per_rank, ranks, args.op, args.dtype, args.reps, args.backend,
+                     args.bc, args.bottom, args.dynamic_range, args.check_serial,
+                     args.overlap, args.device, timeout=args.timeout, trace=trace)
+        base = base or r["res"]["seconds_per_solve"]
+        report(r, base)
     return 0
 
 

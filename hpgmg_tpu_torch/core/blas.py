@@ -15,6 +15,8 @@ from typing import Optional
 
 import torch
 
+from hpgmg_tpu_torch.utils.profiler import scope
+
 
 def _all_reduce(t: torch.Tensor, part, op) -> torch.Tensor:
     """``t`` (this rank's contribution) reduced over the ranks of ``part``;
@@ -25,7 +27,8 @@ def _all_reduce(t: torch.Tensor, part, op) -> torch.Tensor:
 
     host = part.mesh.backend == "gloo"
     buf = t.detach().reshape(1).cpu() if host else t.detach().reshape(1).clone()
-    dist.all_reduce(buf, op=op)
+    with scope("comm.all_reduce"):
+        dist.all_reduce(buf, op=op)
     return buf.to(t.device).reshape(())
 
 

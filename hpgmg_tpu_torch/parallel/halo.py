@@ -24,6 +24,7 @@ import torch.distributed as dist
 
 from hpgmg_tpu_torch.core.config import BC
 from hpgmg_tpu_torch.parallel.mesh import Part
+from hpgmg_tpu_torch.utils.profiler import scope
 
 # tags of the two directions (gloo matches by tag; NCCL by the order of
 # the operations between a pair of ranks, which the order below keeps)
@@ -43,8 +44,9 @@ def _p2p(part: Part, sends: List[Tuple[torch.Tensor, int, int]],
     ops += [dist.P2POp(dist.irecv, b, peer, tag=tag)
             for b, (_, peer, tag) in zip(bufs, recvs)]
     if ops:
-        for work in dist.batch_isend_irecv(ops):
-            work.wait()
+        with scope("comm.p2p"):
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
     return [b.to(t.device) if host else b for b, (t, _, _) in zip(bufs, recvs)]
 
 

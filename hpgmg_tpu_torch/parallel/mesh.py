@@ -30,6 +30,8 @@ from typing import Optional, Tuple, Union
 import torch
 import torch.distributed as dist
 
+from hpgmg_tpu_torch.utils.profiler import scope
+
 # Per-rank block floor below which an axis stops being split
 # (MG_AGGLOMERATION_START analog, mg.h:15-17).
 AGGLOMERATION_START = 8
@@ -229,7 +231,8 @@ def gather(x: torch.Tensor, part: Part) -> torch.Tensor:
     host = mesh.backend == "gloo"
     src = x.contiguous().cpu() if host else x.contiguous()
     bufs = [torch.empty_like(src) for _ in range(mesh.size)]
-    dist.all_gather(bufs, src)
+    with scope("comm.all_gather"):
+        dist.all_gather(bufs, src)
     out = torch.empty((part.dim, part.dim, x.shape[2]), dtype=x.dtype, device=src.device)
     for r, b in enumerate(bufs):
         p = dataclasses.replace(part, mesh=dataclasses.replace(mesh, rank=r))

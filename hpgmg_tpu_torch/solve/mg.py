@@ -8,6 +8,14 @@ chosen, syncs once per iteration); ``mg_solve``, ``fmg_solve2``,
 ``fmg_solve2_dd`` and ``mgpcg`` read one value on the host per cycle or
 iteration, for their early exit.
 
+``vcycle`` and ``fmg_solve`` also run in the timed mode of the
+reference's MGPrintTiming (mg.c:54-163): given a ``timers`` dict, each
+phase of the cycle (smooth, residual, restriction, interpolation,
+interpolation_f, bottom) runs between two device syncs and adds its
+wall-clock seconds to ``timers[(level, phase)]`` (``_phase``). Without
+``timers`` each phase runs under ``utils.profiler.scope("mg.L{lev}.
+{phase}")``, a named range inside a ``trace`` and nothing outside one.
+
 On a hierarchy cut for a process grid (parallel/mesh.py:shard_hierarchy)
 every rank runs the same cycle on its blocks: a decomposed level's fields
 are local, its reductions all-reduced (``level.part``); the restriction
@@ -19,6 +27,7 @@ down), and the interpolation reads the coarse block's halo
 
 from __future__ import annotations
 
+import time
 from typing import List, Tuple
 
 import torch
@@ -34,6 +43,7 @@ from hpgmg_tpu_torch.ops.transfer import get_interpolation, restrict_cell
 from hpgmg_tpu_torch.parallel.mesh import redistribute
 from hpgmg_tpu_torch.solve.bottom import bottom_solve
 from hpgmg_tpu_torch.solve.smoothers import smooth
+from hpgmg_tpu_torch.utils.profiler import scope
 
 
 def _must_subtract_mean(cfg: SolverConfig) -> bool:
@@ -46,25 +56,62 @@ def _half(part):
     return None if part is None else part.coarsen()
 
 
+def _sync(x: torch.Tensor):
+    if x.device.type == "cuda":
+        torch.cuda.synchronize(x.device)
+
+
+def _phase(timers, lev: int, name: str, fn, x: torch.Tensor):
+    """Run one cycle phase ``fn()``, whose input ``x`` says its device.
+    Untimed (``timers`` is None): under the named range
+    ``mg.L{lev}.{name}``. Timed (``timers`` a dict): between a sync of the
+    device before it and one after it, adding the wall-clock seconds to
+    ``timers[(lev, name)]``: the reference's per-level accumulators
+    (level.h:162-196), read in solve order."""
+    if timers is None:
+        with scope(f"mg.L{lev}.{name}"):
+            return fn()
+    _sync(x)
+    t0 = time.perf_counter()
+    out = fn()
+    _sync(x)
+    timers[(lev, name)] = timers.get((lev, name), 0.0) + time.perf_counter() - t0
+    return out
+
+
 def vcycle(op: OperatorSuite, levels: List[Level], lev: int, e, rhs,
-           cfg: SolverConfig):
+           cfg: SolverConfig, timers=None):
     """One V-cycle from level ``lev`` down to the bottom (MGVCycle,
     mg.c:1135): smooth, residual+restriction, recurse, interpolate (+=),
     smooth; the bottom level runs the bottom solver, and the tail levels
-    (dims <= 32 above the bottom) run through K4."""
+    (dims <= 32 above the bottom) run through K4. The timed mode
+    (``timers``, see ``_phase``) takes no tail and runs the residual and
+    the restriction as two phases."""
     level = levels[lev]
     if lev == len(levels) - 1:
-        return bottom_solve(op, level, e, rhs, cfg, _must_subtract_mean(cfg))
-    if use_tail(op, cfg, levels, lev):
-        return _tail_vcycle(op, levels, lev, e, rhs, cfg)
-    e = smooth(op, level, e, rhs, cfg)
+        return _phase(timers, lev, "bottom",
+                      lambda: bottom_solve(op, level, e, rhs, cfg,
+                                           _must_subtract_mean(cfg)), rhs)
+    if timers is None and use_tail(op, cfg, levels, lev):
+        with scope(f"mg.L{lev}.tail"):
+            return _tail_vcycle(op, levels, lev, e, rhs, cfg)
+    e = _phase(timers, lev, "smooth", lambda: smooth(op, level, e, rhs, cfg), e)
     coarse = levels[lev + 1]
-    rhs_c = redistribute(op.restrict_residual(level, e, rhs, cfg),
-                         _half(level.part), coarse.part)
-    e_c = vcycle(op, levels, lev + 1, torch.zeros_like(rhs_c), rhs_c, cfg)
+    if timers is None:
+        with scope(f"mg.L{lev}.res+restrict"):
+            rhs_c = redistribute(op.restrict_residual(level, e, rhs, cfg),
+                                 _half(level.part), coarse.part)
+    else:
+        t = _phase(timers, lev, "residual", lambda: op.residual(level, e, rhs, cfg), e)
+        rhs_c = _phase(timers, lev, "restriction",
+                       lambda: redistribute(restrict_cell(t), _half(level.part),
+                                            coarse.part), t)
+    e_c = vcycle(op, levels, lev + 1, torch.zeros_like(rhs_c), rhs_c, cfg, timers)
     interp = get_interpolation(op.interpolation_vcycle)
-    e = interp(e_c, 1.0, e, cfg.bc, coarse=coarse.part, fine=level.part)
-    return smooth(op, level, e, rhs, cfg)
+    e = _phase(timers, lev, "interpolation",
+               lambda: interp(e_c, 1.0, e, cfg.bc, coarse=coarse.part, fine=level.part),
+               e_c)
+    return _phase(timers, lev, "smooth", lambda: smooth(op, level, e, rhs, cfg), e)
 
 
 def _tail_vcycle(op: OperatorSuite, levels: List[Level], lev: int, e, rhs,
@@ -131,34 +178,40 @@ def mg_solve_fixed(op: OperatorSuite, hier: Hierarchy, f, cfg: SolverConfig,
 
 
 def fmg_solve(op: OperatorSuite, hier: Hierarchy, f, cfg: SolverConfig,
-              u0=None):
+              u0=None, timers=None):
     """FMGSolve (mg.c:1237-1344): one F-cycle. Restrict F to every level,
     solve the coarsest, then per level a high-order interpolation and a
     V-cycle up to the finest. Returns (u, norm_r, norm_f), the norms as
-    0-d tensors; u is mean-free where the operator is singular."""
+    0-d tensors; u is mean-free where the operator is singular.
+    ``timers``: the timed mode's per-level accumulator dict (``_phase``)."""
     levels = hier.levels
     norm_f = blas.norm(f, levels[0].part)
 
     rhs = [f]  # restrict the rhs down the whole ladder (mg.c:1274-1278)
     for lev in range(len(levels) - 1):
-        rhs.append(redistribute(restrict_cell(rhs[-1]), _half(levels[lev].part),
-                                levels[lev + 1].part))
+        t = rhs[-1]
+        rhs.append(_phase(timers, lev, "restriction",
+                          lambda: redistribute(restrict_cell(t), _half(levels[lev].part),
+                                               levels[lev + 1].part), t))
 
     bot = len(levels) - 1  # coarsest-grid solve (mg.c:1283-1287)
     if bot == 0 and u0 is not None:
         u = u0
     else:
         u = torch.zeros_like(rhs[bot])
-    u = bottom_solve(op, levels[bot], u, rhs[bot], cfg, _must_subtract_mean(cfg))
+    u = _phase(timers, bot, "bottom",
+               lambda: bottom_solve(op, levels[bot], u, rhs[bot], cfg,
+                                    _must_subtract_mean(cfg)), rhs[bot])
 
     interp_f = get_interpolation(op.interpolation_fcycle)
     for lev in range(bot - 1, -1, -1):
         # prescale 0: overwrite (mg.c:1295)
-        u = interp_f(u, 0.0, None, cfg.bc, coarse=levels[lev + 1].part,
-                     fine=levels[lev].part)
-        u = vcycle(op, levels, lev, u, rhs[lev], cfg)
+        u = _phase(timers, lev, "interpolation_f",
+                   lambda: interp_f(u, 0.0, None, cfg.bc, coarse=levels[lev + 1].part,
+                                    fine=levels[lev].part), u)
+        u = vcycle(op, levels, lev, u, rhs[lev], cfg, timers)
     for _ in range(cfg.post_f_vcycles):  # trailing V-cycles, a fixed count
-        u = vcycle(op, levels, 0, u, f, cfg)
+        u = vcycle(op, levels, 0, u, f, cfg, timers)
     u, norm_r = _cycle_norm(op, levels[0], u, f, cfg)
     return u, norm_r, norm_f
 
