@@ -166,7 +166,24 @@ Phases, each printing its result and raising on failure (exit code != 0):
    rank 0's trace of the 4-rank chain, the shares of its wall time in
    communication, in kernels and in neither (and of neither, the host's
    wait in CUDA copies and syncs) (the K8a path launched). Its
-   results are the "tooling" JSON line.
+   results are the "tooling" JSON line;
+16. the 3D process grid: (a) K8a-K8d with k slabs (the KSLAB kernels) on
+   blocks split along k, (64,64,64) to (128,128,256), float32 (1e-5) and
+   float64 (1e-12), against their plain versions: K8a every mode, Poisson
+   and Helmholtz, both BCs, K8b's two passes equal to it bit for bit; K8c
+   every mode, var7 and 27pt bodies, both BCs; K8d both bodies with the
+   block's k sides on a domain face below, above or neither; and against
+   the k-whole kernels: k slabs holding the periodic wrap (K8a bit for
+   bit, K8c to rounding), K8d with both k sides on domain faces (bit for
+   bit); (b) their times at
+   (128,128,256) and (128,128,128) float32 against plain and bound, in
+   turns with the k-whole block of the same extent; (c) the decomposed
+   F-cycle through bench/weak.py on the (2,2,2) grid of make_mesh, 8
+   processes sharing this GPU over gloo: fv4 and fv7pt at 256^3 float32
+   (128^3 a rank), and fv4 at 256^3 float64 with OVERLAP on (K8b), held
+   to phase 13's limits, every decomposed level split along k: the slab
+   kernels launched with k slabs only, no single-rank stencil, fused
+   sweep, tail kernel or plain version; the phase's wall time printed.
 
 The line before the last lists the kernels as JSON: for each, its launches
 on its path, its time, its plain version's time, its bound on the card
@@ -2518,6 +2535,326 @@ def tooling(gsrb_ms: float, dev=torch.device("cuda"), n=512, per_rank=128) -> di
     return {"tables": a, "memory": b, "trace": c, "weak": d}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the 3D process grid: K8a-K8d with k slabs, the (2,2,2) F-cycles
+# ---------------------------------------------------------------------------
+
+# the blocks of the k-split checks: the (2,2,2) grid's at 128^3 and 256^3,
+# and a block split along k of the 2x2 grid's extents
+KSLAB_BLOCKS = ((64, 64, 64), (64, 64, 128), (128, 128, 128), (128, 128, 256))
+KSLAB_TOL = {torch.float32: F32_TOL, torch.float64: F64_TOL}
+
+
+def kslab_operands(block, dtype, dev, rng, kind: str, kring: bool = True):
+    """A block split along k (``kring``; else whole along k) as the main
+    path hands it to the slab kernels: the level (kind "fv4": the
+    tangentially-extended faces with their margins; "r1": the natural
+    faces; "k8d": K8d's ring views, with the k ring where ``kring``), its
+    kdinv pair and alpha, x, rhs (K8d: the rhs ring) and the random slabs
+    of the kind's depth (six where ``kring``, else four)."""
+    from hpgmg_tpu_torch.core.level import Level, rb_mask
+
+    ni, nj, nk = block
+    n = 2 * max(block) + 2
+
+    def t(*shape, lo=None):
+        a = rng.standard_normal(shape) if lo is None else lo + 0.25 * rng.random(shape)
+        return torch.tensor(a, dtype=dtype, device=dev)
+
+    scale = 1.0 / (8.0 * n * n)
+    dinv = scale * t(ni, nj, nk, lo=2.0)
+    mask = rb_mask(n, 0, dtype, dev)[:ni, :nj, :nk]
+    d = 1 if kind == "r1" else 2
+    slabs = (t(d, nj, nk), t(d, nj, nk), t(ni + 2 * d, d, nk), t(ni + 2 * d, d, nk))
+    if kring:
+        slabs += (t(ni + 2 * d, nj + 2 * d, d), t(ni + 2 * d, nj + 2 * d, d))
+    if kind == "k8d":
+        kr = nk + 2 if kring else nk
+        # a ring cell (I, J, K) is cell (I-1, J-1, K-1) of the block (K
+        # without a k ring); block offsets are even
+        red = rb_mask(n, 1 if kring else 0, dtype, dev)[:ni + 2, :nj + 2, :kr]
+        faces = (t(ni + 3, nj + 2, kr, lo=1.0), t(ni + 2, nj + 3, kr, lo=1.0),
+                 t(ni + 2, nj + 2, kr + 1, lo=1.0))
+        lv = Level(dim=n, h=1.0 / n, depth=0, beta_i=faces[0], beta_j=faces[1],
+                   beta_k=faces[2], kdinv=(None, (1 - mask) * dinv),
+                   ring=(red * scale * t(ni + 2, nj + 2, kr, lo=2.0), None, *faces))
+        return lv, t(ni, nj, nk), t(ni + 2, nj + 2, kr), slabs
+    m = 2 if kind == "fv4" else 0
+    faces = ((ni + 1, nj + m, nk + m), (ni + m, nj + 1, nk + m), (ni + m, nj + m, nk + 1))
+    lv = Level(dim=n, h=1.0 / n, depth=0, beta_i=t(*faces[0], lo=1.0),
+               beta_j=t(*faces[1], lo=1.0), beta_k=t(*faces[2], lo=1.0),
+               alpha=t(ni, nj, nk, lo=0.5), dinv=dinv, kdinv=(mask * dinv, (1 - mask) * dinv))
+    return lv, t(ni, nj, nk), t(ni, nj, nk), slabs
+
+
+def domain_k_slabs(x, slabs, edges, taps: str):
+    """K8d's k slabs with those on a domain k face (``edges[4:]``) holding
+    the 2-tap Dirichlet ghost twice, as the exchange builds them (K8d makes
+    its k ghosts there and reads no k slab; its plain version reads them)."""
+    from hpgmg_tpu_torch.kernels import stencils as S
+    from hpgmg_tpu_torch.kernels import stencils_r1 as K
+
+    xe = S.extend_slabs(x, slabs[:4])
+    ghost = K.taps_ghost2(taps)
+    return slabs[:4] + (ghost(xe[:, :, :2], 2, True).contiguous() if edges[4] else slabs[4],
+                        ghost(xe[:, :, -2:], 2, False).contiguous() if edges[5] else slabs[5])
+
+
+def check_kslab(worst: dict, blocks=KSLAB_BLOCKS):
+    """Phase 16a: K8a-K8d with k slabs on blocks split along k against
+    their plain versions, float32 (1e-5) and float64 (1e-12): K8a every
+    mode, Poisson and Helmholtz, both BCs, K8b's two passes equal to it bit
+    for bit where its split takes the block; K8c every mode, the var7 and
+    27pt bodies, both BCs; K8d both bodies with the block's k sides on a
+    domain face below, above or neither. Against the k-whole path: K8a
+    given k slabs that hold the periodic wrap equals the kernel that wraps k
+    itself bit for bit (K8c to rounding: its k-slab instantiation rounds
+    the var7 sum apart); K8d with both k sides on domain faces equals K8d
+    on the block whole along k bit for bit."""
+    from hpgmg_tpu_torch.core.config import BC, SolverConfig
+    from hpgmg_tpu_torch.kernels import stencils as S
+    from hpgmg_tpu_torch.kernels import stencils_r1 as K
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 16)
+    for block in blocks:
+        for dtype in (torch.float32, torch.float64):
+            tol, tag = KSLAB_TOL[dtype], f"{block} {str(dtype)[6:]}"
+            lv, x, rhs, slabs = kslab_operands(block, dtype, dev, rng, "fv4")
+            split = S.overlap_grid_shape(*block) is not None
+            for bc in (BC.DIRICHLET, BC.PERIODIC):
+                for cfg in (SolverConfig(a=0.0, b=1.0, dtype=dtype, bc=bc),
+                            SolverConfig(a=1.5, b=1.0, helmholtz=True, dtype=dtype, bc=bc)):
+                    for mode, kw, par in (("apply", {}, None), ("residual", {"rhs": rhs}, None),
+                                          ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[0]}, 0),
+                                          ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[1]}, 1)):
+                        out = S.fv4_slab_cuda(lv, x, slabs, cfg, mode, parity=par, **kw)
+                        ref = S.fv4_slab_plain(lv, x, slabs, cfg, mode, **kw)
+                        rel, _ = relerr(out, ref)
+                        if not rel <= tol:
+                            raise AssertionError(f"K8a k-split {tag} {bc.value} {mode} "
+                                                 f"{par}: {rel}")
+                        worst["fv4_slab_kslab"] = max(worst.get("fv4_slab_kslab", 0.0), rel)
+                        if split:
+                            inner = S.fv4_overlap_interior_cuda(lv, x, cfg, mode, parity=par,
+                                                                ksplit=True, **kw)
+                            if not torch.equal(S.fv4_overlap_edge_cuda(
+                                    lv, x, slabs, cfg, mode, inner, parity=par, **kw), out):
+                                raise AssertionError(f"K8b k-split {tag} {mode}: not K8a")
+            xe = S.extend_slabs(x, slabs[:4])
+            wrap = slabs[:4] + (xe[:, :, -2:].contiguous(), xe[:, :, :2].contiguous())
+            cfg = SolverConfig(a=0.0, b=1.0, dtype=dtype, bc=BC.PERIODIC)
+            kw = {"rhs": rhs, "kdinv": lv.kdinv[0]}
+            if not torch.equal(S.fv4_slab_cuda(lv, x, wrap, cfg, "gsrb", parity=0, **kw),
+                               S.fv4_slab_cuda(lv, x, slabs[:4], cfg, "gsrb", parity=0, **kw)):
+                raise AssertionError(f"K8a k-split {tag}: the wrap in k slabs differs")
+            del lv, x, rhs, slabs, xe, wrap
+
+            lr, x, rhs, slabs = kslab_operands(block, dtype, dev, rng, "r1")
+            for bc in (BC.DIRICHLET, BC.PERIODIC):
+                for taps, var7 in (("p1", True), ("27pt", False)):
+                    cfg = SolverConfig(op="fv7pt" if var7 else "27pt", a=0.0, b=1.0,
+                                       dtype=dtype, bc=bc)
+                    for mode, kw in (("apply", {}), ("residual", {"rhs": rhs}),
+                                     ("fres", {"rhs": rhs}),
+                                     ("gsrb", {"rhs": rhs, "kdinv": lr.kdinv[1]})):
+                        par = {"parity": 1} if mode == "gsrb" else {}
+                        out = K.r1_slab_cuda(lr, x, slabs, cfg, mode, taps, var7, **kw, **par)
+                        ref = K.r1_slab_plain(lr, x, slabs, cfg, mode, taps, var7, **kw)
+                        rel, _ = relerr(out, ref)
+                        if not rel <= tol:
+                            raise AssertionError(f"K8c k-split {tag} {bc.value} {taps} "
+                                                 f"{mode}: {rel}")
+                        worst["r1_slab_kslab"] = max(worst.get("r1_slab_kslab", 0.0), rel)
+            xe = S.extend_slabs(x, slabs[:4])
+            wrap = slabs[:4] + (xe[:, :, -1:].contiguous(), xe[:, :, :1].contiguous())
+            cfg = SolverConfig(op="fv7pt", a=0.0, b=1.0, dtype=dtype, bc=BC.PERIODIC)
+            kw = {"rhs": rhs, "kdinv": lr.kdinv[1], "parity": 1}
+            # to rounding: the k-slab instantiation rounds the var7 sum in
+            # another order (an ulp, at interior cells too)
+            a = K.r1_slab_cuda(lr, x, wrap, cfg, "gsrb", "p1", True, **kw)
+            b = K.r1_slab_cuda(lr, x, slabs[:4], cfg, "gsrb", "p1", True, **kw)
+            rel, _ = relerr(a, b)
+            if not rel <= tol:
+                raise AssertionError(f"K8c k-split {tag}: the wrap in k slabs: {rel}")
+            worst["r1_slab_kslab_wrap"] = max(worst.get("r1_slab_kslab_wrap", 0.0), rel)
+            del lr, x, rhs, slabs, xe, wrap
+
+            l2, x, rhs2, slabs = kslab_operands(block, dtype, dev, rng, "k8d")
+            for taps, var7 in (("p1", True), ("27pt", False)):
+                cfg = SolverConfig(op="fv7pt" if var7 else "27pt", a=0.0, b=1.0, dtype=dtype)
+                for edges in ((True, False, True, False, True, False),
+                              (False, True, False, True, False, True), (False,) * 6):
+                    s6 = domain_k_slabs(x, slabs, edges, taps)
+                    out = K.r1_gsrb2_slab_cuda(l2, x, s6, edges, rhs2, cfg, taps, var7)
+                    ref = K.r1_gsrb2_slab_plain(l2, x, s6, edges, rhs2, cfg, taps, var7)
+                    rel, _ = relerr(out, ref)
+                    if not rel <= tol:
+                        raise AssertionError(f"K8d k-split {tag} {taps} {edges}: {rel}")
+                    worst["r1_gsrb2_slab_kslab"] = max(worst.get("r1_gsrb2_slab_kslab", 0.0),
+                                                       rel)
+                edges = (True, False, False, True)
+                whole = dataclasses.replace(l2, ring=tuple(
+                    None if r is None else r[:, :, 1:-1].contiguous() for r in l2.ring[:4])
+                    + (l2.ring[4][:, :, 1:-1].contiguous(),))
+                if not torch.equal(
+                        K.r1_gsrb2_slab_cuda(l2, x, slabs, edges + (True, True), rhs2, cfg,
+                                             taps, var7),
+                        K.r1_gsrb2_slab_cuda(whole, x, slabs[:4], edges,
+                                             rhs2[:, :, 1:-1].contiguous(), cfg, taps, var7)):
+                    raise AssertionError(f"K8d k-split {tag} {taps}: with both k sides on "
+                                         "domain faces it differs from the k-whole sweep")
+            del l2, x, rhs2, slabs
+            torch.cuda.empty_cache()
+        print(f"  K8a/K8b/K8c/K8d with k slabs on {block}: f32 and f64, both BCs, every "
+              f"mode and body: within tolerance; equal to the k-whole kernels")
+
+
+def time_kslab(blocks=((128, 128, 256), (128, 128, 128))):
+    """Phase 16b: the slab kernels' times (float32, Dirichlet) on blocks
+    split along k: K8a gsrb, K8b's two passes, K8c var7 gsrb, K8d var7
+    sweep, each with k slabs against its plain version and bound (the six
+    slabs read once), then in turns with the same kernel on the block of
+    the same extent whole along k (events: whole, k-split, k-split,
+    whole)."""
+    from hpgmg_tpu_torch.core.config import SolverConfig
+    from hpgmg_tpu_torch.kernels import stencils as S
+    from hpgmg_tpu_torch.kernels import stencils_r1 as K
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 17)
+    cfg = SolverConfig(a=0.0, b=1.0, dtype=torch.float32)
+    out = {}
+    for block in blocks:
+        ni, nj, nk = block
+        cells = ni * nj * nk
+        label = f"({ni},{nj},{nk})"
+        row = {}
+        lv, x, rhs, slabs = kslab_operands(block, torch.float32, dev, rng, "fv4")
+        kw = {"rhs": rhs, "kdinv": lv.kdinv[0]}
+        runs = {"fv4_slab": (
+            lambda: S.fv4_slab_cuda(lv, x, slabs, cfg, "gsrb", parity=0, **kw),
+            lambda: S.fv4_slab_plain(lv, x, slabs, cfg, "gsrb", **kw),
+            lambda: S.fv4_slab_cuda(lv, x, slabs[:4], cfg, "gsrb", parity=0, **kw),
+            (nbytes(x, *slabs, lv.beta_i, lv.beta_j, lv.beta_k, rhs, lv.kdinv[0], x),
+             mode_flops(FV4_AX, "gsrb", cells, 2)))}
+        if S.overlap_grid_shape(*block) is not None:
+            i0, i1, j0, j1, k0, k1 = S._interior_box(x, True)
+            inner = (i1 - i0) * (j1 - j0) * (k1 - k0)
+            whole = nbytes(x, lv.beta_i, lv.beta_j, lv.beta_k, rhs, lv.kdinv[0], x)
+            out_k = S.fv4_overlap_interior_cuda(lv, x, cfg, "gsrb", parity=0, ksplit=True, **kw)
+            out_p = S.fv4_overlap_interior_plain(lv, x, cfg, "gsrb", ksplit=True, **kw)
+            runs["fv4_overlap_interior"] = (
+                lambda: S.fv4_overlap_interior_cuda(lv, x, cfg, "gsrb", parity=0, ksplit=True,
+                                                    **kw)[i0:i1, j0:j1, k0:k1],
+                lambda: S.fv4_overlap_interior_plain(lv, x, cfg, "gsrb", ksplit=True,
+                                                     **kw)[i0:i1, j0:j1, k0:k1],
+                lambda: S.fv4_overlap_interior_cuda(lv, x, cfg, "gsrb", parity=0, **kw),
+                (whole * inner / cells, mode_flops(FV4_AX, "gsrb", inner, 2)))
+            runs["fv4_overlap_edge"] = (
+                lambda: S.fv4_overlap_edge_cuda(lv, x, slabs, cfg, "gsrb", out_k, parity=0,
+                                                **kw),
+                lambda: S.fv4_overlap_edge_plain(lv, x, slabs, cfg, "gsrb", out_p.clone(),
+                                                 **kw),
+                lambda: S.fv4_overlap_edge_cuda(lv, x, slabs[:4], cfg, "gsrb", out_k,
+                                                parity=0, **kw),
+                (whole * (cells - inner) / cells + nbytes(*slabs),
+                 mode_flops(FV4_AX, "gsrb", cells - inner, 2)))
+        lr, xr, rr, rs = kslab_operands(block, torch.float32, dev, rng, "r1")
+        rkw = {"rhs": rr, "kdinv": lr.kdinv[0]}
+        runs["r1_slab"] = (
+            lambda: K.r1_slab_cuda(lr, xr, rs, cfg, "gsrb", "p1", True, parity=0, **rkw),
+            lambda: K.r1_slab_plain(lr, xr, rs, cfg, "gsrb", "p1", True, **rkw),
+            lambda: K.r1_slab_cuda(lr, xr, rs[:4], cfg, "gsrb", "p1", True, parity=0, **rkw),
+            (nbytes(xr, *rs, lr.beta_i, lr.beta_j, lr.beta_k, rr, lr.kdinv[0], xr),
+             mode_flops(VAR7_AX, "gsrb", cells, 0)))
+        l2, x2, r2, s2 = kslab_operands(block, torch.float32, dev, rng, "k8d")
+        w2, wx, wr, ws = kslab_operands(block, torch.float32, dev, rng, "k8d", kring=False)
+        e6 = (True, False, True, False, False, True)
+        s2 = domain_k_slabs(x2, s2, e6, "p1")
+        runs["r1_gsrb2_slab"] = (
+            lambda: K.r1_gsrb2_slab_cuda(l2, x2, s2, e6, r2, cfg, "p1", True),
+            lambda: K.r1_gsrb2_slab_plain(l2, x2, s2, e6, r2, cfg, "p1", True),
+            lambda: K.r1_gsrb2_slab_cuda(w2, wx, ws, e6[:4], wr, cfg, "p1", True),
+            (nbytes(x2, *s2, r2, *(t for t in l2.ring if t is not None), l2.kdinv[1], x2),
+             2 * mode_flops(VAR7_AX, "gsrb", cells, 0)))
+        for name, (kernel, plain, k_whole, work) in runs.items():
+            time_pair(f"{name} k-split {label} f32", kernel, plain, 10, row, name, work=work)
+            t = [time_ms(f, 10) for f in (k_whole, kernel, kernel, k_whole)]
+            row[name]["in_turns_ms"] = {"k_split": t[1:3], "k_whole": [t[0], t[3]]}
+            print(f"  {name} {label} in turns: k-split {t[1]:.4f} / {t[2]:.4f} ms, "
+                  f"k-whole {t[0]:.4f} / {t[3]:.4f} ms")
+        out[label] = row
+        del lv, x, rhs, slabs, lr, xr, rr, rs, l2, x2, r2, s2, w2, wx, wr, ws, runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def decomposed_3d(op: str, n: int, dtype: str, order_range, rel_limit: float = 1e-3,
+                  overlap: bool = False):
+    """Phase 16c: the decomposed F-cycle through bench/weak.py:run_weak on
+    the (2,2,2) grid of make_mesh: 8 processes sharing this GPU over gloo,
+    as phase 13's 2x2 runs; held to the same limits, and every decomposed
+    level split along k: the slab kernels launched with k slabs (and K8b's
+    passes under ``overlap``), no launch without them, no single-rank
+    stencil, fused sweep, tail kernel or plain version."""
+    from hpgmg_tpu_torch.bench.weak import run_weak
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r = run_weak(n // 2, 8, op, dtype, reps=1, backend="gloo", check_serial=True,
+                 overlap=overlap, timeout=600.0)
+    wall = time.perf_counter() - t0
+    res, launches, plain = r["res"], r["launches"], r["plain_calls"]
+    tag = f"{op} {n}^3 {dtype}" + (" OVERLAP" if overlap else "")
+    print(f"  {tag} on the (2,2,2) grid (8 processes sharing one GPU, gloo, host-staged "
+          f"halos): {res['seconds_per_solve']:.6f} s per solve, rel_residual "
+          f"{res['rel_residual']:.6e} (one rank: {r['serial_rel_residual']:.6e}), order "
+          f"{res['richardson_order']:.6f}, u vs one rank {r['serial_u_rel_diff']:.3e}; "
+          f"phase wall {wall:.3f} s")
+    print(f"  launches in the counted F-cycle: { {k: v for k, v in launches.items() if v} }")
+    print(f"  K8a/K8b/K8c/K8d launches by local block (rank 0): "
+          f"{r['slab_launches_by_block']}")
+    if r["grid"] != [2, 2, 2]:
+        raise AssertionError(f"{tag}: grid {r['grid']}")
+    if not res["rel_residual"] <= rel_limit:
+        raise AssertionError(f"{tag}: rel_residual {res['rel_residual']} > {rel_limit}")
+    if not order_range[0] <= res["richardson_order"] <= order_range[1]:
+        raise AssertionError(f"{tag}: order {res['richardson_order']} outside {order_range}")
+    if not r["serial_u_rel_diff"] <= DECOMPOSED_U_TOL[dtype]:
+        raise AssertionError(f"{tag}: u differs from the one-rank u by "
+                             f"{r['serial_u_rel_diff']}")
+    slab = ("fv4_slab",) if op == "fv4" else ("r1_slab", "r1_gsrb2_slab")
+    slab += ("fv4_overlap_interior", "fv4_overlap_edge") if overlap else ()
+    missing = [k for k in slab + tuple(f"{k}_kslab" for k in slab) + ("restrict_cell",)
+               if not launches[k] > 0]
+    whole = [k for k in slab if launches[k] != launches[f"{k}_kslab"]]
+    stray = [k for k in SINGLE_RANK if launches[k]]
+    if missing or whole or stray or any(plain.values()):
+        raise AssertionError(f"{tag}: kernels not launched {missing}, launched without k "
+                             f"slabs {whole}, launched off the path {stray}, plain calls "
+                             f"{ {k: v for k, v in plain.items() if v} }")
+    r["wall_seconds_phase"] = wall
+    return r
+
+
+def grid3d_on_card(worst: dict) -> dict:
+    """Phase 16: check_kslab, time_kslab, and the (2,2,2) F-cycles of fv4
+    and fv7pt at 256^3 float32 (128^3 a rank), and of fv4 at 256^3 float64
+    with OVERLAP on (K8b's passes with k slabs on the 128^3 blocks, the
+    only ones with 3 column tiles along k); its wall time printed."""
+    t0 = time.perf_counter()
+    check_kslab(worst)
+    times = time_kslab()
+    dec = {"fv4": decomposed_3d("fv4", 256, "float32", (3.0, float("inf"))),
+           "fv7pt": decomposed_3d("fv7pt", 256, "float32", (1.8, 2.2), rel_limit=1e-2),
+           "fv4_f64": decomposed_3d("fv4", 256, "float64", (3.8, float("inf")),
+                                    overlap=True)}
+    wall = time.perf_counter() - t0
+    print(f"  phase 16 wall {wall:.3f} s")
+    return {"times": times, "decomposed": dec, "wall_seconds": wall}
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -2653,6 +2990,10 @@ def main() -> int:
     phase("15 the bench tooling: the CLI's two timing tables at 512^3 f32, the memory "
           "report, a traced F-cycle, the weak sweep over 1 and 4 ranks with a trace")
     tools = tooling(times[512]["gsrb"]["ms"])
+    phase("16 the 3D process grid: K8a-K8d with k slabs vs plain, their times in turns "
+          "with the k-whole blocks, the (2,2,2) F-cycles at 256^3 (8 processes sharing "
+          "one GPU, gloo)")
+    g3 = grid3d_on_card(worst)
 
     big = times[512]
     # K6 at the largest level it smooths on the path
@@ -2753,8 +3094,11 @@ def main() -> int:
         if k["name"].startswith("fv4_slab") or k["name"].startswith("fv4_overlap"):
             pass_ = {"fv4_slab": 0, "fv4_overlap_interior": 1,
                      "fv4_overlap_edge": 2}[k["name"]]
-            k["ptxas"] = {m: regs.get(f"fv4_slab_kernel<float, {i}, {pass_}>")
+            k["ptxas"] = {m: regs.get(f"fv4_slab_kernel<float, {i}, {pass_}, 0>")
                           for i, m in enumerate(("apply", "residual", "gsrb"))}
+            k["ptxas_kslab"] = {m: {dt: regs.get(f"fv4_slab_kernel<{dt}, {i}, {pass_}, 1>")
+                                    for dt in ("float", "double")}
+                                for i, m in enumerate(("apply", "residual", "gsrb"))}
     # the var7 body of K5 and K7b: its other modes at 512^3 and its gsrb at
     # every size of phase 3b, its launches by level (phase 7b's counted
     # fv7pt F-cycles), its registers and spills by mode (f32); K8c's
@@ -2776,8 +3120,14 @@ def main() -> int:
                 "fv7pt" if name == "r1_stencil_var7" else "fv7pt periodic"][
                 "r1_stencil_by_level"]
         if name in ("r1_stencil_var7", "r1_stencil_periodic_var7", "r1_slab"):
-            k["ptxas"] = {m: regs.get(f"r1_v7_kernel<float, {i}, 1, {int(name == 'r1_slab')}>")
+            k["ptxas"] = {m: regs.get(f"r1_v7_kernel<float, {i}, 1, "
+                                      f"{int(name == 'r1_slab')}, 0>")
                           for i, m in enumerate(("apply", "residual", "gsrb", "fres"))}
+        if name == "r1_slab":
+            k["ptxas_kslab"] = {m: {f"{dt} {body}": regs.get(f"r1_v7_kernel<{dt}, {i}, {v}, 1, 1>")
+                                    for dt in ("float", "double")
+                                    for body, v in (("var7", 1), ("27pt", 0))}
+                                for i, m in enumerate(("apply", "residual", "gsrb", "fres"))}
         if name == "r1_slab":
             k["launches_by_block"] = {b: v for b, v in
                                       dec["fv7pt"]["slab_launches_by_block"].items()
@@ -2794,8 +3144,30 @@ def main() -> int:
                                       if b.startswith("K8d")}
         if k["name"] in ("r1_gsrb2", "r1_gsrb2_slab"):
             slab = int(k["name"] == "r1_gsrb2_slab")
-            k["ptxas"] = {body: regs.get(f"r1_gsrb2_kernel<float, {v}, {slab}>")
+            k["ptxas"] = {body: regs.get(f"r1_gsrb2_kernel<float, {v}, {slab}, 0>")
                           for body, v in (("var7", 1), ("27pt", 0))}
+            if slab:
+                k["ptxas_kslab"] = {f"{dt} {body}": regs.get(f"r1_gsrb2_kernel<{dt}, {v}, 1, 1>")
+                                    for dt in ("float", "double")
+                                    for body, v in (("var7", 1), ("27pt", 0))}
+    # phase 16: the k-split launches of the (2,2,2) F-cycles (K8b's in the
+    # run with OVERLAP on), by block, and the k-split times at the (2,2,2)
+    # grid's blocks in turns with the k-whole blocks of the same extent
+    dec3 = g3["decomposed"]
+    for k in kernels:
+        if k["name"] in ("fv4_slab", "fv4_overlap_interior", "fv4_overlap_edge", "r1_slab",
+                         "r1_gsrb2_slab"):
+            run = dec3["fv4" if k["name"] == "fv4_slab" else
+                       "fv4_f64" if k["name"].startswith("fv4") else "fv7pt"]
+            k["kslab_launches"] = run["launches"][f"{k['name']}_kslab"]
+            prefix = {"fv4_slab": "K8a ", "fv4_overlap_interior": "K8b interior ",
+                      "fv4_overlap_edge": "K8b edge ", "r1_slab": "K8c ",
+                      "r1_gsrb2_slab": "K8d "}[k["name"]]
+            k["kslab_launches_by_block"] = {b: v for b, v in
+                                            run["slab_launches_by_block"].items()
+                                            if b.startswith(prefix) and b.endswith("k-split")}
+            k["kslab"] = {blk: row[k["name"]] for blk, row in g3["times"].items()
+                          if k["name"] in row}
     print(f"  worst relative errors over the checks: {worst}")
     print(json.dumps({"headline": {
         "dof_per_s": res.dof_per_second, "rel_residual": res.rel_residual,
@@ -2839,7 +3211,12 @@ def main() -> int:
         **{f"decomposed_2x2_{tag}_{key}": r["res"][key] for tag, r in dec.items()
            for key in ("seconds_per_solve", "rel_residual", "richardson_order")},
         **{f"decomposed_2x2_{tag}_u_vs_one_rank": r["serial_u_rel_diff"]
-           for tag, r in dec.items()}}}))
+           for tag, r in dec.items()},
+        **{f"decomposed_2x2x2_{tag}_{key}": r["res"][key] for tag, r in dec3.items()
+           for key in ("seconds_per_solve", "rel_residual", "richardson_order")},
+        **{f"decomposed_2x2x2_{tag}_u_vs_one_rank": r["serial_u_rel_diff"]
+           for tag, r in dec3.items()},
+        "phase16_wall_seconds": g3["wall_seconds"]}}))
     print(json.dumps({"fcycle_launches": per_cycle}))
     print(json.dumps({"fe": fe}))
     print(json.dumps({"tooling": tools}))

@@ -8,7 +8,7 @@ PyTorch; every stencil application and cell restriction of the fv4
 F-cycle runs through the CUDA kernels under ``kernels/csrc`` when its
 tensors lie on a CUDA device, and through their plain PyTorch versions
 when they lie on the CPU. ``parallel/`` runs the same F-cycle decomposed
-over an i/j grid of ranks (``torch.distributed``, one process per rank).
+over a 3D grid of ranks (``torch.distributed``, one process per rank).
 """
 
 __version__ = "0.1.0"

@@ -1,14 +1,15 @@
 """The decomposed F-cycle over a grid of ranks (counterpart of
 hpgmg_tpu/bench/weak.py and of __graft_entry__.dryrun_multichip): a fixed
 per-rank block, one process per rank, the fine levels decomposed over the
-(sx, sy, 1) grid of ``make_mesh_ij``, the coarse ones replicated.
+(sx, sy, sz) grid of ``make_mesh`` (hpgmg_tpu/bench/weak.py:37: on 4 ranks
+(2, 2, 1), on 8 (2, 2, 2)), the coarse ones replicated.
 
     python -m hpgmg_tpu_torch.bench.weak --ranks 1 4 --per-rank 256 \\
         [--backend nccl|gloo] [--op fv4] [--dtype float32] [--bc dirichlet] \\
         [--bottom direct|bicgstab] [--dynamic-range 3] [--check-serial] \\
         [--overlap] [--device cuda|cpu] [--trace DIR]
 
-The global grid is per_rank * max(sx, sy) cells a side. The ranks start
+The global grid is per_rank * max(sx, sy, sz) cells a side. The ranks start
 with ``torch.multiprocessing`` (spawn), or from ``torchrun``'s environment
 when it set one. ``--backend nccl`` (the default) puts each rank on its own
 card and refuses more ranks than cards; ``--backend gloo`` lets the ranks
@@ -25,7 +26,7 @@ and compares u (max|u_ranks - u_one| / max|u_one|) and rel_residual.
 JAX ``main``'s ``--devices`` sweep, hpgmg_tpu/bench/weak.py:70-93). For each
 count it prints the JAX line
 
-    devices=N mesh=(sx, sy, 1) n=... ms/solve DOF/s weak-eff=t1/tN serial-eff=min(N*t1/tN, 1)
+    devices=N mesh=(sx, sy, sz) n=... ms/solve DOF/s weak-eff=t1/tN serial-eff=min(N*t1/tN, 1)
 
 (t1 the first count's seconds a solve; ranks sharing one card, or the
 CPU, run one after another, so serial-eff, not weak-eff, is what such a
@@ -40,7 +41,8 @@ host's wait in CUDA copies and syncs (``utils.profiler.wall_shares``).
 Each JSON line has the keys of ``python -m hpgmg_tpu_torch.bench`` plus
 ``ranks``, ``grid``, ``backend``, ``launches`` (of that F-cycle), rank 0's
 ``slab_launches_by_block`` (its K8a, K8b and K8c launches in that F-cycle
-by pass, mode and local block shape, and its K8d sweeps by block) and, with
+by pass, mode and local block shape, and its K8d sweeps by block, keyed
+apart on blocks split along k) and, with
 ``--check-serial``,
 ``serial_u_rel_diff`` and ``serial_rel_residual``.
 """
@@ -77,7 +79,7 @@ def _rank_main(rank: int, world: int, init: str, opts: dict, out: str):
     from hpgmg_tpu_torch.kernels import counts, stencils
     from hpgmg_tpu_torch.ops.base import get_suite
     from hpgmg_tpu_torch.parallel import shard_kernels
-    from hpgmg_tpu_torch.parallel.mesh import active_mesh, gather, make_mesh_ij
+    from hpgmg_tpu_torch.parallel.mesh import active_mesh, gather, make_mesh
     from hpgmg_tpu_torch.solve.mg import fmg_solve
 
     backend = opts["backend"]
@@ -90,8 +92,8 @@ def _rank_main(rank: int, world: int, init: str, opts: dict, out: str):
     dist.init_process_group(backend, init_method=init, rank=rank, world_size=world)
     try:
         shard_kernels.OVERLAP = opts["overlap"]
-        mesh = make_mesh_ij(device)
-        n = opts["per_rank"] * max(mesh.shape[:2])
+        mesh = make_mesh(device)
+        n = opts["per_rank"] * max(mesh.shape)
         cfg = _config(opts["op"], opts["dtype"], opts["bc"], opts["bottom"])
         op = get_suite(cfg.op)
         t0 = time.perf_counter()

@@ -19,20 +19,24 @@ from hpgmg_tpu_torch.utils.profiler import scope
 
 
 def _all_reduce(t: torch.Tensor, part, op) -> torch.Tensor:
-    """``t`` (this rank's contribution) reduced over the ranks of ``part``;
-    ``t`` itself without one."""
+    """``t`` (this rank's contribution, of any shape) reduced over the
+    ranks of ``part``; ``t`` itself without one."""
     if part is None:
         return t
     import torch.distributed as dist
 
     host = part.mesh.backend == "gloo"
-    buf = t.detach().reshape(1).cpu() if host else t.detach().reshape(1).clone()
+    flat = t.detach().reshape(-1)
+    buf = flat.cpu().clone() if host else flat.clone()
     with scope("comm.all_reduce"):
         dist.all_reduce(buf, op=op)
-    return buf.to(t.device).reshape(())
+    return buf.to(t.device).reshape(t.shape)
 
 
-def _sum(t: torch.Tensor, part) -> torch.Tensor:
+def sum_over(t: torch.Tensor, part) -> torch.Tensor:
+    """The sum over the ranks of ``part`` of each rank's partial sums ``t``
+    (any shape), each block counted once (by its owner); ``t`` itself
+    without a part."""
     import torch.distributed as dist
 
     if part is not None and not part.owner:
@@ -43,7 +47,7 @@ def _sum(t: torch.Tensor, part) -> torch.Tensor:
 def dot(u: torch.Tensor, v: torch.Tensor,
         reduce_dtype: Optional[torch.dtype] = None, part=None) -> torch.Tensor:
     acc = reduce_dtype or u.dtype
-    return _sum(torch.sum((u * v).to(acc)), part).to(u.dtype)
+    return sum_over(torch.sum((u * v).to(acc)), part).to(u.dtype)
 
 
 def norm(u: torch.Tensor, part=None) -> torch.Tensor:
@@ -56,5 +60,5 @@ def norm(u: torch.Tensor, part=None) -> torch.Tensor:
 def mean(u: torch.Tensor, reduce_dtype: Optional[torch.dtype] = None,
          part=None) -> torch.Tensor:
     acc = reduce_dtype or u.dtype
-    count = u.numel() if part is None else part.dim ** 2 * u.shape[2]
-    return (_sum(torch.sum(u.to(acc)), part) / count).to(u.dtype)
+    count = u.numel() if part is None else part.dim ** 3
+    return (sum_over(torch.sum(u.to(acc)), part) / count).to(u.dtype)

@@ -4,9 +4,9 @@ Each level is one dense array per field. Ghost zones are never stored:
 the stencil synthesizes its boundary ghosts from the interior (in-kernel
 on CUDA, by a separable extension in the plain version).
 
-On a level decomposed over an i/j process grid (``part`` set, see
+On a level decomposed over a process grid (``part`` set, see
 parallel/mesh.py) every field is this rank's cut: the cell fields
-(ni, nj, n), the face arrays with their margins cut from the global ones
+(ni, nj, nk), the face arrays with their margins cut from the global ones
 (so interior margins hold the neighbours' true faces); ``dim`` stays the
 global extent.
 
@@ -78,7 +78,7 @@ class Level:
     def shape(self):
         """The shape of this rank's cell fields."""
         if self.part is not None:
-            return (self.part.ni, self.part.nj, self.dim)
+            return self.part.extents
         return (self.dim, self.dim, self.dim)
 
     @property

@@ -7,7 +7,8 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 # (name, module, wrapper, attribute) of every kernel's launch count; the
-# stencil wrappers count their periodic launches (K7a, K7b) apart
+# stencil wrappers count their periodic launches (K7a, K7b) apart, and the
+# slab kernels (K8a-K8d) their launches on blocks split along k (k slabs)
 KERNELS = (
     ("fv4_stencil", "stencils", "fv4_stencil_cuda", "launches"),
     ("fv4_subtile", "stencils", "fv4_subtile_cuda", "launches"),
@@ -28,6 +29,12 @@ KERNELS = (
     ("r1_gsrb2", "stencils_r1", "r1_gsrb2_cuda", "launches"),
     ("r1_slab", "stencils_r1", "r1_slab_cuda", "launches"),
     ("r1_gsrb2_slab", "stencils_r1", "r1_gsrb2_slab_cuda", "launches"),
+    ("fv4_slab_kslab", "stencils", "fv4_slab_cuda", "kslab_launches"),
+    ("fv4_overlap_interior_kslab", "stencils", "fv4_overlap_interior_cuda",
+     "kslab_launches"),
+    ("fv4_overlap_edge_kslab", "stencils", "fv4_overlap_edge_cuda", "kslab_launches"),
+    ("r1_slab_kslab", "stencils_r1", "r1_slab_cuda", "kslab_launches"),
+    ("r1_gsrb2_slab_kslab", "stencils_r1", "r1_gsrb2_slab_cuda", "kslab_launches"),
 )
 # (name, module, plain version) of every plain version's call count
 PLAINS = (

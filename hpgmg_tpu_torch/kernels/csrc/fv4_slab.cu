@@ -1,7 +1,8 @@
 // K8a and K8b: the fv4 stencil of K1 (operators.fv4.c:87-114) on one rank's
-// local block of a level decomposed over an i/j process grid, its 2-deep
-// i and j ghosts read from four thin halo slabs that the exchange
-// (parallel/shard_kernels.py) filled, in three modes:
+// local block of a level decomposed over a process grid, its 2-deep i and
+// j ghosts read from four thin halo slabs that the exchange
+// (parallel/shard_kernels.py) filled, and on a block split along k its k
+// ghosts from two more (KSLAB), in three modes:
 //
 //   apply     out = A x
 //   residual  out = rhs - A x
@@ -29,15 +30,20 @@
 //              i = -2 .. ni+1 (the i-extended strips, so the (i, j) edge
 //              ghosts arrive with them, in the i-then-j order of the
 //              separable fill)
+//   klo, khi   (ni+4, nj+4, 2), a block split along k only: the cells
+//              k = -2, -1 and k = nk, nk+1 at i = -2 .. ni+1, j = -2 ..
+//              nj+1 (cut from the i- and j-extended block, so the edge and
+//              corner ghosts arrive with them)
 //   bie (ni+1, nj+2, nk+2), bje (ni+2, nj+1, nk+2), bke (ni+2, nj+2, nk+1):
 //              the rank's cut of the tangentially-extended face arrays;
 //              their tangential margins hold the true neighbour faces
 //              (or the extrapolated ghosts at a domain face)
-// The k axis is never split: its ghosts are the quartic Dirichlet ones,
-// made from the four cells nearest the face of the same (i, j) row (slab
-// rows included), or the periodic wrap. i and j never wrap here: on the
-// grid the periodic wrap and the Dirichlet fill of a domain face arrive in
-// the slabs.
+// A block whole along k makes its k ghosts: the quartic Dirichlet ones,
+// from the four cells nearest the face of the same (i, j) row (slab rows
+// included), or the periodic wrap. A block split along k (KSLAB) copies
+// them from klo and khi, which hold the neighbour's cells, the wrap or the
+// Dirichlet fill. i and j never wrap here: on the grid the periodic wrap
+// and the Dirichlet fill of a domain face arrive in the slabs.
 //
 // What bounds it on an H100: device-memory bandwidth, as K1: gsrb reads x,
 // the three beta arrays, rhs and kdinv at its colour and writes out, ~6
@@ -67,11 +73,16 @@
 // reads rhs and kdinv at its colour's cell only and copies x at the other
 // (which equals x + 0 r bit for bit). K8b launches the same kernel twice
 // into one output: the interior pass over the column tiles 1 .. ntj-2 in j
-// and i-planes [2, ni-2), whose stencils read x alone (slab pointers
-// null); the edge pass over the columns 0 and ntj-1 at every plane and the
-// others at planes 0, 1, ni-2, ni-1. Every cell is computed from the same
-// ring values in the same order either way, so K8b equals K8a bit for bit,
-// and any chunk of i-planes gives the same bits.
+// (and on a block split along k, 1 .. ntk-2 in k) and i-planes [2, ni-2),
+// whose stencils read x alone (slab pointers null); the edge pass over the
+// other columns (0 and ntj-1 in j; KSLAB: 0 and ntk-1 in k too) at every
+// plane and the inner ones at planes 0, 1, ni-2, ni-1. KSLAB: a pair of a
+// k ghost (k < 0 or k >= nk; two cells of one slab, k even) copies from
+// klo or khi at ((i+2) (nj+4) + j+2) 2 + r, its x plane's and row's
+// entries of the slab (kG0 | kG1 mark it, and kStrip which slab); only
+// the first and last column tiles in k hold such pairs. Every cell is
+// computed from the same ring values in the same order either way, so K8b
+// equals K8a bit for bit, and any chunk of i-planes gives the same bits.
 // Plain version: hpgmg_tpu_torch/kernels/stencils.py:fv4_slab_plain.
 
 #include "fv4_stream.cuh"
@@ -250,6 +261,8 @@ struct SlabArgs {
   const T* ihi;
   const T* jlo;
   const T* jhi;
+  const T* klo;  // KSLAB only
+  const T* khi;
   const T* bie;
   const T* bje;
   const T* bke;
@@ -263,7 +276,8 @@ struct SlabArgs {
 };
 
 // x pair flag: the pair lies in a j halo row, copied from jlo (ring row
-// < 2) or jhi (kW1's bit: K8a wraps no pair, nk being even)
+// < 2) or jhi (kW1's bit: K8a wraps no pair, nk being even); on a k-slab
+// pair (KSLAB, kG0 set), that it copies from khi, not klo
 constexpr unsigned kStrip = kW1;
 
 struct SlabColumn {
@@ -275,10 +289,10 @@ struct SlabColumn {
 
 // The x pairs of this thread: the tile and its 2-cell halo, two k cells a
 // pair (k even). Rows j in [0, nj) from x (or ilo, ihi), j halo rows from
-// the strips; k ghosts wrapped (periodic) or left to patch_k (kG0, kG1).
-// Rows beyond nj+1 and columns beyond nk+1 (ragged tiles) are not loaded:
-// only cells outside the block read them.
-template <typename T>
+// the strips; k ghosts from the k slabs (KSLAB), wrapped (periodic) or
+// left to patch_k (kG0, kG1). Rows beyond nj+1 and columns beyond nk+1
+// (ragged tiles) are not loaded: only cells outside the block read them.
+template <typename T, bool KSLAB>
 __device__ __forceinline__ void slab_x_pairs(XPairs<T>& P, const SlabArgs<T>& p,
                                              const SlabColumn& c) {
   const int nj = p.nj, nk = p.nk;
@@ -297,7 +311,9 @@ __device__ __forceinline__ void slab_x_pairs(XPairs<T>& P, const SlabArgs<T>& p,
     if (t < XPAIRS && j < nj + 2 && k < nk + 2) {
       f = kE0 | (k + 1 < nk + 2 ? kE1 : 0u);
       int kk = k;
-      if (c.periodic) {
+      if (KSLAB && !inside(k)) {
+        kk = 0;  // the pair's row in the k slab (below)
+      } else if (c.periodic) {
         kk = k < 0 ? k + nk : (k >= nk ? k - nk : k);
       } else {
         kk = inside(k) ? k : 0;
@@ -316,6 +332,10 @@ __device__ __forceinline__ void slab_x_pairs(XPairs<T>& P, const SlabArgs<T>& p,
       } else {
         g = static_cast<unsigned>(j) * nk + kk;
       }
+      if (KSLAB && !inside(k)) {
+        g = static_cast<unsigned>(j + 2) * 2;
+        f = (f & ~kStrip) | kG0 | kG1 | (k >= nk ? kStrip : 0u);
+      }
       if ((f & (kE1 | kG0 | kG1)) == kE1 && aligned) f |= kPair;
     }
     P.set(e, g, static_cast<unsigned>(a * XP + b) << kMetaShift | f);
@@ -324,8 +344,9 @@ __device__ __forceinline__ void slab_x_pairs(XPairs<T>& P, const SlabArgs<T>& p,
 
 // x plane i (in [-2, ni+2)) into the ring plane dst: rows in [0, nj) from
 // x plane i, or from ilo / ihi where i lies outside the block; j halo rows
-// from the strips; Dirichlet k ghosts left to patch_k.
-template <typename T>
+// from the strips; k ghosts from the k slabs (KSLAB), or Dirichlet ones
+// left to patch_k.
+template <typename T, bool KSLAB>
 __device__ __forceinline__ void slab_load_x(T* dst, const SlabArgs<T>& p, const XPairs<T>& P,
                                             int i) {
   const int64_t pitch = static_cast<int64_t>(p.nj) * p.nk;
@@ -336,6 +357,15 @@ __device__ __forceinline__ void slab_load_x(T* dst, const SlabArgs<T>& p, const 
   for (int e = 0; e < kXE; ++e) {
     const unsigned m = P.meta(e);
     T* d = dst + (m >> kMetaShift);
+    if constexpr (KSLAB) {
+      if (m & kG0) {
+        const T* k = ((m & kStrip) ? p.khi : p.klo) +
+                     static_cast<int64_t>(i + 2) * (p.nj + 4) * 2 + P.goff(e);
+        cp_async(d, k);
+        if (m & kE1) cp_async(d + 1, k + 1);
+        continue;
+      }
+    }
     const T* src = plane;
     if (m & kStrip) src = ((m >> kMetaShift) < 2 * XP ? p.jlo : p.jhi) + strip;
     src += P.goff(e);
@@ -380,7 +410,7 @@ __device__ __noinline__ void patch_k(T* plane, const SlabColumn c, int nk,
 
 // Everything a block streams: the sources, its pairs of each, and the
 // slots of its ring.
-template <typename T>
+template <typename T, bool KSLAB>
 struct SlabStream {
   const SlabArgs<T>& p;
   XPairs<T> px;
@@ -391,7 +421,7 @@ struct SlabStream {
   // x plane q, beta_i face q, beta_j and beta_k array plane q into their
   // slots sx, sb, sj
   __device__ __forceinline__ void x(T* ring, int sx, int q) const {
-    slab_load_x(ring + sx * XPLANE, p, px, q);
+    slab_load_x<T, KSLAB>(ring + sx * XPLANE, p, px, q);
   }
   __device__ __forceinline__ void bi(T* ring, int sb, int q) const {
     load_beta(ring + BI0 + sb * BIPLANE, p.bie, pi, q, p.nj + 2, p.nk + 2);
@@ -404,38 +434,48 @@ struct SlabStream {
 
 // What block b computes: column tile (tj, tk) over i-planes [ia, ib).
 // PASS 0 (K8a): every column, grid (tiles, chunks of [0, ni)). PASS 1
-// (K8b's interior): the columns 1 .. ntj-2 in j, grid (their tiles,
-// chunks of [2, ni-2)). PASS 2 (K8b's edge): grid (2 tiles_k chunks_a +
-// 2 tiles_k (ntj-2), 1), first the columns 0 and ntj-1 by chunks of
-// [0, ni), then each other column at planes [0, 2) and [ni-2, ni).
-template <int PASS>
+// (K8b's interior): the inner columns, grid (their tiles, chunks of [2,
+// ni-2)). PASS 2 (K8b's edge): grid (edge chunks_a + 2 inner, 1), first
+// the edge columns by chunks of [0, ni), then each inner column at planes
+// [0, 2) and [ni-2, ni). The edge columns are 0 and ntj-1 in j (and
+// KSLAB: the others' 0 and ntk-1 in k), the inner ones the rest.
+template <int PASS, bool KSLAB>
 __device__ __forceinline__ void slab_work(int ni, int nj, int nk, int chunk, int& tj,
                                           int& tk, int& ia, int& ib) {
   const int tiles_k = (nk + TK - 1) / TK;
+  // the inner columns' tiles along k, from tk_lo
+  const int tk_in = KSLAB ? tiles_k - 2 : tiles_k, tk_lo = KSLAB ? 1 : 0;
   if constexpr (PASS == 0) {
     tj = static_cast<int>(blockIdx.x) / tiles_k;
     tk = static_cast<int>(blockIdx.x) % tiles_k;
     ia = blockIdx.y * chunk;
     ib = min(ia + chunk, ni);
   } else if constexpr (PASS == 1) {
-    tj = 1 + static_cast<int>(blockIdx.x) / tiles_k;
-    tk = static_cast<int>(blockIdx.x) % tiles_k;
+    tj = 1 + static_cast<int>(blockIdx.x) / tk_in;
+    tk = tk_lo + static_cast<int>(blockIdx.x) % tk_in;
     ia = 2 + blockIdx.y * chunk;
     ib = min(ia + chunk, ni - 2);
   } else {
     const int ntj = (nj + TJ - 1) / TJ;
-    const int edge = 2 * tiles_k, run = edge * ((ni + chunk - 1) / chunk);
+    const int edge = 2 * tiles_k + (KSLAB ? 2 * (ntj - 2) : 0);
+    const int run = edge * ((ni + chunk - 1) / chunk);
     const int b = blockIdx.x;
     if (b < run) {
       const int t = b % edge;
-      tj = t < tiles_k ? 0 : ntj - 1;
-      tk = t % tiles_k;
+      if (t < 2 * tiles_k) {
+        tj = t < tiles_k ? 0 : ntj - 1;
+        tk = t % tiles_k;
+      } else {
+        const int u = t - 2 * tiles_k;
+        tj = 1 + u / 2;
+        tk = (u & 1) ? tiles_k - 1 : 0;
+      }
       ia = (b / edge) * chunk;
       ib = min(ia + chunk, ni);
     } else {
       const int u = b - run, t = u >> 1;
-      tj = 1 + t / tiles_k;
-      tk = t % tiles_k;
+      tj = 1 + t / tk_in;
+      tk = tk_lo + t % tk_in;
       ia = (u & 1) ? ni - 2 : 0;
       ib = ia + 2;
     }
@@ -444,7 +484,7 @@ __device__ __forceinline__ void slab_work(int ni, int nj, int nk, int chunk, int
 
 // One block: the TJ x TK column and i-planes of slab_work. Dynamic shared
 // memory: the ring (kRingValues values), then the threads' pairs.
-template <typename T, int MODE, int PASS>
+template <typename T, int MODE, int PASS, bool KSLAB>
 __global__ void __launch_bounds__(kStreamThreads, kMinBlocks<T>)
     fv4_slab_kernel(const SlabArgs<T> p, int periodic, int parity, int chunk) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -452,15 +492,17 @@ __global__ void __launch_bounds__(kStreamThreads, kMinBlocks<T>)
 
   const int ni = p.ni, nj = p.nj, nk = p.nk;
   int tj, tk, ia, ib;
-  slab_work<PASS>(ni, nj, nk, chunk, tj, tk, ia, ib);
+  slab_work<PASS, KSLAB>(ni, nj, nk, chunk, tj, tk, ia, ib);
   const int j0 = tj * TJ, k0 = tk * TK;
-  const SlabColumn col{j0, k0, periodic != 0, !periodic && (k0 < 2 || k0 + TK + 2 > nk)};
-  SlabStream<T> S{p};
+  // KSLAB: no k ghost is made or wrapped (the k slabs hold them)
+  const SlabColumn col{j0, k0, !KSLAB && periodic != 0,
+                       !KSLAB && !periodic && (k0 < 2 || k0 + TK + 2 > nk)};
+  SlabStream<T, KSLAB> S{p};
   if constexpr (kPairValues<T> > 0) {
     unsigned* pairs = reinterpret_cast<unsigned*>(ring + kRingValues) + threadIdx.x;
     S.px.b = S.pi.b = S.pj.b = S.pk.b = pairs;
   }
-  slab_x_pairs(S.px, p, col);
+  slab_x_pairs<T, KSLAB>(S.px, p, col);
   beta_pairs<BP, kStreamThreads>(S.pi, p.bie, nj + 2, nk + 2, j0, k0, TJ + 2, TK + 2);
   beta_pairs<BP, kStreamThreads>(S.pj, p.bje, nj + 1, nk + 2, j0, k0, TJ + 1, TK + 2);
   beta_pairs<BP, kStreamThreads>(S.pk, p.bke, nj + 2, nk + 1, j0, k0, TJ + 2, TK + 1);
@@ -588,93 +630,108 @@ __global__ void __launch_bounds__(kStreamThreads, kMinBlocks<T>)
   }
 }
 
-template <typename T, int MODE, int PASS>
+template <typename T, int MODE, int PASS, bool KSLAB>
 int launch_pass(const SlabArgs<T>& p, int periodic, int parity, int chunk, cudaStream_t s) {
-  auto kernel = fv4_slab_kernel<T, MODE, PASS>;
+  auto kernel = fv4_slab_kernel<T, MODE, PASS, KSLAB>;
   const size_t smem = ring_bytes<T>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const int64_t tiles_k = (p.nk + TK - 1) / TK, ntj = (p.nj + TJ - 1) / TJ;
+  const int64_t tk_in = KSLAB ? tiles_k - 2 : tiles_k;
   // the columns and i-planes the chunk rule spreads: every column (K8a),
-  // the inner ones over [2, ni-2) (K8b's interior), the first and last
-  // (K8b's edge; its other columns' four planes are one block each side)
-  const int64_t tiles = tiles_k * (PASS == 0 ? ntj : (PASS == 1 ? ntj - 2 : 2));
+  // the inner ones over [2, ni-2) (K8b's interior), the edge ones (K8b's
+  // edge; its inner columns' four planes are one block each side)
+  const int64_t edge = 2 * tiles_k + (KSLAB ? 2 * (ntj - 2) : 0);
+  const int64_t tiles = PASS == 0 ? tiles_k * ntj : (PASS == 1 ? tk_in * (ntj - 2) : edge);
   const int planes = PASS == 1 ? p.ni - 4 : p.ni;
   static const int64_t slots = co_resident(kernel, smem);
   chunk = slab_chunk(slots, tiles, planes, chunk);
   if (chunk <= 0) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int64_t chunks = (planes + chunk - 1) / chunk;
   dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(chunks));
-  if (PASS == 2) grid = dim3(static_cast<unsigned>(tiles * chunks + 2 * tiles_k * (ntj - 2)), 1);
+  if (PASS == 2) grid = dim3(static_cast<unsigned>(tiles * chunks + 2 * tk_in * (ntj - 2)), 1);
   kernel<<<grid, kStreamThreads, smem, s>>>(p, periodic, parity, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int PASS>
+template <typename T, int PASS, bool KSLAB>
 int launch_mode(const SlabArgs<T>& p, int mode, int periodic, int parity, int chunk,
                 cudaStream_t s) {
   switch (mode) {
-    case kApply: return launch_pass<T, kApply, PASS>(p, periodic, parity, chunk, s);
-    case kResidual: return launch_pass<T, kResidual, PASS>(p, periodic, parity, chunk, s);
-    default: return launch_pass<T, kGsrb, PASS>(p, periodic, parity, chunk, s);
+    case kApply: return launch_pass<T, kApply, PASS, KSLAB>(p, periodic, parity, chunk, s);
+    case kResidual:
+      return launch_pass<T, kResidual, PASS, KSLAB>(p, periodic, parity, chunk, s);
+    default: return launch_pass<T, kGsrb, PASS, KSLAB>(p, periodic, parity, chunk, s);
   }
+}
+
+template <typename T, bool KSLAB>
+int launch_split(const SlabArgs<T>& p, int mode, int periodic, int parity, int chunk,
+                 int pass, cudaStream_t s) {
+  if (pass == 0) return launch_mode<T, 0, KSLAB>(p, mode, periodic, parity, chunk, s);
+  if (pass == 1) return launch_mode<T, 1, KSLAB>(p, mode, periodic, parity, chunk, s);
+  return launch_mode<T, 2, KSLAB>(p, mode, periodic, parity, chunk, s);
 }
 
 template <typename T>
 int launch_slab(const void* x, const void* ilo, const void* ihi, const void* jlo,
-                const void* jhi, const void* bie, const void* bje, const void* bke,
-                const void* alpha, const void* rhs, const void* kdinv, void* out,
-                int ni, int nj, int nk, int mode, int periodic, int parity, int chunk,
-                double scale, double a_coef, int pass, void* stream) {
+                const void* jhi, const void* klo, const void* khi, const void* bie,
+                const void* bje, const void* bke, const void* alpha, const void* rhs,
+                const void* kdinv, void* out, int ni, int nj, int nk, int mode, int periodic,
+                int ksplit, int parity, int chunk, double scale, double a_coef, int pass,
+                void* stream) {
   const int64_t ntj = (nj + TJ - 1) / TJ, tiles_k = (nk + TK - 1) / TK;
   if (ni < 4 || nj < 4 || nk < 4 || ni % 2 || nj % 2 || nk % 2 || ni > 65535 ||
       static_cast<int64_t>(nj + 4) * nk >= (int64_t(1) << 31) ||
       ntj * tiles_k * (ni + 4) >= (int64_t(1) << 31) || mode < kApply || mode > kGsrb ||
-      parity < 0 || parity > 1 || chunk < 0 || pass < 0 || pass > 2 ||
-      (pass != 0 && (ntj < 3 || ni < 6))) {
+      parity < 0 || parity > 1 || chunk < 0 || pass < 0 || pass > 2 || ksplit < 0 ||
+      ksplit > 1 || (pass != 0 && (ntj < 3 || ni < 6 || (ksplit && tiles_k < 3))) ||
+      (ksplit && pass != 1 && (klo == nullptr || khi == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const SlabArgs<T> p{static_cast<const T*>(x),     static_cast<const T*>(ilo),
                       static_cast<const T*>(ihi),   static_cast<const T*>(jlo),
-                      static_cast<const T*>(jhi),   static_cast<const T*>(bie),
+                      static_cast<const T*>(jhi),   static_cast<const T*>(klo),
+                      static_cast<const T*>(khi),   static_cast<const T*>(bie),
                       static_cast<const T*>(bje),   static_cast<const T*>(bke),
                       static_cast<const T*>(alpha), static_cast<const T*>(rhs),
                       static_cast<const T*>(kdinv), static_cast<T*>(out),
                       ni, nj, nk,
                       static_cast<T>(scale),        static_cast<T>(a_coef)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (pass == 0) return launch_mode<T, 0>(p, mode, periodic, parity, chunk, s);
-  if (pass == 1) return launch_mode<T, 1>(p, mode, periodic, parity, chunk, s);
-  return launch_mode<T, 2>(p, mode, periodic, parity, chunk, s);
+  if (ksplit) return launch_split<T, true>(p, mode, periodic, parity, chunk, pass, s);
+  return launch_split<T, false>(p, mode, periodic, parity, chunk, pass, s);
 }
 
 }  // namespace
 
 // pass 0: K8a over the whole block; 1: K8b's interior pass (slab pointers
 // unread); 2: K8b's edge pass, writing the rest of `out`. periodic: k
-// ghosts wrapped (i and j ghosts are the slabs'); parity: the colour gsrb
-// updates; chunk: i-planes per block (0: the launcher's rule)
+// ghosts wrapped (i and j ghosts are the slabs'); ksplit: the block is
+// split along k, its k ghosts in klo / khi (null otherwise; unread by
+// pass 1); parity: the colour gsrb updates; chunk: i-planes per block (0:
+// the launcher's rule)
 extern "C" int hpgmg_fv4_slab_f32(const void* x, const void* ilo, const void* ihi,
-                                  const void* jlo, const void* jhi, const void* bie,
-                                  const void* bje, const void* bke, const void* alpha,
-                                  const void* rhs, const void* kdinv, void* out,
-                                  int ni, int nj, int nk, int mode, int periodic,
-                                  int parity, int chunk, double scale, double a_coef,
-                                  int pass, void* stream) {
-  return launch_slab<float>(x, ilo, ihi, jlo, jhi, bie, bje, bke, alpha, rhs, kdinv,
-                            out, ni, nj, nk, mode, periodic, parity, chunk, scale, a_coef,
-                            pass, stream);
+                                  const void* jlo, const void* jhi, const void* klo,
+                                  const void* khi, const void* bie, const void* bje,
+                                  const void* bke, const void* alpha, const void* rhs,
+                                  const void* kdinv, void* out, int ni, int nj, int nk,
+                                  int mode, int periodic, int ksplit, int parity, int chunk,
+                                  double scale, double a_coef, int pass, void* stream) {
+  return launch_slab<float>(x, ilo, ihi, jlo, jhi, klo, khi, bie, bje, bke, alpha, rhs,
+                            kdinv, out, ni, nj, nk, mode, periodic, ksplit, parity, chunk,
+                            scale, a_coef, pass, stream);
 }
 
 extern "C" int hpgmg_fv4_slab_f64(const void* x, const void* ilo, const void* ihi,
-                                  const void* jlo, const void* jhi, const void* bie,
-                                  const void* bje, const void* bke, const void* alpha,
-                                  const void* rhs, const void* kdinv, void* out,
-                                  int ni, int nj, int nk, int mode, int periodic,
-                                  int parity, int chunk, double scale, double a_coef,
-                                  int pass, void* stream) {
-  return launch_slab<double>(x, ilo, ihi, jlo, jhi, bie, bje, bke, alpha, rhs, kdinv,
-                             out, ni, nj, nk, mode, periodic, parity, chunk, scale,
-                             a_coef, pass, stream);
+                                  const void* jlo, const void* jhi, const void* klo,
+                                  const void* khi, const void* bie, const void* bje,
+                                  const void* bke, const void* alpha, const void* rhs,
+                                  const void* kdinv, void* out, int ni, int nj, int nk,
+                                  int mode, int periodic, int ksplit, int parity, int chunk,
+                                  double scale, double a_coef, int pass, void* stream) {
+  return launch_slab<double>(x, ilo, ihi, jlo, jhi, klo, khi, bie, bje, bke, alpha, rhs,
+                             kdinv, out, ni, nj, nk, mode, periodic, ksplit, parity, chunk,
+                             scale, a_coef, pass, stream);
 }

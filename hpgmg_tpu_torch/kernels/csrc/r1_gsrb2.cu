@@ -6,8 +6,9 @@
 //   out = r + kdinv1 * (rhs - A r)
 //
 // K6 sweeps a whole Dirichlet level; K8d one rank's (ni, nj, nk) block of
-// a level decomposed over an i/j process grid, its i/j ghosts read from
-// four 2-deep halo slabs and its coefficients from ring views (below).
+// a level decomposed over a process grid, its i/j ghosts read from four
+// 2-deep halo slabs (and on a block split along k its k ghosts from two
+// more, KSLAB) and its coefficients from ring views (below).
 //
 // Replaces hpgmg_tpu/kernels/stencils_r1.py:_r1_gsrb2_kernel (:783),
 // reached through r1_gsrb2_pallas (:904, pallas_call :948; K6) and through
@@ -68,11 +69,16 @@
 // plane of the slab ilo or ihi, a halo row with j < 0 or j >= nj a row of
 // the strip jlo or jhi (so red reads its i/j ghosts as slab cells, as the
 // plain version does; only k ghosts are made), the coefficients, rhs and
-// kdinv0 are indexed in the ring-view layout. Its four edge flags say
-// which i/j sides are domain faces: only there are red's ghosts made (k:
-// always); on the other sides the ring cells are the neighbour's, red
-// there is computed from the 2-deep halo as the neighbour computes it. K6
-// is the kernel with every flag set and no slab.
+// kdinv0 are indexed in the ring-view layout. Its six edge flags say which
+// sides are domain faces: only there are red's ghosts made; on the other
+// sides the ring cells are the neighbour's, red there is computed from the
+// 2-deep halo as the neighbour computes it. A block whole along k has both
+// k sides on domain faces. On a block split along k (KSLAB) a halo column
+// k < 0 or k >= nk of x plane P is the k slab klo's or khi's cell ((P+2)
+// (nj+4) + j+2) 2 + r, the ring views and rhs hold a 1-cell ring along k
+// too, and red also runs on the k ring where that side is not a domain
+// face; only one exchange a sweep, as on i and j. K6 is the kernel with
+// every flag set and no slab.
 // Each half evaluates the stencil at its colour's cells only: the kdinv
 // pair vanishes off its colour (ops/base.py:RadiusOneSuite.fold_kdinv),
 // and the copy equals x + 0 * (rhs - A x). Block offsets of K8d are even,
@@ -88,10 +94,13 @@
 //   ilo, ihi   (2, nj, nk): the cells i = -2, -1 and i = ni, ni+1
 //   jlo, jhi   (ni+4, 2, nk): the cells j = -2, -1 and j = nj, nj+1 at
 //              i = -2 .. ni+1 (the i-extended strips)
+//   klo, khi   (ni+4, nj+4, 2), KSLAB only: the cells k = -2, -1 and
+//              k = nk, nk+1 at i = -2 .. ni+1, j = -2 .. nj+1
 //   the ring views, each on the block and a 1-cell ring in i and j (zeros
 //   outside the domain; shard_kernels.build_sharded_k2_r1): kdinv0, alpha,
 //   rhs (ni+2, nj+2, nk), beta_i (ni+3, nj+2, nk), beta_j (ni+2, nj+3, nk),
-//   beta_k (ni+2, nj+2, nk+1).
+//   beta_k (ni+2, nj+2, nk+1); KSLAB: with a 1-cell ring in k too, nk+2
+//   values a row (beta_k nk+3).
 
 #include "r1_common.cuh"
 #include "stream.cuh"
@@ -128,9 +137,9 @@ constexpr int kSwXE = (SXPLANE + kSwThreads - 1) / kSwThreads;  // copies a thre
 constexpr int kRedPairs = (SJ + 2) * (SRP / 2);
 static_assert(kRedPairs - kSwThreads == 2 * 25 && SRP / 2 == 17, "two warps take the rest");
 constexpr unsigned kSwNoCopy = ~0u;
-// a copy's source (x or a slab plane, jlo strip, jhi strip) in the top
-// bits of its offset
-constexpr int kSrcShift = 30;
+// a copy's source (x or a slab plane, jlo strip, jhi strip, klo slab, khi
+// slab) in the top bits of its offset
+constexpr int kSrcShift = 29;
 constexpr unsigned kOffMask = (1u << kSrcShift) - 1;
 
 template <typename T>
@@ -140,6 +149,8 @@ struct SweepArgs {
   const T* ihi;
   const T* jlo;
   const T* jhi;
+  const T* klo;  // K8d on a block split along k (KSLAB); null otherwise
+  const T* khi;
   const T* beta_i;  // var7 only (K8d: the ring views)
   const T* beta_j;
   const T* beta_k;
@@ -152,24 +163,28 @@ struct SweepArgs {
   T b_h2inv;  // b / h^2
   T a_coef;   // var7: a (with alpha); 27pt: the constant a of a*x
   T t1, t2;   // Dirichlet ghost taps
-  int edges;  // bit e: side e (i low, i high, j low, j high) is a domain face
+  // bit e: side e (i low, i high, j low, j high, k low, k high) is a domain
+  // face
+  int edges;
 };
 
-// The coefficient indices of cell (i, j, k), i in [-1, ni], j in [-1, nj],
-// in K8d's ring views
+// The coefficient indices of cell (i, j, k), i in [-1, ni], j in [-1, nj]
+// (KSLAB: k in [-1, nk]), in K8d's ring views
+template <bool KSLAB>
 __device__ __forceinline__ R1Index ring_index(int i, int j, int k, int ni, int nj,
                                               int nk) {
-  const int64_t c = ((static_cast<int64_t>(i) + 1) * (nj + 2) + (j + 1)) * nk + k;
-  return {c, static_cast<int64_t>(nj + 2) * nk,
-          ((static_cast<int64_t>(i) + 1) * (nj + 3) + (j + 1)) * nk + k, nk,
-          ((static_cast<int64_t>(i) + 1) * (nj + 2) + (j + 1)) * (nk + 1) + k, c};
+  const int nr = KSLAB ? nk + 2 : nk, kr = KSLAB ? k + 1 : k;
+  const int64_t c = ((static_cast<int64_t>(i) + 1) * (nj + 2) + (j + 1)) * nr + kr;
+  return {c, static_cast<int64_t>(nj + 2) * nr,
+          ((static_cast<int64_t>(i) + 1) * (nj + 3) + (j + 1)) * nr + kr, nr,
+          ((static_cast<int64_t>(i) + 1) * (nj + 2) + (j + 1)) * (nr + 1) + kr, c};
 }
 
-template <bool SLAB>
+template <bool SLAB, bool KSLAB>
 __device__ __forceinline__ R1Index sweep_index(int i, int j, int k, int ni, int nj,
                                                int nk) {
   if constexpr (SLAB) {
-    return ring_index(i, j, k, ni, nj, nk);
+    return ring_index<KSLAB>(i, j, k, ni, nj, nk);
   } else {
     return r1_index(i, j, k, ni, nj, nk);
   }
@@ -199,9 +214,10 @@ __device__ __forceinline__ T ax7(const FX& X, const Operands<T, true>& o, const 
 
 // One block: the SJ x SK column (blockIdx.x) over the i-planes of chunk
 // blockIdx.y.
-template <typename T, bool VAR7, bool SLAB>
+template <typename T, bool VAR7, bool SLAB, bool KSLAB>
 __global__ void __launch_bounds__(kSwThreads, kSwBlocks<T>)
     r1_gsrb2_kernel(const SweepArgs<T> p, int chunk) {
+  static_assert(SLAB || !KSLAB, "k slabs come with the i/j slabs");
   __shared__ __align__(16) T xr[kSwRing * SXPLANE];
   __shared__ __align__(16) T rr[2 * SRPLANE];
 
@@ -218,6 +234,10 @@ __global__ void __launch_bounds__(kSwThreads, kSwBlocks<T>)
   // planes are ra .. rb, its x planes xa .. xb
   const int ilo = gil ? 0 : -1, ihi = gih ? ni : ni + 1;
   const int jlo = gjl ? 0 : -1, jhi = gjh ? nj : nj + 1;
+  // and k in [klo, khi): KSLAB, the block and its ring on the sides that
+  // are not domain faces; else the block (its k sides are domain faces)
+  const bool gkl = !KSLAB || (p.edges & 16), gkh = !KSLAB || (p.edges & 32);
+  const int klo = gkl ? 0 : -1, khi = gkh ? nk : nk + 1;
   const int ra = max(ia - 1, ilo), rb = min(ib, ihi - 1);
   // x planes and rows: K6's cells; K8d's and their slab cells (i/j ghosts
   // at a domain face included)
@@ -234,7 +254,10 @@ __global__ void __launch_bounds__(kSwThreads, kSwBlocks<T>)
     const int t = threadIdx.x + e * kSwThreads;
     const int j = j0 - 2 + t / SXP, k = k0 - 2 + t % SXP;
     unsigned g = kSwNoCopy;
-    if (t < SXPLANE && k >= 0 && k < nk && j >= -halo && j < nj + halo) {
+    if (KSLAB && t < SXPLANE && (k < 0 || k >= nk) && k < nk + 2 && j < nj + 2) {
+      g = ((k < 0 ? 3u : 4u) << kSrcShift) |
+          static_cast<unsigned>((j + 2) * 2 + (k < 0 ? k + 2 : k - nk));
+    } else if (t < SXPLANE && k >= 0 && k < nk && j >= -halo && j < nj + halo) {
       if (j < 0) {
         g = (1u << kSrcShift) | static_cast<unsigned>((j + 2) * nk + k);
       } else if (j >= nj) {
@@ -253,11 +276,17 @@ __global__ void __launch_bounds__(kSwThreads, kSwBlocks<T>)
       const T* base;
       const T* slo = nullptr;
       const T* shi = nullptr;
+      const T* klo_p = nullptr;
+      const T* khi_p = nullptr;
       if constexpr (SLAB) {
         base = P < 0 ? p.ilo + (P + 2) * plane
                      : (P >= ni ? p.ihi + (P - ni) * plane : p.x + P * plane);
         slo = p.jlo + static_cast<int64_t>(P + 2) * 2 * nk;
         shi = p.jhi + static_cast<int64_t>(P + 2) * 2 * nk;
+        if constexpr (KSLAB) {
+          klo_p = p.klo + static_cast<int64_t>(P + 2) * (nj + 4) * 2;
+          khi_p = p.khi + static_cast<int64_t>(P + 2) * (nj + 4) * 2;
+        }
       } else {
         base = p.x + P * plane;
       }
@@ -267,7 +296,12 @@ __global__ void __launch_bounds__(kSwThreads, kSwBlocks<T>)
         const unsigned g = goff[e];
         if (g == kSwNoCopy) continue;
         const unsigned src = g >> kSrcShift;
-        const T* from = src == 0 ? base : (src == 1 ? slo : shi);
+        const T* from;
+        if constexpr (KSLAB) {
+          from = src == 0 ? base : src == 1 ? slo : src == 2 ? shi : src == 3 ? klo_p : khi_p;
+        } else {
+          from = src == 0 ? base : (src == 1 ? slo : shi);
+        }
         cp_async(dst + e * kSwThreads, from + (g & kOffMask));
       }
     }
@@ -279,7 +313,7 @@ __global__ void __launch_bounds__(kSwThreads, kSwBlocks<T>)
   using Ops = Operands<T, VAR7>;
   auto fetch = [&](bool ok, int i, int j, int k, bool red_half, Ops& o) {
     if (!ok) return;
-    const R1Index ix = sweep_index<SLAB>(i, j, k, ni, nj, nk);
+    const R1Index ix = sweep_index<SLAB, KSLAB>(i, j, k, ni, nj, nk);
     o.rhs = ld(p.rhs + ix.ca);
     o.kd = red_half ? ld(p.kdinv0 + ix.ca)
                     : ld(p.kdinv1 + (static_cast<int64_t>(i) * nj + j) * nk + k);
@@ -296,7 +330,7 @@ __global__ void __launch_bounds__(kSwThreads, kSwBlocks<T>)
   auto ax_at = [&](const auto& X, const Ops& o, int i, int j, int k) -> T {
     if constexpr (VAR7) {
       return ax7(X, o, p.alpha,
-                 p.alpha != nullptr ? sweep_index<SLAB>(i, j, k, ni, nj, nk).ca : 0,
+                 p.alpha != nullptr ? sweep_index<SLAB, KSLAB>(i, j, k, ni, nj, nk).ca : 0,
                  p.b_h2inv, p.a_coef);
     } else {
       return r1_ax<T, false>(nullptr, nullptr, nullptr, nullptr, p.b_h2inv, p.a_coef, X,
@@ -316,7 +350,7 @@ __global__ void __launch_bounds__(kSwThreads, kSwBlocks<T>)
   // whether red computes the red cell of the pair at plane i
   auto red_ok = [&](int i, const Pair& c) {
     const int k = c.kp + c.d;
-    return i <= rb && c.j >= jlo && c.j < jhi && k >= 0 && k < nk;
+    return i <= rb && c.j >= jlo && c.j < jhi && k >= klo && k < khi;
   };
   // red at ring pair (r, pp) of plane i from the x slots of planes i-1, i,
   // i+1 and its operands, into the red plane rq, and a copy of x at the
@@ -328,13 +362,13 @@ __global__ void __launch_bounds__(kSwThreads, kSwBlocks<T>)
     const int k = c.kp + d, kc = c.kp + 1 - d;
     const int at = (r + 1) * SXP + 2 * pp + 1 + d;  // x slot index of the red cell
     T* dst = rq + r * SRP + 2 * pp;
-    if (kc >= 0 && kc < nk) dst[1 - d] = xq[at + 1 - 2 * d];
+    if (kc >= klo && kc < khi) dst[1 - d] = xq[at + 1 - 2 * d];
     if (!ok) return;
     // the ghosts red makes: K6's on every face; K8d's i/j ghosts are slab
     // cells
     const bool fil = !SLAB && i == 0, fih = !SLAB && i == ni - 1;
     const bool fjl = !SLAB && j == 0, fjh = !SLAB && j == nj - 1;
-    const bool fkl = k == 0, fkh = k == nk - 1;
+    const bool fkl = gkl && k == 0, fkh = gkh && k == nk - 1;
     T xc, ax;
     if constexpr (VAR7) {
       xc = xq[at];
@@ -416,8 +450,8 @@ __global__ void __launch_bounds__(kSwThreads, kSwBlocks<T>)
   const bool pair_in = j < nj && kb < nk;
   const bool vec = (nk & 1) == 0;
   const bool has_hi = kb + 1 < nk;
-  const Faces f{gjl && j == 0, gjh && j == nj - 1, kb == 0,
-                kb == nk - 2 ? 3 : (kb == nk - 1 ? 2 : -1)};
+  const Faces f{gjl && j == 0, gjh && j == nj - 1, gkl && kb == 0,
+                !gkh ? -1 : (kb == nk - 2 ? 3 : (kb == nk - 1 ? 2 : -1))};
   const bool face = f.jlo || f.jhi || f.klo || f.khi >= 0;
   // the window's rows j-1 .. j+1, columns kb-1 .. kb+2 of a red plane
   auto read = [&](Rows<T>& w, const T* rq) {
@@ -509,9 +543,9 @@ __global__ void __launch_bounds__(kSwThreads, kSwBlocks<T>)
   }
 }
 
-template <typename T, bool VAR7, bool SLAB>
+template <typename T, bool VAR7, bool SLAB, bool KSLAB = false>
 int launch_body(const SweepArgs<T>& p, int chunk, cudaStream_t s) {
-  auto kernel = r1_gsrb2_kernel<T, VAR7, SLAB>;
+  auto kernel = r1_gsrb2_kernel<T, VAR7, SLAB, KSLAB>;
   const int64_t tiles =
       static_cast<int64_t>((p.nj + SJ - 1) / SJ) * ((p.nk + SK - 1) / SK);
   if (chunk <= 0) {
@@ -548,15 +582,18 @@ int launch_body(const SweepArgs<T>& p, int chunk, cudaStream_t s) {
 
 template <typename T>
 int launch_sweep(const void* x, const void* ilo, const void* ihi, const void* jlo,
-                 const void* jhi, const void* beta_i, const void* beta_j,
-                 const void* beta_k, const void* alpha, const void* rhs,
+                 const void* jhi, const void* klo, const void* khi, const void* beta_i,
+                 const void* beta_j, const void* beta_k, const void* alpha, const void* rhs,
                  const void* kdinv0, const void* kdinv1, void* out, int ni, int nj, int nk,
                  int edges, int var7, int chunk, double b_h2inv, double a_coef, double t1,
                  double t2, void* stream) {
-  const bool slab = ilo != nullptr;
-  if (ni < 2 || nj < 2 || nk < 2 || chunk < 0 || edges < 0 || edges > 15 ||
-      (slab && (ni % 2 || nj % 2)) || (!slab && edges != 15) ||
-      static_cast<int64_t>(nj + 2) * nk > static_cast<int64_t>(kOffMask) ||
+  const bool slab = ilo != nullptr, kslab = klo != nullptr;
+  // a block whole along k has both k sides on domain faces
+  if (ni < 2 || nj < 2 || nk < 2 || chunk < 0 || edges < 0 || edges > 63 ||
+      (slab && (ni % 2 || nj % 2)) || (!slab && edges != 63) ||
+      (!kslab && (edges & 48) != 48) ||
+      (kslab && (!slab || khi == nullptr || nk % 2 || nk < 4)) ||
+      static_cast<int64_t>(nj + 4) * (nk + 4) > static_cast<int64_t>(kOffMask) ||
       x == nullptr || rhs == nullptr || kdinv0 == nullptr || kdinv1 == nullptr ||
       out == nullptr || (slab && (ihi == nullptr || jlo == nullptr || jhi == nullptr)) ||
       (var7 && (beta_i == nullptr || beta_j == nullptr || beta_k == nullptr))) {
@@ -568,6 +605,8 @@ int launch_sweep(const void* x, const void* ilo, const void* ihi, const void* jl
   p.ihi = static_cast<const T*>(ihi);
   p.jlo = static_cast<const T*>(jlo);
   p.jhi = static_cast<const T*>(jhi);
+  p.klo = static_cast<const T*>(klo);
+  p.khi = static_cast<const T*>(khi);
   p.beta_i = static_cast<const T*>(beta_i);
   p.beta_j = static_cast<const T*>(beta_j);
   p.beta_k = static_cast<const T*>(beta_k);
@@ -585,6 +624,10 @@ int launch_sweep(const void* x, const void* ilo, const void* ihi, const void* jl
   p.t2 = static_cast<T>(t2);
   p.edges = edges;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kslab) {
+    return var7 ? launch_body<T, true, true, true>(p, chunk, s)
+                : launch_body<T, false, true, true>(p, chunk, s);
+  }
   if (slab) {
     return var7 ? launch_body<T, true, true>(p, chunk, s)
                 : launch_body<T, false, true>(p, chunk, s);
@@ -604,9 +647,9 @@ extern "C" int hpgmg_r1_gsrb2_chunk_f32(const void* x, const void* beta_i,
                                         const void* kdinv0, const void* kdinv1, void* out,
                                         int n, int var7, int chunk, double b_h2inv,
                                         double a_coef, double t1, double t2, void* stream) {
-  return launch_sweep<float>(x, nullptr, nullptr, nullptr, nullptr, beta_i, beta_j, beta_k,
-                             alpha, rhs, kdinv0, kdinv1, out, n, n, n, 15, var7, chunk,
-                             b_h2inv, a_coef, t1, t2, stream);
+  return launch_sweep<float>(x, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, beta_i,
+                             beta_j, beta_k, alpha, rhs, kdinv0, kdinv1, out, n, n, n, 63,
+                             var7, chunk, b_h2inv, a_coef, t1, t2, stream);
 }
 
 extern "C" int hpgmg_r1_gsrb2_chunk_f64(const void* x, const void* beta_i,
@@ -615,9 +658,9 @@ extern "C" int hpgmg_r1_gsrb2_chunk_f64(const void* x, const void* beta_i,
                                         const void* kdinv0, const void* kdinv1, void* out,
                                         int n, int var7, int chunk, double b_h2inv,
                                         double a_coef, double t1, double t2, void* stream) {
-  return launch_sweep<double>(x, nullptr, nullptr, nullptr, nullptr, beta_i, beta_j, beta_k,
-                              alpha, rhs, kdinv0, kdinv1, out, n, n, n, 15, var7, chunk,
-                              b_h2inv, a_coef, t1, t2, stream);
+  return launch_sweep<double>(x, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                              beta_i, beta_j, beta_k, alpha, rhs, kdinv0, kdinv1, out, n, n,
+                              n, 63, var7, chunk, b_h2inv, a_coef, t1, t2, stream);
 }
 
 // K6 with the launcher's chunk rule
@@ -639,57 +682,59 @@ extern "C" int hpgmg_r1_gsrb2_f64(const void* x, const void* beta_i, const void*
                                   out, n, var7, 0, b_h2inv, a_coef, t1, t2, stream);
 }
 
-// K8d. The r* operands are the ring views; edges: bit e set where side e
-// (i low, i high, j low, j high) is a domain face; chunk as K6's
+// K8d. The r* operands are the ring views; klo, khi: the k slabs of a
+// block split along k (null on a block whole along k); edges: bit e set
+// where side e (i low, i high, j low, j high, k low, k high) is a domain
+// face; chunk as K6's
 extern "C" int hpgmg_r1_gsrb2_slab_chunk_f32(
     const void* x, const void* ilo, const void* ihi, const void* jlo, const void* jhi,
-    const void* rbeta_i, const void* rbeta_j, const void* rbeta_k, const void* ralpha,
-    const void* rrhs, const void* rkdinv0, const void* kdinv1, void* out, int ni, int nj,
-    int nk, int edges, int var7, int chunk, double b_h2inv, double a_coef, double t1,
-    double t2, void* stream) {
+    const void* klo, const void* khi, const void* rbeta_i, const void* rbeta_j,
+    const void* rbeta_k, const void* ralpha, const void* rrhs, const void* rkdinv0,
+    const void* kdinv1, void* out, int ni, int nj, int nk, int edges, int var7, int chunk,
+    double b_h2inv, double a_coef, double t1, double t2, void* stream) {
   if (ilo == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_sweep<float>(x, ilo, ihi, jlo, jhi, rbeta_i, rbeta_j, rbeta_k, ralpha, rrhs,
-                             rkdinv0, kdinv1, out, ni, nj, nk, edges, var7, chunk, b_h2inv,
-                             a_coef, t1, t2, stream);
+  return launch_sweep<float>(x, ilo, ihi, jlo, jhi, klo, khi, rbeta_i, rbeta_j, rbeta_k,
+                             ralpha, rrhs, rkdinv0, kdinv1, out, ni, nj, nk, edges, var7,
+                             chunk, b_h2inv, a_coef, t1, t2, stream);
 }
 
 extern "C" int hpgmg_r1_gsrb2_slab_chunk_f64(
     const void* x, const void* ilo, const void* ihi, const void* jlo, const void* jhi,
-    const void* rbeta_i, const void* rbeta_j, const void* rbeta_k, const void* ralpha,
-    const void* rrhs, const void* rkdinv0, const void* kdinv1, void* out, int ni, int nj,
-    int nk, int edges, int var7, int chunk, double b_h2inv, double a_coef, double t1,
-    double t2, void* stream) {
+    const void* klo, const void* khi, const void* rbeta_i, const void* rbeta_j,
+    const void* rbeta_k, const void* ralpha, const void* rrhs, const void* rkdinv0,
+    const void* kdinv1, void* out, int ni, int nj, int nk, int edges, int var7, int chunk,
+    double b_h2inv, double a_coef, double t1, double t2, void* stream) {
   if (ilo == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_sweep<double>(x, ilo, ihi, jlo, jhi, rbeta_i, rbeta_j, rbeta_k, ralpha, rrhs,
-                              rkdinv0, kdinv1, out, ni, nj, nk, edges, var7, chunk, b_h2inv,
-                              a_coef, t1, t2, stream);
+  return launch_sweep<double>(x, ilo, ihi, jlo, jhi, klo, khi, rbeta_i, rbeta_j, rbeta_k,
+                              ralpha, rrhs, rkdinv0, kdinv1, out, ni, nj, nk, edges, var7,
+                              chunk, b_h2inv, a_coef, t1, t2, stream);
 }
 
 // K8d with the launcher's chunk rule
 extern "C" int hpgmg_r1_gsrb2_slab_f32(const void* x, const void* ilo, const void* ihi,
-                                       const void* jlo, const void* jhi,
-                                       const void* rbeta_i, const void* rbeta_j,
-                                       const void* rbeta_k, const void* ralpha,
-                                       const void* rrhs, const void* rkdinv0,
-                                       const void* kdinv1, void* out, int ni, int nj,
-                                       int nk, int edges, int var7, double b_h2inv,
-                                       double a_coef, double t1, double t2,
+                                       const void* jlo, const void* jhi, const void* klo,
+                                       const void* khi, const void* rbeta_i,
+                                       const void* rbeta_j, const void* rbeta_k,
+                                       const void* ralpha, const void* rrhs,
+                                       const void* rkdinv0, const void* kdinv1, void* out,
+                                       int ni, int nj, int nk, int edges, int var7,
+                                       double b_h2inv, double a_coef, double t1, double t2,
                                        void* stream) {
-  return hpgmg_r1_gsrb2_slab_chunk_f32(x, ilo, ihi, jlo, jhi, rbeta_i, rbeta_j, rbeta_k,
-                                       ralpha, rrhs, rkdinv0, kdinv1, out, ni, nj, nk, edges,
-                                       var7, 0, b_h2inv, a_coef, t1, t2, stream);
+  return hpgmg_r1_gsrb2_slab_chunk_f32(x, ilo, ihi, jlo, jhi, klo, khi, rbeta_i, rbeta_j,
+                                       rbeta_k, ralpha, rrhs, rkdinv0, kdinv1, out, ni, nj,
+                                       nk, edges, var7, 0, b_h2inv, a_coef, t1, t2, stream);
 }
 
 extern "C" int hpgmg_r1_gsrb2_slab_f64(const void* x, const void* ilo, const void* ihi,
-                                       const void* jlo, const void* jhi,
-                                       const void* rbeta_i, const void* rbeta_j,
-                                       const void* rbeta_k, const void* ralpha,
-                                       const void* rrhs, const void* rkdinv0,
-                                       const void* kdinv1, void* out, int ni, int nj,
-                                       int nk, int edges, int var7, double b_h2inv,
-                                       double a_coef, double t1, double t2,
+                                       const void* jlo, const void* jhi, const void* klo,
+                                       const void* khi, const void* rbeta_i,
+                                       const void* rbeta_j, const void* rbeta_k,
+                                       const void* ralpha, const void* rrhs,
+                                       const void* rkdinv0, const void* kdinv1, void* out,
+                                       int ni, int nj, int nk, int edges, int var7,
+                                       double b_h2inv, double a_coef, double t1, double t2,
                                        void* stream) {
-  return hpgmg_r1_gsrb2_slab_chunk_f64(x, ilo, ihi, jlo, jhi, rbeta_i, rbeta_j, rbeta_k,
-                                       ralpha, rrhs, rkdinv0, kdinv1, out, ni, nj, nk, edges,
-                                       var7, 0, b_h2inv, a_coef, t1, t2, stream);
+  return hpgmg_r1_gsrb2_slab_chunk_f64(x, ilo, ihi, jlo, jhi, klo, khi, rbeta_i, rbeta_j,
+                                       rbeta_k, ralpha, rrhs, rkdinv0, kdinv1, out, ni, nj,
+                                       nk, edges, var7, 0, b_h2inv, a_coef, t1, t2, stream);
 }

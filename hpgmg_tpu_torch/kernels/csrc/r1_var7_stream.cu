@@ -3,9 +3,10 @@
 // flux, operators.7pt.c:52-76 and operators.fv2.c:55-92) on a whole level
 // with 2-tap Dirichlet ghosts (K5) or periodic ghosts (K7b, `periodic`),
 // and the radius-1 stencil of the fv7pt, fv2 and 27pt suites on one rank's
-// local block of a level decomposed over an i/j process grid (K8c, SLAB),
-// its i and j ghosts read from four 1-deep halo slabs, in four modes, one
-// launch a call:
+// local block of a level decomposed over a process grid (K8c, SLAB), its i
+// and j ghosts read from four 1-deep halo slabs (and on a block split
+// along k its k ghosts from two more, KSLAB), in four modes, one launch a
+// call:
 //
 //   apply     out = A x
 //   residual  out = rhs - A x
@@ -38,9 +39,13 @@
 //   K8c: ilo, ihi (1, nj, nk): the cells i = -1 and i = ni;
 //        jlo, jhi (ni+2, 1, nk): the cells j = -1 and j = nj at i = -1 ..
 //        ni (the i-extended strips: the (i, j) edge ghosts arrive with
-//        them, in the i-then-j order of the separable fills)
-// K8c's k axis is never split: a k ghost is the 2-tap Dirichlet one over
-// the two nearest ij values, or the wrapped cell (periodic).
+//        them, in the i-then-j order of the separable fills);
+//        KSLAB: klo, khi (ni+2, nj+2, 1): the cells k = -1 and k = nk at
+//        i = -1 .. ni, j = -1 .. nj (cut from the i- and j-extended block)
+// On a block whole along k, a K8c k ghost is the 2-tap Dirichlet one over
+// the two nearest ij values, or the wrapped cell (periodic); on a block
+// split along k (KSLAB) it is the k slab's cell (the neighbour's, the wrap
+// or the Dirichlet fill).
 //
 // What bounds it on an H100: device-memory bandwidth. A var7 gsrb reads x,
 // three face arrays, rhs and kdinv and writes out: 7 values, 28 B a cell
@@ -88,7 +93,9 @@
 // slab ilo or ihi, a halo row with j < 0 or j >= nj a row of the strip jlo
 // or jhi (a copy's source in the top bits of its offset), the coefficients
 // the rank's natural face arrays; only k ghosts are made (Dirichlet) or
-// copied (periodic).
+// copied (periodic), or with KSLAB copied from the k slabs: a halo column
+// k = -1 or nk of x plane q is klo's or khi's cell ((q+1) (nj+2) + j+1),
+// so the window holds no made ghost at all.
 // Plain versions: hpgmg_tpu_torch/kernels/stencils_r1.py:r1_stencil_plain,
 // r1_slab_plain.
 
@@ -125,9 +132,9 @@ constexpr int VXP = V7TK + 2;             // x plane pitch (even: paired reads)
 constexpr int VXPLANE = (V7TJ + 2) * VXP;  // the tile and its 1-cell halo
 constexpr int kVXE = (VXPLANE + kV7Threads - 1) / kV7Threads;  // copies a thread
 constexpr unsigned kVNoCopy = ~0u;
-// K8c: a copy's source (x or a slab plane, the jlo strip, the jhi strip)
-// in the top bits of its offset
-constexpr int kSrcShift = 30;
+// K8c: a copy's source (x or a slab plane, the jlo strip, the jhi strip,
+// the klo slab, the khi slab) in the top bits of its offset
+constexpr int kSrcShift = 29;
 constexpr unsigned kOffMask = (1u << kSrcShift) - 1;
 
 template <typename T>
@@ -137,6 +144,8 @@ struct V7Args {
   const T* ihi;
   const T* jlo;
   const T* jhi;
+  const T* klo;  // K8c on a block split along k (KSLAB); null otherwise
+  const T* khi;
   const T* beta_i;  // var7 only
   const T* beta_j;
   const T* beta_k;
@@ -179,9 +188,10 @@ __device__ __forceinline__ T ax7(T xc, T xu, T xd, T xs, T xn, T xe, T xw, T bih
 
 // One block: the TJ x TK column (blockIdx.x) over the i-planes of chunk
 // blockIdx.y.
-template <typename T, int MODE, bool VAR7, bool SLAB>
+template <typename T, int MODE, bool VAR7, bool SLAB, bool KSLAB>
 __global__ void __launch_bounds__(kV7Threads, kV7Blocks<T, VAR7>)
     r1_v7_kernel(const V7Args<T> p, int parity, int chunk) {
+  static_assert(SLAB || !KSLAB, "k slabs come with the i/j slabs");
   __shared__ __align__(16) T ring[kV7Ring * VXPLANE];
 
   const int ni = p.ni, nj = p.nj, nk = p.nk;
@@ -197,9 +207,10 @@ __global__ void __launch_bounds__(kV7Threads, kV7Blocks<T, VAR7>)
   // this thread's copies of a plane: halo positions t (row t / VXP, column
   // t % VXP of the slot), their offsets in their source. A whole periodic
   // level: the cells mod n; K8c: k mod nk (periodic) and the strips for
-  // the rows j < 0, j >= nj; Dirichlet: cells only (k ghosts, and a whole
-  // level's j ghosts, are made in the window). Positions beyond the ragged
-  // edge are read only by discarded results and are not copied.
+  // the rows j < 0, j >= nj, or with KSLAB the k slabs for the columns
+  // k = -1, nk; Dirichlet: cells only (k ghosts, and a whole level's j
+  // ghosts, are made in the window). Positions beyond the ragged edge are
+  // read only by discarded results and are not copied.
   unsigned goff[kVXE];
 #pragma unroll
   for (int e = 0; e < kVXE; ++e) {
@@ -207,7 +218,9 @@ __global__ void __launch_bounds__(kV7Threads, kV7Blocks<T, VAR7>)
     const int j = j0 - 1 + t / VXP, k = k0 - 1 + t % VXP;
     const int kw = k < 0 ? k + nk : (k == nk ? 0 : k);
     unsigned g = kVNoCopy;
-    if (t < VXPLANE && k <= nk && (periodic || kw == k)) {
+    if (KSLAB && t < VXPLANE && (k < 0 || k == nk) && j <= nj) {
+      g = ((k < 0 ? 3u : 4u) << kSrcShift) | static_cast<unsigned>(j + 1);
+    } else if (t < VXPLANE && k <= nk && (periodic || kw == k)) {
       if constexpr (SLAB) {
         if (j < 0) {
           g = (1u << kSrcShift) | static_cast<unsigned>(kw);
@@ -229,12 +242,18 @@ __global__ void __launch_bounds__(kV7Threads, kV7Blocks<T, VAR7>)
     const T* base;
     const T* slo = nullptr;
     const T* shi = nullptr;
+    const T* klo = nullptr;
+    const T* khi = nullptr;
     bool any;
     if constexpr (SLAB) {
       any = q <= ib;
       base = q < 0 ? p.ilo : (q >= ni ? p.ihi : p.x + q * plane);
       slo = p.jlo + static_cast<int64_t>(q + 1) * nk;
       shi = p.jhi + static_cast<int64_t>(q + 1) * nk;
+      if constexpr (KSLAB) {
+        klo = p.klo + static_cast<int64_t>(q + 1) * (nj + 2);
+        khi = p.khi + static_cast<int64_t>(q + 1) * (nj + 2);
+      }
     } else {
       const int pq = q < 0 ? q + ni : (q >= ni ? q - ni : q);
       any = q <= ib && (periodic || pq == q);
@@ -246,7 +265,11 @@ __global__ void __launch_bounds__(kV7Threads, kV7Blocks<T, VAR7>)
       for (int e = 0; e < kVXE; ++e) {
         const unsigned g = goff[e];
         if (g == kVNoCopy) continue;
-        if constexpr (SLAB) {
+        if constexpr (KSLAB) {
+          const unsigned src = g >> kSrcShift;
+          const T* from = src == 0 ? base : src == 1 ? slo : src == 2 ? shi : src == 3 ? klo : khi;
+          cp_async(dst + e * kV7Threads, from + (g & kOffMask));
+        } else if constexpr (SLAB) {
           const unsigned src = g >> kSrcShift;
           cp_async(dst + e * kV7Threads,
                    (src == 0 ? base : (src == 1 ? slo : shi)) + (g & kOffMask));
@@ -271,9 +294,9 @@ __global__ void __launch_bounds__(kV7Threads, kV7Blocks<T, VAR7>)
   const bool vec = p.vec != 0;
   const bool has_hi = kb + 1 < nk;
   // Dirichlet ghosts made in the window: a whole level's j and k ghosts,
-  // K8c's k ghosts (its i/j ghosts are slab cells)
+  // K8c's k ghosts (its i/j ghosts are slab cells; KSLAB: its k ghosts too)
   Faces f{false, false, false, -1};
-  if (!periodic) {
+  if (!periodic && !KSLAB) {
     f = {!SLAB && j == 0, !SLAB && j == nj - 1, kb == 0,
          kb == nk - 2 ? 3 : (kb == nk - 1 ? 2 : -1)};
   }
@@ -481,9 +504,9 @@ __global__ void __launch_bounds__(kV7Threads, kV7Blocks<T, VAR7>)
   }
 }
 
-template <typename T, int MODE, bool VAR7, bool SLAB>
+template <typename T, int MODE, bool VAR7, bool SLAB, bool KSLAB>
 int launch_mode(const V7Args<T>& p, int parity, int chunk, cudaStream_t s) {
-  auto kernel = r1_v7_kernel<T, MODE, VAR7, SLAB>;
+  auto kernel = r1_v7_kernel<T, MODE, VAR7, SLAB, KSLAB>;
   const int64_t tiles =
       static_cast<int64_t>((p.nj + V7TJ - 1) / V7TJ) * ((p.nk + V7TK - 1) / V7TK);
   // fres: a coarse cell's two planes in one chunk
@@ -522,13 +545,13 @@ int launch_mode(const V7Args<T>& p, int parity, int chunk, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool VAR7, bool SLAB>
+template <typename T, bool VAR7, bool SLAB, bool KSLAB = false>
 int launch_body(const V7Args<T>& p, int mode, int parity, int chunk, cudaStream_t s) {
   switch (mode) {
-    case kApply: return launch_mode<T, kApply, VAR7, SLAB>(p, parity, chunk, s);
-    case kResidual: return launch_mode<T, kResidual, VAR7, SLAB>(p, parity, chunk, s);
-    case kGsrb: return launch_mode<T, kGsrb, VAR7, SLAB>(p, parity, chunk, s);
-    default: return launch_mode<T, kFres, VAR7, SLAB>(p, parity, chunk, s);
+    case kApply: return launch_mode<T, kApply, VAR7, SLAB, KSLAB>(p, parity, chunk, s);
+    case kResidual: return launch_mode<T, kResidual, VAR7, SLAB, KSLAB>(p, parity, chunk, s);
+    case kGsrb: return launch_mode<T, kGsrb, VAR7, SLAB, KSLAB>(p, parity, chunk, s);
+    default: return launch_mode<T, kFres, VAR7, SLAB, KSLAB>(p, parity, chunk, s);
   }
 }
 
@@ -539,12 +562,14 @@ bool pair_ok(const void* a) {
 
 template <typename T>
 int launch_v7(const void* x, const void* ilo, const void* ihi, const void* jlo,
-              const void* jhi, const void* beta_i, const void* beta_j, const void* beta_k,
-              const void* alpha, const void* rhs, const void* kdinv, void* out, int ni,
-              int nj, int nk, int mode, int var7, int periodic, int parity, int chunk,
-              double b_h2inv, double a_coef, double t1, double t2, void* stream) {
-  const bool slab = ilo != nullptr;
+              const void* jhi, const void* klo, const void* khi, const void* beta_i,
+              const void* beta_j, const void* beta_k, const void* alpha, const void* rhs,
+              const void* kdinv, void* out, int ni, int nj, int nk, int mode, int var7,
+              int periodic, int parity, int chunk, double b_h2inv, double a_coef, double t1,
+              double t2, void* stream) {
+  const bool slab = ilo != nullptr, kslab = klo != nullptr;
   if (ni < 2 || nj < 2 || nk < 2 || mode < kApply || mode > kFres ||
+      (kslab && (!slab || khi == nullptr)) ||
       (mode == kFres && (ni % 2 || nj % 2 || nk % 2)) || parity < 0 || parity > 1 ||
       chunk < 0 || (!slab && (!var7 || ni != nj || ni != nk)) ||
       static_cast<int64_t>(nj) * nk > static_cast<int64_t>(kOffMask) || x == nullptr ||
@@ -560,6 +585,8 @@ int launch_v7(const void* x, const void* ilo, const void* ihi, const void* jlo,
   p.ihi = static_cast<const T*>(ihi);
   p.jlo = static_cast<const T*>(jlo);
   p.jhi = static_cast<const T*>(jhi);
+  p.klo = static_cast<const T*>(klo);
+  p.khi = static_cast<const T*>(khi);
   p.beta_i = static_cast<const T*>(beta_i);
   p.beta_j = static_cast<const T*>(beta_j);
   p.beta_k = static_cast<const T*>(beta_k);
@@ -579,6 +606,10 @@ int launch_v7(const void* x, const void* ilo, const void* ihi, const void* jlo,
           pair_ok<T>(alpha) && pair_ok<T>(rhs) && pair_ok<T>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!slab) return launch_body<T, true, false>(p, mode, parity, chunk, s);
+  if (kslab) {
+    return var7 ? launch_body<T, true, true, true>(p, mode, parity, chunk, s)
+                : launch_body<T, false, true, true>(p, mode, parity, chunk, s);
+  }
   return var7 ? launch_body<T, true, true>(p, mode, parity, chunk, s)
               : launch_body<T, false, true>(p, mode, parity, chunk, s);
 }
@@ -594,9 +625,9 @@ extern "C" int hpgmg_r1_var7_f32(const void* x, const void* beta_i, const void* 
                                  const void* kdinv, void* out, int n, int mode, int periodic,
                                  int parity, int chunk, double b_h2inv, double a_coef,
                                  double t1, double t2, void* stream) {
-  return launch_v7<float>(x, nullptr, nullptr, nullptr, nullptr, beta_i, beta_j, beta_k,
-                          alpha, rhs, kdinv, out, n, n, n, mode, 1, periodic, parity, chunk,
-                          b_h2inv, a_coef, t1, t2, stream);
+  return launch_v7<float>(x, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, beta_i,
+                          beta_j, beta_k, alpha, rhs, kdinv, out, n, n, n, mode, 1, periodic,
+                          parity, chunk, b_h2inv, a_coef, t1, t2, stream);
 }
 
 extern "C" int hpgmg_r1_var7_f64(const void* x, const void* beta_i, const void* beta_j,
@@ -604,36 +635,39 @@ extern "C" int hpgmg_r1_var7_f64(const void* x, const void* beta_i, const void* 
                                  const void* kdinv, void* out, int n, int mode, int periodic,
                                  int parity, int chunk, double b_h2inv, double a_coef,
                                  double t1, double t2, void* stream) {
-  return launch_v7<double>(x, nullptr, nullptr, nullptr, nullptr, beta_i, beta_j, beta_k,
-                           alpha, rhs, kdinv, out, n, n, n, mode, 1, periodic, parity, chunk,
-                           b_h2inv, a_coef, t1, t2, stream);
+  return launch_v7<double>(x, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, beta_i,
+                           beta_j, beta_k, alpha, rhs, kdinv, out, n, n, n, mode, 1, periodic,
+                           parity, chunk, b_h2inv, a_coef, t1, t2, stream);
 }
 
 // K8c. var7 != 0: the 7-point body (beta_* read; alpha may be null); else
-// the 27pt body (a_coef the constant a). periodic != 0: k ghosts wrap;
+// the 27pt body (a_coef the constant a). klo, khi: the k slabs of a block
+// split along k (null: k ghosts made, or wrapped where periodic != 0);
 // parity and chunk as above
 extern "C" int hpgmg_r1_slab_f32(const void* x, const void* ilo, const void* ihi,
-                                 const void* jlo, const void* jhi, const void* beta_i,
-                                 const void* beta_j, const void* beta_k, const void* alpha,
-                                 const void* rhs, const void* kdinv, void* out, int ni,
-                                 int nj, int nk, int mode, int var7, int periodic,
-                                 int parity, int chunk, double b_h2inv, double a_coef,
-                                 double t1, double t2, void* stream) {
+                                 const void* jlo, const void* jhi, const void* klo,
+                                 const void* khi, const void* beta_i, const void* beta_j,
+                                 const void* beta_k, const void* alpha, const void* rhs,
+                                 const void* kdinv, void* out, int ni, int nj, int nk,
+                                 int mode, int var7, int periodic, int parity, int chunk,
+                                 double b_h2inv, double a_coef, double t1, double t2,
+                                 void* stream) {
   if (ilo == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_v7<float>(x, ilo, ihi, jlo, jhi, beta_i, beta_j, beta_k, alpha, rhs, kdinv,
-                          out, ni, nj, nk, mode, var7, periodic, parity, chunk, b_h2inv,
-                          a_coef, t1, t2, stream);
+  return launch_v7<float>(x, ilo, ihi, jlo, jhi, klo, khi, beta_i, beta_j, beta_k, alpha,
+                          rhs, kdinv, out, ni, nj, nk, mode, var7, periodic, parity, chunk,
+                          b_h2inv, a_coef, t1, t2, stream);
 }
 
 extern "C" int hpgmg_r1_slab_f64(const void* x, const void* ilo, const void* ihi,
-                                 const void* jlo, const void* jhi, const void* beta_i,
-                                 const void* beta_j, const void* beta_k, const void* alpha,
-                                 const void* rhs, const void* kdinv, void* out, int ni,
-                                 int nj, int nk, int mode, int var7, int periodic,
-                                 int parity, int chunk, double b_h2inv, double a_coef,
-                                 double t1, double t2, void* stream) {
+                                 const void* jlo, const void* jhi, const void* klo,
+                                 const void* khi, const void* beta_i, const void* beta_j,
+                                 const void* beta_k, const void* alpha, const void* rhs,
+                                 const void* kdinv, void* out, int ni, int nj, int nk,
+                                 int mode, int var7, int periodic, int parity, int chunk,
+                                 double b_h2inv, double a_coef, double t1, double t2,
+                                 void* stream) {
   if (ilo == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_v7<double>(x, ilo, ihi, jlo, jhi, beta_i, beta_j, beta_k, alpha, rhs,
-                           kdinv, out, ni, nj, nk, mode, var7, periodic, parity, chunk,
+  return launch_v7<double>(x, ilo, ihi, jlo, jhi, klo, khi, beta_i, beta_j, beta_k, alpha,
+                           rhs, kdinv, out, ni, nj, nk, mode, var7, periodic, parity, chunk,
                            b_h2inv, a_coef, t1, t2, stream);
 }

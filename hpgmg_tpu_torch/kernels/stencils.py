@@ -555,9 +555,11 @@ def fv4_gsrb2(level: Level, x: torch.Tensor, rhs: torch.Tensor,
 
 SLAB_MODES = ("apply", "residual", "gsrb")
 
-# K8a's column tile along j (csrc/fv4_slab.cu TJ): K8b's interior pass
-# takes the column tiles 1 .. ntj-2 in j, whose halo rows lie in the block
+# K8a's column tile along j and k (csrc/fv4_slab.cu TJ, TK): K8b's
+# interior pass takes the column tiles 1 .. ntj-2 in j (and on a block
+# split along k, 1 .. ntk-2 in k), whose halo rows lie in the block
 SLAB_TJ = 16
+SLAB_TK = 32
 
 
 def v4_slab(src: torch.Tensor, axis: int, lo: bool) -> torch.Tensor:
@@ -571,15 +573,18 @@ def v4_slab(src: torch.Tensor, axis: int, lo: bool) -> torch.Tensor:
     return torch.cat([far, near] if lo else [near, far], dim=axis)
 
 
-def build_slabs(x: torch.Tensor, depth: int, width: int, ghost, exchange):
-    """The four halo slabs of the local block ``x`` (ni, nj, nk), ``depth``
+def build_slabs(x: torch.Tensor, depth: int, width: int, ghost, exchange,
+                kslabs: bool = False):
+    """The halo slabs of the local block ``x`` (ni, nj, nk), ``depth``
     cells deep: ilo, ihi (depth, nj, nk) first, by ``exchange(0, lo_face,
     hi_face)``, then jlo, jhi (ni + 2 depth, depth, nk), the i-extended
-    strips, by ``exchange(1, ...)``, so the (i, j) edge ghosts arrive in
-    the i-then-j order of the separable fills. ``exchange`` returns the
-    neighbours' faces, None on a side that has none (a Dirichlet domain
-    face); there the slab is ``ghost(src, axis, lo)`` of the ``width``
-    cells nearest the face."""
+    strips, by ``exchange(1, ...)``, and with ``kslabs`` (a block split
+    along k) klo, khi (ni + 2 depth, nj + 2 depth, depth) last, cut from the
+    i- and j-extended block, by ``exchange(2, ...)``; so the edge and
+    corner ghosts arrive in the i-then-j-then-k order of the separable
+    fills. ``exchange`` returns the neighbours' faces, None on a side that
+    has none (a Dirichlet domain face); there the slab is ``ghost(src,
+    axis, lo)`` of the ``width`` cells nearest the face."""
     ni, nj = x.shape[0], x.shape[1]
     ilo, ihi = exchange(0, x[:depth], x[ni - depth:])
     ilo = ghost(x[:width], 0, True) if ilo is None else ilo
@@ -591,7 +596,15 @@ def build_slabs(x: torch.Tensor, depth: int, width: int, ghost, exchange):
     jlo, jhi = exchange(1, strip(0, depth), strip(nj - depth, nj))
     jlo = ghost(strip(0, width), 1, True) if jlo is None else jlo
     jhi = ghost(strip(nj - width, nj), 1, False) if jhi is None else jhi
-    return tuple(t.contiguous() for t in (ilo, ihi, jlo, jhi))
+    slabs = (ilo, ihi, jlo, jhi)
+    if kslabs:
+        xe = extend_slabs(x, slabs)
+        nk = x.shape[2]
+        klo, khi = exchange(2, xe[:, :, :depth], xe[:, :, nk - depth:])
+        klo = ghost(xe[:, :, :width], 2, True) if klo is None else klo
+        khi = ghost(xe[:, :, nk - width:], 2, False) if khi is None else khi
+        slabs += (klo, khi)
+    return tuple(t.contiguous() for t in slabs)
 
 
 def local_exchange(bc: BC):
@@ -611,33 +624,47 @@ def single_chip_slabs(x: torch.Tensor, bc: BC):
 
 def extend_slabs(x: torch.Tensor, slabs) -> torch.Tensor:
     """(ni, nj, nk) block + its four d-deep slabs -> the (ni+2d, nj+2d, nk)
-    block with its i and j ghosts (the jlo/jhi strips are i-extended)."""
-    ilo, ihi, jlo, jhi = slabs
-    return torch.cat([jlo, torch.cat([ilo, x, ihi], dim=0), jhi], dim=1)
+    block with its i and j ghosts (the jlo/jhi strips are i-extended); the
+    (ni+2d, nj+2d, nk+2d) block with its k ghosts too where ``slabs``
+    holds the two k slabs as well."""
+    ilo, ihi, jlo, jhi = slabs[:4]
+    xe = torch.cat([jlo, torch.cat([ilo, x, ihi], dim=0), jhi], dim=1)
+    if len(slabs) == 6:
+        xe = torch.cat([slabs[4], xe, slabs[5]], dim=2)
+    return xe
 
 
 def extend_for_kernel(x: torch.Tensor, slabs, bc: BC) -> torch.Tensor:
     """The (ni+4, nj+4, nk+4) extended block K8a's plain version applies
-    the stencil to: the slabs in i and j, then the k ghosts of the result
-    (quartic Dirichlet, or wrapped; k is never split)."""
+    the stencil to: the slabs in i and j, then the k ghosts of the result:
+    the k slabs where there are six (a block split along k), else the
+    quartic Dirichlet ones or the wrap."""
     xe = extend_slabs(x, slabs)
+    if len(slabs) == 6:
+        return xe
     if bc == BC.PERIODIC:
         return _wrap_axis(xe, 2, 2)
     return _extend_axis_v4(xe, 2, 2)
 
 
-def overlap_grid_shape(ni: int, nj: int):
+def overlap_grid_shape(ni: int, nj: int, nk: Optional[int] = None):
     """(ni, ntj): the block's i-planes and K8a's column tiles along j, where
     K8b's split applies: at least 3 column tiles (the interior pass takes
-    the inner ones) and 6 planes (it takes planes 2 .. ni-3); else None
-    (counterpart of stencils.py:overlap_grid_shape)."""
+    the inner ones) and 6 planes (it takes planes 2 .. ni-3), and on a
+    block split along k (``nk`` given) at least 3 column tiles along k too
+    (the interior pass takes the inner ones, whose stencils read no k
+    ghost); else None (counterpart of stencils.py:overlap_grid_shape)."""
     ntj = -(-nj // SLAB_TJ)
+    if nk is not None and -(-nk // SLAB_TK) < 3:
+        return None
     return (ni, ntj) if ntj >= 3 and ni >= 6 else None
 
 
 def _check_slab(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
-                mode: str, rhs, kdinv, overlap: bool = False):
-    """Validate everything K8a/K8b read; raise on what they do not take."""
+                mode: str, rhs, kdinv, overlap: bool = False, ksplit: bool = False):
+    """Validate everything K8a/K8b read; raise on what they do not take.
+    ``slabs``: four, or six on a block split along k (``ksplit``; K8b's
+    interior pass reads none)."""
     if mode not in SLAB_MODES:
         raise ValueError(f"the fv4 slab kernel has no mode {mode!r}")
     if cfg.bc not in (BC.DIRICHLET, BC.PERIODIC):
@@ -648,17 +675,24 @@ def _check_slab(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
     if min(ni, nj, nk) < 4 or ni % 2 or nj % 2 or nk % 2:
         raise ValueError(f"the fv4 slab kernel takes even ni, nj, nk >= 4, "
                          f"got {tuple(x.shape)}")
-    if overlap and overlap_grid_shape(ni, nj) is None:
-        raise ValueError(f"K8b needs >= 3 column tiles of {SLAB_TJ} along j and >= 6 "
-                         f"i-planes, got {ni} x {nj}")
+    if slabs is not None:
+        ksplit = len(slabs) == 6
+        if len(slabs) not in (4, 6):
+            raise ValueError(f"K8a takes 4 slabs, or 6 on a block split along k, "
+                             f"got {len(slabs)}")
+    if overlap and overlap_grid_shape(ni, nj, nk if ksplit else None) is None:
+        raise ValueError(f"K8b needs >= 3 column tiles of {SLAB_TJ} along j (and of "
+                         f"{SLAB_TK} along a split k) and >= 6 i-planes, got "
+                         f"{tuple(x.shape)}")
     blk, dt = (ni, nj, nk), level.dtype
     need = {"x": (x, blk),
             "beta_i": (level.beta_i, (ni + 1, nj + 2, nk + 2)),
             "beta_j": (level.beta_j, (ni + 2, nj + 1, nk + 2)),
             "beta_k": (level.beta_k, (ni + 2, nj + 2, nk + 1))}
     if slabs is not None:
-        for name, t, shape in zip(("ilo", "ihi", "jlo", "jhi"), slabs,
-                                  ((2, nj, nk),) * 2 + ((ni + 4, 2, nk),) * 2):
+        for name, t, shape in zip(("ilo", "ihi", "jlo", "jhi", "klo", "khi"), slabs,
+                                  ((2, nj, nk),) * 2 + ((ni + 4, 2, nk),) * 2
+                                  + ((ni + 4, nj + 4, 2),) * 2):
             need[name] = (t, shape)
     if mode != "apply":
         need["rhs"] = (rhs, blk)
@@ -706,25 +740,43 @@ def _interior_region(x: torch.Tensor):
     return 2, ni - 2, SLAB_TJ, (ntj - 1) * SLAB_TJ
 
 
+def _interior_box(x: torch.Tensor, ksplit: bool):
+    """``_interior_region`` and (k0, k1): along k the whole block, or on a
+    block split along k (``ksplit``) the column tiles 1 .. ntk-2, whose
+    stencils read no k ghost."""
+    nk = x.shape[2]
+    if ksplit and overlap_grid_shape(*x.shape) is None:
+        raise ValueError(f"K8b's split does not take the block {tuple(x.shape)}")
+    k0, k1 = (SLAB_TK, (-(-nk // SLAB_TK) - 1) * SLAB_TK) if ksplit else (0, nk)
+    return _interior_region(x) + (k0, k1)
+
+
 def fv4_overlap_interior_plain(level: Level, x: torch.Tensor, cfg: SolverConfig,
                                mode: str, rhs: Optional[torch.Tensor] = None,
-                               kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
+                               kdinv: Optional[torch.Tensor] = None,
+                               ksplit: bool = False) -> torch.Tensor:
     """The plain version of K8b's interior pass: the interior part of the
     output (``_interior_region``) from the block alone (no slab); zeros
-    elsewhere."""
-    _check_slab(level, x, None, cfg, mode, rhs, kdinv, overlap=True)
+    elsewhere. ``ksplit``: the block is split along k (its k ghosts come
+    in slabs, so the interior part keeps off the k ends too)."""
+    _check_slab(level, x, None, cfg, mode, rhs, kdinv, overlap=True, ksplit=ksplit)
     fv4_overlap_interior_plain.calls += 1
-    i0, i1, j0, j1 = _interior_region(x)
-    sub = x[i0 - 2:i1 + 2, j0 - 2:j1 + 2]
-    xe = _wrap_axis(sub, 2, 2) if cfg.bc == BC.PERIODIC else _extend_axis_v4(sub, 2, 2)
+    i0, i1, j0, j1, k0, k1 = _interior_box(x, ksplit)
+    if ksplit:
+        xe = x[i0 - 2:i1 + 2, j0 - 2:j1 + 2, k0 - 2:k1 + 2]
+    else:
+        sub = x[i0 - 2:i1 + 2, j0 - 2:j1 + 2]
+        xe = _wrap_axis(sub, 2, 2) if cfg.bc == BC.PERIODIC else _extend_axis_v4(sub, 2, 2)
     # the fields the plain stencil reads, cut to the interior part (the
     # face arrays with their tangential margins)
-    cut = SimpleNamespace(h2inv=level.h2inv, beta_i=level.beta_i[i0:i1 + 1, j0:j1 + 2],
-                          beta_j=level.beta_j[i0:i1 + 2, j0:j1 + 1],
-                          beta_k=level.beta_k[i0:i1 + 2, j0:j1 + 2],
-                          alpha=None if level.alpha is None else level.alpha[i0:i1, j0:j1])
+    cut = SimpleNamespace(h2inv=level.h2inv,
+                          beta_i=level.beta_i[i0:i1 + 1, j0:j1 + 2, k0:k1 + 2],
+                          beta_j=level.beta_j[i0:i1 + 2, j0:j1 + 1, k0:k1 + 2],
+                          beta_k=level.beta_k[i0:i1 + 2, j0:j1 + 2, k0:k1 + 1],
+                          alpha=None if level.alpha is None
+                          else level.alpha[i0:i1, j0:j1, k0:k1])
     ax = apply_ext_plain(cut, xe, cfg)
-    part = (slice(i0, i1), slice(j0, j1))
+    part = (slice(i0, i1), slice(j0, j1), slice(k0, k1))
     out = torch.zeros_like(x)
     out[part] = _modes_plain(cut, x[part], cfg, mode,
                              None if rhs is None else rhs[part],
@@ -745,10 +797,10 @@ def fv4_overlap_edge_plain(level: Level, x: torch.Tensor, slabs, cfg: SolverConf
     _check_slab(level, x, slabs, cfg, mode, rhs, kdinv, overlap=True)
     fv4_overlap_edge_plain.calls += 1
     full = _slab_modes_plain(level, x, slabs, cfg, mode, rhs, kdinv)
-    i0, i1, j0, j1 = _interior_region(x)
-    keep = out[i0:i1, j0:j1].clone()
+    i0, i1, j0, j1, k0, k1 = _interior_box(x, len(slabs) == 6)
+    keep = out[i0:i1, j0:j1, k0:k1].clone()
     out.copy_(full)
-    out[i0:i1, j0:j1] = keep
+    out[i0:i1, j0:j1, k0:k1] = keep
     return out
 
 
@@ -758,14 +810,22 @@ fv4_overlap_edge_plain.calls = 0
 # K8a's and K8b's launches by pass, mode and local block shape, keyed
 # "<pass> <mode> (ni, nj, nk)", K8c's (stencils_r1.r1_slab_cuda), keyed
 # "K8c <mode> (ni, nj, nk)", and K8d's (stencils_r1.r1_gsrb2_slab_cuda),
-# keyed "K8d sweep (ni, nj, nk)" (bench/weak.py reads them for the counted
-# F-cycle)
+# keyed "K8d sweep (ni, nj, nk)", each with " k-split" appended on a block
+# split along k (bench/weak.py reads them for the counted F-cycle)
 SLAB_PASSES = ("K8a", "K8b interior", "K8b edge")
 slab_launches_by_block = {}
 
 
+def count_slab_launch(key: str, ksplit: bool):
+    """Add one launch to ``slab_launches_by_block[key]`` (its k-split
+    entry on a block split along k)."""
+    key += " k-split" if ksplit else ""
+    slab_launches_by_block[key] = slab_launches_by_block.get(key, 0) + 1
+
+
 def _launch_slab(level: Level, x, slabs, cfg: SolverConfig, mode: str, rhs,
-                 kdinv, out, pass_: int, parity: Optional[int], chunk: int):
+                 kdinv, out, pass_: int, parity: Optional[int], chunk: int,
+                 ksplit: bool):
     from hpgmg_tpu_torch.kernels.build import library
 
     if mode == "gsrb" and parity not in (0, 1):
@@ -775,19 +835,18 @@ def _launch_slab(level: Level, x, slabs, cfg: SolverConfig, mode: str, rhs,
         raise ValueError(f"chunk must be >= 0 (0: the launcher's rule), got {chunk}")
     ni, nj, nk = x.shape
     alpha = level.alpha if cfg.helmholtz else None
-    ilo, ihi, jlo, jhi = slabs if slabs is not None else (None,) * 4
+    slabs = tuple(slabs) + (None,) * (6 - len(slabs)) if slabs is not None else (None,) * 6
     dt = "f32" if x.dtype == torch.float32 else "f64"
     with torch.cuda.device(x.device):
         rc = getattr(library(), f"hpgmg_fv4_slab_{dt}")(
-            x.data_ptr(), _ptr(ilo), _ptr(ihi), _ptr(jlo), _ptr(jhi),
+            x.data_ptr(), *(_ptr(t) for t in slabs),
             level.beta_i.data_ptr(), level.beta_j.data_ptr(), level.beta_k.data_ptr(),
             _ptr(alpha), _ptr(rhs), _ptr(kdinv), out.data_ptr(), ni, nj, nk,
-            MODES[mode], int(cfg.bc == BC.PERIODIC), parity or 0, chunk,
+            MODES[mode], int(cfg.bc == BC.PERIODIC), int(ksplit), parity or 0, chunk,
             -cfg.b * level.h2inv, float(cfg.a), pass_, _stream(x))
     if rc != 0:
         raise RuntimeError(f"fv4 slab kernel launch failed: CUDA error {rc}")
-    key = f"{SLAB_PASSES[pass_]} {mode} {tuple(x.shape)}"
-    slab_launches_by_block[key] = slab_launches_by_block.get(key, 0) + 1
+    count_slab_launch(f"{SLAB_PASSES[pass_]} {mode} {tuple(x.shape)}", ksplit)
     return out
 
 
@@ -804,33 +863,43 @@ def fv4_slab_cuda(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
     tensors into a newly allocated output. gsrb needs ``parity``, the
     colour ``kdinv`` carries: the kernel computes A x at that colour's
     cells only and copies x at the others. ``chunk``: i-planes a block
-    marches (0: the launcher's rule, as the solver calls it)."""
+    marches (0: the launcher's rule, as the solver calls it). Six slabs
+    (a block split along k): the k ghosts are copied from the k slabs,
+    else made in the ring (Dirichlet) or wrapped; ``kslab_launches``
+    counts the launches with k slabs."""
     _check_slab(level, x, slabs, cfg, mode, rhs, kdinv)
     _cuda_only(x, "fv4_slab_cuda")
+    ksplit = len(slabs) == 6
     out = _launch_slab(level, x, slabs, cfg, mode, rhs, kdinv, torch.empty_like(x), 0,
-                       parity, chunk)
+                       parity, chunk, ksplit)
     fv4_slab_cuda.launches += 1
+    fv4_slab_cuda.kslab_launches += ksplit
     return out
 
 
 fv4_slab_cuda.launches = 0
+fv4_slab_cuda.kslab_launches = 0
 
 
 def fv4_overlap_interior_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
                               mode: str, rhs: Optional[torch.Tensor] = None,
                               kdinv: Optional[torch.Tensor] = None,
-                              parity: Optional[int] = None, chunk: int = 0) -> torch.Tensor:
+                              parity: Optional[int] = None, chunk: int = 0,
+                              ksplit: bool = False) -> torch.Tensor:
     """Launch K8b's interior pass into a newly allocated output (the rest
-    is left for ``fv4_overlap_edge_cuda``)."""
-    _check_slab(level, x, None, cfg, mode, rhs, kdinv, overlap=True)
+    is left for ``fv4_overlap_edge_cuda``); ``ksplit``: the block is split
+    along k, so the pass keeps off its first and last column tiles in k."""
+    _check_slab(level, x, None, cfg, mode, rhs, kdinv, overlap=True, ksplit=ksplit)
     _cuda_only(x, "fv4_overlap_interior_cuda")
     out = _launch_slab(level, x, None, cfg, mode, rhs, kdinv, torch.empty_like(x), 1,
-                       parity, chunk)
+                       parity, chunk, ksplit)
     fv4_overlap_interior_cuda.launches += 1
+    fv4_overlap_interior_cuda.kslab_launches += ksplit
     return out
 
 
 fv4_overlap_interior_cuda.launches = 0
+fv4_overlap_interior_cuda.kslab_launches = 0
 
 
 def fv4_overlap_edge_cuda(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
@@ -844,12 +913,15 @@ def fv4_overlap_edge_cuda(level: Level, x: torch.Tensor, slabs, cfg: SolverConfi
     if out.shape != x.shape or out.dtype != x.dtype or out.device != x.device \
             or not out.is_contiguous():
         raise ValueError("out must be the interior pass's output")
-    _launch_slab(level, x, slabs, cfg, mode, rhs, kdinv, out, 2, parity, chunk)
+    ksplit = len(slabs) == 6
+    _launch_slab(level, x, slabs, cfg, mode, rhs, kdinv, out, 2, parity, chunk, ksplit)
     fv4_overlap_edge_cuda.launches += 1
+    fv4_overlap_edge_cuda.kslab_launches += ksplit
     return out
 
 
 fv4_overlap_edge_cuda.launches = 0
+fv4_overlap_edge_cuda.kslab_launches = 0
 
 
 def fv4_slab(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig, mode: str,
@@ -870,12 +942,14 @@ def fv4_slab(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig, mode: str,
 def fv4_overlap_interior(level: Level, x: torch.Tensor, cfg: SolverConfig,
                          mode: str, rhs: Optional[torch.Tensor] = None,
                          kdinv: Optional[torch.Tensor] = None,
-                         parity: Optional[int] = None) -> torch.Tensor:
-    """K8b's interior pass (no slab read; queued before the exchange)."""
+                         parity: Optional[int] = None, ksplit: bool = False) -> torch.Tensor:
+    """K8b's interior pass (no slab read; queued before the exchange);
+    ``ksplit``: the block is split along k."""
     if x.is_cuda:
-        return fv4_overlap_interior_cuda(level, x, cfg, mode, rhs, kdinv, parity)
+        return fv4_overlap_interior_cuda(level, x, cfg, mode, rhs, kdinv, parity,
+                                         ksplit=ksplit)
     if x.device.type == "cpu":
-        return fv4_overlap_interior_plain(level, x, cfg, mode, rhs, kdinv)
+        return fv4_overlap_interior_plain(level, x, cfg, mode, rhs, kdinv, ksplit)
     raise ValueError(f"fv4 overlap has no kernel for device {x.device}")
 
 
@@ -897,5 +971,5 @@ def fv4_overlap(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig, mode: s
                 kdinv: Optional[torch.Tensor] = None,
                 parity: Optional[int] = None) -> torch.Tensor:
     """K8b, both passes in order: equal to K8a bit for bit."""
-    out = fv4_overlap_interior(level, x, cfg, mode, rhs, kdinv, parity)
+    out = fv4_overlap_interior(level, x, cfg, mode, rhs, kdinv, parity, len(slabs) == 6)
     return fv4_overlap_edge(level, x, slabs, cfg, mode, out, rhs, kdinv, parity)

@@ -39,8 +39,8 @@ from hpgmg_tpu_torch.core.config import BC, SolverConfig
 from hpgmg_tpu_torch.core.level import Level
 from hpgmg_tpu_torch.kernels.restrict import restrict_cell_plain
 from hpgmg_tpu_torch.kernels.stencils import (MODES, _ptr, _stream, build_slabs,
-                                              check_dirichlet, extend_slabs,
-                                              local_exchange, slab_launches_by_block)
+                                              check_dirichlet, count_slab_launch,
+                                              extend_slabs, local_exchange)
 from hpgmg_tpu_torch.ops.bc import _wrap_axis, ghost_fill_linear, ghost_fill_quadratic_fd
 from hpgmg_tpu_torch.ops.bc_fv import ghost_fill_fv
 
@@ -472,8 +472,8 @@ def single_chip_slabs2_r1(x: torch.Tensor, taps: str):
 
 
 def _k_ghosts(xe: torch.Tensor, bc: BC, taps: str) -> torch.Tensor:
-    """``xe`` with its 1-deep k ghosts (k is never split): wrapped, or the
-    2-tap Dirichlet rule."""
+    """``xe`` with its 1-deep k ghosts: wrapped, or the 2-tap Dirichlet
+    rule."""
     if bc == BC.PERIODIC:
         return _wrap_axis(xe, 2, 1)
     g = taps_ghost(taps)
@@ -482,35 +482,49 @@ def _k_ghosts(xe: torch.Tensor, bc: BC, taps: str) -> torch.Tensor:
 
 def extend_for_kernel_r1(x: torch.Tensor, slabs, bc: BC, taps: str) -> torch.Tensor:
     """The (ni+2, nj+2, nk+2) extended block K8c's plain version applies the
-    stencil to: the slabs in i and j, then the k ghosts."""
+    stencil to: the slabs in i and j, then the k ghosts: the k slabs where
+    there are six (a block split along k), else made (``_k_ghosts``)."""
+    if len(slabs) == 6:
+        return extend_slabs(x, slabs)
     return _k_ghosts(extend_slabs(x, slabs), bc, taps)
 
 
 def ring_cut(a: torch.Tensor, oi: int, oj: int, ni: int, nj: int,
-             face_axis: Optional[int] = None) -> torch.Tensor:
+             face_axis: Optional[int] = None, ok: int = 0,
+             nk: Optional[int] = None) -> torch.Tensor:
     """The cells [oi-1, oi+ni+1) x [oj-1, oj+nj+1) of the global array
-    ``a`` (one more face along ``face_axis``), zeros outside the domain:
-    one of K8d's ring views."""
-    ap = torch.nn.functional.pad(a, (0, 0, 1, 1, 1, 1))
+    ``a`` (one more face along ``face_axis``), zeros outside the domain,
+    and with ``nk`` (a block split along k) the cells [ok-1, ok+nk+1) along
+    k too (else the whole k extent): one of K8d's ring views."""
+    kring = nk is not None
+    ap = torch.nn.functional.pad(a, (1, 1, 1, 1, 1, 1) if kring else (0, 0, 1, 1, 1, 1))
     ei = ni + 2 + (face_axis == 0)
     ej = nj + 2 + (face_axis == 1)
-    return ap[oi:oi + ei, oj:oj + ej].contiguous()
+    if not kring:
+        return ap[oi:oi + ei, oj:oj + ej].contiguous()
+    ek = nk + 2 + (face_axis == 2)
+    return ap[oi:oi + ei, oj:oj + ej, ok:ok + ek].contiguous()
 
 
 def ring_views(level: Level, cfg: SolverConfig, var7: bool, oi: int = 0,
-               oj: int = 0, ni: Optional[int] = None, nj: Optional[int] = None):
-    """K8d's ring views of the block [oi, oi+ni) x [oj, oj+nj) of the global
-    ``level``: (kdinv0, alpha, beta_i, beta_j, beta_k), each with its 1-cell
-    ring in i and j (counterpart of shard_kernels.py:build_sharded_k2_r1);
-    alpha and the faces None where the body reads none."""
+               oj: int = 0, ni: Optional[int] = None, nj: Optional[int] = None,
+               ok: int = 0, nk: Optional[int] = None):
+    """K8d's ring views of the block [oi, oi+ni) x [oj, oj+nj) x [ok,
+    ok+nk) of the global ``level``: (kdinv0, alpha, beta_i, beta_j,
+    beta_k), each with its 1-cell ring in i and j, and in k too where the
+    block is split along k (``nk`` below the level's extent) (counterpart of
+    shard_kernels.py:build_sharded_k2_r1); alpha and the faces None where
+    the body reads none."""
     ni = level.dim if ni is None else ni
     nj = level.dim if nj is None else nj
-    kd0 = ring_cut(level.kdinv[0], oi, oj, ni, nj)
+    kw = dict(ok=ok, nk=nk) if nk is not None and nk < level.dim else {}
+    kd0 = ring_cut(level.kdinv[0], oi, oj, ni, nj, **kw)
     if not var7:
         return kd0, None, None, None, None
-    alpha = ring_cut(level.alpha, oi, oj, ni, nj) if cfg.helmholtz else None
-    return (kd0, alpha, ring_cut(level.beta_i, oi, oj, ni, nj, 0),
-            ring_cut(level.beta_j, oi, oj, ni, nj, 1), ring_cut(level.beta_k, oi, oj, ni, nj))
+    alpha = ring_cut(level.alpha, oi, oj, ni, nj, **kw) if cfg.helmholtz else None
+    return (kd0, alpha, ring_cut(level.beta_i, oi, oj, ni, nj, 0, **kw),
+            ring_cut(level.beta_j, oi, oj, ni, nj, 1, **kw),
+            ring_cut(level.beta_k, oi, oj, ni, nj, 2 if kw else None, **kw))
 
 
 def _check_block(x: torch.Tensor, need: dict, what: str):
@@ -547,8 +561,12 @@ def _check_slab(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
     if mode == "fres" and (ni % 2 or nj % 2 or nk % 2):
         raise ValueError(f"fres needs even extents, got {tuple(x.shape)}")
     blk = (ni, nj, nk)
-    need = dict(zip(("ilo", "ihi", "jlo", "jhi"),
-                    zip(slabs, ((1, nj, nk),) * 2 + ((ni + 2, 1, nk),) * 2)))
+    if len(slabs) not in (4, 6):
+        raise ValueError(f"K8c takes 4 slabs, or 6 on a block split along k, "
+                         f"got {len(slabs)}")
+    need = dict(zip(("ilo", "ihi", "jlo", "jhi", "klo", "khi"),
+                    zip(slabs, ((1, nj, nk),) * 2 + ((ni + 2, 1, nk),) * 2
+                        + ((ni + 2, nj + 2, 1),) * 2)))
     if var7:
         need.update(beta_i=(level.beta_i, (ni + 1, nj, nk)),
                     beta_j=(level.beta_j, (ni, nj + 1, nk)),
@@ -586,7 +604,9 @@ def r1_slab_cuda(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
     slabs as its halo's sources, both bodies) on CUDA tensors into a newly
     allocated output. A gsrb needs ``parity``, the colour
     ``kdinv`` carries (local parity is global: block offsets are even);
-    ``chunk`` as ``r1_stencil_cuda``'s."""
+    ``chunk`` as ``r1_stencil_cuda``'s. Six slabs (a block split along k):
+    the k ghosts are the k slabs' cells (``kslab_launches`` counts these
+    launches), else made or wrapped."""
     from hpgmg_tpu_torch.kernels.build import library
 
     _check_slab(level, x, slabs, cfg, mode, taps, var7, rhs, kdinv)
@@ -601,21 +621,23 @@ def r1_slab_cuda(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
     shape = (ni // 2, nj // 2, nk // 2) if mode == "fres" else (ni, nj, nk)
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     alpha, a_coef = _coefs(level, cfg, var7)
+    ksplit = len(slabs) == 6
     fn = getattr(library(), "hpgmg_r1_slab_" + ("f32" if x.dtype == torch.float32 else "f64"))
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), *(t.data_ptr() for t in slabs), *_betas(level, var7),
-                _ptr(alpha), _ptr(rhs), _ptr(kdinv), out.data_ptr(), ni, nj, nk,
-                MODES[mode], int(var7), int(cfg.bc == BC.PERIODIC), parity or 0, chunk,
-                cfg.b * level.h2inv, a_coef, *TAPS[taps], _stream(x))
+        rc = fn(x.data_ptr(), *(_ptr(t) for t in tuple(slabs) + (None,) * (6 - len(slabs))),
+                *_betas(level, var7), _ptr(alpha), _ptr(rhs), _ptr(kdinv), out.data_ptr(),
+                ni, nj, nk, MODES[mode], int(var7), int(cfg.bc == BC.PERIODIC), parity or 0,
+                chunk, cfg.b * level.h2inv, a_coef, *TAPS[taps], _stream(x))
     if rc != 0:
         raise RuntimeError(f"radius-1 slab kernel launch failed: CUDA error {rc}")
     r1_slab_cuda.launches += 1
-    key = f"K8c {mode} {(ni, nj, nk)}"
-    slab_launches_by_block[key] = slab_launches_by_block.get(key, 0) + 1
+    r1_slab_cuda.kslab_launches += ksplit
+    count_slab_launch(f"K8c {mode} {(ni, nj, nk)}", ksplit)
     return out
 
 
 r1_slab_cuda.launches = 0
+r1_slab_cuda.kslab_launches = 0
 
 
 def _check_gsrb2_slab(level: Level, x: torch.Tensor, slabs, edges, rhs2,
@@ -623,23 +645,32 @@ def _check_gsrb2_slab(level: Level, x: torch.Tensor, slabs, edges, rhs2,
     check_dirichlet(cfg, "the fused radius-1 slab sweep (K8d)")
     if taps not in TAPS:
         raise ValueError(f"unknown ghost taps {taps!r}; have {sorted(TAPS)}")
-    if len(edges) != 4:
-        raise ValueError(f"K8d wants 4 edge flags, got {edges}")
+    if len(slabs) not in (4, 6):
+        raise ValueError(f"K8d takes 4 slabs, or 6 on a block split along k, "
+                         f"got {len(slabs)}")
+    ksplit = len(slabs) == 6
+    if len(edges) not in (4, 6) or (ksplit and len(edges) != 6) or (
+            not ksplit and len(edges) == 6 and not (edges[4] and edges[5])):
+        raise ValueError(f"K8d wants 4 edge flags (6 on a block split along k; a "
+                         f"block whole along k has both k sides on domain faces), "
+                         f"got {edges}")
     if level.ring is None or level.kdinv is None:
         raise ValueError("K8d needs the level's ring views and kdinv")
     ni, nj, nk = x.shape if x.dim() == 3 else (0, 0, 0)
-    if ni % 2 or nj % 2:
+    if ni % 2 or nj % 2 or (ksplit and nk % 2):
         raise ValueError(f"K8d needs even local extents, got {tuple(x.shape)}")
     kd0, alpha, rbi, rbj, rbk = level.ring
-    ring = (ni + 2, nj + 2, nk)
-    need = dict(zip(("ilo", "ihi", "jlo", "jhi"),
-                    zip(slabs, ((2, nj, nk),) * 2 + ((ni + 4, 2, nk),) * 2)))
+    kr = nk + 2 if ksplit else nk
+    ring = (ni + 2, nj + 2, kr)
+    need = dict(zip(("ilo", "ihi", "jlo", "jhi", "klo", "khi"),
+                    zip(slabs, ((2, nj, nk),) * 2 + ((ni + 4, 2, nk),) * 2
+                        + ((ni + 4, nj + 4, 2),) * 2)))
     need.update(rhs2=(rhs2, ring), kdinv0_ring=(kd0, ring),
                 kdinv1=(level.kdinv[1], (ni, nj, nk)))
     if var7:
-        need.update(beta_i_ring=(rbi, (ni + 3, nj + 2, nk)),
-                    beta_j_ring=(rbj, (ni + 2, nj + 3, nk)),
-                    beta_k_ring=(rbk, (ni + 2, nj + 2, nk + 1)))
+        need.update(beta_i_ring=(rbi, (ni + 3, nj + 2, kr)),
+                    beta_j_ring=(rbj, (ni + 2, nj + 3, kr)),
+                    beta_k_ring=(rbk, (ni + 2, nj + 2, kr + 1)))
         if cfg.helmholtz:
             need["alpha_ring"] = (alpha, ring)
     _check_block(x, need, "the fused radius-1 slab sweep (K8d)")
@@ -647,29 +678,33 @@ def _check_gsrb2_slab(level: Level, x: torch.Tensor, slabs, edges, rhs2,
 
 def r1_gsrb2_slab_plain(level: Level, x: torch.Tensor, slabs, edges, rhs2,
                         cfg: SolverConfig, taps: str, var7: bool) -> torch.Tensor:
-    """The plain version of K8d: red on the block and its 1-cell ring from
-    the 2-deep extended block (ring coefficients from ``level.ring``), the
-    red iterate's ghosts rebuilt on the sides ``edges`` flags (i, then j,
-    then k), then black on the block."""
+    """The plain version of K8d: red on the block and its 1-cell ring (in i
+    and j, and in k on a block split along k: six slabs) from the 2-deep
+    extended block (ring coefficients from ``level.ring``), the red
+    iterate's ghosts rebuilt on the sides ``edges`` flags (i, then j, then
+    k; a block whole along k has its k ghosts made), then black on the
+    block."""
     _check_gsrb2_slab(level, x, slabs, edges, rhs2, cfg, taps, var7)
     r1_gsrb2_slab_plain.calls += 1
+    ksplit = len(slabs) == 6
     kd0, alpha, rbi, rbj, rbk = level.ring
     ring = SimpleNamespace(h2inv=level.h2inv, beta_i=rbi, beta_j=rbj, beta_k=rbk,
                            alpha=alpha)
-    xg = _k_ghosts(extend_slabs(x, slabs), BC.DIRICHLET, taps)
+    xe = extend_slabs(x, slabs)
+    xg = xe if ksplit else _k_ghosts(xe, BC.DIRICHLET, taps)
     red = xg[1:-1, 1:-1, 1:-1] + kd0 * (rhs2 - ax_ext_plain(ring, xg, cfg, var7))
     t1, t2 = TAPS[taps]
-    for axis, (lo, hi) in enumerate((edges[:2], edges[2:])):
+    for axis, (lo, hi) in enumerate((edges[:2], edges[2:4], edges[4:6])[:2 + ksplit]):
         m = red.shape[axis]
         for flag, g, a, b in ((lo, 0, 1, 2), (hi, m - 1, m - 2, m - 3)):
             if flag:
                 red.select(axis, g).copy_(t1 * red.select(axis, a)
                                           + t2 * red.select(axis, b))
-    inner = (slice(1, -1), slice(1, -1))
+    inner = (slice(1, -1),) * (3 if ksplit else 2)
     tile = SimpleNamespace(h2inv=level.h2inv, **{
         name: None if t is None else t[inner]
         for name, t in zip(("beta_i", "beta_j", "beta_k", "alpha"), (rbi, rbj, rbk, alpha))})
-    rg = _k_ghosts(red, BC.DIRICHLET, taps)
+    rg = red if ksplit else _k_ghosts(red, BC.DIRICHLET, taps)
     return red[inner] + level.kdinv[1] * (rhs2[inner] - ax_ext_plain(tile, rg, cfg, var7))
 
 
@@ -681,7 +716,9 @@ def r1_gsrb2_slab_cuda(level: Level, x: torch.Tensor, slabs, edges, rhs2,
                        chunk: int = 0) -> torch.Tensor:
     """Launch K8d (one full red+black sweep of the block, K6's kernel with
     the slabs as its halo's sources) into a newly allocated output.
-    ``chunk`` as ``r1_gsrb2_cuda``'s."""
+    ``chunk`` as ``r1_gsrb2_cuda``'s. Six slabs (a block split along k):
+    red also runs on the k ring, its x from the k slabs (``kslab_launches``
+    counts these launches)."""
     _check_gsrb2_slab(level, x, slabs, edges, rhs2, cfg, taps, var7)
     if not x.is_cuda:
         raise ValueError(f"r1_gsrb2_slab_cuda wants CUDA tensors, got {x.device}")
@@ -690,21 +727,24 @@ def r1_gsrb2_slab_cuda(level: Level, x: torch.Tensor, slabs, edges, rhs2,
     out = torch.empty_like(x)
     kd0, alpha, rbi, rbj, rbk = level.ring
     _, a_coef = _coefs(level, cfg, var7)
+    ksplit = len(slabs) == 6
+    edges = tuple(edges) + (True, True) * (len(edges) == 4)
     bits = sum(int(bool(e)) << k for k, e in enumerate(edges))
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), *(t.data_ptr() for t in slabs), _ptr(rbi), _ptr(rbj),
-                _ptr(rbk), _ptr(alpha), rhs2.data_ptr(), kd0.data_ptr(),
-                level.kdinv[1].data_ptr(), out.data_ptr(), ni, nj, nk, bits, int(var7),
-                cfg.b * level.h2inv, a_coef, *TAPS[taps], _stream(x))
+        rc = fn(x.data_ptr(), *(_ptr(t) for t in tuple(slabs) + (None,) * (6 - len(slabs))),
+                _ptr(rbi), _ptr(rbj), _ptr(rbk), _ptr(alpha), rhs2.data_ptr(),
+                kd0.data_ptr(), level.kdinv[1].data_ptr(), out.data_ptr(), ni, nj, nk, bits,
+                int(var7), cfg.b * level.h2inv, a_coef, *TAPS[taps], _stream(x))
     if rc != 0:
         raise RuntimeError(f"radius-1 gsrb2 slab kernel launch failed: CUDA error {rc}")
     r1_gsrb2_slab_cuda.launches += 1
-    key = f"K8d sweep {(ni, nj, nk)}"
-    slab_launches_by_block[key] = slab_launches_by_block.get(key, 0) + 1
+    r1_gsrb2_slab_cuda.kslab_launches += ksplit
+    count_slab_launch(f"K8d sweep {(ni, nj, nk)}", ksplit)
     return out
 
 
 r1_gsrb2_slab_cuda.launches = 0
+r1_gsrb2_slab_cuda.kslab_launches = 0
 
 
 def r1_slab(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig, mode: str,

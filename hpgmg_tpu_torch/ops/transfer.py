@@ -7,8 +7,8 @@ folded in, is a separable linear operator applied as three dense per-axis
 matrix products (``sep_apply``); the matrices come from applying the same
 1D extender and child taps to an identity, so the operator is the
 reference's stencil (+BC) by construction. The same matrix serves all
-three axes (levels are cubes; k, never split, gives its extent), and on a
-decomposed level each rank applies its rows of it (``interpolate``).
+three axes (levels are cubes), and on a decomposed level each rank
+applies its rows of it (``interpolate``).
 
 Float32 matrix products must not drop to TF32, which keeps ~3 decimal
 digits: the transfers feed the residual ladder (the JAX package runs them
@@ -117,6 +117,12 @@ def _window(W: torch.Tensor, oc: int, mc: int, radius: int,
     return out
 
 
+def coarse_extent(xc: torch.Tensor, coarse=None) -> int:
+    """The global extent of the coarse level whose field (or this rank's
+    block of it, ``coarse`` a Part) is ``xc``: the size of W's columns."""
+    return xc.shape[2] if coarse is None else coarse.dim
+
+
 def interpolate(W: torch.Tensor, radius: int, xc: torch.Tensor, prescale_f: float,
                 xf, bc: BC, coarse=None, fine=None) -> torch.Tensor:
     """fine = prescale_f * fine + P(coarse), P = W (x) W (x) W, the
@@ -127,9 +133,10 @@ def interpolate(W: torch.Tensor, radius: int, xc: torch.Tensor, prescale_f: floa
     applies the rows of W for its fine cells: from a replicated coarse
     level (``coarse`` None) to the whole coarse field it holds; from a
     coarse level split the same way to its block extended by ``radius``
-    ghosts from the neighbours (i, then j, so the corners arrive), the
-    columns remapped to that window (``_window``); from a coarse level
-    split otherwise, to the gathered coarse field."""
+    ghosts from the neighbours along each split axis (i, then j, then k,
+    so the edges and corners arrive), the columns remapped to that window
+    (``_window``); from a coarse level split otherwise, to the gathered
+    coarse field."""
     if fine is None:
         if coarse is not None:
             raise ValueError("a decomposed coarse level under a replicated fine one")
@@ -140,20 +147,18 @@ def interpolate(W: torch.Tensor, radius: int, xc: torch.Tensor, prescale_f: floa
 
         if coarse is not None and coarse.split != fine.split:
             xc, coarse = gather(xc, coarse), None
-        offsets, extents = (fine.oi, fine.oj), (fine.ni, fine.nj)
         mats = []
-        for axis in (0, 1):
-            if coarse is None or not coarse.split[axis]:
-                o = offsets[axis]
+        for axis in range(3):
+            if coarse is None or not coarse.axes[axis]:
+                o = fine.offsets[axis]
                 mats.append(W if coarse is not None
-                            else W[o:o + extents[axis]])
+                            else W[o:o + fine.extents[axis]])
                 continue
             periodic = bc == BC.PERIODIC
             xc = _exchange_axis(xc, coarse, axis, radius, periodic)
-            oc = (coarse.oi, coarse.oj)[axis]
-            mc = (coarse.ni, coarse.nj)[axis]
-            mats.append(_window(W, oc, mc, radius, periodic))
-        up = sep_apply(mats[0], mats[1], W, xc)
+            mats.append(_window(W, coarse.offsets[axis], coarse.extents[axis], radius,
+                                periodic))
+        up = sep_apply(*mats, xc)
     return prescale_f * xf + up if prescale_f != 0.0 else up
 
 
@@ -161,7 +166,7 @@ def interp_p0(xc: torch.Tensor, prescale_f: float, xf, bc: BC, coarse=None,
               fine=None) -> torch.Tensor:
     """Piecewise-constant injection: every fine cell copies its coarse
     parent (interpolation_p0.c)."""
-    W = torch.repeat_interleave(torch.eye(xc.shape[2], dtype=xc.dtype,
+    W = torch.repeat_interleave(torch.eye(coarse_extent(xc, coarse), dtype=xc.dtype,
                                           device=xc.device), 2, dim=0)
     return interpolate(W, 0, xc, prescale_f, xf, bc, coarse, fine)
 
@@ -175,7 +180,8 @@ def interp_p1(xc: torch.Tensor, prescale_f: float, xf, bc: BC, coarse=None,
     def tap(x, axis):
         return _interp_axis_2tap(x, axis, 0.75, 0.25)
 
-    W = interp_matrix(xc.shape[2], xc.dtype, xc.device, bc, _reflect_odd_axis, 1, tap)
+    W = interp_matrix(coarse_extent(xc, coarse), xc.dtype, xc.device, bc,
+                      _reflect_odd_axis, 1, tap)
     return interpolate(W, 1, xc, prescale_f, xf, bc, coarse, fine)
 
 

@@ -19,7 +19,7 @@ from hpgmg_tpu_torch.core.config import BC
 from hpgmg_tpu_torch.ops import transfer
 from hpgmg_tpu_torch.ops.bc import _quadratic_fd_axis
 from hpgmg_tpu_torch.ops.bc_fv import _extend_axis_v2, _extend_axis_v4
-from hpgmg_tpu_torch.ops.transfer import interp_matrix, interpolate
+from hpgmg_tpu_torch.ops.transfer import coarse_extent, interp_matrix, interpolate
 
 
 def _interleave(even: torch.Tensor, odd: torch.Tensor, axis: int):
@@ -50,7 +50,8 @@ def _interp_axis_5tap(x, axis: int, w2: float, w1: float):
 
 
 def _sep_interp(xc, prescale_f, xf, bc, extend, radius, tap, coarse, fine):
-    W = interp_matrix(xc.shape[2], xc.dtype, xc.device, bc, extend, radius, tap)
+    W = interp_matrix(coarse_extent(xc, coarse), xc.dtype, xc.device, bc, extend, radius,
+                      tap)
     return interpolate(W, radius, xc, prescale_f, xf, bc, coarse, fine)
 
 

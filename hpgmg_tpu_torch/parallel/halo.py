@@ -2,10 +2,10 @@
 hpgmg_tpu/parallel/halo.py).
 
 Each exchange moves one axis's faces to the -/+ neighbours along that axis
-(``exchange_faces``), one ``batch_isend_irecv`` per call; applied i then j,
-with the j faces taken from the i-extended block, the (i, j) edge ghosts
-arrive transitively (the shape-aware schedule of build_exchange_ghosts,
-level.c:498-531). The transport follows the group's backend: NCCL sends
+(``exchange_faces``), one ``batch_isend_irecv`` per call; applied i, then
+j, then k, each axis's faces taken from the block extended along the axes
+before it, the edge and corner ghosts arrive transitively (the
+shape-aware schedule of build_exchange_ghosts, level.c:498-531). The transport follows the group's backend: NCCL sends
 the device tensors; gloo sends host copies (the copy to the host waits for
 the stream that wrote the face) and the receiver copies back to its
 device.
@@ -53,7 +53,7 @@ def _p2p(part: Part, sends: List[Tuple[torch.Tensor, int, int]],
 def exchange_faces(part: Optional[Part], axis: int, lo_face: torch.Tensor,
                    hi_face: torch.Tensor,
                    periodic: bool) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
-    """(ghost_lo, ghost_hi) along ``axis`` (0: i, 1: j): the -1 neighbour's
+    """(ghost_lo, ghost_hi) along ``axis`` (0: i, 1: j, 2: k): the -1 neighbour's
     high face and the +1 neighbour's low face. None on a side that is a
     domain face (unless ``periodic``); along an unsplit axis the wrap of
     this rank's own faces, or (None, None)."""
@@ -86,10 +86,7 @@ def _exchange_axis(x_local: torch.Tensor, part: Optional[Part], axis: int,
     n = x_local.shape[axis]
     lo_face = x_local.narrow(axis, 0, radius)
     hi_face = x_local.narrow(axis, n - radius, radius)
-    if axis == 2:  # k is never split
-        glo, ghi = (hi_face, lo_face) if periodic else (None, None)
-    else:
-        glo, ghi = exchange_faces(part, axis, lo_face, hi_face, periodic)
+    glo, ghi = exchange_faces(part, axis, lo_face, hi_face, periodic)
     glo = torch.zeros_like(lo_face) if glo is None else glo
     ghi = torch.zeros_like(hi_face) if ghi is None else ghi
     return torch.cat([glo, x_local, ghi], dim=axis)

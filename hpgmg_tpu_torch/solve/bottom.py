@@ -12,8 +12,10 @@ with.
 The bottom level of a hierarchy cut for a process grid is normally
 replicated (every rank solves it whole). Where it is decomposed
 (``level.part``), DIRECT gathers the rhs, applies the inverse and keeps
-this rank's block, and BiCGStab and CG all-reduce their dots and norms,
-so every rank takes the same branches; the other bottoms raise there.
+this rank's block; BiCGStab, CG and smooth-until-converged all-reduce
+their dots and norms, and CABiCGStab and CACG their Gram matrices, so
+every rank takes the same branches (the JAX package runs every bottom on
+a sharded level through GSPMD).
 """
 
 from __future__ import annotations
@@ -42,10 +44,6 @@ def bottom_solve(op, level: Level, x, rhs, cfg: SolverConfig,
         out = (level.bottom_ainv @ r.reshape(-1)).reshape((level.dim,) * 3)
         return redistribute(_subtract_mean(out, must_subtract_mean, cfg), None,
                             level.part)
-    if level.part is not None and cfg.bottom not in (BottomSolver.BICGSTAB,
-                                                     BottomSolver.CG):
-        raise NotImplementedError(f"the {cfg.bottom.value} bottom solver takes no "
-                                  "decomposed level; raise min_coarse_dim")
     if cfg.bottom == BottomSolver.BICGSTAB:
         return bicgstab(op, level, x, rhs, cfg, must_subtract_mean)
     if cfg.bottom == BottomSolver.CG:
@@ -162,12 +160,13 @@ def smooth_until_converged(op, level: Level, x, rhs, cfg: SolverConfig,
     smoother calls."""
     from hpgmg_tpu_torch.solve.smoothers import smooth
 
-    msm = must_subtract_mean
-    norm_r = blas.norm(_subtract_mean(op.residual(level, x, rhs, cfg), msm, cfg))
+    msm, part = must_subtract_mean, level.part
+    norm_r = blas.norm(_subtract_mean(op.residual(level, x, rhs, cfg), msm, cfg, part), part)
     target = cfg.bottom_rtol * norm_r
     j = 0
     while j < cfg.bottom_max_iters and bool(norm_r > target):
         x = smooth(op, level, x, rhs, cfg)
-        norm_r = blas.norm(_subtract_mean(op.residual(level, x, rhs, cfg), msm, cfg))
+        norm_r = blas.norm(_subtract_mean(op.residual(level, x, rhs, cfg), msm, cfg, part),
+                           part)
         j += 1
     return x

@@ -16,6 +16,12 @@ host once per outer iteration.
 CABiCGStab telescopes s = 1, 2, then 4 (cabicgstab.c:49-54) unless
 ``cfg.cabicgstab_telescoping`` is off.
 
+On a decomposed bottom level (``level.part``) each rank forms the basis
+on its block and the local Gram matrix, which one all-reduce sums over
+the ranks (``blas.sum_over``), as the setup's dots and norms are; the
+tiny recurrences then run alike on every rank, so all take the same
+branches.
+
 f32 robustness, the SCALED monomial basis: the raw powers A^{2s} r grow
 like ||A||^{2s} and their Gram squares overflow f32 (the reference is
 f64-only). Each power is divided by a per-solve power-of-two bound
@@ -53,8 +59,8 @@ def _basis_scale(op, level: Level, cfg: SolverConfig, r):
     """Power-of-two upper-bound estimate of ||A|| from one Rayleigh probe
     (||A r|| / ||r||, x4 safety): one setup-time reduction per solve that
     keeps every scaled power O(||r||)."""
-    nr = blas.norm(r)
-    na = blas.norm(op.apply_op(level, r, cfg))
+    nr = blas.norm(r, level.part)
+    na = blas.norm(op.apply_op(level, r, cfg), level.part)
     pos = nr > 0
     est = torch.where(pos, 4.0 * na / torch.where(pos, nr, torch.ones_like(nr)),
                       torch.ones_like(nr))
@@ -70,12 +76,13 @@ def _powers(op, level: Level, cfg: SolverConfig, v, count: int, inv_sigma):
     return out
 
 
-def _gram(rows: torch.Tensor, cols: torch.Tensor, reduce_dtype):
-    """G[a, b] = <rows[a], cols[b]>: one matrix product, one reduction."""
+def _gram(rows: torch.Tensor, cols: torch.Tensor, reduce_dtype, part=None):
+    """G[a, b] = <rows[a], cols[b]>: one matrix product, one reduction
+    (summed over the ranks of ``part``)."""
     acc = reduce_dtype or rows.dtype
     fr = rows.reshape(rows.shape[0], -1).to(acc)
     fc = cols.reshape(cols.shape[0], -1).to(acc)
-    return (fr @ fc.t()).to(rows.dtype)
+    return blas.sum_over(fr @ fc.t(), part).to(rows.dtype)
 
 
 def _combine(coeff: torch.Tensor, basis: torch.Tensor):
@@ -102,7 +109,7 @@ def _cabicgstab_sstep(op, level: Level, cfg: SolverConfig, s: int, st: dict,
     inv_sigma = 1.0 / sigma
     basis = torch.stack(_powers(op, level, cfg, st["p"], 2 * s, inv_sigma)
                         + _powers(op, level, cfg, st["r"], 2 * s - 1, inv_sigma))
-    gg = _gram(basis, torch.cat([basis, rt[None]]), cfg.reduce_dtype)
+    gg = _gram(basis, torch.cat([basis, rt[None]]), cfg.reduce_dtype, level.part)
     G, g = gg[:, :k], gg[:, k]
 
     aj = _unit(k, 0, rt)
@@ -182,16 +189,16 @@ def cabicgstab(op, level: Level, x, rhs, cfg: SolverConfig,
                must_subtract_mean: bool = False):
     """s-step BiCGStab (cabicgstab.c): telescoping s = 1, 2 prologue
     steps, then s = 4 until converged, failed or 200 inner steps."""
-    rd = cfg.reduce_dtype
+    rd, part = cfg.reduce_dtype, level.part
     rt = op.residual(level, x, rhs, cfg)
     if must_subtract_mean:
-        rt = rt - blas.mean(rt, rd)
-    delta = blas.dot(rt, rt, rd)
+        rt = rt - blas.mean(rt, rd, part)
+    delta = blas.dot(rt, rt, rd, part)
     l2_rt = torch.sqrt(delta)
     sigma = _basis_scale(op, level, cfg, rt)
     st = {"x": x, "p": rt, "r": rt, "delta": delta, "m": 0,
           "failed": torch.zeros((), dtype=torch.bool, device=x.device),
-          "converged": (blas.norm(rt) == 0.0) | (delta == 0.0)}
+          "converged": (blas.norm(rt, part) == 0.0) | (delta == 0.0)}
     steps = [1, 2] if cfg.cabicgstab_telescoping else []
     while True:
         s = steps.pop(0) if steps else CA_KRYLOV_S
@@ -210,7 +217,7 @@ def _cacg_step(op, level: Level, cfg: SolverConfig, st: dict, tp, target,
     s, k = CA_KRYLOV_S, 2 * CA_KRYLOV_S + 1
     basis = torch.stack(_powers(op, level, cfg, st["p"], s, inv_sigma)
                         + _powers(op, level, cfg, st["r"], s - 1, inv_sigma))
-    G = _gram(basis, basis, cfg.reduce_dtype)
+    G = _gram(basis, basis, cfg.reduce_dtype, level.part)
 
     aj = _unit(k, 0, basis)
     cj = _unit(k, s + 1, basis)
@@ -254,12 +261,12 @@ def cacg(op, level: Level, x, rhs, cfg: SolverConfig,
          must_subtract_mean: bool = False):
     """s-step CG (solvers/cacg.c), s = 4, until converged, failed or 200
     inner steps."""
-    rd = cfg.reduce_dtype
+    rd, part = cfg.reduce_dtype, level.part
     s, k = CA_KRYLOV_S, 2 * CA_KRYLOV_S + 1
     r0 = op.residual(level, x, rhs, cfg)
     if must_subtract_mean:
-        r0 = r0 - blas.mean(r0, rd)
-    delta0 = blas.dot(r0, r0, rd)
+        r0 = r0 - blas.mean(r0, rd, part)
+    delta0 = blas.dot(r0, r0, rd, part)
     target = cfg.bottom_rtol * torch.sqrt(delta0)
     sigma = _basis_scale(op, level, cfg, r0)
     tp = _monomial_shift(k, [(0, s), (s + 1, 2 * s)], 1, sigma)

@@ -130,3 +130,104 @@ def fcycle_body(rank: int, world: int, n: int, cases) -> dict:
             decomposed=[lv.part is not None for lv in hier.levels],
             plain_calls={k: v for k, v in counts.read()[1].items() if v})
     return out
+
+
+def grid_mesh(kind: str, device):
+    """This rank's Mesh of the group by ``kind``: "ij" (make_mesh_ij), "3d"
+    (make_mesh) or "pod<s>" (make_pod_mesh with s emulated slices)."""
+    from hpgmg_tpu_torch.parallel.mesh import make_mesh, make_mesh_ij, make_pod_mesh
+
+    if kind == "ij":
+        return make_mesh_ij(device)
+    if kind == "3d":
+        return make_mesh(device)
+    return make_pod_mesh(int(kind[3:]), device)
+
+
+def slab3_body(rank: int, world: int, n: int) -> dict:
+    """On the (2, 2, 2) grid of ``make_mesh``: every slab set of this
+    rank's block of ``global_field(n)`` (K8a's and K8c's, Dirichlet and
+    periodic: six slabs a set), the halo module's explicit exchange, K8d's
+    rhs ring, the gather and the mesh-aware reductions."""
+    from hpgmg_tpu_torch.core import blas
+    from hpgmg_tpu_torch.core.config import BC
+    from hpgmg_tpu_torch.parallel import halo
+    from hpgmg_tpu_torch.parallel import shard_kernels as SK
+    from hpgmg_tpu_torch.parallel.mesh import Part, gather, make_mesh
+
+    x = global_field(n)
+    mesh = make_mesh(torch.device("cpu"))
+    part = Part(mesh, (True, True, True), n)
+    xl = part.block(x)
+    out = {"grid": mesh.shape, "coords": mesh.coords,
+           "part": part.offsets + part.extents, "edges": SK.edge_flags(part)}
+    for bc in (BC.DIRICHLET, BC.PERIODIC):
+        out[("fv4", bc.value)] = SK.slabs_for_kernel(xl, part, bc)
+        for taps in ("p1", "v2", "27pt"):
+            out[(taps, bc.value)] = SK.slabs_for_kernel_r1(xl, part, bc, taps)
+        out[("exchange2", bc.value)] = halo.halo_exchange(part, xl, 2, bc)
+    out["slabs2"] = SK.slabs2_for_kernel_r1(xl, part, "p1")
+    out["rhs_ring"] = SK.r1_gsrb2_rhs_sharded(part, xl)
+    out["gather"] = gather(xl, part)
+    y = part.block(global_field(n, SEED + 1))
+    out["dot"] = blas.dot(xl, y, part=part)
+    out["norm"] = blas.norm(xl, part=part)
+    out["mean"] = blas.mean(xl, part=part)
+    return out
+
+
+def solve_body(rank: int, world: int, grid: str, cases) -> dict:
+    """Each case (driver, op, bc, smoother, bottom, min_coarse_dim, n, a)
+    of the benchmark problem at n^3 float64 (b = 1; Helmholtz where a is
+    not 0) on the ``grid_mesh(grid)`` of the group, through the driver:
+    "fcycle" (fmg_solve), "timed" (fmg_solve with timers, and the untimed
+    u), "vcycles" (mg_solve_fixed, 3 cycles), "mgpcg" (4 iterations) or
+    "fmg2" (fmg_solve2). Saves the gathered u, the relative residual (or
+    history), how each level is split (None: replicated), and the plain
+    versions that ran."""
+    from hpgmg_tpu_torch.bench.driver import build
+    from hpgmg_tpu_torch.core.config import BC, BottomSolver, Smoother, SolverConfig
+    from hpgmg_tpu_torch.kernels import counts
+    from hpgmg_tpu_torch.ops.base import get_suite
+    from hpgmg_tpu_torch.parallel.mesh import active_mesh, gather
+    from hpgmg_tpu_torch.solve import mg
+
+    cpu = torch.device("cpu")
+    mesh = grid_mesh(grid, cpu)
+    out = {"grid": mesh.shape, "coords": mesh.coords}
+    for case in cases:
+        driver, op, bc, smoother, bottom, mcd, n, a = case
+        cfg = SolverConfig(op=op, bc=BC(bc), a=a, b=1.0, helmholtz=a != 0.0,
+                           smoother=Smoother(smoother), bottom=BottomSolver(bottom),
+                           min_coarse_dim=mcd, dtype=torch.float64)
+        hier, f = build(n, cfg, cpu, mesh=mesh)
+        suite = get_suite(op)
+        part = hier.levels[0].part
+        counts.reset()
+        res = {}
+        with active_mesh(mesh):
+            if driver in ("fcycle", "timed"):
+                timers = {} if driver == "timed" else None
+                u, norm_r, norm_f = mg.fmg_solve(suite, hier, f, cfg, timers=timers)
+                res["rel"] = float(norm_r) / float(norm_f)
+                if timers is not None:
+                    res["phases"] = sorted({name for _, name in timers})
+                    u0, _, _ = mg.fmg_solve(suite, hier, f, cfg)
+                    res["untimed_u"] = gather(u0, part) if part is not None else u0
+            elif driver == "vcycles":
+                u, rels = mg.mg_solve_fixed(suite, hier, f, cfg, num_cycles=3)
+                res["rel"] = rels.tolist()
+            elif driver == "mgpcg":
+                u, res["rel"] = mg.mgpcg(suite, hier, f, cfg, max_iters=4)
+            else:
+                u, res["rel"] = mg.fmg_solve2(suite, hier, f, cfg, max_fcycles=2)
+        res.update(u=gather(u, part) if part is not None else u,
+                   split=[None if lv.part is None else lv.part.axes for lv in hier.levels],
+                   plain_calls={k: v for k, v in counts.read()[1].items() if v})
+        out[case] = res
+    return out
+
+
+def mesh3d_body(rank: int, world: int, n: int, cases) -> dict:
+    """``slab3_body`` and ``solve_body`` on the ``make_mesh`` grid."""
+    return {"slabs": slab3_body(rank, world, n), **solve_body(rank, world, "3d", cases)}
