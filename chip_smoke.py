@@ -183,7 +183,19 @@ Phases, each printing its result and raising on failure (exit code != 0):
    (128^3 a rank), and fv4 at 256^3 float64 with OVERLAP on (K8b), held
    to phase 13's limits, every decomposed level split along k: the slab
    kernels launched with k slabs only, no single-rank stencil, fused
-   sweep, tail kernel or plain version; the phase's wall time printed.
+   sweep, tail kernel or plain version; the phase's wall time printed;
+17. the FE solver and sampler decomposed over the 3D process grid
+   (fe/mesh.py), 8 processes sharing this GPU over gloo (the (2,2,2)
+   grid): (a) the Poisson1 M=(8,8,8) F-cycle, the anisotropic Poisson2
+   M=(4,4,6) F-cycle and V-cycle and a Q2 G[64^3] F-cycle, float64, each
+   gathered u against the one-rank u on this card within 1e-12 of max|u|,
+   the levels split as fe/mesh.py:_axis_spec says; (b) the sampler
+   (fe/sampler.py:run_sample on the ranks of parallel/launch.py, as
+   fe/cli.py sample -ranks 8 -backend gloo runs it) at G[128^3] Q2
+   float32: its P[  2  2  2] line (the slowest rank's seconds, GF, MEq/s)
+   and the phase's wall time. The counts reset before it and read after
+   it, here and on each rank of (a) and of (b): no kernel of K1-K8 and no
+   plain version. Its results are the "fe_grid" JSON line.
 
 The line before the last lists the kernels as JSON: for each, its launches
 on its path, its time, its plain version's time, its bound on the card
@@ -2855,6 +2867,180 @@ def grid3d_on_card(worst: dict) -> dict:
     return {"times": times, "decomposed": dec, "wall_seconds": wall}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the FE solver and sampler decomposed over the 3D process grid
+# ---------------------------------------------------------------------------
+
+# (op, M, L, V-cycles after the F-cycle) of 17a, float64; the decomposed u
+# against the one-rank u on the card, max|u_ranks - u_one| / max|u_one|
+FE_GRID_CASES = (("poisson1", (8, 8, 8), (1.0, 1.0, 1.0), 0),
+                 ("poisson2", (4, 4, 6), (4 / 6, 4 / 6, 1.0), 1),
+                 ("poisson2", (64, 64, 64), (1.0, 1.0, 1.0), 0))
+FE_GRID_TOL = 1e-12
+# 17b: F-cycles a timed chain of the G[128^3] sample (one repeat: the
+# sampler's only sample is its "instant feedback" one)
+FE_GRID_CHAIN = 2
+
+
+def fe_grid_solves(device, cases) -> dict:
+    """A rank of 17a: each case's F-cycle (and V-cycles) on the make_mesh
+    grid, the levels built on the blocks; rank 0's result: the gathered u
+    after each cycle, each level's split (None: replicated), the seconds
+    of the cycles (the slowest rank's) and the kernel counts."""
+    from hpgmg_tpu_torch.bench.driver import slowest
+    from hpgmg_tpu_torch.fe.fas import build_fe_levels, fas_fcycle, fas_vcycle
+    from hpgmg_tpu_torch.fe.grid import FEGrid
+    from hpgmg_tpu_torch.fe.mesh import gather_fe_field
+    from hpgmg_tpu_torch.fe.op import get_fe_op
+    from hpgmg_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(device)
+    reset_counts()
+    out = {"grid": mesh.shape, "cases": {}}
+    for case in cases:
+        name, M, L, cycles = case
+        op = get_fe_op(name)
+        levels = build_fe_levels(FEGrid(M, op.degree, L), op, torch.float64, device=device,
+                                 mesh=mesh)
+        f = op.forcing(levels[0].block, levels[0].coords, "sine")
+        sync(device)
+        t0 = time.perf_counter()
+        us = [fas_fcycle(op, levels, 0, f)]
+        for _ in range(cycles):
+            us.append(fas_vcycle(op, levels, 0, f, us[-1]))
+        sync(device)
+        seconds = slowest(time.perf_counter() - t0, mesh)
+        out["cases"][case] = {
+            "u": [gather_fe_field(levels[0].part, u).cpu() for u in us],
+            "split": [None if lv.part is None else lv.part.split for lv in levels],
+            "seconds": seconds}
+    out["counts"] = every_rank_counts()
+    return out
+
+
+def fe_grid_sample(device, local, chain) -> dict:
+    """A rank of 17b: the sampler (fe/sampler.py:run_sample, the CLI's
+    sample action on ranks) at ``local`` elements, Q2 float32, one sample
+    of ``chain`` F-cycles a timed chain; rank 0's result: the kernel
+    counts of every rank."""
+    from hpgmg_tpu_torch.fe.op import get_fe_op
+    from hpgmg_tpu_torch.fe.sampler import run_sample
+
+    reset_counts()
+    op = get_fe_op("poisson2")
+    run_sample(op, degree=op.degree, local=local, maxsamples=1, dtype=torch.float32,
+               device=device, chain=chain)
+    return {"counts": every_rank_counts()}
+
+
+def every_rank_counts() -> list:
+    """Each rank's (launches, plain calls) of the group, by rank."""
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, read_counts())
+    return out
+
+
+def stray_counts(per_rank) -> dict:
+    """The nonzero counts among ``per_rank`` (read_counts pairs), by rank."""
+    out = {}
+    for rank, (launches, plain) in enumerate(per_rank):
+        nz = {k: v for k, v in {**launches, **plain}.items() if v}
+        if nz:
+            out[rank] = nz
+    return out
+
+
+def fe_grid_one_rank(case, dev):
+    """The one-rank u of a 17a case on ``dev``, after each cycle."""
+    from hpgmg_tpu_torch.fe import fas
+    from hpgmg_tpu_torch.fe.grid import FEGrid
+    from hpgmg_tpu_torch.fe.op import get_fe_op
+
+    name, M, L, cycles = case
+    op = get_fe_op(name)
+    levels = fas.build_fe_levels(FEGrid(M, op.degree, L), op, torch.float64, device=dev)
+    f = op.forcing(levels[0].grid, levels[0].coords, "sine")
+    us = [fas.fas_fcycle(op, levels, 0, f)]
+    for _ in range(cycles):
+        us.append(fas.fas_vcycle(op, levels, 0, f, us[-1]))
+    return [u.cpu() for u in us]
+
+
+def fe_grid_on_card(dev=torch.device("cuda"), cases=FE_GRID_CASES,
+                    sample_local=(262144, 262144), chain=FE_GRID_CHAIN) -> dict:
+    """Phase 17 (``dev`` the CPU and smaller ``cases`` and
+    ``sample_local`` rehearse it without a card)."""
+    import io
+    from contextlib import redirect_stdout
+
+    from hpgmg_tpu_torch.bench import analyze
+    from hpgmg_tpu_torch.fe.mesh import _axis_spec
+    from hpgmg_tpu_torch.parallel.launch import spawn_ranks
+
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = spawn_ranks(8, "gloo", dev, fe_grid_solves, (cases,), timeout=600.0)
+    out = {"grid": list(res["grid"]), "solves": {}}
+    if tuple(res["grid"]) != (2, 2, 2):
+        raise AssertionError(f"make_mesh on 8 ranks gave {res['grid']}")
+    for case in cases:
+        name, M, L, cycles = case
+        got = res["cases"][case]
+        want = fe_grid_one_rank(case, dev)
+        diffs = [relerr(a, b)[0] for a, b in zip(got["u"], want, strict=True)]
+        g = M
+        split = []
+        while True:
+            spec = _axis_spec((2, 2, 2), g)
+            split.append(None if all(a is None for a in spec)
+                         else tuple(a is not None for a in spec))
+            if any(m % 2 for m in g):
+                break
+            g = tuple(m // 2 for m in g)
+        tag = f"{name} M={M} F{'+V' * cycles}"
+        print(f"  {tag}: levels split {got['split']}; u vs one rank after each cycle "
+              f"{['%.3e' % d for d in diffs]}; the cycles {got['seconds']:.3f} s (slowest rank)")
+        if got["split"] != split or not max(diffs) <= FE_GRID_TOL:
+            raise AssertionError(f"{tag}: split {got['split']} (want {split}), u vs one rank "
+                                 f"{diffs} (limit {FE_GRID_TOL})")
+        out["solves"][tag] = {"u_vs_one_rank": diffs, "split": got["split"],
+                              "seconds": got["seconds"]}
+    stray = {"a": stray_counts(res["counts"])}
+    print(f"  (a) {time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"  the sampler on 8 gloo ranks (python -m hpgmg_tpu_torch.fe.cli sample "
+          f"-op_type poisson2 -local {sample_local[0]},{sample_local[1]} -maxsamples 1 "
+          f"-dtype float32 -ranks 8 -backend gloo, {chain} F-cycles a chain)", flush=True)
+    buf = io.StringIO()
+    t1 = time.perf_counter()
+    with redirect_stdout(buf):
+        res_b = spawn_ranks(8, "gloo", dev, fe_grid_sample, (sample_local, chain),
+                            timeout=900.0)
+    wall_b = time.perf_counter() - t1
+    for line in buf.getvalue().splitlines():
+        print(f"    {line}")
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("Q2 ")]
+    samples, _ = analyze.parse(lines)
+    if not (len(samples) == len(lines) == 1 and "P[  2  2  2]" in lines[0]
+            and samples[0]["time"] > 0 and samples[0]["meqs"] > 0 and samples[0]["gf"] > 0):
+        raise AssertionError(f"the sampler on 8 ranks: samples {samples}, lines {lines}")
+    out["sampler"] = {"samples": samples, "chain": chain, "wall_seconds": wall_b}
+    print(f"  (b) {wall_b:.3f} s", flush=True)
+    stray["b"] = stray_counts(res_b["counts"])
+    launches, plain = read_counts()
+    stray["parent"] = {k: v for k, v in {**launches, **plain}.items() if v}
+    if any(stray.values()):
+        raise AssertionError(f"the decomposed FE path launched kernels or plain "
+                             f"versions: {stray}")
+    out["wall_seconds"] = time.perf_counter() - t0
+    print(f"  no kernel of K1-K8 and no plain version launched (here and on each of the "
+          f"8 ranks of (a) and of (b)); phase wall {out['wall_seconds']:.3f} s")
+    return out
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -2994,6 +3180,9 @@ def main() -> int:
           "with the k-whole blocks, the (2,2,2) F-cycles at 256^3 (8 processes sharing "
           "one GPU, gloo)")
     g3 = grid3d_on_card(worst)
+    phase("17 the FE solver and sampler over the (2,2,2) grid: 8 processes sharing one "
+          "GPU, gloo; F-cycles against one rank, the sampler at G[128^3] Q2 f32")
+    fe_grid = fe_grid_on_card()
 
     big = times[512]
     # K6 at the largest level it smooths on the path
@@ -3220,6 +3409,7 @@ def main() -> int:
     print(json.dumps({"fcycle_launches": per_cycle}))
     print(json.dumps({"fe": fe}))
     print(json.dumps({"tooling": tools}))
+    print(json.dumps({"fe_grid": fe_grid}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -144,8 +144,8 @@ def elapsed(device: torch.device, fn) -> float:
     return start.elapsed_time(end) / 1000.0
 
 
-def _agree(value: float, mesh) -> float:
-    """The largest ``value`` over the ranks of ``mesh`` (itself without)."""
+def slowest(value: float, mesh) -> float:
+    """The largest ``value`` over the ranks of ``mesh`` (itself without one)."""
     if mesh is None:
         return value
     import torch.distributed as dist
@@ -192,9 +192,9 @@ def _run(n, cfg, device, op, min_solve_seconds, max_solves, dynamic_range,
     elapsed(device, lambda: chain(1))
     # calibrate the time per solve, then size the timed chain to the budget
     cal = max(1, min(4, max_solves))
-    per_solve_est = _agree(elapsed(device, lambda: chain(cal)) / cal, mesh)
+    per_solve_est = slowest(elapsed(device, lambda: chain(cal)) / cal, mesh)
     num = int(max(1, min(max_solves, round(min_solve_seconds / per_solve_est))))
-    per_solve = _agree(elapsed(device, lambda: chain(num)) / num, mesh)
+    per_solve = slowest(elapsed(device, lambda: chain(num)) / num, mesh)
 
     order = None
     if dynamic_range >= 3:

@@ -10,11 +10,11 @@ per-rank block, one process per rank, the fine levels decomposed over the
         [--overlap] [--device cuda|cpu] [--trace DIR]
 
 The global grid is per_rank * max(sx, sy, sz) cells a side. The ranks start
-with ``torch.multiprocessing`` (spawn), or from ``torchrun``'s environment
-when it set one. ``--backend nccl`` (the default) puts each rank on its own
-card and refuses more ranks than cards; ``--backend gloo`` lets the ranks
-share one card (or the CPU), the halos staged through host memory, which
-is slow: its times are not a multi-card number. The parent builds the
+through parallel/launch.py: ``spawn_ranks``, or ``torchrun_rank`` when
+torchrun set the environment. ``--backend nccl`` (the default) puts each
+rank on its own card and refuses more ranks than cards; ``--backend gloo``
+lets the ranks share one card (or the CPU), the halos staged through host
+memory, which is slow: its times are not a multi-card number. The parent builds the
 kernel library once before it spawns.
 
 Each rank runs ``bench.driver.run_benchmark`` on its mesh (one warm-up
@@ -53,9 +53,7 @@ import argparse
 import json
 import os
 import sys
-import tempfile
 import time
-from pathlib import Path
 
 import torch
 
@@ -70,9 +68,10 @@ def _config(op: str, dtype: str, bc: str, bottom: str):
                         dtype=_DTYPES[dtype])
 
 
-def _rank_main(rank: int, world: int, init: str, opts: dict, out: str):
-    """One rank: join the group, run the benchmark and the counted F-cycle
-    on its mesh, and (rank 0) write the result to ``out``."""
+def _weak_rank(device: torch.device, opts: dict) -> dict:
+    """One rank of the group: run the benchmark and the counted F-cycle
+    on its mesh; rank 0's result (with ``check_serial``, beside the
+    one-rank solve of the same problem, run after the decomposed one)."""
     import torch.distributed as dist
 
     from hpgmg_tpu_torch.bench.driver import build, device_name, run_benchmark
@@ -82,58 +81,46 @@ def _rank_main(rank: int, world: int, init: str, opts: dict, out: str):
     from hpgmg_tpu_torch.parallel.mesh import active_mesh, gather, make_mesh
     from hpgmg_tpu_torch.solve.mg import fmg_solve
 
-    backend = opts["backend"]
-    if opts["device"] == "cuda":
-        device = torch.device("cuda", rank if backend == "nccl" else 0)
-        torch.cuda.set_device(device)
-    else:
-        device = torch.device("cpu")
-        torch.set_num_threads(opts.get("threads", 1))
-    dist.init_process_group(backend, init_method=init, rank=rank, world_size=world)
-    try:
-        shard_kernels.OVERLAP = opts["overlap"]
-        mesh = make_mesh(device)
-        n = opts["per_rank"] * max(mesh.shape)
-        cfg = _config(opts["op"], opts["dtype"], opts["bc"], opts["bottom"])
-        op = get_suite(cfg.op)
-        t0 = time.perf_counter()
-        res = run_benchmark(n, cfg, device, min_solve_seconds=opts["min_seconds"],
-                            max_solves=opts["max_solves"],
-                            dynamic_range=opts["dynamic_range"], verbose=False,
-                            mesh=mesh)
-        hier, f = build(n, cfg, device, mesh=mesh)
-        traced = None
-        if opts.get("trace"):
-            traced = _traced_chain(op, hier, f, cfg, mesh, opts["max_solves"],
-                                   os.path.join(opts["trace"], f"rank{rank}"))
-        counts.reset()
-        stencils.slab_launches_by_block.clear()
-        with active_mesh(mesh):
-            u, norm_r, norm_f = fmg_solve(op, hier, f, cfg)
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        launches, plain_calls = counts.read()
-        u_full = gather(u, hier.levels[0].part) if hier.levels[0].part else u
-        wall = time.perf_counter() - t0
-        result = {"n": n, "grid": list(mesh.shape), "res": res.__dict__,
-                  "launches": launches, "plain_calls": plain_calls,
-                  "slab_launches_by_block": dict(stencils.slab_launches_by_block),
-                  "counted_rel_residual": float(norm_r) / float(norm_f),
-                  "device": device_name(device), "wall_seconds": wall}
-        if traced is not None:
-            result["trace"] = traced
-        del hier, f, u
-    finally:
-        dist.destroy_process_group()
-    if rank != 0:
-        return
-    if opts["check_serial"]:
+    shard_kernels.OVERLAP = opts["overlap"]
+    mesh = make_mesh(device)
+    n = opts["per_rank"] * max(mesh.shape)
+    cfg = _config(opts["op"], opts["dtype"], opts["bc"], opts["bottom"])
+    op = get_suite(cfg.op)
+    t0 = time.perf_counter()
+    res = run_benchmark(n, cfg, device, min_solve_seconds=opts["min_seconds"],
+                        max_solves=opts["max_solves"],
+                        dynamic_range=opts["dynamic_range"], verbose=False,
+                        mesh=mesh)
+    hier, f = build(n, cfg, device, mesh=mesh)
+    traced = None
+    if opts.get("trace"):
+        traced = _traced_chain(op, hier, f, cfg, mesh, opts["max_solves"],
+                               os.path.join(opts["trace"], f"rank{mesh.rank}"))
+    counts.reset()
+    stencils.slab_launches_by_block.clear()
+    with active_mesh(mesh):
+        u, norm_r, norm_f = fmg_solve(op, hier, f, cfg)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    launches, plain_calls = counts.read()
+    u_full = gather(u, hier.levels[0].part) if hier.levels[0].part else u
+    wall = time.perf_counter() - t0
+    result = {"n": n, "grid": list(mesh.shape), "res": res.__dict__,
+              "launches": launches, "plain_calls": plain_calls,
+              "slab_launches_by_block": dict(stencils.slab_launches_by_block),
+              "counted_rel_residual": float(norm_r) / float(norm_f),
+              "device": device_name(device), "wall_seconds": wall,
+              "ranks": dist.get_world_size(), "backend": opts["backend"]}
+    if traced is not None:
+        result["trace"] = traced
+    del hier, f, u
+    if mesh.rank == 0 and opts["check_serial"]:
         hier1, f1 = build(n, cfg, device)
         u1, nr1, nf1 = fmg_solve(op, hier1, f1, cfg)
         diff = float((u_full - u1).abs().max() / u1.abs().max())
         result.update(serial_u_rel_diff=diff,
                       serial_rel_residual=float(nr1) / float(nf1))
-    Path(out).write_text(json.dumps(result))
+    return result
 
 
 def _traced_chain(op, hier, f, cfg, mesh, solves: int, log_dir: str) -> dict:
@@ -161,59 +148,33 @@ def run_weak(per_rank: int, ranks: int, op: str = "fv4", dtype: str = "float32",
              check_serial: bool = False, overlap: bool = False,
              device: str = "cuda", min_seconds: float = 0.0,
              timeout: float = 1800.0, trace=None) -> dict:
-    """Spawn ``ranks`` processes, run the decomposed F-cycle benchmark with
-    ``per_rank`` cells a side per rank (timed chain: at most ``reps``
-    solves beyond the calibration, sized by ``min_seconds``), and return
-    rank 0's result; with ``trace`` (a directory) each rank also runs a
-    traced chain of ``reps`` solves (``_traced_chain``). A rank that fails,
-    or a job that outlives ``timeout`` seconds, raises."""
-    import torch.multiprocessing as mp
+    """Spawn ``ranks`` processes (parallel/launch.py:spawn_ranks), run the
+    decomposed F-cycle benchmark with ``per_rank`` cells a side per rank
+    (timed chain: at most ``reps`` solves beyond the calibration, sized by
+    ``min_seconds``), and return rank 0's result; with ``trace`` (a
+    directory) each rank also runs a traced chain of ``reps`` solves
+    (``_traced_chain``). A rank that fails, or a job that outlives
+    ``timeout`` seconds, raises."""
+    from hpgmg_tpu_torch.parallel.launch import spawn_ranks
 
     if device == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device: use --device cpu")
-        if backend == "nccl" and ranks > torch.cuda.device_count():
-            raise ValueError(f"nccl puts one rank on each card: {ranks} ranks, "
-                             f"{torch.cuda.device_count()} cards (use --backend gloo)")
         from hpgmg_tpu_torch.kernels import build
 
         build.build()
-    elif backend == "nccl":
-        raise ValueError("nccl needs CUDA devices; use --backend gloo on the CPU")
-    opts = dict(per_rank=per_rank, op=op, dtype=dtype, bc=bc, bottom=bottom,
+    return spawn_ranks(ranks, backend, device, _weak_rank,
+                       (_opts(per_rank, op, dtype, max(1, reps), backend, bc, bottom,
+                              dynamic_range, check_serial, overlap, min_seconds, trace),),
+                       timeout=timeout)
+
+
+def _opts(per_rank, op, dtype, max_solves, backend, bc, bottom, dynamic_range,
+          check_serial, overlap, min_seconds, trace) -> dict:
+    return dict(per_rank=per_rank, op=op, dtype=dtype, bc=bc, bottom=bottom,
                 backend=backend, dynamic_range=dynamic_range, min_seconds=min_seconds,
-                max_solves=max(1, reps), check_serial=check_serial, overlap=overlap,
-                device=device, trace=trace)
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "result.json")
-        ctx = mp.start_processes(_rank_main,
-                                 args=(ranks, f"file://{tmp}/init", opts, out),
-                                 nprocs=ranks, start_method="spawn", join=False)
-        deadline = time.monotonic() + timeout
-        try:
-            while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
-                if time.monotonic() > deadline:
-                    raise TimeoutError(f"the {ranks}-rank job outlived {timeout} s")
-        finally:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-        result = json.loads(Path(out).read_text())
-    result.update(ranks=ranks, backend=backend)
-    return result
-
-
-def _torchrun_main(opts: dict):
-    """A rank started by torchrun: its rank and world size from the
-    environment; rank 0 prints the result."""
-    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
-    with tempfile.TemporaryDirectory() as tmp:
-        out = os.path.join(tmp, "result.json")
-        _rank_main(rank, world, "env://", opts, out)
-        if rank == 0:
-            return dict(json.loads(Path(out).read_text()), ranks=world,
-                        backend=opts["backend"])
-    return None
+                max_solves=max_solves, check_serial=check_serial, overlap=overlap,
+                trace=trace)
 
 
 def summary(r: dict, op: str, dtype: str, bottom: str, bc: str) -> dict:
@@ -283,15 +244,15 @@ def main(argv=None) -> int:
         print(jax_line(r, base_seconds))
         print(json.dumps(summary(r, args.op, args.dtype, args.bottom, args.bc)), flush=True)
 
+    from hpgmg_tpu_torch.parallel.launch import torchrun_rank, under_torchrun
+
     trace = None if args.trace is None else os.path.abspath(args.trace)
-    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-        opts = dict(per_rank=args.per_rank, op=args.op, dtype=args.dtype, bc=args.bc,
-                    bottom=args.bottom, backend=args.backend,
-                    dynamic_range=args.dynamic_range, min_seconds=0.0,
-                    max_solves=args.reps, check_serial=args.check_serial,
-                    overlap=args.overlap, device=args.device, trace=trace)
-        r = _torchrun_main(opts)
-        if r is not None:
+    if under_torchrun():
+        r = torchrun_rank(args.backend, args.device, _weak_rank,
+                          (_opts(args.per_rank, args.op, args.dtype, args.reps,
+                                 args.backend, args.bc, args.bottom, args.dynamic_range,
+                                 args.check_serial, args.overlap, 0.0, trace),))
+        if int(os.environ["RANK"]) == 0:
             report(r, r["res"]["seconds_per_solve"])
         return 0
     base = None

@@ -4,10 +4,18 @@
 Actions: fmg (RunFMG), mgv (RunMGV: V-cycles only), sample (RunSample),
 and the test-* bodies test-kspsolve, test-grid, test-fespace and
 test-feinject. The options and defaults are the JAX CLI's, plus
-``-device`` (default ``cuda``; with no CUDA device, pass ``-device cpu``).
+``-device`` (default ``cuda``; with no CUDA device, pass ``-device cpu``)
+and, for sample, the ranks: ``-ranks N`` spawns N processes in one
+``torch.distributed`` group (parallel/launch.py; ``-backend nccl``, the
+default, one card each; ``gloo`` lets them share one card or the CPU, its
+exchanges staged through host memory) and runs the sampler on their
+``make_mesh`` grid, the JAX sampler on all devices (``P[  2  2  2]`` on
+8); rank 0's lines are printed here. Started by torchrun (``RANK`` and
+``WORLD_SIZE`` set), each process is one rank of torchrun's group.
 
     python -m hpgmg_tpu_torch.fe.cli fmg -M 8,16,24 -op_type poisson2 -mg_monitor
     python -m hpgmg_tpu_torch.fe.cli sample -op_type poisson2 -local 50,10000
+    python -m hpgmg_tpu_torch.fe.cli sample -local 8,8 -ranks 8 -backend gloo -device cpu
 """
 
 from __future__ import annotations
@@ -18,6 +26,16 @@ import sys
 import torch
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def _sample_rank(device: torch.device, kw: dict):
+    """The sampler on the group's ranks (fe/sampler.py:run_sample)."""
+    from hpgmg_tpu_torch.fe.op import get_fe_op
+    from hpgmg_tpu_torch.fe.sampler import run_sample
+
+    kw = dict(kw)
+    op = get_fe_op(kw.pop("op_type"))
+    return run_sample(op, degree=op.degree, device=device, **kw)
 
 
 def main(argv=None):
@@ -56,6 +74,10 @@ def main(argv=None):
     p.add_argument("-dtype", default="float64", choices=sorted(_DTYPES))
     p.add_argument("-cycles", type=int, default=5, help="mgv cycle count")
     p.add_argument("-device", default="cuda")
+    p.add_argument("-ranks", "--ranks", type=int, default=1,
+                   help="sampler: processes to spawn, one rank each")
+    p.add_argument("-backend", "--backend", choices=["nccl", "gloo"], default="nccl",
+                   help="the ranks' torch.distributed backend")
     args = p.parse_args(argv)
 
     device = torch.device(args.device)
@@ -69,17 +91,22 @@ def main(argv=None):
                                         run_ksp)
     from hpgmg_tpu_torch.fe.grid import FEGrid
     from hpgmg_tpu_torch.fe.op import get_fe_op
-    from hpgmg_tpu_torch.fe.sampler import run_sample
+    from hpgmg_tpu_torch.parallel.launch import spawn_ranks, torchrun_rank, under_torchrun
 
     op = get_fe_op(args.op_type)
     dtype = _DTYPES[args.dtype]
     pre, post = (int(s) for s in args.smooth.split(","))
 
     if args.action == "sample":
-        local = tuple(int(s) for s in args.local.split(","))
-        run_sample(op, degree=op.degree, local=local,
-                   maxsamples=args.maxsamples, repeat=args.repeat,
-                   mintime=args.mintime, dtype=dtype, device=device)
+        kw = dict(op_type=args.op_type, local=tuple(int(s) for s in args.local.split(",")),
+                  maxsamples=args.maxsamples, repeat=args.repeat, mintime=args.mintime,
+                  dtype=dtype)
+        if under_torchrun():
+            torchrun_rank(args.backend, device.type, _sample_rank, (kw,))
+        elif args.ranks > 1:
+            spawn_ranks(args.ranks, args.backend, device, _sample_rank, (kw,))
+        else:
+            _sample_rank(device, kw)
         return 0
 
     M = tuple(int(s) for s in args.M.split(","))

@@ -8,7 +8,19 @@ The V-cycle is the FAS form
 
     Ac uc = R (bf - Af uf) + Ac (Rhat uf)       (fmg.c:234-237)
 
-with Rhat = injection and R = P^T.
+with Rhat = injection and R = P^T. The reference's shrinking communicator
+(idle ranks pass NULL vectors, grid.c:208-220) maps to coarse levels being
+replicated across the ranks, the same agglomeration mechanism as the FV
+path: ``build_fe_levels(..., mesh=)`` gives each level split over the
+process grid its FEPart (fe/mesh.py: the rank's block, both boundary node
+planes included), and a level too small to split none, so every rank
+holds it whole and runs it redundantly. The cycle is the same code on
+either: the operator and the transfers work through ``FELevel.block``
+(the level's FEGrid, or the rank's fe/grid.py:BlockGrid, which sums the
+shared planes and gathers or cuts at a change of placement), and the
+CG's dot products count each node once over the ranks
+(``node_sum``: every rank reads the same stopping flag). The diagnostics
+and the standalone Chebyshev KSP raise on a decomposed level.
 
 The JAX package's ``lax.while_loop``s (the CG and the standalone
 Chebyshev KSP) are Python loops here that read one host flag an
@@ -20,7 +32,7 @@ device it is given, ``cuda`` unless the caller passes another.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import Any, List, Optional, Tuple
 
 import torch
 
@@ -36,31 +48,58 @@ class FELevel:
     # metric: either (K, wdxdet) full or (kdiag, wdxdet) affine
     metric_a: torch.Tensor
     metric_w: torch.Tensor
+    # this rank's block where the level is split over the process grid
+    # (fe/mesh.py:FEPart; the fields above are the block's), else None
+    part: Optional[Any] = None
+
+    @property
+    def block(self) -> FEGrid:
+        """The grid the operator and the transfers work on: the level's,
+        or this rank's block of it (fe/grid.py:BlockGrid)."""
+        return self.grid if self.part is None else self.part.block
 
 
 def build_fe_level(g: FEGrid, op: FEOp, dtype=torch.float64,
-                   distort: float = 0.0, device="cuda") -> FELevel:
+                   distort: float = 0.0, device="cuda", part=None) -> FELevel:
     """One level: coordinates, metric and the inverse diagonal
-    (MGSetUpPC diag extraction, fmg.c:82-171)."""
-    coords = g.node_coords(dtype, distort, device)
-    metric = op.make_metric(g, coords, dtype, device)
-    diag = op.diagonal(g, coords, dtype, metric=metric)
+    (MGSetUpPC diag extraction, fmg.c:82-171); with ``part`` (an FEPart
+    of ``g``) this rank's block of each, made on the block alone (its
+    nodes' coordinates from the level's, its elements' metric, the
+    diagonal assembled across the shared planes)."""
+    block = g if part is None else part.block
+    coords = block.node_coords(dtype, distort, device)
+    metric = op.make_metric(block, coords, dtype, device)
+    diag = op.diagonal(block, coords, dtype, metric=metric)
     return FELevel(grid=g, coords=coords, dinv=1.0 / diag,
-                   metric_a=metric[0], metric_w=metric[1])
+                   metric_a=metric[0], metric_w=metric[1], part=part)
 
 
 def build_fe_levels(grid: FEGrid, op: FEOp, dtype=torch.float64,
-                    distort: float = 0.0, device="cuda") -> List[FELevel]:
+                    distort: float = 0.0, device="cuda",
+                    mesh=None) -> List[FELevel]:
     """Build the level ladder fine -> coarse (MGCreate + DMFECoarsen chain,
-    fmg.c:82-171), every field on ``device``."""
+    fmg.c:82-171), every field on ``device``. With ``mesh`` (a
+    parallel/mesh.py Mesh of the initialized process group) each level
+    is split over it where fe/mesh.py:_axis_spec splits an axis, else
+    replicated."""
+    from hpgmg_tpu_torch.fe.mesh import fe_level_part
+
     grids = [grid]
     while grids[-1].can_coarsen():
         grids.append(grids[-1].coarsen())
-    return [build_fe_level(g, op, dtype, distort, device) for g in grids]
+    return [build_fe_level(g, op, dtype, distort, device, fe_level_part(mesh, g))
+            for g in grids]
 
 
 def _apply(op: FEOp, L: FELevel, u):
-    return op.apply(L.grid, L.coords, u, metric=(L.metric_a, L.metric_w))
+    return op.apply(L.block, L.coords, u, metric=(L.metric_a, L.metric_w))
+
+
+def _whole_only(L: FELevel, what: str):
+    """Raise on a decomposed level: ``what`` would give the block's
+    answer, not the level's."""
+    if L.part is not None:
+        raise NotImplementedError(f"{what} on a decomposed level")
 
 
 # host reads of the loops' flags so far (``_host_flag``)
@@ -111,21 +150,22 @@ def _cg_loop(op: FEOp, L: FELevel, b, x, max_iters: int, rtol: float):
     terminates immediately. Returns (x, iterations, the converged flag
     on the device); one host read before the first iteration and one
     after each but the last allowed."""
+    g = L.block
     r = b - _apply(op, L, x)
     z = L.dinv * r
     p = z
-    rtz = torch.sum(r * z)
-    target = rtol * torch.sqrt(torch.abs(torch.sum(b * (L.dinv * b))))
+    rtz = g.node_sum(r * z)
+    target = rtol * torch.sqrt(torch.abs(g.node_sum(b * (L.dinv * b))))
     done = (rtz == 0.0) | (torch.sqrt(torch.abs(rtz)) < target)
     j = 0
     while j < max_iters and not _host_flag(done):
         ap = _apply(op, L, p)
-        pap = torch.sum(p * ap)
+        pap = g.node_sum(p * ap)
         alpha = torch.where(pap == 0.0, 0.0, rtz / pap)  # guard breakdown
         x = x + alpha * p
         r = r - alpha * ap
         z = L.dinv * r
-        rtz1 = torch.sum(r * z)
+        rtz1 = g.node_sum(r * z)
         done = (pap == 0.0) | (torch.sqrt(torch.abs(rtz1)) < target)
         beta = torch.where(rtz == 0.0, 0.0, rtz1 / rtz)
         p = z + beta * p
@@ -167,12 +207,13 @@ def fas_vcycle(op: FEOp, levels: List[FELevel], lev: int, b, u,
     u = chebyshev(op, L, b, u, pre, emin=eig[0], emax=eig[1])
     v = b - _apply(op, L, u)
     Lc = levels[lev + 1]
-    uc = Lc.grid.zero_boundaries(L.grid.inject(u))  # Rhat u
-    vc = _apply(op, Lc, uc) + L.grid.restrict(Lc.grid, v)
-    vc = Lc.grid.zero_boundaries(vc)
+    g, gc = L.block, Lc.block
+    uc = gc.zero_boundaries(g.inject(u, gc))  # Rhat u
+    vc = _apply(op, Lc, uc) + g.restrict(gc, v)
+    vc = gc.zero_boundaries(vc)
     yc = uc
     uc = fas_vcycle(op, levels, lev + 1, vc, uc, pre, post, eig)
-    u = u + L.grid.interpolate(Lc.grid, uc - yc)
+    u = u + g.interpolate(gc, uc - yc)
     u = chebyshev(op, L, b, u, post, emin=eig[0], emax=eig[1])
     return u
 
@@ -184,18 +225,25 @@ def fas_fcycle(op: FEOp, levels: List[FELevel], lev: int, b,
     down, coarsest solve, then interpolate + V-cycle per level."""
     L = levels[lev]
     if lev == len(levels) - 1:
-        u = torch.zeros(L.grid.nodes, dtype=b.dtype, device=b.device)
+        u = torch.zeros(L.block.nodes, dtype=b.dtype, device=b.device)
         return cg(op, L, b, u, max_iters=bottom_iters(L.grid))
 
     Lc = levels[lev + 1]
-    bc = Lc.grid.zero_boundaries(L.grid.restrict(Lc.grid, b))
+    bc = restrict_down(L, Lc, b)
     uc = fas_fcycle(op, levels, lev + 1, bc, pre, post, eig)
-    u = L.grid.interpolate(Lc.grid, uc)
+    u = L.block.interpolate(Lc.block, uc)
     return fas_vcycle(op, levels, lev, b, u, pre, post, eig)
+
+
+def restrict_down(L: FELevel, Lc: FELevel, b):
+    """The forcing of the coarse level ``Lc``: R b with its boundary
+    zeroed (the F-cycle's step down)."""
+    return Lc.block.zero_boundaries(L.block.restrict(Lc.block, b))
 
 
 def diagnostics(op: FEOp, L: FELevel, b, u, solution: str):
     """(r_2/||b||_2, e_max, e_L2) — MGRecordDiagnostics (fmg.c:198-232)."""
+    _whole_only(L, "diagnostics")
     r = b - _apply(op, L, u)
     rnorm = torch.sqrt(torch.sum(r * r))
     bnorm = torch.sqrt(torch.sum(b * b))
@@ -207,6 +255,7 @@ def nodal_diagnostics(op: FEOp, L: FELevel, b, u, solution: str):
     """(|e|_2/|u0|_2, |r|_2/|f|_2) in plain nodal 2-norms against the
     pointwise analytic solution at the nodes — exactly what RunFMG prints
     and the reference goldens assert (fmg.c:455-467, t220-fmg.sh:8-22)."""
+    _whole_only(L, "nodal_diagnostics")
     u0 = op.solution_nodes(L.grid, L.coords, solution)
     e = u - u0
     r = b - _apply(op, L, u)
@@ -260,6 +309,7 @@ def ksp_chebyshev(op: FEOp, L: FELevel, b, rtol: float = 1e-5,
     PRECONDITIONED norm: converged when ||B r||_2 < rtol * ||B b||_2
     (zero initial guess). Returns (x, iterations); one host read before
     each iteration and after the last."""
+    _whole_only(L, "ksp_chebyshev")
     emin, emax = eig
     theta = 0.5 * (emax + emin)
     delta = 0.5 * (emax - emin)

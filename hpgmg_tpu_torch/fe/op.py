@@ -29,7 +29,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from hpgmg_tpu_torch.fe.grid import FEGrid
+from hpgmg_tpu_torch.fe.grid import BlockGrid, FEGrid
 from hpgmg_tpu_torch.fe.solutions import get_solution
 
 
@@ -157,7 +157,7 @@ class FEOp:
     def metric_affine(self, grid: FEGrid, dtype, device="cuda"):
         """Uniform-grid shortcut (poisson2affine): constant diagonal metric
         (op-poisson1.c:179-238). Returns (kdiag (3,), wdxdet (Q,Q,Q,1,1,1))."""
-        hx = [grid.L[a] / grid.M[a] / 2.0 for a in range(3)]  # dx/dxi
+        hx = [h / 2.0 for h in grid.spacing]  # dx/dxi
         det = hx[0] * hx[1] * hx[2]
         wdxdet = det * self._t(grid, dtype, device).w3
         kdiag = torch.tensor([1.0 / (h * h) for h in hx], dtype=dtype,
@@ -232,7 +232,12 @@ class FEOp:
     def integrate_norms(self, grid: FEGrid, coords: torch.Tensor,
                         u: torch.Tensor, solution: str):
         """(e_max, e_L2) of u vs the analytic solution via quadrature,
-        normalized by the solution norms (OpIntegrateNorms, op.c:183-250)."""
+        normalized by the solution norms (OpIntegrateNorms, op.c:183-250).
+        A rank's block of a decomposed level raises: its norms would be
+        the block's (the JAX package never runs them sharded)."""
+        if isinstance(grid, BlockGrid):
+            raise NotImplementedError(
+                "integrate_norms on a decomposed level; gather u first")
         t = self._t(grid, u.dtype, u.device)
         _, wdxdet = self.make_metric(grid, coords, u.dtype, u.device)
         xq = self._quad_coords(grid, coords)
@@ -281,7 +286,8 @@ class FEOp:
                 Y = Ka
                 U = (G[:, None] * G[None, :]).reshape(9 * Q3, -1)
         d = grid.assemble_interior(_contract_t(Y, U))
-        # constrained (boundary) nodes act as identity rows: diag = 1
+        # constrained (boundary) nodes act as identity rows: diag = 1 (on a
+        # block, after assembly has summed its shared planes)
         return torch.where(d == 0.0, 1.0, d)
 
 

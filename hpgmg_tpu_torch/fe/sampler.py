@@ -17,8 +17,15 @@ A sample times a chain of data-dependent F-cycles (each one's rhs is
 CUDA events on a CUDA device, the host clock on the CPU
 (bench/driver.py:elapsed), and reports the best of its repeats. The
 coarsest level's CG reads one host flag an iteration inside that chain
-(fe/fas.py). One device only: the sharded sampler needs fe/mesh.py,
-which the port does not have yet.
+(fe/fas.py).
+
+Under an initialized process group of more than one rank (one process per
+device: ``python -m hpgmg_tpu_torch.fe.cli sample -ranks N``, or torchrun)
+the sampler runs on the ``make_mesh`` grid of the ranks, as the JAX
+sampler runs on the mesh of its devices: ``P[...]`` is the grid, the
+sample sizes those of ``sample_grid_range`` for it, every level split
+over it by fe/mesh.py (the coarse ones replicated), each chain timed
+between barriers and the slowest rank's seconds kept; rank 0 prints.
 """
 
 from __future__ import annotations
@@ -29,9 +36,9 @@ from typing import List, Optional, Tuple
 
 import torch
 
-from hpgmg_tpu_torch.bench.driver import elapsed
+from hpgmg_tpu_torch.bench.driver import slowest, elapsed
 from hpgmg_tpu_torch.fe.fas import (bottom_iters, build_fe_levels, cg_info,
-                                    fas_fcycle)
+                                    fas_fcycle, restrict_down)
 from hpgmg_tpu_torch.fe.grid import FEGrid
 from hpgmg_tpu_torch.fe.op import FEOp
 
@@ -128,18 +135,31 @@ class SampleResult:
     meq_per_s: float
 
 
+def _timed(mesh, device: torch.device, fn) -> float:
+    """Seconds of ``fn()`` (bench/driver.py:elapsed); with ``mesh``,
+    started after a barrier and the slowest rank's."""
+    if mesh is None:
+        return elapsed(device, fn)
+    import torch.distributed as dist
+
+    dist.barrier()
+    return slowest(elapsed(device, fn), mesh)
+
+
 def sample_on_grid(op: FEOp, M, degree: int, dtype=torch.float32,
                    repeat: int = 3, mintime: float = 0.1,
-                   chain: int = 20, device="cuda") -> SampleResult:
+                   chain: int = 20, device="cuda", mesh=None) -> SampleResult:
     """SampleOnGrid (sampler.c:114-240): build, warm up, run >= repeat
     timed measurements of ``chain`` data-dependent F-cycles, report the
-    best."""
+    best. With ``mesh`` (parallel/mesh.py:make_mesh of the process group)
+    each rank builds its blocks of the levels split over it
+    (fe/fas.py:build_fe_levels) and every time is the slowest rank's."""
     device = torch.device(device)
     mmax = max(M)
     L = tuple(m / mmax for m in M)
     grid = FEGrid(M=tuple(M), degree=degree, L=L)
-    levels = build_fe_levels(grid, op, dtype=dtype, device=device)
-    f = op.forcing(levels[0].grid, levels[0].coords, "sine")
+    levels = build_fe_levels(grid, op, dtype=dtype, device=device, mesh=mesh)
+    f = op.forcing(levels[0].block, levels[0].coords, "sine")
 
     def chained():
         dep = torch.zeros((), dtype=f.dtype, device=device)
@@ -147,7 +167,7 @@ def sample_on_grid(op: FEOp, M, degree: int, dtype=torch.float32,
             u = fas_fcycle(op, levels, 0, f + dep)
             dep = 0.0 * u[1, 1, 1]
 
-    elapsed(device, chained)  # warm up
+    _timed(mesh, device, chained)  # warm up
 
     # Measure the bottom-CG trip count for THIS problem instead of
     # guessing it (the reference's GF comes from measured petsc_TotalFlops,
@@ -156,8 +176,7 @@ def sample_on_grid(op: FEOp, M, degree: int, dtype=torch.float32,
     # exactly as fas_fcycle does and count the zero-guess coarse solve.
     b = f
     for lev in range(len(levels) - 1):
-        Lc = levels[lev + 1]
-        b = Lc.grid.zero_boundaries(levels[lev].grid.restrict(Lc.grid, b))
+        b = restrict_down(levels[lev], levels[lev + 1], b)
     Lb = levels[-1]
     _, cg_j, _ = cg_info(op, Lb, b, torch.zeros_like(b),
                          max_iters=bottom_iters(Lb.grid))
@@ -166,7 +185,7 @@ def sample_on_grid(op: FEOp, M, degree: int, dtype=torch.float32,
     best = float("inf")
     elapsed_total, runs = 0.0, 0
     while runs < repeat or elapsed_total < mintime:
-        dt = elapsed(device, chained) / chain
+        dt = _timed(mesh, device, chained) / chain
         best = min(best, dt)
         elapsed_total += dt * chain
         runs += 1
@@ -183,14 +202,29 @@ def sample_on_grid(op: FEOp, M, degree: int, dtype=torch.float32,
 def run_sample(op: FEOp, degree: int = 2, local: Tuple[int, int] = (50, 10000),
                maxsamples: int = 8, repeat: int = 3, mintime: float = 0.1,
                dtype=torch.float32, n_devices: Optional[int] = None,
-               verbose: bool = True, device="cuda") -> List[SampleResult]:
-    """RunSample (sampler.c:242-292) on one device, ``P[1 1 1]``.
-    ``n_devices`` > 1 raises: the sharded sampler needs fe/mesh.py."""
-    if (n_devices or 1) > 1:
-        raise NotImplementedError(
-            f"run_sample(n_devices={n_devices}): the sharded FE sampler needs "
-            "fe/mesh.py (the 3D mesh), which the port does not have yet")
-    procs = (1, 1, 1)
+               verbose: bool = True, device="cuda",
+               chain: int = 20) -> List[SampleResult]:
+    """RunSample (sampler.c:242-292). ``n_devices`` (default: the ranks of
+    the initialized process group, else 1) above 1 runs every sample on the
+    ``make_mesh`` grid of the group, which must have that many ranks, and
+    ``P[...]`` is the grid; on one device ``P[1 1 1]``. Only rank 0
+    prints. ``chain``: F-cycles a timed chain."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    n_dev = n_devices or world
+    mesh, procs = None, (1, 1, 1)
+    if n_dev > 1:
+        if n_dev != world:
+            raise ValueError(
+                f"run_sample(n_devices={n_dev}) needs a process group of {n_dev} ranks "
+                f"(it has {world}): python -m hpgmg_tpu_torch.fe.cli sample -ranks "
+                f"{n_dev}, or torchrun")
+        from hpgmg_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(torch.device(device))
+        procs = mesh.shape
+        verbose = verbose and mesh.rank == 0
     samples = sample_grid_range(local[0], local[1], procs)
     samples = thin_samples(samples, maxsamples)
     if not samples:
@@ -208,16 +242,17 @@ def run_sample(op: FEOp, degree: int = 2, local: Tuple[int, int] = (50, 10000),
     if verbose:
         print(f"Small sample of size {samples[0]} (instant feedback)",
               flush=True)
-    results = [sample_on_grid(op, samples[0], degree, dtype, 1, 0.0,
-                              device=device)]
+    results = [sample_on_grid(op, samples[0], degree, dtype, 1, 0.0, chain,
+                              device=device, mesh=mesh)]
     emit(results[0])
     if len(samples) > 1:
         if verbose:
             print(f"Large sample of size {samples[-1]} (memory + warmup)",
                   flush=True)
-        sample_on_grid(op, samples[-1], degree, dtype, 1, 0.0, device=device)
+        sample_on_grid(op, samples[-1], degree, dtype, 1, 0.0, chain,
+                       device=device, mesh=mesh)
     for M in samples[1:] if len(samples) > 1 else []:
         results.append(sample_on_grid(op, M, degree, dtype, repeat, mintime,
-                                      device=device))
+                                      chain, device=device, mesh=mesh))
         emit(results[-1])
     return results

@@ -2,7 +2,10 @@
 (hpgmg_tpu_torch/fe/sampler.py, fe/cli.py, bench/analyze.py).
 
 The sampler's grid lists and analytic flop counts equal the JAX
-package's; the CLI's actions print what the JAX CLI prints
+package's; on 8 gloo ranks (tests/torch_ranks.py:fe_sample_body, and the
+CLI's ``-ranks 8 -backend gloo``) it prints, from rank 0 alone, the
+``P[  2  2  2]`` lines of the JAX sampler's sizes for that grid; the
+CLI's actions print what the JAX CLI prints
 (tests/test_fe_cli_actions.py's goldens; fmg and mgv line for line);
 the analyzer reads the port's sampler and FV benchmark lines.
 """
@@ -13,6 +16,7 @@ from contextlib import redirect_stdout
 import pytest
 import torch
 import torch_cpu  # noqa: F401  (one intra-op thread a test process)
+import torch_ranks
 
 from hpgmg_tpu.fe import cli as jcli
 from hpgmg_tpu.fe import sampler as jsampler
@@ -62,9 +66,55 @@ def test_sample_on_grid_runs_on_cpu():
     assert r.meq_per_s == pytest.approx(5 ** 3 / r.seconds / 1e6)
 
 
-def test_run_sample_refuses_several_devices():
-    with pytest.raises(NotImplementedError, match="fe/mesh.py"):
+def test_run_sample_on_8_ranks_prints_p222(tmp_path):
+    """run_sample under a group of 8 gloo ranks runs on the (2, 2, 2) grid:
+    the sizes of the JAX sample_grid_range for it, P[  2  2  2], printed by
+    rank 0 alone, every rank with the same (slowest) seconds."""
+    ranks, = torch_ranks.spawn([(torch_ranks.fe_sample_body, 8, tmp_path, (8, 16), 3)])
+    want = jsampler.thin_samples(jsampler.sample_grid_range(8, 16, (2, 2, 2)), 3)
+    assert want == [(4, 4, 4), (4, 4, 6), (4, 4, 8)]
+    lines = [ln for ln in ranks[0]["text"].splitlines() if ln.startswith("Q2 ")]
+    assert [ln.split("P[")[0] for ln in lines] == [
+        f"Q2 G[{M[0]:5d}{M[1]:5d}{M[2]:5d}] " for M in want]
+    assert all("P[  2  2  2]" in ln for ln in lines)
+    assert all(res["text"] == "" for res in ranks[1:])
+    samples = ranks[0]["samples"]
+    assert [s[0] for s in samples] == want and all(s[1] > 0 for s in samples)
+    assert all(res["samples"] == samples for res in ranks[1:])
+
+
+def test_run_sample_needs_a_group_of_n_devices():
+    with pytest.raises(ValueError, match="-ranks 2"):
         sampler.run_sample(get_fe_op("poisson2"), n_devices=2, device="cpu")
+
+
+def test_sample_action_on_ranks_line_parses():
+    out = run_action(cli.main, ["sample", "-local", "8,8", "--ranks", "8", "--backend",
+                                "gloo", "-repeat", "1", "-mintime", "0", "-device", "cpu"])
+    lines = [ln for ln in out.splitlines() if ln.startswith("Q2 ")]
+    assert len(lines) == 1 and "G[    4    4    4] P[  2  2  2]" in lines[0], out
+    fe, fv = analyze.parse(lines)
+    assert fv == [] and len(fe) == 1
+    assert (fe[0]["degree"], fe[0]["elements"]) == (2, 64)
+    assert fe[0]["meqs"] > 0 and fe[0]["gf"] > 0
+
+
+def test_spawn_ranks_echoes_rank_0_and_raises_on_a_failed_rank(capsys):
+    """parallel/launch.py:spawn_ranks, the launcher of the CLI's ranks and
+    of bench/weak.py: rank 0's result and its printed line come back; a
+    rank that raises makes the call raise."""
+    from hpgmg_tpu_torch.parallel.launch import spawn_ranks
+
+    assert spawn_ranks(2, "gloo", "cpu", torch_ranks.launched_body, (-1,),
+                       timeout=240.0) == {"rank": 0, "device": "cpu"}
+    assert capsys.readouterr().out == "rank 0 of 2 on cpu\n"
+    with pytest.raises(Exception, match="rank 1 fails"):
+        spawn_ranks(2, "gloo", "cpu", torch_ranks.launched_body, (1,), timeout=240.0)
+
+
+def test_cli_refuses_nccl_without_cards():
+    with pytest.raises(ValueError, match="-backend gloo"):
+        cli.main(["sample", "-ranks", "2", "-device", "cpu"])
 
 
 def test_sample_action_line_parses():

@@ -1,5 +1,8 @@
 """Rank bodies of the port's multi-process CPU tests
-(tests/test_torch_parallel.py, tests/test_torch_parallel_slice.py).
+(tests/test_torch_parallel.py, tests/test_torch_parallel_slice.py, the
+3D grid's and the FE path's: tests/test_torch_mesh3d.py,
+tests/test_torch_fe_sharded.py, tests/test_torch_fe_mesh.py,
+tests/test_torch_fe_cli.py).
 
 Each test module spawns its gloo jobs at once (``spawn``): ranks start with the
 ``spawn`` method, join a group through a file in the test's temporary
@@ -231,3 +234,126 @@ def solve_body(rank: int, world: int, grid: str, cases) -> dict:
 def mesh3d_body(rank: int, world: int, n: int, cases) -> dict:
     """``slab3_body`` and ``solve_body`` on the ``make_mesh`` grid."""
     return {"slabs": slab3_body(rank, world, n), **solve_body(rank, world, "3d", cases)}
+
+
+def fe_solve_body(rank: int, world: int, cases) -> dict:
+    """Each FE case (op, M, L, cycles, build) float64 on the ``make_mesh``
+    grid of the group: the levels split by fe/mesh.py, built on the blocks
+    (build "blocks") or built whole and cut (build "cut",
+    ``shard_fe_levels``), the sine forcing, one F-cycle and ``cycles``
+    V-cycles. Saves the gathered u after each cycle, each level's split
+    (None: replicated) and the fine level's metric shape."""
+    from hpgmg_tpu_torch.fe.fas import build_fe_levels, fas_fcycle, fas_vcycle
+    from hpgmg_tpu_torch.fe.grid import FEGrid
+    from hpgmg_tpu_torch.fe.mesh import gather_fe_field, shard_fe_field, shard_fe_levels
+    from hpgmg_tpu_torch.fe.op import get_fe_op
+    from hpgmg_tpu_torch.parallel.mesh import make_mesh
+
+    cpu = torch.device("cpu")
+    mesh = make_mesh(cpu)
+    out = {"grid": mesh.shape, "coords": mesh.coords}
+    for case in cases:
+        name, M, L, cycles, build = case
+        op = get_fe_op(name)
+        grid = FEGrid(M=tuple(M), degree=op.degree, L=tuple(L))
+        if build == "blocks":
+            levels = build_fe_levels(grid, op, torch.float64, device=cpu, mesh=mesh)
+            f = op.forcing(levels[0].block, levels[0].coords, "sine")
+        else:
+            whole = build_fe_levels(grid, op, torch.float64, device=cpu)
+            f = shard_fe_field(mesh, whole[0], op.forcing(whole[0].grid, whole[0].coords, "sine"))
+            levels = shard_fe_levels(mesh, whole)
+        part = levels[0].part
+        u = fas_fcycle(op, levels, 0, f)
+        us = [gather_fe_field(part, u)]
+        for _ in range(cycles):
+            u = fas_vcycle(op, levels, 0, f, u)
+            us.append(gather_fe_field(part, u))
+        out[case] = dict(u=us, split=[None if lv.part is None else lv.part.split
+                                      for lv in levels],
+                         metric_a=tuple(levels[0].metric_a.shape))
+    return out
+
+
+def fe_ops_body(rank: int, world: int, cases) -> dict:
+    """For each (op, M) on the ``make_mesh`` grid, float64, the levels
+    built on the blocks: every level's placement (split, node offsets and
+    extents; None where replicated), coords, dinv and the forcing, and on
+    random whole-level fields cut to the blocks (``global_field``-like,
+    seeded by the level): the operator, assemble_interior of an element
+    field, the owned node sum of a product, and each level pair's
+    restrict, interpolate and inject."""
+    from hpgmg_tpu_torch.fe.fas import build_fe_levels
+    from hpgmg_tpu_torch.fe.grid import FEGrid
+    from hpgmg_tpu_torch.fe.op import get_fe_op
+    from hpgmg_tpu_torch.parallel.mesh import make_mesh
+
+    cpu = torch.device("cpu")
+    mesh = make_mesh(cpu)
+    out = {"grid": mesh.shape}
+    for case in cases:
+        name, M = case
+        op = get_fe_op(name)
+        levels = build_fe_levels(FEGrid(M=tuple(M), degree=op.degree), op, torch.float64,
+                                 device=cpu, mesh=mesh)
+        res = {"levels": []}
+        for lev, lv in enumerate(levels):
+            g, part = lv.block, lv.part
+
+            def cut(x, part=part):
+                return x if part is None else part.cut(x)
+
+            x = torch.tensor(fe_field(lv.grid.nodes, lev))
+            y = torch.tensor(fe_field(lv.grid.nodes, lev + 100))
+            E = torch.tensor(fe_field((op.degree + 1,) * 3 + tuple(lv.grid.M), lev + 200))
+            Eb = E if part is None else part.cut_elements(E)
+            row = dict(place=None if part is None else (part.split, part.node_offsets,
+                                                        part.nodes),
+                       coords=lv.coords, dinv=lv.dinv,
+                       forcing=op.forcing(g, lv.coords, "sine"),
+                       apply=op.apply(g, lv.coords, cut(x), metric=(lv.metric_a, lv.metric_w)),
+                       assemble=g.assemble_interior(Eb.contiguous()),
+                       dot=g.node_sum(cut(x) * cut(y)))
+            if lev + 1 < len(levels):
+                lc = levels[lev + 1]
+                gc = lc.block
+                xc = torch.tensor(fe_field(lc.grid.nodes, lev + 300))
+                row.update(restrict=g.restrict(gc, cut(x)),
+                           interpolate=g.interpolate(gc, xc if lc.part is None
+                                                     else lc.part.cut(xc)),
+                           inject=g.inject(cut(x), gc).clone())
+            res["levels"].append(row)
+        out[case] = res
+    return out
+
+
+def fe_field(shape, seed: int) -> np.ndarray:
+    """A random float64 field of ``shape`` from ``SEED + seed``."""
+    return np.random.default_rng(SEED + seed).standard_normal(tuple(shape))
+
+
+def fe_sample_body(rank: int, world: int, local, maxsamples: int) -> dict:
+    """fe/sampler.py:run_sample of Q2 float64 on the group's ranks (chains
+    of 2 F-cycles, one repeat): what this rank printed and its results."""
+    import io
+    from contextlib import redirect_stdout
+
+    from hpgmg_tpu_torch.fe.op import get_fe_op
+    from hpgmg_tpu_torch.fe.sampler import run_sample
+
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        res = run_sample(get_fe_op("poisson2"), 2, tuple(local), maxsamples, repeat=1,
+                         mintime=0.0, dtype=torch.float64, device="cpu", chain=2)
+    return {"text": buf.getvalue(), "samples": [(r.M, r.seconds, r.gflops, r.meq_per_s)
+                                                for r in res]}
+
+
+def launched_body(device: torch.device, fail_rank: int) -> dict:
+    """A body for parallel/launch.py:spawn_ranks: prints a line on rank 0,
+    raises on ``fail_rank`` (-1: none), returns the rank and its device."""
+    rank = dist.get_rank()
+    if rank == fail_rank:
+        raise RuntimeError(f"rank {rank} fails")
+    print(f"rank {rank} of {dist.get_world_size()} on {device}")
+    return {"rank": rank, "device": str(device)}
