@@ -195,7 +195,29 @@ Phases, each printing its result and raising on failure (exit code != 0):
    float32: its P[  2  2  2] line (the slowest rank's seconds, GF, MEq/s)
    and the phase's wall time. The counts reset before it and read after
    it, here and on each rank of (a) and of (b): no kernel of K1-K8 and no
-   plain version. Its results are the "fe_grid" JSON line.
+   plain version. Its results are the "fe_grid" JSON line;
+18. bfloat16 and the JAX CLI's ladder: (a) the fv4 F-cycle at 512^3
+   float32 with min_coarse_dim 2 and the BiCGStab bottom (512 ... 4, 2)
+   through the entry point, rel_residual <= 1e-3 and order >= 3, K1/K1s,
+   K2c, K3, K4a/K4b and fv4_small (the plain version, which every device
+   takes below 4^3) launched, no plain version, and one counted F-cycle's
+   calls by entry and level: the 2^3 level through fv4_small only, no
+   kernel refusing a level; (b) each bf16 kernel against its plain version
+   on random bf16 operands: K1 every mode and K1s within one bf16 unit in
+   the last place of each cell (BF16_CELL_ULPS), K1 == K1s bit for bit,
+   K3 likewise, K2c and K4a/K4b within BF16_CHAIN_ULPS of max|out|; K1's
+   BF16C gsrb (float32 x, bf16 coefficients) against its plain version at
+   F32_TOL and the float32 half-sweep within BF16C_VS_F32; then their
+   times 8^3-512^3 on the benchmark's bf16 levels with bounds by bytes at
+   2 a value and the plain versions' times; (c) the bf16 fv4 F-cycle at
+   512^3 (BiCGStab, min_coarse_dim 2) through the entry point: DOF/s,
+   rel_residual, order (no limit: bf16), the bf16 kernels launched and no
+   float32 one; one F-cycle through the kernels against the same F-cycle
+   through the plain versions on the card within BF16_FCYCLE_GAP units of
+   2^-8 max|u|; (d) K1's BF16C gsrb at 256^3 and 512^3 in turns with the
+   float32 K1 gsrb, and the fv4 512^3 float32 headline F-cycle with
+   stencils.BF16C on: its rel_residual against the fv4 limit of 1e-3,
+   reported. Its results are the "bf16" JSON line.
 
 The line before the last lists the kernels as JSON: for each, its launches
 on its path, its time, its plain version's time, its bound on the card
@@ -245,22 +267,25 @@ def mode_flops(ax: int, mode: str, cells: int, extra: int) -> int:
 
 def ptxas_report(log: str):
     """(kernel, "registers, spills") of each entry function in the build's
-    ptxas log: the kernel's name, its type (f/d) and template ints and
-    bools (the mode; K8a's pass; K6's body and slab flags) read from the
-    mangled name."""
+    ptxas log: the kernel's name and its template arguments (types float,
+    double, bf16; ints and bools: the mode, K8a's pass, K6's body and slab
+    flags) read from the mangled name, in order."""
     import re
 
     out, name, spill = [], None, ""
+    # a repeated class type is a substitution (S<n>_): here always bf16
+    arg = r"[fd]|13__nv_bfloat16|S\d*_|L[ib]\d+E"
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             name = m.group(1)
-            # _GLOBAL__N_..._<file>_cu_<8 hex><len><kernel>I<type>[Li<int>E]...
-            k = re.search(r"_cu_[0-9a-f]{8}\d+(\w+?)I([fd])((?:L[ib]\d+E)*)", name)
+            # _GLOBAL__N_..._<file>_cu_<8 hex><len><kernel>I<args>E...
+            k = re.search(rf"_cu_[0-9a-f]{{8}}\d+(\w+?)I((?:{arg})+)E", name)
             if k:
-                ints = re.findall(r"L[ib](\d+)E", k.group(3))
-                name = (f"{k.group(1)}<{'float' if k.group(2) == 'f' else 'double'}"
-                        + "".join(f", {v}" for v in ints) + ">")
+                args = [{"f": "float", "d": "double", "13__nv_bfloat16": "bf16"}.get(
+                    a, "bf16" if a.startswith("S") else a) for a in re.findall(arg, k.group(2))]
+                args = [re.sub(r"L[ib](\d+)E", r"\1", a) for a in args]
+                name = f"{k.group(1)}<{', '.join(args)}>"
         elif "spill stores" in line:
             spill = line.strip()
         elif "registers" in line and name is not None:
@@ -1117,11 +1142,13 @@ def read_counts():
     return counts.read()
 
 
-def solve_cfg(bottom: str, dtype, op: str = "fv4", bc: str = "dirichlet"):
+def solve_cfg(bottom: str, dtype, op: str = "fv4", bc: str = "dirichlet",
+              min_coarse_dim: int = 8):
     from hpgmg_tpu_torch.core.config import BC, BottomSolver, Smoother, SolverConfig
 
     return SolverConfig(op=op, bc=BC(bc), a=0.0, b=1.0, smoother=Smoother.GSRB,
-                        bottom=BottomSolver(bottom), min_coarse_dim=8, dtype=dtype)
+                        bottom=BottomSolver(bottom), min_coarse_dim=min_coarse_dim,
+                        dtype=dtype)
 
 
 # the kernels each suite's F-cycle must launch, per BC
@@ -1189,7 +1216,7 @@ def check_counts(tag: str, counts: dict, plain_calls: dict, want, bc: str = "dir
 
 def headline(op="fv4", n=512, min_solve_seconds=1.0, rel_limit=1e-3,
              order_range=(3.0, float("inf")), bc="dirichlet", bottom="direct",
-             also=()):
+             also=(), min_coarse_dim=8):
     """Phases 4, 5 and 7: one suite's F-cycle through the port's entry
     point, with the launch counts reset before it and read after it; the
     kernels of ``also`` must launch too."""
@@ -1200,7 +1227,7 @@ def headline(op="fv4", n=512, min_solve_seconds=1.0, rel_limit=1e-3,
     tag = f"{op} {bc} {bottom}" + (" SUBTILE" if S.SUBTILE and op == "fv4" else "")
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    res = run_benchmark(n, solve_cfg(bottom, torch.float32, op, bc), "cuda",
+    res = run_benchmark(n, solve_cfg(bottom, torch.float32, op, bc, min_coarse_dim), "cuda",
                         min_solve_seconds=min_solve_seconds,
                         dynamic_range=3 if order_range is not None else 1)
     counts, plain_calls = read_counts()
@@ -3041,6 +3068,508 @@ def fe_grid_on_card(dev=torch.device("cuda"), cases=FE_GRID_CASES,
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: bfloat16 (the fv4 Dirichlet path) and BF16C
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+# a bf16 output against its plain version: the same float32 arithmetic on
+# the same widened operands and one rounding, so equal, or one bf16 unit in
+# the last place of the cell apart where the float32 sums differ in order
+# (the kernels' ghosts are tensor products of taps, the plain version's a
+# separable fill); at a cell that cancels far below max|output| (its bf16
+# unit below F32_TOL * max|output|) the float32 kernels' own tolerance
+# holds instead (bf16_ulps)
+BF16_CELL_ULPS = 1.0
+# the kernels that chain roundings (K2c: two half-sweeps; K4a, K4b: six
+# half-sweeps a level, e, res and the climb's interpolation), against their
+# plain versions with the same roundings: a one-ulp difference at a cell
+# moves its neighbours' next update, so the bound is in units in the last
+# place of max|output| (bf16_max_ulps; measured on an H100 80GB HBM3 at
+# 700 W on random levels: K2c 0.0625, K4a 0.031, K4b 3.1e-5)
+BF16_CHAIN_ULPS = {"K2c": 1.0, "K4a": 1.0, "K4b": 1.0}
+# BF16C: a float32 half-sweep with bf16 coefficients, against the float32
+# half-sweep (the JAX package's test_bf16c_gsrb_close_to_f32 bound)
+BF16C_VS_F32 = 5e-3
+
+
+def bf16_spacing(v: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers at |v| (2^(e-7) for |v| in [2^e,
+    2^(e+1))), at least the smallest normal's."""
+    return torch.exp2(torch.floor(torch.log2(v.float().abs().clamp_min(2.0 ** -126))) - 7)
+
+
+def bf16_ulps(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """max over cells of |out - ref| in units in the last place of ref, a
+    unit being at least F32_TOL * max|ref| (see BF16_CELL_ULPS)."""
+    r = ref.float()
+    unit = torch.clamp_min(bf16_spacing(r), F32_TOL * float(r.abs().max()))
+    return float(((out.float() - r).abs() / unit).max())
+
+
+def bf16_max_ulps(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """max|out - ref| in units in the last place of max|ref|."""
+    diff = (out.float() - ref.float()).abs().max()
+    return float(diff / bf16_spacing(ref.float().abs().max()))
+
+
+def bf16_cfgs():
+    from hpgmg_tpu_torch.core.config import SolverConfig
+
+    return (("", SolverConfig(a=0.0, b=1.0, dtype=BF16)),
+            ("+alpha", SolverConfig(a=1.5, b=1.0, helmholtz=True, dtype=BF16)))
+
+
+def hold_ulps(label: str, got: float, limit: float, worst: dict, name: str):
+    print(f"  {label}: {got:.3f} ulps (limit {limit})")
+    if not got <= limit:
+        raise AssertionError(f"{label}: {got} ulps > {limit}")
+    worst[name] = max(worst.get(name, 0.0), got)
+
+
+def check_bf16_kernels(worst: dict, sizes=(4, 5, 8, 12, 16, 33, 64, 128, 256)):
+    """Phase 18b: each bf16 kernel against its plain version on random bf16
+    operands, with and without a*alpha*x: K1 every mode and K1s (apply,
+    residual, gsrb) within BF16_CELL_ULPS of each cell, K1 == K1s bit for
+    bit; K3 within BF16_CELL_ULPS; K2c at n = 4 .. 64 against its plain
+    version and two K1 launches, K4a and K4b on the 32-16 and 16 ladders
+    within BF16_CHAIN_ULPS of max|out|; a gsrb's other colour equal to x;
+    then K1's BF16C gsrb (float32 x, bf16 coefficients) against its plain
+    version at F32_TOL and against the float32 half-sweep within
+    BF16C_VS_F32."""
+    from hpgmg_tpu_torch.core.config import SolverConfig
+    from hpgmg_tpu_torch.kernels import restrict as R
+    from hpgmg_tpu_torch.kernels import stencils as S
+    from hpgmg_tpu_torch.kernels import tail as T
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 18)
+
+    def field(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=BF16, device=dev)
+
+    unequal = 0
+    for n in sizes:
+        lv, x, rhs = random_level(n, BF16, dev, rng), field(n, n, n), field(n, n, n)
+        k1 = k1s = 0.0
+        for _, cfg in bf16_cfgs():
+            for label, mode, kw, parity in stream_cases(lv, rhs):
+                out = S.fv4_stencil_cuda(lv, x, cfg, mode, parity=parity, **kw)
+                k1 = max(k1, bf16_ulps(out, S.fv4_stencil_plain(lv, x, cfg, mode, **kw)))
+                if mode == "gsrb":
+                    other = lv.kdinv[parity] == 0
+                    if not torch.equal(out[other], x[other]):
+                        raise AssertionError(f"K1 bf16 {label} n={n}: the other colour's "
+                                             "cells differ from x")
+                if mode in S.SUBTILE_MODES:
+                    sub = S.fv4_subtile_cuda(lv, x, cfg, mode, parity=parity, **kw)
+                    k1s = max(k1s, bf16_ulps(sub, S.fv4_subtile_plain(
+                        lv, x, cfg, mode, parity=parity, **kw)))
+                    unequal += not torch.equal(sub, out)
+        hold_ulps(f"K1 bf16 (5 modes x 2 terms) n={n:3d} vs plain", k1, BF16_CELL_ULPS,
+                  worst, "fv4_stencil_bf16")
+        hold_ulps(f"K1s bf16 (3 modes x 2 terms) n={n:3d} vs plain", k1s, BF16_CELL_ULPS,
+                  worst, "fv4_subtile_bf16")
+        if n % 2 == 0:
+            hold_ulps(f"K3 bf16 n={n:3d} vs plain", bf16_ulps(
+                R.restrict_cell_cuda(x), R.restrict_cell_plain(x)), BF16_CELL_ULPS, worst,
+                "restrict_cell_bf16")
+        if n <= S.GSRB2_CLUSTER_MAX_N:
+            for label, cfg in bf16_cfgs():
+                out = S.fv4_gsrb2_cluster_cuda(lv, x, rhs, cfg)
+                y = S.fv4_stencil_cuda(lv, x, cfg, "gsrb", rhs=rhs, kdinv=lv.kdinv[0],
+                                       parity=0)
+                two = S.fv4_stencil_cuda(lv, y, cfg, "gsrb", rhs=rhs, kdinv=lv.kdinv[1],
+                                         parity=1)
+                hold_ulps(f"K2c bf16 n={n:3d}{label} vs plain", bf16_max_ulps(
+                    out, S.fv4_gsrb2_plain(lv, x, rhs, cfg)), BF16_CHAIN_ULPS["K2c"], worst,
+                    "fv4_gsrb2_cluster_bf16")
+                hold_ulps(f"K2c bf16 n={n:3d}{label} vs two K1", bf16_max_ulps(out, two),
+                          BF16_CHAIN_ULPS["K2c"], worst, "fv4_gsrb2_cluster_bf16_vs_two_k1")
+        del lv, x, rhs
+    print("  K1 against K1s in bf16: " + ("bit for bit" if not unequal
+                                          else f"{unequal} calls differ"))
+    if unequal:
+        raise AssertionError("K1 and K1s differ in bf16")
+    for dims in ((32, 16), (16,)):
+        for label, cfg in bf16_cfgs():
+            tail = [random_level(d, BF16, dev, rng) for d in dims]
+            e, rhs = field(*tail[0].shape), field(*tail[0].shape)
+            tag = f"{'-'.join(map(str, dims))}{label}"
+            es_k, rs_k = T.tail_down_cuda(tail, e, rhs, cfg, 6)
+            es_p, rs_p = T.tail_down_plain(tail, e, rhs, cfg, 6)
+            got = max(bf16_max_ulps(a, b) for a, b in zip(es_k + rs_k, es_p + rs_p))
+            hold_ulps(f"K4a bf16 {tag} vs plain", got, BF16_CHAIN_ULPS["K4a"], worst,
+                      "tail_down_bf16")
+            d = dims[-1] // 2
+            u_bot = field(d, d, d)
+            rhss = [rhs] + rs_p[:-1]
+            hold_ulps(f"K4b bf16 {tag} vs plain", bf16_max_ulps(
+                T.tail_up_cuda(tail, es_p, rhss, u_bot, cfg, 6),
+                T.tail_up_plain(tail, es_p, rhss, u_bot, cfg, 6)), BF16_CHAIN_ULPS["K4b"],
+                worst, "tail_up_bf16")
+    for n in (8, 33, 64, 128):
+        lv = random_level(n, torch.float32, dev, rng)
+        kb16 = S.kernel_views_bf16(lv, lv.kdinv)
+        view = S.bf16c_view(dataclasses.replace(lv, kb16=kb16))
+        x, rhs = (torch.tensor(a, dtype=torch.float32, device=dev)
+                  for a in rng.standard_normal((2, n, n, n)))
+        for label, cfg in (("", SolverConfig(a=0.0, b=1.0)),
+                           ("+alpha", SolverConfig(a=1.5, b=1.0, helmholtz=True))):
+            for p in (0, 1):
+                out = S.fv4_stencil_cuda(view, x, cfg, "gsrb", rhs=rhs, kdinv=kb16[3 + p],
+                                         parity=p)
+                check(f"K1 BF16C gsrb{p} n={n:3d}{label} vs plain", out,
+                      S.fv4_stencil_plain(view, x, cfg, "gsrb", rhs=rhs, kdinv=kb16[3 + p]),
+                      F32_TOL, worst, "fv4_stencil_bf16c")
+                check(f"K1 BF16C gsrb{p} n={n:3d}{label} vs the f32 half-sweep", out,
+                      S.fv4_stencil_cuda(lv, x, cfg, "gsrb", rhs=rhs, kdinv=lv.kdinv[p],
+                                         parity=p), BF16C_VS_F32, worst,
+                      "fv4_stencil_bf16c_vs_f32")
+
+
+def time_bf16(label: str, kernel, plain, reps: int, row: dict, key: str, work,
+              limit: float, per_cell: bool, library=None):
+    """Time a bf16 kernel and its plain version (and ``library``, one
+    PyTorch call computing the same function, where there is one) with CUDA
+    events, hold the kernel to the plain version (per_cell: bf16_ulps
+    within ``limit``; else bf16_max_ulps), and record the times, the max abs
+    error and the bound of ``work`` = (bytes, flops) at bf16's 2 bytes a
+    value."""
+    k_ms, p_ms = time_ms(kernel, reps), time_ms(plain, max(1, reps // 4))
+    lib_ms = time_ms(library, reps) if library is not None else None
+    out, ref = kernel(), plain()
+    if isinstance(out, (tuple, list)):
+        out = torch.cat([t.flatten() for t in out[0] + out[1]])
+        ref = torch.cat([t.flatten() for t in ref[0] + ref[1]])
+    got = bf16_ulps(out, ref) if per_cell else bf16_max_ulps(out, ref)
+    err = float((out.float() - ref.float()).abs().max())
+    b_ms, b_by = bound(*work)
+    print(f"  {label}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
+          + (f"library {lib_ms:.4f} ms, " if lib_ms is not None else "")
+          + f"bound {b_ms:.4f} ms ({b_by}), max abs err {err:.3e}, {got:.3f} ulps")
+    if not got <= limit:
+        raise AssertionError(f"{label}: {got} ulps > {limit}")
+    row[key] = {"ms": k_ms, "plain_ms": p_ms, "max_abs_err": err, "ulps": got,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms}
+
+
+def bench_level(n: int, dtype, dev):
+    """The benchmark problem's fv4 level at n^3 in ``dtype`` (as
+    rebuild_operator leaves it), a seeded x and the rhs."""
+    from hpgmg_tpu_torch.core.config import SolverConfig
+    from hpgmg_tpu_torch.core.level import Level
+    from hpgmg_tpu_torch.ops.base import get_suite
+    from hpgmg_tpu_torch.problems.fv import init_problem_fv
+
+    prob = init_problem_fv(n, dtype, dev)
+    lv = get_suite("fv4").rebuild_operator(
+        Level(dim=n, h=1.0 / n, depth=0, beta_i=prob.beta_i, beta_j=prob.beta_j,
+              beta_k=prob.beta_k), SolverConfig(a=0.0, b=1.0, dtype=dtype))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return lv, torch.randn((n, n, n), generator=gen, device=dev).to(dtype), prob.f
+
+
+def time_bf16_kernels(sizes=(8, 16, 32, 64, 128, 256, 512)):
+    """Phase 18b's times: each bf16 kernel against its plain version on the
+    benchmark's own bf16 levels, 8^3-512^3: K1 in its four modes and K1s
+    in its three up to its gate, K2c up to its gate, K3, and K4a/K4b on the
+    32-16 tail; bounds by bytes at 2 a value (half the f32 ones)."""
+    from hpgmg_tpu_torch.bench.driver import build as build_bench
+    from hpgmg_tpu_torch.core.config import BottomSolver, SolverConfig
+    from hpgmg_tpu_torch.kernels import restrict as R
+    from hpgmg_tpu_torch.kernels import stencils as S
+    from hpgmg_tpu_torch.kernels import tail as T
+
+    dev = torch.device("cuda")
+    cfg = SolverConfig(a=0.0, b=1.0, dtype=BF16)
+    res = {}
+    for n in sizes:
+        lv, x, rhs = bench_level(n, BF16, dev)
+        reps = 20 if n <= 128 else 5
+        row, cells = {}, n ** 3
+        for mode, kw, parity in (("apply", {}, None), ("residual", {"rhs": rhs}, None),
+                                 ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[0]}, 0),
+                                 ("fres", {"rhs": rhs}, None)):
+            if n >= 128 or mode == "gsrb":
+                time_bf16(f"K1 bf16 {mode:8s} {n}^3",
+                          lambda: S.fv4_stencil_cuda(lv, x, cfg, mode, parity=parity, **kw),
+                          lambda: S.fv4_stencil_plain(lv, x, cfg, mode, **kw), reps, row,
+                          mode, stream_work(lv, x, mode, kw), BF16_CELL_ULPS, True)
+            if mode in S.SUBTILE_MODES and n <= S.SUBTILE_MAX_DIM:
+                time_bf16(f"K1s bf16 {mode:8s} {n}^3",
+                          lambda: S.fv4_subtile_cuda(lv, x, cfg, mode, parity=parity, **kw),
+                          lambda: S.fv4_subtile_plain(lv, x, cfg, mode, parity=parity,
+                                                      **kw),
+                          reps, row, f"k1s {mode}", stream_work(lv, x, mode, kw),
+                          BF16_CELL_ULPS, True)
+        if n <= S.GSRB2_MAX_DIM:
+            sweep = (nbytes(x, rhs, *lv.kdinv, x, lv.beta_i, lv.beta_j, lv.beta_k),
+                     2 * mode_flops(FV4_AX, "gsrb", cells, 0))
+            time_bf16(f"K2c bf16 gsrb2 {n}^3", lambda: S.fv4_gsrb2_cluster_cuda(lv, x, rhs, cfg),
+                      lambda: S.fv4_gsrb2_plain(lv, x, rhs, cfg), reps * 5, row,
+                      "gsrb2_cluster", sweep, BF16_CHAIN_ULPS["K2c"], False)
+            row["gsrb2_cluster"]["smem_bytes"] = S.gsrb2_cluster_smem(n, 4)
+        if n >= 16:
+            time_bf16(f"K3 bf16 restrict {n}^3", lambda: R.restrict_cell_cuda(x),
+                      lambda: R.restrict_cell_plain(x), reps * 4, row, "restrict",
+                      (2 * (cells + cells // 8), cells), BF16_CELL_ULPS, True,
+                      library=lambda: torch.nn.functional.avg_pool3d(x[None, None], 2)[0, 0])
+        res[n] = row
+        del lv, x, rhs
+        torch.cuda.empty_cache()
+    # K4a, K4b on the bf16 solve's 32-16 tail (above its 8-4-2 levels)
+    hier, _ = build_bench(64, SolverConfig(a=0.0, b=1.0, dtype=BF16, min_coarse_dim=2,
+                                           bottom=BottomSolver.BICGSTAB), dev)
+    tail = hier.levels[1:3]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    e, rhs = (torch.randn(tail[0].shape, generator=gen, device=dev).to(BF16) for _ in range(2))
+    row = {}
+    coefs = sum(nbytes(lv.beta_i, lv.beta_j, lv.beta_k, *lv.kdinv) for lv in tail)
+    sweeps = sum(6 * mode_flops(FV4_AX, "gsrb", lv.ncells, 0) for lv in tail)
+    es, rs = T.tail_down_plain(tail, e, rhs, cfg, 6)
+    time_bf16("K4a bf16 down 32-16", lambda: T.tail_down_cuda(tail, e, rhs, cfg, 6),
+              lambda: T.tail_down_plain(tail, e, rhs, cfg, 6), 50, row, "tail_down",
+              (coefs + nbytes(e, rhs, *es, *rs),
+               sweeps + sum((FV4_AX + 2) * lv.ncells for lv in tail)),
+              BF16_CHAIN_ULPS["K4a"], False)
+    u_bot = torch.randn((8, 8, 8), generator=gen, device=dev).to(BF16)
+    time_bf16("K4b bf16 up 32-16",
+              lambda: T.tail_up_cuda(tail, es, [rhs, rs[0]], u_bot, cfg, 6),
+              lambda: T.tail_up_plain(tail, es, [rhs, rs[0]], u_bot, cfg, 6), 50, row,
+              "tail_up", (coefs + nbytes(*es, rhs, rs[0], u_bot, e),
+                          sweeps + sum(16 * lv.ncells for lv in tail)),
+              BF16_CHAIN_ULPS["K4b"], False)
+    for key in ("tail_down", "tail_up"):
+        row[key]["smem_bytes"] = T.tail_smem(32, 4)
+    res["tail"] = row
+    return res
+
+
+def tally_by_level(tally: dict):
+    """Context manager: every call of the fv4 suite's stencil entries (K1,
+    K1s, the plain version below 4^3), its full-sweep entry (K2c) and the
+    cycle's tail entries (K4a, K4b, K4c) during it, counted by entry and
+    level (a tail call by its first level) into ``tally``."""
+    from hpgmg_tpu_torch.ops import fv4 as F
+    from hpgmg_tpu_torch.solve import mg as MG
+
+    entries = [(F, "fv4_stencil"), (F, "fv4_subtile"), (F, "fv4_small"), (F, "fv4_gsrb2"),
+               (MG, "tail_down"), (MG, "tail_up"), (MG, "tail_v")]
+
+    def wrap(name, fn):
+        def counted(level, *args, **kw):
+            dim = level[0].dim if isinstance(level, (list, tuple)) else level.dim
+            key = f"{name} {dim}"
+            tally[key] = tally.get(key, 0) + 1
+            return fn(level, *args, **kw)
+        return counted
+
+    @contextlib.contextmanager
+    def scope():
+        saved = [(mod, name, getattr(mod, name)) for mod, name in entries]
+        for mod, name, fn in saved:
+            setattr(mod, name, wrap(name, fn))
+        try:
+            yield tally
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+
+    return scope()
+
+
+def cli_ladder_fcycle(n=512):
+    """Phase 18a: the fv4 F-cycle at n^3 float32 on the JAX CLI's ladder
+    (min_coarse_dim 2, n ... 4, 2), BiCGStab bottom, through the port's
+    entry point (rel_residual <= 1e-3, order >= 3; K1/K1s, K2c, K3, K4a/K4b
+    and fv4_small launched, no plain version), then one counted F-cycle:
+    its calls by entry and level, the 2^3 level's through fv4_small only,
+    the 4^3 level's through K1s and K2c."""
+    from hpgmg_tpu_torch.bench.driver import build
+    from hpgmg_tpu_torch.ops.base import get_suite
+    from hpgmg_tpu_torch.solve.mg import fmg_solve
+
+    res, counts = headline("fv4", n, min_solve_seconds=0.25, bottom="bicgstab",
+                           min_coarse_dim=2, also=("fv4_small",))
+    cfg = solve_cfg("bicgstab", torch.float32, min_coarse_dim=2)
+    hier, f = build(n, cfg, torch.device("cuda"))
+    dims = [lv.dim for lv in hier.levels]
+    tally = {}
+    reset_counts()
+    with tally_by_level(tally):
+        fmg_solve(get_suite("fv4"), hier, f, cfg)
+        torch.cuda.synchronize()
+    launched, plain = read_counts()
+    print(f"  ladder {dims}; one F-cycle's calls by entry and level: {tally}")
+    small = {k for k in tally if k.startswith("fv4_small")}
+    if dims[-2:] != [4, 2] or small != {"fv4_small 2"}:
+        raise AssertionError(f"fv4_small took {small} on the ladder {dims}")
+    if any(k.endswith(" 2") for k in tally if not k.startswith("fv4_small")):
+        raise AssertionError(f"a kernel's entry took the 2^3 level: {tally}")
+    if any(plain.values()):
+        raise AssertionError(f"a plain version ran: {plain}")
+    del hier, f
+    torch.cuda.empty_cache()
+    return {"dof_per_s": res.dof_per_second, "rel_residual": res.rel_residual,
+            "richardson_order": res.richardson_order, "ladder": dims,
+            "calls_by_level": tally, "launches": {k: v for k, v in launched.items() if v}}
+
+
+def plain_path():
+    """Context manager: the fv4 suite's kernel entries (K1, K1s, K2c, K3,
+    K4a/K4b) swapped for their plain versions, so that a CUDA solve runs
+    the plain versions on the card."""
+    from hpgmg_tpu_torch.kernels import restrict as R
+    from hpgmg_tpu_torch.kernels import stencils as S
+    from hpgmg_tpu_torch.kernels import tail as T
+    from hpgmg_tpu_torch.ops import fv4 as F
+    from hpgmg_tpu_torch.solve import mg as MG
+
+    def fv4_stencil_plain(level, x, cfg, mode, rhs=None, kdinv=None, parity=None):
+        return S.fv4_stencil_plain(level, x, cfg, mode, rhs, kdinv)
+
+    swaps = [(F, "fv4_stencil", fv4_stencil_plain),
+             (F, "fv4_subtile", S.fv4_subtile_plain),
+             (F, "fv4_gsrb2", S.fv4_gsrb2_plain),
+             (F, "restrict_cell", R.restrict_cell_plain),
+             (MG, "restrict_cell", R.restrict_cell_plain),
+             (MG, "tail_down", T.tail_down_plain), (MG, "tail_up", T.tail_up_plain)]
+
+    @contextlib.contextmanager
+    def scope():
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+        for mod, name, fn in swaps:
+            setattr(mod, name, fn)
+        try:
+            yield
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+
+    return scope()
+
+
+# the bf16 F-cycle through the kernels against the plain versions, in
+# units of 2^-8 max|u| (measured on an H100 80GB HBM3 at 700 W: 3.765)
+BF16_FCYCLE_GAP = 8.0
+
+
+def bf16_fcycle(n=512):
+    """Phase 18c: the bf16 fv4 F-cycle at n^3 (GSRB, BiCGStab, min_coarse_dim
+    2) through the port's entry point: DOF/s, rel_residual and order
+    (printed; the fv4 limit of 1e-3 does not apply in bf16), the bf16
+    kernels launched (K1, K1s, K2c, K3, K4a, K4b) and no float32 one, no
+    plain version; then one F-cycle through the kernels against the same
+    F-cycle through the plain versions on the card: max|u - u_plain| in
+    units of 2^-8 max|u_plain|, held to BF16_FCYCLE_GAP (each step rounds
+    at the same places; the float32 sums differ in order, and a one-unit
+    difference moves the cycle's later steps)."""
+    from hpgmg_tpu_torch.bench.driver import build, run_benchmark
+    from hpgmg_tpu_torch.ops.base import get_suite
+    from hpgmg_tpu_torch.solve.mg import fmg_solve
+
+    cfg = solve_cfg("bicgstab", BF16, min_coarse_dim=2)
+    reset_counts()
+    res = run_benchmark(n, cfg, "cuda", min_solve_seconds=0.25, dynamic_range=3)
+    launched, plain = read_counts()
+    print(f"  fv4 bf16 {n}^3: DOF/s {res.dof_per_second:.6e}, s/solve "
+          f"{res.seconds_per_solve:.6f}, rel_residual {res.rel_residual:.6e}, order "
+          f"{res.richardson_order:.6f}")
+    print(f"  launches: { {k: v for k, v in launched.items() if v} }; plain calls: {plain}")
+    want = ("fv4_stencil_bf16", "fv4_subtile_bf16", "fv4_gsrb2_cluster_bf16",
+            "restrict_cell_bf16", "tail_down_bf16", "tail_up_bf16", "fv4_small")
+    missing = [k for k in want if not launched[k]]
+    f32 = [k for k in ("fv4_stencil", "fv4_subtile", "fv4_gsrb2_cluster", "restrict_cell",
+                       "tail_down", "tail_up", "tail_v") if launched[k]]
+    if missing or f32 or any(plain.values()):
+        raise AssertionError(f"bf16 F-cycle: kernels not launched {missing}, float32 "
+                             f"kernels launched {f32}, plain calls {plain}")
+    # no limit on rel_residual in bf16: a bf16 u's rounding alone leaves a
+    # residual of ~2^-9 max|u| times the operator's 1/h^2 scale
+    if not math.isfinite(res.rel_residual):
+        raise AssertionError(f"bf16 F-cycle rel_residual {res.rel_residual}")
+    hier, f = build(n, cfg, torch.device("cuda"))
+    u = fmg_solve(get_suite("fv4"), hier, f, cfg)[0]
+    with plain_path():
+        t0 = time.perf_counter()
+        u_plain, nr, nf = fmg_solve(get_suite("fv4"), hier, f, cfg)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    gap = float((u.float() - u_plain.float()).abs().max()
+                / (u_plain.float().abs().max() * 2.0 ** -8))
+    print(f"  one F-cycle through the kernels against the plain versions on the card: "
+          f"{gap:.3f} units of 2^-8 max|u| (limit {BF16_FCYCLE_GAP}); the plain "
+          f"F-cycle's rel_residual {float(nr) / float(nf):.6e}, {plain_s:.3f} s")
+    if not gap <= BF16_FCYCLE_GAP:
+        raise AssertionError(f"bf16 F-cycle: kernels vs plain {gap} > {BF16_FCYCLE_GAP}")
+    del hier, f, u, u_plain
+    torch.cuda.empty_cache()
+    return {"dof_per_s": res.dof_per_second, "seconds_per_solve": res.seconds_per_solve,
+            "rel_residual": res.rel_residual, "richardson_order": res.richardson_order,
+            "u_vs_plain_units": gap, "plain_rel_residual": float(nr) / float(nf),
+            "plain_fcycle_s": plain_s, "launches": {k: v for k, v in launched.items() if v}}
+
+
+def bf16c_phase(sizes=(256, 512)):
+    """Phase 18d: K1's gsrb with the BF16C coefficient streams against the
+    float32 K1 gsrb, in turns (f32, BF16C, BF16C, f32), at 256^3 and 512^3,
+    each against its plain version, with bounds (BF16C: x, rhs and out in
+    float32, the face arrays and kdinv in bf16); then the fv4 512^3 float32
+    headline F-cycle (DIRECT bottom) with stencils.BF16C on: its
+    rel_residual and order, and whether it meets the fv4 limit of 1e-3
+    (reported, not required: BF16C stays off unless it does)."""
+    from hpgmg_tpu_torch.core.config import SolverConfig
+    from hpgmg_tpu_torch.kernels import stencils as S
+
+    dev = torch.device("cuda")
+    cfg = SolverConfig(a=0.0, b=1.0)
+    out = {}
+    for n in sizes:
+        lv, x, rhs = bench_level(n, torch.float32, dev)
+        kb16 = S.kernel_views_bf16(lv, lv.kdinv)
+        view = S.bf16c_view(dataclasses.replace(lv, kb16=kb16))
+        reps = 10
+        f32 = lambda: S.fv4_stencil_cuda(lv, x, cfg, "gsrb", rhs=rhs,  # noqa: E731
+                                         kdinv=lv.kdinv[0], parity=0)
+        b16 = lambda: S.fv4_stencil_cuda(view, x, cfg, "gsrb", rhs=rhs,  # noqa: E731
+                                         kdinv=kb16[3], parity=0)
+        row = {}
+        time_pair(f"K1 BF16C gsrb {n}^3", b16,
+                  lambda: S.fv4_stencil_plain(view, x, cfg, "gsrb", rhs=rhs, kdinv=kb16[3]),
+                  reps, row, "bf16c",
+                  work=stream_work(view, x, "gsrb", {"rhs": rhs, "kdinv": kb16[3]}))
+        t = [time_ms(fn, reps) for fn in (f32, b16, b16, f32)]
+        rel, _ = relerr(b16(), f32())
+        print(f"  K1 gsrb {n}^3 in turns: f32 {t[0]:.4f} / {t[3]:.4f} ms, BF16C "
+              f"{t[1]:.4f} / {t[2]:.4f} ms; BF16C vs f32 rel diff {rel:.3e}")
+        if not rel <= BF16C_VS_F32:
+            raise AssertionError(f"BF16C gsrb {n}^3 vs f32: {rel} > {BF16C_VS_F32}")
+        row["bf16c"]["in_turns_f32_bf16c_bf16c_f32"] = t
+        row["bf16c"]["vs_f32"] = rel
+        out[n] = row
+        del lv, x, rhs, kb16, view
+        torch.cuda.empty_cache()
+    saved = S.BF16C, S.BF16C_MIN_DIM
+    S.BF16C, S.BF16C_MIN_DIM = True, 512
+    try:
+        res, counts = headline("fv4", 512, min_solve_seconds=0.25, rel_limit=float("inf"),
+                               order_range=(-float("inf"), float("inf")),
+                               also=("fv4_stencil_bf16c",))
+    finally:
+        S.BF16C, S.BF16C_MIN_DIM = saved
+    meets = res.rel_residual <= 1e-3
+    print(f"  fv4 512^3 f32 with BF16C on: rel_residual {res.rel_residual:.6e} "
+          f"({'meets' if meets else 'misses'} the fv4 limit 1e-3), order "
+          f"{res.richardson_order:.6f}, DOF/s {res.dof_per_second:.6e}")
+    torch.cuda.empty_cache()
+    out["fcycle"] = {"rel_residual": res.rel_residual, "meets_1e-3": meets,
+                     "richardson_order": res.richardson_order,
+                     "dof_per_s": res.dof_per_second,
+                     "bf16c_launches": counts["fv4_stencil_bf16c"]}
+    return out
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -3183,6 +3712,21 @@ def main() -> int:
     phase("17 the FE solver and sampler over the (2,2,2) grid: 8 processes sharing one "
           "GPU, gloo; F-cycles against one rank, the sampler at G[128^3] Q2 f32")
     fe_grid = fe_grid_on_card()
+    torch.cuda.empty_cache()
+
+    phase("18a fv4 512^3 f32 on the JAX CLI's ladder (min_coarse_dim 2, BiCGStab): the "
+          "2^3 level by the plain version, every other level through the kernels")
+    ladder = cli_ladder_fcycle()
+    phase("18b the bf16 kernels (K1, K1s, K2c, K3, K4a, K4b) and K1's BF16C gsrb vs plain; "
+          "their times 8^3-512^3")
+    check_bf16_kernels(worst)
+    t_bf16 = time_bf16_kernels()
+    phase("18c the bf16 fv4 F-cycle at 512^3 (BiCGStab, min_coarse_dim 2) through the "
+          "kernels, and against the same F-cycle through the plain versions on the card")
+    bf = bf16_fcycle()
+    phase("18d K1's gsrb with BF16C in turns with the f32 K1 at 256^3 and 512^3; the fv4 "
+          "512^3 f32 F-cycle with BF16C on")
+    bf16c = bf16c_phase()
 
     big = times[512]
     # K6 at the largest level it smooths on the path
@@ -3243,6 +3787,24 @@ def main() -> int:
          s_times["r1_slab"], dec["fv7pt"]["launches"]["r1_slab"]),
         ("r1_gsrb2_slab", "r1_gsrb2.cu", "hpgmg_tpu/kernels/stencils_r1.py:1029",
          s_times["r1_gsrb2_slab"], dec["fv7pt"]["launches"]["r1_gsrb2_slab"]),
+        # the bf16 instantiations: launches in phase 18c's bf16 F-cycle (the
+        # BF16C gsrb's in phase 18d's F-cycle with BF16C on), times at the
+        # largest level each takes on that path
+        ("fv4_stencil_bf16", "fv4_stream.cu", "hpgmg_tpu/kernels/stencils.py:594",
+         t_bf16[512]["gsrb"], bf["launches"]["fv4_stencil_bf16"]),
+        ("fv4_subtile_bf16", "fv4_subtile.cu", "hpgmg_tpu/kernels/stencils.py:918",
+         t_bf16[S.SUBTILE_MAX_DIM]["k1s gsrb"], bf["launches"]["fv4_subtile_bf16"]),
+        ("fv4_gsrb2_cluster_bf16", "fv4_gsrb2_cluster.cu",
+         "hpgmg_tpu/kernels/stencils.py:1726", t_bf16[S.GSRB2_MAX_DIM]["gsrb2_cluster"],
+         bf["launches"]["fv4_gsrb2_cluster_bf16"]),
+        ("restrict_cell_bf16", "restrict.cu", "hpgmg_tpu/kernels/restrict.py:77",
+         t_bf16[512]["restrict"], bf["launches"]["restrict_cell_bf16"]),
+        ("tail_down_bf16", "tail.cu", "hpgmg_tpu/kernels/tail.py:273",
+         t_bf16["tail"]["tail_down"], bf["launches"]["tail_down_bf16"]),
+        ("tail_up_bf16", "tail.cu", "hpgmg_tpu/kernels/tail.py:298",
+         t_bf16["tail"]["tail_up"], bf["launches"]["tail_up_bf16"]),
+        ("fv4_stencil_bf16c", "fv4_stream.cu", "hpgmg_tpu/kernels/stencils.py:594",
+         bf16c[512]["bf16c"], bf16c["fcycle"]["bf16c_launches"]),
     ]
     kernels = [{"name": name, "route": "cuda",
                 "source": f"hpgmg_tpu_torch/kernels/csrc/{src}", "replaces": rep,
@@ -3256,7 +3818,22 @@ def main() -> int:
     regs = dict(ptxas)
     for k in kernels:
         if k["name"] in ("fv4_gsrb2_cluster", "tail_down", "tail_up", "tail_v"):
-            k["ptxas"] = regs.get(f"{k['name']}_kernel<float>")
+            k["ptxas"] = regs.get(f"{k['name']}_kernel<float, float>")
+        if k["name"] in ("fv4_gsrb2_cluster_bf16", "tail_down_bf16", "tail_up_bf16",
+                         "restrict_cell_bf16"):
+            k["ptxas"] = regs.get(f"{k['name'][:-5]}_kernel<bf16, float>")
+        if k["name"] == "fv4_subtile_bf16":
+            k["ptxas"] = {m: regs.get(f"fv4_subtile_kernel<bf16, {i}, float>")
+                          for i, m in enumerate(("apply", "residual", "gsrb"))}
+        if k["name"] == "fv4_stencil_bf16":
+            k["ptxas"] = {m: regs.get(f"fv4_stream_kernel<bf16, bf16, {i}, float>")
+                          for i, m in enumerate(("apply", "residual", "gsrb", "fres"))}
+            k["modes"] = {m: t_bf16[512][m] for m in ("apply", "residual", "fres")}
+            k["gsrb_by_size"] = {m: {key: r["gsrb"][key] for key in ("ms", "bound_ms")}
+                                 for m, r in t_bf16.items() if isinstance(m, int)}
+        if k["name"] == "fv4_stencil_bf16c":
+            k["ptxas"] = regs.get("fv4_stream_kernel<float, bf16, 2, float>")
+            k["at_256"] = bf16c[256]["bf16c"]
     # the 27pt body's other modes at 512^3 (the row's own numbers are its
     # apply's) and its registers and spills by mode (f32)
     for name, modes in (("r1_stencil_27pt", {m: r1_times[512][f"27pt {m}"]
@@ -3410,6 +3987,8 @@ def main() -> int:
     print(json.dumps({"fe": fe}))
     print(json.dumps({"tooling": tools}))
     print(json.dumps({"fe_grid": fe_grid}))
+    print(json.dumps({"bf16": {"cli_ladder_f32": ladder, "bf16_fcycle": bf,
+                               "bf16c": bf16c}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -33,7 +33,7 @@ _LIMITS = {"fv4": (4.0, 1e-3), "fv7pt": (2.0, 1e-2), "fv2": (2.0, 1e-2),
            "27pt": (2.0, 1e-2)}
 
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m hpgmg_tpu_torch.bench")
     ap.add_argument("--n", type=int, default=512)
     ap.add_argument("--op", choices=OPS, default="fv4")
@@ -49,7 +49,11 @@ def main(argv=None) -> int:
     ap.add_argument("--no-bicgstab", action="store_true",
                     help="skip the BiCGStab-bottom companion run")
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():

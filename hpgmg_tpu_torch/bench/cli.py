@@ -6,7 +6,7 @@ cycle and driver of the solver, on one device.
         [--n 128] [--op fv4] [--smoother gsrb] [--bottom bicgstab]
         [--cycle F] [--bc dirichlet] [--dtype float32] [--problem fv]
         [--dynamic-range 3] [--min-seconds 1.0] [--test-error]
-        [--driver fmg2|fmg2dd|mgpcg] [--min-coarse-dim 8] [--device cuda]
+        [--driver fmg2|fmg2dd|mgpcg] [--min-coarse-dim 2] [--device cuda]
         [--timing-table] [--solve-timing-table]
 
 The protocol follows main()/bench_hpgmg (hpgmg-fv.c:103-386) through
@@ -20,14 +20,19 @@ MG-preconditioned CG (MGPCG, mg.c:1500-1607) to ``rtol`` 1e-10 and prints
 the convergence history, the seconds of the converged solve and its DOF/s.
 
 The reference-style positionals size the grid as
-box_dim * cbrt(target_boxes), one device. ``--min-coarse-dim`` is the
-port's (default 8, as ``python -m hpgmg_tpu_torch.bench``): the fv4
-kernels take levels of 4^3 and up. After the DOF/s lines,
+box_dim * cbrt(target_boxes), one device. ``--min-coarse-dim`` defaults to
+2, the JAX CLI's ladder (its SolverConfig's default; ``python -m
+hpgmg_tpu_torch.bench`` keeps bench.py's 8): the fv4 suite computes its
+levels below 4^3 by the plain version on every device
+(kernels/stencils.py:small_level). After the DOF/s lines,
 ``--timing-table`` prints the per-level x per-operation table of
 standalone phase times (``bench/timing.py:measure_breakdown``) and
 ``--solve-timing-table`` the reference's MGPrintTiming table of one timed
 F-cycle (``bench/timing.py:fmg_timing_table``), both on the CLI's device.
-The JAX CLI's ``bfloat16`` is not offered. On the default device ``cuda``
+``--dtype bfloat16`` is the whole solve in bf16 (stored in bf16, every
+kernel and plain version computing in float32 and rounding its output to
+bf16 once): fv4 with Dirichlet BCs only, and an iterative bottom (DIRECT
+cannot be built in bf16); anything else raises. On the default device ``cuda``
 the CLI exits with 1 when no CUDA device is present; ``--device cpu`` runs
 the plain versions.
 """
@@ -49,7 +54,7 @@ from hpgmg_tpu_torch.core.config import (OPS, BC, BottomSolver, CycleType, Smoot
 from hpgmg_tpu_torch.ops.base import get_suite
 from hpgmg_tpu_torch.solve.mg import fmg_solve2, fmg_solve2_dd, mgpcg
 
-DTYPES = {"float32": torch.float32, "float64": torch.float64}
+DTYPES = {"float32": torch.float32, "float64": torch.float64, "bfloat16": torch.bfloat16}
 DRIVERS = ("fmg2", "fmg2dd", "mgpcg")
 
 
@@ -79,7 +84,7 @@ def parser() -> argparse.ArgumentParser:
                    help="run FMGSolve2, its compensated double-f32 variant or "
                         "MGPCG to rtol and print the convergence history")
     p.add_argument("--min-seconds", type=float, default=1.0)
-    p.add_argument("--min-coarse-dim", type=int, default=8)
+    p.add_argument("--min-coarse-dim", type=int, default=2)
     p.add_argument("--device", default="cuda")
     p.add_argument("--timing-table", action="store_true",
                    help="print the per-level x per-op breakdown (standalone costs)")

@@ -91,12 +91,11 @@ def build(n: int, cfg: SolverConfig, device: torch.device,
     """The benchmark problem's slimmed hierarchy and rhs on ``device``; with
     ``mesh``, this rank's cut of both (the global arrays are freed)."""
     prob = build_problem(n, cfg, device, problem)
-    hier = slim_hierarchy(build_hierarchy(prob.beta_i, prob.beta_j, prob.beta_k, cfg,
-                                          alpha=prob.alpha if cfg.helmholtz else None),
-                          cfg)
+    hier = build_hierarchy(prob.beta_i, prob.beta_j, prob.beta_k, cfg,
+                           alpha=prob.alpha if cfg.helmholtz else None)
     if mesh is None:
-        return hier, prob.f
-    return shard_hierarchy(mesh, hier, cfg), shard_array(mesh, prob.f)
+        return slim_hierarchy(hier, cfg), prob.f
+    return slim_hierarchy(shard_hierarchy(mesh, hier, cfg), cfg), shard_array(mesh, prob.f)
 
 
 def run_test_error(n: int, cfg: SolverConfig, device="cuda",

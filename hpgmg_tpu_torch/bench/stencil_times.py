@@ -2,8 +2,9 @@
 one level, on one CUDA device.
 
     python -m hpgmg_tpu_torch.bench.stencil_times [--sizes 128 256 512]
-        [--dtype float32 [float64]] [--bc dirichlet periodic] [--reps 10]
-        [--tail] [--r1] [--slab] [--subtile] [--chunks C ...] [--json PATH]
+        [--dtype float32 [float64] [bfloat16]] [--bc dirichlet periodic]
+        [--reps 10] [--tail] [--r1] [--slab] [--subtile] [--bf16c]
+        [--chunks C ...] [--json PATH]
 
 For each size and BC, on the benchmark problem's finest level as the fv4
 suite rebuilds it, with x drawn from a seeded generator: the ms per call
@@ -49,7 +50,16 @@ default): its apply, residual and gsrb (``stencils.fv4_subtile_cuda``,
 as its forced tile length along i where the tree's K1s takes one (up to
 ``stencils.SUBTILE_MAX_TI``, ``K1s <mode> ti <c>``), each with its device
 ms and byte bound (x, the mode's operands and the face arrays read once,
-the output written once). With
+the output written once). ``--dtype bfloat16`` times the bf16
+instantiations of K1, K1s and K2c (and with ``--tail`` K4a and K4b) on
+bf16 levels, Dirichlet only: K2 and the periodic kernels have none. With
+``--bf16c``, K1's gsrb half-sweep (parity 0) on the float32 fv4 levels
+(sizes 128^3-512^3 by default) with the float32 face arrays and kdinv
+(``K1 gsrb f32``) and with their BF16C bf16 copies
+(``stencils.kernel_views_bf16``, ``K1 gsrb BF16C``), in turns f32, BF16C,
+BF16C, f32 (``<call> turn <i>``), each with its device ms and byte bound
+(BF16C: x, rhs and out in float32, the face arrays and kdinv at 2 bytes a
+value). With
 ``--slab``, the decomposed fv4 stencil instead: on one whole n^3 block
 and on each local block the 2x2 grid gives the levels of an n^3 problem
 (``--sizes`` n, default 512: blocks (256, 256, 512) down to (8, 8, 16)),
@@ -82,6 +92,7 @@ a file.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import inspect
 import json
 import subprocess
@@ -89,7 +100,7 @@ import subprocess
 import torch
 
 from hpgmg_tpu_torch.bench.driver import build, build_problem
-from hpgmg_tpu_torch.core.config import BC, SolverConfig
+from hpgmg_tpu_torch.core.config import BC, BottomSolver, SolverConfig
 from hpgmg_tpu_torch.core.level import Level, rb_mask
 from hpgmg_tpu_torch.kernels import stencils
 from hpgmg_tpu_torch.kernels import stencils_r1 as K
@@ -171,7 +182,8 @@ def level_times(n: int, dtype: torch.dtype, bc: BC, reps: int) -> dict:
     # the smoother call as the solver makes it, under the tree's own gate
     smooths = {"smooth": lambda: suite.gsrb_smooth(lv, x, f, cfg, nsweeps)}
     if bc == BC.DIRICHLET:
-        smooths["smooth_k2"] = sweeps(stencils.fv4_gsrb2_cuda)
+        if dtype != torch.bfloat16:  # K2 has no bf16 instantiation
+            smooths["smooth_k2"] = sweeps(stencils.fv4_gsrb2_cuda)
         k2c = (getattr(stencils, "fv4_gsrb2_cluster_cuda", None)
                or getattr(stencils, "fv4_gsrb2_coop_cuda", None))
         if k2c is not None and n <= getattr(stencils, "GSRB2_CLUSTER_MAX_N", n):
@@ -229,6 +241,41 @@ def subtile_times(n: int, dtype: torch.dtype, reps: int, chunks=()) -> dict:
         out[name] = time_ms(fn, reps)
         out[name + "_device"] = device_ms(fn, reps)
         out[name + "_bound"] = values[name] * x.element_size() / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def bf16c_times(n: int, reps: int) -> dict:
+    """{call: ms} of K1's gsrb half-sweep (parity 0) on the fv4 benchmark's
+    n^3 float32 Dirichlet level, with its float32 face arrays and kdinv and
+    with their BF16C bf16 copies, in turns (f32, BF16C, BF16C, f32), each
+    with its device ms and byte bound, over ``reps`` calls at 512^3 and
+    proportionally more on smaller levels."""
+    reps = reps * min(64, max(1, (512 // n) ** 3))
+    dev = torch.device("cuda")
+    cfg = SolverConfig(op="fv4", a=0.0, b=1.0, dtype=torch.float32)
+    prob = build_problem(n, cfg, dev)
+    lv = get_suite("fv4").rebuild_operator(
+        Level(dim=n, h=1.0 / n, depth=0, beta_i=prob.beta_i, beta_j=prob.beta_j,
+              beta_k=prob.beta_k), cfg)
+    kb16 = stencils.kernel_views_bf16(lv, lv.kdinv)
+    view = stencils.bf16c_view(dataclasses.replace(lv, kb16=kb16))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.randn((n, n, n), generator=gen, device=dev)
+    calls = {"K1 gsrb f32": (lambda: stencils.fv4_stencil_cuda(
+                lv, x, cfg, "gsrb", rhs=prob.f, kdinv=lv.kdinv[0], parity=0),
+                (lv.beta_i, lv.beta_j, lv.beta_k, lv.kdinv[0])),
+             "K1 gsrb BF16C": (lambda: stencils.fv4_stencil_cuda(
+                 view, x, cfg, "gsrb", rhs=prob.f, kdinv=kb16[3], parity=0),
+                 (*kb16[:3], kb16[3]))}
+    out = {}
+    for i, name in enumerate(("K1 gsrb f32", "K1 gsrb BF16C", "K1 gsrb BF16C",
+                              "K1 gsrb f32")):
+        fn, coefs = calls[name]
+        out[f"{name} turn {i}"] = time_ms(fn, reps)
+        out[f"{name} turn {i}_device"] = device_ms(fn, reps)
+        # x, rhs and out in float32; the coefficients at their own size
+        nbytes = 3 * x.numel() * 4 + sum(t.numel() * t.element_size() for t in coefs)
+        out[f"{name}_bound"] = nbytes / HBM_BYTES_PER_S * 1e3
     return out
 
 
@@ -444,11 +491,15 @@ def r1_slab_calls(n: int, lv, x, values: dict, gen, dtype, bc: BC, chunks=()) ->
 def tail_times(dtype: torch.dtype, reps: int) -> dict:
     """{call: ms} of K4c, K4a and K4b on the headline's tail (the 32^3 and
     16^3 levels of the benchmark hierarchy over its 8^3 DIRECT bottom, 6
-    half-sweeps a level), with each call's device ms (``<call>_device``)."""
+    half-sweeps a level), with each call's device ms (``<call>_device``);
+    in bf16 K4a and K4b only, over the bf16 solve's BiCGStab 8-4-2 levels
+    (K4c's DIRECT bottom has no bf16 build)."""
     from hpgmg_tpu_torch.kernels import tail
 
     dev = torch.device("cuda")
-    cfg = SolverConfig(op="fv4", a=0.0, b=1.0, dtype=dtype, min_coarse_dim=8)
+    bf16 = dtype == torch.bfloat16
+    cfg = SolverConfig(op="fv4", a=0.0, b=1.0, dtype=dtype, min_coarse_dim=2 if bf16 else 8,
+                       bottom=BottomSolver.BICGSTAB if bf16 else BottomSolver.DIRECT)
     hier, _ = build(64, cfg, dev)
     levels, bottom = hier.levels[1:3], hier.levels[3]
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -460,6 +511,8 @@ def tail_times(dtype: torch.dtype, reps: int) -> dict:
              "tail_down": lambda: tail.tail_down_cuda(levels, e, rhs, cfg, 6),
              "tail_up": lambda: tail.tail_up_cuda(levels, es, [rhs, rhss[0]], u_bot,
                                                   cfg, 6)}
+    if bf16:
+        del calls["tail_v"]
     out = {}
     for name, fn in calls.items():
         out[name] = time_ms(fn, reps * 64)
@@ -471,7 +524,7 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--sizes", type=int, nargs="+", default=None,
                    help="default 128 256 512; with --r1 16 32 64 128 256 512")
-    p.add_argument("--dtype", choices=["float32", "float64"], nargs="+",
+    p.add_argument("--dtype", choices=["float32", "float64", "bfloat16"], nargs="+",
                    default=["float32"])
     p.add_argument("--bc", nargs="+", choices=["dirichlet", "periodic"],
                    default=["dirichlet", "periodic"])
@@ -486,6 +539,9 @@ def main(argv=None) -> dict:
     p.add_argument("--subtile", action="store_true",
                    help="time K1s beside K1 per mode on the Dirichlet fv4 levels "
                         "(sizes 16-512) instead")
+    p.add_argument("--bf16c", action="store_true",
+                   help="time K1's gsrb with float32 coefficients against BF16C's bf16 "
+                        "copies, in turns, on the float32 levels instead")
     p.add_argument("--chunks", type=int, nargs="*", default=None,
                    help="with --r1: also time K6 and the var7 body of K5/K7b with each "
                         "of these chunks of i-planes; with --slab: K8c's var7 body; with "
@@ -497,22 +553,24 @@ def main(argv=None) -> dict:
                            else [512] if args.slab else [128, 256, 512])
     chunks = args.chunks if args.chunks is not None else \
         [2, 4, 8, 16] if args.subtile else []
-    bcs = ["dirichlet"] if args.subtile else args.bc
+    bcs = ["dirichlet"] if args.subtile or args.bf16c else args.bc
     if not torch.cuda.is_available():
         raise SystemExit("stencil_times needs a CUDA device")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True).stdout.strip()
     rows = []
-    for dt in args.dtype:
-        for bc in bcs:
+    for dt in (["float32"] if args.bf16c else args.dtype):
+        # bf16 runs the fv4 Dirichlet suite only
+        for bc in (["dirichlet"] if dt == "bfloat16" else bcs):
             for n in sizes:
                 # --slab: one whole n^3 block, then the 2x2 grid's blocks of
                 # every level from n^3 to 16^3
                 for block in ([(n, n, n)] + [(m // 2, m // 2, m) for m in
                                              (n >> s for s in range(8)) if m >= 16]
                               if args.slab else [n]):
-                    ms = (slab_times(block, getattr(torch, dt), BC(bc), args.reps, chunks)
+                    ms = (bf16c_times(n, args.reps) if args.bf16c else
+                          slab_times(block, getattr(torch, dt), BC(bc), args.reps, chunks)
                           if args.slab else
                           r1_times(n, getattr(torch, dt), BC(bc), args.reps, chunks)
                           if args.r1 else

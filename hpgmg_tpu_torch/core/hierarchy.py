@@ -43,6 +43,12 @@ def direct_bottom_inverse(op, bot: Level, cfg: SolverConfig) -> torch.Tensor:
     below 10 * m * eps of the largest are dropped; torch's default is
     m * eps)."""
     m = bot.ncells
+    if bot.dtype == torch.bfloat16:
+        raise ValueError(
+            "the DIRECT bottom cannot be built in bfloat16: torch.linalg has no "
+            "bfloat16 inverse, and the JAX package's build_hierarchy fails alike "
+            "(its LAPACK inverse raises 'Unsupported dtype bfloat16'); pick an "
+            "iterative bottom solver (the JAX CLI's default is bicgstab)")
     if m > 16 ** 3:
         raise ValueError(
             f"DIRECT bottom solver wants a tiny coarsest grid, got {bot.dim}^3;"
@@ -104,7 +110,9 @@ def slim_hierarchy(hier: Hierarchy, cfg: SolverConfig) -> Hierarchy:
     each n^3 f32 field is 512 MB): ``l1inv`` unless the smoother is
     L1-Jacobi, and with GSRB the plain ``dinv`` on every level above the
     bottom (GSRB reads the parity-folded ``kdinv``; the Krylov bottom
-    solvers precondition with the bottom level's ``dinv``)."""
+    solvers precondition with the bottom level's ``dinv``), and with GSRB
+    the ``kdinv`` pair of a level carrying the BF16C views (its half-sweeps
+    read their bf16 copies; hpgmg_tpu/core/hierarchy.py:190-199)."""
     last = len(hier.levels) - 1
     new_levels = []
     for i, lv in enumerate(hier.levels):
@@ -113,5 +121,9 @@ def slim_hierarchy(hier: Hierarchy, cfg: SolverConfig) -> Hierarchy:
             kw["l1inv"] = None
         if cfg.smoother == Smoother.GSRB and i < last:
             kw["dinv"] = None
+            if lv.kb16 is not None:
+                # BF16C: the half-sweeps read the bf16 kdinv copies; the
+                # float32 pair is dead (1 GB at 512^3)
+                kw["kdinv"] = None
         new_levels.append(dataclasses.replace(lv, **kw))
     return Hierarchy(levels=new_levels)

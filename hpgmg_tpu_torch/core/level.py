@@ -54,6 +54,10 @@ class Level:
     # (red, black) dinv with the GSRB parity mask folded in: zeros at the
     # cells a half-sweep of that parity does not update
     kdinv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+    # BF16C (kernels/stencils.py): bfloat16 copies of beta_i, beta_j,
+    # beta_k, kdinv[0] and kdinv[1], which K1's gsrb half-sweeps read in a
+    # float32 solve; None where bf16c_active is false
+    kb16: Optional[tuple] = None
     # on a level decomposed over a process grid (parallel/mesh.py): this
     # rank's part; every field above is then cut to it
     part: Optional["Part"] = None

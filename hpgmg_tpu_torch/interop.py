@@ -36,7 +36,12 @@ def hierarchy_from_numpy(levels: Sequence[Mapping[str, Any]],
     device = torch.device(device)
 
     def tensor(a):
-        return torch.tensor(np.asarray(a), dtype=cfg.dtype, device=device)
+        # a JAX bfloat16 array reaches numpy as an ml_dtypes array, which
+        # torch.tensor does not take: through float32, exact both ways
+        a = np.asarray(a)
+        if a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)
+        return torch.tensor(a, device=device).to(cfg.dtype)
 
     out = []
     for lv in levels:

@@ -31,20 +31,26 @@ _D = ctypes.c_double
 
 # C entry points: name -> argtypes (every pointer and the stream as
 # c_void_p, or ctypes would cut them to 32-bit ints). All return the
-# cudaError_t of the launch as an int.
+# cudaError_t of the launch as an int. The _bf16 entries store bfloat16 and
+# compute in float32 (csrc/storage.cuh); _f32_bf16 is K1's BF16C gsrb.
 _SIGNATURES = {
     # (x, out, mi, mj, mk, stream): x is (2mi, 2mj, 2mk), out (mi, mj, mk)
     "hpgmg_restrict_cell_f32": (_P, _P, _I, _I, _I, _P),
     "hpgmg_restrict_cell_f64": (_P, _P, _I, _I, _I, _P),
+    "hpgmg_restrict_cell_bf16": (_P, _P, _I, _I, _I, _P),
     # (x, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out, n, mode, periodic,
     #  parity, chunk, scale, a_coef, stream); x is the n^3 cell field
     "hpgmg_fv4_stream_f32": (_P,) * 8 + (_I,) * 5 + (_D, _D, _P),
     "hpgmg_fv4_stream_f64": (_P,) * 8 + (_I,) * 5 + (_D, _D, _P),
+    "hpgmg_fv4_stream_bf16": (_P,) * 8 + (_I,) * 5 + (_D, _D, _P),
+    # float x, alpha, rhs and out; bf16 face coefficients and kdinv; gsrb
+    "hpgmg_fv4_stream_f32_bf16": (_P,) * 8 + (_I,) * 5 + (_D, _D, _P),
     # (x, beta_i, beta_j, beta_k, alpha, rhs, kdinv, out, n, mode, parity,
     #  ti, scale, a_coef, stream); x is the n^3 cell field, mode
     #  apply/residual/gsrb, ti the tile length along i (0: the rule)
     "hpgmg_fv4_subtile_f32": (_P,) * 8 + (_I,) * 4 + (_D, _D, _P),
     "hpgmg_fv4_subtile_f64": (_P,) * 8 + (_I,) * 4 + (_D, _D, _P),
+    "hpgmg_fv4_subtile_bf16": (_P,) * 8 + (_I,) * 4 + (_D, _D, _P),
     # (x, beta_i, beta_j, beta_k, alpha, rhs, kd0, kd1, out, n, chunk, scale,
     #  a_coef, stream); kd0 read at red cells, kd1 at black ones
     "hpgmg_fv4_gsrb2_f32": (_P,) * 9 + (_I, _I, _D, _D, _P),
@@ -53,12 +59,15 @@ _SIGNATURES = {
     #  a_coef, stream)
     "hpgmg_fv4_gsrb2_cluster_f32": (_P,) * 9 + (_I, _D, _D, _P),
     "hpgmg_fv4_gsrb2_cluster_f64": (_P,) * 9 + (_I, _D, _D, _P),
+    "hpgmg_fv4_gsrb2_cluster_bf16": (_P,) * 9 + (_I, _D, _D, _P),
     # (ptrs, dims, scales, nlev, nsweeps, a_coef, x_in | u_bot, stream); ptrs
     # is a host array of 9 device pointers per level
     "hpgmg_tail_down_f32": (_P, _P, _P, _I, _I, _D, _P, _P),
     "hpgmg_tail_down_f64": (_P, _P, _P, _I, _I, _D, _P, _P),
     "hpgmg_tail_up_f32": (_P, _P, _P, _I, _I, _D, _P, _P),
     "hpgmg_tail_up_f64": (_P, _P, _P, _I, _I, _D, _P, _P),
+    "hpgmg_tail_down_bf16": (_P, _P, _P, _I, _I, _D, _P, _P),
+    "hpgmg_tail_up_bf16": (_P, _P, _P, _I, _I, _D, _P, _P),
     # (ptrs, dims, scales, nlev, nsweeps, a_coef, x_in, ainv, u_bot, stream)
     "hpgmg_tail_v_f32": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P),
     "hpgmg_tail_v_f64": (_P, _P, _P, _I, _I, _D, _P, _P, _P, _P),

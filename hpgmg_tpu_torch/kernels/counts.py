@@ -7,8 +7,12 @@ from __future__ import annotations
 from typing import Dict, Tuple
 
 # (name, module, wrapper, attribute) of every kernel's launch count; the
-# stencil wrappers count their periodic launches (K7a, K7b) apart, and the
-# slab kernels (K8a-K8d) their launches on blocks split along k (k slabs)
+# stencil wrappers count their periodic launches (K7a, K7b) apart, the
+# slab kernels (K8a-K8d) their launches on blocks split along k (k slabs),
+# the kernels with a bfloat16 instantiation their bf16 launches (K1 also
+# its BF16C gsrb launches: float32 x, bf16 coefficients); fv4_small counts
+# the fv4 suite's calls on levels below 4^3, which every device computes
+# by the plain version (stencils.small_level)
 KERNELS = (
     ("fv4_stencil", "stencils", "fv4_stencil_cuda", "launches"),
     ("fv4_subtile", "stencils", "fv4_subtile_cuda", "launches"),
@@ -35,6 +39,14 @@ KERNELS = (
     ("fv4_overlap_edge_kslab", "stencils", "fv4_overlap_edge_cuda", "kslab_launches"),
     ("r1_slab_kslab", "stencils_r1", "r1_slab_cuda", "kslab_launches"),
     ("r1_gsrb2_slab_kslab", "stencils_r1", "r1_gsrb2_slab_cuda", "kslab_launches"),
+    ("fv4_stencil_bf16", "stencils", "fv4_stencil_cuda", "bf16_launches"),
+    ("fv4_stencil_bf16c", "stencils", "fv4_stencil_cuda", "bf16c_launches"),
+    ("fv4_subtile_bf16", "stencils", "fv4_subtile_cuda", "bf16_launches"),
+    ("fv4_gsrb2_cluster_bf16", "stencils", "fv4_gsrb2_cluster_cuda", "bf16_launches"),
+    ("restrict_cell_bf16", "restrict", "restrict_cell_cuda", "bf16_launches"),
+    ("tail_down_bf16", "tail", "tail_down_cuda", "bf16_launches"),
+    ("tail_up_bf16", "tail", "tail_up_cuda", "bf16_launches"),
+    ("fv4_small", "stencils", "fv4_small", "launches"),
 )
 # (name, module, plain version) of every plain version's call count
 PLAINS = (

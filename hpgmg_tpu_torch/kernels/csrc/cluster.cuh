@@ -13,6 +13,9 @@
 // __syncthreads orders nothing between blocks). A cluster is launched as
 // an ordinary kernel with a cluster dimension (cudaLaunchKernelEx).
 //
+// A bf16 level's operands are widened to float as they are read; its
+// planes in shared memory hold float (storage.cuh).
+//
 // Layout of a plane in shared memory: (n+4) x (n+4) values, row pitch
 // n+4, cell (j, k) at (j+2) * (n+4) + (k+2), the frame of (j, k) ghosts
 // around the cells; planes of one buffer sit plane_pitch(n) values apart
@@ -110,10 +113,13 @@ __device__ __forceinline__ void cp_async16_cg(void* dst, const void* src) {
 
 // `count` values from device memory to shared memory (dst 16-byte
 // aligned), past L1: cp.async 16 bytes a copy where the source allows
-// (the caller commits and waits), else plain loads.
-template <typename T>
-__device__ __forceinline__ void stage_l2(T* dst, const T* src, int count) {
-  if ((count * sizeof(T)) % 16 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+// (the caller commits and waits), else plain loads; a source stored in
+// another type V (bf16) is widened value by value.
+template <typename T, typename V>
+__device__ __forceinline__ void stage_l2(T* dst, const V* src, int count) {
+  if constexpr (!std::is_same_v<T, V>) {
+    for (int t = threadIdx.x; t < count; t += blockDim.x) dst[t] = ldcgv<T>(src + t);
+  } else if ((count * sizeof(T)) % 16 == 0 && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
     const int nv = count * static_cast<int>(sizeof(T)) / 16;
     for (int v = threadIdx.x; v < nv; v += blockDim.x) {
       cp_async16_cg(reinterpret_cast<int4*>(dst) + v, reinterpret_cast<const int4*>(src) + v);
@@ -126,12 +132,20 @@ __device__ __forceinline__ void stage_l2(T* dst, const T* src, int count) {
 // cp.async `planes` consecutive planes of an n^3 field (src: the first
 // plane's first cell) into the cells of consecutive padded planes from
 // `first` (ps values apart): pairs of values a copy where n is even. The
-// caller commits and waits; the frames are not touched.
-template <typename T>
-__device__ __forceinline__ void load_planes_async(T* first, int ps, const T* src, int planes,
+// caller commits and waits; the frames are not touched. A field stored in
+// another type V (bf16) is loaded past L1 and widened value by value.
+template <typename T, typename V>
+__device__ __forceinline__ void load_planes_async(T* first, int ps, const V* src, int planes,
                                                   int n) {
   const int np = n + 4;
-  if ((n & 1) == 0 && pair_aligned(src)) {
+  if constexpr (!std::is_same_v<T, V>) {
+    const int per = n * n;
+    for (int t = threadIdx.x; t < planes * per; t += blockDim.x) {
+      const int pl = t / per, r = t - pl * per, j = r / n;
+      first[pl * ps + (j + 2) * np + (r - j * n) + 2] =
+          ldcgv<T>(src + static_cast<int64_t>(pl) * per + r);
+    }
+  } else if ((n & 1) == 0 && pair_aligned(src)) {
     const int h = n / 2, per = n * h;
     for (int t = threadIdx.x; t < planes * per; t += blockDim.x) {
       const int pl = t / per, r = t - pl * per, j = r / h, k = 2 * (r - j * h);
@@ -236,14 +250,14 @@ __device__ void ghost_planes(T* near, T* far, const T* const (&src)[4], int n, b
   }
 }
 
-// What a half-sweep reads besides x.
-template <typename T>
+// What a half-sweep reads besides x, stored in V, computed in T.
+template <typename T, typename V = T>
 struct Fv4Coefs {
-  const T* bie;
-  const T* bje;
-  const T* bke;
-  const T* alpha;  // nullptr: no a*alpha*x term
-  const T* rhs;
+  const V* bie;
+  const V* bje;
+  const V* bke;
+  const V* alpha;  // nullptr: no a*alpha*x term
+  const V* rhs;
   int n;
   T scale;   // -b / h^2
   T a_coef;  // a
@@ -252,24 +266,24 @@ struct Fv4Coefs {
 // A x at cell (i, j, k) (flat index c), x read around xc (the cell in a
 // buffer of padded planes ps apart), the face coefficients through L1:
 // the arithmetic of K1 (fv4_stream.cu:stream_ax).
-template <typename T>
-__device__ __forceinline__ T plane_ax(const Fv4Coefs<T>& p, const T* xc, int ps, int i,
+template <typename T, typename V>
+__device__ __forceinline__ T plane_ax(const Fv4Coefs<T, V>& p, const T* xc, int ps, int i,
                                       int j, int k, int64_t c) {
   const int np = p.n + 4;
   const int64_t n1 = p.n + 1, n2 = p.n + 2;
   auto X = [&](int di, int dj, int dk) -> T { return xc[di * ps + dj * np + dk]; };
   // face f (0 low, 1 high) of the cell, shifted tangentially
   auto BI = [&](int f, int dj, int dk) -> T {
-    return __ldg(p.bie + ((i + f) * n2 + (1 + j + dj)) * n2 + (1 + k + dk));
+    return ldv<T>(p.bie + ((i + f) * n2 + (1 + j + dj)) * n2 + (1 + k + dk));
   };
   auto BJ = [&](int f, int di, int dk) -> T {
-    return __ldg(p.bje + ((1 + i + di) * n1 + (j + f)) * n2 + (1 + k + dk));
+    return ldv<T>(p.bje + ((1 + i + di) * n1 + (j + f)) * n2 + (1 + k + dk));
   };
   auto BK = [&](int f, int di, int dj) -> T {
-    return __ldg(p.bke + ((1 + i + di) * n2 + (1 + j + dj)) * n1 + (k + f));
+    return ldv<T>(p.bke + ((1 + i + di) * n2 + (1 + j + dj)) * n1 + (k + f));
   };
   T ax = p.scale * fv4_combination<T>(X, BI, BJ, BK);
-  if (p.alpha != nullptr) ax = p.a_coef * __ldg(p.alpha + c) * X(0, 0, 0) + ax;
+  if (p.alpha != nullptr) ax = p.a_coef * ldv<T>(p.alpha + c) * X(0, 0, 0) + ax;
   return ax;
 }
 
@@ -284,9 +298,9 @@ __device__ __forceinline__ T plane_ax(const Fv4Coefs<T>& p, const T* xc, int ps,
 // even row pitch its shared-memory reads meet no bank twice (one row of
 // 32 pairs read every other word: a two-way conflict). rhs is read past
 // L1 (it may have been written in this launch by another SM).
-template <typename T, typename Put>
-__device__ __forceinline__ void half_sweep(const Fv4Coefs<T>& p, const T* first, int ps,
-                                          int i0, int count, int parity, const T* kd,
+template <typename T, typename V, typename Put>
+__device__ __forceinline__ void half_sweep(const Fv4Coefs<T, V>& p, const T* first, int ps,
+                                          int i0, int count, int parity, const V* kd,
                                           const Put& put) {
   const int n = p.n, np = n + 4, half = (n + 1) / 2;
   // rows of `w` pairs: `segs` segments of each row, ordered (row pair,
@@ -311,7 +325,7 @@ __device__ __forceinline__ void half_sweep(const Fv4Coefs<T>& p, const T* first,
     if (k < n) {
       const int64_t c = (static_cast<int64_t>(i) * n + j) * n + k;
       const T ax = plane_ax(p, row + k, ps, i, j, k, c);
-      put(il, j, k, row[k] + __ldg(kd + c) * (__ldcg(p.rhs + c) - ax));
+      put(il, j, k, row[k] + ldv<T>(kd + c) * (ldcgv<T>(p.rhs + c) - ax));
     }
     if (ko < n) put(il, j, ko, row[ko]);
   }

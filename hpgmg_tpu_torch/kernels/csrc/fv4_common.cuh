@@ -2,7 +2,8 @@
 // in fv4_subtile.cu, K2 in fv4_gsrb2.cu, K2c in fv4_gsrb2_cluster.cu, K4
 // in tail.cu, K8a/K8b in fv4_slab.cu): the quartic Dirichlet ghost of x,
 // the fv4 stencil's arithmetic over accessors of x and the face
-// coefficients, and the v2 interpolation taps.
+// coefficients, the v2 interpolation taps, and a call's operands in their
+// storage types (storage.cuh).
 //
 // Layouts: a cell field is (n, n, n) with k fastest. The face
 // coefficients are the port's tangentially-extended arrays: beta_i
@@ -10,6 +11,8 @@
 // as hpgmg_tpu/ops/fv4.py:127-138 slices them.
 
 #pragma once
+
+#include "storage.cuh"
 
 #include <cuda_runtime.h>
 
@@ -78,16 +81,18 @@ __device__ __forceinline__ T ghost_value(const CellView<T>& x, int n, int i,
   return s;
 }
 
-template <typename T>
+// A call's operands: the cell fields (x, alpha, rhs, out) stored in F,
+// the face coefficients and kdinv in C, both computed in T (Wide<F>).
+template <typename T, typename F = T, typename C = F>
 struct Args {
-  const T* xp;  // x, the n^3 cell field
-  const T* bie;
-  const T* bje;
-  const T* bke;
-  const T* alpha;  // nullptr: no a*alpha*x term
-  const T* rhs;
-  const T* kdinv;
-  T* out;
+  const F* xp;  // x, the n^3 cell field
+  const C* bie;
+  const C* bje;
+  const C* bke;
+  const F* alpha;  // nullptr: no a*alpha*x term
+  const F* rhs;
+  const C* kdinv;
+  F* out;
   int n;
   T scale;   // -b / h^2
   T a_coef;  // a

@@ -57,6 +57,10 @@
 // rounds; 8 and 12 ran alike; C >= 6 so that a slab's edge ghosts read
 // only the cluster's planes), six padded planes of shared memory a block
 // (64^3: 111 KB in f32, 222 KB in f64), hence kGsrb2ClusterMaxN.
+// bfloat16: the planes hold float, loaded and widened value by value
+// (cluster.cuh: load_planes_async); the red half's y is rounded to bf16 as
+// it is stored, as a launch of the half alone would leave it, so the sweep
+// equals two bf16 K1 launches.
 // Plain version: hpgmg_tpu_torch/kernels/stencils.py:fv4_gsrb2_plain.
 
 #include "cluster.cuh"
@@ -70,13 +74,14 @@ constexpr int kGsrb2Threads = 512;
 constexpr int kGsrb2Cluster = 16;  // blocks a cluster (see above)
 static_assert(kGsrb2Cluster >= 6 && kGsrb2Cluster <= kMaxCluster, "K2c's cluster size");
 
-template <typename T>
+// operands stored in V, computed in T (Wide<V>)
+template <typename T, typename V = T>
 struct ClusterArgs {
-  Fv4Coefs<T> c;
-  const T* x;
-  const T* kd0;
-  const T* kd1;
-  T* out;
+  Fv4Coefs<T, V> c;
+  const V* x;
+  const V* kd0;
+  const V* kd1;
+  V* out;
   int ps;  // plane pitch
 };
 
@@ -115,9 +120,9 @@ __device__ void ghosts_and_frames(T* xs, int ps, int q, int n) {
   __syncthreads();
 }
 
-template <typename T>
+template <typename V, typename T = Wide<V>>
 __global__ void __launch_bounds__(kGsrb2Threads, 1)
-    fv4_gsrb2_cluster_kernel(const ClusterArgs<T> a) {
+    fv4_gsrb2_cluster_kernel(const ClusterArgs<T, V> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* xs = reinterpret_cast<T*>(smem);  // 5 planes: x q-2 .. q+2, then y
   T* ys = xs + 5 * a.ps;               // this block's y plane (red half)
@@ -140,9 +145,10 @@ __global__ void __launch_bounds__(kGsrb2Threads, 1)
     cp_async_wait<0>();
     __syncthreads();
     ghosts_and_frames(xs, ps, q, n);
-    // 2. the red half at plane q into ys
+    // 2. the red half at plane q into ys (rounded to V, as a launch of the
+    // half alone would store it)
     half_sweep(a.c, xs + 2 * ps, ps, q, 1, 0, a.kd0,
-               [&](int, int j, int k, T v) { ys[(j + 2) * np + (k + 2)] = v; });
+               [&](int, int j, int k, T v) { ys[(j + 2) * np + (k + 2)] = rounded<V>(v); });
   }
   cl.sync();
 
@@ -163,31 +169,33 @@ __global__ void __launch_bounds__(kGsrb2Threads, 1)
         [&](int i) -> T* { return xs + (i < n0 ? slot[0] + i : slot[1]) * ps; });
     __syncthreads();
     ghosts_and_frames(xs, ps, q, n);
-    T* out = a.out + static_cast<int64_t>(q) * n * n;
+    V* out = a.out + static_cast<int64_t>(q) * n * n;
     half_sweep(a.c, xs + 2 * ps, ps, q, 1, 1, a.kd1,
-               [&](int, int j, int k, T v) { out[j * n + k] = v; });
+               [&](int, int j, int k, T v) { out[j * n + k] = narrow<V>(v); });
   }
   cl.sync();
 }
 
-template <typename T>
+template <typename V>
 int launch_gsrb2_cluster(const void* x, const void* bie, const void* bje,
                          const void* bke, const void* alpha, const void* rhs,
                          const void* kd0, const void* kd1, void* out, int n,
                          double scale, double a_coef, void* stream) {
+  using T = Wide<V>;
   if (n < 4 || n > kGsrb2ClusterMaxN) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const ClusterArgs<T> a{
-      Fv4Coefs<T>{static_cast<const T*>(bie), static_cast<const T*>(bje),
-                  static_cast<const T*>(bke), static_cast<const T*>(alpha),
-                  static_cast<const T*>(rhs), n, static_cast<T>(scale),
-                  static_cast<T>(a_coef)},
-      static_cast<const T*>(x), static_cast<const T*>(kd0), static_cast<const T*>(kd1),
-      static_cast<T*>(out), plane_pitch(n)};
+  const ClusterArgs<T, V> a{
+      Fv4Coefs<T, V>{static_cast<const V*>(bie), static_cast<const V*>(bje),
+                     static_cast<const V*>(bke), static_cast<const V*>(alpha),
+                     static_cast<const V*>(rhs), n, static_cast<T>(scale),
+                     static_cast<T>(a_coef)},
+      static_cast<const V*>(x), static_cast<const V*>(kd0), static_cast<const V*>(kd1),
+      static_cast<V*>(out), plane_pitch(n)};
   const int S = kGsrb2Cluster - 4, slabs = n > S ? (n + S - 1) / S : 1;
   static ClusterKernel state;
-  return cluster_launch(state, fv4_gsrb2_cluster_kernel<T>, a, slabs, kGsrb2Cluster,
+  // planes of T: a bf16 level's take as much shared memory as a float one's
+  return cluster_launch(state, fv4_gsrb2_cluster_kernel<V>, a, slabs, kGsrb2Cluster,
                         kGsrb2Threads, 6 * static_cast<size_t>(a.ps) * sizeof(T),
                         static_cast<cudaStream_t>(stream));
 }
@@ -213,4 +221,16 @@ extern "C" int hpgmg_fv4_gsrb2_cluster_f64(const void* x, const void* bie,
                                            void* stream) {
   return launch_gsrb2_cluster<double>(x, bie, bje, bke, alpha, rhs, kd0, kd1, out, n,
                                       scale, a_coef, stream);
+}
+
+// bf16 operands, float arithmetic: the red half's y rounded to bf16 in
+// shared memory, the black half's output stored in bf16
+extern "C" int hpgmg_fv4_gsrb2_cluster_bf16(const void* x, const void* bie,
+                                            const void* bje, const void* bke,
+                                            const void* alpha, const void* rhs,
+                                            const void* kd0, const void* kd1, void* out,
+                                            int n, double scale, double a_coef,
+                                            void* stream) {
+  return launch_gsrb2_cluster<bf16>(x, bie, bje, bke, alpha, rhs, kd0, kd1, out, n,
+                                    scale, a_coef, stream);
 }

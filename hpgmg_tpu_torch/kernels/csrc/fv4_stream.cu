@@ -73,6 +73,17 @@
 // Float: 128 registers a thread, two blocks an SM (a cap of three spilled
 // and ran slower). Double: ~210 registers, one block an SM (at 128 it
 // spilled ~400 bytes and ran 1.4x slower).
+// bfloat16 (a bf16 solve: every field; BF16C: the face arrays and kdinv of
+// a float32 gsrb, the JAX package's kernel_views_bf16 streams): the ring
+// holds float, so the arithmetic and the ghosts are the float kernel's;
+// cp.async cannot widen, so each bf16 value's 32-bit word lands in its
+// float slot and the thread that copied it widens the slot in place once
+// its copies have arrived (stream.cuh: cp_async_word, widen_word), before
+// the barrier that publishes the plane; rhs and kdinv are widened as they
+// are read, each output rounded to bf16 once. Half the bytes, but not
+// faster: on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 18) the
+// 512^3 gsrb ran 3.02 ms with BF16C and 3.22 ms in bf16 against 2.03 ms
+// in float32, the widening in the plane loop the larger part of the gap.
 // Plain version: hpgmg_tpu_torch/kernels/stencils.py:fv4_stencil_plain.
 
 #include "fv4_stream.cuh"
@@ -158,8 +169,8 @@ __device__ __forceinline__ void x_pair_at(int t, int& a, int& b) {
 // pair (k even). Periodic: the cells mod n. Dirichlet: cells, or (j, k)
 // ghosts. Cells beyond n+1 (ragged tiles) are not loaded: only cells
 // outside the domain read them.
-template <typename T>
-__device__ __forceinline__ void x_pairs(XPairs<T>& P, const T* x, const Column& c) {
+template <typename T, typename F>
+__device__ __forceinline__ void x_pairs(XPairs<T>& P, const F* x, const Column& c) {
   const int n = c.n;
   auto inside = [n](int v) { return v >= 0 && v < n; };
   auto wrap = [n](int v) { return v < 0 ? v + n : (v >= n ? v - n : v); };
@@ -187,33 +198,73 @@ __device__ __forceinline__ void x_pairs(XPairs<T>& P, const T* x, const Column& 
   }
 }
 
-// x plane i (in [-2, n+2)) into the ring plane dst: pairs copied, periodic
-// ghosts copied from the cells mod n; Dirichlet ghosts synthesized from
-// device memory in a tile that patch_x does not serve (or with
+// x plane i (in [-2, n+2)) into the ring plane dst: pairs copied by
+// cp.async (a bf16 x as its values' words, stream.cuh: cp_async_word, which
+// widen_x turns into floats once this thread's copies have arrived),
+// periodic ghosts copied from the cells mod n; Dirichlet ghosts synthesized
+// from device memory in a tile that patch_x does not serve (or with
 // mem_ghosts), else left to it.
-template <typename T>
-__device__ __forceinline__ void load_x(T* dst, const T* __restrict__ x, const Column& c,
+template <typename T, typename F>
+__device__ __forceinline__ void load_x(T* dst, const F* __restrict__ x, const Column& c,
                                        const XPairs<T>& P, int i, bool mem_ghosts) {
+  constexpr bool same = std::is_same_v<T, F>;
   const int n = c.n;
   const bool in_i = c.periodic || (i >= 0 && i < n);
   const int pi = c.periodic ? (i < 0 ? i + n : (i >= n ? i - n : i)) : i;
-  const T* base = x + static_cast<int64_t>(pi) * n * n;
+  const F* base = x + static_cast<int64_t>(pi) * n * n;
 #pragma unroll
   for (int e = 0; e < kXE; ++e) {
     const unsigned m = P.meta(e);
     T* d = dst + (m >> kMetaShift);
     if ((m & kPair) && in_i) {
-      cp_async2(d, base + P.goff(e));
+      if constexpr (same) {
+        cp_async2(d, base + P.goff(e));
+      } else {
+        cp_async_pair(d, base + P.goff(e));
+      }
       continue;
     }
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
       if (!(m & (kE0 << q))) continue;
       if (in_i && !(m & (kG0 << q))) {
-        cp_async(d + q, base + P.goff(e) + q - ((q && (m & kW1)) ? n : 0));
+        const F* src = base + P.goff(e) + q - ((q && (m & kW1)) ? n : 0);
+        if constexpr (same) {
+          cp_async(d + q, src);
+        } else {
+          cp_async_word(d + q, src, x + static_cast<int64_t>(n) * n * n);
+        }
       } else if (!c.patch || mem_ghosts) {
         const int off = static_cast<int>(m >> kMetaShift) + q;
         d[q] = ghost_from_memory(x, n, i, c.j0 - 2 + off / XP, c.k0 - 2 + off % XP);
+      }
+    }
+  }
+}
+
+// The words load_x copied into the ring plane dst for x plane i, widened
+// in place (nothing where x is stored in the ring's type); call once this
+// thread's copies of the plane have arrived.
+template <typename T, typename F>
+__device__ __forceinline__ void widen_x(T* dst, const F* __restrict__ x, const Column& c,
+                                        const XPairs<T>& P, int i) {
+  if constexpr (!std::is_same_v<T, F>) {
+    const int n = c.n;
+    if (!(c.periodic || (i >= 0 && i < n))) return;
+    const int pi = c.periodic ? (i < 0 ? i + n : (i >= n ? i - n : i)) : i;
+    const F* base = x + static_cast<int64_t>(pi) * n * n;
+#pragma unroll
+    for (int e = 0; e < kXE; ++e) {
+      const unsigned m = P.meta(e);
+      T* d = dst + (m >> kMetaShift);
+      if (m & kPair) {
+        widen_pair(d);
+        continue;
+      }
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        if ((m & (kE0 << q)) && !(m & (kG0 << q)))
+          widen_word(d + q, base + P.goff(e) + q - ((q && (m & kW1)) ? n : 0));
       }
     }
   }
@@ -285,9 +336,9 @@ constexpr int BI0 = NX * XPLANE, BJ0 = BI0 + NBI * BIPLANE, BK0 = BJ0 + NBJ * BJ
 
 // Everything a block streams: the sources, its pairs of each, and the
 // slots of its ring.
-template <typename T>
+template <typename T, typename F, typename C>
 struct Stream {
-  const Args<T>& p;
+  const Args<T, F, C>& p;
   Column c;
   XPairs<T> px;
   Pairs<T, kBE, kXE> pi;
@@ -295,16 +346,26 @@ struct Stream {
   Pairs<T, kBE, kXE + 2 * kBE> pk;
 
   // x plane q, beta_i face q, beta_j and beta_k array plane q into their
-  // slots sx, sb, sj
+  // slots sx, sb, sj (the ring's float slots hold a bf16 field's words until
+  // widen turns them into values)
   __device__ __forceinline__ void x(T* ring, int sx, int q, bool mem_ghosts = false) const {
     load_x(ring + sx * XPLANE, p.xp, c, px, q, mem_ghosts);
   }
   __device__ __forceinline__ void bi(T* ring, int sb, int q) const {
-    load_beta(ring + BI0 + sb * BIPLANE, p.bie, pi, q, c.n + 2, c.n + 2);
+    load_beta(ring + BI0 + sb * BIPLANE, p.bie, pi, q, c.n + 2, c.n + 2, c.n + 1);
   }
   __device__ __forceinline__ void bjk(T* ring, int sj, int q) const {
-    load_beta(ring + BJ0 + sj * BJPLANE, p.bje, pj, q, c.n + 1, c.n + 2);
-    load_beta(ring + BK0 + sj * BKPLANE, p.bke, pk, q, c.n + 2, c.n + 1);
+    load_beta(ring + BJ0 + sj * BJPLANE, p.bje, pj, q, c.n + 1, c.n + 2, c.n + 2);
+    load_beta(ring + BK0 + sj * BKPLANE, p.bke, pk, q, c.n + 2, c.n + 1, c.n + 2);
+  }
+  // the planes x q, beta_i face qb and beta_j/k qj in slots sx, sb, sj, whose
+  // copies this thread has seen arrive, widened where stored in bf16
+  __device__ __forceinline__ void widen(T* ring, int sx, int q, int sb, int qb, int sj,
+                                        int qj) const {
+    widen_x(ring + sx * XPLANE, p.xp, c, px, q);
+    widen_beta(ring + BI0 + sb * BIPLANE, p.bie, pi, qb, c.n + 2, c.n + 2);
+    widen_beta(ring + BJ0 + sj * BJPLANE, p.bje, pj, qj, c.n + 1, c.n + 2);
+    widen_beta(ring + BK0 + sj * BKPLANE, p.bke, pk, qj, c.n + 2, c.n + 1);
   }
 };
 
@@ -317,8 +378,8 @@ struct Planes {
 };
 
 // A x at cell (jl, kl) of the tile on plane i (its x center returned in x0)
-template <typename T>
-__device__ __forceinline__ T stream_ax(const Args<T>& p, const T* ring,
+template <typename T, typename F, typename C>
+__device__ __forceinline__ T stream_ax(const Args<T, F, C>& p, const T* ring,
                                        const Planes& P, int jl, int kl,
                                        int64_t c, T& x0) {
   const int xo = (jl + 2) * XP + (kl + 2);
@@ -337,16 +398,18 @@ __device__ __forceinline__ T stream_ax(const Args<T>& p, const T* ring,
   };
   x0 = X(0, 0, 0);
   T ax = p.scale * fv4_combination<T>(X, BI, BJ, BK);
-  if (p.alpha != nullptr) ax = p.a_coef * __ldg(p.alpha + c) * x0 + ax;
+  if (p.alpha != nullptr) ax = p.a_coef * ldv<T>(p.alpha + c) * x0 + ax;
   return ax;
 }
 
 // One block: the TJ x TK column (blockIdx.x) over the i-planes of chunk
-// blockIdx.y. Dynamic shared memory: the ring (kRingValues values), then
-// the threads' pairs.
-template <typename T, int MODE>
+// blockIdx.y. Dynamic shared memory: the ring (kRingValues values of T),
+// then the threads' pairs. F: the storage type of x, alpha, rhs and out;
+// C: of the face coefficients and kdinv; T = Wide<F>, the ring's and the
+// arithmetic's type.
+template <typename F, typename C, int MODE, typename T = Wide<F>>
 __global__ void __launch_bounds__(kStreamThreads, kMinBlocks<T>)
-    fv4_stream_kernel(const Args<T> p, int periodic, int parity, int chunk) {
+    fv4_stream_kernel(const Args<T, F, C> p, int periodic, int parity, int chunk) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* ring = reinterpret_cast<T*>(smem);
 
@@ -357,12 +420,12 @@ __global__ void __launch_bounds__(kStreamThreads, kMinBlocks<T>)
   const Column col{n, j0, k0, periodic != 0,
                    j0 < 2 || k0 < 2 || j0 + TJ + 2 > n || k0 + TK + 2 > n,
                    !periodic && n - j0 >= 2 && n - k0 >= 2};
-  Stream<T> S{p, col};
+  Stream<T, F, C> S{p, col};
   if constexpr (kPairValues<T> > 0) {
     unsigned* pairs = reinterpret_cast<unsigned*>(ring + kRingValues) + threadIdx.x;
     S.px.b = S.pi.b = S.pj.b = S.pk.b = pairs;
   }
-  x_pairs(S.px, p.xp, col);
+  x_pairs<T>(S.px, p.xp, col);
   beta_pairs<BP, kStreamThreads>(S.pi, p.bie, n + 2, n + 2, j0, k0, TJ + 2, TK + 2);
   beta_pairs<BP, kStreamThreads>(S.pj, p.bje, n + 1, n + 2, j0, k0, TJ + 1, TK + 2);
   beta_pairs<BP, kStreamThreads>(S.pk, p.bke, n + 2, n + 1, j0, k0, TJ + 2, TK + 1);
@@ -400,11 +463,30 @@ __global__ void __launch_bounds__(kStreamThreads, kMinBlocks<T>)
   }
   cp_async_commit();
   // a patched tile waits for both (planes -2 and -1 are made from 0 .. 3)
-  // and makes the ghosts of x planes ia-2 .. ia+3
+  // and makes the ghosts of x planes ia-2 .. ia+3; a bf16 field's words of
+  // the arrived groups are widened before the barrier (group 1's, where it
+  // is not waited for here, at the end of plane ia)
   if (col.patch) {
     cp_async_wait<0>();
   } else {
     cp_async_wait<1>();
+  }
+  if constexpr (!std::is_same_v<F, T> || !std::is_same_v<C, T>) {
+#pragma unroll
+    for (int d = 0; d < 5; ++d) widen_x(ring + ring_add(sx, d, NX) * XPLANE, p.xp, col, S.px,
+                                        ia - 2 + d);
+#pragma unroll
+    for (int d = 0; d < 3; ++d) {
+      if (d < 2) widen_beta(ring + BI0 + ring_add(sb, d, NBI) * BIPLANE, p.bie, S.pi, ia + d,
+                            n + 2, n + 2);
+      widen_beta(ring + BJ0 + ring_add(sj, d, NBJ) * BJPLANE, p.bje, S.pj, ia + d, n + 1,
+                 n + 2);
+      widen_beta(ring + BK0 + ring_add(sj, d, NBJ) * BKPLANE, p.bke, S.pk, ia + d, n + 2,
+                 n + 1);
+    }
+    if (col.patch && ia + 1 < ib)
+      S.widen(ring, ring_add(sx, 5, NX), ia + 3, ring_add(sb, 2, NBI), ia + 2,
+              ring_add(sj, 3, NBJ), ia + 3);
   }
   __syncthreads();
   if (col.patch && (col.edge || ia < 2 || ia + 3 >= n)) {
@@ -434,14 +516,14 @@ __global__ void __launch_bounds__(kStreamThreads, kMinBlocks<T>)
     if (MODE == kGsrb) {
       const int q = (parity + i + j) & 1;
       if (kb + q < n) {
-        r0 = __ldg(p.rhs + c + q);
-        kd = __ldg(p.kdinv + c + q);
+        r0 = ldv<T>(p.rhs + c + q);
+        kd = ldv<T>(p.kdinv + c + q);
       }
     } else if (rhs_vec) {
       load2(p.rhs + c, r0, r1);
     } else {
-      r0 = __ldg(p.rhs + c);
-      if (has_hi) r1 = __ldg(p.rhs + c + 1);
+      r0 = ldv<T>(p.rhs + c);
+      if (has_hi) r1 = ldv<T>(p.rhs + c + 1);
     }
   };
   T nr0 = T(0), nr1 = T(0), nkd = T(0);
@@ -514,7 +596,8 @@ __global__ void __launch_bounds__(kStreamThreads, kMinBlocks<T>)
         sum += plo;
         sum += phi;
         if ((i & 1) && (jl & 1) == 0 && pair_in) {
-          p.out[(static_cast<int64_t>(i / 2) * m + j / 2) * m + kb / 2] = T(0.125) * sum;
+          p.out[(static_cast<int64_t>(i / 2) * m + j / 2) * m + kb / 2] =
+              narrow<F>(T(0.125) * sum);
         }
       } else if (pair_in) {
         store_pair(p.out, row + kb, lo, hi, vec, has_hi);
@@ -529,8 +612,17 @@ __global__ void __launch_bounds__(kStreamThreads, kMinBlocks<T>)
         patch_jk(ring + ring_add(sx, 4, NX) * XPLANE, col, S.px);
       if (i >= ia + 1 && i + 3 >= n) patch_x(ring, col, S.px, i + 3, i - 2, sx);
     }
-    // the copies of plane i+1 (group i+1) have arrived, those of i+2 may not
+    // the copies of plane i+1 (group i+1) have arrived, those of i+2 may not;
+    // a bf16 field's words among them (x plane i+3, beta_i face i+2,
+    // beta_j/k plane i+3, which plane i+1 reads first) widened by the
+    // thread that copied them (a patched tile widened plane ia's in the
+    // prologue)
     cp_async_wait<1>();
+    if constexpr (!std::is_same_v<F, T> || !std::is_same_v<C, T>) {
+      if (i + 1 < ib && !(col.patch && i == ia))
+        S.widen(ring, ring_add(sx, 5, NX), i + 3, ring_add(sb, 2, NBI), i + 2,
+                ring_add(sj, 3, NBJ), i + 3);
+    }
     __syncthreads();
     sx = ring_add(sx, 1, NX);
     sb = ring_add(sb, 1, NBI);
@@ -548,10 +640,10 @@ size_t ring_bytes() { return kRingValues * sizeof(T) + kPairValues<T> * sizeof(u
 constexpr int kMinChunk = 16;
 constexpr int kWaves = 8;
 
-template <typename T, int MODE>
-int launch_mode(const Args<T>& p, int periodic, int parity, int chunk,
+template <typename T, typename F, typename C, int MODE>
+int launch_mode(const Args<T, F, C>& p, int periodic, int parity, int chunk,
                 cudaStream_t s) {
-  auto kernel = fv4_stream_kernel<T, MODE>;
+  auto kernel = fv4_stream_kernel<F, C, MODE>;
   const size_t smem = ring_bytes<T>();
   static const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -583,28 +675,37 @@ int launch_mode(const Args<T>& p, int periodic, int parity, int chunk,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+// F, C: the storage types (see fv4_stream_kernel); a mixed instantiation
+// (BF16C: float x, bf16 coefficients) takes the gsrb mode only
+template <typename F, typename C>
 int launch_stream(const void* x, const void* bie, const void* bje,
                   const void* bke, const void* alpha, const void* rhs,
                   const void* kdinv, void* out, int n, int mode, int periodic,
                   int parity, int chunk, double scale, double a_coef,
                   void* stream) {
+  using T = Wide<F>;
+  constexpr bool mixed = !std::is_same_v<F, C>;
   if (n < 4 || n > 65535 || mode < kApply || mode > kFres ||
-      (mode == kFres && n % 2 != 0) || parity < 0 || parity > 1 || chunk < 0) {
+      (mode == kFres && n % 2 != 0) || parity < 0 || parity > 1 || chunk < 0 ||
+      (mixed && mode != kGsrb)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args<T> p{static_cast<const T*>(x),     static_cast<const T*>(bie),
-                  static_cast<const T*>(bje),   static_cast<const T*>(bke),
-                  static_cast<const T*>(alpha), static_cast<const T*>(rhs),
-                  static_cast<const T*>(kdinv), static_cast<T*>(out),
-                  n,                            static_cast<T>(scale),
-                  static_cast<T>(a_coef)};
+  const Args<T, F, C> p{static_cast<const F*>(x),     static_cast<const C*>(bie),
+                        static_cast<const C*>(bje),   static_cast<const C*>(bke),
+                        static_cast<const F*>(alpha), static_cast<const F*>(rhs),
+                        static_cast<const C*>(kdinv), static_cast<F*>(out),
+                        n,                            static_cast<T>(scale),
+                        static_cast<T>(a_coef)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (mode) {
-    case kApply: return launch_mode<T, kApply>(p, periodic, parity, chunk, s);
-    case kResidual: return launch_mode<T, kResidual>(p, periodic, parity, chunk, s);
-    case kGsrb: return launch_mode<T, kGsrb>(p, periodic, parity, chunk, s);
-    default: return launch_mode<T, kFres>(p, periodic, parity, chunk, s);
+  if constexpr (mixed) {
+    return launch_mode<T, F, C, kGsrb>(p, periodic, parity, chunk, s);
+  } else {
+    switch (mode) {
+      case kApply: return launch_mode<T, F, C, kApply>(p, periodic, parity, chunk, s);
+      case kResidual: return launch_mode<T, F, C, kResidual>(p, periodic, parity, chunk, s);
+      case kGsrb: return launch_mode<T, F, C, kGsrb>(p, periodic, parity, chunk, s);
+      default: return launch_mode<T, F, C, kFres>(p, periodic, parity, chunk, s);
+    }
   }
 }
 
@@ -621,8 +722,8 @@ extern "C" int hpgmg_fv4_stream_f32(const void* x, const void* bie,
                                     int mode, int periodic, int parity,
                                     int chunk, double scale, double a_coef,
                                     void* stream) {
-  return launch_stream<float>(x, bie, bje, bke, alpha, rhs, kdinv, out, n, mode,
-                              periodic, parity, chunk, scale, a_coef, stream);
+  return launch_stream<float, float>(x, bie, bje, bke, alpha, rhs, kdinv, out, n, mode,
+                                     periodic, parity, chunk, scale, a_coef, stream);
 }
 
 extern "C" int hpgmg_fv4_stream_f64(const void* x, const void* bie,
@@ -632,7 +733,32 @@ extern "C" int hpgmg_fv4_stream_f64(const void* x, const void* bie,
                                     int mode, int periodic, int parity,
                                     int chunk, double scale, double a_coef,
                                     void* stream) {
-  return launch_stream<double>(x, bie, bje, bke, alpha, rhs, kdinv, out, n,
-                               mode, periodic, parity, chunk, scale, a_coef,
-                               stream);
+  return launch_stream<double, double>(x, bie, bje, bke, alpha, rhs, kdinv, out, n,
+                                       mode, periodic, parity, chunk, scale, a_coef,
+                                       stream);
+}
+
+// bf16 storage throughout, float arithmetic: a bfloat16 solve's K1
+extern "C" int hpgmg_fv4_stream_bf16(const void* x, const void* bie,
+                                     const void* bje, const void* bke,
+                                     const void* alpha, const void* rhs,
+                                     const void* kdinv, void* out, int n,
+                                     int mode, int periodic, int parity,
+                                     int chunk, double scale, double a_coef,
+                                     void* stream) {
+  return launch_stream<bf16, bf16>(x, bie, bje, bke, alpha, rhs, kdinv, out, n, mode,
+                                   periodic, parity, chunk, scale, a_coef, stream);
+}
+
+// BF16C: float x, alpha, rhs and out, bf16 face coefficients and kdinv;
+// mode 2 (gsrb) only
+extern "C" int hpgmg_fv4_stream_f32_bf16(const void* x, const void* bie,
+                                         const void* bje, const void* bke,
+                                         const void* alpha, const void* rhs,
+                                         const void* kdinv, void* out, int n,
+                                         int mode, int periodic, int parity,
+                                         int chunk, double scale, double a_coef,
+                                         void* stream) {
+  return launch_stream<float, bf16>(x, bie, bje, bke, alpha, rhs, kdinv, out, n, mode,
+                                    periodic, parity, chunk, scale, a_coef, stream);
 }

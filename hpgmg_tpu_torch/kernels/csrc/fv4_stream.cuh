@@ -71,31 +71,74 @@ __device__ __forceinline__ void beta_pairs(PB& P, const T* src, int nr, int nc, 
   }
 }
 
-// A Dirichlet ghost of x from device memory (out of line: the path is
-// rare and its code long)
-template <typename T>
-__device__ __noinline__ T ghost_from_memory(const T* __restrict__ x, int n, int i,
-                                            int j, int k) {
-  return ghost_taps<T>(
-      [&](int a, int b, int c) { return __ldg(x + (static_cast<int64_t>(a) * n + b) * n + c); },
+// A Dirichlet ghost of x (stored in S) from device memory, in Wide<S>
+// (out of line: the path is rare and its code long)
+template <typename S>
+__device__ __noinline__ Wide<S> ghost_from_memory(const S* __restrict__ x, int n, int i,
+                                                  int j, int k) {
+  return ghost_taps<Wide<S>>(
+      [&](int a, int b, int c) {
+        return ldv<Wide<S>>(x + (static_cast<int64_t>(a) * n + b) * n + c);
+      },
       n, i, j, k);
 }
 
 // One plane of a face array (plane `plane`, planes of nr * nc values)
-// into the ring plane dst.
-template <typename T, typename PB>
-__device__ __forceinline__ void load_beta(T* dst, const T* __restrict__ src, const PB& P,
-                                          int plane, int nr, int nc) {
-  const T* base = src + static_cast<int64_t>(plane) * nr * nc;
+// into the ring plane dst by cp.async; an array stored in bf16 as its
+// values' words (stream.cuh: cp_async_word), which widen_beta turns into
+// floats once this thread's copies have arrived.
+template <typename T, typename S, typename PB>
+__device__ __forceinline__ void load_beta(T* dst, const S* __restrict__ src, const PB& P,
+                                          int plane, int nr, int nc, int planes) {
+  const S* base = src + static_cast<int64_t>(plane) * nr * nc;
 #pragma unroll
   for (int e = 0; e < PB::count; ++e) {
     const unsigned m = P.meta(e);
     T* d = dst + (m >> kMetaShift);
-    if (m & kPair) {
-      cp_async2(d, base + P.goff(e));
+    const S* g = base + P.goff(e);
+    if constexpr (std::is_same_v<T, S>) {
+      if (m & kPair) {
+        cp_async2(d, g);
+      } else {
+        if (m & kE0) cp_async(d, g);
+        if (m & kE1) cp_async(d + 1, g + 1);
+      }
     } else {
-      if (m & kE0) cp_async(d, base + P.goff(e));
-      if (m & kE1) cp_async(d + 1, base + P.goff(e) + 1);
+      const S* end = src + static_cast<int64_t>(planes) * nr * nc;
+      if (m & kPair) {
+        cp_async_pair(d, g);
+      } else {
+        if (m & kE0) cp_async_word(d, g, end);
+        if (m & kE1) cp_async_word(d + 1, g + 1, end);
+      }
+    }
+  }
+}
+
+// load_beta of an array stored in the ring's type
+template <typename T, typename PB>
+__device__ __forceinline__ void load_beta(T* dst, const T* __restrict__ src, const PB& P,
+                                          int plane, int nr, int nc) {
+  load_beta(dst, src, P, plane, nr, nc, 0);
+}
+
+// The words load_beta copied into the ring plane dst for plane `plane`,
+// widened in place (nothing where the array is stored in the ring's type).
+template <typename T, typename S, typename PB>
+__device__ __forceinline__ void widen_beta(T* dst, const S* __restrict__ src, const PB& P,
+                                           int plane, int nr, int nc) {
+  if constexpr (!std::is_same_v<T, S>) {
+    const S* base = src + static_cast<int64_t>(plane) * nr * nc;
+#pragma unroll
+    for (int e = 0; e < PB::count; ++e) {
+      const unsigned m = P.meta(e);
+      T* d = dst + (m >> kMetaShift);
+      if (m & kPair) {
+        widen_pair(d);
+      } else {
+        if (m & kE0) widen_word(d, base + P.goff(e));
+        if (m & kE1) widen_word(d + 1, base + P.goff(e) + 1);
+      }
     }
   }
 }

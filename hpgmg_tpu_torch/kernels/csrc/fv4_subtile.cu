@@ -71,6 +71,10 @@
 // replaces: 0.0391; K1 0.0500), 0.3222 at 256^3 (K1 0.3310-0.3351), 2.450
 // at 512^3 (K1 2.203), where K1's stream of planes wins; the rule is within
 // 1% of the best forced TI in f32.
+// bfloat16: the boxes hold float; each bf16 value's 32-bit word is staged
+// into its float slot by the same cp.async batch, and a second walk over
+// the boxes widens the slots this thread copied (stream.cuh) before the
+// barrier; each output rounded to bf16 once.
 // Plain version: hpgmg_tpu_torch/kernels/stencils.py:fv4_subtile_plain.
 
 #include "fv4_stream.cuh"
@@ -118,17 +122,46 @@ __host__ __device__ __forceinline__ int operand_values(int mode, bool alpha) {
   return (mode == kApply ? 0 : 2) + (alpha ? 2 : 0);
 }
 
+// One value of src (stored in S, a field ending before `end`) into dst (of
+// T) by cp.async; with WIDEN, the bf16 word a first pass copied turned into
+// its value (stream.cuh: cp_async_word, widen_word; nothing where S is T).
+template <bool WIDEN, typename T, typename S>
+__device__ __forceinline__ void stage_one(T* d, const S* src, const S* end) {
+  if constexpr (std::is_same_v<T, S>) {
+    if (!WIDEN) cp_async(d, src);
+  } else if constexpr (WIDEN) {
+    widen_word(d, src);
+  } else {
+    cp_async_word(d, src, end);
+  }
+}
+
+// two neighbouring values (an aligned pair) of src into d[0], d[1]; with
+// WIDEN, likewise
+template <bool WIDEN, typename T, typename S>
+__device__ __forceinline__ void stage_two(T* d, const S* src) {
+  if constexpr (std::is_same_v<T, S>) {
+    if (!WIDEN) cp_async2(d, src);
+  } else if constexpr (WIDEN) {
+    widen_pair(d);
+  } else {
+    cp_async_pair(d, src);
+  }
+}
+
 // The box of src, an array of np_src x nr_src x nc_src values (k fastest),
 // of planes [p0, p0+np), rows [r0, r0+NR) and columns [c0, c0+nc) into dst
-// (NR rows of pitch PITCH a plane) by cp.async: two neighbouring values a
-// copy where both lie in src and the pair is aligned; values outside src
-// are not copied.
-template <int NR, int PITCH, typename T>
-__device__ __forceinline__ void stage_box(T* dst, const T* __restrict__ src, int np,
+// (NR rows of pitch PITCH a plane) by cp.async (stage_one, stage_two): two
+// neighbouring values a copy where both lie in src and the pair is
+// aligned; values outside src are not copied. With WIDEN: the same walk
+// over the box, each bf16 word this thread copied turned into its value.
+template <int NR, int PITCH, bool WIDEN, typename T, typename S>
+__device__ __forceinline__ void stage_box(T* dst, const S* __restrict__ src, int np,
                                           int p0, int r0, int c0, int nc, int np_src,
                                           int nr_src, int nc_src, bool src_aligned) {
   constexpr int HP = PITCH / 2;  // pairs a row
   const int total = np * NR * HP;
+  const S* end = src + static_cast<int64_t>(np_src) * nr_src * nc_src;
   for (int t = threadIdx.x; t < total; t += kSubThreads) {
     const int pr = t / HP, b = 2 * (t - pr * HP);
     const int a = pr / NR;
@@ -139,10 +172,10 @@ __device__ __forceinline__ void stage_box(T* dst, const T* __restrict__ src, int
     const bool in0 = col >= 0 && col < nc_src;
     const bool in1 = b + 1 < nc && col + 1 >= 0 && col + 1 < nc_src;
     if (in0 && in1 && src_aligned && (g & 1) == 0) {
-      cp_async2(d, src + g);
+      stage_two<WIDEN>(d, src + g);
     } else {
-      if (in0) cp_async(d, src + g);
-      if (in1) cp_async(d + 1, src + g + 1);
+      if (in0) stage_one<WIDEN>(d, src + g, end);
+      if (in1) stage_one<WIDEN>(d + 1, src + g + 1, end);
     }
   }
 }
@@ -186,23 +219,27 @@ __device__ __forceinline__ int ghost_box(int ax, int n, const int (&lo)[3],
   return size;
 }
 
-// src[0], src[1] (the second where has_hi) into d[0], d[1]
-template <typename T>
-__device__ __forceinline__ void stage_pair(T* d, const T* src, bool vec, bool has_hi) {
+// src[0], src[1] (the second where has_hi) into d[0], d[1]; with WIDEN,
+// likewise
+template <bool WIDEN, typename T, typename S>
+__device__ __forceinline__ void stage_pair(T* d, const S* src, const S* end, bool vec,
+                                           bool has_hi) {
   if (vec) {
-    cp_async2(d, src);
+    stage_two<WIDEN>(d, src);
   } else {
-    cp_async(d, src);
-    if (has_hi) cp_async(d + 1, src + 1);
+    stage_one<WIDEN>(d, src, end);
+    if (has_hi) stage_one<WIDEN>(d + 1, src + 1, end);
   }
 }
 
 // One block: the ti x SJ x SK tile (blockIdx.y along i, blockIdx.x the
 // (j, k) column). Dynamic shared memory: boxes(ti, operand_values(...)).
 // p.xp holds the cell field x itself (n^3), not a ghost-filled buffer.
-template <typename T, int MODE>
+// S: the operands' storage type; T = Wide<S>, the boxes' and the
+// arithmetic's type.
+template <typename S, int MODE, typename T = Wide<S>>
 __global__ void __launch_bounds__(kSubThreads, kSubMinBlocks)
-    fv4_subtile_kernel(const Args<T> p, int parity, int ti) {
+    fv4_subtile_kernel(const Args<T, S> p, int parity, int ti) {
   extern __shared__ __align__(16) unsigned char smem[];
   T* xs = reinterpret_cast<T*>(smem);
   const int n = p.n;
@@ -218,15 +255,6 @@ __global__ void __launch_bounds__(kSubThreads, kSubMinBlocks)
   T* const ops = xs + L.ops;
   T* const aops = ops + (MODE == kApply ? 0 : 2 * ti * kPairs);
 
-  stage_box<XJ, XK>(xs, p.xp, ti + 4, i0 - 2, j0 - 2, k0 - 2, XK, n, n, n,
-                    pair_aligned(p.xp));
-  stage_box<SJ + 2, BP>(bi, p.bie, ti + 1, i0, j0, k0, SK + 2, n + 1, n + 2, n + 2,
-                        pair_aligned(p.bie));
-  stage_box<SJ + 1, BP>(bj, p.bje, ti + 2, i0, j0, k0, SK + 2, n + 2, n + 1, n + 2,
-                        pair_aligned(p.bje));
-  stage_box<SJ + 2, BP>(bk, p.bke, ti + 2, i0, j0, k0, SK + 1, n + 2, n + 2, n + 1,
-                        pair_aligned(p.bke));
-
   // thread: pair pl (cells k0 + 2 pl, k0 + 2 pl + 1) of row jl on the
   // planes ilo, ilo + 2, ... of the tile; slot: its place among the
   // tile's pairs
@@ -237,7 +265,20 @@ __global__ void __launch_bounds__(kSubThreads, kSubMinBlocks)
   const bool has_hi = kb + 1 < n;
   const bool vec = (n & 1) == 0;
   auto slot = [&](int il) { return il * kPairs + static_cast<int>(threadIdx.x % kPairs); };
-  if (pair_in) {
+  const int64_t cells = static_cast<int64_t>(n) * n * n;  // of a cell field
+  // every box and the cells' operands by cp.async; with WIDEN, the same walk
+  // turning a bf16 field's words into values (the thread that copied them)
+  auto stage = [&](auto widen) {
+    constexpr bool W = decltype(widen)::value;
+    stage_box<XJ, XK, W>(xs, p.xp, ti + 4, i0 - 2, j0 - 2, k0 - 2, XK, n, n, n,
+                         pair_aligned(p.xp));
+    stage_box<SJ + 2, BP, W>(bi, p.bie, ti + 1, i0, j0, k0, SK + 2, n + 1, n + 2, n + 2,
+                             pair_aligned(p.bie));
+    stage_box<SJ + 1, BP, W>(bj, p.bje, ti + 2, i0, j0, k0, SK + 2, n + 2, n + 1, n + 2,
+                             pair_aligned(p.bje));
+    stage_box<SJ + 2, BP, W>(bk, p.bke, ti + 2, i0, j0, k0, SK + 1, n + 2, n + 2, n + 1,
+                             pair_aligned(p.bke));
+    if (!pair_in) return;
     for (int il = ilo; il < ti && i0 + il < n; il += 2) {
       const int64_t c = (static_cast<int64_t>(i0 + il) * n + j) * n + kb;
       T* d = ops + 2 * slot(il);
@@ -245,20 +286,24 @@ __global__ void __launch_bounds__(kSubThreads, kSubMinBlocks)
       if constexpr (MODE == kGsrb) {
         const int q = (parity + i0 + il + j) & 1;  // the sweep's colour
         if (kb + q < n) {
-          cp_async(d, p.rhs + c + q);
-          cp_async(d + 1, p.kdinv + c + q);
-          if (has_alpha) cp_async(a, p.alpha + c + q);
+          stage_one<W>(d, p.rhs + c + q, p.rhs + cells);
+          stage_one<W>(d + 1, p.kdinv + c + q, p.kdinv + cells);
+          if (has_alpha) stage_one<W>(a, p.alpha + c + q, p.alpha + cells);
         }
       } else {
-        if (MODE == kResidual) stage_pair(d, p.rhs + c, vec && pair_aligned(p.rhs), has_hi);
-        if (has_alpha) stage_pair(a, p.alpha + c, vec && pair_aligned(p.alpha), has_hi);
+        if (MODE == kResidual)
+          stage_pair<W>(d, p.rhs + c, p.rhs + cells, vec && pair_aligned(p.rhs), has_hi);
+        if (has_alpha)
+          stage_pair<W>(a, p.alpha + c, p.alpha + cells, vec && pair_aligned(p.alpha),
+                        has_hi);
       }
     }
-  }
+  };
+  stage(std::false_type{});
   cp_async_commit();
   cp_async_wait<0>();
+  if constexpr (!std::is_same_v<T, S>) stage(std::true_type{});
   __syncthreads();
-
   // Dirichlet ghosts of the x box (within 2 of the domain; positions
   // further out, in ragged tiles, are read only by cells outside the
   // domain), one a thread over the three boxes that hold them (ghost_box):
@@ -343,9 +388,9 @@ __global__ void __launch_bounds__(kSubThreads, kSubMinBlocks)
 template <typename T>
 size_t box_bytes(int ti, int nops) { return boxes(ti, nops).total * sizeof(T); }
 
-template <typename T, int MODE>
-int launch_mode(const Args<T>& p, int parity, int ti, cudaStream_t s) {
-  auto kernel = fv4_subtile_kernel<T, MODE>;
+template <typename T, typename S, int MODE>
+int launch_mode(const Args<T, S>& p, int parity, int ti, cudaStream_t s) {
+  auto kernel = fv4_subtile_kernel<S, MODE>;
   static const cudaError_t attr =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(box_bytes<T>(kMaxTI, 4)));
@@ -392,26 +437,27 @@ int launch_mode(const Args<T>& p, int parity, int ti, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename S>
 int launch_subtile(const void* x, const void* bie, const void* bje,
                    const void* bke, const void* alpha, const void* rhs,
                    const void* kdinv, void* out, int n, int mode, int parity,
                    int ti, double scale, double a_coef, void* stream) {
+  using T = Wide<S>;
   if (n < 4 || n > 65535 || mode < kApply || mode > kGsrb || parity < 0 || parity > 1 ||
       ti < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Args<T> p{static_cast<const T*>(x),     static_cast<const T*>(bie),
-                  static_cast<const T*>(bje),   static_cast<const T*>(bke),
-                  static_cast<const T*>(alpha), static_cast<const T*>(rhs),
-                  static_cast<const T*>(kdinv), static_cast<T*>(out),
-                  n,                            static_cast<T>(scale),
-                  static_cast<T>(a_coef)};
+  const Args<T, S> p{static_cast<const S*>(x),     static_cast<const S*>(bie),
+                     static_cast<const S*>(bje),   static_cast<const S*>(bke),
+                     static_cast<const S*>(alpha), static_cast<const S*>(rhs),
+                     static_cast<const S*>(kdinv), static_cast<S*>(out),
+                     n,                            static_cast<T>(scale),
+                     static_cast<T>(a_coef)};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case kApply: return launch_mode<T, kApply>(p, parity, ti, s);
-    case kResidual: return launch_mode<T, kResidual>(p, parity, ti, s);
-    default: return launch_mode<T, kGsrb>(p, parity, ti, s);
+    case kApply: return launch_mode<T, S, kApply>(p, parity, ti, s);
+    case kResidual: return launch_mode<T, S, kResidual>(p, parity, ti, s);
+    default: return launch_mode<T, S, kGsrb>(p, parity, ti, s);
   }
 }
 
@@ -438,4 +484,15 @@ extern "C" int hpgmg_fv4_subtile_f64(const void* x, const void* bie,
                                      double a_coef, void* stream) {
   return launch_subtile<double>(x, bie, bje, bke, alpha, rhs, kdinv, out, n, mode,
                                 parity, ti, scale, a_coef, stream);
+}
+
+// bf16 storage, float arithmetic (each output rounded to bf16 once)
+extern "C" int hpgmg_fv4_subtile_bf16(const void* x, const void* bie,
+                                      const void* bje, const void* bke,
+                                      const void* alpha, const void* rhs,
+                                      const void* kdinv, void* out, int n,
+                                      int mode, int parity, int ti, double scale,
+                                      double a_coef, void* stream) {
+  return launch_subtile<bf16>(x, bie, bje, bke, alpha, rhs, kdinv, out, n, mode,
+                              parity, ti, scale, a_coef, stream);
 }

@@ -12,7 +12,10 @@
 // writes an eighth of it with 8 adds per output, far below the compute roof.
 // Design: one thread per coarse cell with k fastest, so a warp reads two
 // contiguous 64-value runs per fine row and writes one contiguous run.
+// A bf16 block is summed in float and each mean rounded to bf16 once.
 // Plain version: hpgmg_tpu_torch/kernels/restrict.py:restrict_cell_plain.
+
+#include "storage.cuh"
 
 #include <cuda_runtime.h>
 
@@ -20,20 +23,22 @@
 
 namespace {
 
-// K from the thread index, J = blockIdx.y, I = blockIdx.z
-template <typename T>
-__global__ void restrict_cell_kernel(const T* __restrict__ x,
-                                     T* __restrict__ out, int mj, int mk) {
+// K from the thread index, J = blockIdx.y, I = blockIdx.z; V the storage
+// type, T = Wide<V> the sum's
+template <typename V, typename T = Wide<V>>
+__global__ void restrict_cell_kernel(const V* __restrict__ x,
+                                     V* __restrict__ out, int mj, int mk) {
   const int64_t K = blockIdx.x * blockDim.x + threadIdx.x;
   if (K >= mk) return;
   const int64_t J = blockIdx.y, I = blockIdx.z;
   const int64_t t = (I * mj + J) * mk + K;
   const int64_t sj = 2 * static_cast<int64_t>(mk);
   const int64_t si = 2 * static_cast<int64_t>(mj) * sj;
-  const T* p = x + (2 * I) * si + (2 * J) * sj + 2 * K;
-  const T s = ((p[0] + p[1]) + (p[sj] + p[sj + 1])) +
-              ((p[si] + p[si + 1]) + (p[si + sj] + p[si + sj + 1]));
-  out[t] = T(0.125) * s;
+  const V* p = x + (2 * I) * si + (2 * J) * sj + 2 * K;
+  auto v = [&](int64_t o) { return widen<T>(p[o]); };
+  const T s = ((v(0) + v(1)) + (v(sj) + v(sj + 1))) +
+              ((v(si) + v(si + 1)) + (v(si + sj) + v(si + sj + 1)));
+  out[t] = narrow<V>(T(0.125) * s);
 }
 
 template <typename T>
@@ -61,4 +66,9 @@ extern "C" int hpgmg_restrict_cell_f32(const void* x, void* out, int mi, int mj,
 extern "C" int hpgmg_restrict_cell_f64(const void* x, void* out, int mi, int mj,
                                        int mk, void* stream) {
   return launch_restrict<double>(x, out, mi, mj, mk, stream);
+}
+
+extern "C" int hpgmg_restrict_cell_bf16(const void* x, void* out, int mi, int mj,
+                                        int mk, void* stream) {
+  return launch_restrict<bf16>(x, out, mi, mj, mk, stream);
 }

@@ -6,6 +6,8 @@
 
 #pragma once
 
+#include "storage.cuh"
+
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -120,6 +122,16 @@ __device__ __forceinline__ void load2(const double* src, double& lo, double& hi)
   hi = v.y;
 }
 
+// two neighbouring bf16 values (an aligned pair), widened
+__device__ __forceinline__ void load2(const bf16* src, float& lo, float& hi) {
+  const unsigned v = __ldg(reinterpret_cast<const unsigned*>(src));
+  lo = bf16_bits_to_float(v & 0xffffu);
+  hi = bf16_bits_to_float(v >> 16);
+}
+__device__ __forceinline__ void store2(bf16* dst, float lo, float hi) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(lo, hi);
+}
+
 // lo, hi from two neighbouring values of shared memory (an aligned pair)
 __device__ __forceinline__ void lds2(const float* src, float& lo, float& hi) {
   const float2 v = *reinterpret_cast<const float2*>(src);
@@ -134,15 +146,52 @@ __device__ __forceinline__ void lds2(const double* src, double& lo, double& hi) 
 
 // out[c], out[c+1] = lo, hi: one vector store where n is even (the pair
 // then lies in the domain and c is even), else each cell in the domain
-template <typename T>
-__device__ __forceinline__ void store_pair(T* out, int64_t c, T lo, T hi, bool vec,
+// (stored in S, each value rounded to it once)
+template <typename S, typename T>
+__device__ __forceinline__ void store_pair(S* out, int64_t c, T lo, T hi, bool vec,
                                            bool has_hi) {
   if (vec) {
     store2(out + c, lo, hi);
   } else {
-    out[c] = lo;
-    if (has_hi) out[c + 1] = hi;
+    out[c] = narrow<S>(lo);
+    if (has_hi) out[c + 1] = narrow<S>(hi);
   }
+}
+
+// bf16 values copied by cp.async into a float ring or box: cp.async moves
+// at least 4 bytes and cannot widen, so each value's aligned 32-bit word
+// (two bf16, the value one of its halves) lands in the value's own float
+// slot, and the thread that copied it turns the slot into the float it
+// holds (widen_word) once its own copies have arrived; a barrier after that
+// publishes the slots. An aligned pair lands as one word in the pair's
+// first slot (widen_pair). The word of a field's last value reaches past
+// the field's end where the field has an odd number of values: that value
+// is loaded at once and stored as its word (its low half, where it sits).
+__device__ __forceinline__ void cp_async_word(float* d, const bf16* src, const bf16* end) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src);
+  const bf16* w = reinterpret_cast<const bf16*>(a & ~static_cast<uintptr_t>(3));
+  if (w + 2 > end) {
+    *reinterpret_cast<unsigned*>(d) = __ldg(reinterpret_cast<const unsigned short*>(src));
+  } else {
+    cp_async(reinterpret_cast<unsigned*>(d), reinterpret_cast<const unsigned*>(w));
+  }
+}
+
+__device__ __forceinline__ void cp_async_pair(float* d, const bf16* src) {
+  cp_async(reinterpret_cast<unsigned*>(d), reinterpret_cast<const unsigned*>(src));
+}
+
+// slot d held the word of the value at src: now the value, widened
+__device__ __forceinline__ void widen_word(float* d, const bf16* src) {
+  const unsigned w = *reinterpret_cast<const unsigned*>(d);
+  *d = bf16_bits_to_float((reinterpret_cast<uintptr_t>(src) & 2) ? w >> 16 : w & 0xffffu);
+}
+
+// slots d, d+1 held an aligned pair's word in d: now its two values
+__device__ __forceinline__ void widen_pair(float* d) {
+  const unsigned w = *reinterpret_cast<const unsigned*>(d);
+  d[0] = bf16_bits_to_float(w & 0xffffu);
+  d[1] = bf16_bits_to_float(w >> 16);
 }
 
 }  // namespace

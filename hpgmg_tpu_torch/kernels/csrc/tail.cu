@@ -61,7 +61,12 @@
 // time from torch.profiler in turns by chip_smoke.py: K4a 0.0836-0.0837 ms
 // with 16 blocks against 0.1148 with the portable 8, K4c 0.1791-0.1792
 // against 0.2459). Shared memory a block: 2 (P+4) (n+4)^2 values of the
-// first level, at 32^3 62 KB in f32 and 124 KB in f64.
+// first level, at 32^3 62 KB in f32 and 124 KB in f64 (bf16 levels: as
+// f32, their buffers hold float).
+// bfloat16 (K4a, K4b; K4c's DIRECT bottom has no bf16 build): the buffers
+// hold float; each half-sweep's result, e, res and the climb's e +
+// interp_v2(u) are rounded to bf16 where a level-by-level cycle of bf16
+// launches would store them.
 // Plain version: hpgmg_tpu_torch/kernels/tail.py:tail_down_plain and
 // tail_up_plain and tail_v_plain.
 
@@ -81,22 +86,23 @@ constexpr int kTailThreads = 384;
 // One tail level. Down: e is written (the pre-smoothed iterate) and res
 // (the restricted residual, the next level's rhs). Up: e is read (the
 // pre-smoothed iterate) and res written (the post-smoothed solution).
-template <typename T>
+// (stored in V, computed in T = Wide<V>)
+template <typename T, typename V = T>
 struct TailLevel {
-  Fv4Coefs<T> c;
-  const T* kd0;
-  const T* kd1;
-  T* e;
-  T* res;
+  Fv4Coefs<T, V> c;
+  const V* kd0;
+  const V* kd1;
+  V* e;
+  V* res;
 };
 
-template <typename T>
+template <typename T, typename V = T>
 struct TailArgs {
-  TailLevel<T> lv[kMaxTail];
-  const T* x_in;   // down, v: the first level's starting iterate
-  const T* u_bot;  // up: the solution below the coarsest tail level
-  const T* ainv;   // v: the bottom's dense inverse, (db^3, db^3) row-major
-  T* u_out;        // v: the bottom solution, db^3
+  TailLevel<T, V> lv[kMaxTail];
+  const V* x_in;   // down, v: the first level's starting iterate
+  const V* u_bot;  // up: the solution below the coarsest tail level
+  const V* ainv;   // v: the bottom's dense inverse, (db^3, db^3) row-major
+  V* u_out;        // v: the bottom solution, db^3
   int nlev;
   int nsweeps;  // even: the last half-sweep lands in the first buffer
   int buf;      // values of one buffer
@@ -160,8 +166,8 @@ __device__ void fill_halo(T* buf, const Slab& S, cg::cluster_group& cl) {
 // nsweeps half-sweeps of level L from the iterate in buf[0] (its slab's
 // frames made, the cluster past a barrier since); the result lands in
 // buf[0] again, the cluster past a barrier.
-template <typename T>
-__device__ void sweeps(const TailArgs<T>& a, const TailLevel<T>& L, const Slab& S,
+template <typename T, typename V>
+__device__ void sweeps(const TailArgs<T, V>& a, const TailLevel<T, V>& L, const Slab& S,
                        T* const* buf, cg::cluster_group& cl) {
   for (int s = 0; s < a.nsweeps; ++s) {
     T* src = buf[s & 1];
@@ -169,8 +175,10 @@ __device__ void sweeps(const TailArgs<T>& a, const TailLevel<T>& L, const Slab& 
     if (S.own() > 0) {
       fill_halo(src, S, cl);
       T* first = dst + 2 * S.ps;
+      // each half-sweep's result rounded to V, as its own launch would
+      // store it
       auto put = [&](int il, int j, int k, T v) {
-        first[il * S.ps + (j + 2) * S.np + (k + 2)] = v;
+        first[il * S.ps + (j + 2) * S.np + (k + 2)] = rounded<V>(v);
       };
       half_sweep(L.c, src + 2 * S.ps, S.ps, S.p0, S.own(), s & 1, (s & 1) ? L.kd1 : L.kd0,
                  put);
@@ -181,14 +189,15 @@ __device__ void sweeps(const TailArgs<T>& a, const TailLevel<T>& L, const Slab& 
   }
 }
 
-// The slab's cells of buf[0] to the level field dst in device memory.
-template <typename T>
-__device__ void store_slab(T* dst, const T* buf, const Slab& S) {
+// The slab's cells of buf[0] to the level field dst in device memory
+// (already rounded to V where V is narrower: the stores are exact).
+template <typename T, typename V>
+__device__ void store_slab(V* dst, const T* buf, const Slab& S) {
   const int n = S.n, per = n * n;
   for (int t = threadIdx.x; t < S.own() * per; t += blockDim.x) {
     const int il = t / per, r = t - il * per, j = r / n;
     dst[static_cast<int64_t>(S.p0) * per + t] =
-        buf[(il + 2) * S.ps + (j + 2) * S.np + (r - j * n) + 2];
+        narrow<V>(buf[(il + 2) * S.ps + (j + 2) * S.np + (r - j * n) + 2]);
   }
 }
 
@@ -196,13 +205,13 @@ __device__ void store_slab(T* dst, const T* buf, const Slab& S) {
 // the slab's (x in buf with its halo): the residual at every fine cell of
 // the slab into `r` (a free buffer), then each coarse cell's eight summed
 // in K1's order. Ends on a block barrier.
-template <typename T>
-__device__ void fres(const TailLevel<T>& L, const Slab& S, const T* buf, T* r) {
+template <typename T, typename V>
+__device__ void fres(const TailLevel<T, V>& L, const Slab& S, const T* buf, T* r) {
   const int n = S.n, m = n / 2, per = n * n, cper = m * m;
   for (int t = threadIdx.x; t < S.own() * per; t += blockDim.x) {
     const int il = t / per, q = t - il * per, j = q / n, k = q - j * n, i = S.p0 + il;
     const int64_t c = static_cast<int64_t>(S.p0) * per + t;
-    r[t] = __ldcg(L.c.rhs + c) -
+    r[t] = ldcgv<T>(L.c.rhs + c) -
            plane_ax(L.c, buf + (il + 2) * S.ps + (j + 2) * S.np + (k + 2), S.ps, i, j, k, c);
   }
   __syncthreads();
@@ -213,7 +222,7 @@ __device__ void fres(const TailLevel<T>& L, const Slab& S, const T* buf, T* r) {
     for (int d = 0; d < 8; ++d) {
       sum += r[((2 * Il + (d >> 2)) * n + 2 * J + ((d >> 1) & 1)) * n + 2 * K + (d & 1)];
     }
-    L.res[static_cast<int64_t>(S.p0 / 2) * cper + t] = T(0.125) * sum;
+    L.res[static_cast<int64_t>(S.p0 / 2) * cper + t] = narrow<V>(T(0.125) * sum);
   }
   __syncthreads();
 }
@@ -221,11 +230,11 @@ __device__ void fres(const TailLevel<T>& L, const Slab& S, const T* buf, T* r) {
 // The descent: per level, its start (x_in on the first level, zeros
 // below), sweeps, e and the restricted residual to device memory; ends
 // on a cluster barrier.
-template <typename T>
-__device__ void descend(const TailArgs<T>& a, T* const* buf, cg::cluster_group& cl) {
+template <typename T, typename V>
+__device__ void descend(const TailArgs<T, V>& a, T* const* buf, cg::cluster_group& cl) {
   const int C = static_cast<int>(cl.num_blocks()), rank = static_cast<int>(cl.block_rank());
   for (int l = 0; l < a.nlev; ++l) {
-    const TailLevel<T>& L = a.lv[l];
+    const TailLevel<T, V>& L = a.lv[l];
     const Slab S(L.c.n, C, rank);
     if (S.own() > 0) {
       const int n = S.n, per = n * n;
@@ -255,14 +264,14 @@ __device__ void descend(const TailArgs<T>& a, T* const* buf, cg::cluster_group& 
 // The climb from u, the solution below the coarsest level: per level, the
 // interpolation added to e, then sweeps; the level's solution goes to res,
 // or over e (in_place: K4c, whose res holds the next level's rhs).
-template <typename T>
-__device__ void climb(const TailArgs<T>& a, const T* u, bool in_place, T* const* buf,
+template <typename T, typename V>
+__device__ void climb(const TailArgs<T, V>& a, const V* u, bool in_place, T* const* buf,
                       cg::cluster_group& cl) {
   const int C = static_cast<int>(cl.num_blocks()), rank = static_cast<int>(cl.block_rank());
   for (int l = a.nlev - 1; l >= 0; --l) {
-    const TailLevel<T>& L = a.lv[l];
+    const TailLevel<T, V>& L = a.lv[l];
     const Slab S(L.c.n, C, rank);
-    T* out = in_place ? L.e : L.res;
+    V* out = in_place ? L.e : L.res;
     if (S.own() > 0) {
       // e's slab into buf[0]; the coarse planes [c0, c1] its interpolation
       // reads into buf[1] (free until the first half-sweep)
@@ -300,7 +309,8 @@ __device__ void climb(const TailArgs<T>& a, const T* u, bool in_place, T* const*
             up += wi[x] * wj[y] * sk;
           }
         }
-        first[il * S.ps + (j + 2) * S.np + k + 2] += up;
+        T& xe = first[il * S.ps + (j + 2) * S.np + k + 2];
+        xe = rounded<V>(xe + up);  // e + interp_v2(u), one rounding
       }
       __syncthreads();
       make_frames(first, S.own(), S.ps, n);
@@ -316,12 +326,12 @@ __device__ void climb(const TailArgs<T>& a, const T* u, bool in_place, T* const*
 // u_out = ainv . r, r the coarsest level's restricted residual (staged in
 // `stage`): one warp of the cluster per row, its lanes reading the row in
 // 16-byte vectors where the rows allow, four loads in flight.
-template <typename T>
-__device__ void bottom(const TailArgs<T>& a, T* stage, cg::cluster_group& cl) {
-  constexpr int V = 16 / static_cast<int>(sizeof(T));
-  const TailLevel<T>& L = a.lv[a.nlev - 1];
+template <typename T, typename V>
+__device__ void bottom(const TailArgs<T, V>& a, T* stage, cg::cluster_group& cl) {
+  constexpr int W = 16 / static_cast<int>(sizeof(T));  // values a vector
+  const TailLevel<T, V>& L = a.lv[a.nlev - 1];
   const int db = L.c.n / 2, m = db * db * db, lane = threadIdx.x & 31;
-  for (int t = threadIdx.x; t < m; t += blockDim.x) stage[t] = __ldcg(L.res + t);
+  for (int t = threadIdx.x; t < m; t += blockDim.x) stage[t] = ldcgv<T>(L.res + t);
   __syncthreads();
   const int warps = blockDim.x >> 5;
   const int nwarps = static_cast<int>(cl.num_blocks()) * warps;
@@ -329,14 +339,14 @@ __device__ void bottom(const TailArgs<T>& a, T* stage, cg::cluster_group& cl) {
        row += nwarps) {
     const T* arow = a.ainv + static_cast<int64_t>(row) * m;
     T s = T(0);
-    if (m % V == 0) {
+    if (m % W == 0) {
       const int4* vrow = reinterpret_cast<const int4*>(arow);
 #pragma unroll 4
-      for (int v = lane; v < m / V; v += 32) {
+      for (int v = lane; v < m / W; v += 32) {
         const int4 raw = __ldg(vrow + v);
         const T* w = reinterpret_cast<const T*>(&raw);
 #pragma unroll
-        for (int e = 0; e < V; ++e) s += w[e] * stage[v * V + e];
+        for (int e = 0; e < W; ++e) s += w[e] * stage[v * W + e];
       }
     } else {
 #pragma unroll 4
@@ -344,7 +354,7 @@ __device__ void bottom(const TailArgs<T>& a, T* stage, cg::cluster_group& cl) {
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
-    if (lane == 0) a.u_out[row] = s;
+    if (lane == 0) a.u_out[row] = narrow<V>(s);
   }
 }
 
@@ -355,24 +365,24 @@ __device__ __forceinline__ void buffers(T* (&buf)[2], int values) {
   buf[1] = buf[0] + values;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kTailThreads, 1) tail_down_kernel(const TailArgs<T> a) {
+template <typename V, typename T = Wide<V>>
+__global__ void __launch_bounds__(kTailThreads, 1) tail_down_kernel(const TailArgs<T, V> a) {
   cg::cluster_group cl = cg::this_cluster();
   T* buf[2];
   buffers(buf, a.buf);
   descend(a, buf, cl);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kTailThreads, 1) tail_up_kernel(const TailArgs<T> a) {
+template <typename V, typename T = Wide<V>>
+__global__ void __launch_bounds__(kTailThreads, 1) tail_up_kernel(const TailArgs<T, V> a) {
   cg::cluster_group cl = cg::this_cluster();
   T* buf[2];
   buffers(buf, a.buf);
   climb(a, a.u_bot, false, buf, cl);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kTailThreads, 1) tail_v_kernel(const TailArgs<T> a) {
+template <typename V, typename T = Wide<V>>
+__global__ void __launch_bounds__(kTailThreads, 1) tail_v_kernel(const TailArgs<T, V> a) {
   cg::cluster_group cl = cg::this_cluster();
   T* buf[2];
   buffers(buf, a.buf);
@@ -389,15 +399,20 @@ __host__ __forceinline__ size_t tail_smem(int n0, size_t value) {
   return 2 * static_cast<size_t>(slab_planes(n0, kTailCluster) + 4) * plane_pitch(n0) * value;
 }
 
-template <typename T>
+// V: the levels' storage type (float, double; bf16 for K4a and K4b: K4c's
+// DIRECT bottom has no bf16 build)
+template <typename V>
 int launch_tail(TailKind kind, const void* const* ptrs, const int* dims,
                 const double* scales, int nlev, int nsweeps, double a_coef,
                 const void* x_in, const void* u_bot, const void* ainv, void* u_out,
                 void* stream) {
-  if (nlev < 1 || nlev > kMaxTail || nsweeps < 2 || nsweeps % 2 != 0) {
+  using T = Wide<V>;
+  constexpr bool narrow_storage = !std::is_same_v<T, V>;
+  if (nlev < 1 || nlev > kMaxTail || nsweeps < 2 || nsweeps % 2 != 0 ||
+      (narrow_storage && kind == TailKind::kV)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  TailArgs<T> a{};
+  TailArgs<T, V> a{};
   for (int l = 0; l < nlev; ++l) {
     const int n = dims[l];
     // even, >= 4 cells for the quartic ghosts (>= 8 so the coarse grid of
@@ -406,18 +421,18 @@ int launch_tail(TailKind kind, const void* const* ptrs, const int* dims,
       return static_cast<int>(cudaErrorInvalidValue);
     }
     const void* const* q = ptrs + kTailPtrs * l;
-    a.lv[l] = TailLevel<T>{
-        Fv4Coefs<T>{static_cast<const T*>(q[0]), static_cast<const T*>(q[1]),
-                    static_cast<const T*>(q[2]), static_cast<const T*>(q[3]),
-                    static_cast<const T*>(q[6]), n, static_cast<T>(scales[l]),
-                    static_cast<T>(a_coef)},
-        static_cast<const T*>(q[4]), static_cast<const T*>(q[5]),
-        static_cast<T*>(const_cast<void*>(q[7])), static_cast<T*>(const_cast<void*>(q[8]))};
+    a.lv[l] = TailLevel<T, V>{
+        Fv4Coefs<T, V>{static_cast<const V*>(q[0]), static_cast<const V*>(q[1]),
+                       static_cast<const V*>(q[2]), static_cast<const V*>(q[3]),
+                       static_cast<const V*>(q[6]), n, static_cast<T>(scales[l]),
+                       static_cast<T>(a_coef)},
+        static_cast<const V*>(q[4]), static_cast<const V*>(q[5]),
+        static_cast<V*>(const_cast<void*>(q[7])), static_cast<V*>(const_cast<void*>(q[8]))};
   }
-  a.x_in = static_cast<const T*>(x_in);
-  a.u_bot = static_cast<const T*>(u_bot);
-  a.ainv = static_cast<const T*>(ainv);
-  a.u_out = static_cast<T*>(u_out);
+  a.x_in = static_cast<const V*>(x_in);
+  a.u_bot = static_cast<const V*>(u_bot);
+  a.ainv = static_cast<const V*>(ainv);
+  a.u_out = static_cast<V*>(u_out);
   a.nlev = nlev;
   a.nsweeps = nsweeps;
   a.buf = (slab_planes(dims[0], kTailCluster) + 4) * plane_pitch(dims[0]);
@@ -428,9 +443,11 @@ int launch_tail(TailKind kind, const void* const* ptrs, const int* dims,
     return static_cast<int>(cudaErrorInvalidValue);  // the bottom's r is staged in buffer 1
   }
   static ClusterKernel state[3];
-  void (*kernel)(TailArgs<T>) = kind == TailKind::kV     ? tail_v_kernel<T>
-                                : kind == TailKind::kDown ? tail_down_kernel<T>
-                                                          : tail_up_kernel<T>;
+  void (*kernel)(TailArgs<T, V>) = kind == TailKind::kDown ? tail_down_kernel<V>
+                                                            : tail_up_kernel<V>;
+  if constexpr (!narrow_storage) {
+    if (kind == TailKind::kV) kernel = tail_v_kernel<V>;
+  }
   return cluster_launch(state[static_cast<int>(kind)], kernel, a, 1, kTailCluster,
                         kTailThreads, smem, static_cast<cudaStream_t>(stream));
 }
@@ -470,6 +487,24 @@ extern "C" int hpgmg_tail_up_f64(const void* const* ptrs, const int* dims,
                                  void* stream) {
   return launch_tail<double>(TailKind::kUp, ptrs, dims, scales, nlev, nsweeps, a_coef,
                              nullptr, u_bot, nullptr, nullptr, stream);
+}
+
+// K4a and K4b on bf16 levels (float arithmetic; each half-sweep's result,
+// e, res and the climb's e + interp_v2(u) rounded to bf16 once)
+extern "C" int hpgmg_tail_down_bf16(const void* const* ptrs, const int* dims,
+                                    const double* scales, int nlev, int nsweeps,
+                                    double a_coef, const void* x_in,
+                                    void* stream) {
+  return launch_tail<bf16>(TailKind::kDown, ptrs, dims, scales, nlev, nsweeps, a_coef,
+                           x_in, nullptr, nullptr, nullptr, stream);
+}
+
+extern "C" int hpgmg_tail_up_bf16(const void* const* ptrs, const int* dims,
+                                  const double* scales, int nlev, int nsweeps,
+                                  double a_coef, const void* u_bot,
+                                  void* stream) {
+  return launch_tail<bf16>(TailKind::kUp, ptrs, dims, scales, nlev, nsweeps, a_coef,
+                           nullptr, u_bot, nullptr, nullptr, stream);
 }
 
 // K4c: the down entry's operands, plus ainv ((db^3)^2, db = dims[nlev-1]/2)

@@ -4,12 +4,18 @@
 ``csrc/restrict.cu`` (one thread per coarse cell, all three axes in one
 pass), CPU tensors take ``restrict_cell_plain``, the 2x2x2 mean. Both take
 any block with even extents: a level's cube, or one rank's local block of
-a decomposed level.
+a decomposed level; in float32, float64 or bfloat16 (summed in float32,
+rounded to bf16 once; the kernel's bf16 launches count in
+``restrict_cell_cuda.bf16_launches``).
 """
 
 from __future__ import annotations
 
 import torch
+
+_ENTRIES = {torch.float32: "hpgmg_restrict_cell_f32",
+            torch.float64: "hpgmg_restrict_cell_f64",
+            torch.bfloat16: "hpgmg_restrict_cell_bf16"}
 
 
 def _check(x: torch.Tensor):
@@ -18,18 +24,20 @@ def _check(x: torch.Tensor):
         raise ValueError(f"restrict_cell wants a 3-D block, got {tuple(x.shape)}")
     if any(n % 2 or n < 2 for n in x.shape):
         raise ValueError(f"restrict_cell wants even extents, got {tuple(x.shape)}")
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"restrict_cell takes float32/float64, got {x.dtype}")
+    if x.dtype not in _ENTRIES:
+        raise TypeError(f"restrict_cell takes float32/float64/bfloat16, got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("restrict_cell wants a contiguous tensor")
     return tuple(n // 2 for n in x.shape)
 
 
 def restrict_cell_plain(x: torch.Tensor) -> torch.Tensor:
-    """Piecewise-constant 8->1 cell average in plain PyTorch."""
+    """Piecewise-constant 8->1 cell average in plain PyTorch (bfloat16
+    widened to float32, the mean rounded back once)."""
     mi, mj, mk = _check(x)
     restrict_cell_plain.calls += 1
-    return x.view(mi, 2, mj, 2, mk, 2).mean(dim=(1, 3, 5))
+    wide = x.float() if x.dtype == torch.bfloat16 else x
+    return wide.view(mi, 2, mj, 2, mk, 2).mean(dim=(1, 3, 5)).to(x.dtype)
 
 
 restrict_cell_plain.calls = 0
@@ -43,19 +51,21 @@ def restrict_cell_cuda(x: torch.Tensor) -> torch.Tensor:
     if not x.is_cuda:
         raise ValueError(f"restrict_cell_cuda wants a CUDA tensor, got {x.device}")
     out = torch.empty(m, dtype=x.dtype, device=x.device)
-    lib = library()
-    fn = (lib.hpgmg_restrict_cell_f32 if x.dtype == torch.float32
-          else lib.hpgmg_restrict_cell_f64)
+    fn = getattr(library(), _ENTRIES[x.dtype])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = fn(x.data_ptr(), out.data_ptr(), *m, stream)
     if rc != 0:
         raise RuntimeError(f"restrict_cell kernel launch failed: CUDA error {rc}")
-    restrict_cell_cuda.launches += 1
+    if x.dtype == torch.bfloat16:
+        restrict_cell_cuda.bf16_launches += 1
+    else:
+        restrict_cell_cuda.launches += 1
     return out
 
 
 restrict_cell_cuda.launches = 0
+restrict_cell_cuda.bf16_launches = 0
 
 
 def restrict_cell(x: torch.Tensor) -> torch.Tensor:

@@ -42,10 +42,19 @@ its cells' operands, its ghosts made there, a gsrb half-sweep at its
 ``parity``'s cells only; it has no fres mode and refuses periodic levels.
 The fv4 suite routes a level to it where ``use_subtile`` admits it
 (``SUBTILE`` on, Dirichlet, dim <= ``SUBTILE_MAX_DIM``).
+
+K1, K1s and K2c take float32, float64 and bfloat16 levels: a bf16 level's
+kernels widen every operand to float32 after its load and round each
+output to bf16 once (``csrc/storage.cuh``), and the plain versions compute
+alike (``compute_dtype``, ``widened``). K1 also takes a float32 gsrb with
+bf16 face arrays and kdinv (BF16C: ``kernel_views_bf16``, ``bf16c_view``).
+No kernel takes a level below 4^3: the suite computes it by the plain
+version on every device (``small_level``, ``fv4_small``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from types import SimpleNamespace
 from typing import Optional
 
@@ -110,35 +119,124 @@ def use_subtile(level: Level, cfg: SolverConfig) -> bool:
             and level.dim <= SUBTILE_MAX_DIM)
 
 
+# the storage types the fv4 kernels take, by the suffix of their C entries
+DTYPES = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+
+
+def dtype_suffix(dtype: torch.dtype, what: str, allowed=tuple(DTYPES)) -> str:
+    """The C entries' suffix of ``dtype``; raise where ``what`` has no
+    instantiation for it."""
+    if dtype not in allowed:
+        raise TypeError(f"{what} takes {', '.join(map(str, allowed))}, got {dtype}")
+    return DTYPES[dtype]
+
+
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type the kernels and their plain versions compute in: float64
+    for float64, float32 for float32 and bfloat16 (a bf16 operand is
+    widened after its load, each output rounded to bf16 once)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def small_level(level: Level) -> bool:
+    """Whether the fv4 suite computes ``level`` by the plain version on
+    every device (``fv4_small``): a level below 4^3, where the quartic
+    Dirichlet ghosts fall back to the quadratic ones (ops/bc_fv.py, as the
+    JAX package's XLA ops do there; its Pallas kernels take no level below
+    32^3). No kernel takes such a level."""
+    return level.dim < 4
+
+
+def check_kernel_dim(level: Level, what: str):
+    """Raise on a level the fv4 kernels do not take (``small_level``)."""
+    if small_level(level):
+        raise ValueError(f"{what} takes n >= 4, got n={level.dim}: the fv4 suite "
+                         f"computes such a level by its plain version (fv4_small)")
+
+
+# BF16C: bfloat16 copies of the coefficient streams a K1 gsrb half-sweep
+# of a float32 solve reads (the three face arrays and the parity-folded
+# kdinv pair, ``Level.kb16``), widened to float32 after their loads; the
+# apply, residual and fres modes keep the float32 arrays, which set the
+# discretization (the JAX package's switch,
+# hpgmg_tpu/kernels/stencils.py:336-376). Four of the gsrb's seven n^3
+# streams are coefficients, so the half-sweep's bytes fall from 28 to 20
+# a cell; but K1 is not held by its bytes. Measured on an H100 80GB HBM3
+# at 700 W (chip_smoke.py phase 18, bench/stencil_times.py --bf16c; device
+# ms in turns with the float32 K1 gsrb): 128^3 0.0735 against 0.0559,
+# 256^3 0.4502-0.4513 against 0.3030-0.3058, 512^3 3.0149-3.0225 against
+# 2.0296-2.0321: BF16C wins at no size, and the 512^3 float32 F-cycle with
+# it on ends at rel_residual 8.1e-2, 81x the fv4 limit (the smoother's
+# fixed point is the bf16-rounded operator's solution). So it stays off,
+# as in the JAX package, and BF16C_MIN_DIM is the smallest level K1
+# smooths under SUBTILE (the levels K1s takes have no BF16C path).
+BF16C = False
+BF16C_MIN_DIM = 512
+
+
+def bf16c_active(dim: int, dtype: torch.dtype, bc: BC = BC.DIRICHLET) -> bool:
+    """Whether a level of ``dim`` gets the BF16C views at build time: the
+    flag on, a float32 solve, Dirichlet BCs, dim >= ``BF16C_MIN_DIM``, and a
+    level K1 smooths (K1s, which takes the levels ``use_subtile`` admits,
+    has no BF16C path, as the JAX package's K1s has none). A hierarchy cut
+    for a process grid drops them (parallel/mesh.py)."""
+    return (BF16C and dtype == torch.float32 and bc == BC.DIRICHLET
+            and dim >= BF16C_MIN_DIM and not (SUBTILE and dim <= SUBTILE_MAX_DIM))
+
+
+def kernel_views_bf16(level: Level, kdinv) -> tuple:
+    """The BF16C views of ``level``: bfloat16 copies of its tangentially
+    extended beta_i, beta_j, beta_k and of the parity-folded ``kdinv``
+    pair, in that order; the port's own layout (no j padding)."""
+    return tuple(t.to(torch.bfloat16).contiguous()
+                 for t in (level.beta_i, level.beta_j, level.beta_k, *kdinv))
+
+
+def bf16c_view(level: Level) -> Level:
+    """``level`` with its BF16C face coefficients in place of the float32
+    ones: the level a BF16C gsrb half-sweep reads (its kdinv is
+    ``level.kb16[3 + parity]``)."""
+    bi, bj, bk = level.kb16[:3]
+    return dataclasses.replace(level, beta_i=bi, beta_j=bj, beta_k=bk)
+
+
 def _check(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
            rhs: Optional[torch.Tensor], kdinv=()):
     """Validate everything the kernels read; raise on what they do not
-    take. ``kdinv`` holds the dinv operands the mode reads."""
+    take. ``kdinv`` holds the dinv operands the mode reads. x, rhs and
+    alpha are of one type, the face coefficients and kdinv of the level's
+    (``level.dtype``): the same type, or bf16 coefficients under a float32
+    x in a gsrb (K1's BF16C smoother streams, ``kernel_views_bf16``)."""
     if mode not in MODES:
         raise ValueError(f"unknown fv4 stencil mode {mode!r}")
     if cfg.bc not in (BC.DIRICHLET, BC.PERIODIC):
         raise NotImplementedError(f"the fv4 stencil does not take {cfg.bc}")
     n = level.dim
-    if n < 4 or (mode == "fres" and n % 2):
+    if mode == "fres" and n % 2:
         raise ValueError(f"fv4 stencil mode {mode!r} cannot take n={n}")
-    cube, dt = (n, n, n), level.dtype
-    need = {"x": (x, cube),
-            "beta_i": (level.beta_i, (n + 1, n + 2, n + 2)),
-            "beta_j": (level.beta_j, (n + 2, n + 1, n + 2)),
-            "beta_k": (level.beta_k, (n + 2, n + 2, n + 1))}
+    cube, dt, ct = (n, n, n), x.dtype, level.dtype
+    if dt not in DTYPES:
+        raise TypeError(f"x is {dt}; the fv4 stencil takes {', '.join(map(str, DTYPES))}")
+    if ct != dt and not (mode == "gsrb" and dt == torch.float32 and ct == torch.bfloat16):
+        raise TypeError(f"the level's coefficients are {ct}, x is {dt}: only a "
+                        f"float32 gsrb takes bfloat16 coefficients (BF16C)")
+    need = {"x": (x, cube, dt),
+            "beta_i": (level.beta_i, (n + 1, n + 2, n + 2), ct),
+            "beta_j": (level.beta_j, (n + 2, n + 1, n + 2), ct),
+            "beta_k": (level.beta_k, (n + 2, n + 2, n + 1), ct)}
     if mode != "apply":
-        need["rhs"] = (rhs, cube)
+        need["rhs"] = (rhs, cube, dt)
     for p, kd in enumerate(kdinv):
-        need["kdinv" if len(kdinv) == 1 else f"kdinv[{p}]"] = (kd, cube)
+        need["kdinv" if len(kdinv) == 1 else f"kdinv[{p}]"] = (kd, cube, ct)
     if cfg.helmholtz:
-        need["alpha"] = (level.alpha, cube)
-    for name, (t, shape) in need.items():
+        need["alpha"] = (level.alpha, cube, dt)
+    for name, (t, shape, want) in need.items():
         if t is None:
             raise ValueError(f"fv4 stencil mode {mode!r} needs {name}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
-        if t.dtype != dt or dt not in (torch.float32, torch.float64):
-            raise TypeError(f"{name} is {t.dtype}; the level is {dt}")
+        if t.dtype != want:
+            raise TypeError(f"{name} is {t.dtype}; want {want}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -254,17 +352,37 @@ def apply_plain(level: Level, x: torch.Tensor,
     return apply_ext_plain(level, ghost_fill_fv(x, cfg.bc, order=4, radius=2), cfg)
 
 
+def widened(level: Level, dtype: torch.dtype) -> Level:
+    """``level`` with its face coefficients and alpha in ``dtype``: the
+    plain versions widen bf16 operands so (the level itself where they
+    already are)."""
+    if all(t is None or t.dtype == dtype
+           for t in (level.beta_i, level.beta_j, level.beta_k, level.alpha)):
+        return level
+    return dataclasses.replace(
+        level, beta_i=level.beta_i.to(dtype), beta_j=level.beta_j.to(dtype),
+        beta_k=level.beta_k.to(dtype),
+        alpha=None if level.alpha is None else level.alpha.to(dtype))
+
+
 def _modes_plain(level: Level, x, cfg: SolverConfig, mode: str, rhs, kdinv,
                  ax=None):
+    """The mode's result from A x (``ax``, or computed here), in the
+    kernels' arithmetic: every operand widened to ``compute_dtype`` (bf16
+    to float32), the result rounded to x's type once."""
+    ct = compute_dtype(x.dtype)
+    xc = x.to(ct)
     if ax is None:
-        ax = apply_plain(level, x, cfg)
+        ax = apply_plain(widened(level, ct), xc, cfg)
     if mode == "apply":
-        return ax
-    if mode == "residual":
-        return rhs - ax
-    if mode == "gsrb":
-        return x + kdinv * (rhs - ax)
-    return restrict_cell_plain(rhs - ax)
+        out = ax
+    elif mode == "residual":
+        out = rhs.to(ct) - ax
+    elif mode == "gsrb":
+        out = xc + kdinv.to(ct) * (rhs.to(ct) - ax)
+    else:
+        out = restrict_cell_plain(rhs.to(ct) - ax)
+    return out.to(x.dtype)
 
 
 def fv4_stencil_plain(level: Level, x: torch.Tensor, cfg: SolverConfig,
@@ -277,6 +395,27 @@ def fv4_stencil_plain(level: Level, x: torch.Tensor, cfg: SolverConfig,
 
 
 fv4_stencil_plain.calls = 0
+
+
+def fv4_small(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
+              rhs: Optional[torch.Tensor] = None,
+              kdinv: Optional[torch.Tensor] = None,
+              parity: Optional[int] = None) -> torch.Tensor:
+    """The fv4 stencil on a level below 4^3 (``small_level``), on every
+    device: K1's plain arithmetic, whose ghost fill takes the quadratic
+    Dirichlet ghosts there, as the JAX package's XLA ops do. ``parity``
+    is the sweep's colour, which kdinv carries. Its calls count in
+    ``launches`` (kernels/counts.py: fv4_small), apart from the plain
+    versions' calls: on the card it is the path, not a stand-in for a
+    kernel."""
+    _check(level, x, cfg, mode, rhs, (kdinv,) if mode == "gsrb" else ())
+    if not small_level(level):
+        raise ValueError(f"fv4_small takes levels below 4^3, got n={level.dim}")
+    fv4_small.launches += 1
+    return _modes_plain(level, x, cfg, mode, rhs, kdinv)
+
+
+fv4_small.launches = 0
 
 
 def _check_subtile(level: Level, x, cfg: SolverConfig, mode: str, rhs, kdinv,
@@ -338,6 +477,7 @@ def fv4_subtile_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
     from hpgmg_tpu_torch.kernels.build import library
 
     _check_subtile(level, x, cfg, mode, rhs, kdinv, parity)
+    check_kernel_dim(level, "K1s")
     if not 0 <= ti <= SUBTILE_MAX_TI:
         raise ValueError(f"K1s takes a tile length of 0 to {SUBTILE_MAX_TI}, got {ti}")
     if not x.is_cuda:
@@ -345,7 +485,7 @@ def fv4_subtile_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
     n = level.dim
     out = torch.empty((n, n, n), dtype=x.dtype, device=x.device)
     alpha = level.alpha if cfg.helmholtz else None
-    dt = "f32" if x.dtype == torch.float32 else "f64"
+    dt = dtype_suffix(level.dtype, "K1s")
     with torch.cuda.device(x.device):
         rc = getattr(library(), f"hpgmg_fv4_subtile_{dt}")(
             x.data_ptr(), level.beta_i.data_ptr(), level.beta_j.data_ptr(),
@@ -354,11 +494,15 @@ def fv4_subtile_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
             float(cfg.a), _stream(x))
     if rc != 0:
         raise RuntimeError(f"fv4_subtile kernel launch failed: CUDA error {rc}")
-    fv4_subtile_cuda.launches += 1
+    if dt == "bf16":
+        fv4_subtile_cuda.bf16_launches += 1
+    else:
+        fv4_subtile_cuda.launches += 1
     return out
 
 
 fv4_subtile_cuda.launches = 0
+fv4_subtile_cuda.bf16_launches = 0
 
 
 def fv4_stencil_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
@@ -370,30 +514,44 @@ def fv4_stencil_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
     gsrb needs ``parity``, the colour that ``kdinv`` carries: the kernel
     computes A x at that colour's cells only and copies x at the others.
     ``chunk``: i-planes a block marches (0: the launcher's rule, as the
-    solver calls it; other values time the rule). The launches of K1 count
-    in ``launches``, those of K7a in ``periodic_launches``."""
+    solver calls it; other values time the rule). Its instantiations: the
+    level's type throughout (float32, float64, bfloat16: K1's bf16 launches
+    count in ``bf16_launches``), or a float32 x with bfloat16 face
+    coefficients and kdinv (a BF16C gsrb, ``bf16c_view``; Dirichlet, in
+    ``bf16c_launches``). The float32 and float64 launches of K1 count in
+    ``launches``, those of K7a in ``periodic_launches``."""
     from hpgmg_tpu_torch.kernels.build import library
 
     _check(level, x, cfg, mode, rhs, (kdinv,) if mode == "gsrb" else ())
+    check_kernel_dim(level, "K1")
     if not x.is_cuda:
         raise ValueError(f"fv4_stencil_cuda wants CUDA tensors, got {x.device}")
     if mode == "gsrb" and parity not in (0, 1):
         raise ValueError(f"fv4 gsrb needs the sweep's parity (0 or 1), got {parity!r}")
+    periodic = cfg.bc == BC.PERIODIC
+    dt = DTYPES[x.dtype]
+    bf16c = level.dtype != x.dtype
+    if (bf16c or dt == "bf16") and periodic:
+        raise NotImplementedError("K7a has no bfloat16 instantiation (ROADMAP Queue 1: "
+                                  "bf16 in K7a, the periodic levels)")
     n = level.dim
     m = n // 2 if mode == "fres" else n
     out = torch.empty((m, m, m), dtype=x.dtype, device=x.device)
     alpha = level.alpha if cfg.helmholtz else None
-    periodic = cfg.bc == BC.PERIODIC
-    dt = "f32" if x.dtype == torch.float32 else "f64"
+    entry = "hpgmg_fv4_stream_f32_bf16" if bf16c else f"hpgmg_fv4_stream_{dt}"
     with torch.cuda.device(x.device):
-        rc = getattr(library(), f"hpgmg_fv4_stream_{dt}")(
+        rc = getattr(library(), entry)(
             x.data_ptr(), level.beta_i.data_ptr(), level.beta_j.data_ptr(),
             level.beta_k.data_ptr(), _ptr(alpha), _ptr(rhs), _ptr(kdinv),
             out.data_ptr(), n, MODES[mode], int(periodic), parity or 0, chunk,
             -cfg.b * level.h2inv, float(cfg.a), _stream(x))
     if rc != 0:
         raise RuntimeError(f"fv4 stencil kernel launch failed: CUDA error {rc}")
-    if periodic:
+    if bf16c:
+        fv4_stencil_cuda.bf16c_launches += 1
+    elif dt == "bf16":
+        fv4_stencil_cuda.bf16_launches += 1
+    elif periodic:
         fv4_stencil_cuda.periodic_launches += 1
     else:
         fv4_stencil_cuda.launches += 1
@@ -402,6 +560,8 @@ def fv4_stencil_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
 
 fv4_stencil_cuda.launches = 0
 fv4_stencil_cuda.periodic_launches = 0
+fv4_stencil_cuda.bf16_launches = 0
+fv4_stencil_cuda.bf16c_launches = 0
 
 
 def fv4_gsrb2_cuda(level: Level, x: torch.Tensor, rhs: torch.Tensor,
@@ -417,11 +577,12 @@ def fv4_gsrb2_cuda(level: Level, x: torch.Tensor, rhs: torch.Tensor,
     _check(level, x, cfg, "gsrb", rhs, level.kdinv or (None, None))
     if not x.is_cuda:
         raise ValueError(f"fv4_gsrb2_cuda wants CUDA tensors, got {x.device}")
+    check_kernel_dim(level, "K2")
     kd0, kd1 = level.kdinv
     n = level.dim
     out = torch.empty_like(x)
     alpha = level.alpha if cfg.helmholtz else None
-    dt = "f32" if x.dtype == torch.float32 else "f64"
+    dt = dtype_suffix(x.dtype, "K2", (torch.float32, torch.float64))
     with torch.cuda.device(x.device):
         rc = getattr(library(), f"hpgmg_fv4_gsrb2_{dt}")(
             x.data_ptr(), level.beta_i.data_ptr(), level.beta_j.data_ptr(),
@@ -448,7 +609,9 @@ def cluster_error(rc: int, what: str, smem: int) -> RuntimeError:
 
 def gsrb2_cluster_smem(n: int, itemsize: int) -> int:
     """Bytes of shared memory a K2c block takes at n^3: six planes of
-    (n+4)^2 values, each rounded up to 4 values."""
+    (n+4)^2 values, each rounded up to 4 values, of ``itemsize`` bytes: the
+    compute type's (a bf16 level's planes hold float32, its operands
+    widened after their loads)."""
     return 6 * ((((n + 4) ** 2) + 3) & ~3) * itemsize
 
 
@@ -460,13 +623,15 @@ def _gsrb2_plan(level: Level, cfg: SolverConfig) -> SimpleNamespace:
     if level.kdinv is None:
         raise ValueError(f"K2c needs the {level.dim}^3 level's kdinv pair")
     _check(level, level.kdinv[0], cfg, "gsrb", level.kdinv[0], level.kdinv)
+    check_kernel_dim(level, "K2c")
     n = level.dim
     if n > GSRB2_CLUSTER_MAX_N:
         raise ValueError(f"K2c takes n <= {GSRB2_CLUSTER_MAX_N}, got {n}")
     alpha = level.alpha if cfg.helmholtz else None
+    dt = dtype_suffix(level.dtype, "K2c")
     return SimpleNamespace(
-        cfg=cfg, smem=gsrb2_cluster_smem(n, level.kdinv[0].element_size()),
-        name=f"hpgmg_fv4_gsrb2_cluster_{'f32' if level.dtype == torch.float32 else 'f64'}",
+        cfg=cfg, smem=gsrb2_cluster_smem(n, compute_dtype(level.dtype).itemsize),
+        name=f"hpgmg_fv4_gsrb2_cluster_{dt}", bf16=dt == "bf16",
         coefs=(level.beta_i.data_ptr(), level.beta_j.data_ptr(), level.beta_k.data_ptr(),
                _ptr(alpha)),
         kd=(level.kdinv[0].data_ptr(), level.kdinv[1].data_ptr()),
@@ -497,11 +662,15 @@ def fv4_gsrb2_cluster_cuda(level: Level, x: torch.Tensor, rhs: torch.Tensor,
                                            _stream(x))
     if rc != 0:
         raise cluster_error(rc, "the fv4 gsrb2 cluster kernel (K2c)", plan.smem)
-    fv4_gsrb2_cluster_cuda.launches += 1
+    if plan.bf16:
+        fv4_gsrb2_cluster_cuda.bf16_launches += 1
+    else:
+        fv4_gsrb2_cluster_cuda.launches += 1
     return out
 
 
 fv4_gsrb2_cluster_cuda.launches = 0
+fv4_gsrb2_cluster_cuda.bf16_launches = 0
 
 
 # ---------------------------------------------------------------------------

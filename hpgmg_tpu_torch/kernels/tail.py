@@ -26,7 +26,12 @@ level being smoothed in their shared memory, each a slab of its i-planes
 Dirichlet levels only: the tail kernels synthesize the quartic Dirichlet
 ghosts in the kernel body. CUDA tensors launch the kernels; CPU tensors
 take the plain versions, the same steps through K1's plain version and
-``ops/transfer_fv.py:interp_v2``.
+``ops/transfer_fv.py:interp_v2``. On a bfloat16 tail (K4a and K4b; K4c
+needs the DIRECT bottom, which has no bfloat16 build) each step computes
+in float32 and rounds its result to bf16 once, as its own launch would:
+each half-sweep, each pre-smoothed iterate, each restricted residual, and
+the interpolated iterate e + interp_v2(u) of the climb. The kernels' bf16
+launches count in ``bf16_launches``.
 """
 
 from __future__ import annotations
@@ -40,7 +45,8 @@ import torch
 from hpgmg_tpu_torch.core.config import BC, Smoother, SolverConfig
 from hpgmg_tpu_torch.core.level import Level
 from hpgmg_tpu_torch.kernels.stencils import (_check, _stream, check_dirichlet,
-                                              cluster_error, fv4_stencil_plain)
+                                              cluster_error, compute_dtype, dtype_suffix,
+                                              fv4_stencil_plain)
 from hpgmg_tpu_torch.ops.transfer_fv import interp_v2
 
 # V-cycles route their tail levels through K4; False keeps the level-by-level
@@ -64,7 +70,9 @@ TAIL_ONE_LAUNCH = True
 
 def tail_smem(n0: int, itemsize: int) -> int:
     """Bytes of shared memory a K4 block takes for a tail whose first
-    level is n0^3 (csrc/tail.cu:tail_smem): two buffers of its slab's
+    level is n0^3 (csrc/tail.cu:tail_smem), of values of ``itemsize``
+    bytes, the compute type's (a bf16 tail's buffers hold float32): two
+    buffers of its slab's
     planes (ceil(n0 / 16), 16 the blocks of K4's cluster,
     csrc/tail.cu:kTailCluster, rounded up to even) and four halo planes,
     each (n0+4)^2 values rounded up to 4."""
@@ -185,8 +193,10 @@ def tail_up_plain(tail: Sequence[Level], es, rhss, u_bot, cfg: SolverConfig,
     _check_tail(tail, cfg, nsweeps, _up_tensors(tail, es, rhss, u_bot))
     tail_up_plain.calls += 1
     u = u_bot
+    ct = compute_dtype(u.dtype)
     for lv, e, rhs in reversed(list(zip(tail, es, rhss))):
-        u = _sweeps(lv, interp_v2(u, 1.0, e, cfg.bc), rhs, cfg, nsweeps)
+        x = interp_v2(u.to(ct), 1.0, e.to(ct), cfg.bc).to(u.dtype)
+        u = _sweeps(lv, x, rhs, cfg, nsweeps)
     return u
 
 
@@ -240,7 +250,10 @@ def _make_plan(kind: str, tail, cfg, nsweeps, bottom) -> SimpleNamespace:
     if bottom is not None:
         _check_bottom(tail, bottom)
     n0, dt = tail[0].dim, tail[0].dtype
-    smem = tail_smem(n0, tail[0].kdinv[0].element_size())
+    # K4c's DIRECT bottom has no bfloat16 build, so neither has K4c
+    suffix = dtype_suffix(dt, f"K4 ({kind})", (torch.float32, torch.float64) if kind == "v"
+                          else (torch.float32, torch.float64, torch.bfloat16))
+    smem = tail_smem(n0, compute_dtype(dt).itemsize)
     if smem > MAX_SMEM:
         raise ValueError(f"K4 takes no {n0}^3 {dt} tail: {smem} bytes of shared "
                          f"memory a block (at most {MAX_SMEM})")
@@ -256,7 +269,7 @@ def _make_plan(kind: str, tail, cfg, nsweeps, bottom) -> SimpleNamespace:
         held=(tuple(tail[1:]), bottom, cfg), smem=smem, ptrs=ptrs,
         dims=(ctypes.c_int * nlev)(*[lv.dim for lv in tail]),
         scales=(ctypes.c_double * nlev)(*[-cfg.b * lv.h2inv for lv in tail]),
-        name=f"hpgmg_tail_{kind}_{'f32' if dt == torch.float32 else 'f64'}",
+        name=f"hpgmg_tail_{kind}_{suffix}", bf16=suffix == "bf16",
         a=float(cfg.a), nsweeps=nsweeps)
 
 
@@ -290,11 +303,15 @@ def tail_down_cuda(tail: Sequence[Level], e, rhs, cfg: SolverConfig,
     rhss = [torch.empty((lv.dim // 2,) * 3, dtype=e.dtype, device=e.device)
             for lv in tail]
     _launch(plan, "down", list(zip([rhs] + rhss[:-1], es, rhss)), e)
-    tail_down_cuda.launches += 1
+    if plan.bf16:
+        tail_down_cuda.bf16_launches += 1
+    else:
+        tail_down_cuda.launches += 1
     return es, rhss
 
 
 tail_down_cuda.launches = 0
+tail_down_cuda.bf16_launches = 0
 
 
 def tail_up_cuda(tail: Sequence[Level], es, rhss, u_bot, cfg: SolverConfig,
@@ -309,11 +326,15 @@ def tail_up_cuda(tail: Sequence[Level], es, rhss, u_bot, cfg: SolverConfig,
     outs = [torch.empty(lv.shape, dtype=u_bot.dtype, device=u_bot.device)
             for lv in tail]
     _launch(plan, "up", list(zip(rhss, es, outs)), u_bot)
-    tail_up_cuda.launches += 1
+    if plan.bf16:
+        tail_up_cuda.bf16_launches += 1
+    else:
+        tail_up_cuda.launches += 1
     return outs[0]
 
 
 tail_up_cuda.launches = 0
+tail_up_cuda.bf16_launches = 0
 
 
 def tail_v_cuda(tail: Sequence[Level], bottom: Level, e, rhs, cfg: SolverConfig,

@@ -21,7 +21,12 @@ smaller Dirichlet levels through K2c (``fv4_gsrb2``). Under
 ``stencils.SUBTILE`` the levels ``stencils.use_subtile`` admits take K1s
 (``fv4_subtile``) for their applies, residuals and half-sweeps instead,
 and restrict their residual unfused (K1s residual, then K3), as the JAX
-suite does (hpgmg_tpu/ops/fv4.py:194-195): K1s has no fres mode.
+suite does (hpgmg_tpu/ops/fv4.py:194-195): K1s has no fres mode. A
+level below 4^3 (``stencils.small_level``) takes the plain version on
+every device (``fv4_small``), as the JAX package's XLA ops take it; no
+kernel and no fused sweep takes it. With BF16C views on a level
+(``Level.kb16``, attached where ``stencils.bf16c_active`` says) its gsrb
+half-sweeps go through K1 with the bfloat16 coefficient streams.
 """
 
 from __future__ import annotations
@@ -32,7 +37,8 @@ from hpgmg_tpu_torch.core.config import BC, SolverConfig
 from hpgmg_tpu_torch.core.level import Level, rb_mask
 from hpgmg_tpu_torch.kernels import stencils
 from hpgmg_tpu_torch.kernels.restrict import restrict_cell
-from hpgmg_tpu_torch.kernels.stencils import fv4_gsrb2, fv4_stencil, fv4_subtile
+from hpgmg_tpu_torch.kernels.stencils import (bf16c_view, fv4_gsrb2, fv4_small,
+                                              fv4_stencil, fv4_subtile)
 from hpgmg_tpu_torch.ops import base
 from hpgmg_tpu_torch.ops.bc_fv import extend_beta_tangential
 from hpgmg_tpu_torch.ops.rebuild import rebuild_blackbox
@@ -49,11 +55,14 @@ class FV4(base.OperatorSuite):
 
     @staticmethod
     def _stencil(level: Level, x, cfg: SolverConfig, mode: str, parity=None, **kw):
-        """K8a (K8b) on a decomposed level, K1s where the gate admits the
-        level, else K1 (K7a); each takes a half-sweep's ``parity`` and
-        computes that colour's cells only."""
+        """K8a (K8b) on a decomposed level, the plain version on a level
+        below 4^3, K1s where the gate admits the level, else K1 (K7a); each
+        takes a half-sweep's ``parity`` and computes that colour's cells
+        only."""
         if level.part is not None:
             return fv4_sharded(level, x, cfg, mode, parity=parity, **kw)
+        if stencils.small_level(level):
+            return fv4_small(level, x, cfg, mode, parity=parity, **kw)
         if stencils.use_subtile(level, cfg):
             return fv4_subtile(level, x, cfg, mode, parity=parity, **kw)
         return fv4_stencil(level, x, cfg, mode, parity=parity, **kw)
@@ -66,15 +75,20 @@ class FV4(base.OperatorSuite):
 
     def gsrb_sweep(self, level: Level, x, rhs, cfg: SolverConfig,
                    parity: int):
+        if level.kb16 is not None:
+            return fv4_stencil(bf16c_view(level), x, cfg, "gsrb", parity=parity & 1,
+                               rhs=rhs, kdinv=level.kb16[3 + (parity & 1)])
         return self._stencil(level, x, cfg, "gsrb", parity=parity & 1, rhs=rhs,
                              kdinv=level.kdinv[parity & 1])
 
     def gsrb_smooth(self, level: Level, x, rhs, cfg: SolverConfig,
                     nsweeps: int):
         """``nsweeps`` half-sweeps from parity 0: pairs of them as K2c's
-        full sweeps on Dirichlet levels up to ``stencils.GSRB2_MAX_DIM``,
-        else one K1s, K1 or K7a launch each."""
+        full sweeps on Dirichlet levels of 4^3 up to
+        ``stencils.GSRB2_MAX_DIM``, else one K1s, K1 or K7a launch (or
+        plain half-sweep, below 4^3) each."""
         if (level.part is None and cfg.bc == BC.DIRICHLET and nsweeps % 2 == 0
+                and not stencils.small_level(level)
                 and level.dim <= stencils.GSRB2_MAX_DIM):
             for _ in range(nsweeps // 2):
                 x = fv4_gsrb2(level, x, rhs, cfg)
@@ -82,6 +96,8 @@ class FV4(base.OperatorSuite):
         return super().gsrb_smooth(level, x, rhs, cfg, nsweeps)
 
     def restrict_residual(self, level: Level, x, rhs, cfg: SolverConfig):
+        if level.part is None and stencils.small_level(level):
+            return fv4_small(level, x, cfg, "fres", rhs=rhs)
         if level.part is not None or stencils.use_subtile(level, cfg):
             return restrict_cell(self._stencil(level, x, cfg, "residual", rhs=rhs))
         return fv4_stencil(level, x, cfg, "fres", rhs=rhs)
@@ -90,7 +106,8 @@ class FV4(base.OperatorSuite):
         """Extend the face coefficients tangentially once per level (the
         extrapolate_betas analog), probe the black-box diagonal through
         the suite's apply (K1 or K1s), then fold the GSRB parity masks into
-        dinv (the GSRB_FP mask plane, gsrb.c:78-87, moved to build time)."""
+        dinv (the GSRB_FP mask plane, gsrb.c:78-87, moved to build time),
+        and attach the BF16C views where ``stencils.bf16c_active`` says."""
         lv = dataclasses.replace(
             level,
             beta_i=extend_beta_tangential(level.beta_i, 0, cfg.bc).contiguous(),
@@ -100,4 +117,6 @@ class FV4(base.OperatorSuite):
         lv = rebuild_blackbox(self, lv, cfg, colors=4)
         kdinv = tuple(rb_mask(lv.dim, p, lv.dtype, lv.device) * lv.dinv
                       for p in (0, 1))
-        return dataclasses.replace(lv, kdinv=kdinv)
+        kb16 = (stencils.kernel_views_bf16(lv, kdinv)
+                if stencils.bf16c_active(lv.dim, lv.dtype, cfg.bc) else None)
+        return dataclasses.replace(lv, kdinv=kdinv, kb16=kb16)

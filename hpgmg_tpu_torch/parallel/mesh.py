@@ -350,12 +350,24 @@ def shard_hierarchy(mesh: Mesh, hier, cfg):
     view builders), replicated ones stay as they are (decided per level by
     ``level_part``, which also replicates a level whose blocks would have
     an odd extent along any axis: the slab kernels do not take them, and
-    the port has no GSPMD path)."""
+    the port has no GSPMD path). The BF16C views (``Level.kb16``) are
+    one-rank only: every level drops them (hpgmg_tpu/parallel/mesh.py:214),
+    and half-sweeps read the float32 ``kdinv`` again, so a level whose
+    ``kdinv`` a slimmed hierarchy dropped for them cannot be cut."""
+    import dataclasses
+
     from hpgmg_tpu_torch.core.hierarchy import Hierarchy
     from hpgmg_tpu_torch.parallel.shard_kernels import shard_level
 
-    return Hierarchy(levels=[shard_level(lv, level_part(mesh, lv.dim), cfg)
-                             for lv in hier.levels])
+    levels = []
+    for lv in hier.levels:
+        if lv.kb16 is not None:
+            if lv.kdinv is None:
+                raise ValueError(f"the {lv.dim}^3 level kept only its BF16C kdinv "
+                                 f"(slim_hierarchy): cut the hierarchy before slimming it")
+            lv = dataclasses.replace(lv, kb16=None)
+        levels.append(shard_level(lv, level_part(mesh, lv.dim), cfg))
+    return Hierarchy(levels=levels)
 
 
 # ---------------------------------------------------------------------------

@@ -156,7 +156,8 @@ def test_cli_prints_both_tables(capsys):
     assert first == ["level", "dim", "smooth", "residual", "blas1", "transfer_v",
                      "transfer_f", "bottom", "total"]
     assert second == ["level", "dim", *timing.TIMED_PHASES, "total"]
-    assert lines[heads[0] + 1].split() == ["dim", "16^3", "8^3"]
+    # the CLI's ladder is the JAX CLI's, down to 2^3 (min_coarse_dim 2)
+    assert lines[heads[0] + 1].split() == ["dim", "16^3", "8^3", "4^3", "2^3"]
 
 
 def test_scope_records_nothing_outside_a_trace(monkeypatch, tmp_path):
