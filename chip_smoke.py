@@ -153,8 +153,10 @@ Phases, each printing its result and raising on failure (exit code != 0):
    the timed cycle of solve/mg.py) on the headline: (a) bench/cli.py at
    512^3 f32, DIRECT bottom, with --timing-table and --solve-timing-table:
    both tables with the 7 level columns 512 ... 8, every cell the JAX
-   layout fills > 0, the timed F-cycle's total >= the chain's seconds a
-   solve (the ratio printed), measure_breakdown's 512^3 smooth within 25%
+   layout fills > 0 (the CLI's timed total and chain s/solve printed);
+   in TURNS_ROUNDS rounds, each an untimed chain of TURNS_CHAIN F-cycles
+   (CUDA events, s a solve) then one timed F-cycle, the least timed total
+   >= the least untimed s a solve; measure_breakdown's 512^3 smooth within 25%
    of (K1 launches in one smooth call) x (K1's gsrb time from phase 3),
    and the launches of the timed F-cycle by level; (b) the memory report
    after the 512^3 build: bytes_in_use between the hierarchy's tensors
@@ -217,7 +219,24 @@ Phases, each printing its result and raising on failure (exit code != 0):
    2^-8 max|u|; (d) K1's BF16C gsrb at 256^3 and 512^3 in turns with the
    float32 K1 gsrb, and the fv4 512^3 float32 headline F-cycle with
    stencils.BF16C on: its rel_residual against the fv4 limit of 1e-3,
-   reported. Its results are the "bf16" JSON line.
+   reported. Its results are the "bf16" JSON line;
+19. bfloat16 on the radius-1 suites and on periodic levels: (a) the bf16
+   instantiations of K5 and K7b (both bodies, every tap set and mode), K6
+   and K7a against their plain versions at n = 2-256 (K7a from 4), each
+   cell within BF16_CELL_ULPS, K6 within BF16_CHAIN_ULPS of max|out| of its
+   plain version and of two K5 bf16 half-sweeps, every gsrb's other colour
+   equal to x, forced chunks equal to the rule's bits; then their times
+   with bounds by bytes at 2 a value, plain times and conv3d in bf16 for
+   the 27pt apply, at the size each runs at in (b), and in turns with the
+   float32 call; (b) the bf16 F-cycles of fv7pt, 27pt, periodic fv4 and
+   periodic fv7pt at 512^3 and of fv2, periodic fv2 and periodic 27pt at
+   256^3 (BiCGStab, min_coarse_dim 2) through the entry point: DOF/s,
+   rel_residual, order (no limit: bf16), their bf16 kernels launched and
+   no kernel of another type or plain version; each held at 128^3 to the
+   same F-cycle through the plain versions (counted: no kernel launched,
+   the plain versions called) within BF16_R1_FCYCLE_GAP units of 2^-8
+   max|u|; (c) the launches of one counted bf16 F-cycle of each.
+   Its results join the "bf16" JSON line.
 
 The line before the last lists the kernels as JSON: for each, its launches
 on its path, its time, its plain version's time, its bound on the card
@@ -1047,7 +1066,7 @@ def r1_library(lv, x, cfg):
     d = torch.arange(3, device=x.device).sub(1).abs()
     m = d[:, None, None] + d[None, :, None] + d[None, None, :]
     w = torch.tensor([K.C0, K.C1, K.C2, K.C3], device=x.device)[m]
-    w = (-cfg.b * lv.h2inv * w)[None, None]
+    w = (-cfg.b * lv.h2inv * w)[None, None].to(x.dtype)
     if cfg.bc == BC.PERIODIC:
         return lambda: torch.nn.functional.conv3d(
             torch.nn.functional.pad(x[None, None], (1,) * 6, mode="circular"), w)[0, 0]
@@ -2332,11 +2351,60 @@ def timed_launches(op, hier, f, cfg) -> dict:
     return by_level
 
 
+# phase 15a's rounds in turns: an untimed chain of TURNS_CHAIN F-cycles,
+# then one timed F-cycle
+TURNS_ROUNDS = 5
+TURNS_CHAIN = 3
+
+
+def timed_against_untimed(op, hier, f, cfg) -> dict:
+    """Phase 15a: the timed F-cycle (solve/mg.py's timers mode, a device
+    sync around each phase, no K4 tail) against the untimed one, in turns
+    on the same hierarchy: TURNS_ROUNDS rounds, each an untimed chain of
+    TURNS_CHAIN F-cycles between CUDA events (bench/driver.py:elapsed, s a
+    solve) and then one timed F-cycle (its TIMED_PHASES seconds summed, as
+    the CLI's table totals them). Raises unless the least timed total is
+    >= the least untimed s a solve: the timers drop no work. The rounds
+    alternate so that a slow spell of the card or host falls on both sides
+    and not on one number alone (one run of this phase read the CLI's
+    chain at 0.082 s a solve where others read 0.052-0.055 s, and its
+    timed total at 0.079 s; H100 80GB HBM3)."""
+    from hpgmg_tpu_torch.bench.driver import elapsed
+    from hpgmg_tpu_torch.bench.timing import TIMED_PHASES
+    from hpgmg_tpu_torch.solve.mg import fmg_solve
+
+    def chain():
+        for _ in range(TURNS_CHAIN):
+            fmg_solve(op, hier, f, cfg)
+
+    def timed():
+        timers = {}
+        fmg_solve(op, hier, f, cfg, timers=timers)
+        sync(f.device)
+        return sum(v for (_, ph), v in timers.items() if ph in TIMED_PHASES)
+
+    chain()
+    timed()
+    untimed_s, timed_s = [], []
+    for _ in range(TURNS_ROUNDS):
+        untimed_s.append(elapsed(f.device, chain) / TURNS_CHAIN)
+        timed_s.append(timed())
+    lo_u, lo_t = min(untimed_s), min(timed_s)
+    print(f"  in turns, {TURNS_ROUNDS} rounds: untimed s a solve "
+          f"{[round(v, 6) for v in untimed_s]}, timed "
+          f"{[round(v, 6) for v in timed_s]}; least timed {lo_t:.6f} s against least "
+          f"untimed {lo_u:.6f} s: ratio {lo_t / lo_u:.4f}")
+    if not lo_t >= lo_u:
+        raise AssertionError(f"timed solve {lo_t} s < the untimed {lo_u} s a solve")
+    return {"untimed_s": untimed_s, "timed_s": timed_s, "ratio": lo_t / lo_u}
+
+
 def tooling_tables(gsrb_ms: float, dev: torch.device, n: int) -> dict:
     """Phase 15a: the CLI with both tables on the headline (fv4, n^3 (512),
     f32, DIRECT bottom, min_coarse_dim 8): a level column for each of n ...
-    8, every cell the JAX layout fills > 0; the timed solve's total >= the
-    chain's seconds a solve; measure_breakdown's n^3 smooth within 25% of
+    8, every cell the JAX layout fills > 0; the timed F-cycle against the
+    untimed one in turns (timed_against_untimed); measure_breakdown's n^3
+    smooth within 25% of
     (K1 launches in one smooth call) x (K1's gsrb time ``gsrb_ms`` from
     phase 3); then the timed F-cycle's launches by level."""
     from hpgmg_tpu_torch.bench import cli
@@ -2360,14 +2428,13 @@ def tooling_tables(gsrb_ms: float, dev: torch.device, n: int) -> dict:
     check_table("fmg_timing_table", solve_table, dims, lambda name, lev, last: (
         name == "bottom") == (lev == last))
     solve_s = sum(solve_table["rows"]["total"])
-    print(f"  timed solve {solve_s:.6f} s against the chain's {chain_s:.6f} s a solve: "
-          f"ratio {solve_s / chain_s:.4f}")
-    if not solve_s >= chain_s:
-        raise AssertionError(f"timed solve {solve_s} s < the chain's {chain_s} s")
+    print(f"  the CLI: timed solve {solve_s:.6f} s, its chain {chain_s:.6f} s a solve "
+          f"(measured seconds apart; held in turns below)")
 
     cfg = solve_cfg("direct", torch.float32)
     op = get_suite("fv4")
     hier, f = build(n, cfg, dev)
+    turns = timed_against_untimed(op, hier, f, cfg)
     lv = hier.levels[0]
     x, r = torch.zeros_like(f), torch.ones_like(f)
     smooth(op, lv, x, r, cfg)
@@ -2389,7 +2456,7 @@ def tooling_tables(gsrb_ms: float, dev: torch.device, n: int) -> dict:
         raise AssertionError(f"{n}^3 smooth {got_ms} ms against {expect_ms} ms")
     by_level = timed_launches(op, hier, f, cfg)
     print(f"  launches of the timed F-cycle by level: {by_level}")
-    return {"chain_s_per_solve": chain_s, "timed_solve_s": solve_s,
+    return {"chain_s_per_solve": chain_s, "timed_solve_s": solve_s, "in_turns": turns,
             "breakdown": breakdown, "solve_table": solve_table,
             "smooth_512_ms": got_ms, "smooth_512_expect_ms": expect_ms,
             "timed_launches_by_level": by_level, "hier": hier, "f": f}
@@ -2459,9 +2526,13 @@ def tooling_trace(hier, f) -> dict:
         print(f"    {name:28s} {ms:9.4f} device ms in {calls} calls")
     if levels != set(range(len(hier.levels))):
         raise AssertionError(f"mg.L ranges on levels {sorted(levels)}")
-    if not tails or any(by_range.get(f"mg.L{lev}.tail", (0.0, 0))[0] <= 0.0
-                        for lev in tails):
-        raise AssertionError(f"no tail range with kernel time on levels {sorted(tails)}")
+    empty = [lev for lev in sorted(tails)
+             if by_range.get(f"mg.L{lev}.tail", (0.0, 0))[0] <= 0.0]
+    if not tails or empty:
+        for lev in empty:
+            tail_range_events(events, f"mg.L{lev}.tail")
+        raise AssertionError(f"no tail range with kernel time on levels {empty} of "
+                             f"{sorted(tails)}")
     if tail_calls != launches["tail_v"]:
         raise AssertionError(f"{tail_calls} tail ranges against {launches['tail_v']} K4c")
     if not inside >= 0.9 * total:
@@ -2469,6 +2540,34 @@ def tooling_trace(hier, f) -> dict:
     interp = interpolation_host(events, by_range)
     return {"kernel_ms": total, "inside_ms": inside, "interpolation_host": interp,
             "top_ranges": {name: {"device_ms": ms, "calls": c} for name, (ms, c) in top}}
+
+
+def tail_range_events(events: list, name: str) -> None:
+    """Print what a trace holds for each ``name`` range: its span and
+    thread, the launch calls on that thread inside it (their correlation
+    and whether a kernel event carries it), and every kernel event whose
+    name holds "tail" (its correlation, start and launch found or not)."""
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    kernels = {e.get("args", {}).get("correlation"): e for e in events
+               if e.get("cat") == "kernel"}
+    for r in events:
+        if r.get("cat") != "user_annotation" or r.get("name") != name:
+            continue
+        lo, hi = float(r["ts"]), float(r["ts"]) + float(r["dur"])
+        print(f"  {name}: ts {lo} .. {hi}, pid {r.get('pid')} tid {r.get('tid')}")
+        for c, e in sorted(launches.items(), key=lambda kv: float(kv[1]["ts"])):
+            if lo <= float(e["ts"]) <= hi:
+                k = kernels.get(c)
+                print(f"    launch {e['name']} ts {e['ts']} pid {e.get('pid')} tid "
+                      f"{e.get('tid')} correlation {c}: kernel "
+                      f"{None if k is None else (k['name'][:60], k['ts'], k['dur'])}")
+    for c, k in kernels.items():
+        if "tail" in k.get("name", ""):
+            e = launches.get(c)
+            print(f"  kernel {k['name'][:60]} ts {k['ts']} correlation {c}: launch "
+                  f"{None if e is None else (e['name'], e['ts'], e.get('tid'))}")
 
 
 GEMM_OPS = ("aten::mm", "aten::bmm", "aten::matmul")
@@ -3087,7 +3186,7 @@ BF16_CELL_ULPS = 1.0
 # moves its neighbours' next update, so the bound is in units in the last
 # place of max|output| (bf16_max_ulps; measured on an H100 80GB HBM3 at
 # 700 W on random levels: K2c 0.0625, K4a 0.031, K4b 3.1e-5)
-BF16_CHAIN_ULPS = {"K2c": 1.0, "K4a": 1.0, "K4b": 1.0}
+BF16_CHAIN_ULPS = {"K2c": 1.0, "K4a": 1.0, "K4b": 1.0, "K6": 1.0}
 # BF16C: a float32 half-sweep with bf16 coefficients, against the float32
 # half-sweep (the JAX package's test_bf16c_gsrb_close_to_f32 bound)
 BF16C_VS_F32 = 5e-3
@@ -3417,11 +3516,13 @@ def cli_ladder_fcycle(n=512):
 
 
 def plain_path():
-    """Context manager: the fv4 suite's kernel entries (K1, K1s, K2c, K3,
-    K4a/K4b) swapped for their plain versions, so that a CUDA solve runs
+    """Context manager: the kernel entries of the fv4 suite (K1, K1s, K2c,
+    K3, K4a/K4b; K7a on a periodic level) and of the radius-1 suites (K5,
+    K6; K7b) swapped for their plain versions, so that a CUDA solve runs
     the plain versions on the card."""
     from hpgmg_tpu_torch.kernels import restrict as R
     from hpgmg_tpu_torch.kernels import stencils as S
+    from hpgmg_tpu_torch.kernels import stencils_r1 as K
     from hpgmg_tpu_torch.kernels import tail as T
     from hpgmg_tpu_torch.ops import fv4 as F
     from hpgmg_tpu_torch.solve import mg as MG
@@ -3434,7 +3535,8 @@ def plain_path():
              (F, "fv4_gsrb2", S.fv4_gsrb2_plain),
              (F, "restrict_cell", R.restrict_cell_plain),
              (MG, "restrict_cell", R.restrict_cell_plain),
-             (MG, "tail_down", T.tail_down_plain), (MG, "tail_up", T.tail_up_plain)]
+             (MG, "tail_down", T.tail_down_plain), (MG, "tail_up", T.tail_up_plain),
+             (K, "r1_stencil", K.r1_stencil_plain), (K, "r1_gsrb2", K.r1_gsrb2_plain)]
 
     @contextlib.contextmanager
     def scope():
@@ -3567,6 +3669,331 @@ def bf16c_phase(sizes=(256, 512)):
                      "richardson_order": res.richardson_order,
                      "dof_per_s": res.dof_per_second,
                      "bf16c_launches": counts["fv4_stencil_bf16c"]}
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: bfloat16 on the radius-1 suites and on periodic levels
+# ---------------------------------------------------------------------------
+
+def check_bf16_r1_kernels(worst: dict, sizes=(2, 3, 4, 8, 9, 16, 33, 64, 128, 256)):
+    """Phase 19a: the bf16 instantiations of K5 and K7b (both bodies, every
+    tap set of R1_BODIES, every mode) and of K7a (every mode, with and
+    without a*alpha*x, n >= 4) against their plain versions on random bf16
+    operands, each cell within BF16_CELL_ULPS, each gsrb's other colour
+    equal to x and a chunk of 3 i-planes equal to the launcher's rule bit
+    for bit; K6 in bf16 (each body) within BF16_CHAIN_ULPS["K6"] of max|out|
+    of its plain version and of two K5 bf16 half-sweeps, with chunks of 2
+    and 3 i-planes equal to its rule bit for bit."""
+    from hpgmg_tpu_torch.core.config import BC, SolverConfig
+    from hpgmg_tpu_torch.kernels import stencils as S
+    from hpgmg_tpu_torch.kernels import stencils_r1 as K
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 19)
+
+    def field(*shape):
+        return torch.tensor(rng.standard_normal(shape), dtype=BF16, device=dev)
+
+    limits = {"r1_gsrb2_bf16": BF16_CHAIN_ULPS["K6"],
+              "r1_gsrb2_bf16_vs_two_k5": BF16_CHAIN_ULPS["K6"]}
+    for n in sizes:
+        lv, x, rhs = random_level_r1(n, BF16, dev, rng), field(n, n, n), field(n, n, n)
+        errs = {}
+        for label, taps, var7, helm in R1_BODIES:
+            cfg = SolverConfig(a=1.5 if helm else 0.0, b=1.0, helmholtz=helm and var7,
+                               dtype=BF16)
+            for bc in (BC.DIRICHLET, BC.PERIODIC):
+                c = dataclasses.replace(cfg, bc=bc)
+                name = (("r1_stencil" if var7 else "r1_stream")
+                        + ("_periodic" if bc == BC.PERIODIC else "") + "_bf16")
+                for mode, kw, parity in r1_cases(lv, rhs):
+                    out = K.r1_stencil_cuda(lv, x, c, mode, taps, var7, parity=parity, **kw)
+                    ref = K.r1_stencil_plain(lv, x, c, mode, taps, var7, parity=parity, **kw)
+                    errs[name] = max(errs.get(name, 0.0), bf16_ulps(out, ref))
+                    tag = f"{name} {label} {mode} {parity} n={n}"
+                    if not torch.equal(K.r1_stencil_cuda(lv, x, c, mode, taps, var7,
+                                                         parity=parity, chunk=3, **kw), out):
+                        raise AssertionError(f"{tag}: chunk 3 differs from the rule")
+                    other = kw["kdinv"] == 0 if mode == "gsrb" else None
+                    if other is not None and not torch.equal(out[other], x[other]):
+                        raise AssertionError(f"{tag}: the other colour differs from x")
+            out = K.r1_gsrb2_cuda(lv, x, rhs, cfg, taps, var7)
+            y = K.r1_stencil_cuda(lv, x, cfg, "gsrb", taps, var7, rhs=rhs, kdinv=lv.kdinv[0],
+                                  parity=0)
+            two = K.r1_stencil_cuda(lv, y, cfg, "gsrb", taps, var7, rhs=rhs,
+                                    kdinv=lv.kdinv[1], parity=1)
+            for key, ref in (("r1_gsrb2_bf16", K.r1_gsrb2_plain(lv, x, rhs, cfg, taps, var7)),
+                             ("r1_gsrb2_bf16_vs_two_k5", two)):
+                errs[key] = max(errs.get(key, 0.0), bf16_max_ulps(out, ref))
+            for chunk in (2, 3):
+                if not torch.equal(K.r1_gsrb2_cuda(lv, x, rhs, cfg, taps, var7, chunk=chunk),
+                                   out):
+                    raise AssertionError(f"K6 bf16 {label} n={n}: chunk {chunk} differs "
+                                         f"from the launcher's rule")
+        if n >= 4:
+            lv4 = random_level(n, BF16, dev, rng)
+            for label, cfg in bf16_cfgs():
+                c = dataclasses.replace(cfg, bc=BC.PERIODIC)
+                for case, mode, kw, parity in stream_cases(lv4, rhs):
+                    kw = {k: (lv4.kdinv[parity] if k == "kdinv" else v) for k, v in kw.items()}
+                    out = S.fv4_stencil_cuda(lv4, x, c, mode, parity=parity, **kw)
+                    errs["fv4_stencil_periodic_bf16"] = max(
+                        errs.get("fv4_stencil_periodic_bf16", 0.0),
+                        bf16_ulps(out, S.fv4_stencil_plain(lv4, x, c, mode, **kw)))
+                    if mode == "gsrb":
+                        other = lv4.kdinv[parity] == 0
+                        if not torch.equal(out[other], x[other]):
+                            raise AssertionError(f"K7a bf16 {case}{label} n={n}: the other "
+                                                 f"colour differs from x")
+            del lv4
+        print(f"  bf16 K5/K7b every mode, body and BC, K6, K7a n={n:3d}: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in errs.items())
+              + " ulps; each gsrb's other colour equals x, chunks give the rule's bits")
+        for k, v in errs.items():
+            if not v <= limits.get(k, BF16_CELL_ULPS):
+                raise AssertionError(f"{k} n={n}: {v} ulps > {limits.get(k, BF16_CELL_ULPS)}")
+            worst[k] = max(worst.get(k, 0.0), v)
+        del lv, x, rhs
+
+
+def bf16_r1_level(op: str, bc: str, n: int, dtype):
+    """The suite's benchmark level at n^3 in ``dtype`` (as its rebuild
+    leaves it), the rhs, and a seeded x."""
+    from hpgmg_tpu_torch.bench.driver import build_problem
+    from hpgmg_tpu_torch.core.config import BC, SolverConfig
+    from hpgmg_tpu_torch.core.level import Level
+    from hpgmg_tpu_torch.ops.base import get_suite
+
+    dev = torch.device("cuda")
+    cfg = SolverConfig(op=op, bc=BC(bc), a=0.0, b=1.0, dtype=dtype)
+    prob = build_problem(n, cfg, dev)
+    lv = get_suite(op).rebuild_operator(
+        Level(dim=n, h=1.0 / n, depth=0, beta_i=prob.beta_i, beta_j=prob.beta_j,
+              beta_k=prob.beta_k), cfg)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return lv, prob.f, torch.randn((n, n, n), generator=gen, device=dev).to(dtype), cfg
+
+
+# (key, op, taps, BC, n): the levels of phase 19a's times, at the size
+# each bf16 F-cycle of phase 19b runs the kernel at
+BF16_R1_TIMES = (("var7", "fv7pt", "p1", "dirichlet", 512),
+                 ("27pt", "27pt", "27pt", "dirichlet", 512),
+                 ("fv4 periodic", "fv4", None, "periodic", 512),
+                 ("var7 periodic", "fv7pt", "p1", "periodic", 512),
+                 ("27pt periodic", "27pt", "27pt", "periodic", 256))
+
+
+def time_bf16_r1_kernels(runs=BF16_R1_TIMES):
+    """Phase 19a's times: each new bf16 instantiation against its plain
+    version on the suites' own bf16 levels, every mode (K5/K7b: the var7
+    body at fv7pt's level, the 27pt body at 27pt's, the 27pt apply also
+    against conv3d in bf16; K7a at fv4's periodic level), K6's full sweep
+    on the Dirichlet var7 level; bounds by bytes at 2 a value; then the
+    gsrb (the 27pt apply, K6's sweep) in turns with the same call on the
+    float32 level (f32, bf16, bf16, f32)."""
+    from hpgmg_tpu_torch.kernels import stencils as S
+    from hpgmg_tpu_torch.kernels import stencils_r1 as K
+
+    res = {}
+    for key, op, taps, bc, n in runs:
+        lv, f, x, cfg = bf16_r1_level(op, bc, n, BF16)
+        lv32, f32_, x32, cfg32 = bf16_r1_level(op, bc, n, torch.float32)
+        var7, cells, row, reps = op != "27pt", n ** 3, {}, 5
+        if op == "fv4":
+            def call(level, xx, c, mode, kw, parity):
+                return S.fv4_stencil_cuda(level, xx, c, mode, parity=parity, **kw)
+
+            def plain(mode, kw, parity):
+                return S.fv4_stencil_plain(lv, x, cfg, mode, **kw)
+
+            def work(mode, kw):
+                return stream_work(lv, x, mode, kw)
+        else:
+            def call(level, xx, c, mode, kw, parity):
+                return K.r1_stencil_cuda(level, xx, c, mode, taps, var7, parity=parity, **kw)
+
+            def plain(mode, kw, parity):
+                return K.r1_stencil_plain(lv, x, cfg, mode, taps, var7, parity=parity, **kw)
+
+            def work(mode, kw):
+                betas = nbytes(lv.beta_i, lv.beta_j, lv.beta_k) if var7 else 0
+                out_cells = cells // 8 if mode == "fres" else cells
+                return (nbytes(x, *kw.values()) + betas + x.element_size() * out_cells,
+                        mode_flops(VAR7_AX if var7 else P27_AX, mode, cells, 1))
+        modes = (("apply", {}, None), ("residual", {"rhs": f}, None),
+                 ("gsrb", {"rhs": f, "kdinv": lv.kdinv[0]}, 0), ("fres", {"rhs": f}, None))
+        for mode, kw, parity in modes:
+            time_bf16(f"{key} bf16 {mode:8s} {n}^3",
+                      lambda: call(lv, x, cfg, mode, kw, parity),
+                      lambda: plain(mode, kw, parity), reps, row, mode, work(mode, kw),
+                      BF16_CELL_ULPS, True,
+                      library=r1_library(lv, x, cfg) if op == "27pt" and mode == "apply"
+                      else None)
+        turns = {"27pt": "apply"}.get(op, "gsrb")
+        kw = {"rhs": f, "kdinv": lv.kdinv[0]} if turns == "gsrb" else {}
+        kw32 = {"rhs": f32_, "kdinv": lv32.kdinv[0]} if turns == "gsrb" else {}
+        pair = {"f32": lambda: call(lv32, x32, cfg32, turns, kw32, 0 if kw else None),
+                "bf16": lambda: call(lv, x, cfg, turns, kw, 0 if kw else None)}
+        if key == "var7":
+            time_bf16(f"K6 bf16 var7 gsrb2 {n}^3",
+                      lambda: K.r1_gsrb2_cuda(lv, x, f, cfg, taps, True),
+                      lambda: K.r1_gsrb2_plain(lv, x, f, cfg, taps, True), reps * 2, row,
+                      "gsrb2", (nbytes(x, f, *lv.kdinv, x, lv.beta_i, lv.beta_j, lv.beta_k),
+                                2 * mode_flops(VAR7_AX, "gsrb", cells, 0)),
+                      BF16_CHAIN_ULPS["K6"], False)
+            sweeps = {"f32": lambda: K.r1_gsrb2_cuda(lv32, x32, f32_, cfg32, taps, True),
+                      "bf16": lambda: K.r1_gsrb2_cuda(lv, x, f, cfg, taps, True)}
+            t = [time_ms(sweeps[d], reps * 2) for d in ("f32", "bf16", "bf16", "f32")]
+            print(f"  K6 var7 {n}^3 in turns: f32 {t[0]:.4f} / {t[3]:.4f} ms, bf16 "
+                  f"{t[1]:.4f} / {t[2]:.4f} ms")
+            row["gsrb2"]["in_turns_f32_bf16_bf16_f32"] = t
+        t = [time_ms(pair[d], reps * 2) for d in ("f32", "bf16", "bf16", "f32")]
+        print(f"  {key} {turns} {n}^3 in turns: f32 {t[0]:.4f} / {t[3]:.4f} ms, bf16 "
+              f"{t[1]:.4f} / {t[2]:.4f} ms")
+        row[turns]["in_turns_f32_bf16_bf16_f32"] = t
+        res[key] = row
+        del lv, f, x, lv32, f32_, x32
+        torch.cuda.empty_cache()
+    return res
+
+
+# (tag, op, bc, n) of the bf16 F-cycles of phase 19b, and the bf16 kernels
+# each must launch
+BF16_SUITES = (("fv7pt", "fv7pt", "dirichlet", 512), ("27pt", "27pt", "dirichlet", 512),
+               ("fv2", "fv2", "dirichlet", 256), ("fv4 periodic", "fv4", "periodic", 512),
+               ("fv7pt periodic", "fv7pt", "periodic", 512),
+               ("fv2 periodic", "fv2", "periodic", 256),
+               ("27pt periodic", "27pt", "periodic", 256))
+BF16_PATH_KERNELS = {
+    ("fv7pt", "dirichlet"): ("r1_stencil_bf16", "r1_gsrb2_bf16", "restrict_cell_bf16"),
+    ("fv2", "dirichlet"): ("r1_stencil_bf16", "r1_gsrb2_bf16", "restrict_cell_bf16"),
+    ("27pt", "dirichlet"): ("r1_stream_bf16", "restrict_cell_bf16"),
+    ("fv4", "periodic"): ("fv4_stencil_periodic_bf16", "restrict_cell_bf16"),
+    ("fv7pt", "periodic"): ("r1_stencil_periodic_bf16", "restrict_cell_bf16"),
+    ("fv2", "periodic"): ("r1_stencil_periodic_bf16", "restrict_cell_bf16"),
+    ("27pt", "periodic"): ("r1_stream_periodic_bf16", "restrict_cell_bf16"),
+}
+# the plain versions the comparison F-cycle of each path of phase 19b must
+# call in place of those kernels
+BF16_PATH_PLAINS = {
+    ("fv7pt", "dirichlet"): ("r1_stencil_plain", "r1_gsrb2_plain", "restrict_cell_plain"),
+    ("fv2", "dirichlet"): ("r1_stencil_plain", "r1_gsrb2_plain", "restrict_cell_plain"),
+    ("27pt", "dirichlet"): ("r1_stencil_plain", "restrict_cell_plain"),
+    ("fv4", "periodic"): ("fv4_stencil_plain", "restrict_cell_plain"),
+    ("fv7pt", "periodic"): ("r1_stencil_plain", "restrict_cell_plain"),
+    ("fv2", "periodic"): ("r1_stencil_plain", "restrict_cell_plain"),
+    ("27pt", "periodic"): ("r1_stencil_plain", "restrict_cell_plain"),
+}
+# one F-cycle through the kernels against one through the plain versions
+# at 128^3, in units of 2^-8 max|u| (as BF16_FCYCLE_GAP; measured on an
+# H100 80GB HBM3 at 700 W: 0.000-1.641 over the seven paths)
+BF16_R1_FCYCLE_GAP = 4.0
+
+
+def plain_fcycle(op, hier, f, cfg, want):
+    """One F-cycle through the plain versions on the card (plain_path) with
+    the counts reset just before it and read just after it: no kernel
+    launched (fv4_small, the plain arithmetic of the levels below 4^3,
+    aside) and each plain version of ``want`` called. Returns fmg_solve's
+    (u, norm_r, norm_f) and the plain calls."""
+    from hpgmg_tpu_torch.ops.base import get_suite
+    from hpgmg_tpu_torch.solve.mg import fmg_solve
+
+    reset_counts()
+    with plain_path():
+        out = fmg_solve(get_suite(op), hier, f, cfg)
+    torch.cuda.synchronize()
+    launched, plain = read_counts()
+    stray = {k: v for k, v in launched.items() if v and k != "fv4_small"}
+    missing = [k for k in want if not plain[k]]
+    if stray or missing:
+        raise AssertionError(f"{op} plain F-cycle: kernels launched {stray}, plain "
+                             f"versions not called {missing}")
+    return out, {k: v for k, v in plain.items() if v}
+
+
+def bf16_suites(compare_n=128):
+    """Phase 19b: each bf16 F-cycle of BF16_SUITES (GSRB, BiCGStab,
+    min_coarse_dim 2) through the port's entry point with the counts reset
+    before it and read after it: DOF/s, rel_residual and order printed (no
+    limit in bf16), the bf16 kernels of its path launched, no kernel of
+    another type (fv4_small, the plain arithmetic every device takes on
+    levels below 4^3, aside), no plain version; then one F-cycle at
+    ``compare_n`` through the kernels against the same F-cycle through the
+    plain versions on the card (plain_fcycle: no kernel launched, the plain
+    versions of BF16_PATH_PLAINS called), within BF16_R1_FCYCLE_GAP units of
+    2^-8 max|u_plain|."""
+    from hpgmg_tpu_torch.bench.driver import build, run_benchmark
+    from hpgmg_tpu_torch.ops.base import get_suite
+    from hpgmg_tpu_torch.solve.mg import fmg_solve
+
+    out = {}
+    for tag, op, bc, n in BF16_SUITES:
+        cfg = solve_cfg("bicgstab", BF16, op, bc, min_coarse_dim=2)
+        t0 = time.perf_counter()
+        reset_counts()
+        res = run_benchmark(n, cfg, "cuda", min_solve_seconds=0.25, dynamic_range=3)
+        launched, plain = read_counts()
+        print(f"  {tag} bf16 {n}^3: DOF/s {res.dof_per_second:.6e}, s/solve "
+              f"{res.seconds_per_solve:.6f}, rel_residual {res.rel_residual:.6e}, order "
+              f"{res.richardson_order:.6f}")
+        print(f"  launches: { {k: v for k, v in launched.items() if v} }")
+        missing = [k for k in BF16_PATH_KERNELS[(op, bc)] if not launched[k]]
+        other = [k for k, v in launched.items()
+                 if v and not k.endswith("_bf16") and k != "fv4_small"]
+        if missing or other or any(plain.values()):
+            raise AssertionError(f"{tag} bf16 F-cycle: kernels not launched {missing}, "
+                                 f"kernels of another type launched {other}, plain calls "
+                                 f"{plain}")
+        if not math.isfinite(res.rel_residual):
+            raise AssertionError(f"{tag} bf16 F-cycle rel_residual {res.rel_residual}")
+        hier, f = build(compare_n, cfg, torch.device("cuda"))
+        u = fmg_solve(get_suite(op), hier, f, cfg)[0]
+        (u_plain, nr, nf), plain_calls = plain_fcycle(op, hier, f, cfg,
+                                                      BF16_PATH_PLAINS[(op, bc)])
+        gap = float((u.float() - u_plain.float()).abs().max()
+                    / (u_plain.float().abs().max() * 2.0 ** -8))
+        print(f"  {tag} {compare_n}^3: kernels vs plain versions {gap:.3f} units of 2^-8 "
+              f"max|u| (limit {BF16_R1_FCYCLE_GAP}); the plain F-cycle: no kernel, plain "
+              f"calls {plain_calls}, rel_residual {float(nr) / float(nf):.6e}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        if not gap <= BF16_R1_FCYCLE_GAP:
+            raise AssertionError(f"{tag} bf16 F-cycle: kernels vs plain {gap} > "
+                                 f"{BF16_R1_FCYCLE_GAP}")
+        out[tag] = {"n": n, "dof_per_s": res.dof_per_second,
+                    "seconds_per_solve": res.seconds_per_solve,
+                    "rel_residual": res.rel_residual, "richardson_order": res.richardson_order,
+                    "u_vs_plain_units": gap, "plain_rel_residual": float(nr) / float(nf),
+                    "launches": {k: v for k, v in launched.items() if v},
+                    "plain_calls": plain_calls}
+        del hier, f, u, u_plain
+        torch.cuda.empty_cache()
+    return out
+
+
+def bf16_fcycle_launches():
+    """Phase 19c: the launches of one bf16 F-cycle of each of BF16_SUITES at
+    its size: the hierarchy built, the counts reset, one fmg_solve, the
+    counts read; no plain version."""
+    from hpgmg_tpu_torch.bench.driver import build
+    from hpgmg_tpu_torch.ops.base import get_suite
+    from hpgmg_tpu_torch.solve.mg import fmg_solve
+
+    out = {}
+    for tag, op, bc, n in BF16_SUITES:
+        cfg = solve_cfg("bicgstab", BF16, op, bc, min_coarse_dim=2)
+        hier, f = build(n, cfg, torch.device("cuda"))
+        reset_counts()
+        fmg_solve(get_suite(op), hier, f, cfg)
+        torch.cuda.synchronize()
+        launched, plain = read_counts()
+        out[tag] = {k: v for k, v in launched.items() if v}
+        print(f"  {tag} bf16 {n}^3: launches per F-cycle {out[tag]}")
+        if any(plain.values()):
+            raise AssertionError(f"{tag}: a plain version ran: {plain}")
+        del hier, f
+        torch.cuda.empty_cache()
     return out
 
 
@@ -3727,6 +4154,15 @@ def main() -> int:
     phase("18d K1's gsrb with BF16C in turns with the f32 K1 at 256^3 and 512^3; the fv4 "
           "512^3 f32 F-cycle with BF16C on")
     bf16c = bf16c_phase()
+    phase("19a the bf16 radius-1 and periodic kernels (K5 and K7b, both bodies; K6; K7a) "
+          "vs plain at n = 2-256; their times at the bf16 F-cycles' sizes, in turns with f32")
+    check_bf16_r1_kernels(worst)
+    t19 = time_bf16_r1_kernels()
+    phase("19b the bf16 F-cycles of the radius-1 suites and of the periodic BCs (BiCGStab, "
+          "min_coarse_dim 2) through the kernels, each against the plain versions at 128^3")
+    bf19 = bf16_suites()
+    phase("19c launches per bf16 F-cycle: one counted F-cycle of each path of 19b")
+    bf19_cycle = bf16_fcycle_launches()
 
     big = times[512]
     # K6 at the largest level it smooths on the path
@@ -3805,6 +4241,23 @@ def main() -> int:
          t_bf16["tail"]["tail_up"], bf["launches"]["tail_up_bf16"]),
         ("fv4_stencil_bf16c", "fv4_stream.cu", "hpgmg_tpu/kernels/stencils.py:594",
          bf16c[512]["bf16c"], bf16c["fcycle"]["bf16c_launches"]),
+        # the radius-1 and periodic bf16 instantiations: launches in phase
+        # 19b's bf16 F-cycles, times at the size each runs at (19a)
+        ("r1_stencil_var7_bf16", "r1_var7_stream.cu", "hpgmg_tpu/kernels/stencils_r1.py:364",
+         t19["var7"]["gsrb"], bf19["fv7pt"]["launches"]["r1_stencil_bf16"]),
+        ("r1_stencil_27pt_bf16", "r1_stream.cu", "hpgmg_tpu/kernels/stencils_r1.py:364",
+         t19["27pt"]["apply"], bf19["27pt"]["launches"]["r1_stream_bf16"]),
+        ("r1_gsrb2_bf16", "r1_gsrb2.cu", "hpgmg_tpu/kernels/stencils_r1.py:783",
+         t19["var7"]["gsrb2"], bf19["fv7pt"]["launches"]["r1_gsrb2_bf16"]),
+        ("fv4_stencil_periodic_bf16", "fv4_stream.cu", "hpgmg_tpu/kernels/stencils.py:1106",
+         t19["fv4 periodic"]["gsrb"],
+         bf19["fv4 periodic"]["launches"]["fv4_stencil_periodic_bf16"]),
+        ("r1_stencil_periodic_var7_bf16", "r1_var7_stream.cu",
+         "hpgmg_tpu/kernels/stencils_r1.py:517", t19["var7 periodic"]["gsrb"],
+         bf19["fv7pt periodic"]["launches"]["r1_stencil_periodic_bf16"]),
+        ("r1_stencil_periodic_27pt_bf16", "r1_stream.cu",
+         "hpgmg_tpu/kernels/stencils_r1.py:517", t19["27pt periodic"]["apply"],
+         bf19["27pt periodic"]["launches"]["r1_stream_periodic_bf16"]),
     ]
     kernels = [{"name": name, "route": "cuda",
                 "source": f"hpgmg_tpu_torch/kernels/csrc/{src}", "replaces": rep,
@@ -3834,6 +4287,26 @@ def main() -> int:
         if k["name"] == "fv4_stencil_bf16c":
             k["ptxas"] = regs.get("fv4_stream_kernel<float, bf16, 2, float>")
             k["at_256"] = bf16c[256]["bf16c"]
+    # the phase 19 rows: their other modes and their registers and spills
+    p19 = {"r1_stencil_var7_bf16": ("var7", "r1_v7_kernel<bf16, {i}, 1, 0, 0, float>"),
+           "r1_stencil_27pt_bf16": ("27pt", "r1_stream_kernel<bf16, {i}, float>"),
+           "fv4_stencil_periodic_bf16": ("fv4 periodic",
+                                         "fv4_stream_kernel<bf16, bf16, {i}, float>"),
+           "r1_stencil_periodic_var7_bf16": ("var7 periodic",
+                                             "r1_v7_kernel<bf16, {i}, 1, 0, 0, float>"),
+           "r1_stencil_periodic_27pt_bf16": ("27pt periodic",
+                                             "r1_stream_kernel<bf16, {i}, float>")}
+    for k in kernels:
+        if k["name"] in p19:
+            key, pattern = p19[k["name"]]
+            k["modes"] = {m: {f: t19[key][m][f] for f in ("ms", "plain_ms", "bound_ms",
+                                                          "max_abs_err")}
+                          for m in ("apply", "residual", "gsrb", "fres")}
+            k["ptxas"] = {m: regs.get(pattern.format(i=i))
+                          for i, m in enumerate(("apply", "residual", "gsrb", "fres"))}
+        if k["name"] == "r1_gsrb2_bf16":
+            k["ptxas"] = {body: regs.get(f"r1_gsrb2_kernel<bf16, {v}, 0, 0, float>")
+                          for body, v in (("var7", 1), ("27pt", 0))}
     # the 27pt body's other modes at 512^3 (the row's own numbers are its
     # apply's) and its registers and spills by mode (f32)
     for name, modes in (("r1_stencil_27pt", {m: r1_times[512][f"27pt {m}"]
@@ -3843,7 +4316,7 @@ def main() -> int:
         k = kernels[[k["name"] for k in kernels].index(name)]
         k["modes"] = {m: {key: t[key] for key in ("ms", "plain_ms", "bound_ms", "max_abs_err")}
                       for m, t in modes.items()}
-        k["ptxas"] = {m: regs.get(f"r1_stream_kernel<float, {i}>")
+        k["ptxas"] = {m: regs.get(f"r1_stream_kernel<float, {i}, float>")
                       for i, m in enumerate(("apply", "residual", "gsrb", "fres"))}
     # K8a's other modes at the 2x2 grid's finest block and its three modes on
     # one n^3 block in turns with K1; its registers and spills by mode and
@@ -3887,10 +4360,11 @@ def main() -> int:
                 "r1_stencil_by_level"]
         if name in ("r1_stencil_var7", "r1_stencil_periodic_var7", "r1_slab"):
             k["ptxas"] = {m: regs.get(f"r1_v7_kernel<float, {i}, 1, "
-                                      f"{int(name == 'r1_slab')}, 0>")
+                                      f"{int(name == 'r1_slab')}, 0, float>")
                           for i, m in enumerate(("apply", "residual", "gsrb", "fres"))}
         if name == "r1_slab":
-            k["ptxas_kslab"] = {m: {f"{dt} {body}": regs.get(f"r1_v7_kernel<{dt}, {i}, {v}, 1, 1>")
+            k["ptxas_kslab"] = {m: {f"{dt} {body}": regs.get(
+                f"r1_v7_kernel<{dt}, {i}, {v}, 1, 1, {dt}>")
                                     for dt in ("float", "double")
                                     for body, v in (("var7", 1), ("27pt", 0))}
                                 for i, m in enumerate(("apply", "residual", "gsrb", "fres"))}
@@ -3910,10 +4384,11 @@ def main() -> int:
                                       if b.startswith("K8d")}
         if k["name"] in ("r1_gsrb2", "r1_gsrb2_slab"):
             slab = int(k["name"] == "r1_gsrb2_slab")
-            k["ptxas"] = {body: regs.get(f"r1_gsrb2_kernel<float, {v}, {slab}, 0>")
+            k["ptxas"] = {body: regs.get(f"r1_gsrb2_kernel<float, {v}, {slab}, 0, float>")
                           for body, v in (("var7", 1), ("27pt", 0))}
             if slab:
-                k["ptxas_kslab"] = {f"{dt} {body}": regs.get(f"r1_gsrb2_kernel<{dt}, {v}, 1, 1>")
+                k["ptxas_kslab"] = {f"{dt} {body}": regs.get(
+                    f"r1_gsrb2_kernel<{dt}, {v}, 1, 1, {dt}>")
                                     for dt in ("float", "double")
                                     for body, v in (("var7", 1), ("27pt", 0))}
     # phase 16: the k-split launches of the (2,2,2) F-cycles (K8b's in the
@@ -3988,7 +4463,8 @@ def main() -> int:
     print(json.dumps({"tooling": tools}))
     print(json.dumps({"fe_grid": fe_grid}))
     print(json.dumps({"bf16": {"cli_ladder_f32": ladder, "bf16_fcycle": bf,
-                               "bf16c": bf16c}}))
+                               "bf16c": bf16c, "r1_periodic_fcycles": bf19,
+                               "r1_periodic_launches_per_fcycle": bf19_cycle}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -31,8 +31,9 @@ standalone phase times (``bench/timing.py:measure_breakdown``) and
 F-cycle (``bench/timing.py:fmg_timing_table``), both on the CLI's device.
 ``--dtype bfloat16`` is the whole solve in bf16 (stored in bf16, every
 kernel and plain version computing in float32 and rounding its output to
-bf16 once): fv4 with Dirichlet BCs only, and an iterative bottom (DIRECT
-cannot be built in bf16); anything else raises. On the default device ``cuda``
+bf16 once): every ``--op`` (fv4, fv7pt, fv2, 27pt) with either ``--bc``,
+on one rank, with an iterative bottom (DIRECT cannot be built in bf16:
+it raises). On the default device ``cuda``
 the CLI exits with 1 when no CUDA device is present; ``--device cpu`` runs
 the plain versions.
 """
@@ -72,7 +73,8 @@ def parser() -> argparse.ArgumentParser:
                    choices=[s.value for s in BottomSolver])
     p.add_argument("--cycle", default="F", choices=[c.value for c in CycleType])
     p.add_argument("--bc", default="dirichlet", choices=[b.value for b in BC])
-    p.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
+    p.add_argument("--dtype", default="float32", choices=sorted(DTYPES),
+                   help="bfloat16: every --op and --bc on one rank, iterative bottoms only")
     p.add_argument("--dynamic-range", type=int, default=3,
                    help="solve at h, 2h, 4h for Richardson (DYNAMIC_RANGE)")
     p.add_argument("--problem", default=None, choices=PROBLEMS,

@@ -51,8 +51,12 @@ as its forced tile length along i where the tree's K1s takes one (up to
 ``stencils.SUBTILE_MAX_TI``, ``K1s <mode> ti <c>``), each with its device
 ms and byte bound (x, the mode's operands and the face arrays read once,
 the output written once). ``--dtype bfloat16`` times the bf16
-instantiations of K1, K1s and K2c (and with ``--tail`` K4a and K4b) on
-bf16 levels, Dirichlet only: K2 and the periodic kernels have none. With
+instantiations on bf16 levels: K1, K1s and K2c (and with ``--tail`` K4a
+and K4b) on Dirichlet levels, K7a on periodic ones, and with ``--r1`` K5,
+K6 and K7b (``--slab`` refuses it: the slab kernels have none; K2 has
+none either), and beside each of the four stencil calls (with ``--r1``
+each body's calls, K6's sweep and pair too) the same call in float32 in
+turns f32, bf16, bf16, f32 (``<call> turn <i> <f32|bf16>``). With
 ``--bf16c``, K1's gsrb half-sweep (parity 0) on the float32 fv4 levels
 (sizes 128^3-512^3 by default) with the float32 face arrays and kdinv
 (``K1 gsrb f32``) and with their BF16C bf16 copies
@@ -141,12 +145,10 @@ def device_ms(fn, reps: int):
     return us / 1000.0 / reps if us else None
 
 
-def level_times(n: int, dtype: torch.dtype, bc: BC, reps: int) -> dict:
-    """{call: ms} of the four stencil calls and the smoother calls on the
-    n^3 level, each over ``reps`` calls at 512^3 and proportionally more on
-    smaller levels (the same cells timed); for each smoother call also its
-    kernels' device ms (``<call>_device``)."""
-    reps = reps * min(64, max(1, (512 // n) ** 3))
+def level_calls(n: int, dtype: torch.dtype, bc: BC):
+    """(calls, (suite, level, x, f, cfg)): the fv4 suite's four stencil
+    calls on the benchmark problem's n^3 level, x from the seeded
+    generator."""
     dev = torch.device("cuda")
     cfg = SolverConfig(op="fv4", bc=bc, a=0.0, b=1.0, dtype=dtype)
     suite = get_suite("fv4")
@@ -160,6 +162,16 @@ def level_times(n: int, dtype: torch.dtype, bc: BC, reps: int) -> dict:
              "residual": lambda: suite.residual(lv, x, f, cfg),
              "gsrb": lambda: suite.gsrb_sweep(lv, x, f, cfg, 0),
              "fres": lambda: suite.restrict_residual(lv, x, f, cfg)}
+    return calls, (suite, lv, x, f, cfg)
+
+
+def level_times(n: int, dtype: torch.dtype, bc: BC, reps: int) -> dict:
+    """{call: ms} of the four stencil calls and the smoother calls on the
+    n^3 level, each over ``reps`` calls at 512^3 and proportionally more on
+    smaller levels (the same cells timed); for each smoother call also its
+    kernels' device ms (``<call>_device``)."""
+    reps = scaled_reps(reps, n)
+    calls, (suite, lv, x, f, cfg) = level_calls(n, dtype, bc)
     out = {name: time_ms(fn, reps) for name, fn in calls.items()}
     nsweeps = 2 * suite.gsrb_num_smooths
 
@@ -195,6 +207,12 @@ def level_times(n: int, dtype: torch.dtype, bc: BC, reps: int) -> dict:
     return out
 
 
+def scaled_reps(reps: int, n: int) -> int:
+    """``reps`` calls at 512^3, proportionally more on smaller levels (at
+    most 64 times as many): the same cells timed."""
+    return reps * min(64, max(1, (512 // n) ** 3))
+
+
 def subtile_times(n: int, dtype: torch.dtype, reps: int, chunks=()) -> dict:
     """{call: ms} of K1s's apply, residual and gsrb (parity 0) on the fv4
     benchmark's n^3 Dirichlet level beside K1's (``fv4_stencil_cuda``) at
@@ -204,7 +222,7 @@ def subtile_times(n: int, dtype: torch.dtype, reps: int, chunks=()) -> dict:
     (``<call>_device``) and its byte bound (``<call>_bound``: x, the mode's
     operands and the face arrays read once, the output written once), over
     ``reps`` calls at 512^3 and proportionally more on smaller levels."""
-    reps = reps * min(64, max(1, (512 // n) ** 3))
+    reps = scaled_reps(reps, n)
     dev = torch.device("cuda")
     cfg = SolverConfig(op="fv4", a=0.0, b=1.0, dtype=dtype)
     prob = build_problem(n, cfg, dev)
@@ -250,7 +268,7 @@ def bf16c_times(n: int, reps: int) -> dict:
     with their BF16C bf16 copies, in turns (f32, BF16C, BF16C, f32), each
     with its device ms and byte bound, over ``reps`` calls at 512^3 and
     proportionally more on smaller levels."""
-    reps = reps * min(64, max(1, (512 // n) ** 3))
+    reps = scaled_reps(reps, n)
     dev = torch.device("cuda")
     cfg = SolverConfig(op="fv4", a=0.0, b=1.0, dtype=torch.float32)
     prob = build_problem(n, cfg, dev)
@@ -279,70 +297,107 @@ def bf16c_times(n: int, reps: int) -> dict:
     return out
 
 
-def r1_times(n: int, dtype: torch.dtype, bc: BC, reps: int, chunks=()) -> dict:
-    """{body call: ms} of the four stencil calls of the var7 body (fv7pt's
-    level) and of the 27pt body (27pt's level) on the n^3 level, and on a
-    Dirichlet level of K6's full sweep, the pair of K5 half-sweeps it
-    replaces and K6 with each forced chunk of ``chunks``, each with its
-    kernels' device ms (``<body> <call>_device``), over ``reps`` calls at
-    512^3 and proportionally more on smaller levels, and its byte bound
-    (``<body> <call>_bound``)."""
-    reps = reps * min(64, max(1, (512 // n) ** 3))
+def r1_calls(n: int, dtype: torch.dtype, bc: BC, chunks=()):
+    """({body call: fn}, {body call: bytes}) of the four stencil calls of
+    the var7 body (fv7pt's level) and of the 27pt body (27pt's level) on the
+    n^3 level, and on a Dirichlet level of K6's full sweep, the pair of K5
+    half-sweeps it replaces and K6 with each forced chunk of ``chunks``;
+    the bytes each reads and writes once."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     x = torch.randn((n, n, n), generator=gen, device=dev, dtype=dtype)
-    out = {}
+    out, nbytes = {}, {}
     for op, body in (("fv7pt", "var7"), ("27pt", "27pt")):
-        cfg = SolverConfig(op=op, bc=bc, a=0.0, b=1.0, dtype=dtype)
-        suite = get_suite(op)
-        prob = build_problem(n, cfg, dev)
-        lv = suite.rebuild_operator(Level(dim=n, h=1.0 / n, depth=0, beta_i=prob.beta_i,
-                                          beta_j=prob.beta_j, beta_k=prob.beta_k), cfg)
-        f = prob.f
-        calls = {"apply": lambda: suite.apply_op(lv, x, cfg),
-                 "residual": lambda: suite.residual(lv, x, f, cfg),
-                 "gsrb": lambda: suite.gsrb_sweep(lv, x, f, cfg, 0),
-                 "fres": lambda: suite.restrict_residual(lv, x, f, cfg)}
-        faces = sum(t.numel() for t in (lv.beta_i, lv.beta_j, lv.beta_k)) \
-            if body == "var7" else 0
-        # values read and written: x, rhs, kdinv, the output, the faces
-        values = {"apply": 2 * x.numel(), "residual": 3 * x.numel(),
-                  "gsrb": 4 * x.numel(), "fres": 2 * x.numel() + x.numel() // 8}
-        if bc == BC.DIRICHLET:
-            taps, var7 = ("p1", True) if body == "var7" else ("27pt", False)
-
-            def half(y, p):
-                return K.r1_stencil_cuda(lv, y, cfg, "gsrb", taps, var7, rhs=f,
-                                         kdinv=lv.kdinv[p], parity=p)
-
-            calls["sweep"] = lambda: K.r1_gsrb2_cuda(lv, x, f, cfg, taps, var7)
-            calls["pair"] = lambda: half(half(x, 0), 1)
-            # x, rhs, kdinv0, kdinv1, the output (and the faces) once
-            values.update(sweep=5 * x.numel(), pair=2 * values["gsrb"])
-            faces = {k: faces * (2 if k == "pair" else 1) for k in values}
-            if "chunk" in inspect.signature(K.r1_gsrb2_cuda).parameters:
-                for c in chunks:
-                    calls[f"sweep chunk {c}"] = (lambda c=c: K.r1_gsrb2_cuda(
-                        lv, x, f, cfg, taps, var7, chunk=c))
-                    values[f"sweep chunk {c}"] = values["sweep"]
-                    faces[f"sweep chunk {c}"] = faces["sweep"]
-        else:
-            faces = {k: faces for k in values}
-        if body == "var7" and "chunk" in inspect.signature(K.r1_stencil_cuda).parameters:
-            # the var7 kernel with each forced chunk of i-planes
-            for mode, kw in (("apply", {}), ("residual", {"rhs": f}),
-                             ("gsrb", {"rhs": f, "kdinv": lv.kdinv[0], "parity": 0}),
-                             ("fres", {"rhs": f})):
-                for c in chunks:
-                    key = f"{mode} chunk {c}"
-                    calls[key] = (lambda mode=mode, kw=kw, c=c: K.r1_stencil_cuda(
-                        lv, x, cfg, mode, "p1", True, **kw, chunk=c))
-                    values[key], faces[key] = values[mode], faces[mode]
+        calls, values = _r1_body_calls(op, body, x, bc, chunks)
         for name, fn in calls.items():
-            out[f"{body} {name}"] = time_ms(fn, reps)
-            out[f"{body} {name}_device"] = device_ms(fn, reps)
-            out[f"{body} {name}_bound"] = ((values[name] + faces[name]) * x.element_size()
-                                           / HBM_BYTES_PER_S * 1e3)
+            out[f"{body} {name}"] = fn
+            nbytes[f"{body} {name}"] = values[name] * x.element_size()
+    return out, nbytes
+
+
+def _r1_body_calls(op: str, body: str, x: torch.Tensor, bc: BC, chunks=()):
+    """``r1_calls``'s calls of one body, on its suite's level, and the
+    values each reads and writes once."""
+    n, dtype = x.shape[0], x.dtype
+    cfg = SolverConfig(op=op, bc=bc, a=0.0, b=1.0, dtype=dtype)
+    suite = get_suite(op)
+    prob = build_problem(n, cfg, x.device)
+    lv = suite.rebuild_operator(Level(dim=n, h=1.0 / n, depth=0, beta_i=prob.beta_i,
+                                      beta_j=prob.beta_j, beta_k=prob.beta_k), cfg)
+    f = prob.f
+    calls = {"apply": lambda: suite.apply_op(lv, x, cfg),
+             "residual": lambda: suite.residual(lv, x, f, cfg),
+             "gsrb": lambda: suite.gsrb_sweep(lv, x, f, cfg, 0),
+             "fres": lambda: suite.restrict_residual(lv, x, f, cfg)}
+    faces = sum(t.numel() for t in (lv.beta_i, lv.beta_j, lv.beta_k)) \
+        if body == "var7" else 0
+    # values read and written: x, rhs, kdinv, the output, the faces
+    values = {"apply": 2 * x.numel(), "residual": 3 * x.numel(),
+              "gsrb": 4 * x.numel(), "fres": 2 * x.numel() + x.numel() // 8}
+    if bc == BC.DIRICHLET:
+        taps, var7 = ("p1", True) if body == "var7" else ("27pt", False)
+
+        def half(y, p):
+            return K.r1_stencil_cuda(lv, y, cfg, "gsrb", taps, var7, rhs=f,
+                                     kdinv=lv.kdinv[p], parity=p)
+
+        calls["sweep"] = lambda: K.r1_gsrb2_cuda(lv, x, f, cfg, taps, var7)
+        calls["pair"] = lambda: half(half(x, 0), 1)
+        # x, rhs, kdinv0, kdinv1, the output (and the faces) once
+        values.update(sweep=5 * x.numel(), pair=2 * values["gsrb"])
+        faces = {k: faces * (2 if k == "pair" else 1) for k in values}
+        if "chunk" in inspect.signature(K.r1_gsrb2_cuda).parameters:
+            for c in chunks:
+                calls[f"sweep chunk {c}"] = (lambda c=c: K.r1_gsrb2_cuda(
+                    lv, x, f, cfg, taps, var7, chunk=c))
+                values[f"sweep chunk {c}"] = values["sweep"]
+                faces[f"sweep chunk {c}"] = faces["sweep"]
+    else:
+        faces = {k: faces for k in values}
+    if body == "var7" and "chunk" in inspect.signature(K.r1_stencil_cuda).parameters:
+        # the var7 kernel with each forced chunk of i-planes
+        for mode, kw in (("apply", {}), ("residual", {"rhs": f}),
+                         ("gsrb", {"rhs": f, "kdinv": lv.kdinv[0], "parity": 0}),
+                         ("fres", {"rhs": f})):
+            for c in chunks:
+                key = f"{mode} chunk {c}"
+                calls[key] = (lambda mode=mode, kw=kw, c=c: K.r1_stencil_cuda(
+                    lv, x, cfg, mode, "p1", True, **kw, chunk=c))
+                values[key], faces[key] = values[mode], faces[mode]
+    return calls, {k: values[k] + faces[k] for k in calls}
+
+
+def r1_times(n: int, dtype: torch.dtype, bc: BC, reps: int, chunks=()) -> dict:
+    """{body call: ms} of ``r1_calls``, each with its kernels' device ms
+    (``<body> <call>_device``), over ``reps`` calls at 512^3 and
+    proportionally more on smaller levels, and its byte bound (``<body>
+    <call>_bound``)."""
+    reps = scaled_reps(reps, n)
+    calls, nbytes = r1_calls(n, dtype, bc, chunks)
+    out = {}
+    for name, fn in calls.items():
+        out[name] = time_ms(fn, reps)
+        out[f"{name}_device"] = device_ms(fn, reps)
+        out[f"{name}_bound"] = nbytes[name] / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def bf16_turns(n: int, bc: BC, reps: int, r1: bool) -> dict:
+    """{<call> turn <i> <dtype>: ms}: each bf16 call of ``r1_calls`` (with
+    ``r1``) or ``level_calls`` on the n^3 level in turns with the same call
+    in float32 (f32, bf16, bf16, f32), over ``reps`` calls at 512^3 and
+    proportionally more on smaller levels."""
+    reps = scaled_reps(reps, n)
+
+    def calls(dtype):
+        return r1_calls(n, dtype, bc)[0] if r1 else level_calls(n, dtype, bc)[0]
+
+    f32, b16 = calls(torch.float32), calls(torch.bfloat16)
+    out = {}
+    for name, fn in b16.items():
+        for i, (dt, call) in enumerate((("f32", f32[name]), ("bf16", fn), ("bf16", fn),
+                                        ("f32", f32[name]))):
+            out[f"{name} turn {i} {dt}"] = time_ms(call, reps)
     return out
 
 
@@ -561,8 +616,9 @@ def main(argv=None) -> dict:
                           text=True).stdout.strip()
     rows = []
     for dt in (["float32"] if args.bf16c else args.dtype):
-        # bf16 runs the fv4 Dirichlet suite only
-        for bc in (["dirichlet"] if dt == "bfloat16" else bcs):
+        if dt == "bfloat16" and args.slab:
+            raise SystemExit("the slab kernels (K8a-K8d) have no bfloat16 instantiation")
+        for bc in bcs:
             for n in sizes:
                 # --slab: one whole n^3 block, then the 2x2 grid's blocks of
                 # every level from n^3 to 16^3
@@ -577,6 +633,8 @@ def main(argv=None) -> dict:
                           subtile_times(n, getattr(torch, dt), args.reps, chunks)
                           if args.subtile else level_times(n, getattr(torch, dt), BC(bc),
                                                            args.reps))
+                    if dt == "bfloat16" and not (args.subtile or args.bf16c):
+                        ms.update(bf16_turns(n, BC(bc), args.reps, args.r1))
                     rows += [{"n": n, **({"block": list(block)} if args.slab else {}),
                               "dtype": dt, "bc": bc, "call": k, "ms": v}
                              for k, v in ms.items()]

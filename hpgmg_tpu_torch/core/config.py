@@ -66,9 +66,10 @@ class SolverConfig:
 
     a, b: coefficients of ``a*alpha*u - b*div(beta grad u) = f``;
     ``helmholtz=False`` drops the ``a*alpha`` term (pure Poisson).
-    dtype: the solve dtype (torch.float32, torch.float64, or torch.bfloat16
-    for the fv4 suite with Dirichlet BCs); every tensor the solver creates
-    takes it explicitly.
+    dtype: the solve dtype (torch.float32, torch.float64 or torch.bfloat16,
+    every suite and BC; a bf16 hierarchy runs on one rank: the slab kernels
+    have no bf16 instantiation, ``parallel/mesh.py:shard_hierarchy``);
+    every tensor the solver creates takes it explicitly.
     """
 
     op: str = "fv4"  # operator suite: fv7pt | fv2 | fv4 | 27pt
@@ -117,12 +118,6 @@ class SolverConfig:
         if self.dtype not in (torch.float32, torch.float64, torch.bfloat16):
             raise ValueError(f"solve dtype must be float32, float64 or bfloat16, "
                              f"got {self.dtype}")
-        if self.dtype == torch.bfloat16 and (self.op != "fv4" or self.bc != BC.DIRICHLET):
-            raise NotImplementedError(
-                f"a bfloat16 solve runs the fv4 suite with Dirichlet BCs only, got "
-                f"op={self.op!r} bc={self.bc.value!r}: the radius-1 and periodic "
-                f"kernels (K5, K6, K7a, K7b) carry no bfloat16 yet (ROADMAP.md "
-                f"Queue 1)")
         if self.reduce_dtype not in (None, torch.float32, torch.float64):
             raise ValueError(f"reduce dtype must be None, float32 or float64, "
                              f"got {self.reduce_dtype}")

@@ -75,17 +75,21 @@ _SIGNATURES = {
     #  parity, chunk, b_h2inv, a_coef, t1, t2, stream): the var7 body
     "hpgmg_r1_var7_f32": (_P,) * 8 + (_I,) * 5 + (_D,) * 4 + (_P,),
     "hpgmg_r1_var7_f64": (_P,) * 8 + (_I,) * 5 + (_D,) * 4 + (_P,),
+    "hpgmg_r1_var7_bf16": (_P,) * 8 + (_I,) * 5 + (_D,) * 4 + (_P,),
     # (x, rhs, kdinv, out, n, mode, periodic, parity, chunk, b_h2inv, a_coef,
     #  t1, t2, stream): the 27pt body
     "hpgmg_r1_stream_f32": (_P,) * 4 + (_I,) * 5 + (_D,) * 4 + (_P,),
     "hpgmg_r1_stream_f64": (_P,) * 4 + (_I,) * 5 + (_D,) * 4 + (_P,),
+    "hpgmg_r1_stream_bf16": (_P,) * 4 + (_I,) * 5 + (_D,) * 4 + (_P,),
     # (x, beta_i, beta_j, beta_k, alpha, rhs, kdinv0, kdinv1, out, n, var7,
     #  b_h2inv, a_coef, t1, t2, stream); the _chunk entries take the chunk
     #  of i-planes after var7
     "hpgmg_r1_gsrb2_f32": (_P,) * 9 + (_I, _I, _D, _D, _D, _D, _P),
     "hpgmg_r1_gsrb2_f64": (_P,) * 9 + (_I, _I, _D, _D, _D, _D, _P),
+    "hpgmg_r1_gsrb2_bf16": (_P,) * 9 + (_I, _I, _D, _D, _D, _D, _P),
     "hpgmg_r1_gsrb2_chunk_f32": (_P,) * 9 + (_I, _I, _I, _D, _D, _D, _D, _P),
     "hpgmg_r1_gsrb2_chunk_f64": (_P,) * 9 + (_I, _I, _I, _D, _D, _D, _D, _P),
+    "hpgmg_r1_gsrb2_chunk_bf16": (_P,) * 9 + (_I, _I, _I, _D, _D, _D, _D, _P),
     # (x, ilo, ihi, jlo, jhi, klo, khi, beta_i, beta_j, beta_k, alpha, rhs,
     #  kdinv, out, ni, nj, nk, mode, periodic, ksplit, parity, chunk, scale,
     #  a_coef, pass, stream)

@@ -9,8 +9,9 @@ from typing import Dict, Tuple
 # (name, module, wrapper, attribute) of every kernel's launch count; the
 # stencil wrappers count their periodic launches (K7a, K7b) apart, the
 # slab kernels (K8a-K8d) their launches on blocks split along k (k slabs),
-# the kernels with a bfloat16 instantiation their bf16 launches (K1 also
-# its BF16C gsrb launches: float32 x, bf16 coefficients); fv4_small counts
+# the kernels with a bfloat16 instantiation their bf16 launches (the
+# stencil wrappers their periodic bf16 launches apart again; K1 also its
+# BF16C gsrb launches: float32 x, bf16 coefficients); fv4_small counts
 # the fv4 suite's calls on levels below 4^3, which every device computes
 # by the plain version (stencils.small_level)
 KERNELS = (
@@ -46,6 +47,14 @@ KERNELS = (
     ("restrict_cell_bf16", "restrict", "restrict_cell_cuda", "bf16_launches"),
     ("tail_down_bf16", "tail", "tail_down_cuda", "bf16_launches"),
     ("tail_up_bf16", "tail", "tail_up_cuda", "bf16_launches"),
+    ("fv4_stencil_periodic_bf16", "stencils", "fv4_stencil_cuda",
+     "periodic_bf16_launches"),
+    ("r1_stencil_bf16", "stencils_r1", "r1_stencil_cuda", "bf16_launches"),
+    ("r1_stencil_periodic_bf16", "stencils_r1", "r1_stencil_cuda",
+     "periodic_bf16_launches"),
+    ("r1_stream_bf16", "stencils_r1", "r1_stream_cuda", "bf16_launches"),
+    ("r1_stream_periodic_bf16", "stencils_r1", "r1_stream_cuda", "periodic_bf16_launches"),
+    ("r1_gsrb2_bf16", "stencils_r1", "r1_gsrb2_cuda", "bf16_launches"),
     ("fv4_small", "stencils", "fv4_small", "launches"),
 )
 # (name, module, plain version) of every plain version's call count

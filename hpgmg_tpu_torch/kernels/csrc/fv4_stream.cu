@@ -84,6 +84,10 @@
 // faster: on an H100 80GB HBM3 at 700 W (chip_smoke.py phase 18) the
 // 512^3 gsrb ran 3.02 ms with BF16C and 3.22 ms in bf16 against 2.03 ms
 // in float32, the widening in the plane loop the larger part of the gap.
+// On a periodic level (K7a in bf16) a wrapped ghost's word is that of the
+// cell it copies, and widen_word takes the half that cell's index names
+// (not the one the ghost's own position would); its 512^3 gsrb ran
+// 2.85 ms against 1.75 ms in float32 in turns (chip_smoke.py phase 19a).
 // Plain version: hpgmg_tpu_torch/kernels/stencils.py:fv4_stencil_plain.
 
 #include "fv4_stream.cuh"

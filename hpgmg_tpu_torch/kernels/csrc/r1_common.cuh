@@ -26,12 +26,18 @@
 // product of the per-axis taps, which is what the separable i -> j -> k
 // fills of ops/bc.py and ops/bc_fv.py produce. Needs n >= 2.
 //
+// Storage: every field of an instantiation is stored in S (float, double or
+// bfloat16) and computed in Wide<S> (storage.cuh): a bf16 operand widened
+// after its load, each output rounded to bf16 once.
+//
 // Periodic ghosts (K7b, R1Args::periodic): a ghost one cell outside is the
 // cell at the opposite face, index mod n on each axis it crosses (edges
 // and corners wrap on each axis), with weight 1. At n = 2 the low and the
 // high ghost of an axis are the same two cells.
 
 #pragma once
+
+#include "storage.cuh"
 
 #include <cuda_runtime.h>
 
@@ -41,16 +47,17 @@ namespace {
 
 enum Mode : int { kApply = 0, kResidual = 1, kGsrb = 2, kFres = 3 };
 
-template <typename T>
+// S: the storage type of every field, T = Wide<S> the arithmetic's
+template <typename S, typename T = Wide<S>>
 struct R1Args {
-  const T* x;
-  const T* beta_i;  // var7 only
-  const T* beta_j;
-  const T* beta_k;
-  const T* alpha;   // var7 with a*alpha*x; nullptr otherwise
-  const T* rhs;
-  const T* kdinv;   // gsrb: the half's parity-folded dinv
-  T* out;
+  const S* x;
+  const S* beta_i;  // var7 only
+  const S* beta_j;
+  const S* beta_k;
+  const S* alpha;   // var7 with a*alpha*x; nullptr otherwise
+  const S* rhs;
+  const S* kdinv;   // gsrb: the half's parity-folded dinv
+  S* out;
   int n;
   T b_h2inv;  // b / h^2
   T a_coef;   // var7: a (with alpha); 27pt: the constant a of a*x
@@ -58,9 +65,10 @@ struct R1Args {
   int periodic;  // K7b: ghosts wrap (t1, t2 unused); K5: 0
 };
 
-template <typename T>
-__device__ __forceinline__ T ld(const T* p) {
-  return __ldg(p);
+// *p through the read-only cache, widened to the type of the arithmetic
+template <typename S>
+__device__ __forceinline__ Wide<S> ld(const S* p) {
+  return ldv<Wide<S>>(p);
 }
 
 // Where the var7 body finds a cell's coefficients: its low i, j, k faces at

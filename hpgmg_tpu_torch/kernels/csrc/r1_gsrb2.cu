@@ -86,6 +86,17 @@
 // plane i0-1 again from x planes i0-2 .. i0, so every cell's red and
 // black values are computed from the same values in the same order
 // whatever the chunk: any chunk gives the same bits.
+// bfloat16 (K6 of a bf16 solve; K8d has none): the x ring and the red
+// planes hold float and the arithmetic is the float kernel's; each bf16 x
+// value's aligned 32-bit word lands in its float slot by cp.async and the
+// thread that copied it widens the slot in place before the barrier that
+// publishes the plane (stream.cuh: cp_async_value, widen_ring_plane); the
+// operands are widened as they are read (ld). Each red value is rounded to
+// bf16 (rounded<S>) before black reads it, as the red half-sweep's stored
+// output is, so K6 in bf16 equals two K5 bf16 half-sweeps but for the
+// order of the float sums; out is rounded once. On an H100 80GB HBM3 at
+// 700 W the 512^3 var7 sweep ran 3.03 ms against 1.90 ms in float32 in
+// turns (chip_smoke.py phase 19a, PERF.md).
 // Plain versions: hpgmg_tpu_torch/kernels/stencils_r1.py: r1_gsrb2_plain,
 // r1_gsrb2_slab_plain.
 //
@@ -142,23 +153,25 @@ constexpr unsigned kSwNoCopy = ~0u;
 constexpr int kSrcShift = 29;
 constexpr unsigned kOffMask = (1u << kSrcShift) - 1;
 
-template <typename T>
+// S: the storage type of every field (bf16 for K6 only), T = Wide<S> the
+// arithmetic's
+template <typename S, typename T = Wide<S>>
 struct SweepArgs {
-  const T* x;
-  const T* ilo;  // K8d: the slabs; K6: null
-  const T* ihi;
-  const T* jlo;
-  const T* jhi;
-  const T* klo;  // K8d on a block split along k (KSLAB); null otherwise
-  const T* khi;
-  const T* beta_i;  // var7 only (K8d: the ring views)
-  const T* beta_j;
-  const T* beta_k;
-  const T* alpha;   // var7 with a*alpha*x; nullptr otherwise
-  const T* rhs;     // K8d: the ring view
-  const T* kdinv0;  // red's (K8d: the ring view)
-  const T* kdinv1;  // black's, on the block
-  T* out;
+  const S* x;
+  const S* ilo;  // K8d: the slabs; K6: null
+  const S* ihi;
+  const S* jlo;
+  const S* jhi;
+  const S* klo;  // K8d on a block split along k (KSLAB); null otherwise
+  const S* khi;
+  const S* beta_i;  // var7 only (K8d: the ring views)
+  const S* beta_j;
+  const S* beta_k;
+  const S* alpha;   // var7 with a*alpha*x; nullptr otherwise
+  const S* rhs;     // K8d: the ring view
+  const S* kdinv0;  // red's (K8d: the ring view)
+  const S* kdinv1;  // black's, on the block
+  S* out;
   int ni, nj, nk;
   T b_h2inv;  // b / h^2
   T a_coef;   // var7: a (with alpha); 27pt: the constant a of a*x
@@ -200,8 +213,8 @@ struct Operands {
 
 // A x of the var7 body from X(di, dj, dk) and the faces in `o`, in
 // r1_ax's order; alpha (a*alpha*x) read here, off the benchmark's path
-template <typename T, typename FX>
-__device__ __forceinline__ T ax7(const FX& X, const Operands<T, true>& o, const T* alpha,
+template <typename T, typename S, typename FX>
+__device__ __forceinline__ T ax7(const FX& X, const Operands<T, true>& o, const S* alpha,
                                  int64_t ca, T b_h2inv, T a_coef) {
   const T xc = X(0, 0, 0);
   const T lap = o.face[0] * (X(1, 0, 0) - xc) + o.face[1] * (X(-1, 0, 0) - xc) +
@@ -213,10 +226,11 @@ __device__ __forceinline__ T ax7(const FX& X, const Operands<T, true>& o, const 
 }
 
 // One block: the SJ x SK column (blockIdx.x) over the i-planes of chunk
-// blockIdx.y.
-template <typename T, bool VAR7, bool SLAB, bool KSLAB>
+// blockIdx.y. S: the storage type of the fields, T = Wide<S> the x ring's,
+// the red planes' and the arithmetic's.
+template <typename S, bool VAR7, bool SLAB, bool KSLAB, typename T = Wide<S>>
 __global__ void __launch_bounds__(kSwThreads, kSwBlocks<T>)
-    r1_gsrb2_kernel(const SweepArgs<T> p, int chunk) {
+    r1_gsrb2_kernel(const SweepArgs<S> p, int chunk) {
   static_assert(SLAB || !KSLAB, "k slabs come with the i/j slabs");
   __shared__ __align__(16) T xr[kSwRing * SXPLANE];
   __shared__ __align__(16) T rr[2 * SRPLANE];
@@ -270,14 +284,18 @@ __global__ void __launch_bounds__(kSwThreads, kSwBlocks<T>)
   }
   const int64_t plane = static_cast<int64_t>(nj) * nk;
   // x plane P into ring slot s; a commit group whether or not it copies
-  // anything, so that every iteration waits for the same count
+  // anything, so that every iteration waits for the same count. A bf16 x
+  // (K6) lands as its values' words (cp_async_value), which widen_plane
+  // turns into floats once this thread's copies of the plane have arrived,
+  // before the barrier that publishes it.
+  const S* const xend = p.x + static_cast<int64_t>(ni) * plane;
   auto load_plane = [&](int P, int s) {
     if (P >= xa && P <= xb) {
-      const T* base;
-      const T* slo = nullptr;
-      const T* shi = nullptr;
-      const T* klo_p = nullptr;
-      const T* khi_p = nullptr;
+      const S* base;
+      const S* slo = nullptr;
+      const S* shi = nullptr;
+      const S* klo_p = nullptr;
+      const S* khi_p = nullptr;
       if constexpr (SLAB) {
         base = P < 0 ? p.ilo + (P + 2) * plane
                      : (P >= ni ? p.ihi + (P - ni) * plane : p.x + P * plane);
@@ -296,16 +314,26 @@ __global__ void __launch_bounds__(kSwThreads, kSwBlocks<T>)
         const unsigned g = goff[e];
         if (g == kSwNoCopy) continue;
         const unsigned src = g >> kSrcShift;
-        const T* from;
         if constexpr (KSLAB) {
-          from = src == 0 ? base : src == 1 ? slo : src == 2 ? shi : src == 3 ? klo_p : khi_p;
+          cp_async(dst + e * kSwThreads,
+                   (src == 0 ? base : src == 1 ? slo : src == 2 ? shi : src == 3 ? klo_p : khi_p) +
+                       (g & kOffMask));
+        } else if constexpr (SLAB) {
+          cp_async(dst + e * kSwThreads,
+                   (src == 0 ? base : (src == 1 ? slo : shi)) + (g & kOffMask));
         } else {
-          from = src == 0 ? base : (src == 1 ? slo : shi);
+          cp_async_value(dst + e * kSwThreads, base + g, xend);
         }
-        cp_async(dst + e * kSwThreads, from + (g & kOffMask));
       }
     }
     cp_async_commit();
+  };
+  auto widen_plane = [&](int P, int s) {
+    if constexpr (!SLAB) {
+      if (P >= xa && P <= xb)
+        widen_ring_plane<kSwXE, kSwThreads>(xr + s * SXPLANE + threadIdx.x, p.x + P * plane,
+                                            goff, kSwNoCopy);
+    }
   };
 
   // a stencil's operands at cell (i, j, k), read when `ok`: red's
@@ -424,7 +452,9 @@ __global__ void __launch_bounds__(kSwThreads, kSwBlocks<T>)
       auto X = [&](int di, int dj, int dk) -> T { return w[di + 1][dj + 1][dk + 1]; };
       ax = ax_at(X, o, i, j, k);
     }
-    dst[d] = xc + o.kd * (o.rhs - ax);
+    // rounded to S as the red half-sweep's output is stored (two K5 gsrb
+    // launches), so black reads what a stored red iterate holds
+    dst[d] = rounded<S>(xc + o.kd * (o.rhs - ax));
   };
 
   // thread: black's row jl and pair pl (cells kb = k0 + 2 pl and kb + 1),
@@ -493,8 +523,17 @@ __global__ void __launch_bounds__(kSwThreads, kSwBlocks<T>)
     const bool okb = i >= ia && i < ib && pair_in && kb + qq < nk;
     fetch(okb, i, j, kb + qq, false, ob);
     // x plane q+1 has arrived (kSwRing - 4 newer groups may be in flight);
-    // every thread is done with red plane q-2 and x plane q-2
+    // every thread is done with red plane q-2 and x plane q-2; this
+    // thread's words of a bf16 x widened (the first iteration's planes
+    // q-1, q too)
     cp_async_wait<kSwRing - 4>();
+    if constexpr (!std::is_same_v<S, T>) {
+      if (q == ra) {
+        widen_plane(q - 1, xs);
+        widen_plane(q, ring_add(xs, 1, kSwRing));
+      }
+      widen_plane(q + 1, ring_add(xs, 2, kSwRing));
+    }
     __syncthreads();
     load_plane(q - 2 + kSwRing, xs == 0 ? kSwRing - 1 : xs - 1);
     if (q <= rb) {
@@ -543,9 +582,9 @@ __global__ void __launch_bounds__(kSwThreads, kSwBlocks<T>)
   }
 }
 
-template <typename T, bool VAR7, bool SLAB, bool KSLAB = false>
-int launch_body(const SweepArgs<T>& p, int chunk, cudaStream_t s) {
-  auto kernel = r1_gsrb2_kernel<T, VAR7, SLAB, KSLAB>;
+template <typename S, bool VAR7, bool SLAB, bool KSLAB = false>
+int launch_body(const SweepArgs<S>& p, int chunk, cudaStream_t s) {
+  auto kernel = r1_gsrb2_kernel<S, VAR7, SLAB, KSLAB>;
   const int64_t tiles =
       static_cast<int64_t>((p.nj + SJ - 1) / SJ) * ((p.nk + SK - 1) / SK);
   if (chunk <= 0) {
@@ -580,7 +619,8 @@ int launch_body(const SweepArgs<T>& p, int chunk, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+// S: the storage type; bf16 takes K6 only (K8d has no bf16 instantiation)
+template <typename S>
 int launch_sweep(const void* x, const void* ilo, const void* ihi, const void* jlo,
                  const void* jhi, const void* klo, const void* khi, const void* beta_i,
                  const void* beta_j, const void* beta_k, const void* alpha, const void* rhs,
@@ -596,25 +636,27 @@ int launch_sweep(const void* x, const void* ilo, const void* ihi, const void* jl
       static_cast<int64_t>(nj + 4) * (nk + 4) > static_cast<int64_t>(kOffMask) ||
       x == nullptr || rhs == nullptr || kdinv0 == nullptr || kdinv1 == nullptr ||
       out == nullptr || (slab && (ihi == nullptr || jlo == nullptr || jhi == nullptr)) ||
-      (var7 && (beta_i == nullptr || beta_j == nullptr || beta_k == nullptr))) {
+      (var7 && (beta_i == nullptr || beta_j == nullptr || beta_k == nullptr)) ||
+      (std::is_same_v<S, bf16> && slab)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  SweepArgs<T> p{};
-  p.x = static_cast<const T*>(x);
-  p.ilo = static_cast<const T*>(ilo);
-  p.ihi = static_cast<const T*>(ihi);
-  p.jlo = static_cast<const T*>(jlo);
-  p.jhi = static_cast<const T*>(jhi);
-  p.klo = static_cast<const T*>(klo);
-  p.khi = static_cast<const T*>(khi);
-  p.beta_i = static_cast<const T*>(beta_i);
-  p.beta_j = static_cast<const T*>(beta_j);
-  p.beta_k = static_cast<const T*>(beta_k);
-  p.alpha = static_cast<const T*>(alpha);
-  p.rhs = static_cast<const T*>(rhs);
-  p.kdinv0 = static_cast<const T*>(kdinv0);
-  p.kdinv1 = static_cast<const T*>(kdinv1);
-  p.out = static_cast<T*>(out);
+  using T = Wide<S>;
+  SweepArgs<S> p{};
+  p.x = static_cast<const S*>(x);
+  p.ilo = static_cast<const S*>(ilo);
+  p.ihi = static_cast<const S*>(ihi);
+  p.jlo = static_cast<const S*>(jlo);
+  p.jhi = static_cast<const S*>(jhi);
+  p.klo = static_cast<const S*>(klo);
+  p.khi = static_cast<const S*>(khi);
+  p.beta_i = static_cast<const S*>(beta_i);
+  p.beta_j = static_cast<const S*>(beta_j);
+  p.beta_k = static_cast<const S*>(beta_k);
+  p.alpha = static_cast<const S*>(alpha);
+  p.rhs = static_cast<const S*>(rhs);
+  p.kdinv0 = static_cast<const S*>(kdinv0);
+  p.kdinv1 = static_cast<const S*>(kdinv1);
+  p.out = static_cast<S*>(out);
   p.ni = ni;
   p.nj = nj;
   p.nk = nk;
@@ -624,16 +666,18 @@ int launch_sweep(const void* x, const void* ilo, const void* ihi, const void* jl
   p.t2 = static_cast<T>(t2);
   p.edges = edges;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kslab) {
-    return var7 ? launch_body<T, true, true, true>(p, chunk, s)
-                : launch_body<T, false, true, true>(p, chunk, s);
+  if constexpr (!std::is_same_v<S, bf16>) {
+    if (kslab) {
+      return var7 ? launch_body<S, true, true, true>(p, chunk, s)
+                  : launch_body<S, false, true, true>(p, chunk, s);
+    }
+    if (slab) {
+      return var7 ? launch_body<S, true, true>(p, chunk, s)
+                  : launch_body<S, false, true>(p, chunk, s);
+    }
   }
-  if (slab) {
-    return var7 ? launch_body<T, true, true>(p, chunk, s)
-                : launch_body<T, false, true>(p, chunk, s);
-  }
-  return var7 ? launch_body<T, true, false>(p, chunk, s)
-              : launch_body<T, false, false>(p, chunk, s);
+  return var7 ? launch_body<S, true, false>(p, chunk, s)
+              : launch_body<S, false, false>(p, chunk, s);
 }
 
 }  // namespace
@@ -663,6 +707,19 @@ extern "C" int hpgmg_r1_gsrb2_chunk_f64(const void* x, const void* beta_i,
                               n, 63, var7, chunk, b_h2inv, a_coef, t1, t2, stream);
 }
 
+// bf16 storage, float arithmetic (red rounded to bf16 before black reads
+// it): a bfloat16 solve's K6
+extern "C" int hpgmg_r1_gsrb2_chunk_bf16(const void* x, const void* beta_i,
+                                         const void* beta_j, const void* beta_k,
+                                         const void* alpha, const void* rhs,
+                                         const void* kdinv0, const void* kdinv1, void* out,
+                                         int n, int var7, int chunk, double b_h2inv,
+                                         double a_coef, double t1, double t2, void* stream) {
+  return launch_sweep<bf16>(x, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, beta_i,
+                            beta_j, beta_k, alpha, rhs, kdinv0, kdinv1, out, n, n, n, 63,
+                            var7, chunk, b_h2inv, a_coef, t1, t2, stream);
+}
+
 // K6 with the launcher's chunk rule
 extern "C" int hpgmg_r1_gsrb2_f32(const void* x, const void* beta_i, const void* beta_j,
                                   const void* beta_k, const void* alpha, const void* rhs,
@@ -680,6 +737,15 @@ extern "C" int hpgmg_r1_gsrb2_f64(const void* x, const void* beta_i, const void*
                                   double t2, void* stream) {
   return hpgmg_r1_gsrb2_chunk_f64(x, beta_i, beta_j, beta_k, alpha, rhs, kdinv0, kdinv1,
                                   out, n, var7, 0, b_h2inv, a_coef, t1, t2, stream);
+}
+
+extern "C" int hpgmg_r1_gsrb2_bf16(const void* x, const void* beta_i, const void* beta_j,
+                                   const void* beta_k, const void* alpha, const void* rhs,
+                                   const void* kdinv0, const void* kdinv1, void* out, int n,
+                                   int var7, double b_h2inv, double a_coef, double t1,
+                                   double t2, void* stream) {
+  return hpgmg_r1_gsrb2_chunk_bf16(x, beta_i, beta_j, beta_k, alpha, rhs, kdinv0, kdinv1,
+                                   out, n, var7, 0, b_h2inv, a_coef, t1, t2, stream);
 }
 
 // K8d. The r* operands are the ring views; klo, khi: the k slabs of a

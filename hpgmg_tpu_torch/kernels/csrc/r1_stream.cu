@@ -58,6 +58,15 @@
 // in the same register) and writes (n/2)^3. Levels too small to fill the card with columns split i into
 // chunks (K1's launcher rule, at least kR1MinChunk planes), each reloading
 // its two halo planes.
+// bfloat16 (a bf16 solve): the ring holds float and the arithmetic is the
+// float kernel's; each bf16 x value's aligned 32-bit word lands in its
+// float slot by cp.async and the thread that copied it widens the slot in
+// place, taking the half its source index names, before the barrier that
+// publishes the plane (stream.cuh: cp_async_value, widen_value); rhs and
+// kdinv are widened as they are read (ldv, load2), each output rounded to
+// bf16 once. The weighted-difference summation is the float kernel's. On
+// an H100 80GB HBM3 at 700 W the 512^3 apply ran 0.72 ms against 0.53 ms
+// in float32 in turns (chip_smoke.py phase 19a, PERF.md).
 // Plain version: hpgmg_tpu_torch/kernels/stencils_r1.py:r1_stencil_plain.
 
 #include "r1_common.cuh"
@@ -99,9 +108,11 @@ __device__ __forceinline__ T ax27(const FX& X, T b_h2inv, T a_coef) {
 
 // One block: the TJ x TK column (blockIdx.x) over the i-planes of chunk
 // blockIdx.y.
-template <typename T, int MODE>
+// S: the storage type of the fields, T = Wide<S> the ring's and the
+// arithmetic's.
+template <typename S, int MODE, typename T = Wide<S>>
 __global__ void __launch_bounds__(kR1Threads, kR1Blocks<T>)
-    r1_stream_kernel(const R1Args<T> p, int parity, int chunk) {
+    r1_stream_kernel(const R1Args<S> p, int parity, int chunk) {
   __shared__ __align__(16) T ring[kR1Ring * XPLANE];
 
   const int n = p.n;
@@ -136,18 +147,30 @@ __global__ void __launch_bounds__(kR1Threads, kR1Blocks<T>)
   }
   // x plane q (the chunk reads planes ia-1 .. ib) into ring slot s; a
   // commit group whether or not it copies anything, so that every plane
-  // step waits for the same count
-  auto load_plane = [&](int q, int s) {
+  // step waits for the same count. A bf16 x lands as its values' words
+  // (cp_async_value), which widen_plane turns into floats once this
+  // thread's copies of the plane have arrived, before the barrier that
+  // publishes it.
+  const S* const xend = p.x + static_cast<int64_t>(n) * n * n;
+  auto copies = [&](int q, int s, auto&& copy) {
     const int pq = q < 0 ? q + n : (q >= n ? q - n : q);
     if (q <= ib && (periodic || pq == q)) {
-      const T* base = p.x + static_cast<int64_t>(pq) * n * n;
+      const S* base = p.x + static_cast<int64_t>(pq) * n * n;
       T* dst = ring + s * XPLANE + threadIdx.x;
 #pragma unroll
       for (int e = 0; e < kXE; ++e) {
-        if (goff[e] != kNoCopy) cp_async(dst + e * kR1Threads, base + goff[e]);
+        if (goff[e] != kNoCopy) copy(dst + e * kR1Threads, base + goff[e]);
       }
     }
+  };
+  auto load_plane = [&](int q, int s) {
+    copies(q, s, [&](T* d, const S* src) { cp_async_value(d, src, xend); });
     cp_async_commit();
+  };
+  auto widen_plane = [&](int q, int s) {
+    if constexpr (!std::is_same_v<S, T>) {
+      copies(q, s, [](T* d, const S* src) { widen_value(d, src); });
+    }
   };
 
   // thread: row jl, pair pl (cells kb = k0 + 2 pl and kb + 1). A warp
@@ -188,6 +211,8 @@ __global__ void __launch_bounds__(kR1Threads, kR1Blocks<T>)
 #pragma unroll
   for (int s = 0; s < kR1Ring; ++s) load_plane(ia - 1 + s, s);
   cp_async_wait<kR1Ring - 2>();  // planes ia-1 and ia
+  widen_plane(ia - 1, 0);
+  widen_plane(ia, 1);
   __syncthreads();
   // plane -1 of a Dirichlet level is a ghost, made once plane 1 is read
   if (periodic || ia > 0) read(w[0], 0);
@@ -205,14 +230,14 @@ __global__ void __launch_bounds__(kR1Threads, kR1Blocks<T>)
     if (MODE == kGsrb) {
       const int q = (parity + i + j) & 1;
       if (kb + q < n) {
-        r[0] = __ldg(p.rhs + c + q);
-        r[1] = __ldg(p.kdinv + c + q);
+        r[0] = ldv<T>(p.rhs + c + q);
+        r[1] = ldv<T>(p.kdinv + c + q);
       }
     } else if (rhs_vec) {
       load2(p.rhs + c, r[0], r[1]);
     } else {
-      r[0] = __ldg(p.rhs + c);
-      if (has_hi) r[1] = __ldg(p.rhs + c + 1);
+      r[0] = ldv<T>(p.rhs + c);
+      if (has_hi) r[1] = ldv<T>(p.rhs + c + 1);
     }
   };
   T rr[3][2] = {};  // by the window's roles: planes i-1 (free), i, i+1
@@ -226,6 +251,7 @@ __global__ void __launch_bounds__(kR1Threads, kR1Blocks<T>)
     constexpr int a = decltype(A)::value, b = decltype(B)::value, c = decltype(C)::value;
     // plane i+1 has arrived (kR1Ring - 3 newer groups may be in flight)
     cp_async_wait<kR1Ring - 3>();
+    widen_plane(i + 1, slot);
     __syncthreads();
     if (!periodic && i + 1 == n) {
       ghost_plane(w[c], w[b], w[a], t1, t2);
@@ -285,7 +311,8 @@ __global__ void __launch_bounds__(kR1Threads, kR1Blocks<T>)
         sum += plo;
         sum += phi;
         if ((i & 1) && (jl & 1) == 0 && pair_in) {
-          p.out[(static_cast<int64_t>(i / 2) * m + j / 2) * m + kb / 2] = T(0.125) * sum;
+          p.out[(static_cast<int64_t>(i / 2) * m + j / 2) * m + kb / 2] =
+              narrow<S>(T(0.125) * sum);
         }
       } else if (pair_in) {
         store_pair(p.out, row + kb, lo, hi, vec, has_hi);
@@ -302,9 +329,9 @@ __global__ void __launch_bounds__(kR1Threads, kR1Blocks<T>)
   }
 }
 
-template <typename T, int MODE>
-int launch_mode(const R1Args<T>& p, int parity, int chunk, cudaStream_t s) {
-  auto kernel = r1_stream_kernel<T, MODE>;
+template <typename S, int MODE>
+int launch_mode(const R1Args<S>& p, int parity, int chunk, cudaStream_t s) {
+  auto kernel = r1_stream_kernel<S, MODE>;
   const int n = p.n;
   const int64_t tiles =
       static_cast<int64_t>((n + R1TJ - 1) / R1TJ) * ((n + R1TK - 1) / R1TK);
@@ -332,28 +359,29 @@ int launch_mode(const R1Args<T>& p, int parity, int chunk, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename S>
 int launch_stream(const void* x, const void* rhs, const void* kdinv, void* out, int n,
                   int mode, int periodic, int parity, int chunk, double b_h2inv,
                   double a_coef, double t1, double t2, void* stream) {
+  using T = Wide<S>;
   if (n < 2 || n > 65535 || mode < kApply || mode > kFres ||
       (mode == kFres && n % 2 != 0) || parity < 0 || parity > 1 || chunk < 0 ||
       x == nullptr || out == nullptr || (mode != kApply && rhs == nullptr) ||
       (mode == kGsrb && kdinv == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const R1Args<T> p{static_cast<const T*>(x), nullptr,  nullptr,
-                    nullptr,                  nullptr,  static_cast<const T*>(rhs),
-                    static_cast<const T*>(kdinv), static_cast<T*>(out),
+  const R1Args<S> p{static_cast<const S*>(x), nullptr,  nullptr,
+                    nullptr,                  nullptr,  static_cast<const S*>(rhs),
+                    static_cast<const S*>(kdinv), static_cast<S*>(out),
                     n,                        static_cast<T>(b_h2inv),
                     static_cast<T>(a_coef),   static_cast<T>(t1),
                     static_cast<T>(t2),       periodic != 0};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (mode) {
-    case kApply: return launch_mode<T, kApply>(p, parity, chunk, s);
-    case kResidual: return launch_mode<T, kResidual>(p, parity, chunk, s);
-    case kGsrb: return launch_mode<T, kGsrb>(p, parity, chunk, s);
-    default: return launch_mode<T, kFres>(p, parity, chunk, s);
+    case kApply: return launch_mode<S, kApply>(p, parity, chunk, s);
+    case kResidual: return launch_mode<S, kResidual>(p, parity, chunk, s);
+    case kGsrb: return launch_mode<S, kGsrb>(p, parity, chunk, s);
+    default: return launch_mode<S, kFres>(p, parity, chunk, s);
   }
 }
 
@@ -377,4 +405,13 @@ extern "C" int hpgmg_r1_stream_f64(const void* x, const void* rhs, const void* k
                                    double t2, void* stream) {
   return launch_stream<double>(x, rhs, kdinv, out, n, mode, periodic, parity, chunk,
                                b_h2inv, a_coef, t1, t2, stream);
+}
+
+// bf16 storage, float arithmetic: a bfloat16 solve's 27pt body
+extern "C" int hpgmg_r1_stream_bf16(const void* x, const void* rhs, const void* kdinv,
+                                    void* out, int n, int mode, int periodic, int parity,
+                                    int chunk, double b_h2inv, double a_coef, double t1,
+                                    double t2, void* stream) {
+  return launch_stream<bf16>(x, rhs, kdinv, out, n, mode, periodic, parity, chunk,
+                             b_h2inv, a_coef, t1, t2, stream);
 }

@@ -96,6 +96,24 @@
 // copied (periodic), or with KSLAB copied from the k slabs: a halo column
 // k = -1 or nk of x plane q is klo's or khi's cell ((q+1) (nj+2) + j+1),
 // so the window holds no made ghost at all.
+// bfloat16 (a bf16 solve's whole level, K5 and K7b; K8c has none): the
+// ring holds float, so the window, the ghosts and the arithmetic are the
+// float kernel's. cp.async cannot widen, so each bf16 x value's aligned
+// 32-bit word lands in the value's float slot, and the thread that copied
+// it widens the slot in place, taking the half its source index names
+// (wrapped or not), once its copies of the plane have arrived and before
+// the barrier that publishes the plane (stream.cuh: cp_async_value,
+// widen_ring_plane); staging x through registers instead would have left
+// each plane's load latency in the open. The faces, rhs, kdinv and alpha are
+// read a plane ahead by 16-bit loads, or 32-bit ones for an aligned pair
+// (ldv, load2), widened as they are read; each output is rounded to bf16
+// once (narrow, store2). Half the bytes, but not faster: on an H100 80GB
+// HBM3 at 700 W the 512^3 gsrb ran 1.46 ms against 1.34 ms in float32 in
+// turns, its apply 2.34 against 1.11 (bench/stencil_times.py --r1). The
+// widening as read makes each plane step wait for its loads before the
+// barrier: a build that kept the operands as loaded and widened them
+// where the stencil uses them ran the apply 0.96 ms and the gsrb 1.04
+// (PERF.md; not taken here).
 // Plain versions: hpgmg_tpu_torch/kernels/stencils_r1.py:r1_stencil_plain,
 // r1_slab_plain.
 
@@ -137,22 +155,24 @@ constexpr unsigned kVNoCopy = ~0u;
 constexpr int kSrcShift = 29;
 constexpr unsigned kOffMask = (1u << kSrcShift) - 1;
 
-template <typename T>
+// S: the storage type of every field (bf16 on a whole level only), T =
+// Wide<S> the arithmetic's
+template <typename S, typename T = Wide<S>>
 struct V7Args {
-  const T* x;
-  const T* ilo;  // K8c: the slabs; a whole level: null
-  const T* ihi;
-  const T* jlo;
-  const T* jhi;
-  const T* klo;  // K8c on a block split along k (KSLAB); null otherwise
-  const T* khi;
-  const T* beta_i;  // var7 only
-  const T* beta_j;
-  const T* beta_k;
-  const T* alpha;   // var7 with a*alpha*x; nullptr otherwise
-  const T* rhs;
-  const T* kdinv;   // gsrb: the half's parity-folded dinv
-  T* out;
+  const S* x;
+  const S* ilo;  // K8c: the slabs; a whole level: null
+  const S* ihi;
+  const S* jlo;
+  const S* jhi;
+  const S* klo;  // K8c on a block split along k (KSLAB); null otherwise
+  const S* khi;
+  const S* beta_i;  // var7 only
+  const S* beta_j;
+  const S* beta_k;
+  const S* alpha;   // var7 with a*alpha*x; nullptr otherwise
+  const S* rhs;
+  const S* kdinv;   // gsrb: the half's parity-folded dinv
+  S* out;
   int ni, nj, nk;
   T b_h2inv;  // b / h^2
   T a_coef;   // var7: a (with alpha); 27pt: the constant a of a*x
@@ -187,10 +207,11 @@ __device__ __forceinline__ T ax7(T xc, T xu, T xd, T xs, T xn, T xe, T xw, T bih
 }
 
 // One block: the TJ x TK column (blockIdx.x) over the i-planes of chunk
-// blockIdx.y.
-template <typename T, int MODE, bool VAR7, bool SLAB, bool KSLAB>
+// blockIdx.y. S: the storage type of the fields, T = Wide<S> the ring's
+// and the arithmetic's.
+template <typename S, int MODE, bool VAR7, bool SLAB, bool KSLAB, typename T = Wide<S>>
 __global__ void __launch_bounds__(kV7Threads, kV7Blocks<T, VAR7>)
-    r1_v7_kernel(const V7Args<T> p, int parity, int chunk) {
+    r1_v7_kernel(const V7Args<S> p, int parity, int chunk) {
   static_assert(SLAB || !KSLAB, "k slabs come with the i/j slabs");
   __shared__ __align__(16) T ring[kV7Ring * VXPLANE];
 
@@ -237,13 +258,17 @@ __global__ void __launch_bounds__(kV7Threads, kV7Blocks<T, VAR7>)
   }
   // x plane q (the chunk reads planes ia-1 .. ib) into ring slot s; a
   // commit group whether or not it copies anything, so that every plane
-  // step waits for the same count
+  // step waits for the same count. A bf16 x (a whole level) lands as its
+  // values' words (cp_async_value), which widen_plane turns into floats
+  // once this thread's copies of the plane have arrived, before the
+  // barrier that publishes it.
+  const S* const xend = p.x + static_cast<int64_t>(ni) * plane;
   auto load_plane = [&](int q, int s) {
-    const T* base;
-    const T* slo = nullptr;
-    const T* shi = nullptr;
-    const T* klo = nullptr;
-    const T* khi = nullptr;
+    const S* base;
+    const S* slo = nullptr;
+    const S* shi = nullptr;
+    const S* klo = nullptr;
+    const S* khi = nullptr;
     bool any;
     if constexpr (SLAB) {
       any = q <= ib;
@@ -267,18 +292,26 @@ __global__ void __launch_bounds__(kV7Threads, kV7Blocks<T, VAR7>)
         if (g == kVNoCopy) continue;
         if constexpr (KSLAB) {
           const unsigned src = g >> kSrcShift;
-          const T* from = src == 0 ? base : src == 1 ? slo : src == 2 ? shi : src == 3 ? klo : khi;
+          const S* from = src == 0 ? base : src == 1 ? slo : src == 2 ? shi : src == 3 ? klo : khi;
           cp_async(dst + e * kV7Threads, from + (g & kOffMask));
         } else if constexpr (SLAB) {
           const unsigned src = g >> kSrcShift;
           cp_async(dst + e * kV7Threads,
                    (src == 0 ? base : (src == 1 ? slo : shi)) + (g & kOffMask));
         } else {
-          cp_async(dst + e * kV7Threads, base + g);
+          cp_async_value(dst + e * kV7Threads, base + g, xend);
         }
       }
     }
     cp_async_commit();
+  };
+  auto widen_plane = [&](int q, int s) {
+    if constexpr (!SLAB) {
+      const int pq = q < 0 ? q + ni : (q >= ni ? q - ni : q);
+      if (q <= ib && (periodic || pq == q))
+        widen_ring_plane<kVXE, kV7Threads>(ring + s * VXPLANE + threadIdx.x, p.x + pq * plane,
+                                           goff, kVNoCopy);
+    }
   };
 
   // thread: row jl, pair pl (cells kb = k0 + 2 pl and kb + 1). A warp
@@ -333,26 +366,26 @@ __global__ void __launch_bounds__(kV7Threads, kV7Blocks<T, VAR7>)
     if constexpr (MODE == kGsrb) {
       const int q = (parity + i + j) & 1;
       if (kb + q >= nk) return;
-      o.r[0] = __ldg(p.rhs + c + q);
-      o.r[1] = __ldg(p.kdinv + c + q);
+      o.r[0] = ldv<T>(p.rhs + c + q);
+      o.r[1] = ldv<T>(p.kdinv + c + q);
       if constexpr (VAR7) {
-        o.bi[0] = __ldg(p.beta_i + c + q);
-        o.bi[1] = __ldg(p.beta_i + c + plane + q);
-        o.bj[0][0] = __ldg(p.beta_j + cj + q);
-        o.bj[0][1] = __ldg(p.beta_j + cj + nk + q);
-        o.bk[0] = __ldg(p.beta_k + ck + q);
-        o.bk[1] = __ldg(p.beta_k + ck + q + 1);
-        if (has_alpha) o.al[0] = __ldg(p.alpha + c + q);
+        o.bi[0] = ldv<T>(p.beta_i + c + q);
+        o.bi[1] = ldv<T>(p.beta_i + c + plane + q);
+        o.bj[0][0] = ldv<T>(p.beta_j + cj + q);
+        o.bj[0][1] = ldv<T>(p.beta_j + cj + nk + q);
+        o.bk[0] = ldv<T>(p.beta_k + ck + q);
+        o.bk[1] = ldv<T>(p.beta_k + ck + q + 1);
+        if (has_alpha) o.al[0] = ldv<T>(p.alpha + c + q);
       }
     } else {
       // two neighbouring values at c + d of a (ni, nj, nk)-shaped or face
       // array: one paired load where vec, else each one in the domain
-      auto pair = [&](const T* a, int64_t d, T& lo, T& hi) {
+      auto pair = [&](const S* a, int64_t d, T& lo, T& hi) {
         if (vec) {
           load2(a + d, lo, hi);
         } else {
-          lo = __ldg(a + d);
-          if (has_hi) hi = __ldg(a + d + 1);
+          lo = ldv<T>(a + d);
+          if (has_hi) hi = ldv<T>(a + d + 1);
         }
       };
       if (MODE != kApply) pair(p.rhs, c, o.r[0], o.r[1]);
@@ -360,9 +393,9 @@ __global__ void __launch_bounds__(kV7Threads, kV7Blocks<T, VAR7>)
         pair(p.beta_i, c + plane, o.bi[0], o.bi[1]);
         pair(p.beta_j, cj, o.bj[0][0], o.bj[0][1]);
         pair(p.beta_j, cj + nk, o.bj[1][0], o.bj[1][1]);
-        o.bk[0] = __ldg(p.beta_k + ck);
-        o.bk[1] = __ldg(p.beta_k + ck + 1);
-        if (has_hi) o.bk[2] = __ldg(p.beta_k + ck + 2);
+        o.bk[0] = ldv<T>(p.beta_k + ck);
+        o.bk[1] = ldv<T>(p.beta_k + ck + 1);
+        if (has_hi) o.bk[2] = ldv<T>(p.beta_k + ck + 2);
         if (has_alpha) pair(p.alpha, c, o.al[0], o.al[1]);
       }
     }
@@ -386,11 +419,13 @@ __global__ void __launch_bounds__(kV7Threads, kV7Blocks<T, VAR7>)
     if (vec) {
       load2(p.beta_i + c, bil[0], bil[1]);
     } else {
-      bil[0] = __ldg(p.beta_i + c);
-      if (has_hi) bil[1] = __ldg(p.beta_i + c + 1);
+      bil[0] = ldv<T>(p.beta_i + c);
+      if (has_hi) bil[1] = ldv<T>(p.beta_i + c + 1);
     }
   }
   cp_async_wait<kV7Ring - 2>();  // planes ia-1 and ia
+  widen_plane(ia - 1, 0);
+  widen_plane(ia, 1);
   __syncthreads();
   // plane -1 of a whole Dirichlet level is a ghost, made once plane 1 is
   // read
@@ -406,6 +441,7 @@ __global__ void __launch_bounds__(kV7Threads, kV7Blocks<T, VAR7>)
     if (i + 1 < ib) fetch(i + 1, ops[c]);
     // plane i+1 has arrived (kV7Ring - 3 newer groups may be in flight)
     cp_async_wait<kV7Ring - 3>();
+    widen_plane(i + 1, slot);
     __syncthreads();
     if (ghost_planes && i + 1 == ni) {
       ghost_plane(w[c], w[b], w[a], t1, t2);
@@ -487,7 +523,7 @@ __global__ void __launch_bounds__(kV7Threads, kV7Blocks<T, VAR7>)
         sum += phi;
         if ((i & 1) && (jl & 1) == 0 && pair_in) {
           p.out[(static_cast<int64_t>(i / 2) * (nj / 2) + j / 2) * (nk / 2) + kb / 2] =
-              T(0.125) * sum;
+              narrow<S>(T(0.125) * sum);
         }
       } else if (pair_in) {
         store_pair(p.out, row + kb, lo, hi, vec, has_hi);
@@ -504,9 +540,9 @@ __global__ void __launch_bounds__(kV7Threads, kV7Blocks<T, VAR7>)
   }
 }
 
-template <typename T, int MODE, bool VAR7, bool SLAB, bool KSLAB>
-int launch_mode(const V7Args<T>& p, int parity, int chunk, cudaStream_t s) {
-  auto kernel = r1_v7_kernel<T, MODE, VAR7, SLAB, KSLAB>;
+template <typename S, int MODE, bool VAR7, bool SLAB, bool KSLAB>
+int launch_mode(const V7Args<S>& p, int parity, int chunk, cudaStream_t s) {
+  auto kernel = r1_v7_kernel<S, MODE, VAR7, SLAB, KSLAB>;
   const int64_t tiles =
       static_cast<int64_t>((p.nj + V7TJ - 1) / V7TJ) * ((p.nk + V7TK - 1) / V7TK);
   // fres: a coarse cell's two planes in one chunk
@@ -545,13 +581,13 @@ int launch_mode(const V7Args<T>& p, int parity, int chunk, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool VAR7, bool SLAB, bool KSLAB = false>
-int launch_body(const V7Args<T>& p, int mode, int parity, int chunk, cudaStream_t s) {
+template <typename S, bool VAR7, bool SLAB, bool KSLAB = false>
+int launch_body(const V7Args<S>& p, int mode, int parity, int chunk, cudaStream_t s) {
   switch (mode) {
-    case kApply: return launch_mode<T, kApply, VAR7, SLAB, KSLAB>(p, parity, chunk, s);
-    case kResidual: return launch_mode<T, kResidual, VAR7, SLAB, KSLAB>(p, parity, chunk, s);
-    case kGsrb: return launch_mode<T, kGsrb, VAR7, SLAB, KSLAB>(p, parity, chunk, s);
-    default: return launch_mode<T, kFres, VAR7, SLAB, KSLAB>(p, parity, chunk, s);
+    case kApply: return launch_mode<S, kApply, VAR7, SLAB, KSLAB>(p, parity, chunk, s);
+    case kResidual: return launch_mode<S, kResidual, VAR7, SLAB, KSLAB>(p, parity, chunk, s);
+    case kGsrb: return launch_mode<S, kGsrb, VAR7, SLAB, KSLAB>(p, parity, chunk, s);
+    default: return launch_mode<S, kFres, VAR7, SLAB, KSLAB>(p, parity, chunk, s);
   }
 }
 
@@ -560,7 +596,9 @@ bool pair_ok(const void* a) {
   return a == nullptr || (reinterpret_cast<uintptr_t>(a) & (2 * sizeof(T) - 1)) == 0;
 }
 
-template <typename T>
+// S: the storage type; bf16 takes a whole level only (no slab kernel has a
+// bf16 instantiation)
+template <typename S>
 int launch_v7(const void* x, const void* ilo, const void* ihi, const void* jlo,
               const void* jhi, const void* klo, const void* khi, const void* beta_i,
               const void* beta_j, const void* beta_k, const void* alpha, const void* rhs,
@@ -576,24 +614,26 @@ int launch_v7(const void* x, const void* ilo, const void* ihi, const void* jlo,
       out == nullptr || (mode != kApply && rhs == nullptr) ||
       (mode == kGsrb && kdinv == nullptr) ||
       (slab && (ihi == nullptr || jlo == nullptr || jhi == nullptr)) ||
-      (var7 && (beta_i == nullptr || beta_j == nullptr || beta_k == nullptr))) {
+      (var7 && (beta_i == nullptr || beta_j == nullptr || beta_k == nullptr)) ||
+      (std::is_same_v<S, bf16> && slab)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  V7Args<T> p{};
-  p.x = static_cast<const T*>(x);
-  p.ilo = static_cast<const T*>(ilo);
-  p.ihi = static_cast<const T*>(ihi);
-  p.jlo = static_cast<const T*>(jlo);
-  p.jhi = static_cast<const T*>(jhi);
-  p.klo = static_cast<const T*>(klo);
-  p.khi = static_cast<const T*>(khi);
-  p.beta_i = static_cast<const T*>(beta_i);
-  p.beta_j = static_cast<const T*>(beta_j);
-  p.beta_k = static_cast<const T*>(beta_k);
-  p.alpha = static_cast<const T*>(alpha);
-  p.rhs = static_cast<const T*>(rhs);
-  p.kdinv = static_cast<const T*>(kdinv);
-  p.out = static_cast<T*>(out);
+  using T = Wide<S>;
+  V7Args<S> p{};
+  p.x = static_cast<const S*>(x);
+  p.ilo = static_cast<const S*>(ilo);
+  p.ihi = static_cast<const S*>(ihi);
+  p.jlo = static_cast<const S*>(jlo);
+  p.jhi = static_cast<const S*>(jhi);
+  p.klo = static_cast<const S*>(klo);
+  p.khi = static_cast<const S*>(khi);
+  p.beta_i = static_cast<const S*>(beta_i);
+  p.beta_j = static_cast<const S*>(beta_j);
+  p.beta_k = static_cast<const S*>(beta_k);
+  p.alpha = static_cast<const S*>(alpha);
+  p.rhs = static_cast<const S*>(rhs);
+  p.kdinv = static_cast<const S*>(kdinv);
+  p.out = static_cast<S*>(out);
   p.ni = ni;
   p.nj = nj;
   p.nk = nk;
@@ -602,16 +642,20 @@ int launch_v7(const void* x, const void* ilo, const void* ihi, const void* jlo,
   p.t1 = static_cast<T>(t1);
   p.t2 = static_cast<T>(t2);
   p.periodic = periodic != 0;
-  p.vec = nk % 2 == 0 && pair_ok<T>(x) && pair_ok<T>(beta_i) && pair_ok<T>(beta_j) &&
-          pair_ok<T>(alpha) && pair_ok<T>(rhs) && pair_ok<T>(out);
+  p.vec = nk % 2 == 0 && pair_ok<S>(x) && pair_ok<S>(beta_i) && pair_ok<S>(beta_j) &&
+          pair_ok<S>(alpha) && pair_ok<S>(rhs) && pair_ok<S>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!slab) return launch_body<T, true, false>(p, mode, parity, chunk, s);
-  if (kslab) {
-    return var7 ? launch_body<T, true, true, true>(p, mode, parity, chunk, s)
-                : launch_body<T, false, true, true>(p, mode, parity, chunk, s);
+  if (!slab) return launch_body<S, true, false>(p, mode, parity, chunk, s);
+  if constexpr (std::is_same_v<S, bf16>) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  } else {
+    if (kslab) {
+      return var7 ? launch_body<S, true, true, true>(p, mode, parity, chunk, s)
+                  : launch_body<S, false, true, true>(p, mode, parity, chunk, s);
+    }
+    return var7 ? launch_body<S, true, true>(p, mode, parity, chunk, s)
+                : launch_body<S, false, true>(p, mode, parity, chunk, s);
   }
-  return var7 ? launch_body<T, true, true>(p, mode, parity, chunk, s)
-              : launch_body<T, false, true>(p, mode, parity, chunk, s);
 }
 
 }  // namespace
@@ -638,6 +682,17 @@ extern "C" int hpgmg_r1_var7_f64(const void* x, const void* beta_i, const void* 
   return launch_v7<double>(x, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, beta_i,
                            beta_j, beta_k, alpha, rhs, kdinv, out, n, n, n, mode, 1, periodic,
                            parity, chunk, b_h2inv, a_coef, t1, t2, stream);
+}
+
+// bf16 storage, float arithmetic: a bfloat16 solve's var7 body
+extern "C" int hpgmg_r1_var7_bf16(const void* x, const void* beta_i, const void* beta_j,
+                                  const void* beta_k, const void* alpha, const void* rhs,
+                                  const void* kdinv, void* out, int n, int mode, int periodic,
+                                  int parity, int chunk, double b_h2inv, double a_coef,
+                                  double t1, double t2, void* stream) {
+  return launch_v7<bf16>(x, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, beta_i,
+                         beta_j, beta_k, alpha, rhs, kdinv, out, n, n, n, mode, 1, periodic,
+                         parity, chunk, b_h2inv, a_coef, t1, t2, stream);
 }
 
 // K8c. var7 != 0: the 7-point body (beta_* read; alpha may be null); else

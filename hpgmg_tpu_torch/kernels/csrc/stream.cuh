@@ -1,6 +1,7 @@
 // Device building blocks of the kernels that stream i-planes through a
-// ring in shared memory (K1/K7a in fv4_stream.cu, K2 in fv4_gsrb2.cu, the
-// 27pt body of K5/K7b in r1_stream.cu), none of them tied to an operator:
+// ring in shared memory (K1/K7a in fv4_stream.cu, K2 in fv4_gsrb2.cu, K5/K7b
+// in r1_stream.cu and r1_var7_stream.cu, K6 in r1_gsrb2.cu), none of them
+// tied to an operator:
 // cp.async copies, each thread's pairs of copies fixed for the block
 // (Pairs), ring slot arithmetic, and paired loads and stores.
 
@@ -11,6 +12,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -177,6 +179,18 @@ __device__ __forceinline__ void cp_async_word(float* d, const bf16* src, const b
   }
 }
 
+// one value of a field stored in S into its slot d of a ring of T: a
+// cp.async of the value, or of its word where S is bf16 (cp_async_word;
+// widen_value turns it into the value); end: one past the field's last value
+template <typename T, typename S>
+__device__ __forceinline__ void cp_async_value(T* d, const S* src, const S* end) {
+  if constexpr (std::is_same_v<T, S>) {
+    cp_async(d, src);
+  } else {
+    cp_async_word(d, src, end);
+  }
+}
+
 __device__ __forceinline__ void cp_async_pair(float* d, const bf16* src) {
   cp_async(reinterpret_cast<unsigned*>(d), reinterpret_cast<const unsigned*>(src));
 }
@@ -185,6 +199,29 @@ __device__ __forceinline__ void cp_async_pair(float* d, const bf16* src) {
 __device__ __forceinline__ void widen_word(float* d, const bf16* src) {
   const unsigned w = *reinterpret_cast<const unsigned*>(d);
   *d = bf16_bits_to_float((reinterpret_cast<uintptr_t>(src) & 2) ? w >> 16 : w & 0xffffu);
+}
+
+// slot d, filled by cp_async_value from src, widened in place (nothing
+// where the field is stored in the ring's type); call once this thread's
+// copy has arrived
+template <typename T, typename S>
+__device__ __forceinline__ void widen_value(T* d, const S* src) {
+  if constexpr (!std::is_same_v<T, S>) widen_word(d, src);
+}
+
+// a ring plane filled by cp_async_value, slot dst + e * THREADS from
+// base + goff[e] for each of the NE values whose goff[e] is not nocopy,
+// widened in place (nothing where the field is stored in the ring's
+// type); call once this thread's copies of the plane have arrived
+template <int NE, int THREADS, typename T, typename S>
+__device__ __forceinline__ void widen_ring_plane(T* dst, const S* base, const unsigned* goff,
+                                                 unsigned nocopy) {
+  if constexpr (!std::is_same_v<T, S>) {
+#pragma unroll
+    for (int e = 0; e < NE; ++e) {
+      if (goff[e] != nocopy) widen_value(dst + e * THREADS, base + goff[e]);
+    }
+  }
 }
 
 // slots d, d+1 held an aligned pair's word in d: now its two values

@@ -43,11 +43,12 @@ its cells' operands, its ghosts made there, a gsrb half-sweep at its
 The fv4 suite routes a level to it where ``use_subtile`` admits it
 (``SUBTILE`` on, Dirichlet, dim <= ``SUBTILE_MAX_DIM``).
 
-K1, K1s and K2c take float32, float64 and bfloat16 levels: a bf16 level's
-kernels widen every operand to float32 after its load and round each
-output to bf16 once (``csrc/storage.cuh``), and the plain versions compute
-alike (``compute_dtype``, ``widened``). K1 also takes a float32 gsrb with
-bf16 face arrays and kdinv (BF16C: ``kernel_views_bf16``, ``bf16c_view``).
+K1 (K7a), K1s and K2c take float32, float64 and bfloat16 levels: a bf16
+level's kernels widen every operand to float32 after its load and round
+each output to bf16 once (``csrc/storage.cuh``), and the plain versions
+compute alike (``compute_dtype``, ``widened``). K1 also takes a float32
+gsrb with bf16 face arrays and kdinv (BF16C: ``kernel_views_bf16``,
+``bf16c_view``).
 No kernel takes a level below 4^3: the suite computes it by the plain
 version on every device (``small_level``, ``fv4_small``).
 """
@@ -256,6 +257,14 @@ def _stream(x: torch.Tensor):
 
 def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
+
+
+def count_launch(fn, periodic: bool, dt: str):
+    """One more launch of the wrapper ``fn``, counted under its BC and
+    storage type: ``launches``, ``periodic_launches``, ``bf16_launches`` or
+    ``periodic_bf16_launches``."""
+    attr = ("periodic_" if periodic else "") + ("bf16_" if dt == "bf16" else "") + "launches"
+    setattr(fn, attr, getattr(fn, attr) + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -519,7 +528,8 @@ def fv4_stencil_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
     count in ``bf16_launches``), or a float32 x with bfloat16 face
     coefficients and kdinv (a BF16C gsrb, ``bf16c_view``; Dirichlet, in
     ``bf16c_launches``). The float32 and float64 launches of K1 count in
-    ``launches``, those of K7a in ``periodic_launches``."""
+    ``launches``, those of K7a in ``periodic_launches``, K7a's bf16 ones in
+    ``periodic_bf16_launches``."""
     from hpgmg_tpu_torch.kernels.build import library
 
     _check(level, x, cfg, mode, rhs, (kdinv,) if mode == "gsrb" else ())
@@ -531,9 +541,9 @@ def fv4_stencil_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
     periodic = cfg.bc == BC.PERIODIC
     dt = DTYPES[x.dtype]
     bf16c = level.dtype != x.dtype
-    if (bf16c or dt == "bf16") and periodic:
-        raise NotImplementedError("K7a has no bfloat16 instantiation (ROADMAP Queue 1: "
-                                  "bf16 in K7a, the periodic levels)")
+    if bf16c and periodic:
+        raise NotImplementedError("BF16C (bfloat16 coefficients under a float32 x) "
+                                  "takes Dirichlet levels only")
     n = level.dim
     m = n // 2 if mode == "fres" else n
     out = torch.empty((m, m, m), dtype=x.dtype, device=x.device)
@@ -549,18 +559,15 @@ def fv4_stencil_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
         raise RuntimeError(f"fv4 stencil kernel launch failed: CUDA error {rc}")
     if bf16c:
         fv4_stencil_cuda.bf16c_launches += 1
-    elif dt == "bf16":
-        fv4_stencil_cuda.bf16_launches += 1
-    elif periodic:
-        fv4_stencil_cuda.periodic_launches += 1
     else:
-        fv4_stencil_cuda.launches += 1
+        count_launch(fv4_stencil_cuda, periodic, dt)
     return out
 
 
 fv4_stencil_cuda.launches = 0
 fv4_stencil_cuda.periodic_launches = 0
 fv4_stencil_cuda.bf16_launches = 0
+fv4_stencil_cuda.periodic_bf16_launches = 0
 fv4_stencil_cuda.bf16c_launches = 0
 
 
@@ -840,6 +847,9 @@ def _check_slab(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
         raise NotImplementedError(f"the fv4 slab kernel does not take {cfg.bc}")
     if x.dim() != 3:
         raise ValueError(f"x must be a 3-D block, got {tuple(x.shape)}")
+    if x.dtype == torch.bfloat16:
+        raise NotImplementedError("the fv4 slab kernels (K8a, K8b) have no bfloat16 "
+                                  "instantiation (ROADMAP.md Queue 1, item 1.2)")
     ni, nj, nk = x.shape
     if min(ni, nj, nk) < 4 or ni % 2 or nj % 2 or nk % 2:
         raise ValueError(f"the fv4 slab kernel takes even ni, nj, nk >= 4, "

@@ -26,6 +26,14 @@ full sweep (red one plane ahead of black in shared memory), equal to two
 K5 gsrb calls (kdinv[0], then kdinv[1]) to rounding; it takes Dirichlet
 levels only: a periodic fused sweep would need the opposite face's red
 iterate (hpgmg_tpu/kernels/stencils_r1.py:196-205).
+
+Each kernel takes float32, float64 and bfloat16 levels: a bf16 level's
+kernels widen every operand to float32 and round each output to bf16
+once (``csrc/storage.cuh``; K6 rounds its red half too, as a stored red
+iterate is), and the plain versions compute alike (``compute_dtype``,
+``widened``). The wrappers count bf16 launches apart (``bf16_launches``,
+``periodic_bf16_launches``). The slab kernels (K8c, K8d) have no bf16
+instantiation.
 """
 
 from __future__ import annotations
@@ -38,9 +46,10 @@ import torch
 from hpgmg_tpu_torch.core.config import BC, SolverConfig
 from hpgmg_tpu_torch.core.level import Level
 from hpgmg_tpu_torch.kernels.restrict import restrict_cell_plain
-from hpgmg_tpu_torch.kernels.stencils import (MODES, _ptr, _stream, build_slabs,
-                                              check_dirichlet, count_slab_launch,
-                                              extend_slabs, local_exchange)
+from hpgmg_tpu_torch.kernels.stencils import (DTYPES, MODES, _ptr, _stream, build_slabs,
+                                              check_dirichlet, compute_dtype, count_launch,
+                                              count_slab_launch, extend_slabs,
+                                              local_exchange, widened)
 from hpgmg_tpu_torch.ops.bc import _wrap_axis, ghost_fill_linear, ghost_fill_quadratic_fd
 from hpgmg_tpu_torch.ops.bc_fv import ghost_fill_fv
 
@@ -114,7 +123,7 @@ def _check(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
             raise ValueError(f"radius-1 stencil mode {mode!r} needs {name}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
-        if t.dtype != dt or dt not in (torch.float32, torch.float64):
+        if t.dtype != dt or dt not in DTYPES:
             raise TypeError(f"{name} is {t.dtype}; the level is {dt}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
@@ -218,21 +227,27 @@ def r1_stencil_plain(level: Level, x: torch.Tensor, cfg: SolverConfig,
                      parity: Optional[int] = None) -> torch.Tensor:
     """The plain PyTorch version of K5. A gsrb takes and checks the
     kernels' ``parity``; its arithmetic reads the colour from kdinv alone
-    (``x + 0 * r`` at the other cells)."""
+    (``x + 0 * r`` at the other cells). A bf16 level computes as the
+    kernels do: every operand widened to float32 (``compute_dtype``), the
+    result rounded to bf16 once."""
     _check(level, x, cfg, mode, taps, var7, rhs,
            (kdinv,) if mode == "gsrb" else (), parity)
     r1_stencil_plain.calls += 1
-    return _modes(apply_plain(level, x, cfg, taps, var7), x, mode, rhs, kdinv)
+    ct = compute_dtype(x.dtype)
+    xc = x.to(ct)
+    ax = apply_plain(widened(level, ct), xc, cfg, taps, var7)
+    return _modes(ax, xc, mode, rhs, kdinv).to(x.dtype)
 
 
 def _modes(ax, x, mode: str, rhs, kdinv):
+    """The mode's result from A x, in ax's type (operands widened to it)."""
     if mode == "apply":
         return ax
     if mode == "residual":
-        return rhs - ax
+        return rhs.to(ax.dtype) - ax
     if mode == "gsrb":
-        return x + kdinv * (rhs - ax)
-    return restrict_cell_plain(rhs - ax)
+        return x + kdinv.to(ax.dtype) * (rhs.to(ax.dtype) - ax)
+    return restrict_cell_plain(rhs.to(ax.dtype) - ax)
 
 
 r1_stencil_plain.calls = 0
@@ -277,7 +292,8 @@ def r1_stencil_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
     ``kdinv`` carries: the kernel computes A x at that colour's cells only
     and copies x at the others. ``chunk``: i-planes a block marches (0: the
     launcher's rule, as the solver calls it; any chunk gives the same
-    bits)."""
+    bits). A bf16 level's launches count in ``bf16_launches`` and
+    ``periodic_bf16_launches``."""
     from hpgmg_tpu_torch.kernels.build import library
 
     if not var7:
@@ -293,23 +309,22 @@ def r1_stencil_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
     out = torch.empty((m, m, m), dtype=x.dtype, device=x.device)
     alpha, a_coef = _coefs(level, cfg, var7)
     periodic = cfg.bc == BC.PERIODIC
-    fn = getattr(library(), "hpgmg_r1_var7_" + ("f32" if x.dtype == torch.float32
-                                                else "f64"))
+    dt = DTYPES[x.dtype]
     with torch.cuda.device(x.device):
-        rc = fn(x.data_ptr(), *_betas(level, var7), _ptr(alpha), _ptr(rhs), _ptr(kdinv),
-                out.data_ptr(), n, MODES[mode], int(periodic), parity or 0, chunk,
-                cfg.b * level.h2inv, a_coef, *TAPS[taps], _stream(x))
+        rc = getattr(library(), f"hpgmg_r1_var7_{dt}")(
+            x.data_ptr(), *_betas(level, var7), _ptr(alpha), _ptr(rhs), _ptr(kdinv),
+            out.data_ptr(), n, MODES[mode], int(periodic), parity or 0, chunk,
+            cfg.b * level.h2inv, a_coef, *TAPS[taps], _stream(x))
     if rc != 0:
         raise RuntimeError(f"radius-1 stencil kernel launch failed: CUDA error {rc}")
-    if periodic:
-        r1_stencil_cuda.periodic_launches += 1
-    else:
-        r1_stencil_cuda.launches += 1
+    count_launch(r1_stencil_cuda, periodic, dt)
     return out
 
 
 r1_stencil_cuda.launches = 0
 r1_stencil_cuda.periodic_launches = 0
+r1_stencil_cuda.bf16_launches = 0
+r1_stencil_cuda.periodic_bf16_launches = 0
 
 
 def r1_stream_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
@@ -323,7 +338,8 @@ def r1_stream_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
     at that colour's cells only and copies x at the others. ``chunk``:
     i-planes a block marches (0: the launcher's rule, as the solver calls
     it; other values time the rule). Launches count in ``launches`` (K5)
-    and ``periodic_launches`` (K7b)."""
+    and ``periodic_launches`` (K7b), a bf16 level's in ``bf16_launches``
+    and ``periodic_bf16_launches``."""
     from hpgmg_tpu_torch.kernels.build import library
 
     _check(level, x, cfg, mode, taps, False, rhs,
@@ -336,7 +352,7 @@ def r1_stream_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
     m = n // 2 if mode == "fres" else n
     out = torch.empty((m, m, m), dtype=x.dtype, device=x.device)
     periodic = cfg.bc == BC.PERIODIC
-    dt = "f32" if x.dtype == torch.float32 else "f64"
+    dt = DTYPES[x.dtype]
     with torch.cuda.device(x.device):
         rc = getattr(library(), f"hpgmg_r1_stream_{dt}")(
             x.data_ptr(), _ptr(rhs), _ptr(kdinv), out.data_ptr(), n, MODES[mode],
@@ -344,15 +360,14 @@ def r1_stream_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig, mode: str,
             *TAPS[taps], _stream(x))
     if rc != 0:
         raise RuntimeError(f"27pt stream kernel launch failed: CUDA error {rc}")
-    if periodic:
-        r1_stream_cuda.periodic_launches += 1
-    else:
-        r1_stream_cuda.launches += 1
+    count_launch(r1_stream_cuda, periodic, dt)
     return out
 
 
 r1_stream_cuda.launches = 0
 r1_stream_cuda.periodic_launches = 0
+r1_stream_cuda.bf16_launches = 0
+r1_stream_cuda.periodic_bf16_launches = 0
 
 
 def _sweep_entry(name: str, x: torch.Tensor, chunk: int):
@@ -363,7 +378,7 @@ def _sweep_entry(name: str, x: torch.Tensor, chunk: int):
 
     if chunk < 0:
         raise ValueError(f"chunk must be >= 0, got {chunk}")
-    dt = "f32" if x.dtype == torch.float32 else "f64"
+    dt = DTYPES[x.dtype]
     fn = getattr(library(), f"{name}_chunk_{dt}" if chunk else f"{name}_{dt}")
     return (lambda *a: fn(*a[:-5], chunk, *a[-5:])) if chunk else fn
 
@@ -376,7 +391,8 @@ def r1_gsrb2_cuda(level: Level, x: torch.Tensor, rhs: torch.Tensor,
     cells only, so the level's kdinv pair must vanish off its parity, as
     ``RadiusOneSuite.fold_kdinv`` builds it. ``chunk``: i-planes a block
     marches (0: the launcher's rule, as the solver calls it; any chunk
-    gives the same bits)."""
+    gives the same bits). A bf16 level's launches count in
+    ``bf16_launches``."""
     check_dirichlet(cfg, "the fused radius-1 sweep (K6)")
     _check(level, x, cfg, "gsrb", taps, var7, rhs, level.kdinv or (None, None))
     if not x.is_cuda:
@@ -391,11 +407,12 @@ def r1_gsrb2_cuda(level: Level, x: torch.Tensor, rhs: torch.Tensor,
                 a_coef, *TAPS[taps], _stream(x))
     if rc != 0:
         raise RuntimeError(f"radius-1 gsrb2 kernel launch failed: CUDA error {rc}")
-    r1_gsrb2_cuda.launches += 1
+    count_launch(r1_gsrb2_cuda, False, DTYPES[x.dtype])
     return out
 
 
 r1_gsrb2_cuda.launches = 0
+r1_gsrb2_cuda.bf16_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -532,6 +549,9 @@ def _check_block(x: torch.Tensor, need: dict, what: str):
     what ``what`` does not take."""
     if x.dim() != 3:
         raise ValueError(f"x must be a 3-D block, got {tuple(x.shape)}")
+    if x.dtype == torch.bfloat16:
+        raise NotImplementedError(f"{what} has no bfloat16 instantiation (ROADMAP.md "
+                                  f"Queue 1, item 1.2)")
     ni, nj, nk = x.shape
     if min(ni, nj, nk) < 2:
         raise ValueError(f"{what} takes extents >= 2, got {tuple(x.shape)}")

@@ -20,6 +20,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from hpgmg_tpu_torch.kernels.stencils import compute_dtype
+
 
 def _beta(x, y, z, h, ncorr):
     """Face-averaged beta (problem.fv.c:9-26) with ``ncorr`` tangential
@@ -56,13 +58,15 @@ class ProblemFV(NamedTuple):
 def init_problem_fv(n: int, dtype: torch.dtype, device: torch.device,
                     h: Optional[float] = None,
                     periodic: bool = False) -> ProblemFV:
-    """The problem at n^3 cells, computed in ``dtype`` on ``device``; every
-    field is contiguous. ``periodic``: F has its mean subtracted."""
+    """The problem at n^3 cells, computed in ``dtype`` on ``device`` (a
+    bfloat16 problem in float32, each field rounded once); every field is
+    contiguous. ``periodic``: F has its mean subtracted."""
     if h is None:
         h = 1.0 / n
+    work = compute_dtype(dtype)
 
     def centers(count, axis, offset=0.5):
-        c = (torch.arange(count, dtype=dtype, device=device) + offset) * h
+        c = (torch.arange(count, dtype=work, device=device) + offset) * h
         shape = [1, 1, 1]
         shape[axis] = count
         return c.reshape(shape)
@@ -72,9 +76,9 @@ def init_problem_fv(n: int, dtype: torch.dtype, device: torch.device,
                   centers(n + 1, 2, 0.0))
 
     def full(t, shape):
-        return t.expand(shape).contiguous()
+        return t.expand(shape).to(dtype).contiguous()
 
-    f = full(_forcing(xc, yc, zc, h), (n, n, n))
+    f = _forcing(xc, yc, zc, h).expand(n, n, n).contiguous()
     if periodic:
         f = f - torch.mean(f)
     return ProblemFV(
@@ -82,5 +86,5 @@ def init_problem_fv(n: int, dtype: torch.dtype, device: torch.device,
         beta_j=full(_beta(xc, yf, zc, h, 2), (n, n + 1, n)),
         beta_k=full(_beta(xc, yc, zf, h, 2), (n, n, n + 1)),
         alpha=torch.ones((n, n, n), dtype=dtype, device=device),
-        f=f,
+        f=f.to(dtype).contiguous(),
     )

@@ -19,6 +19,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from hpgmg_tpu_torch.kernels.stencils import compute_dtype
+
 
 def _poly_u(w):
     """X(w), X'(w), X''(w) for the degree-6 polynomial (problem.p6.c:58-67)."""
@@ -101,11 +103,12 @@ def _init_pointwise(eval_u, n, dtype, device, a, b, helmholtz,
                     h) -> ProblemP6:
     """The shared pointwise initializer: ``eval_u(x, y, z)`` supplies the
     manufactured solution; beta and the face/cell evaluation protocol are
-    those of problem.p6.c and problem.p4.c. Every field is contiguous."""
-    (xc, yc, zc), (xf, yf, zf) = _coords(n, h, dtype, device)
+    those of problem.p6.c and problem.p4.c. Every field is contiguous. A
+    bfloat16 problem is computed in float32 and each field rounded once."""
+    (xc, yc, zc), (xf, yf, zf) = _coords(n, h, compute_dtype(dtype), device)
 
     def full(t, shape):
-        return t.expand(shape).contiguous()
+        return t.expand(shape).to(dtype).contiguous()
 
     beta_i = full(evaluate_beta(xf, yc, zc)[0], (n + 1, n, n))
     beta_j = full(evaluate_beta(xc, yf, zc)[0], (n, n + 1, n))

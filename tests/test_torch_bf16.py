@@ -18,7 +18,9 @@ build, carried across), each package building its own hierarchy from
 them. One bf16 F-cycle does not reach the fv4 limit of 1e-3: both land at
 rel_res ~1e-2 to 1e-1 and an order that rounding, not the discretization,
 sets; they are held to each other within stated bands. The DIRECT bottom
-has no bf16 build in either package.
+has no bf16 build in either package, and the port's bf16 solve runs on
+one rank (tests/test_torch_bf16_r1.py and tests/test_torch_bf16_periodic.py
+hold the other suites and the periodic BCs in bf16).
 """
 
 import jax
@@ -44,10 +46,13 @@ from hpgmg_tpu.solve.mg import richardson_error as jrichardson
 from hpgmg_tpu_torch.core.config import BC, BottomSolver, SolverConfig
 from hpgmg_tpu_torch.core.hierarchy import build_hierarchy
 from hpgmg_tpu_torch.interop import hierarchy_from_numpy
+from hpgmg_tpu_torch.kernels import stencils as S
+from hpgmg_tpu_torch.kernels import stencils_r1 as K
 from hpgmg_tpu_torch.kernels import tail as T
 from hpgmg_tpu_torch.kernels.restrict import restrict_cell
 from hpgmg_tpu_torch.ops.base import get_suite
 from hpgmg_tpu_torch.ops.transfer_fv import interp_v2, interp_v4
+from hpgmg_tpu_torch.parallel.mesh import Mesh, shard_hierarchy
 from hpgmg_tpu_torch.solve.mg import fmg_solve, richardson_error
 
 BF = jnp.bfloat16
@@ -219,10 +224,28 @@ def test_direct_bottom_raises_in_bf16():
                         to_port(prob.beta_k), cfg)
 
 
-@pytest.mark.parametrize("kw", [{"op": "fv2"}, {"op": "27pt"}, {"op": "fv7pt"},
-                                {"bc": BC.PERIODIC}])
-def test_other_suites_refuse_bf16(kw):
-    """The bf16 solve is the fv4 Dirichlet one; nothing else runs in bf16
-    (ROADMAP.md Queue 1 lists the kernels still to carry it)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SolverConfig(dtype=torch.bfloat16, bottom=BottomSolver.BICGSTAB, **kw)
+@pytest.mark.parametrize("op", ["fv4", "fv7pt", "fv2", "27pt"])
+def test_bf16_refuses_a_process_grid(op):
+    """Every suite solves in bf16 on one rank; no slab kernel (K8a-K8d) has
+    a bf16 instantiation, so cutting a bf16 hierarchy for a process grid
+    raises, and so do the slab kernels' checks, naming ROADMAP.md's item."""
+    cfg = SolverConfig(op=op, a=0.0, b=1.0, dtype=torch.bfloat16,
+                       bottom=BottomSolver.BICGSTAB, min_coarse_dim=2)
+    prob = jinit(16, dtype=BF)
+    hier = build_hierarchy(*(to_port(getattr(prob, f)) for f in ("beta_i", "beta_j",
+                                                                 "beta_k")), cfg)
+    mesh = Mesh(shape=(2, 1, 1), rank=0, backend="gloo", device=torch.device("cpu"))
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 1.2"):
+        shard_hierarchy(mesh, hier, cfg)
+    lv, x = hier.levels[0], torch.zeros((16, 16, 16), dtype=torch.bfloat16)
+    slabs = (torch.zeros((2, 16, 16), dtype=torch.bfloat16),) * 2 + (
+        torch.zeros((20, 2, 16), dtype=torch.bfloat16),) * 2
+    if op == "fv4":
+        launch = lambda: S.fv4_slab(lv, x, slabs, cfg, "apply")  # noqa: E731
+    else:
+        suite = get_suite(op)
+        launch = lambda: K.r1_slab(lv, x, slabs[:2] + tuple(  # noqa: E731
+            torch.zeros((18, 1, 16), dtype=torch.bfloat16) for _ in range(2)), cfg,
+            "apply", suite.taps_key, suite.var7)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 1.2"):
+        launch()
