@@ -236,7 +236,33 @@ Phases, each printing its result and raising on failure (exit code != 0):
    same F-cycle through the plain versions (counted: no kernel launched,
    the plain versions called) within BF16_R1_FCYCLE_GAP units of 2^-8
    max|u|; (c) the launches of one counted bf16 F-cycle of each.
-   Its results join the "bf16" JSON line.
+   Its results join the "bf16" JSON line;
+20. bfloat16 on the process grids: (a) the bf16 instantiations of K8a
+   (every mode), K8b (both passes), K8c (var7 with the fv7pt and fv2
+   taps, 27pt) and K8d (both bodies), on blocks whole along k (8,8,16) to
+   the 2x2 grid's 512^3 block (256,256,512) and split along k (KSLAB)
+   (8,8,8) to the (2,2,2) grid's 256^3 block (128,128,128), against their
+   plain versions (float32 slabs, as the exchange builds them): each cell
+   within BF16_CELL_ULPS (K8d within BF16_SWEEP_ULPS of max|out|), a
+   gsrb's other colour equal to x, K8b
+   equal to K8a and chunks equal to the rule bit for bit; then their times
+   at (256,256,512) and, with k slabs, (128,128,256), each with its plain
+   version, its bound (bytes at 2 a value) and in turns with its float32
+   instantiation; (b) the bf16 F-cycles through bench/weak.py's ranks
+   (BiCGStab over 8^3) of fv4 and fv7pt at 512^3 on the 2x2 grid (4
+   processes) and of periodic fv4 with OVERLAP and periodic 27pt at 256^3
+   on the (2,2,2) grid (8 processes), the ranks sharing this GPU over
+   gloo: s a solve, u within BF16_GRID_UNITS units of 2^-8 max|u| of the
+   one-rank bf16 F-cycle through the same operations (the tail fusion off,
+   as under a grid) and within BF16_GRID_FUSED_UNITS of the one-rank one as
+   it runs, rel_residual within BF16_GRID_RES_BAND of its, and each case's
+   decomposed F-cycle at BF16_GRID_PLAIN_N^3 through the kernels within
+   the one-rank bounds of its plain versions' (BF16_FCYCLE_GAP,
+   BF16_R1_FCYCLE_GAP);
+   on every rank the counted F-cycle launched only bf16 kernels, its path's
+   bf16 slab kernels (with k slabs on the (2,2,2) grid) and those only on
+   its decomposed levels' blocks, no plain version; (c) those launches by
+   kernel and block. Its results join the "bf16" JSON line.
 
 The line before the last lists the kernels as JSON: for each, its launches
 on its path, its time, its plain version's time, its bound on the card
@@ -2689,8 +2715,11 @@ def kslab_operands(block, dtype, dev, rng, kind: str, kring: bool = True):
     tangentially-extended faces with their margins; "r1": the natural
     faces; "k8d": K8d's ring views, with the k ring where ``kring``), its
     kdinv pair and alpha, x, rhs (K8d: the rhs ring) and the random slabs
-    of the kind's depth (six where ``kring``, else four)."""
+    of the kind's depth (six where ``kring``, else four), in the slabs'
+    type (``stencils.compute_dtype``: a bf16 block's are float32, drawn at
+    full float32 precision)."""
     from hpgmg_tpu_torch.core.level import Level, rb_mask
+    from hpgmg_tpu_torch.kernels import stencils as S
 
     ni, nj, nk = block
     n = 2 * max(block) + 2
@@ -2703,9 +2732,10 @@ def kslab_operands(block, dtype, dev, rng, kind: str, kring: bool = True):
     dinv = scale * t(ni, nj, nk, lo=2.0)
     mask = rb_mask(n, 0, dtype, dev)[:ni, :nj, :nk]
     d = 1 if kind == "r1" else 2
-    slabs = (t(d, nj, nk), t(d, nj, nk), t(ni + 2 * d, d, nk), t(ni + 2 * d, d, nk))
-    if kring:
-        slabs += (t(ni + 2 * d, nj + 2 * d, d), t(ni + 2 * d, nj + 2 * d, d))
+    shapes = ((d, nj, nk),) * 2 + ((ni + 2 * d, d, nk),) * 2
+    shapes += ((ni + 2 * d, nj + 2 * d, d),) * 2 if kring else ()
+    sdt = S.compute_dtype(dtype)
+    slabs = tuple(torch.tensor(rng.standard_normal(sh), dtype=sdt, device=dev) for sh in shapes)
     if kind == "k8d":
         kr = nk + 2 if kring else nk
         # a ring cell (I, J, K) is cell (I-1, J-1, K-1) of the block (K
@@ -2732,7 +2762,7 @@ def domain_k_slabs(x, slabs, edges, taps: str):
     from hpgmg_tpu_torch.kernels import stencils as S
     from hpgmg_tpu_torch.kernels import stencils_r1 as K
 
-    xe = S.extend_slabs(x, slabs[:4])
+    xe = S.extend_slabs(x.to(slabs[0].dtype), slabs[:4])
     ghost = K.taps_ghost2(taps)
     return slabs[:4] + (ghost(xe[:, :, :2], 2, True).contiguous() if edges[4] else slabs[4],
                         ghost(xe[:, :, -2:], 2, False).contiguous() if edges[5] else slabs[5])
@@ -3517,9 +3547,10 @@ def cli_ladder_fcycle(n=512):
 
 def plain_path():
     """Context manager: the kernel entries of the fv4 suite (K1, K1s, K2c,
-    K3, K4a/K4b; K7a on a periodic level) and of the radius-1 suites (K5,
-    K6; K7b) swapped for their plain versions, so that a CUDA solve runs
-    the plain versions on the card."""
+    K3, K4a/K4b; K7a on a periodic level), of the radius-1 suites (K5,
+    K6; K7b) and of a decomposed level (K8a, K8b's passes, K8c, K8d)
+    swapped for their plain versions, so that a CUDA solve runs the plain
+    versions on the card."""
     from hpgmg_tpu_torch.kernels import restrict as R
     from hpgmg_tpu_torch.kernels import stencils as S
     from hpgmg_tpu_torch.kernels import stencils_r1 as K
@@ -3530,7 +3561,24 @@ def plain_path():
     def fv4_stencil_plain(level, x, cfg, mode, rhs=None, kdinv=None, parity=None):
         return S.fv4_stencil_plain(level, x, cfg, mode, rhs, kdinv)
 
+    def fv4_slab_plain(level, x, slabs, cfg, mode, rhs=None, kdinv=None, parity=None):
+        return S.fv4_slab_plain(level, x, slabs, cfg, mode, rhs, kdinv)
+
+    def interior_plain(level, x, cfg, mode, rhs=None, kdinv=None, parity=None,
+                       ksplit=False):
+        return S.fv4_overlap_interior_plain(level, x, cfg, mode, rhs, kdinv, ksplit)
+
+    def edge_plain(level, x, slabs, cfg, mode, out, rhs=None, kdinv=None, parity=None):
+        return S.fv4_overlap_edge_plain(level, x, slabs, cfg, mode, out, rhs, kdinv)
+
+    def r1_slab_plain(level, x, slabs, cfg, mode, taps, var7, rhs=None, kdinv=None,
+                      parity=None):
+        return K.r1_slab_plain(level, x, slabs, cfg, mode, taps, var7, rhs, kdinv)
+
     swaps = [(F, "fv4_stencil", fv4_stencil_plain),
+             (S, "fv4_slab", fv4_slab_plain), (S, "fv4_overlap_interior", interior_plain),
+             (S, "fv4_overlap_edge", edge_plain), (K, "r1_slab", r1_slab_plain),
+             (K, "r1_gsrb2_slab", K.r1_gsrb2_slab_plain),
              (F, "fv4_subtile", S.fv4_subtile_plain),
              (F, "fv4_gsrb2", S.fv4_gsrb2_plain),
              (F, "restrict_cell", R.restrict_cell_plain),
@@ -3997,6 +4045,413 @@ def bf16_fcycle_launches():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: bfloat16 on the decomposed path: K8a-K8d's bf16 instantiations
+# ---------------------------------------------------------------------------
+
+# 20a's blocks whole along k (the 2x2 grid's 512^3 finest block and two
+# below it) and split along k (the (2,2,2) grid's 256^3 finest block and
+# two below it)
+BF16_SLAB_BLOCKS = ((8, 8, 16), (64, 64, 128), (256, 256, 512))
+BF16_KSLAB_BLOCKS = ((8, 8, 8), (64, 64, 64), (128, 128, 128))
+# K8d's edge flags on a block split along k: below a domain k face, above
+# one, neither
+KSPLIT_EDGES = ((True, False, True, False, True, False),
+                (False, True, False, True, False, True), (False,) * 6)
+# K8d (red rounded to bf16 before black reads it) against its plain version,
+# in units in the last place of max|out| (as K6 is held: measured on an H100
+# 80GB HBM3 at 700 W at <= 0.5 over phase 19a's levels); by the cell, a red
+# value the two round a unit apart moves its black neighbours by a share of
+# that unit, many units of a small black value
+BF16_SWEEP_ULPS = 0.5
+# 20b: (op, bc, cells a side per rank, OVERLAP) of each grid's cases: fv4
+# and fv7pt at 512^3 on the 2x2 grid, periodic fv4 (with K8b's split, k
+# slabs) and periodic 27pt at 256^3 on the (2,2,2) grid
+BF16_GRID_CASES = {4: (("fv4", "dirichlet", 256, False), ("fv7pt", "dirichlet", 256, False)),
+                   8: (("fv4", "periodic", 128, True), ("27pt", "periodic", 128, False))}
+# the decomposed bf16 u against the one-rank bf16 u on the card, in units
+# of 2^-8 max|u_one|, by (op, bc): against one rank through the same
+# operations (bench/weak.py's serial_u_units: the K4 tail fusion off, as
+# under a process grid), BF16_GRID_UNITS: the radius-1 Dirichlet paths bit
+# for bit (every K8c/K8d call equals K5/K6's at the block's cells, measured
+# 0 at 512^3); fv4 Dirichlet about twice the 3.765 measured (K8a reads the
+# domain faces' ghosts from float32 slabs made by the separable fill, K1
+# and K1s make them as tensor products of the taps: a few dozen cells of a
+# 512^3 call round a unit apart, and the bf16 F-cycle carries such a
+# difference to a few units, as it does the kernels' against the plain
+# versions': 2.5-3.8); periodic about twice fv4's 1.91 (u's mean over a
+# decomposed level sums each rank's part first; 27pt measured 0). Against
+# one rank as it runs (serial_fused_u_units), BF16_GRID_FUSED_UNITS: about
+# twice fv4's 5.02 (K4 rounds its climb's e + interp once, the unfused
+# climb each axis of the interpolation). And the decomposed rel_residual
+# within a factor BF16_GRID_RES_BAND of one rank's. Measured on an H100
+# 80GB HBM3 at 700 W (scripts/bf16_grid_gap.py; PERF.md, PR 20)
+BF16_GRID_UNITS = {("fv4", "dirichlet"): 8.0, ("fv7pt", "dirichlet"): 0.0,
+                   ("fv4", "periodic"): 4.0, ("27pt", "periodic"): 4.0}
+BF16_GRID_FUSED_UNITS = 10.0
+BF16_GRID_RES_BAND = 2.0
+# each case's decomposed F-cycle at this size through the kernels against
+# the plain versions, held as one rank's are (BF16_FCYCLE_GAP for fv4,
+# BF16_R1_FCYCLE_GAP for the radius-1 suites)
+BF16_GRID_PLAIN_N = 128
+# the labels of 20a's timed blocks (time_bf16_slab_kernels)
+BF16_SLAB_KEY, BF16_KSLAB_KEY = "(256,256,512)", "(128,128,256) k-split"
+
+
+def check_bf16_slab_kernels(worst: dict, blocks=BF16_SLAB_BLOCKS, kblocks=BF16_KSLAB_BLOCKS):
+    """Phase 20a: the bf16 instantiations of K8a, K8b, K8c and K8d against
+    their plain versions on random bf16 operands (chip_smoke.kslab_operands),
+    on blocks whole along k (four slabs) and split along k (six: KSLAB):
+    K8a every mode, Poisson (both BCs) and Helmholtz (Dirichlet), each cell
+    within BF16_CELL_ULPS, a gsrb's other colour equal to x, K8b's two
+    passes equal to K8a bit for bit where its split takes the block; K8c
+    every mode, the var7 body with the fv7pt and fv2 taps and the 27pt
+    body, both BCs, within BF16_CELL_ULPS; K8d both bodies under each 2x2
+    rank's edge flags (whole along k) or KSPLIT_EDGES (split along k),
+    within BF16_SWEEP_ULPS of max|out|; the slabs float32, as the exchange
+    hands them over; on the smallest blocks chunks of 2
+    or 3 i-planes equal the launcher's rule bit for bit."""
+    from hpgmg_tpu_torch.core.config import BC, SolverConfig
+    from hpgmg_tpu_torch.kernels import stencils as S
+    from hpgmg_tpu_torch.kernels import stencils_r1 as K
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 20)
+    for kring, sizes in ((False, blocks), (True, kblocks)):
+        for block in sizes:
+            ni, nj, nk = block
+            small = max(block) <= 16
+            tag = f"{block}" + (" k-split" if kring else "")
+            lv, x, rhs, slabs = kslab_operands(block, BF16, dev, rng, "fv4", kring)
+            split = S.overlap_grid_shape(ni, nj, nk if kring else None) is not None
+            k8a = 0.0
+            for cfg in (SolverConfig(a=0.0, b=1.0, dtype=BF16),
+                        SolverConfig(a=0.0, b=1.0, dtype=BF16, bc=BC.PERIODIC),
+                        SolverConfig(a=1.5, b=1.0, helmholtz=True, dtype=BF16)):
+                for mode, kw, par in (("apply", {}, None), ("residual", {"rhs": rhs}, None),
+                                      ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[0]}, 0),
+                                      ("gsrb", {"rhs": rhs, "kdinv": lv.kdinv[1]}, 1)):
+                    label = f"K8a bf16 {tag} {cfg.bc.value} {mode} {par}"
+                    out = S.fv4_slab_cuda(lv, x, slabs, cfg, mode, parity=par, **kw)
+                    k8a = max(k8a, bf16_ulps(out, S.fv4_slab_plain(lv, x, slabs, cfg, mode,
+                                                                   **kw)))
+                    if mode == "gsrb" and not torch.equal(out[kw["kdinv"] == 0],
+                                                          x[kw["kdinv"] == 0]):
+                        raise AssertionError(f"{label}: the other colour moved")
+                    if small and not torch.equal(S.fv4_slab_cuda(
+                            lv, x, slabs, cfg, mode, parity=par, chunk=3, **kw), out):
+                        raise AssertionError(f"{label}: chunk 3 differs")
+                    if split:
+                        inner = S.fv4_overlap_interior_cuda(lv, x, cfg, mode, parity=par,
+                                                            ksplit=kring, **kw)
+                        if not torch.equal(S.fv4_overlap_edge_cuda(
+                                lv, x, slabs, cfg, mode, inner, parity=par, **kw), out):
+                            raise AssertionError(f"K8b bf16 {tag} {mode}: not K8a")
+            hold_ulps(f"K8a bf16 {tag} (3 configs x 4 modes) vs plain"
+                      + (", K8b == K8a" if split else ""), k8a, BF16_CELL_ULPS, worst,
+                      "fv4_slab_bf16")
+            del lv, x, rhs, slabs
+
+            lr, x, rhs, slabs = kslab_operands(block, BF16, dev, rng, "r1", kring)
+            k8c = 0.0
+            for bc in (BC.DIRICHLET, BC.PERIODIC):
+                for taps, var7 in (("p1", True), ("v2", True), ("27pt", False)):
+                    cfg = SolverConfig(op="fv7pt" if var7 else "27pt", a=0.0, b=1.0,
+                                       dtype=BF16, bc=bc)
+                    for mode, kw in (("apply", {}), ("residual", {"rhs": rhs}),
+                                     ("fres", {"rhs": rhs}),
+                                     ("gsrb", {"rhs": rhs, "kdinv": lr.kdinv[1]})):
+                        par = {"parity": 1} if mode == "gsrb" else {}
+                        out = K.r1_slab_cuda(lr, x, slabs, cfg, mode, taps, var7, **kw, **par)
+                        k8c = max(k8c, bf16_ulps(out, K.r1_slab_plain(lr, x, slabs, cfg, mode,
+                                                                      taps, var7, **kw)))
+                        if mode == "gsrb" and not torch.equal(out[lr.kdinv[1] == 0],
+                                                              x[lr.kdinv[1] == 0]):
+                            raise AssertionError(f"K8c bf16 {tag} {taps}: the other colour moved")
+                        if small and not torch.equal(K.r1_slab_cuda(
+                                lr, x, slabs, cfg, mode, taps, var7, chunk=3, **kw, **par), out):
+                            raise AssertionError(f"K8c bf16 {tag} {taps} {mode}: chunk 3 differs")
+            hold_ulps(f"K8c bf16 {tag} (3 bodies x 2 BCs x 4 modes) vs plain", k8c,
+                      BF16_CELL_ULPS, worst, "r1_slab_bf16")
+            del lr, x, rhs, slabs
+
+            l2, x, rhs2, slabs = kslab_operands(block, BF16, dev, rng, "k8d", kring)
+            k8d = 0.0
+            for taps, var7 in (("p1", True), ("27pt", False)):
+                cfg = SolverConfig(op="fv7pt" if var7 else "27pt", a=0.0, b=1.0, dtype=BF16)
+                for edges in KSPLIT_EDGES if kring else GRID_EDGES:
+                    s6 = domain_k_slabs(x, slabs, edges, taps) if kring else slabs
+                    out = K.r1_gsrb2_slab_cuda(l2, x, s6, edges, rhs2, cfg, taps, var7)
+                    k8d = max(k8d, bf16_max_ulps(out, K.r1_gsrb2_slab_plain(
+                        l2, x, s6, edges, rhs2, cfg, taps, var7)))
+                    if small and not torch.equal(K.r1_gsrb2_slab_cuda(
+                            l2, x, s6, edges, rhs2, cfg, taps, var7, chunk=2), out):
+                        raise AssertionError(f"K8d bf16 {tag} {taps} {edges}: chunk 2 differs")
+            hold_ulps(f"K8d bf16 {tag} (2 bodies x {3 if kring else 4} edge sets) vs plain, "
+                      f"of max|out|", k8d, BF16_SWEEP_ULPS, worst, "r1_gsrb2_slab_bf16")
+            del l2, x, rhs2, slabs
+            torch.cuda.empty_cache()
+
+
+def time_bf16_slab_kernels(block=(256, 256, 512), kblock=(128, 128, 256)):
+    """Phase 20a's times: each bf16 slab instantiation against its plain
+    version and its bound (the bytes of each input read once and the output
+    written once: 2 a bf16 value, 4 a float32 slab cell) on the 2x2 grid's
+    512^3 finest block: K8a's three
+    modes, K8b's two passes, K8c's gsrb (var7 and 27pt bodies), K8d's var7
+    sweep; the same calls with k slabs on ``kblock``; then each in turns
+    with its float32 instantiation on the same block (f32, bf16, bf16,
+    f32; events)."""
+    from hpgmg_tpu_torch.core.config import SolverConfig
+    from hpgmg_tpu_torch.kernels import stencils as S
+    from hpgmg_tpu_torch.kernels import stencils_r1 as K
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(SEED + 21)
+    out = {}
+    for blk, kring in ((block, False), (kblock, True)):
+        ni, nj, nk = blk
+        cells = ni * nj * nk
+        label = f"({ni},{nj},{nk})" + (" k-split" if kring else "")
+        row = {}
+        ops = {d: {kind: kslab_operands(blk, d, dev, np.random.default_rng(SEED + 21), kind,
+                                        kring) for kind in ("fv4", "r1", "k8d")}
+               for d in (torch.float32, BF16)}
+        cfgs = {d: SolverConfig(a=0.0, b=1.0, dtype=d) for d in (torch.float32, BF16)}
+        e = ((True, False, True, False, False, True) if kring else GRID_EDGES[0])
+
+        def calls(d):
+            cfg = cfgs[d]
+            lv, x, rhs, slabs = ops[d]["fv4"]
+            lr, xr, rr, rs = ops[d]["r1"]
+            l2, x2, r2, s2 = ops[d]["k8d"]
+            s2 = domain_k_slabs(x2, s2, e, "p1") if kring else s2
+            kw = {"rhs": rhs, "kdinv": lv.kdinv[0]}
+            rkw = {"rhs": rr, "kdinv": lr.kdinv[0]}
+            runs = {}
+            for mode, mkw in (("apply", {}), ("residual", {"rhs": rhs}), ("gsrb", kw)):
+                par = {"parity": 0} if mode == "gsrb" else {}
+                runs[f"K8a {mode}"] = (
+                    lambda mode=mode, mkw=mkw, par=par: S.fv4_slab_cuda(lv, x, slabs, cfg, mode,
+                                                                        **mkw, **par),
+                    lambda mode=mode, mkw=mkw: S.fv4_slab_plain(lv, x, slabs, cfg, mode, **mkw),
+                    (nbytes(x, *slabs, lv.beta_i, lv.beta_j, lv.beta_k, *mkw.values(), x),
+                     mode_flops(FV4_AX, mode, cells, 2)), True)
+            if S.overlap_grid_shape(ni, nj, nk if kring else None) is not None:
+                i0, i1, j0, j1, k0, k1 = S._interior_box(x, kring)
+                inner = (i1 - i0) * (j1 - j0) * (k1 - k0)
+                whole = nbytes(x, lv.beta_i, lv.beta_j, lv.beta_k, rhs, lv.kdinv[0], x)
+                out_k = S.fv4_overlap_interior_cuda(lv, x, cfg, "gsrb", parity=0, ksplit=kring,
+                                                    **kw)
+                out_p = S.fv4_overlap_interior_plain(lv, x, cfg, "gsrb", ksplit=kring, **kw)
+                runs["K8b interior"] = (
+                    lambda: S.fv4_overlap_interior_cuda(lv, x, cfg, "gsrb", parity=0,
+                                                        ksplit=kring, **kw)[i0:i1, j0:j1, k0:k1],
+                    lambda: S.fv4_overlap_interior_plain(lv, x, cfg, "gsrb", ksplit=kring,
+                                                         **kw)[i0:i1, j0:j1, k0:k1],
+                    (whole * inner / cells, mode_flops(FV4_AX, "gsrb", inner, 2)), True)
+                runs["K8b edge"] = (
+                    lambda: S.fv4_overlap_edge_cuda(lv, x, slabs, cfg, "gsrb", out_k, parity=0,
+                                                    **kw),
+                    lambda: S.fv4_overlap_edge_plain(lv, x, slabs, cfg, "gsrb", out_p.clone(),
+                                                     **kw),
+                    (whole * (cells - inner) / cells + nbytes(*slabs),
+                     mode_flops(FV4_AX, "gsrb", cells - inner, 2)), True)
+            for body, taps, var7 in (("var7", "p1", True), ("27pt", "27pt", False)):
+                rcfg = SolverConfig(op="fv7pt" if var7 else "27pt", a=0.0, b=1.0, dtype=d)
+                betas = (lr.beta_i, lr.beta_j, lr.beta_k) if var7 else ()
+                runs[f"K8c {body} gsrb"] = (
+                    lambda rcfg=rcfg, taps=taps, var7=var7: K.r1_slab_cuda(
+                        lr, xr, rs, rcfg, "gsrb", taps, var7, parity=0, **rkw),
+                    lambda rcfg=rcfg, taps=taps, var7=var7: K.r1_slab_plain(
+                        lr, xr, rs, rcfg, "gsrb", taps, var7, **rkw),
+                    (nbytes(xr, *rs, *betas, rr, lr.kdinv[0], xr),
+                     mode_flops(VAR7_AX if var7 else P27_AX, "gsrb", cells, 0)), True)
+            runs["K8d var7 sweep"] = (
+                lambda: K.r1_gsrb2_slab_cuda(l2, x2, s2, e, r2, cfg, "p1", True),
+                lambda: K.r1_gsrb2_slab_plain(l2, x2, s2, e, r2, cfg, "p1", True),
+                (nbytes(x2, *s2, r2, *(t for t in l2.ring if t is not None), l2.kdinv[1], x2),
+                 2 * mode_flops(VAR7_AX, "gsrb", cells, 0)), False)
+            return runs
+
+        f32_runs, bf_runs = calls(torch.float32), calls(BF16)
+        for name, (kernel, plain, work, per_cell) in bf_runs.items():
+            time_bf16(f"{name} bf16 {label}", kernel, plain, 10, row, name, work,
+                      BF16_CELL_ULPS if per_cell else BF16_SWEEP_ULPS, per_cell)
+            pair = {"f32": f32_runs[name][0], "bf16": kernel}
+            t = [time_ms(pair[d], 10) for d in ("f32", "bf16", "bf16", "f32")]
+            print(f"  {name} {label} in turns: f32 {t[0]:.4f} / {t[3]:.4f} ms, bf16 "
+                  f"{t[1]:.4f} / {t[2]:.4f} ms")
+            row[name]["in_turns_f32_bf16_bf16_f32"] = t
+        out[label] = row
+        del ops, f32_runs, bf_runs
+        torch.cuda.empty_cache()
+    return out
+
+
+def decomposed_vs_plain(device, op: str, bc: str, n: int) -> float:
+    """The bf16 F-cycle of the n^3 problem on this group's make_mesh grid
+    through the kernels and through the plain versions (plain_path, the
+    slab kernels' too): u's gap in units of 2^-8 max|u_plain|."""
+    from hpgmg_tpu_torch.bench import weak
+    from hpgmg_tpu_torch.bench.driver import build
+    from hpgmg_tpu_torch.ops.base import get_suite
+    from hpgmg_tpu_torch.parallel.mesh import active_mesh, gather, make_mesh
+    from hpgmg_tpu_torch.solve.mg import fmg_solve
+
+    mesh = make_mesh(device)
+    cfg = weak._config(op, "bfloat16", bc, "bicgstab")
+    hier, f = build(n, cfg, device, mesh=mesh)
+    part = hier.levels[0].part
+    us = []
+    for plain in (False, True):
+        with plain_path() if plain else contextlib.nullcontext(), active_mesh(mesh):
+            u = fmg_solve(get_suite(op), hier, f, cfg)[0]
+        us.append((gather(u, part) if part is not None else u).float())
+    return float((us[0] - us[1]).abs().max() / (2.0 ** -8 * us[1].abs().max()))
+
+
+def bf16_grid_ranks(device, cases) -> dict:
+    """A rank of phase 20b: bench/weak.py's rank (``_weak_rank``: the
+    benchmark on the make_mesh grid, the counted F-cycle, rank 0's
+    one-rank F-cycles of the same problem) for each case (op, bc, per_rank,
+    overlap) of ``cases`` one after another, in bf16 over the BiCGStab
+    bottom, and the case's decomposed F-cycle at BF16_GRID_PLAIN_N^3
+    through the kernels against the plain versions (``decomposed_vs_plain``);
+    rank 0's results, each with every rank's launches, slab launches by
+    block and plain calls in its counted F-cycle."""
+    import torch.distributed as dist
+
+    from hpgmg_tpu_torch.bench import weak
+
+    out = {}
+    for op, bc, per_rank, overlap in cases:
+        t0 = time.perf_counter()
+        r = weak._weak_rank(device, weak._opts(per_rank, op, "bfloat16", 1, "gloo", bc,
+                                               "bicgstab", 1, True, overlap, 0.0, None))
+        every = [None] * dist.get_world_size()
+        dist.all_gather_object(every, (r["launches"], r["slab_launches_by_block"],
+                                       r["plain_calls"]))
+        r.update(every_rank=every, case_seconds=time.perf_counter() - t0,
+                 plain_units=decomposed_vs_plain(device, op, bc, BF16_GRID_PLAIN_N))
+        out[(op, bc, per_rank, overlap)] = r
+    return out
+
+
+def decomposed_bf16(cases=BF16_GRID_CASES, dev=torch.device("cuda")) -> dict:
+    """Phase 20b and 20c: the bf16 F-cycles of BF16_GRID_CASES through
+    bench/weak.py's ranks, one spawned job a grid (4 ranks: the 2x2 grid;
+    8: the (2,2,2) grid), the ranks sharing this GPU over gloo: s a solve,
+    rel_residual (no limit: bf16), u within BF16_GRID_UNITS of the one-rank
+    bf16 u through the same operations and within BF16_GRID_FUSED_UNITS of
+    the one-rank u as it runs, rel_residual within BF16_GRID_RES_BAND of
+    its; at BF16_GRID_PLAIN_N^3 the decomposed u through the kernels within
+    the one-rank bound of the plain versions' u; on every rank, the
+    counted F-cycle launched no kernel of another
+    type than bf16 and no plain version, the bf16 slab kernels of its path
+    (K8a, and with OVERLAP K8b's passes, with k slabs on the (2,2,2) grid;
+    K8c, K8d on the var7 body's Dirichlet levels; K8c on 27pt's) and only on
+    the blocks of its decomposed levels; its launches by kernel and block
+    (20c). ``dev`` the CPU and smaller ``cases`` rehearse it without a card
+    (the plain versions then run, and the launch check fails)."""
+    from hpgmg_tpu_torch.parallel.launch import spawn_ranks
+    from hpgmg_tpu_torch.parallel.mesh import _factor3
+
+    out = {}
+    for ranks, grid_cases in cases.items():
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        res = spawn_ranks(ranks, "gloo", dev, bf16_grid_ranks, (grid_cases,), timeout=900.0)
+        print(f"  {ranks} ranks: job {time.perf_counter() - t0:.3f} s", flush=True)
+        shape = _factor3(ranks)
+        for case in grid_cases:
+            op, bc, per_rank, overlap = case
+            r = res[case]
+            n = r["n"]
+            tag = (f"{op} {bc} {n}^3 bf16 on {tuple(r['grid'])}"
+                   + (" OVERLAP" if overlap else ""))
+            print(f"  {tag} ({ranks} processes sharing one GPU, gloo): "
+                  f"{r['res']['seconds_per_solve']:.6f} s per solve, rel_residual "
+                  f"{r['res']['rel_residual']:.6e} (one rank: {r['serial_rel_residual']:.6e}), "
+                  f"u vs one rank {r['serial_u_units']:.3f} units of 2^-8 max|u| (vs one "
+                  f"rank with the tail fusion {r['serial_fused_u_units']:.3f}), kernels vs "
+                  f"plain at {BF16_GRID_PLAIN_N}^3 {r['plain_units']:.3f} units; "
+                  f"{r['case_seconds']:.3f} s", flush=True)
+            print(f"  20c launches in the counted F-cycle (rank 0): "
+                  f"{ {k: v for k, v in r['launches'].items() if v} }")
+            print(f"  20c slab launches by block (rank 0): {r['slab_launches_by_block']}")
+            if tuple(r["grid"]) != tuple(shape):
+                raise AssertionError(f"{tag}: grid {r['grid']}")
+            rel, rel1 = r["res"]["rel_residual"], r["serial_rel_residual"]
+            plain_gap = BF16_FCYCLE_GAP if op == "fv4" else BF16_R1_FCYCLE_GAP
+            units = BF16_GRID_UNITS[op, bc]
+            if not (r["serial_u_units"] <= units
+                    and r["serial_fused_u_units"] <= BF16_GRID_FUSED_UNITS
+                    and r["plain_units"] <= plain_gap
+                    and rel1 / BF16_GRID_RES_BAND <= rel <= rel1 * BF16_GRID_RES_BAND):
+                raise AssertionError(f"{tag}: u differs from the one-rank u by "
+                                     f"{r['serial_u_units']} units (limit {units}), "
+                                     f"from the fused one by {r['serial_fused_u_units']} "
+                                     f"(limit {BF16_GRID_FUSED_UNITS}), kernels from plain by "
+                                     f"{r['plain_units']} (limit {plain_gap}), "
+                                     f"rel_residual {rel} against one rank's {rel1}")
+            kslab = "_kslab" if ranks == 8 else ""
+            want = (["fv4_slab"] + ["fv4_overlap_interior", "fv4_overlap_edge"] * overlap
+                    if op == "fv4" else ["r1_slab"]
+                    + ["r1_gsrb2_slab"] * (op in ("fv7pt", "fv2") and bc == "dirichlet"))
+            want = [f"{k}{kslab}_bf16" for k in want]
+            # the blocks of the decomposed levels: the finest level's block
+            # and its halvings while a block keeps >= 8 cells along a split axis
+            blocks, b = set(), tuple(n // s for s in shape)
+            while min(e for e, s in zip(b, shape) if s > 1) >= 8:
+                blocks.add(b)
+                b = tuple(e // 2 for e in b)
+            for rank, (launched, by_block, plain) in enumerate(r["every_rank"]):
+                stray = {k: v for k, v in launched.items()
+                         if v and not k.endswith("_bf16") and k != "fv4_small"}
+                missing = [k for k in want if not launched[k] > 0]
+                off = [k for k in by_block
+                       if " bf16" not in k
+                       or tuple(int(v) for v in k.split("(")[1].split(")")[0].split(","))
+                       not in blocks]
+                if stray or missing or off or any(plain.values()):
+                    raise AssertionError(
+                        f"{tag} rank {rank}: non-bf16 launches {stray}, bf16 slab kernels "
+                        f"not launched {missing}, slab launches off the decomposed levels "
+                        f"{off}, plain calls { {k: v for k, v in plain.items() if v} }")
+            out[tag] = {"case": case, "n": n, "grid": r["grid"], "res": r["res"],
+                        "serial_u_units": r["serial_u_units"],
+                        "serial_fused_u_units": r["serial_fused_u_units"],
+                        "plain_units": r["plain_units"],
+                        "serial_u_rel_diff": r["serial_u_rel_diff"],
+                        "serial_rel_residual": r["serial_rel_residual"],
+                        "launches": {k: v for k, v in r["launches"].items() if v},
+                        "slab_launches_by_block": r["slab_launches_by_block"],
+                        "case_seconds": r["case_seconds"]}
+    return out
+
+
+def phases_13_to_15(gsrb_ms: float, tag: str = ""):
+    """Phases 13 (the decomposed F-cycles over a 2x2 grid), 14 (FE on the
+    card) and 15 (the bench tooling, ``gsrb_ms`` K1's 512^3 gsrb time from
+    phase 3), in this order; ``tag`` prefixes their headings
+    (scripts/tooling_repeat.py runs them in rounds). Returns their results."""
+    phase(f"{tag}13 the decomposed F-cycle over a 2x2 grid: 4 processes sharing one GPU, "
+          "gloo, host-staged halos (not a multi-card number)")
+    dec = {"fv4": decomposed("fv4", 512, "float32", (3.0, float("inf"))),
+           "fv7pt": decomposed("fv7pt", 512, "float32", (1.8, 2.2), rel_limit=1e-2),
+           "fv4_f64": decomposed("fv4", 256, "float64", (3.8, float("inf")),
+                                 overlap=True)}
+    phase(f"{tag}14 FE on the card: the reference's tables, Q2 f64 e_L2 rates to "
+          "G[128^3], the sampler in f32 to G[128^3] and in f64 at G[64^3] and G[128^3], "
+          "one profiled F-cycle; no kernel of K1-K8")
+    fe = fe_on_card()
+    phase(f"{tag}15 the bench tooling: the CLI's two timing tables at 512^3 f32, the "
+          "memory report, a traced F-cycle, the weak sweep over 1 and 4 ranks with a trace")
+    return dec, fe, tooling(gsrb_ms)
+
+
 def main() -> int:
     phase("1 device")
     if not torch.cuda.is_available():
@@ -4119,19 +4574,7 @@ def main() -> int:
     phase("12 the slab kernels' times at the 2x2 grid's 512^3 blocks; one-block K8 vs "
           "K1/K5/K6")
     s_times = time_slab_kernels()
-    phase("13 the decomposed F-cycle over a 2x2 grid: 4 processes sharing one GPU, gloo, "
-          "host-staged halos (not a multi-card number)")
-    dec = {"fv4": decomposed("fv4", 512, "float32", (3.0, float("inf"))),
-           "fv7pt": decomposed("fv7pt", 512, "float32", (1.8, 2.2), rel_limit=1e-2),
-           "fv4_f64": decomposed("fv4", 256, "float64", (3.8, float("inf")),
-                                 overlap=True)}
-    phase("14 FE on the card: the reference's tables, Q2 f64 e_L2 rates to G[128^3], "
-          "the sampler in f32 to G[128^3] and in f64 at G[64^3] and G[128^3], one "
-          "profiled F-cycle; no kernel of K1-K8")
-    fe = fe_on_card()
-    phase("15 the bench tooling: the CLI's two timing tables at 512^3 f32, the memory "
-          "report, a traced F-cycle, the weak sweep over 1 and 4 ranks with a trace")
-    tools = tooling(times[512]["gsrb"]["ms"])
+    dec, fe, tools = phases_13_to_15(times[512]["gsrb"]["ms"])
     phase("16 the 3D process grid: K8a-K8d with k slabs vs plain, their times in turns "
           "with the k-whole blocks, the (2,2,2) F-cycles at 256^3 (8 processes sharing "
           "one GPU, gloo)")
@@ -4163,6 +4606,21 @@ def main() -> int:
     bf19 = bf16_suites()
     phase("19c launches per bf16 F-cycle: one counted F-cycle of each path of 19b")
     bf19_cycle = bf16_fcycle_launches()
+    phase("20a the bf16 slab kernels (K8a, K8b, K8c, K8d; whole along k and with k slabs) "
+          "vs plain; their times in turns with f32")
+    check_bf16_slab_kernels(worst)
+    t20 = time_bf16_slab_kernels()
+    phase("20b/c the decomposed bf16 F-cycles: fv4, fv7pt 512^3 on 2x2; periodic fv4 "
+          "(OVERLAP), 27pt 256^3 on (2,2,2) (processes sharing one GPU, gloo); launches")
+    t0 = time.perf_counter()
+    bf20 = decomposed_bf16()
+    print(f"  phase 20b wall {time.perf_counter() - t0:.3f} s")
+
+    def bf20_launches(op, bc, name):
+        """rank 0's launches of ``name`` in phase 20b's counted F-cycle of
+        the (op, bc) case"""
+        run = next(r for r in bf20.values() if r["case"][:2] == (op, bc))
+        return run["launches"].get(name, 0)
 
     big = times[512]
     # K6 at the largest level it smooths on the path
@@ -4258,6 +4716,24 @@ def main() -> int:
         ("r1_stencil_periodic_27pt_bf16", "r1_stream.cu",
          "hpgmg_tpu/kernels/stencils_r1.py:517", t19["27pt periodic"]["apply"],
          bf19["27pt periodic"]["launches"]["r1_stream_periodic_bf16"]),
+        # the slab kernels' bf16 instantiations: times at the 2x2 grid's
+        # 512^3 finest block (20a), launches in phase 20b's counted F-cycles
+        # (rank 0): K8a's in the fv4 2x2 run, K8b's in the (2,2,2) OVERLAP
+        # run, K8c's and K8d's in the fv7pt 2x2 run
+        ("fv4_slab_bf16", "fv4_slab_bf16.cu", "hpgmg_tpu/kernels/stencils.py:1268",
+         t20[BF16_SLAB_KEY]["K8a gsrb"], bf20_launches("fv4", "dirichlet", "fv4_slab_bf16")),
+        ("fv4_overlap_interior_bf16", "fv4_slab_bf16.cu", "hpgmg_tpu/kernels/stencils.py:1370",
+         t20[BF16_SLAB_KEY]["K8b interior"],
+         bf20_launches("fv4", "periodic", "fv4_overlap_interior_bf16")),
+        ("fv4_overlap_edge_bf16", "fv4_slab_bf16.cu", "hpgmg_tpu/kernels/stencils.py:1421",
+         t20[BF16_SLAB_KEY]["K8b edge"],
+         bf20_launches("fv4", "periodic", "fv4_overlap_edge_bf16")),
+        ("r1_slab_bf16", "r1_var7_stream.cu", "hpgmg_tpu/kernels/stencils_r1.py:645",
+         t20[BF16_SLAB_KEY]["K8c var7 gsrb"], bf20_launches("fv7pt", "dirichlet",
+                                                            "r1_slab_bf16")),
+        ("r1_gsrb2_slab_bf16", "r1_gsrb2.cu", "hpgmg_tpu/kernels/stencils_r1.py:1029",
+         t20[BF16_SLAB_KEY]["K8d var7 sweep"], bf20_launches("fv7pt", "dirichlet",
+                                                             "r1_gsrb2_slab_bf16")),
     ]
     kernels = [{"name": name, "route": "cuda",
                 "source": f"hpgmg_tpu_torch/kernels/csrc/{src}", "replaces": rep,
@@ -4330,7 +4806,7 @@ def main() -> int:
             k["one_block"] = {m: {key: s_times[f"K8a {m} one block"].get(key)
                                   for key in ("ms", "plain_ms", "bound_ms", "single_rank")}
                               for m in ("apply", "residual", "gsrb")}
-        if k["name"].startswith("fv4_slab") or k["name"].startswith("fv4_overlap"):
+        if k["name"] in ("fv4_slab", "fv4_overlap_interior", "fv4_overlap_edge"):
             pass_ = {"fv4_slab": 0, "fv4_overlap_interior": 1,
                      "fv4_overlap_edge": 2}[k["name"]]
             k["ptxas"] = {m: regs.get(f"fv4_slab_kernel<float, {i}, {pass_}, 0>")
@@ -4409,6 +4885,48 @@ def main() -> int:
                                             if b.startswith(prefix) and b.endswith("k-split")}
             k["kslab"] = {blk: row[k["name"]] for blk, row in g3["times"].items()
                           if k["name"] in row}
+    # phase 20: the bf16 slab rows' other modes and bodies, their times with
+    # k slabs, their registers and spills by mode (k-whole and KSLAB), their
+    # launches by block and with k slabs in phase 20b's counted F-cycles
+    p20 = {"fv4_slab_bf16": ("K8a gsrb", "fv4_slab_kernel<bf16, {i}, 0, {ks}>", 3,
+                             ("fv4", "dirichlet")),
+           "fv4_overlap_interior_bf16": ("K8b interior", "fv4_slab_kernel<bf16, {i}, 1, {ks}>",
+                                         3, ("fv4", "periodic")),
+           "fv4_overlap_edge_bf16": ("K8b edge", "fv4_slab_kernel<bf16, {i}, 2, {ks}>", 3,
+                                     ("fv4", "periodic")),
+           "r1_slab_bf16": ("K8c var7 gsrb", "r1_v7_kernel<bf16, {i}, 1, 1, {ks}, float>", 4,
+                            ("fv7pt", "dirichlet")),
+           "r1_gsrb2_slab_bf16": ("K8d var7 sweep", "r1_gsrb2_kernel<bf16, 1, 1, {ks}, float>",
+                                  1, ("fv7pt", "dirichlet"))}
+    mode_names = ("apply", "residual", "gsrb", "fres")
+    for k in kernels:
+        if k["name"] not in p20:
+            continue
+        key, pattern, nmodes, case = p20[k["name"]]
+        k["kslab"] = t20[BF16_KSLAB_KEY].get(key)
+        k["ptxas"] = {f"{m} {ks_name}": regs.get(pattern.format(i=i, ks=ks))
+                      for i, m in enumerate(mode_names[:nmodes])
+                      for ks, ks_name in ((0, "k-whole"), (1, "k-split"))}
+        run = next(r for r in bf20.values() if r["case"][:2] == case)
+        prefix = {"fv4_slab_bf16": "K8a ", "fv4_overlap_interior_bf16": "K8b interior ",
+                  "fv4_overlap_edge_bf16": "K8b edge ", "r1_slab_bf16": "K8c ",
+                  "r1_gsrb2_slab_bf16": "K8d "}[k["name"]]
+        k["launches_by_block"] = {b: v for b, v in run["slab_launches_by_block"].items()
+                                  if b.startswith(prefix)}
+        k["kslab_launches"] = {tag: r["launches"].get(k["name"].replace("_bf16", "_kslab_bf16"), 0)
+                               for tag, r in bf20.items()}
+        if k["name"] == "fv4_slab_bf16":
+            k["modes"] = {m: t20[BF16_SLAB_KEY][f"K8a {m}"] for m in ("apply", "residual")}
+        if k["name"] == "r1_slab_bf16":
+            k["modes"] = {"27pt gsrb": t20[BF16_SLAB_KEY]["K8c 27pt gsrb"]}
+            k["ptxas"].update({f"27pt {m} {ks_name}": regs.get(
+                f"r1_v7_kernel<bf16, {i}, 0, 1, {ks}, float>")
+                for i, m in enumerate(mode_names) for ks, ks_name in ((0, "k-whole"),
+                                                                      (1, "k-split"))})
+        if k["name"] == "r1_gsrb2_slab_bf16":
+            k["ptxas"].update({f"27pt {ks_name}": regs.get(
+                f"r1_gsrb2_kernel<bf16, 0, 1, {ks}, float>")
+                for ks, ks_name in ((0, "k-whole"), (1, "k-split"))})
     print(f"  worst relative errors over the checks: {worst}")
     print(json.dumps({"headline": {
         "dof_per_s": res.dof_per_second, "rel_residual": res.rel_residual,
@@ -4464,7 +4982,8 @@ def main() -> int:
     print(json.dumps({"fe_grid": fe_grid}))
     print(json.dumps({"bf16": {"cli_ladder_f32": ladder, "bf16_fcycle": bf,
                                "bf16c": bf16c, "r1_periodic_fcycles": bf19,
-                               "r1_periodic_launches_per_fcycle": bf19_cycle}}))
+                               "r1_periodic_launches_per_fcycle": bf19_cycle,
+                               "slab_times": t20, "decomposed_fcycles": bf20}}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -9,6 +9,12 @@ per-rank block, one process per rank, the fine levels decomposed over the
         [--bottom direct|bicgstab] [--dynamic-range 3] [--check-serial] \\
         [--overlap] [--device cuda|cpu] [--trace DIR]
 
+``--dtype bfloat16`` runs every suite and BC decomposed in bf16, through
+the slab kernels' bf16 instantiations, over the BiCGStab bottom (its
+default there: the DIRECT bottom cannot be built in bf16, and asking for
+it is refused before any rank starts); no rel_residual or order limit
+applies to a bf16 solve (the one-rank entry's rule).
+
 The global grid is per_rank * max(sx, sy, sz) cells a side. The ranks start
 through parallel/launch.py: ``spawn_ranks``, or ``torchrun_rank`` when
 torchrun set the environment. ``--backend nccl`` (the default) puts each
@@ -21,7 +27,12 @@ Each rank runs ``bench.driver.run_benchmark`` on its mesh (one warm-up
 F-cycle, then timed chains, and with ``--dynamic-range 3`` the 2h and 4h
 solves), then one more F-cycle with the launch counts reset before it and
 read after it. ``--check-serial`` then solves the same problem on one rank
-and compares u (max|u_ranks - u_one| / max|u_one|) and rel_residual.
+through the operations the ranks run (the K4 tail fusion off, as a process
+grid has it, ``kernels/tail.py:use_tail``) and compares u (max|u_ranks -
+u_one| / max|u_one|, and in bf16 also in units of the bf16 spacing at the
+largest value, 2^-8 max|u_one|) and rel_residual; in bf16 it also gives u's
+gap to the one-rank solve with the fusion on (K4 rounds its e + interp
+once, the unfused climb its interpolation axis by axis).
 ``--ranks`` takes a list of rank counts and runs one job per count (the
 JAX ``main``'s ``--devices`` sweep, hpgmg_tpu/bench/weak.py:70-93). For each
 count it prints the JAX line
@@ -42,9 +53,10 @@ Each JSON line has the keys of ``python -m hpgmg_tpu_torch.bench`` plus
 ``ranks``, ``grid``, ``backend``, ``launches`` (of that F-cycle), rank 0's
 ``slab_launches_by_block`` (its K8a, K8b and K8c launches in that F-cycle
 by pass, mode and local block shape, and its K8d sweeps by block, keyed
-apart on blocks split along k) and, with
+apart on bf16 blocks and on blocks split along k) and, with
 ``--check-serial``,
-``serial_u_rel_diff`` and ``serial_rel_residual``.
+``serial_u_rel_diff``, ``serial_rel_residual`` and (bf16)
+``serial_u_units`` and ``serial_fused_u_units``.
 """
 
 from __future__ import annotations
@@ -57,7 +69,8 @@ import time
 
 import torch
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+           "bfloat16": torch.bfloat16}
 
 
 def _config(op: str, dtype: str, bc: str, bottom: str):
@@ -75,7 +88,7 @@ def _weak_rank(device: torch.device, opts: dict) -> dict:
     import torch.distributed as dist
 
     from hpgmg_tpu_torch.bench.driver import build, device_name, run_benchmark
-    from hpgmg_tpu_torch.kernels import counts, stencils
+    from hpgmg_tpu_torch.kernels import counts, stencils, tail
     from hpgmg_tpu_torch.ops.base import get_suite
     from hpgmg_tpu_torch.parallel import shard_kernels
     from hpgmg_tpu_torch.parallel.mesh import active_mesh, gather, make_mesh
@@ -116,10 +129,20 @@ def _weak_rank(device: torch.device, opts: dict) -> dict:
     del hier, f, u
     if mesh.rank == 0 and opts["check_serial"]:
         hier1, f1 = build(n, cfg, device)
-        u1, nr1, nf1 = fmg_solve(op, hier1, f1, cfg)
-        diff = float((u_full - u1).abs().max() / u1.abs().max())
-        result.update(serial_u_rel_diff=diff,
+        fuse, tail.TAIL_FUSE = tail.TAIL_FUSE, False
+        try:
+            u1, nr1, nf1 = fmg_solve(op, hier1, f1, cfg)
+        finally:
+            tail.TAIL_FUSE = fuse
+        gap, top = float((u_full.float() - u1.float()).abs().max()), float(u1.abs().max())
+        result.update(serial_u_rel_diff=gap / top,
                       serial_rel_residual=float(nr1) / float(nf1))
+        if cfg.dtype == torch.bfloat16:
+            # the bf16 spacing at the largest value: 2^-8 max|u_one|
+            fused = fmg_solve(op, hier1, f1, cfg)[0]
+            result["serial_u_units"] = gap / (2.0 ** -8 * top)
+            result["serial_fused_u_units"] = (float((u_full.float() - fused.float()).abs().max())
+                                              / (2.0 ** -8 * float(fused.abs().max())))
     return result
 
 
@@ -191,7 +214,8 @@ def summary(r: dict, op: str, dtype: str, bottom: str, bc: str) -> dict:
            "ranks": r["ranks"], "grid": r["grid"], "backend": r["backend"],
            "launches": {k: v for k, v in r["launches"].items() if v},
            "wall_seconds": r["wall_seconds"]}
-    for key in ("serial_u_rel_diff", "serial_rel_residual", "trace"):
+    for key in ("serial_u_rel_diff", "serial_rel_residual", "serial_u_units",
+                "serial_fused_u_units", "trace"):
         if key in r:
             out[key] = r[key]
     return out
@@ -223,7 +247,8 @@ def main(argv=None) -> int:
     ap.add_argument("--op", choices=["fv4", "fv7pt", "fv2", "27pt"], default="fv4")
     ap.add_argument("--dtype", choices=sorted(_DTYPES), default="float32")
     ap.add_argument("--bc", choices=["dirichlet", "periodic"], default="dirichlet")
-    ap.add_argument("--bottom", choices=["direct", "bicgstab"], default="direct")
+    ap.add_argument("--bottom", choices=["direct", "bicgstab"], default=None,
+                    help="default: direct; bicgstab in bfloat16")
     ap.add_argument("--dynamic-range", type=int, default=3)
     ap.add_argument("--reps", type=int, default=1,
                     help="most timed solves after the calibration")
@@ -236,6 +261,11 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", default=None, metavar="DIR",
                     help="trace a chain of --reps solves on each rank into DIR/rank{r}")
     args = ap.parse_args(argv)
+    bf16 = args.dtype == "bfloat16"
+    if bf16 and args.bottom == "direct":
+        ap.error("--dtype bfloat16 takes --bottom bicgstab: the DIRECT bottom's inverse "
+                 "cannot be built in bfloat16")
+    args.bottom = args.bottom or ("bicgstab" if bf16 else "direct")
     if args.device == "cuda" and not torch.cuda.is_available():
         print("no CUDA device available (use --device cpu)", file=sys.stderr)
         return 1

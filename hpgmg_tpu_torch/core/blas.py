@@ -7,6 +7,9 @@ else in the input's dtype. Nothing here synchronizes, except on a
 decomposed level: given the level's ``part`` (parallel/mesh.py), the local
 result is all-reduced over the ranks (SUM, or MAX for the max norm), each
 block counted once (by its owner), so every rank gets the global value.
+There a bfloat16 field's partial sums are kept in float32 through the
+all-reduce and rounded once (``partial_dtype``), as one rank's
+``torch.sum`` of a bf16 field accumulates in float32 and rounds once.
 """
 
 from __future__ import annotations
@@ -33,6 +36,14 @@ def _all_reduce(t: torch.Tensor, part, op) -> torch.Tensor:
     return buf.to(t.device).reshape(t.shape)
 
 
+def partial_dtype(acc: torch.dtype, part) -> torch.dtype:
+    """The type a rank sums its part of a reduction in, and all-reduces:
+    ``acc``, or float32 where ``acc`` is bfloat16 on a decomposed level
+    (the ranks' partial sums rounded to bf16 before the all-reduce would
+    round more often than one rank's sum)."""
+    return torch.float32 if part is not None and acc == torch.bfloat16 else acc
+
+
 def sum_over(t: torch.Tensor, part) -> torch.Tensor:
     """The sum over the ranks of ``part`` of each rank's partial sums ``t``
     (any shape), each block counted once (by its owner); ``t`` itself
@@ -46,7 +57,7 @@ def sum_over(t: torch.Tensor, part) -> torch.Tensor:
 
 def dot(u: torch.Tensor, v: torch.Tensor,
         reduce_dtype: Optional[torch.dtype] = None, part=None) -> torch.Tensor:
-    acc = reduce_dtype or u.dtype
+    acc = partial_dtype(reduce_dtype or u.dtype, part)
     return sum_over(torch.sum((u * v).to(acc)), part).to(u.dtype)
 
 
@@ -59,6 +70,6 @@ def norm(u: torch.Tensor, part=None) -> torch.Tensor:
 
 def mean(u: torch.Tensor, reduce_dtype: Optional[torch.dtype] = None,
          part=None) -> torch.Tensor:
-    acc = reduce_dtype or u.dtype
+    acc = partial_dtype(reduce_dtype or u.dtype, part)
     count = u.numel() if part is None else part.dim ** 3
     return (sum_over(torch.sum(u.to(acc)), part) / count).to(u.dtype)

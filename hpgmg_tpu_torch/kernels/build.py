@@ -95,18 +95,22 @@ _SIGNATURES = {
     #  a_coef, pass, stream)
     "hpgmg_fv4_slab_f32": (_P,) * 14 + (_I,) * 8 + (_D, _D, _I, _P),
     "hpgmg_fv4_slab_f64": (_P,) * 14 + (_I,) * 8 + (_D, _D, _I, _P),
+    "hpgmg_fv4_slab_bf16": (_P,) * 14 + (_I,) * 8 + (_D, _D, _I, _P),
     # (x, ilo, ihi, jlo, jhi, klo, khi, beta_i, beta_j, beta_k, alpha, rhs,
     #  kdinv, out, ni, nj, nk, mode, var7, periodic, parity, chunk, b_h2inv,
     #  a_coef, t1, t2, stream); klo, khi null on a block whole along k
     "hpgmg_r1_slab_f32": (_P,) * 14 + (_I,) * 8 + (_D,) * 4 + (_P,),
     "hpgmg_r1_slab_f64": (_P,) * 14 + (_I,) * 8 + (_D,) * 4 + (_P,),
+    "hpgmg_r1_slab_bf16": (_P,) * 14 + (_I,) * 8 + (_D,) * 4 + (_P,),
     # (x, ilo, ihi, jlo, jhi, klo, khi, ring beta_i, beta_j, beta_k, alpha,
     #  rhs, kdinv0, kdinv1, out, ni, nj, nk, edges, var7, b_h2inv, a_coef, t1,
     #  t2, stream); the _chunk entries take the chunk of i-planes after var7
     "hpgmg_r1_gsrb2_slab_f32": (_P,) * 15 + (_I,) * 5 + (_D,) * 4 + (_P,),
     "hpgmg_r1_gsrb2_slab_f64": (_P,) * 15 + (_I,) * 5 + (_D,) * 4 + (_P,),
+    "hpgmg_r1_gsrb2_slab_bf16": (_P,) * 15 + (_I,) * 5 + (_D,) * 4 + (_P,),
     "hpgmg_r1_gsrb2_slab_chunk_f32": (_P,) * 15 + (_I,) * 6 + (_D,) * 4 + (_P,),
     "hpgmg_r1_gsrb2_slab_chunk_f64": (_P,) * 15 + (_I,) * 6 + (_D,) * 4 + (_P,),
+    "hpgmg_r1_gsrb2_slab_chunk_bf16": (_P,) * 15 + (_I,) * 6 + (_D,) * 4 + (_P,),
 }
 
 

@@ -10,8 +10,9 @@ from typing import Dict, Tuple
 # stencil wrappers count their periodic launches (K7a, K7b) apart, the
 # slab kernels (K8a-K8d) their launches on blocks split along k (k slabs),
 # the kernels with a bfloat16 instantiation their bf16 launches (the
-# stencil wrappers their periodic bf16 launches apart again; K1 also its
-# BF16C gsrb launches: float32 x, bf16 coefficients); fv4_small counts
+# stencil wrappers their periodic bf16 launches apart again, the slab
+# kernels their bf16 launches with k slabs; K1 also its BF16C gsrb
+# launches: float32 x, bf16 coefficients); fv4_small counts
 # the fv4 suite's calls on levels below 4^3, which every device computes
 # by the plain version (stencils.small_level)
 KERNELS = (
@@ -55,6 +56,18 @@ KERNELS = (
     ("r1_stream_bf16", "stencils_r1", "r1_stream_cuda", "bf16_launches"),
     ("r1_stream_periodic_bf16", "stencils_r1", "r1_stream_cuda", "periodic_bf16_launches"),
     ("r1_gsrb2_bf16", "stencils_r1", "r1_gsrb2_cuda", "bf16_launches"),
+    ("fv4_slab_bf16", "stencils", "fv4_slab_cuda", "bf16_launches"),
+    ("fv4_overlap_interior_bf16", "stencils", "fv4_overlap_interior_cuda", "bf16_launches"),
+    ("fv4_overlap_edge_bf16", "stencils", "fv4_overlap_edge_cuda", "bf16_launches"),
+    ("r1_slab_bf16", "stencils_r1", "r1_slab_cuda", "bf16_launches"),
+    ("r1_gsrb2_slab_bf16", "stencils_r1", "r1_gsrb2_slab_cuda", "bf16_launches"),
+    ("fv4_slab_kslab_bf16", "stencils", "fv4_slab_cuda", "kslab_bf16_launches"),
+    ("fv4_overlap_interior_kslab_bf16", "stencils", "fv4_overlap_interior_cuda",
+     "kslab_bf16_launches"),
+    ("fv4_overlap_edge_kslab_bf16", "stencils", "fv4_overlap_edge_cuda",
+     "kslab_bf16_launches"),
+    ("r1_slab_kslab_bf16", "stencils_r1", "r1_slab_cuda", "kslab_bf16_launches"),
+    ("r1_gsrb2_slab_kslab_bf16", "stencils_r1", "r1_gsrb2_slab_cuda", "kslab_bf16_launches"),
     ("fv4_small", "stencils", "fv4_small", "launches"),
 )
 # (name, module, plain version) of every plain version's call count

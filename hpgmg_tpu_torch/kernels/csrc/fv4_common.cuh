@@ -1,6 +1,6 @@
 // Device building blocks of the fv4 kernels (K1/K7a in fv4_stream.cu, K1s
 // in fv4_subtile.cu, K2 in fv4_gsrb2.cu, K2c in fv4_gsrb2_cluster.cu, K4
-// in tail.cu, K8a/K8b in fv4_slab.cu): the quartic Dirichlet ghost of x,
+// in tail.cu, K8a/K8b in fv4_slab.cuh): the quartic Dirichlet ghost of x,
 // the fv4 stencil's arithmetic over accessors of x and the face
 // coefficients, the v2 interpolation taps, and a call's operands in their
 // storage types (storage.cuh).

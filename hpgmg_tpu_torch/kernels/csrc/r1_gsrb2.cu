@@ -86,11 +86,14 @@
 // plane i0-1 again from x planes i0-2 .. i0, so every cell's red and
 // black values are computed from the same values in the same order
 // whatever the chunk: any chunk gives the same bits.
-// bfloat16 (K6 of a bf16 solve; K8d has none): the x ring and the red
-// planes hold float and the arithmetic is the float kernel's; each bf16 x
-// value's aligned 32-bit word lands in its float slot by cp.async and the
-// thread that copied it widens the slot in place before the barrier that
-// publishes the plane (stream.cuh: cp_async_value, widen_ring_plane); the
+// bfloat16 (K6 and K8d of a bf16 solve; K8d's ring views bf16 as x is,
+// its slabs float: the exchange widens them, and a Dirichlet domain face's
+// ghost is kept as float, as K6 makes it): the x ring and the red planes
+// hold float and the arithmetic is the float kernel's; each bf16 x value's
+// aligned 32-bit word lands in its float slot by cp.async and the thread
+// that copied it widens the slot in place before the barrier that
+// publishes the plane (stream.cuh: cp_async_value, widen_ring_plane; K8d's
+// x copies only, widen_value), the slab cells are copied as they are; the
 // operands are widened as they are read (ld). Each red value is rounded to
 // bf16 (rounded<S>) before black reads it, as the red half-sweep's stored
 // output is, so K6 in bf16 equals two K5 bf16 half-sweeps but for the
@@ -153,17 +156,17 @@ constexpr unsigned kSwNoCopy = ~0u;
 constexpr int kSrcShift = 29;
 constexpr unsigned kOffMask = (1u << kSrcShift) - 1;
 
-// S: the storage type of every field (bf16 for K6 only), T = Wide<S> the
-// arithmetic's
+// S: the storage type of every field, T = Wide<S> the arithmetic's and
+// the slabs'
 template <typename S, typename T = Wide<S>>
 struct SweepArgs {
   const S* x;
-  const S* ilo;  // K8d: the slabs; K6: null
-  const S* ihi;
-  const S* jlo;
-  const S* jhi;
-  const S* klo;  // K8d on a block split along k (KSLAB); null otherwise
-  const S* khi;
+  const T* ilo;  // K8d: the slabs; K6: null
+  const T* ihi;
+  const T* jlo;
+  const T* jhi;
+  const T* klo;  // K8d on a block split along k (KSLAB); null otherwise
+  const T* khi;
   const S* beta_i;  // var7 only (K8d: the ring views)
   const S* beta_j;
   const S* beta_k;
@@ -285,44 +288,32 @@ __global__ void __launch_bounds__(kSwThreads, kSwBlocks<T>)
   const int64_t plane = static_cast<int64_t>(nj) * nk;
   // x plane P into ring slot s; a commit group whether or not it copies
   // anything, so that every iteration waits for the same count. A bf16 x
-  // (K6) lands as its values' words (cp_async_value), which widen_plane
-  // turns into floats once this thread's copies of the plane have arrived,
-  // before the barrier that publishes it.
+  // lands as its values' words (cp_async_value), which widen_plane turns
+  // into floats once this thread's copies of the plane have arrived, before
+  // the barrier that publishes it; K8d's slabs are in the ring's type.
   const S* const xend = p.x + static_cast<int64_t>(ni) * plane;
+  // K8d: the slab cells of a copy of x plane P from source src (1, 2: the
+  // strips jlo, jhi; 3, 4: the k slabs klo, khi; 0: the slab ilo or ihi
+  // of a plane P < 0 or P >= ni), offset 0
+  auto slab_at = [&](unsigned src, int P) -> const T* {
+    if (src == 0) return P < 0 ? p.ilo + (P + 2) * plane : p.ihi + (P - ni) * plane;
+    if (src <= 2) return (src == 1 ? p.jlo : p.jhi) + static_cast<int64_t>(P + 2) * 2 * nk;
+    return (src == 3 ? p.klo : p.khi) + static_cast<int64_t>(P + 2) * (nj + 4) * 2;
+  };
   auto load_plane = [&](int P, int s) {
     if (P >= xa && P <= xb) {
-      const S* base;
-      const S* slo = nullptr;
-      const S* shi = nullptr;
-      const S* klo_p = nullptr;
-      const S* khi_p = nullptr;
-      if constexpr (SLAB) {
-        base = P < 0 ? p.ilo + (P + 2) * plane
-                     : (P >= ni ? p.ihi + (P - ni) * plane : p.x + P * plane);
-        slo = p.jlo + static_cast<int64_t>(P + 2) * 2 * nk;
-        shi = p.jhi + static_cast<int64_t>(P + 2) * 2 * nk;
-        if constexpr (KSLAB) {
-          klo_p = p.klo + static_cast<int64_t>(P + 2) * (nj + 4) * 2;
-          khi_p = p.khi + static_cast<int64_t>(P + 2) * (nj + 4) * 2;
-        }
-      } else {
-        base = p.x + P * plane;
-      }
       T* dst = xr + s * SXPLANE + threadIdx.x;
+      const bool inx = P >= 0 && P < ni;
+      const S* xp = p.x + P * plane;
 #pragma unroll
       for (int e = 0; e < kSwXE; ++e) {
         const unsigned g = goff[e];
         if (g == kSwNoCopy) continue;
         const unsigned src = g >> kSrcShift;
-        if constexpr (KSLAB) {
-          cp_async(dst + e * kSwThreads,
-                   (src == 0 ? base : src == 1 ? slo : src == 2 ? shi : src == 3 ? klo_p : khi_p) +
-                       (g & kOffMask));
-        } else if constexpr (SLAB) {
-          cp_async(dst + e * kSwThreads,
-                   (src == 0 ? base : (src == 1 ? slo : shi)) + (g & kOffMask));
+        if (!SLAB || (src == 0 && inx)) {
+          cp_async_value(dst + e * kSwThreads, xp + (g & kOffMask), xend);
         } else {
-          cp_async_value(dst + e * kSwThreads, base + g, xend);
+          cp_async(dst + e * kSwThreads, slab_at(src, P) + (g & kOffMask));
         }
       }
     }
@@ -333,6 +324,17 @@ __global__ void __launch_bounds__(kSwThreads, kSwBlocks<T>)
       if (P >= xa && P <= xb)
         widen_ring_plane<kSwXE, kSwThreads>(xr + s * SXPLANE + threadIdx.x, p.x + P * plane,
                                             goff, kSwNoCopy);
+    } else if constexpr (!std::is_same_v<S, T>) {
+      // K8d: the copies from x (the slabs' are in the ring's type)
+      if (P >= 0 && P < ni && P <= xb) {
+        T* dst = xr + s * SXPLANE + threadIdx.x;
+#pragma unroll
+        for (int e = 0; e < kSwXE; ++e) {
+          const unsigned g = goff[e];
+          if (g != kSwNoCopy && (g >> kSrcShift) == 0)
+            widen_value(dst + e * kSwThreads, p.x + P * plane + g);
+        }
+      }
     }
   };
 
@@ -390,7 +392,9 @@ __global__ void __launch_bounds__(kSwThreads, kSwBlocks<T>)
     const int k = c.kp + d, kc = c.kp + 1 - d;
     const int at = (r + 1) * SXP + 2 * pp + 1 + d;  // x slot index of the red cell
     T* dst = rq + r * SRP + 2 * pp;
-    if (kc >= klo && kc < khi) dst[1 - d] = xq[at + 1 - 2 * d];
+    // the black cell's x, rounded to S as the red half-sweep's stored
+    // output holds it (a no-op but for a K8d slab cell, which is float)
+    if (kc >= klo && kc < khi) dst[1 - d] = rounded<S>(xq[at + 1 - 2 * d]);
     if (!ok) return;
     // the ghosts red makes: K6's on every face; K8d's i/j ghosts are slab
     // cells
@@ -619,7 +623,7 @@ int launch_body(const SweepArgs<S>& p, int chunk, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// S: the storage type; bf16 takes K6 only (K8d has no bf16 instantiation)
+// S: the storage type (K6 and K8d alike)
 template <typename S>
 int launch_sweep(const void* x, const void* ilo, const void* ihi, const void* jlo,
                  const void* jhi, const void* klo, const void* khi, const void* beta_i,
@@ -636,19 +640,18 @@ int launch_sweep(const void* x, const void* ilo, const void* ihi, const void* jl
       static_cast<int64_t>(nj + 4) * (nk + 4) > static_cast<int64_t>(kOffMask) ||
       x == nullptr || rhs == nullptr || kdinv0 == nullptr || kdinv1 == nullptr ||
       out == nullptr || (slab && (ihi == nullptr || jlo == nullptr || jhi == nullptr)) ||
-      (var7 && (beta_i == nullptr || beta_j == nullptr || beta_k == nullptr)) ||
-      (std::is_same_v<S, bf16> && slab)) {
+      (var7 && (beta_i == nullptr || beta_j == nullptr || beta_k == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   using T = Wide<S>;
   SweepArgs<S> p{};
   p.x = static_cast<const S*>(x);
-  p.ilo = static_cast<const S*>(ilo);
-  p.ihi = static_cast<const S*>(ihi);
-  p.jlo = static_cast<const S*>(jlo);
-  p.jhi = static_cast<const S*>(jhi);
-  p.klo = static_cast<const S*>(klo);
-  p.khi = static_cast<const S*>(khi);
+  p.ilo = static_cast<const T*>(ilo);
+  p.ihi = static_cast<const T*>(ihi);
+  p.jlo = static_cast<const T*>(jlo);
+  p.jhi = static_cast<const T*>(jhi);
+  p.klo = static_cast<const T*>(klo);
+  p.khi = static_cast<const T*>(khi);
   p.beta_i = static_cast<const S*>(beta_i);
   p.beta_j = static_cast<const S*>(beta_j);
   p.beta_k = static_cast<const S*>(beta_k);
@@ -666,15 +669,13 @@ int launch_sweep(const void* x, const void* ilo, const void* ihi, const void* jl
   p.t2 = static_cast<T>(t2);
   p.edges = edges;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if constexpr (!std::is_same_v<S, bf16>) {
-    if (kslab) {
-      return var7 ? launch_body<S, true, true, true>(p, chunk, s)
-                  : launch_body<S, false, true, true>(p, chunk, s);
-    }
-    if (slab) {
-      return var7 ? launch_body<S, true, true>(p, chunk, s)
-                  : launch_body<S, false, true>(p, chunk, s);
-    }
+  if (kslab) {
+    return var7 ? launch_body<S, true, true, true>(p, chunk, s)
+                : launch_body<S, false, true, true>(p, chunk, s);
+  }
+  if (slab) {
+    return var7 ? launch_body<S, true, true>(p, chunk, s)
+                : launch_body<S, false, true>(p, chunk, s);
   }
   return var7 ? launch_body<S, true, false>(p, chunk, s)
               : launch_body<S, false, false>(p, chunk, s);
@@ -776,6 +777,21 @@ extern "C" int hpgmg_r1_gsrb2_slab_chunk_f64(
                               chunk, b_h2inv, a_coef, t1, t2, stream);
 }
 
+// bf16 storage (the fields and the ring views; the slabs float), float
+// arithmetic, red rounded to bf16 before black reads it: a bfloat16
+// solve's K8d
+extern "C" int hpgmg_r1_gsrb2_slab_chunk_bf16(
+    const void* x, const void* ilo, const void* ihi, const void* jlo, const void* jhi,
+    const void* klo, const void* khi, const void* rbeta_i, const void* rbeta_j,
+    const void* rbeta_k, const void* ralpha, const void* rrhs, const void* rkdinv0,
+    const void* kdinv1, void* out, int ni, int nj, int nk, int edges, int var7, int chunk,
+    double b_h2inv, double a_coef, double t1, double t2, void* stream) {
+  if (ilo == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_sweep<bf16>(x, ilo, ihi, jlo, jhi, klo, khi, rbeta_i, rbeta_j, rbeta_k,
+                            ralpha, rrhs, rkdinv0, kdinv1, out, ni, nj, nk, edges, var7,
+                            chunk, b_h2inv, a_coef, t1, t2, stream);
+}
+
 // K8d with the launcher's chunk rule
 extern "C" int hpgmg_r1_gsrb2_slab_f32(const void* x, const void* ilo, const void* ihi,
                                        const void* jlo, const void* jhi, const void* klo,
@@ -803,4 +819,18 @@ extern "C" int hpgmg_r1_gsrb2_slab_f64(const void* x, const void* ilo, const voi
   return hpgmg_r1_gsrb2_slab_chunk_f64(x, ilo, ihi, jlo, jhi, klo, khi, rbeta_i, rbeta_j,
                                        rbeta_k, ralpha, rrhs, rkdinv0, kdinv1, out, ni, nj,
                                        nk, edges, var7, 0, b_h2inv, a_coef, t1, t2, stream);
+}
+
+extern "C" int hpgmg_r1_gsrb2_slab_bf16(const void* x, const void* ilo, const void* ihi,
+                                        const void* jlo, const void* jhi, const void* klo,
+                                        const void* khi, const void* rbeta_i,
+                                        const void* rbeta_j, const void* rbeta_k,
+                                        const void* ralpha, const void* rrhs,
+                                        const void* rkdinv0, const void* kdinv1, void* out,
+                                        int ni, int nj, int nk, int edges, int var7,
+                                        double b_h2inv, double a_coef, double t1, double t2,
+                                        void* stream) {
+  return hpgmg_r1_gsrb2_slab_chunk_bf16(x, ilo, ihi, jlo, jhi, klo, khi, rbeta_i, rbeta_j,
+                                        rbeta_k, ralpha, rrhs, rkdinv0, kdinv1, out, ni, nj,
+                                        nk, edges, var7, 0, b_h2inv, a_coef, t1, t2, stream);
 }

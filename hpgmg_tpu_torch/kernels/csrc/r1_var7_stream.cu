@@ -96,14 +96,17 @@
 // copied (periodic), or with KSLAB copied from the k slabs: a halo column
 // k = -1 or nk of x plane q is klo's or khi's cell ((q+1) (nj+2) + j+1),
 // so the window holds no made ghost at all.
-// bfloat16 (a bf16 solve's whole level, K5 and K7b; K8c has none): the
-// ring holds float, so the window, the ghosts and the arithmetic are the
-// float kernel's. cp.async cannot widen, so each bf16 x value's aligned
-// 32-bit word lands in the value's float slot, and the thread that copied
-// it widens the slot in place, taking the half its source index names
-// (wrapped or not), once its copies of the plane have arrived and before
-// the barrier that publishes the plane (stream.cuh: cp_async_value,
-// widen_ring_plane); staging x through registers instead would have left
+// bfloat16 (a bf16 solve: K5 and K7b on a whole level, K8c on a rank's
+// block): the ring holds float, so the window, the ghosts and the
+// arithmetic are the float kernel's. K8c's slabs are float (the exchange
+// widens them, and a Dirichlet domain face's ghost is kept as float, as a
+// whole level's is made), copied as they are. cp.async cannot widen, so
+// each bf16 x value's aligned 32-bit word lands in the value's float slot,
+// and the thread that copied it widens the slot in place, taking the half
+// its source index names (wrapped or not), once its copies of the plane
+// have arrived and before the barrier that publishes the plane
+// (stream.cuh: cp_async_value, widen_ring_plane; K8c's x copies only,
+// widen_value); staging x through registers instead would have left
 // each plane's load latency in the open. The faces, rhs, kdinv and alpha are
 // read a plane ahead by 16-bit loads, or 32-bit ones for an aligned pair
 // (ldv, load2), widened as they are read; each output is rounded to bf16
@@ -155,17 +158,17 @@ constexpr unsigned kVNoCopy = ~0u;
 constexpr int kSrcShift = 29;
 constexpr unsigned kOffMask = (1u << kSrcShift) - 1;
 
-// S: the storage type of every field (bf16 on a whole level only), T =
-// Wide<S> the arithmetic's
+// S: the storage type of every field, T = Wide<S> the arithmetic's and
+// the slabs'
 template <typename S, typename T = Wide<S>>
 struct V7Args {
   const S* x;
-  const S* ilo;  // K8c: the slabs; a whole level: null
-  const S* ihi;
-  const S* jlo;
-  const S* jhi;
-  const S* klo;  // K8c on a block split along k (KSLAB); null otherwise
-  const S* khi;
+  const T* ilo;  // K8c: the slabs; a whole level: null
+  const T* ihi;
+  const T* jlo;
+  const T* jhi;
+  const T* klo;  // K8c on a block split along k (KSLAB); null otherwise
+  const T* khi;
   const S* beta_i;  // var7 only
   const S* beta_j;
   const S* beta_k;
@@ -258,48 +261,44 @@ __global__ void __launch_bounds__(kV7Threads, kV7Blocks<T, VAR7>)
   }
   // x plane q (the chunk reads planes ia-1 .. ib) into ring slot s; a
   // commit group whether or not it copies anything, so that every plane
-  // step waits for the same count. A bf16 x (a whole level) lands as its
-  // values' words (cp_async_value), which widen_plane turns into floats
-  // once this thread's copies of the plane have arrived, before the
-  // barrier that publishes it.
+  // step waits for the same count. A bf16 x lands as its values' words
+  // (cp_async_value), which widen_plane turns into floats once this
+  // thread's copies of the plane have arrived, before the barrier that
+  // publishes it; K8c's slabs are in the ring's type.
   const S* const xend = p.x + static_cast<int64_t>(ni) * plane;
+  // K8c: the slab cells of a copy of plane q from source src (1, 2: the
+  // strips jlo, jhi; 3, 4: the k slabs klo, khi; 0: the slab ilo or ihi
+  // of a plane q < 0 or q >= ni), offset 0
+  auto slab_at = [&](unsigned src, int q) -> const T* {
+    if (src == 0) return q < 0 ? p.ilo : p.ihi;
+    if (src <= 2) return (src == 1 ? p.jlo : p.jhi) + static_cast<int64_t>(q + 1) * nk;
+    return (src == 3 ? p.klo : p.khi) + static_cast<int64_t>(q + 1) * (nj + 2);
+  };
   auto load_plane = [&](int q, int s) {
-    const S* base;
-    const S* slo = nullptr;
-    const S* shi = nullptr;
-    const S* klo = nullptr;
-    const S* khi = nullptr;
-    bool any;
-    if constexpr (SLAB) {
-      any = q <= ib;
-      base = q < 0 ? p.ilo : (q >= ni ? p.ihi : p.x + q * plane);
-      slo = p.jlo + static_cast<int64_t>(q + 1) * nk;
-      shi = p.jhi + static_cast<int64_t>(q + 1) * nk;
-      if constexpr (KSLAB) {
-        klo = p.klo + static_cast<int64_t>(q + 1) * (nj + 2);
-        khi = p.khi + static_cast<int64_t>(q + 1) * (nj + 2);
-      }
-    } else {
-      const int pq = q < 0 ? q + ni : (q >= ni ? q - ni : q);
-      any = q <= ib && (periodic || pq == q);
-      base = p.x + pq * plane;
-    }
-    if (any) {
+    if (q <= ib) {
       T* dst = ring + s * VXPLANE + threadIdx.x;
+      if constexpr (SLAB) {
+        const bool inx = q >= 0 && q < ni;
+        const S* xq = p.x + q * plane;
 #pragma unroll
-      for (int e = 0; e < kVXE; ++e) {
-        const unsigned g = goff[e];
-        if (g == kVNoCopy) continue;
-        if constexpr (KSLAB) {
+        for (int e = 0; e < kVXE; ++e) {
+          const unsigned g = goff[e];
+          if (g == kVNoCopy) continue;
           const unsigned src = g >> kSrcShift;
-          const S* from = src == 0 ? base : src == 1 ? slo : src == 2 ? shi : src == 3 ? klo : khi;
-          cp_async(dst + e * kV7Threads, from + (g & kOffMask));
-        } else if constexpr (SLAB) {
-          const unsigned src = g >> kSrcShift;
-          cp_async(dst + e * kV7Threads,
-                   (src == 0 ? base : (src == 1 ? slo : shi)) + (g & kOffMask));
-        } else {
-          cp_async_value(dst + e * kV7Threads, base + g, xend);
+          if (src == 0 && inx) {
+            cp_async_value(dst + e * kV7Threads, xq + (g & kOffMask), xend);
+          } else {
+            cp_async(dst + e * kV7Threads, slab_at(src, q) + (g & kOffMask));
+          }
+        }
+      } else {
+        const int pq = q < 0 ? q + ni : (q >= ni ? q - ni : q);
+        if (periodic || pq == q) {
+#pragma unroll
+          for (int e = 0; e < kVXE; ++e) {
+            if (goff[e] != kVNoCopy)
+              cp_async_value(dst + e * kV7Threads, p.x + pq * plane + goff[e], xend);
+          }
         }
       }
     }
@@ -311,6 +310,17 @@ __global__ void __launch_bounds__(kV7Threads, kV7Blocks<T, VAR7>)
       if (q <= ib && (periodic || pq == q))
         widen_ring_plane<kVXE, kV7Threads>(ring + s * VXPLANE + threadIdx.x, p.x + pq * plane,
                                            goff, kVNoCopy);
+    } else if constexpr (!std::is_same_v<S, T>) {
+      // K8c: the copies from x (the slabs' are in the ring's type)
+      if (q >= 0 && q < ni && q <= ib) {
+        T* dst = ring + s * VXPLANE + threadIdx.x;
+#pragma unroll
+        for (int e = 0; e < kVXE; ++e) {
+          const unsigned g = goff[e];
+          if (g != kVNoCopy && (g >> kSrcShift) == 0)
+            widen_value(dst + e * kV7Threads, p.x + q * plane + g);
+        }
+      }
     }
   };
 
@@ -596,8 +606,7 @@ bool pair_ok(const void* a) {
   return a == nullptr || (reinterpret_cast<uintptr_t>(a) & (2 * sizeof(T) - 1)) == 0;
 }
 
-// S: the storage type; bf16 takes a whole level only (no slab kernel has a
-// bf16 instantiation)
+// S: the storage type (a whole level or K8c's block alike)
 template <typename S>
 int launch_v7(const void* x, const void* ilo, const void* ihi, const void* jlo,
               const void* jhi, const void* klo, const void* khi, const void* beta_i,
@@ -614,19 +623,18 @@ int launch_v7(const void* x, const void* ilo, const void* ihi, const void* jlo,
       out == nullptr || (mode != kApply && rhs == nullptr) ||
       (mode == kGsrb && kdinv == nullptr) ||
       (slab && (ihi == nullptr || jlo == nullptr || jhi == nullptr)) ||
-      (var7 && (beta_i == nullptr || beta_j == nullptr || beta_k == nullptr)) ||
-      (std::is_same_v<S, bf16> && slab)) {
+      (var7 && (beta_i == nullptr || beta_j == nullptr || beta_k == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   using T = Wide<S>;
   V7Args<S> p{};
   p.x = static_cast<const S*>(x);
-  p.ilo = static_cast<const S*>(ilo);
-  p.ihi = static_cast<const S*>(ihi);
-  p.jlo = static_cast<const S*>(jlo);
-  p.jhi = static_cast<const S*>(jhi);
-  p.klo = static_cast<const S*>(klo);
-  p.khi = static_cast<const S*>(khi);
+  p.ilo = static_cast<const T*>(ilo);
+  p.ihi = static_cast<const T*>(ihi);
+  p.jlo = static_cast<const T*>(jlo);
+  p.jhi = static_cast<const T*>(jhi);
+  p.klo = static_cast<const T*>(klo);
+  p.khi = static_cast<const T*>(khi);
   p.beta_i = static_cast<const S*>(beta_i);
   p.beta_j = static_cast<const S*>(beta_j);
   p.beta_k = static_cast<const S*>(beta_k);
@@ -646,16 +654,12 @@ int launch_v7(const void* x, const void* ilo, const void* ihi, const void* jlo,
           pair_ok<S>(alpha) && pair_ok<S>(rhs) && pair_ok<S>(out);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!slab) return launch_body<S, true, false>(p, mode, parity, chunk, s);
-  if constexpr (std::is_same_v<S, bf16>) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    if (kslab) {
-      return var7 ? launch_body<S, true, true, true>(p, mode, parity, chunk, s)
-                  : launch_body<S, false, true, true>(p, mode, parity, chunk, s);
-    }
-    return var7 ? launch_body<S, true, true>(p, mode, parity, chunk, s)
-                : launch_body<S, false, true>(p, mode, parity, chunk, s);
+  if (kslab) {
+    return var7 ? launch_body<S, true, true, true>(p, mode, parity, chunk, s)
+                : launch_body<S, false, true, true>(p, mode, parity, chunk, s);
   }
+  return var7 ? launch_body<S, true, true>(p, mode, parity, chunk, s)
+              : launch_body<S, false, true>(p, mode, parity, chunk, s);
 }
 
 }  // namespace
@@ -725,4 +729,20 @@ extern "C" int hpgmg_r1_slab_f64(const void* x, const void* ilo, const void* ihi
   return launch_v7<double>(x, ilo, ihi, jlo, jhi, klo, khi, beta_i, beta_j, beta_k, alpha,
                            rhs, kdinv, out, ni, nj, nk, mode, var7, periodic, parity, chunk,
                            b_h2inv, a_coef, t1, t2, stream);
+}
+
+// bf16 storage (the fields; the slabs float), float arithmetic: a bfloat16
+// solve's K8c
+extern "C" int hpgmg_r1_slab_bf16(const void* x, const void* ilo, const void* ihi,
+                                  const void* jlo, const void* jhi, const void* klo,
+                                  const void* khi, const void* beta_i, const void* beta_j,
+                                  const void* beta_k, const void* alpha, const void* rhs,
+                                  const void* kdinv, void* out, int ni, int nj, int nk,
+                                  int mode, int var7, int periodic, int parity, int chunk,
+                                  double b_h2inv, double a_coef, double t1, double t2,
+                                  void* stream) {
+  if (ilo == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_v7<bf16>(x, ilo, ihi, jlo, jhi, klo, khi, beta_i, beta_j, beta_k, alpha,
+                         rhs, kdinv, out, ni, nj, nk, mode, var7, periodic, parity, chunk,
+                         b_h2inv, a_coef, t1, t2, stream);
 }

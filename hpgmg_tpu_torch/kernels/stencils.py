@@ -43,10 +43,11 @@ its cells' operands, its ghosts made there, a gsrb half-sweep at its
 The fv4 suite routes a level to it where ``use_subtile`` admits it
 (``SUBTILE`` on, Dirichlet, dim <= ``SUBTILE_MAX_DIM``).
 
-K1 (K7a), K1s and K2c take float32, float64 and bfloat16 levels: a bf16
-level's kernels widen every operand to float32 after its load and round
-each output to bf16 once (``csrc/storage.cuh``), and the plain versions
-compute alike (``compute_dtype``, ``widened``). K1 also takes a float32
+K1 (K7a), K1s, K2c and the slab kernels K8a/K8b take float32, float64
+and bfloat16 levels: a bf16 level's kernels widen every operand to
+float32 after its load and round each output to bf16 once
+(``csrc/storage.cuh``), and the plain versions compute alike
+(``compute_dtype``, ``widened``). K1 also takes a float32
 gsrb with bf16 face arrays and kdinv (BF16C: ``kernel_views_bf16``,
 ``bf16c_view``).
 No kernel takes a level below 4^3: the suite computes it by the plain
@@ -730,8 +731,10 @@ def fv4_gsrb2(level: Level, x: torch.Tensor, rhs: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 SLAB_MODES = ("apply", "residual", "gsrb")
+# the slabs of a block, in the order the slab kernels take them
+SLAB_NAMES = ("ilo", "ihi", "jlo", "jhi", "klo", "khi")
 
-# K8a's column tile along j and k (csrc/fv4_slab.cu TJ, TK): K8b's
+# K8a's column tile along j and k (csrc/fv4_slab.cuh TJ, TK): K8b's
 # interior pass takes the column tiles 1 .. ntj-2 in j (and on a block
 # split along k, 1 .. ntk-2 in k), whose halo rows lie in the block
 SLAB_TJ = 16
@@ -741,9 +744,11 @@ SLAB_TK = 32
 def v4_slab(src: torch.Tensor, axis: int, lo: bool) -> torch.Tensor:
     """The 2-deep quartic Dirichlet ghost slab of ``src`` along ``axis``
     (apply_BCs_v4, boundary_fv.c:334-341), in ascending index order: the
-    low side's [far, near], the high side's [near, far]."""
-    m = src.shape[axis]
-    x1, x2, x3, x4 = (src.narrow(axis, i if lo else m - 1 - i, 1) for i in range(4))
+    low side's [far, near], the high side's [near, far]; in
+    ``compute_dtype`` (a bf16 src's ghosts are float32, unrounded, as the
+    kernels make them)."""
+    m, ct = src.shape[axis], compute_dtype(src.dtype)
+    x1, x2, x3, x4 = (src.narrow(axis, i if lo else m - 1 - i, 1).to(ct) for i in range(4))
     near = TWELFTH * (-77.0 * x1 + 43.0 * x2 - 17.0 * x3 + 3.0 * x4)
     far = TWELFTH * (-505.0 * x1 + 335.0 * x2 - 145.0 * x3 + 27.0 * x4)
     return torch.cat([far, near] if lo else [near, far], dim=axis)
@@ -760,21 +765,25 @@ def build_slabs(x: torch.Tensor, depth: int, width: int, ghost, exchange,
     corner ghosts arrive in the i-then-j-then-k order of the separable
     fills. ``exchange`` returns the neighbours' faces, None on a side that
     has none (a Dirichlet domain face); there the slab is ``ghost(src,
-    axis, lo)`` of the ``width`` cells nearest the face."""
-    ni, nj = x.shape[0], x.shape[1]
+    axis, lo)`` of the ``width`` cells nearest the face. The slabs are in
+    ``compute_dtype``: a bf16 block's are float32, its cells exact and a
+    domain face's ghosts unrounded, so the slab kernels read what a whole
+    level's kernels make (the strips and k slabs, which carry ghosts, go
+    between the ranks as float32)."""
+    ni, nj, ct = x.shape[0], x.shape[1], compute_dtype(x.dtype)
     ilo, ihi = exchange(0, x[:depth], x[ni - depth:])
-    ilo = ghost(x[:width], 0, True) if ilo is None else ilo
-    ihi = ghost(x[ni - width:], 0, False) if ihi is None else ihi
+    ilo = ghost(x[:width], 0, True) if ilo is None else ilo.to(ct)
+    ihi = ghost(x[ni - width:], 0, False) if ihi is None else ihi.to(ct)
 
     def strip(j0, j1):
-        return torch.cat([ilo[:, j0:j1], x[:, j0:j1], ihi[:, j0:j1]], dim=0)
+        return torch.cat([ilo[:, j0:j1], x[:, j0:j1].to(ct), ihi[:, j0:j1]], dim=0)
 
     jlo, jhi = exchange(1, strip(0, depth), strip(nj - depth, nj))
     jlo = ghost(strip(0, width), 1, True) if jlo is None else jlo
     jhi = ghost(strip(nj - width, nj), 1, False) if jhi is None else jhi
     slabs = (ilo, ihi, jlo, jhi)
     if kslabs:
-        xe = extend_slabs(x, slabs)
+        xe = extend_slabs(x.to(ct), slabs)
         nk = x.shape[2]
         klo, khi = exchange(2, xe[:, :, :depth], xe[:, :, nk - depth:])
         klo = ghost(xe[:, :, :width], 2, True) if klo is None else klo
@@ -847,9 +856,6 @@ def _check_slab(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
         raise NotImplementedError(f"the fv4 slab kernel does not take {cfg.bc}")
     if x.dim() != 3:
         raise ValueError(f"x must be a 3-D block, got {tuple(x.shape)}")
-    if x.dtype == torch.bfloat16:
-        raise NotImplementedError("the fv4 slab kernels (K8a, K8b) have no bfloat16 "
-                                  "instantiation (ROADMAP.md Queue 1, item 1.2)")
     ni, nj, nk = x.shape
     if min(ni, nj, nk) < 4 or ni % 2 or nj % 2 or nk % 2:
         raise ValueError(f"the fv4 slab kernel takes even ni, nj, nk >= 4, "
@@ -884,8 +890,10 @@ def _check_slab(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
             raise ValueError(f"fv4 slab kernel mode {mode!r} needs {name}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
-        if t.dtype != dt or dt not in (torch.float32, torch.float64):
-            raise TypeError(f"{name} is {t.dtype}; the level is {dt}")
+        want = compute_dtype(dt) if name in SLAB_NAMES else dt
+        if t.dtype != want or dt not in DTYPES:
+            raise TypeError(f"{name} is {t.dtype}; the level is {dt}, so {name} must be "
+                            f"{want}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -896,7 +904,10 @@ def fv4_slab_plain(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
                    mode: str, rhs: Optional[torch.Tensor] = None,
                    kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain version of K8a: the extended block assembled from x and the
-    slabs (``extend_for_kernel``), then K1's plain arithmetic."""
+    slabs (``extend_for_kernel``), then K1's plain arithmetic; a bf16 block
+    computes as the kernel does: x, the slabs and the level's fields
+    widened to float32 (the k ghosts made from them), the result rounded
+    to bf16 once."""
     _check_slab(level, x, slabs, cfg, mode, rhs, kdinv)
     fv4_slab_plain.calls += 1
     return _slab_modes_plain(level, x, slabs, cfg, mode, rhs, kdinv)
@@ -904,7 +915,9 @@ def fv4_slab_plain(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
 
 def _slab_modes_plain(level: Level, x, slabs, cfg: SolverConfig, mode: str, rhs,
                       kdinv):
-    ax = apply_ext_plain(level, extend_for_kernel(x, slabs, cfg.bc), cfg)
+    ct = compute_dtype(x.dtype)
+    xe = extend_for_kernel(x.to(ct), tuple(t.to(ct) for t in slabs), cfg.bc)
+    ax = apply_ext_plain(widened(level, ct), xe, cfg)
     return _modes_plain(level, x, cfg, mode, rhs, kdinv, ax=ax)
 
 
@@ -941,19 +954,21 @@ def fv4_overlap_interior_plain(level: Level, x: torch.Tensor, cfg: SolverConfig,
     _check_slab(level, x, None, cfg, mode, rhs, kdinv, overlap=True, ksplit=ksplit)
     fv4_overlap_interior_plain.calls += 1
     i0, i1, j0, j1, k0, k1 = _interior_box(x, ksplit)
+    ct = compute_dtype(x.dtype)
     if ksplit:
-        xe = x[i0 - 2:i1 + 2, j0 - 2:j1 + 2, k0 - 2:k1 + 2]
+        xe = x[i0 - 2:i1 + 2, j0 - 2:j1 + 2, k0 - 2:k1 + 2].to(ct)
     else:
-        sub = x[i0 - 2:i1 + 2, j0 - 2:j1 + 2]
+        sub = x[i0 - 2:i1 + 2, j0 - 2:j1 + 2].to(ct)
         xe = _wrap_axis(sub, 2, 2) if cfg.bc == BC.PERIODIC else _extend_axis_v4(sub, 2, 2)
     # the fields the plain stencil reads, cut to the interior part (the
-    # face arrays with their tangential margins)
+    # face arrays with their tangential margins), widened as K8a's are
+    lw = widened(level, ct)
     cut = SimpleNamespace(h2inv=level.h2inv,
-                          beta_i=level.beta_i[i0:i1 + 1, j0:j1 + 2, k0:k1 + 2],
-                          beta_j=level.beta_j[i0:i1 + 2, j0:j1 + 1, k0:k1 + 2],
-                          beta_k=level.beta_k[i0:i1 + 2, j0:j1 + 2, k0:k1 + 1],
-                          alpha=None if level.alpha is None
-                          else level.alpha[i0:i1, j0:j1, k0:k1])
+                          beta_i=lw.beta_i[i0:i1 + 1, j0:j1 + 2, k0:k1 + 2],
+                          beta_j=lw.beta_j[i0:i1 + 2, j0:j1 + 1, k0:k1 + 2],
+                          beta_k=lw.beta_k[i0:i1 + 2, j0:j1 + 2, k0:k1 + 1],
+                          alpha=None if lw.alpha is None
+                          else lw.alpha[i0:i1, j0:j1, k0:k1])
     ax = apply_ext_plain(cut, xe, cfg)
     part = (slice(i0, i1), slice(j0, j1), slice(k0, k1))
     out = torch.zeros_like(x)
@@ -989,22 +1004,33 @@ fv4_overlap_edge_plain.calls = 0
 # K8a's and K8b's launches by pass, mode and local block shape, keyed
 # "<pass> <mode> (ni, nj, nk)", K8c's (stencils_r1.r1_slab_cuda), keyed
 # "K8c <mode> (ni, nj, nk)", and K8d's (stencils_r1.r1_gsrb2_slab_cuda),
-# keyed "K8d sweep (ni, nj, nk)", each with " k-split" appended on a block
-# split along k (bench/weak.py reads them for the counted F-cycle)
+# keyed "K8d sweep (ni, nj, nk)", each with " bf16" appended for a
+# bfloat16 block and " k-split" on a block split along k (bench/weak.py
+# reads them for the counted F-cycle)
 SLAB_PASSES = ("K8a", "K8b interior", "K8b edge")
 slab_launches_by_block = {}
 
 
-def count_slab_launch(key: str, ksplit: bool):
-    """Add one launch to ``slab_launches_by_block[key]`` (its k-split
-    entry on a block split along k)."""
-    key += " k-split" if ksplit else ""
+def count_slab_launch(fn, key: str, ksplit: bool, dtype: torch.dtype):
+    """One more launch of the slab wrapper ``fn``: in ``launches`` and, on
+    a block split along k, ``kslab_launches``, or for a bfloat16 block in
+    ``bf16_launches`` and ``kslab_bf16_launches``; and in
+    ``slab_launches_by_block[key]`` (its bf16 and k-split entries)."""
+    bf16 = dtype == torch.bfloat16
+    tag = "bf16_" if bf16 else ""
+    setattr(fn, f"{tag}launches", getattr(fn, f"{tag}launches") + 1)
+    if ksplit:
+        setattr(fn, f"kslab_{tag}launches", getattr(fn, f"kslab_{tag}launches") + 1)
+    key += (" bf16" if bf16 else "") + (" k-split" if ksplit else "")
     slab_launches_by_block[key] = slab_launches_by_block.get(key, 0) + 1
 
 
-def _launch_slab(level: Level, x, slabs, cfg: SolverConfig, mode: str, rhs,
+def _launch_slab(fn, level: Level, x, slabs, cfg: SolverConfig, mode: str, rhs,
                  kdinv, out, pass_: int, parity: Optional[int], chunk: int,
                  ksplit: bool):
+    """Launch pass ``pass_`` of the slab kernel (0: K8a, 1 and 2: K8b's
+    interior and edge passes) through the C entry of x's dtype; count it
+    on the wrapper ``fn``."""
     from hpgmg_tpu_torch.kernels.build import library
 
     if mode == "gsrb" and parity not in (0, 1):
@@ -1015,7 +1041,7 @@ def _launch_slab(level: Level, x, slabs, cfg: SolverConfig, mode: str, rhs,
     ni, nj, nk = x.shape
     alpha = level.alpha if cfg.helmholtz else None
     slabs = tuple(slabs) + (None,) * (6 - len(slabs)) if slabs is not None else (None,) * 6
-    dt = "f32" if x.dtype == torch.float32 else "f64"
+    dt = DTYPES[x.dtype]
     with torch.cuda.device(x.device):
         rc = getattr(library(), f"hpgmg_fv4_slab_{dt}")(
             x.data_ptr(), *(_ptr(t) for t in slabs),
@@ -1025,7 +1051,7 @@ def _launch_slab(level: Level, x, slabs, cfg: SolverConfig, mode: str, rhs,
             -cfg.b * level.h2inv, float(cfg.a), pass_, _stream(x))
     if rc != 0:
         raise RuntimeError(f"fv4 slab kernel launch failed: CUDA error {rc}")
-    count_slab_launch(f"{SLAB_PASSES[pass_]} {mode} {tuple(x.shape)}", ksplit)
+    count_slab_launch(fn, f"{SLAB_PASSES[pass_]} {mode} {tuple(x.shape)}", ksplit, x.dtype)
     return out
 
 
@@ -1038,26 +1064,26 @@ def fv4_slab_cuda(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
                   mode: str, rhs: Optional[torch.Tensor] = None,
                   kdinv: Optional[torch.Tensor] = None, parity: Optional[int] = None,
                   chunk: int = 0) -> torch.Tensor:
-    """Launch K8a (``csrc/fv4_slab.cu``, one streaming launch) on CUDA
+    """Launch K8a (``csrc/fv4_slab.cuh``, one streaming launch) on CUDA
     tensors into a newly allocated output. gsrb needs ``parity``, the
     colour ``kdinv`` carries: the kernel computes A x at that colour's
     cells only and copies x at the others. ``chunk``: i-planes a block
     marches (0: the launcher's rule, as the solver calls it). Six slabs
     (a block split along k): the k ghosts are copied from the k slabs,
     else made in the ring (Dirichlet) or wrapped; ``kslab_launches``
-    counts the launches with k slabs."""
+    counts the launches with k slabs. A bfloat16 block's launches count in
+    ``bf16_launches`` and ``kslab_bf16_launches`` instead
+    (``count_slab_launch``)."""
     _check_slab(level, x, slabs, cfg, mode, rhs, kdinv)
     _cuda_only(x, "fv4_slab_cuda")
-    ksplit = len(slabs) == 6
-    out = _launch_slab(level, x, slabs, cfg, mode, rhs, kdinv, torch.empty_like(x), 0,
-                       parity, chunk, ksplit)
-    fv4_slab_cuda.launches += 1
-    fv4_slab_cuda.kslab_launches += ksplit
-    return out
+    return _launch_slab(fv4_slab_cuda, level, x, slabs, cfg, mode, rhs, kdinv,
+                        torch.empty_like(x), 0, parity, chunk, len(slabs) == 6)
 
 
 fv4_slab_cuda.launches = 0
 fv4_slab_cuda.kslab_launches = 0
+fv4_slab_cuda.bf16_launches = 0
+fv4_slab_cuda.kslab_bf16_launches = 0
 
 
 def fv4_overlap_interior_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
@@ -1070,15 +1096,14 @@ def fv4_overlap_interior_cuda(level: Level, x: torch.Tensor, cfg: SolverConfig,
     along k, so the pass keeps off its first and last column tiles in k."""
     _check_slab(level, x, None, cfg, mode, rhs, kdinv, overlap=True, ksplit=ksplit)
     _cuda_only(x, "fv4_overlap_interior_cuda")
-    out = _launch_slab(level, x, None, cfg, mode, rhs, kdinv, torch.empty_like(x), 1,
-                       parity, chunk, ksplit)
-    fv4_overlap_interior_cuda.launches += 1
-    fv4_overlap_interior_cuda.kslab_launches += ksplit
-    return out
+    return _launch_slab(fv4_overlap_interior_cuda, level, x, None, cfg, mode, rhs, kdinv,
+                        torch.empty_like(x), 1, parity, chunk, ksplit)
 
 
 fv4_overlap_interior_cuda.launches = 0
 fv4_overlap_interior_cuda.kslab_launches = 0
+fv4_overlap_interior_cuda.bf16_launches = 0
+fv4_overlap_interior_cuda.kslab_bf16_launches = 0
 
 
 def fv4_overlap_edge_cuda(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
@@ -1092,15 +1117,14 @@ def fv4_overlap_edge_cuda(level: Level, x: torch.Tensor, slabs, cfg: SolverConfi
     if out.shape != x.shape or out.dtype != x.dtype or out.device != x.device \
             or not out.is_contiguous():
         raise ValueError("out must be the interior pass's output")
-    ksplit = len(slabs) == 6
-    _launch_slab(level, x, slabs, cfg, mode, rhs, kdinv, out, 2, parity, chunk, ksplit)
-    fv4_overlap_edge_cuda.launches += 1
-    fv4_overlap_edge_cuda.kslab_launches += ksplit
-    return out
+    return _launch_slab(fv4_overlap_edge_cuda, level, x, slabs, cfg, mode, rhs, kdinv, out, 2,
+                        parity, chunk, len(slabs) == 6)
 
 
 fv4_overlap_edge_cuda.launches = 0
 fv4_overlap_edge_cuda.kslab_launches = 0
+fv4_overlap_edge_cuda.bf16_launches = 0
+fv4_overlap_edge_cuda.kslab_bf16_launches = 0
 
 
 def fv4_slab(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig, mode: str,

@@ -32,8 +32,8 @@ kernels widen every operand to float32 and round each output to bf16
 once (``csrc/storage.cuh``; K6 rounds its red half too, as a stored red
 iterate is), and the plain versions compute alike (``compute_dtype``,
 ``widened``). The wrappers count bf16 launches apart (``bf16_launches``,
-``periodic_bf16_launches``). The slab kernels (K8c, K8d) have no bf16
-instantiation.
+``periodic_bf16_launches``; the slab kernels K8c and K8d
+``bf16_launches`` and ``kslab_bf16_launches``).
 """
 
 from __future__ import annotations
@@ -46,9 +46,9 @@ import torch
 from hpgmg_tpu_torch.core.config import BC, SolverConfig
 from hpgmg_tpu_torch.core.level import Level
 from hpgmg_tpu_torch.kernels.restrict import restrict_cell_plain
-from hpgmg_tpu_torch.kernels.stencils import (DTYPES, MODES, _ptr, _stream, build_slabs,
-                                              check_dirichlet, compute_dtype, count_launch,
-                                              count_slab_launch, extend_slabs,
+from hpgmg_tpu_torch.kernels.stencils import (DTYPES, MODES, SLAB_NAMES, _ptr, _stream,
+                                              build_slabs, check_dirichlet, compute_dtype,
+                                              count_launch, count_slab_launch, extend_slabs,
                                               local_exchange, widened)
 from hpgmg_tpu_torch.ops.bc import _wrap_axis, ghost_fill_linear, ghost_fill_quadratic_fd
 from hpgmg_tpu_torch.ops.bc_fv import ghost_fill_fv
@@ -452,13 +452,14 @@ def r1_gsrb2(level: Level, x: torch.Tensor, rhs: torch.Tensor,
 
 def taps_ghost(taps: str):
     """``ghost(src, axis, lo)`` of ``stencils.build_slabs`` for the 2-tap
-    Dirichlet rule: the 1-deep slab t1 * x1 + t2 * x2."""
+    Dirichlet rule: the 1-deep slab t1 * x1 + t2 * x2, in ``compute_dtype``
+    (a bf16 src's ghost is float32, unrounded, as the kernels make it)."""
     t1, t2 = TAPS[taps]
 
     def ghost(src, axis, lo):
-        m = src.shape[axis]
-        x1 = src.narrow(axis, 0 if lo else m - 1, 1)
-        x2 = src.narrow(axis, 1 if lo else m - 2, 1)
+        m, ct = src.shape[axis], compute_dtype(src.dtype)
+        x1 = src.narrow(axis, 0 if lo else m - 1, 1).to(ct)
+        x2 = src.narrow(axis, 1 if lo else m - 2, 1).to(ct)
         return t1 * x1 + t2 * x2
     return ghost
 
@@ -549,9 +550,6 @@ def _check_block(x: torch.Tensor, need: dict, what: str):
     what ``what`` does not take."""
     if x.dim() != 3:
         raise ValueError(f"x must be a 3-D block, got {tuple(x.shape)}")
-    if x.dtype == torch.bfloat16:
-        raise NotImplementedError(f"{what} has no bfloat16 instantiation (ROADMAP.md "
-                                  f"Queue 1, item 1.2)")
     ni, nj, nk = x.shape
     if min(ni, nj, nk) < 2:
         raise ValueError(f"{what} takes extents >= 2, got {tuple(x.shape)}")
@@ -561,8 +559,9 @@ def _check_block(x: torch.Tensor, need: dict, what: str):
             raise ValueError(f"{what} needs {name}")
         if tuple(t.shape) != shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, want {shape}")
-        if t.dtype != x.dtype or x.dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"{name} is {t.dtype}; x is {x.dtype}")
+        want = compute_dtype(x.dtype) if name in SLAB_NAMES else x.dtype
+        if t.dtype != want or x.dtype not in DTYPES:
+            raise TypeError(f"{name} is {t.dtype}; x is {x.dtype}, so {name} must be {want}")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
@@ -605,11 +604,16 @@ def r1_slab_plain(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
                   rhs: Optional[torch.Tensor] = None,
                   kdinv: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain version of K8c: the extended block assembled from x and the
-    slabs, then K5's plain arithmetic."""
+    slabs, then K5's plain arithmetic; a bf16 block computes as the kernel
+    does: x, the slabs and the level's fields widened to float32 (the k
+    ghosts made from them), the result rounded to bf16 once."""
     _check_slab(level, x, slabs, cfg, mode, taps, var7, rhs, kdinv)
     r1_slab_plain.calls += 1
-    xg = extend_for_kernel_r1(x, slabs, cfg.bc, taps)
-    return _modes(ax_ext_plain(level, xg, cfg, var7), x, mode, rhs, kdinv)
+    ct = compute_dtype(x.dtype)
+    xc = x.to(ct)
+    xg = extend_for_kernel_r1(xc, tuple(t.to(ct) for t in slabs), cfg.bc, taps)
+    ax = ax_ext_plain(widened(level, ct), xg, cfg, var7)
+    return _modes(ax, xc, mode, rhs, kdinv).to(x.dtype)
 
 
 r1_slab_plain.calls = 0
@@ -626,7 +630,8 @@ def r1_slab_cuda(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
     ``kdinv`` carries (local parity is global: block offsets are even);
     ``chunk`` as ``r1_stencil_cuda``'s. Six slabs (a block split along k):
     the k ghosts are the k slabs' cells (``kslab_launches`` counts these
-    launches), else made or wrapped."""
+    launches), else made or wrapped. A bfloat16 block's launches count in
+    ``bf16_launches`` and ``kslab_bf16_launches`` instead."""
     from hpgmg_tpu_torch.kernels.build import library
 
     _check_slab(level, x, slabs, cfg, mode, taps, var7, rhs, kdinv)
@@ -642,7 +647,7 @@ def r1_slab_cuda(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
     out = torch.empty(shape, dtype=x.dtype, device=x.device)
     alpha, a_coef = _coefs(level, cfg, var7)
     ksplit = len(slabs) == 6
-    fn = getattr(library(), "hpgmg_r1_slab_" + ("f32" if x.dtype == torch.float32 else "f64"))
+    fn = getattr(library(), f"hpgmg_r1_slab_{DTYPES[x.dtype]}")
     with torch.cuda.device(x.device):
         rc = fn(x.data_ptr(), *(_ptr(t) for t in tuple(slabs) + (None,) * (6 - len(slabs))),
                 *_betas(level, var7), _ptr(alpha), _ptr(rhs), _ptr(kdinv), out.data_ptr(),
@@ -650,14 +655,14 @@ def r1_slab_cuda(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig,
                 chunk, cfg.b * level.h2inv, a_coef, *TAPS[taps], _stream(x))
     if rc != 0:
         raise RuntimeError(f"radius-1 slab kernel launch failed: CUDA error {rc}")
-    r1_slab_cuda.launches += 1
-    r1_slab_cuda.kslab_launches += ksplit
-    count_slab_launch(f"K8c {mode} {(ni, nj, nk)}", ksplit)
+    count_slab_launch(r1_slab_cuda, f"K8c {mode} {(ni, nj, nk)}", ksplit, x.dtype)
     return out
 
 
 r1_slab_cuda.launches = 0
 r1_slab_cuda.kslab_launches = 0
+r1_slab_cuda.bf16_launches = 0
+r1_slab_cuda.kslab_bf16_launches = 0
 
 
 def _check_gsrb2_slab(level: Level, x: torch.Tensor, slabs, edges, rhs2,
@@ -703,17 +708,28 @@ def r1_gsrb2_slab_plain(level: Level, x: torch.Tensor, slabs, edges, rhs2,
     extended block (ring coefficients from ``level.ring``), the red
     iterate's ghosts rebuilt on the sides ``edges`` flags (i, then j, then
     k; a block whole along k has its k ghosts made), then black on the
-    block."""
+    block. A bf16 block computes in float32 on widened operands, red
+    rounded to bf16 before its ghosts are rebuilt and black reads it (as
+    K8d and K6 round it), the result rounded once."""
     _check_gsrb2_slab(level, x, slabs, edges, rhs2, cfg, taps, var7)
     r1_gsrb2_slab_plain.calls += 1
     ksplit = len(slabs) == 6
-    kd0, alpha, rbi, rbj, rbk = level.ring
+    ct = compute_dtype(x.dtype)
+    kd0, alpha, rbi, rbj, rbk = (None if t is None else t.to(ct) for t in level.ring)
+    rhs2 = rhs2.to(ct)
     ring = SimpleNamespace(h2inv=level.h2inv, beta_i=rbi, beta_j=rbj, beta_k=rbk,
                            alpha=alpha)
-    xe = extend_slabs(x, slabs)
+    t1, t2 = TAPS[taps]
+    xe = extend_slabs(x.to(ct), tuple(t.to(ct) for t in slabs))
+    if ksplit:
+        # at a domain k face K8d makes x's k ghost from the block and does
+        # not read its k slab (which the exchange fills with that ghost)
+        for flag, g, a, b in ((edges[4], 1, 2, 3), (edges[5], -2, -3, -4)):
+            if flag:
+                xe[:, :, g] = t1 * xe[:, :, a] + t2 * xe[:, :, b]
     xg = xe if ksplit else _k_ghosts(xe, BC.DIRICHLET, taps)
     red = xg[1:-1, 1:-1, 1:-1] + kd0 * (rhs2 - ax_ext_plain(ring, xg, cfg, var7))
-    t1, t2 = TAPS[taps]
+    red = red.to(x.dtype).to(ct)
     for axis, (lo, hi) in enumerate((edges[:2], edges[2:4], edges[4:6])[:2 + ksplit]):
         m = red.shape[axis]
         for flag, g, a, b in ((lo, 0, 1, 2), (hi, m - 1, m - 2, m - 3)):
@@ -725,7 +741,8 @@ def r1_gsrb2_slab_plain(level: Level, x: torch.Tensor, slabs, edges, rhs2,
         name: None if t is None else t[inner]
         for name, t in zip(("beta_i", "beta_j", "beta_k", "alpha"), (rbi, rbj, rbk, alpha))})
     rg = red if ksplit else _k_ghosts(red, BC.DIRICHLET, taps)
-    return red[inner] + level.kdinv[1] * (rhs2[inner] - ax_ext_plain(tile, rg, cfg, var7))
+    black = ax_ext_plain(tile, rg, cfg, var7)
+    return (red[inner] + level.kdinv[1].to(ct) * (rhs2[inner] - black)).to(x.dtype)
 
 
 r1_gsrb2_slab_plain.calls = 0
@@ -738,7 +755,9 @@ def r1_gsrb2_slab_cuda(level: Level, x: torch.Tensor, slabs, edges, rhs2,
     the slabs as its halo's sources) into a newly allocated output.
     ``chunk`` as ``r1_gsrb2_cuda``'s. Six slabs (a block split along k):
     red also runs on the k ring, its x from the k slabs (``kslab_launches``
-    counts these launches)."""
+    counts these launches). A bfloat16 block (red rounded to bf16 before
+    black reads it, as K6's) counts in ``bf16_launches`` and
+    ``kslab_bf16_launches`` instead."""
     _check_gsrb2_slab(level, x, slabs, edges, rhs2, cfg, taps, var7)
     if not x.is_cuda:
         raise ValueError(f"r1_gsrb2_slab_cuda wants CUDA tensors, got {x.device}")
@@ -757,14 +776,14 @@ def r1_gsrb2_slab_cuda(level: Level, x: torch.Tensor, slabs, edges, rhs2,
                 int(var7), cfg.b * level.h2inv, a_coef, *TAPS[taps], _stream(x))
     if rc != 0:
         raise RuntimeError(f"radius-1 gsrb2 slab kernel launch failed: CUDA error {rc}")
-    r1_gsrb2_slab_cuda.launches += 1
-    r1_gsrb2_slab_cuda.kslab_launches += ksplit
-    count_slab_launch(f"K8d sweep {(ni, nj, nk)}", ksplit)
+    count_slab_launch(r1_gsrb2_slab_cuda, f"K8d sweep {(ni, nj, nk)}", ksplit, x.dtype)
     return out
 
 
 r1_gsrb2_slab_cuda.launches = 0
 r1_gsrb2_slab_cuda.kslab_launches = 0
+r1_gsrb2_slab_cuda.bf16_launches = 0
+r1_gsrb2_slab_cuda.kslab_bf16_launches = 0
 
 
 def r1_slab(level: Level, x: torch.Tensor, slabs, cfg: SolverConfig, mode: str,

@@ -32,12 +32,25 @@ torch.backends.cudnn.allow_tf32 = False
 def sep_apply(Wi: torch.Tensor, Wj: torch.Tensor, Wk: torch.Tensor,
               x: torch.Tensor) -> torch.Tensor:
     """Apply the separable operator Wi (x) Wj (x) Wk to a 3D field as three
-    matrix products; the result is contiguous."""
+    matrix products; the result is contiguous. A bfloat16 field's products
+    run in float32 on the widened matrices, each axis's result rounded to
+    bf16 as a bf16 product rounds its output: a product of two bf16 values
+    is exact in float32 and a row's few terms sum to the same value in any
+    order, so the bits do not depend on the product's shape. (The card's
+    bf16 products may reduce in bf16 at some shapes, and a rank's rows of
+    W, ``interpolate``, then round otherwise than the whole level's.)"""
     a, b, c = Wi.shape[0], Wj.shape[0], Wk.shape[0]
     mi, mj, mk = x.shape
-    x = (Wi @ x.reshape(mi, mj * mk)).reshape(a, mj, mk)  # ai,ijk->ajk
-    x = torch.matmul(Wj, x)  # bj,ajk->abk
-    return torch.matmul(x, Wk.t()).reshape(a, b, c)  # ck,abk->abc
+    dt = x.dtype
+    if dt == torch.bfloat16:
+        Wi, Wj, Wk, x = Wi.float(), Wj.float(), Wk.float(), x.float()
+
+    def rounded(t):
+        return t.to(dt).float() if dt == torch.bfloat16 else t
+
+    x = rounded((Wi @ x.reshape(mi, mj * mk)).reshape(a, mj, mk))  # ai,ijk->ajk
+    x = rounded(torch.matmul(Wj, x))  # bj,ajk->abk
+    return torch.matmul(x, Wk.t()).reshape(a, b, c).to(dt)  # ck,abk->abc
 
 
 # ---------------------------------------------------------------------------

@@ -8,7 +8,8 @@ before it, the edge and corner ghosts arrive transitively (the
 shape-aware schedule of build_exchange_ghosts, level.c:498-531). The transport follows the group's backend: NCCL sends
 the device tensors; gloo sends host copies (the copy to the host waits for
 the stream that wrote the face) and the receiver copies back to its
-device.
+device. Faces go in their own dtype (float32, float64 or bfloat16; gloo
+and NCCL both carry bf16).
 
 ``exchange_local`` and the two explicit-communication demos below are the
 JAX module's building blocks; the solver's own exchanges are the thin

@@ -353,17 +353,14 @@ def shard_hierarchy(mesh: Mesh, hier, cfg):
     the port has no GSPMD path). The BF16C views (``Level.kb16``) are
     one-rank only: every level drops them (hpgmg_tpu/parallel/mesh.py:214),
     and half-sweeps read the float32 ``kdinv`` again, so a level whose
-    ``kdinv`` a slimmed hierarchy dropped for them cannot be cut. A
-    bfloat16 hierarchy raises: no slab kernel has a bf16 instantiation."""
+    ``kdinv`` a slimmed hierarchy dropped for them cannot be cut. Every
+    dtype is cut alike: a bfloat16 level keeps bf16 blocks, which the slab
+    kernels' bf16 instantiations take."""
     import dataclasses
 
     from hpgmg_tpu_torch.core.hierarchy import Hierarchy
     from hpgmg_tpu_torch.parallel.shard_kernels import shard_level
 
-    if any(lv.dtype == torch.bfloat16 for lv in hier.levels):
-        raise NotImplementedError(
-            "a bfloat16 solve runs on one rank: the slab kernels (K8a-K8d) carry no "
-            "bfloat16 yet (ROADMAP.md Queue 1, item 1.2)")
     levels = []
     for lv in hier.levels:
         if lv.kb16 is not None:

@@ -24,6 +24,14 @@ blocks its slab window refuses): K8a and K8c take every such block.
 
 GSRB parity masks stay global: each rank's ``kdinv`` is its cut of the
 global parity-folded dinv, and local offsets are even.
+
+Every dtype takes this path alike: a bfloat16 level's cuts, rhs ring and
+ring views are bf16, which the slab kernels' bf16 instantiations widen to
+float32 as they read them, and its slabs float32 (``stencils.build_slabs``:
+the neighbours' cells exact, a Dirichlet domain face's ghosts unrounded,
+as a whole level's kernels make them), so each slab kernel computes what
+its whole-level kernel does at the block's cells. The BF16C views stay
+one-rank (``parallel/mesh.py:shard_hierarchy`` drops ``Level.kb16``).
 """
 
 from __future__ import annotations

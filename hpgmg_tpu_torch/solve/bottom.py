@@ -15,7 +15,8 @@ replicated (every rank solves it whole). Where it is decomposed
 this rank's block; BiCGStab, CG and smooth-until-converged all-reduce
 their dots and norms, and CABiCGStab and CACG their Gram matrices, so
 every rank takes the same branches (the JAX package runs every bottom on
-a sharded level through GSPMD).
+a sharded level through GSPMD); a bfloat16 level's partial sums stay
+float32 through the all-reduce (``blas.partial_dtype``).
 """
 
 from __future__ import annotations

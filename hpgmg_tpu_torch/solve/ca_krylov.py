@@ -79,7 +79,7 @@ def _powers(op, level: Level, cfg: SolverConfig, v, count: int, inv_sigma):
 def _gram(rows: torch.Tensor, cols: torch.Tensor, reduce_dtype, part=None):
     """G[a, b] = <rows[a], cols[b]>: one matrix product, one reduction
     (summed over the ranks of ``part``)."""
-    acc = reduce_dtype or rows.dtype
+    acc = blas.partial_dtype(reduce_dtype or rows.dtype, part)
     fr = rows.reshape(rows.shape[0], -1).to(acc)
     fc = cols.reshape(cols.shape[0], -1).to(acc)
     return blas.sum_over(fr @ fc.t(), part).to(rows.dtype)

@@ -18,9 +18,10 @@ build, carried across), each package building its own hierarchy from
 them. One bf16 F-cycle does not reach the fv4 limit of 1e-3: both land at
 rel_res ~1e-2 to 1e-1 and an order that rounding, not the discretization,
 sets; they are held to each other within stated bands. The DIRECT bottom
-has no bf16 build in either package, and the port's bf16 solve runs on
-one rank (tests/test_torch_bf16_r1.py and tests/test_torch_bf16_periodic.py
-hold the other suites and the periodic BCs in bf16).
+has no bf16 build in either package (tests/test_torch_bf16_r1.py and
+tests/test_torch_bf16_periodic.py hold the other suites and the periodic
+BCs in bf16, tests/test_torch_bf16_mesh.py and
+tests/test_torch_bf16_mesh3d.py the process grids).
 """
 
 import jax
@@ -225,27 +226,47 @@ def test_direct_bottom_raises_in_bf16():
 
 
 @pytest.mark.parametrize("op", ["fv4", "fv7pt", "fv2", "27pt"])
-def test_bf16_refuses_a_process_grid(op):
-    """Every suite solves in bf16 on one rank; no slab kernel (K8a-K8d) has
-    a bf16 instantiation, so cutting a bf16 hierarchy for a process grid
-    raises, and so do the slab kernels' checks, naming ROADMAP.md's item."""
-    cfg = SolverConfig(op=op, a=0.0, b=1.0, dtype=torch.bfloat16,
-                       bottom=BottomSolver.BICGSTAB, min_coarse_dim=2)
-    prob = jinit(16, dtype=BF)
-    hier = build_hierarchy(*(to_port(getattr(prob, f)) for f in ("beta_i", "beta_j",
-                                                                 "beta_k")), cfg)
-    mesh = Mesh(shape=(2, 1, 1), rank=0, backend="gloo", device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 1.2"):
-        shard_hierarchy(mesh, hier, cfg)
-    lv, x = hier.levels[0], torch.zeros((16, 16, 16), dtype=torch.bfloat16)
-    slabs = (torch.zeros((2, 16, 16), dtype=torch.bfloat16),) * 2 + (
-        torch.zeros((20, 2, 16), dtype=torch.bfloat16),) * 2
+def test_bf16_hierarchy_is_cut_for_a_process_grid(op):
+    """Every suite's bf16 hierarchy, Dirichlet and periodic, is cut for the
+    2x1, 2x2 and (2,2,2) grids (rank 0's blocks: no communication) as a
+    float32 one is, every field of its blocks bf16, and the suite's slab
+    kernel's plain version (K8a, or K8c) takes a bf16 block of the 2x1 cut
+    with float32 slabs (and refuses bf16 ones) and returns a bf16 block
+    (tests/test_torch_bf16_mesh.py and
+    tests/test_torch_bf16_mesh3d.py hold the decomposed bf16 path to the
+    one-rank one and to the JAX package)."""
+    for bc in (BC.DIRICHLET, BC.PERIODIC):
+        cfg = SolverConfig(op=op, a=0.0, b=1.0, dtype=torch.bfloat16, bc=bc,
+                           bottom=BottomSolver.BICGSTAB, min_coarse_dim=2)
+        prob = jinit(16, dtype=BF)
+        hier = build_hierarchy(*(to_port(getattr(prob, f)) for f in ("beta_i", "beta_j",
+                                                                     "beta_k")), cfg)
+        for shape, block in (((2, 1, 1), (8, 16, 16)), ((2, 2, 1), (8, 8, 16)),
+                             ((2, 2, 2), (8, 8, 8))):
+            mesh = Mesh(shape=shape, rank=0, backend="gloo", device=torch.device("cpu"))
+            cut = shard_hierarchy(mesh, hier, cfg)
+            lv = cut.levels[0]
+            assert lv.part is not None and lv.part.extents == block, (bc, shape)
+            fields = [lv.beta_i, lv.beta_j, lv.beta_k, lv.dinv, *lv.kdinv]
+            fields += [r for r in lv.ring or () if r is not None]
+            assert all(t.dtype == torch.bfloat16 for t in fields), (bc, shape)
+            assert [c.dtype for c in cut.levels] == [torch.bfloat16] * len(hier.levels)
+            if shape == (2, 1, 1):
+                blk = cut
+    lv, x = blk.levels[0], torch.ones((8, 16, 16), dtype=torch.bfloat16)
+    # a bf16 block's slabs are float32 (stencils.build_slabs): bf16 ones
+    # are refused
     if op == "fv4":
-        launch = lambda: S.fv4_slab(lv, x, slabs, cfg, "apply")  # noqa: E731
+        slabs = (torch.ones((2, 16, 16)),) * 2 + (torch.ones((12, 2, 16)),) * 2
+        with pytest.raises(TypeError, match="must be torch.float32"):
+            S.fv4_slab(lv, x, tuple(t.to(torch.bfloat16) for t in slabs), cfg, "apply")
+        out = S.fv4_slab(lv, x, slabs, cfg, "apply")
     else:
         suite = get_suite(op)
-        launch = lambda: K.r1_slab(lv, x, slabs[:2] + tuple(  # noqa: E731
-            torch.zeros((18, 1, 16), dtype=torch.bfloat16) for _ in range(2)), cfg,
-            "apply", suite.taps_key, suite.var7)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1, item 1.2"):
-        launch()
+        slabs = (torch.ones((1, 16, 16)),) * 2 + (torch.ones((10, 1, 16)),) * 2
+        with pytest.raises(TypeError, match="must be torch.float32"):
+            K.r1_slab(lv, x, tuple(t.to(torch.bfloat16) for t in slabs), cfg, "apply",
+                      suite.taps_key, suite.var7)
+        out = K.r1_slab(lv, x, slabs, cfg, "apply", suite.taps_key, suite.var7)
+    assert out.dtype == torch.bfloat16 and out.shape == x.shape
+    assert bool(torch.isfinite(out.float()).all())

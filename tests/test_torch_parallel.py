@@ -188,3 +188,39 @@ def test_weak_entry_point_on_the_cpu(capsys):
     assert out["n"] == 32 and out["metric"] == "fv4_fcycle_dof_per_s_n32_ranks2"
     assert out["serial_u_rel_diff"] <= 1e-10
     assert abs(out["rel_residual"] - out["serial_rel_residual"]) <= 1e-10 * out["rel_residual"]
+
+
+# the bf16 serial gaps, units of 2^-8 max|u_one|, fv4 at 32^3 on the 2x2
+# grid (32^3 and 16^3 decomposed): against one rank through the same
+# operations (the K4 tail fusion off, as under a grid) bit for bit; against
+# one rank as it runs, within WEAK_BF16_FUSED_UNITS (measured 1.34: K4
+# rounds its climb's e + interp once)
+WEAK_BF16_UNITS = 0.0
+WEAK_BF16_FUSED_UNITS = 2.5
+
+
+def test_weak_entry_point_in_bf16_on_the_cpu(capsys):
+    """python -m hpgmg_tpu_torch.bench.weak --dtype bfloat16 on 4 CPU ranks
+    over gloo (the BiCGStab bottom, its default in bf16): the JSON line
+    with dtype bfloat16 and the serial gaps in units within
+    WEAK_BF16_UNITS and WEAK_BF16_FUSED_UNITS."""
+    rc = weak.main(["--ranks", "4", "--per-rank", "16", "--backend", "gloo", "--device",
+                    "cpu", "--dtype", "bfloat16", "--bottom", "bicgstab", "--check-serial",
+                    "--dynamic-range", "1", "--timeout", "240"])
+    assert rc == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out["dtype"] == "bfloat16" and out["bottom"] == "bicgstab"
+    assert out["grid"] == [2, 2, 1] and out["n"] == 32
+    assert 0.0 <= out["serial_u_units"] <= WEAK_BF16_UNITS
+    assert 0.0 <= out["serial_fused_u_units"] <= WEAK_BF16_FUSED_UNITS
+    assert abs(out["serial_u_rel_diff"] - out["serial_u_units"] * 2.0 ** -8) <= 1e-12
+
+
+def test_weak_refuses_the_direct_bottom_in_bf16(capsys):
+    """--dtype bfloat16 --bottom direct is refused before any rank starts:
+    the DIRECT bottom's inverse has no bf16 build."""
+    with pytest.raises(SystemExit) as exc:
+        weak.main(["--ranks", "4", "--backend", "gloo", "--device", "cpu", "--dtype",
+                   "bfloat16", "--bottom", "direct"])
+    assert exc.value.code == 2
+    assert "bicgstab" in capsys.readouterr().err

@@ -2,7 +2,8 @@
 (tests/test_torch_parallel.py, tests/test_torch_parallel_slice.py, the
 3D grid's and the FE path's: tests/test_torch_mesh3d.py,
 tests/test_torch_fe_sharded.py, tests/test_torch_fe_mesh.py,
-tests/test_torch_fe_cli.py).
+tests/test_torch_fe_cli.py; bfloat16 on the grids:
+tests/test_torch_bf16_mesh.py, tests/test_torch_bf16_mesh3d.py).
 
 Each test module spawns its gloo jobs at once (``spawn``): ranks start with the
 ``spawn`` method, join a group through a file in the test's temporary
@@ -29,22 +30,32 @@ def spawn(jobs, timeout: float = 240.0):
     own; raise if a rank fails or the jobs outlive ``timeout`` seconds (a
     rank that skips a collective hangs the others). Returns each job's
     saved results, by rank."""
+    return start(jobs, timeout)()
+
+
+def start(jobs, timeout: float = 240.0):
+    """``spawn``'s jobs, started; returns the call that waits for them and
+    returns their results (so that the caller may compute while the ranks
+    run)."""
     ctxs = [mp.start_processes(_run, args=(nprocs, str(tmp), body, args),
                                nprocs=nprocs, start_method="spawn", join=False)
             for body, nprocs, tmp, *args in jobs]
     deadline = time.monotonic() + timeout
-    try:
-        for ctx in ctxs:
-            while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
-                if time.monotonic() > deadline:
-                    raise TimeoutError(f"the gloo jobs outlived {timeout} s")
-    finally:
-        for ctx in ctxs:
-            for p in ctx.processes:
-                if p.is_alive():
-                    p.kill()
-    return [[torch.load(f"{tmp}/rank{r}.pt") for r in range(nprocs)]
-            for _, nprocs, tmp, *_ in jobs]
+
+    def finish():
+        try:
+            for ctx in ctxs:
+                while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(f"the gloo jobs outlived {timeout} s")
+        finally:
+            for ctx in ctxs:
+                for p in ctx.processes:
+                    if p.is_alive():
+                        p.kill()
+        return [[torch.load(f"{tmp}/rank{r}.pt") for r in range(nprocs)]
+                for _, nprocs, tmp, *_ in jobs]
+    return finish
 
 
 def _run(rank: int, world: int, tmp: str, body, args):
@@ -347,6 +358,135 @@ def fe_sample_body(rank: int, world: int, local, maxsamples: int) -> dict:
                          mintime=0.0, dtype=torch.float64, device="cpu", chain=2)
     return {"text": buf.getvalue(), "samples": [(r.M, r.seconds, r.gflops, r.meq_per_s)
                                                 for r in res]}
+
+
+# the whole-level plain versions of the suites' stencils and fused sweeps:
+# on a decomposed level only the slab kernels' plain versions may run
+WHOLE_LEVEL_PLAINS = (("stencils", "fv4_stencil_plain"), ("stencils", "fv4_subtile_plain"),
+                      ("stencils", "fv4_gsrb2_plain"), ("stencils_r1", "r1_stencil_plain"),
+                      ("stencils_r1", "r1_gsrb2_plain"))
+
+
+def _whole_level_dims(dims: dict):
+    """Wrap the whole-level plain versions (WHOLE_LEVEL_PLAINS) so that each
+    call adds its level's dim to ``dims[name]``; returns the undo."""
+    import importlib
+
+    saved = []
+    for mod, name in WHOLE_LEVEL_PLAINS:
+        module = importlib.import_module(f"hpgmg_tpu_torch.kernels.{mod}")
+        fn = getattr(module, name)
+
+        def wrapped(level, *a, _fn=fn, _name=name, **k):
+            dims.setdefault(_name, set()).add(level.dim)
+            return _fn(level, *a, **k)
+        wrapped.calls = fn.calls
+        saved.append((module, name, fn))
+        setattr(module, name, wrapped)
+
+    def undo():
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+    return undo
+
+
+def bf16_field(n: int, seed: int) -> torch.Tensor:
+    """A seeded n^3 bfloat16 field (numpy's normal draws, rounded once)."""
+    return torch.tensor(np.random.default_rng(seed).standard_normal((n, n, n)),
+                        dtype=torch.float32).to(torch.bfloat16)
+
+
+def _bf16_cfg(op: str, bc: str, mcd: int):
+    from hpgmg_tpu_torch.core.config import BC, BottomSolver, SolverConfig
+
+    return SolverConfig(op=op, bc=BC(bc), a=0.0, b=1.0, dtype=torch.bfloat16,
+                        bottom=BottomSolver.BICGSTAB, min_coarse_dim=mcd)
+
+
+def bf16_slab_outputs(mesh, op: str, bc: str, levels, seed: int) -> dict:
+    """Each slab kernel's plain version on this rank's block of the carried
+    one-level bf16 hierarchy ``levels`` (the suite's finest level) and of
+    ``bf16_field`` x and rhs, its slabs from the exchange: K8a's modes and,
+    where its split takes the block, K8b's two passes (fv4); K8c's modes
+    and, on Dirichlet levels of the var7 body, K8d's sweep (the radius-1
+    suites). Returns the block's offsets and each output by
+    (kernel, mode[, parity])."""
+    from hpgmg_tpu_torch.interop import hierarchy_from_numpy
+    from hpgmg_tpu_torch.kernels import stencils as S
+    from hpgmg_tpu_torch.kernels import stencils_r1 as K
+    from hpgmg_tpu_torch.ops.base import get_suite
+    from hpgmg_tpu_torch.parallel import shard_kernels as SK
+    from hpgmg_tpu_torch.parallel.mesh import shard_hierarchy
+
+    cfg = _bf16_cfg(op, bc, levels[0]["dim"])
+    lv = shard_hierarchy(mesh, hierarchy_from_numpy(levels, cfg, "cpu"), cfg).levels[0]
+    part = lv.part
+    n = lv.dim
+    x, rhs = (part.block(bf16_field(n, seed + d)) for d in (0, 1))
+    out = {"offsets": part.offsets, "extents": part.extents, "dtype": lv.beta_i.dtype}
+    gsrb = [("gsrb", p, {"rhs": rhs, "kdinv": lv.kdinv[p]}) for p in (0, 1)]
+    if op == "fv4":
+        slabs = SK.slabs_for_kernel(x, part, cfg.bc)
+        for mode, p, kw in [("apply", None, {}), ("residual", None, {"rhs": rhs})] + gsrb:
+            out[("K8a", mode, p)] = S.fv4_slab_plain(lv, x, slabs, cfg, mode, **kw)
+            ksplit = len(slabs) == 6
+            if S.overlap_grid_shape(*part.extents[:2], part.extents[2] if ksplit else None):
+                inner = S.fv4_overlap_interior_plain(lv, x, cfg, mode, ksplit=ksplit, **kw)
+                out[("K8b", mode, p)] = S.fv4_overlap_edge_plain(lv, x, slabs, cfg, mode,
+                                                                 inner, **kw)
+        return out
+    suite = get_suite(op)
+    slabs = SK.slabs_for_kernel_r1(x, part, cfg.bc, suite.taps_key)
+    for mode, p, kw in ([("apply", None, {}), ("residual", None, {"rhs": rhs})] + gsrb
+                        + [("fres", None, {"rhs": rhs})]):
+        out[("K8c", mode, p)] = K.r1_slab_plain(lv, x, slabs, cfg, mode, suite.taps_key,
+                                                suite.var7, **kw)
+    if lv.ring is not None:
+        out[("K8d", "sweep", None)] = K.r1_gsrb2_slab_plain(
+            lv, x, SK.slabs2_for_kernel_r1(x, part, suite.taps_key), SK.edge_flags(part),
+            SK.r1_gsrb2_rhs_sharded(part, rhs), cfg, suite.taps_key, suite.var7)
+    return out
+
+
+def bf16_grid_body(rank: int, world: int, grid: str, slab_sets, fcycles) -> dict:
+    """On the ``grid_mesh(grid)`` of the group, in bfloat16: each slab set
+    (label, op, bc, levels, seed) through ``bf16_slab_outputs``, and each
+    F-cycle (case, levels, f): case (op, bc, n, min_coarse_dim), the carried
+    bf16 hierarchy ``levels`` and rhs ``f`` (float32 arrays holding bf16
+    values) cut by shard_hierarchy, one F-cycle over the BiCGStab bottom.
+    Saves each F-cycle's gathered u, relative residual, each level's split
+    (None: replicated), the slab plain versions' calls and the dims of the
+    levels a whole-level stencil's plain version ran on."""
+    from hpgmg_tpu_torch.interop import hierarchy_from_numpy
+    from hpgmg_tpu_torch.kernels import counts
+    from hpgmg_tpu_torch.ops.base import get_suite
+    from hpgmg_tpu_torch.parallel.mesh import active_mesh, gather, shard_array, shard_hierarchy
+    from hpgmg_tpu_torch.solve.mg import fmg_solve
+
+    mesh = grid_mesh(grid, torch.device("cpu"))
+    out = {"grid": mesh.shape, "coords": mesh.coords}
+    for label, op, bc, levels, seed in slab_sets:
+        out[("slabs", label)] = bf16_slab_outputs(mesh, op, bc, levels, seed)
+    for case, levels, f in fcycles:
+        op, bc, n, mcd = case
+        cfg = _bf16_cfg(op, bc, mcd)
+        hier = shard_hierarchy(mesh, hierarchy_from_numpy(levels, cfg, "cpu"), cfg)
+        fb = shard_array(mesh, torch.tensor(f).to(torch.bfloat16))
+        part = hier.levels[0].part
+        dims = {}
+        undo = _whole_level_dims(dims)
+        counts.reset()
+        try:
+            with active_mesh(mesh):
+                u, nr, nf = fmg_solve(get_suite(op), hier, fb, cfg)
+        finally:
+            undo()
+        out[case] = dict(u=gather(u, part) if part is not None else u,
+                         rel=float(nr) / float(nf),
+                         split=[None if lv.part is None else lv.part.axes for lv in hier.levels],
+                         plain_calls={k: v for k, v in counts.read()[1].items() if v},
+                         whole_level_dims={k: sorted(v) for k, v in dims.items()})
+    return out
 
 
 def launched_body(device: torch.device, fail_rank: int) -> dict:
